@@ -1,0 +1,2 @@
+"""Weights in and out of the port: ``convert`` turns the reference's θ
+into the port's. The npz checkpoint io lands with a later slice."""

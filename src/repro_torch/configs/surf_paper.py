@@ -1,0 +1,22 @@
+"""Paper-faithful SURF configuration (§6 of the paper) and the scaled
+variants the tests use.
+"""
+from repro_torch.configs.base import SURFConfig
+
+# Paper scale: n=100 agents, 10 unrolled layers, K=2 hops (20 comm rounds),
+# ResNet18 features (512-d), CIFAR10 (10 classes), 45 train / 15 test per
+# agent, minibatch 10/agent/layer, eps=0.01.
+PAPER = SURFConfig(n_agents=100, n_layers=10, filter_taps=2,
+                   feature_dim=512, n_classes=10, batch_per_agent=10,
+                   train_per_agent=45, test_per_agent=15, eps=0.01,
+                   lr_theta=1e-2, lr_lambda=1e-2, topology="regular", degree=3)
+
+# Bench scale: small feature dim.
+BENCH = SURFConfig(n_agents=100, n_layers=10, filter_taps=2, feature_dim=64,
+                   n_classes=10, batch_per_agent=10, eps=0.01,
+                   topology="regular", degree=3)
+
+# Smoke scale for unit tests.
+SMOKE = SURFConfig(n_agents=8, n_layers=4, filter_taps=2, feature_dim=8,
+                   n_classes=4, batch_per_agent=4, train_per_agent=8,
+                   test_per_agent=4, eps=0.05, topology="regular", degree=3)

@@ -1,0 +1,160 @@
+"""U-DGD: DGD unrolled into GNN layers (paper §5, eq. U-DGD); the port of
+``repro.core.unroll``.
+
+One unrolled layer at agent i:
+    w_{i,l} = [H_l(W_{l-1})]_i  −  σ( M_l [w_{i,l-1} ∥ b_{i,l}] + d_l )
+where H_l is a K-tap graph filter  H(W) = Σ_{k≤K} h_{k,l} S^k W  and the
+perceptron (M_l, d_l) is shared by all agents.
+
+θ is a plain dict of stacked per-layer tensors {h (L,K+1), M (L,din,d),
+d (L,d)}; the reference's ``lax.scan`` over layers is a Python loop.
+Layer functions take any leading batch axes in front of the agent axis
+(the serve path stacks requests there). Random draws come from an
+explicit ``torch.Generator``; they cannot match JAX's threefry stream, so
+``featurize_cohort`` also takes injected draws.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import SURFConfig
+from repro_torch.core.tasks import resolve_task
+# The dense Horner filter Σ_k h_k S^k W: one plain version serves the
+# mix=None path, the kernel wrapper's CPU path and the kernel's check.
+from repro_torch.kernels.graph_filter.ref import (
+    graph_filter_ref as graph_filter)
+from repro_torch.utils.device import to_tensor
+
+ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh}
+
+
+def _mix(mix_fn, S, W, h):
+    """Apply the layer's graph filter through the mixer protocol:
+
+      * ``mix_fn is None`` — the dense Horner filter ``graph_filter``;
+      * ``mix_fn.takes_S`` — ``mix_fn(S, W, h)``: an S-as-argument filter
+        (``kernels.graph_filter.make_cuda_mix``, the fused kernel).
+
+    Baked-S mixers (ring / halo exchanges) arrive with the multi-device
+    slice."""
+    if mix_fn is None:
+        return graph_filter(S, W, h)
+    if getattr(mix_fn, "takes_S", False):
+        return mix_fn(S, W, h)
+    raise NotImplementedError(
+        "baked-S mixers (ring / halo) are not ported yet: they land with "
+        "the multi-device slice")
+
+
+def perceptron_in_dim(cfg: SURFConfig, task=None) -> int:
+    task = resolve_task(cfg, task)
+    return task.dim + cfg.batch_per_agent * task.batch_feat
+
+
+def init_udgd(generator, cfg: SURFConfig, dtype=torch.float32, init="dgd",
+              task=None):
+    """Stacked per-layer parameters {h (L,K+1), M (L,din,d), d (L,d)},
+    drawn from ``generator`` on its device.
+
+    init='dgd' starts h at the DGD point (pure one-hop mixing h=[0,1,0..],
+    M near zero); init='random' is the generic init."""
+    task = resolve_task(cfg, task)
+    L_, K = cfg.n_layers, cfg.filter_taps
+    d = task.dim
+    din = perceptron_in_dim(cfg, task)
+    device = generator.device
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=device)
+
+    if init == "dgd":
+        h0 = torch.zeros((L_, K + 1), device=device)
+        h0[:, min(1, K)] = 1.0
+        h = h0 + 0.01 * normal(L_, K + 1)
+        M = 0.01 * normal(L_, din, d) * (din ** -0.5)
+    elif init == "random":
+        h = 0.5 * normal(L_, K + 1)
+        M = normal(L_, din, d) * (din ** -0.5)
+    else:
+        raise ValueError(f"init must be 'dgd' or 'random', got {init!r}")
+    dd = torch.zeros((L_, d), device=device)
+    return {k: v.to(dtype) for k, v in (("h", h), ("M", M), ("d", dd))}
+
+
+def udgd_layer(params_l, S, W, Xb, Yb, cfg: SURFConfig, activation="relu",
+               mix_fn=None, task=None):
+    """One unrolled layer. W (..., n, d); Xb (..., n, b, F); Yb (..., n, b);
+    S (..., n, n). A ``takes_S`` mixer replaces the dense filter."""
+    task = resolve_task(cfg, task)
+    h, M, d = params_l["h"], params_l["M"], params_l["d"]
+    mixed = _mix(mix_fn, S, W, h)
+    b_in = task.batch_vector(Xb, Yb)
+    z = torch.cat([W, b_in], dim=-1) @ M + d
+    return mixed - ACTIVATIONS[activation](z)
+
+
+def layer_params(theta, l):
+    """Layer ``l``'s slice of the stacked θ."""
+    return {k: v[l] for k, v in theta.items()}
+
+
+def udgd_forward(params, S, W0, Xl, Yl, cfg: SURFConfig, activation="relu",
+                 mix_fn=None, task=None):
+    """Run L layers. Xl (L,n,b,F), Yl (L,n,b).
+    Returns (W_L, W_all (L+1,n,d) including W0)."""
+    task = resolve_task(cfg, task)
+    Ws = [W0]
+    for l in range(cfg.n_layers):
+        Ws.append(udgd_layer(layer_params(params, l), S, Ws[-1], Xl[l],
+                             Yl[l], cfg, activation, mix_fn=mix_fn,
+                             task=task))
+    return Ws[-1], torch.stack(Ws)
+
+
+def solve_generator(seed, q, device) -> torch.Generator:
+    """The generator one solve of dataset ``q`` under evaluation seed
+    ``seed`` draws from: seeded with (1000 + seed) · 1_000_003 + q on
+    ``device``. The port's counterpart of the reference's
+    ``fold_in(PRNGKey(1000 + seed), q)``; ``evaluate_surf``,
+    ``solve_federation`` and ``FederationServer.submit`` all use it, so a
+    served request and its single-cohort solve on one device see the
+    same draws."""
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed((1000 + int(seed)) * 1_000_003 + int(q))
+    return gen
+
+
+def sample_w0(generator, cfg: SURFConfig, task=None):
+    return resolve_task(cfg, task).init_state(generator, cfg)
+
+
+def sample_layer_batches(generator, Xtr, Ytr, cfg: SURFConfig):
+    """Stochastic unrolling: one independent uniform mini-batch per layer
+    per agent. Xtr (n, m, F), Ytr (n, m) -> (L, n, b, F), (L, n, b)."""
+    L_, n, b = cfg.n_layers, cfg.n_agents, cfg.batch_per_agent
+    m = Xtr.shape[1]
+    idx = torch.randint(0, m, (L_, n, b), generator=generator,
+                        device=generator.device).to(Xtr.device)
+    rows = torch.arange(n, device=Xtr.device)[None, :, None]
+    return Xtr[rows, idx], Ytr[rows, idx]
+
+
+def featurize_cohort(generator, batch, cfg: SURFConfig, task=None,
+                     draws=None):
+    """The stochastic featurization ONE solve of a cohort consumes:
+    W0 ~ N(μ0, σ0²I) and the L per-layer per-agent mini-batches from the
+    cohort's training split, drawn in that order from ``generator``.
+    Returns (W0 (n,d), Xl (L,n,b,F), Yl (L,n,b)) on the batch's device.
+
+    ``draws=(W0, Xl, Yl)`` (numpy or tensors) replaces the random draws;
+    the parity tests feed both packages the reference's draws so."""
+    task = resolve_task(cfg, task)
+    dev = batch["Xtr"].device
+    if draws is not None:
+        W0, Xl, Yl = draws
+        return (to_tensor(W0, dev, torch.float32),
+                to_tensor(Xl, dev, torch.float32),
+                to_tensor(Yl, dev, task.label_dtype))
+    W0 = sample_w0(generator, cfg, task=task).to(dev)
+    Xl, Yl = sample_layer_batches(generator, batch["Xtr"], batch["Ytr"], cfg)
+    return W0, Xl, Yl
