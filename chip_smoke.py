@@ -15,12 +15,26 @@ order; any failure exits non-zero:
      at every PAPER shape: one serve tick layer per bucket the serve run
      warms (derived from the same ``BucketSpec``) and the single-cohort
      solve, with the kernel's and the plain version's times there;
-  4. serve — ``FederationServer`` at PAPER width (n=100, F=512, C=10,
-     L=10, K=2) through the kernel: 24 requests over two buckets; the
-     kernel's launch count must be ticks × L, every request's loss and
-     accuracy must match ``solve_federation`` of the same cohort and
-     seed through the plain filter, and its served W the plain forward
-     on the same draws.
+  4. backward vs plain — the graph filter's gradient (dW through the
+     kernel's transposed-S entry, dh) against autograd through the plain
+     version at the reference's VJP shapes and the PAPER training shape
+     (n=100, d=5130, K=2), with the dW launch's time there;
+  5. serve — ``FederationServer`` at PAPER width (n=100, F=512, C=10,
+     L=10, K=2) built with the DEFAULT mixer, so through the kernel: 24
+     requests over two buckets; the kernel's launch count must be
+     ticks × L, every request's loss and accuracy must match
+     ``solve_federation`` of the same cohort and seed through the plain
+     filter, and its served W the plain forward on the same draws;
+  6. meta-step parity — 3 PAPER meta-steps from one ``init_state`` on
+     identical draws, through the kernel (default mixer) and through the
+     plain filter: θ, λ and the metrics must agree;
+  7. train — ``train_surf(PAPER, make_meta_dataset(PAPER, 8), steps=20)``
+     through the kernel: L forward and L−1 backward launches per step,
+     ms per meta-step (CUDA events), meta-steps/s, peak memory, one
+     profiled meta-step's device time by kernel;
+  8. quickstart — the config of ``examples/quickstart.py`` trained for
+     250 meta-steps and evaluated on 5 unseen datasets under 4 seeds:
+     ``final_acc`` must clear the reference quickstart's 0.5.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -30,9 +44,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -47,10 +63,20 @@ PEAK_F32_FLOP_PER_S = 67e12
 
 F32_TOL = 5e-5       # tests/test_kernels.py: f32 forward
 BF16_TOL = 5e-2      # tests/test_kernels.py: bf16 forward
+VJP_TOL = 5e-4       # tests/test_kernels.py: (dS, dW, dh)
+STATE_TOL = 5e-6     # tests/test_torch_train.py: θ, λ, metrics
+# θ entries whose gradient is at the f32 noise floor (Adam's m differs by
+# more than NOISE_REL between the two paths; see _state_err) are counted
+# apart; they may be at most NOISE_SHARE of each tensor's entries, about
+# twice the largest share read on an H100 (0.089% of M, PAPER step 0).
+NOISE_REL, NOISE_SHARE = 1e-4, 2e-3
 TEST_SHAPES = [(8, 16, 1), (100, 650, 2), (64, 128, 4), (33, 100, 2),
                (9, 5, 1)]
+VJP_SHAPES = [(8, 16, 1), (33, 100, 2), (64, 128, 4)]
 MAX_BATCH = 8
 SIZES = (100, 60)    # served cohorts: 16 of SIZES[0] agents, 8 of SIZES[1]
+TRAIN_POOL, TRAIN_STEPS, PARITY_STEPS = 8, 20, 3
+QUICKSTART_STEPS = 250
 
 
 def card() -> str:
@@ -65,7 +91,8 @@ def paper_shapes(cfg, spec):
     """The buckets the serve run warms, and the (B, n, d, K) of the
     filter at ``cfg``'s widths: one serve tick layer per bucket
     (B = MAX_BATCH, n = the bucket's padded agent count), then one
-    single-cohort solve layer (B = 1, n = SIZES[0])."""
+    single-cohort layer (B = 1, n = SIZES[0]): a solve's and a PAPER
+    meta-step's."""
     d, K = cfg.head_dim, cfg.filter_taps
     buckets = spec.buckets_for([(n, cfg.test_per_agent) for n in SIZES])
     return buckets, ([(MAX_BATCH, b.n_agents, d, K) for b in buckets]
@@ -146,6 +173,52 @@ def check_kernel(tag, paper):
     return max_err, timing
 
 
+def check_backward(tag, paper):
+    """The filter's gradient through the kernel path (dW: the
+    transposed-S launch; dh: torch reductions) against autograd through
+    the plain version, at the reference's VJP shapes and the ``paper``
+    training shape (unbatched); times the dW launch there against the
+    plain dW (the Horner filter on Sᵀ). Returns the largest dW |error|
+    and the times."""
+    from repro_torch.kernels.graph_filter import (graph_filter,
+                                                  graph_filter_ref, ops)
+    rng = np.random.default_rng(1)
+    max_err, timing = 0.0, None
+    for n, d, K in VJP_SHAPES + [paper]:
+        S, W, h = filter_inputs(rng, 0, n, d, K)
+        G = torch.tensor(rng.standard_normal((n, d)).astype(np.float32),
+                         device="cuda")
+        Wk, hk = W.clone().requires_grad_(True), h.clone().requires_grad_(True)
+        before = graph_filter.bwd_launches
+        dW, dh = torch.autograd.grad(graph_filter(S, Wk, hk), (Wk, hk), G)
+        torch.cuda.synchronize()
+        if graph_filter.bwd_launches != before + 1:
+            raise AssertionError("the backward did not launch the kernel")
+        Wp, hp = W.clone().requires_grad_(True), h.clone().requires_grad_(True)
+        dWp, dhp = torch.autograd.grad(graph_filter_ref(S, Wp, hp),
+                                       (Wp, hp), G)
+        errs = [(a - b).abs().max().item() for a, b in ((dW, dWp),
+                                                        (dh, dhp))]
+        for name, a, b in (("dW", dW, dWp), ("dh", dh, dhp)):
+            if not torch.allclose(a, b, atol=VJP_TOL, rtol=VJP_TOL):
+                raise AssertionError(f"backward {name} != plain at n={n} "
+                                     f"d={d} K={K}: max |err| {errs}")
+        max_err = max(max_err, errs[0])
+        print(f"backward vs plain n={n} d={d} K={K}: max |err| dW "
+              f"{errs[0]:.3e}, dh {errs[1]:.3e} (tol {VJP_TOL})")
+        if (n, d, K) == paper:
+            ms = median_ms(lambda: ops.graph_filter_bwd(S, G, h))
+            plain_ms = median_ms(lambda: graph_filter_ref(S.mT, G, h))
+            bound_ms, bound_by = filter_bound_ms(1, n, d, K)
+            timing = (ms, plain_ms, bound_ms, bound_by)
+            print(f"[{tag}] graph_filter_bwd (dW) f32 n={n} d={d} K={K}: "
+                  f"kernel {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+                  f"({bound_by}), plain PyTorch version {plain_ms * 1e3:.2f} "
+                  "us (the Horner filter on S^T; no single PyTorch call "
+                  "computes this function)")
+    return max_err, timing
+
+
 def serve(tag, cfg, spec, buckets, device="cuda", sizes=SIZES):
     """Serve 24 requests (16 of ``sizes[0]`` agents, 8 of ``sizes[1]``)
     at ``cfg``'s widths through the kernel, over ``spec``'s ``buckets``
@@ -154,12 +227,12 @@ def serve(tag, cfg, spec, buckets, device="cuda", sizes=SIZES):
     from repro_torch.core.tasks import resolve_task
     from repro_torch.data.synthetic import sample_dataset
     from repro_torch.engine.core import TrainState
-    from repro_torch.kernels.graph_filter import graph_filter
+    from repro_torch.kernels.graph_filter import graph_filter, make_plain_mix
     from repro_torch.serve import FederationServer
 
     gen = torch.Generator(device=device).manual_seed(0)
     theta = unroll.init_udgd(gen, cfg, init="dgd")
-    server = FederationServer(cfg, theta, mix="cuda", buckets=spec,
+    server = FederationServer(cfg, theta, buckets=spec,
                               max_batch=MAX_BATCH, device=device)
     warmed = server.warm([(n, cfg.test_per_agent) for n in sizes])
     if list(warmed) != list(buckets):
@@ -167,7 +240,7 @@ def serve(tag, cfg, spec, buckets, device="cuda", sizes=SIZES):
     print(f"warmed buckets {warmed}")
 
     requests = []
-    graph_filter.launches = 0
+    graph_filter.launches = graph_filter.bwd_launches = 0
     for i in range(24):
         n = sizes[1] if i % 3 == 2 else sizes[0]
         cfg_r = dataclasses.replace(cfg, n_agents=n)
@@ -177,9 +250,10 @@ def serve(tag, cfg, spec, buckets, device="cuda", sizes=SIZES):
     server.drain()
     launches = graph_filter.launches
     ticks = server.metrics.ticks
-    if launches != ticks * cfg.n_layers:
+    if launches != ticks * cfg.n_layers or graph_filter.bwd_launches:
         raise AssertionError(f"kernel launches {launches} != ticks {ticks} "
-                             f"x L {cfg.n_layers}")
+                             f"x L {cfg.n_layers} (backward "
+                             f"{graph_filter.bwd_launches})")
     print(f"graph_filter launches {launches} = {ticks} ticks x "
           f"{cfg.n_layers} layers")
 
@@ -188,11 +262,12 @@ def serve(tag, cfg, spec, buckets, device="cuda", sizes=SIZES):
     # argmax over logits that agree to ~1e-6 can flip on a near-tie, so
     # at most one test row per layer may differ: 1.5 / (n t).
     task = resolve_task(cfg)
+    plain = make_plain_mix()
     worst_loss, worst_acc, worst_w = 0.0, 0.0, 0.0
     for i, (cfg_r, S, ds, fut) in enumerate(requests):
         res = fut.result()
         ref = surf.solve_federation(cfg_r, TrainState(theta), S, ds, seed=i,
-                                    device=device)
+                                    mix_fn=plain, device=device)
         L_, n, t = cfg.n_layers, cfg_r.n_agents, cfg_r.test_per_agent
         for k in ("loss_per_layer", "acc_per_layer"):
             if res[k].shape != (L_,) or not np.isfinite(res[k]).all():
@@ -204,6 +279,7 @@ def serve(tag, cfg, spec, buckets, device="cuda", sizes=SIZES):
                 unroll.solve_generator(i, 0, device),
                 task.to_batch(ds, device), cfg_r, task=task)
             W_ref = unroll.udgd_forward(theta, S, *draws, cfg_r,
+                                        mix_fn=plain,
                                         task=task)[0].cpu().numpy()
         np.testing.assert_allclose(res["W"], W_ref, atol=F32_TOL,
                                    rtol=F32_TOL)
@@ -272,6 +348,276 @@ def profile_tick(tag, server, cfg, device, n):
           f"{json.dumps(out)}")
 
 
+def paper_pool(cfg, device="cuda"):
+    from repro_torch.core.tasks import resolve_task
+    from repro_torch.data.synthetic import make_meta_dataset
+    from repro_torch.engine.scan import stack_meta_datasets
+    mds = make_meta_dataset(cfg, TRAIN_POOL, seed=0)
+    return mds, stack_meta_datasets(mds, resolve_task(cfg), device)
+
+
+def _state_err(a, b):
+    """Kernel state ``a`` against plain state ``b`` after one meta-step
+    from one state. Returns (rows, ok) with one row per tensor: (name,
+    max |a − b|, max |a − b| / max |b|, entries outside, noise-floor
+    entries).
+
+      * λ: every entry within STATE_TOL (atol and rtol, as the CPU tests).
+      * Adam's m and v carry the step's gradient, so they hold it:
+        max |a − b| ≤ STATE_TOL · max |b| for each tensor. An absolute
+        STATE_TOL would not test them at PAPER size, where the clipped
+        gradient's entries are about 1e-5 and v's about 1e-10.
+      * θ: every entry within STATE_TOL, except where the step's gradient
+        entry is at the f32 noise floor: there the two f32 evaluations of
+        the gradient differ by more than NOISE_REL of Adam's m, and
+        Adam's step −lr·m̂/(sqrt(v̂) + 1e-8), which is about ±lr even for
+        a gradient of 1e-10, turns that noise into a θ difference of up
+        to 2·lr. Those entries are counted and their share is held under
+        NOISE_SHARE (a lower-precision gradient puts most entries there).
+    """
+    rows = [("lam", a.lam, b.lam, "entry")]
+    rows += [(f"{m}.{k}", a.opt_state[m][k], b.opt_state[m][k], "scale")
+             for m in ("m", "v") for k in a.theta]
+    rows += [(k, a.theta[k], b.theta[k], "theta") for k in a.theta]
+    out, ok = [], True
+    for name, x, y, kind in rows:
+        d_max = (x - y).abs().max().item()
+        scale = y.abs().max().item()
+        rel = d_max / scale if scale > 0 else (0.0 if d_max == 0
+                                               else math.inf)
+        n_bad = n_noise = 0
+        if kind == "scale":
+            ok = ok and d_max <= STATE_TOL * scale
+        else:
+            bad = ~torch.isclose(x, y, atol=STATE_TOL, rtol=STATE_TOL)
+            if kind == "theta":
+                ma, mb = a.opt_state["m"][name], b.opt_state["m"][name]
+                noise = (ma - mb).abs() > NOISE_REL * mb.abs()
+                n_noise = int(noise.sum().item())
+                bad = bad & ~noise
+                ok = ok and n_noise <= NOISE_SHARE * x.numel()
+            n_bad = int(bad.sum().item())
+            ok = ok and n_bad == 0
+        out.append((name, d_max, rel, n_bad, n_noise))
+    return out, ok
+
+
+def _fmt_rows(rows):
+    return [(n, f"{d:.3e}", f"{r:.3e}", c, z) for n, d, r, c, z in rows]
+
+
+def _worst_entries(a, b, key, k=5):
+    """The ``k`` entries of θ[key] that differ most, with Adam's m and
+    sqrt(v) beside them."""
+    diff = (a.theta[key] - b.theta[key]).abs().flatten()
+    idx = torch.topk(diff, k).indices
+    rows = []
+    for st in (a, b):
+        rows.append({"theta": st.theta[key].flatten()[idx].tolist(),
+                     "m": st.opt_state["m"][key].flatten()[idx].tolist(),
+                     "sqrt_v": st.opt_state["v"][key].flatten()[idx]
+                     .sqrt().tolist()})
+    return {"index": idx.tolist(), "kernel": rows[0], "plain": rows[1]}
+
+
+def meta_step_parity(tag, cfg, pool, device="cuda"):
+    """PARITY_STEPS meta-steps from one ``init_state`` (seed 0) on
+    identical draws, through the kernel (default mixer) and through the
+    plain filter, held as ``_state_err`` says. Each step starts both
+    paths from the same state, the kernel path's: PAPER's first Adam
+    steps drive the test loss to ~1e9 (the reference does the same at
+    F=128), and chained runs would measure that chaos, not the kernel.
+    The free-running difference is printed beside it.
+
+    Negative control: at step 0 the plain path runs once more with TF32
+    matmuls, a gradient about 1e-3 less precise; the gate must reject
+    it, or it could not tell a lower-precision gradient from f32."""
+    from repro_torch.core import surf, unroll
+    from repro_torch.engine.core import init_state, make_meta_step
+    from repro_torch.kernels.graph_filter import make_plain_mix
+    _, S = surf.make_problem(cfg, seed=0, device=device)
+    n_q = next(iter(pool.values())).shape[0]
+    kern, _ = make_meta_step(cfg, S)
+    plain, _ = make_meta_step(cfg, S, mix_fn=make_plain_mix())
+    state = init_state(unroll.seeded_generator(0, device), cfg)
+    free, ok = state, True
+    for t in range(PARITY_STEPS):
+        batch = {k: v[t % n_q] for k, v in pool.items()}
+        draws = unroll.featurize_cohort(unroll.step_generator(0, t, device),
+                                        batch, cfg)
+        sk, mk = kern(state, batch, draws=draws)
+        sp, mp = plain(state, batch, draws=draws)
+        free, _ = plain(free, batch, draws=draws)
+        rows, step_ok = _state_err(sk, sp)
+        m_errs = {k: abs(mk[k].item() - mp[k].item()) for k in mk}
+        m_bad = [k for k in mk if not torch.isclose(
+            mk[k], mp[k], atol=STATE_TOL, rtol=STATE_TOL)]
+        print(f"[{tag}] meta-step {t} kernel vs plain from one state "
+              f"(tensor, max |d|, max |d| / max |plain|, outside, "
+              f"noise-floor entries): {_fmt_rows(rows)}; "
+              f"max |d metric| {max(m_errs.values()):.3e}, outside "
+              f"{m_bad}; kernel metrics "
+              f"{json.dumps({k: v.item() for k, v in mk.items()})}")
+        if t == 0:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                sc, _ = plain(state, batch, draws=draws)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            rows_c, control_ok = _state_err(sc, sp)
+            del sc
+            print(f"[{tag}] negative control, TF32 plain vs f32 plain at "
+                  f"step 0: {_fmt_rows(rows_c)}; gate "
+                  f"{'passed (wrong)' if control_ok else 'rejected it'}")
+            if control_ok:
+                raise AssertionError("the parity gate passed a TF32 "
+                                     "gradient")
+        print(f"[{tag}] largest theta.M differences at step {t}: "
+              f"{json.dumps(_worst_entries(sk, sp, 'M'))}")
+        ok = ok and step_ok and not m_bad
+        state = sk
+    free_err = max(r[1] for r in _state_err(state, free)[0])
+    print(f"[{tag}] free-running after {PARITY_STEPS} steps (not gated): "
+          f"max |d state| kernel vs plain {free_err:.3e}")
+    if not ok:
+        raise AssertionError("meta-step through the kernel != plain filter")
+
+
+def train_paper(tag, cfg, mds, pool, device="cuda"):
+    """``train_surf`` at PAPER width through the kernel: launch counts
+    (read just after), wall time, then the median meta-step time by CUDA
+    events, peak memory and one profiled meta-step."""
+    from repro_torch.core import surf, unroll
+    from repro_torch.engine.core import make_meta_step
+    from repro_torch.kernels.graph_filter import graph_filter
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    graph_filter.launches = graph_filter.bwd_launches = 0
+    t0 = time.perf_counter()
+    state, hist, S = surf.train_surf(cfg, mds, steps=TRAIN_STEPS,
+                                     log_every=5, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = graph_filter.launches, graph_filter.bwd_launches
+    peak = torch.cuda.max_memory_allocated()
+    want = (TRAIN_STEPS * cfg.n_layers, TRAIN_STEPS * (cfg.n_layers - 1))
+    if (fwd, bwd) != want:
+        raise AssertionError(f"launches forward {fwd}, backward {bwd}; "
+                             f"expected {want}")
+    for row in hist:
+        if not all(np.isfinite(v) for v in row.values()):
+            raise AssertionError(f"non-finite metrics {row}")
+    print(f"[{tag}] train_surf PAPER {TRAIN_STEPS} steps: {wall:.3f} s "
+          f"wall (first step included); launches forward {fwd} = "
+          f"{TRAIN_STEPS} x {cfg.n_layers}, backward {bwd} = {TRAIN_STEPS} "
+          f"x {cfg.n_layers - 1}; peak memory {peak / 2**30:.3f} GiB; "
+          f"last logged {json.dumps(hist[-1])}")
+
+    step, _ = make_meta_step(cfg, S)
+    n_q = next(iter(pool.values())).shape[0]
+    times = []
+    for i in range(13):
+        t = state.step
+        batch = {k: v[t % n_q] for k, v in pool.items()}
+        gen = unroll.step_generator(0, t, device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = step(state, batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(start.elapsed_time(end))
+    ms = float(np.median(times))
+    out = {"ms_per_meta_step": ms, "meta_steps_per_s": 1e3 / ms,
+           "ms_spread": [float(np.min(times)), float(np.max(times))],
+           "peak_memory_bytes": peak, "launches_forward": fwd,
+           "launches_backward": bwd,
+           "train_surf_wall_ms_per_step": 1e3 * wall / TRAIN_STEPS}
+    print(f"[{tag}] PAPER meta-step (median of {len(times)} after 3 warm, "
+          f"CUDA events): {json.dumps(out)}")
+    profile_meta_step(tag, step, state, pool, device)
+    return out, fwd, bwd
+
+
+def profile_meta_step(tag, step, state, pool, device="cuda"):
+    """Device time of one PAPER meta-step by kernel kind under
+    ``torch.profiler``; busy share = kernel time over the step's wall
+    time between two synchronizations."""
+    from repro_torch.core import unroll
+    t = state.step
+    n_q = next(iter(pool.values())).shape[0]
+    batch = {k: v[t % n_q] for k, v in pool.items()}
+    gen = unroll.step_generator(0, t, device)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kinds = {}
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        name = e.key.lower()
+        if "graph_filter_kernel" in name:
+            kind = ("graph_filter_bwd" if ", true>" in name
+                    else "graph_filter")
+        elif name.startswith(("memcpy", "memset")):
+            kind = "copy"
+        elif "gemm" in name or "gemv" in name:
+            kind = "gemm"
+        elif "reduce" in name:
+            kind = "reduce"
+        elif "elementwise" in name or "vectorized" in name:
+            kind = "elementwise"
+        else:
+            kind = "other"
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+        kernels.append((round(ms, 4), e.count, e.key[:70]))
+    busy = sum(v for k, v in kinds.items() if k != "copy")
+    out = {"wall_ms_profiled": wall_ms,
+           "device_ms": kinds if busy > 0 else "not measured",
+           "device_busy_share": busy / wall_ms if busy > 0
+           else "not measured",
+           "top_kernels": sorted(kernels, reverse=True)[:12]}
+    print(f"[{tag}] profiled PAPER meta-step: {json.dumps(out)}")
+
+
+def quickstart(tag, device="cuda"):
+    """The reference quickstart's config, data and bar on the card."""
+    from repro_torch.configs.base import SURFConfig
+    from repro_torch.core import surf
+    from repro_torch.data.synthetic import make_meta_dataset
+    cfg = SURFConfig(n_agents=20, n_layers=8, filter_taps=2, feature_dim=32,
+                     n_classes=10, batch_per_agent=8, topology="regular",
+                     degree=3, eps=0.01)
+    meta_train = make_meta_dataset(cfg, 20, seed=0)
+    meta_test = make_meta_dataset(cfg, 5, seed=123)
+    t0 = time.perf_counter()
+    state, hist, S = surf.train_surf(cfg, meta_train,
+                                     steps=QUICKSTART_STEPS, log_every=50,
+                                     device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = surf.evaluate_surf(cfg, state, S, meta_test, seeds=(0, 1, 2, 3),
+                             device=device)
+    final_acc = float(np.mean(res["final_acc"]))
+    print(f"[{tag}] quickstart: {QUICKSTART_STEPS} meta-steps in "
+          f"{wall:.3f} s; test_acc by logged step "
+          f"{[(h['step'], round(h['test_acc'], 3)) for h in hist]}; "
+          f"acc per layer {np.round(res['acc_per_layer'].mean(0), 3).tolist()}"
+          f"; final_acc {final_acc:.4f} over 4 seeds x 5 datasets")
+    if not final_acc > 0.5:
+        raise AssertionError(f"quickstart final_acc {final_acc} <= 0.5")
+    return final_acc
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -296,24 +642,47 @@ def main():
     print(f"[{tag}] built {info['path'].name} in {info['seconds']:.1f} s")
     print(info["log"])
 
-    # 3. kernel vs plain, at every shape the serve run launches
+    # 3. kernel vs plain, at every shape the serve and training runs launch
     spec = BucketSpec()
     buckets, paper = paper_shapes(PAPER, spec)
     max_err, timing = check_kernel(tag, paper)
 
-    # 4. serve
-    launches = serve(tag, PAPER, spec, buckets)
+    # 4. backward vs plain, at the reference's VJP shapes and the PAPER
+    #    training shape (one cohort, unbatched)
+    train_shape = (PAPER.n_agents, PAPER.head_dim, PAPER.filter_taps)
+    bwd_err, bwd_timing = check_backward(tag, train_shape)
 
-    # The record's times are those of the largest bucket's tick layer.
+    # 5. serve, with the default mixer
+    serve_launches = serve(tag, PAPER, spec, buckets)
+
+    # 6.-7. meta-step parity and the training run at PAPER width
+    mds, pool = paper_pool(PAPER)
+    meta_step_parity(tag, PAPER, pool)
+    _, train_fwd, train_bwd = train_paper(tag, PAPER, mds, pool)
+    del pool
+
+    # 8. the quickstart's bar
+    quickstart(tag)
+
+    # The forward record's times are those of the largest bucket's tick
+    # layer; its launches those of the serve and training runs.
+    src = "src/repro_torch/kernels/graph_filter/csrc/graph_filter.cu"
     ms, plain_ms, bound_ms, bound_by = timing[paper[0]]
+    b_ms, b_plain_ms, b_bound_ms, b_bound_by = bwd_timing
+    print(f"launches: serve run forward {serve_launches}; training run "
+          f"forward {train_fwd}, backward {train_bwd}")
     print(tag)
-    print(json.dumps({"kernels": [{
-        "name": "graph_filter", "route": "cuda",
-        "source": "src/repro_torch/kernels/graph_filter/csrc/graph_filter.cu",
-        "replaces": "src/repro/kernels/graph_filter/kernel.py:27",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+    print(json.dumps({"kernels": [
+        {"name": "graph_filter", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/graph_filter/kernel.py:27",
+         "launches": serve_launches + train_fwd, "max_abs_err": max_err,
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": None},
+        {"name": "graph_filter_bwd", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/graph_filter/ops.py:114",
+         "launches": train_bwd, "max_abs_err": bwd_err, "ms": b_ms,
+         "plain_ms": b_plain_ms, "bound_ms": b_bound_ms,
+         "bound_by": b_bound_by, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,2 +1,3 @@
 """Weights in and out of the port: ``convert`` turns the reference's θ
-into the port's. The npz checkpoint io lands with a later slice."""
+and training state into the port's. The npz checkpoint io lands with a
+later slice."""

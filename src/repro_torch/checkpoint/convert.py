@@ -1,14 +1,19 @@
-"""Convert the reference package's U-DGD parameters into the port's θ.
+"""Convert the reference package's U-DGD parameters and training state
+into the port's.
 
 The reference's θ is a dict of stacked per-layer arrays
 {h (L,K+1), M (L,din,d), d (L,d)}; as numpy (for example
 ``jax.tree.map(np.asarray, state.theta)``) it becomes the port's dict of
-tensors, so both packages compute the same function.
+tensors, so both packages compute the same function. A whole
+``TrainState`` (θ, λ, Adam's ``{m, v, t}``, step) converts the same way,
+so both packages can train on from one state.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch.engine.core import TrainState
 from repro_torch.utils.device import resolve_device, to_tensor
 
 KEYS = ("h", "M", "d")
@@ -28,3 +33,32 @@ def theta_from_numpy(theta_np, device=None) -> dict:
                          f"M {M.shape}, d {d.shape}")
     device = resolve_device(device)
     return {k: to_tensor(a, device) for k, a in zip(KEYS, (h, M, d))}
+
+
+def state_from_numpy(theta, lam, opt_state, step, device=None):
+    """A reference ``TrainState`` as numpy -> the port's ``TrainState`` on
+    ``device`` (None: the CUDA card): θ as in ``theta_from_numpy``, λ (L,)
+    f32, Adam's state ``{"m": θ-like, "v": θ-like, "t": int}`` with f32
+    moments and ``t`` a 0-d int32 tensor, ``step`` a Python int."""
+    device = resolve_device(device)
+    theta = theta_from_numpy(theta, device)
+    lam = np.asarray(lam, np.float32)
+    if lam.shape != (theta["h"].shape[0],):
+        raise ValueError(f"lam must be (L,) = ({theta['h'].shape[0]},), "
+                         f"got {lam.shape}")
+    if set(opt_state) != {"m", "v", "t"}:
+        raise ValueError(f"opt_state must have keys m, v, t, got "
+                         f"{sorted(opt_state)}")
+    moments = {}
+    for name in ("m", "v"):
+        mom = theta_from_numpy(opt_state[name], device)
+        for k in KEYS:
+            if mom[k].shape != theta[k].shape:
+                raise ValueError(f"opt_state[{name!r}][{k!r}] has shape "
+                                 f"{tuple(mom[k].shape)}, theta "
+                                 f"{tuple(theta[k].shape)}")
+        moments[name] = {k: v.to(torch.float32) for k, v in mom.items()}
+    t = torch.tensor(int(np.asarray(opt_state["t"])), dtype=torch.int32,
+                     device=device)
+    return TrainState(theta=theta, lam=to_tensor(lam, device),
+                      opt_state={**moments, "t": t}, step=int(step))

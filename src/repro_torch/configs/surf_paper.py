@@ -11,6 +11,12 @@ PAPER = SURFConfig(n_agents=100, n_layers=10, filter_taps=2,
                    train_per_agent=45, test_per_agent=15, eps=0.01,
                    lr_theta=1e-2, lr_lambda=1e-2, topology="regular", degree=3)
 
+# Classical (star) FL variant: K=1, eps=0.1, lr 1e-3 (paper §6).
+PAPER_STAR = SURFConfig(n_agents=100, n_layers=10, filter_taps=1,
+                        feature_dim=512, n_classes=10, batch_per_agent=10,
+                        eps=0.1, lr_theta=1e-3, lr_lambda=1e-2,
+                        topology="star")
+
 # Bench scale: small feature dim.
 BENCH = SURFConfig(n_agents=100, n_layers=10, filter_taps=2, feature_dim=64,
                    n_classes=10, batch_per_agent=10, eps=0.01,

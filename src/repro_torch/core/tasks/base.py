@@ -10,6 +10,14 @@ of a serve batch:
     one loss per agent, shape (...);
   * ``fl_loss(W, X, Y)``: the mean over the agent axis (the last of the
     leading axes), shape (...) without it.
+
+The gradient lifts (``fl_grad``, ``grad_norm``, ``masked_grad_norm``)
+take ∇ of ``local_loss`` with ``torch.autograd.grad`` over the sum of the
+per-agent losses (each agent's loss reads only its own row). When W
+records a gradient they keep the graph (``create_graph=True``), so the
+descending constraints can differentiate the norms again (grad-of-grad,
+``core.constraints``); otherwise they return plain values, under
+``torch.no_grad()`` too.
 """
 from __future__ import annotations
 
@@ -68,6 +76,35 @@ class Task:
 
     def fl_metric(self, W, X, Y):
         return self.local_metric(W, X, Y).mean(-1)
+
+    def _agent_grads(self, W, X, Y):
+        """∇f_i(w_i) per agent, (..., n, d); differentiable when W
+        records a gradient."""
+        create = torch.is_grad_enabled() and W.requires_grad
+        with torch.enable_grad():
+            Wg = W if create else W.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(self.local_loss(Wg, X, Y).sum(), Wg,
+                                       create_graph=create)
+        return g
+
+    def fl_grad(self, W, X, Y):
+        """Stochastic ∇f(W) ∈ R^{n×d} — row i is ∇f_i(w_i)/n."""
+        return self._agent_grads(W, X, Y) / W.shape[-2]
+
+    def grad_norm(self, W, X, Y):
+        """‖∇f(W)‖_F per cohort, shape (...) — the quantity the
+        descending constraints control."""
+        g = self.fl_grad(W, X, Y)
+        return torch.sqrt(g.square().sum((-2, -1)) + 1e-12)
+
+    def masked_grad_norm(self, W, X, Y, mask):
+        """``grad_norm`` over the REAL agents of a padded cohort (mask
+        (..., n)): padded rows are zeroed out of the gradient and the 1/n
+        normalization uses the real agent count, so the value equals
+        ``grad_norm`` on the unpadded cohort."""
+        g = torch.where(mask[..., None], self._agent_grads(W, X, Y), 0.0)
+        n_real = mask.sum(-1).clamp(min=1).to(g.dtype)[..., None, None]
+        return torch.sqrt((g / n_real).square().sum((-2, -1)) + 1e-12)
 
     def init_state(self, generator, cfg):
         """W0 ~ N(w0_mean, w0_std²) ∈ R^{n×d}, drawn from ``generator``

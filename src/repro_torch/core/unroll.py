@@ -19,21 +19,29 @@ import torch
 
 from repro_torch.configs.base import SURFConfig
 from repro_torch.core.tasks import resolve_task
-# The dense Horner filter Σ_k h_k S^k W: one plain version serves the
-# mix=None path, the kernel wrapper's CPU path and the kernel's check.
-from repro_torch.kernels.graph_filter.ref import (
-    graph_filter_ref as graph_filter)
+# Σ_k h_k S^k W, chosen by device: the plain Horner filter for CPU
+# tensors, the CUDA kernel (forward and backward) for CUDA tensors.
+from repro_torch.kernels.graph_filter.ops import graph_filter
 from repro_torch.utils.device import to_tensor
 
 ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh}
+
+# The ported mixer names. Each selects the default mixer (``mix_fn=None``):
+# "dense" is the reference's name for its plain filter, "pallas" for its
+# kernel and "cuda" the port's, and on the card all of them launch the
+# kernel. The server and ``train_surf`` accept these names.
+MIXES = (None, "dense", "pallas", "cuda")
 
 
 def _mix(mix_fn, S, W, h):
     """Apply the layer's graph filter through the mixer protocol:
 
-      * ``mix_fn is None`` — the dense Horner filter ``graph_filter``;
-      * ``mix_fn.takes_S`` — ``mix_fn(S, W, h)``: an S-as-argument filter
-        (``kernels.graph_filter.make_cuda_mix``, the fused kernel).
+      * ``mix_fn is None`` — ``graph_filter``
+        (``kernels.graph_filter.ops``): the CUDA kernel on CUDA tensors,
+        the plain Horner filter on CPU tensors;
+      * ``mix_fn.takes_S`` — ``mix_fn(S, W, h)``: an S-as-argument filter,
+        such as ``kernels.graph_filter.make_plain_mix``, the plain filter
+        the kernel path is held against.
 
     Baked-S mixers (ring / halo exchanges) arrive with the multi-device
     slice."""
@@ -81,21 +89,56 @@ def init_udgd(generator, cfg: SURFConfig, dtype=torch.float32, init="dgd",
     return {k: v.to(dtype) for k, v in (("h", h), ("M", M), ("d", dd))}
 
 
+def _mix_and_update(params_l, S, W, Xb, Yb, cfg, activation, mix_fn,
+                    task):
+    """(H_l(W), σ(M_l [w_i ∥ b_i] + d_l)) of one layer."""
+    task = resolve_task(cfg, task)
+    mixed = _mix(mix_fn, S, W, params_l["h"])
+    b_in = task.batch_vector(Xb, Yb)
+    z = torch.cat([W, b_in], dim=-1) @ params_l["M"] + params_l["d"]
+    return mixed, ACTIVATIONS[activation](z)
+
+
 def udgd_layer(params_l, S, W, Xb, Yb, cfg: SURFConfig, activation="relu",
                mix_fn=None, task=None):
     """One unrolled layer. W (..., n, d); Xb (..., n, b, F); Yb (..., n, b);
     S (..., n, n). A ``takes_S`` mixer replaces the dense filter."""
-    task = resolve_task(cfg, task)
-    h, M, d = params_l["h"], params_l["M"], params_l["d"]
-    mixed = _mix(mix_fn, S, W, h)
-    b_in = task.batch_vector(Xb, Yb)
-    z = torch.cat([W, b_in], dim=-1) @ M + d
-    return mixed - ACTIVATIONS[activation](z)
+    mixed, update = _mix_and_update(params_l, S, W, Xb, Yb, cfg, activation,
+                                    mix_fn, task)
+    return mixed - update
+
+
+def star_filter_mask(cfg: SURFConfig, device=None):
+    """§5.2: in classical FL the server (node 0) has no local data — its
+    perceptron update is masked out; it only aggregates. (n, 1)."""
+    mask = torch.ones((cfg.n_agents, 1), device=device)
+    if cfg.topology == "star":
+        mask[0, 0] = 0.0
+    return mask
+
+
+def udgd_layer_star(params_l, S, W, Xb, Yb, cfg: SURFConfig,
+                    activation="relu", mix_fn=None, task=None):
+    """Classical-FL layer: the server node only aggregates (no local
+    update). Same mixer protocol as ``udgd_layer`` (see ``_mix``)."""
+    mixed, update = _mix_and_update(params_l, S, W, Xb, Yb, cfg, activation,
+                                    mix_fn, task)
+    return mixed - star_filter_mask(cfg, W.device) * update
 
 
 def layer_params(theta, l):
     """Layer ``l``'s slice of the stacked θ."""
     return {k: v[l] for k, v in theta.items()}
+
+
+def unbind_layers(theta):
+    """θ as a list of L per-layer dicts. One ``unbind`` per stacked
+    tensor: its backward writes each layer's gradient into ONE stacked
+    buffer, where L separate ``theta[k][l]`` selects would each add a
+    zero-filled full-size gradient (L × 2.1 GB for M at PAPER width)."""
+    keys = list(theta)
+    return [dict(zip(keys, vals))
+            for vals in zip(*(theta[k].unbind(0) for k in keys))]
 
 
 def udgd_forward(params, S, W0, Xl, Yl, cfg: SURFConfig, activation="relu",
@@ -111,17 +154,49 @@ def udgd_forward(params, S, W0, Xl, Yl, cfg: SURFConfig, activation="relu",
     return Ws[-1], torch.stack(Ws)
 
 
+# Seeding scheme of the port's generators (JAX's threefry keys have no
+# torch counterpart; each ``fold_in`` of the reference becomes a
+# generator with a seed of its own):
+#
+#   * train_surf(seed): ``seeded_generator(seed)`` draws θ in
+#     ``init_state`` (the reference's ``PRNGKey(seed)`` for ``init_udgd``);
+#   * meta-step t of a run with seed ``seed``: ``step_generator`` =
+#     2**63 + seed · 1_000_003 + t (the reference's
+#     ``fold_in(PRNGKey(seed), t)``, ``engine/scan.py``);
+#   * solve of dataset q under evaluation seed ``seed``:
+#     ``solve_generator`` = (1000 + seed) · 1_000_003 + q (the
+#     reference's ``fold_in(PRNGKey(1000 + seed), q)``).
+#
+# For seeds below 9·10^12 and t, q below 1_000_003 the step seeds lie at
+# or above 2**63 and the solve seeds below it, so no meta-step ever
+# shares a stream with an evaluation solve.
+STEP_SEED_BASE = 2 ** 63
+
+
+def seeded_generator(seed, device) -> torch.Generator:
+    """A generator on ``device`` seeded with ``seed`` (θ's init draws
+    come from ``seeded_generator(seed)``)."""
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def step_generator(seed, t, device) -> torch.Generator:
+    """The generator meta-step ``t`` of a training run with seed ``seed``
+    draws its W0 and layer mini-batches from, on ``device`` (see the
+    seeding scheme above)."""
+    return seeded_generator(
+        STEP_SEED_BASE + int(seed) * 1_000_003 + int(t), device)
+
+
 def solve_generator(seed, q, device) -> torch.Generator:
     """The generator one solve of dataset ``q`` under evaluation seed
-    ``seed`` draws from: seeded with (1000 + seed) · 1_000_003 + q on
-    ``device``. The port's counterpart of the reference's
-    ``fold_in(PRNGKey(1000 + seed), q)``; ``evaluate_surf``,
-    ``solve_federation`` and ``FederationServer.submit`` all use it, so a
-    served request and its single-cohort solve on one device see the
-    same draws."""
-    gen = torch.Generator(device=torch.device(device))
-    gen.manual_seed((1000 + int(seed)) * 1_000_003 + int(q))
-    return gen
+    ``seed`` draws from (see the seeding scheme above);
+    ``evaluate_surf``, ``solve_federation`` and ``FederationServer.submit``
+    all use it, so a served request and its single-cohort solve on one
+    device see the same draws."""
+    return seeded_generator((1000 + int(seed)) * 1_000_003 + int(q),
+                            device)
 
 
 def sample_w0(generator, cfg: SURFConfig, task=None):

@@ -1,3 +1,6 @@
-"""The SURF engine: ``core`` holds ``TrainState`` and the evaluation
-body; the meta-step and training loops land with the training slice."""
-from repro_torch.engine.core import TrainState, _eval_core  # noqa: F401
+"""The SURF engine: ``core`` holds ``TrainState``, the meta-step and the
+evaluation body; ``scan`` the training drivers (``train_scan``,
+``train``)."""
+from repro_torch.engine.core import (TrainState, _eval_core,  # noqa: F401
+                                     init_state, make_eval, make_meta_step)
+from repro_torch.engine.scan import train, train_scan  # noqa: F401

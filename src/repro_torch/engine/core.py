@@ -1,23 +1,159 @@
-"""The evaluation body of the SURF engine and the state it reads; the
-port of ``repro.engine.core`` (``TrainState``, ``_eval_core``).
+"""Shared core of the SURF engine: the S-as-argument meta-step and
+evaluation bodies (paper Algorithm 1 + Figure 3) and the ``TrainState``
+they carry; the port of ``repro.engine.core``.
 
-The meta-step (``_meta_step_core``) and the training loops land with the
-training slice, and with them the other ``TrainState`` fields (λ, the
-optimizer state, the step).
+Each meta-step: take one downstream dataset D_q, draw W_0 ~ N(μ0, σ0²I)
+and L per-layer mini-batches from D_q's training examples, run the
+unrolled network, evaluate the test loss f(W_L) on D_q's held-out
+examples, add the λ-weighted descending-constraint slacks, take an Adam
+step on θ (eq. 6, gradients clipped to a global norm of 10) and a
+projected ascent step on λ (eq. 7).
+
+S stays out of the closures (``meta_step_s(S, state, batch, ...)``,
+``evaluate_s(S, theta, batch, ...)``), as in the reference. PyTorch runs
+eagerly, so there is no compiled-engine cache to key: the drivers in
+``engine.scan`` call the bodies in a Python loop.
+
+Random draws come from an explicit ``torch.Generator``
+(``core.unroll.step_generator`` per meta-step); ``draws=(W0, Xl, Yl)``
+replaces them, so the tests can replay the reference's draws.
+
+On the card every layer's graph filter runs through the CUDA kernel
+(the default ``mix_fn=None``): L forward launches and, since W_0
+carries no gradient, L−1 backward (dW) launches per meta-step.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import SURFConfig
+from repro_torch.core import constraints as C
 from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
+from repro_torch.optim import adam, apply_updates, clip_by_global_norm
+
+# Global-norm clip of the meta-gradient (the reference's constant).
+CLIP_NORM = 10.0
 
 
 class TrainState(NamedTuple):
+    """θ, the dual variables λ (L,), Adam's state ``{m, v, t}`` and the
+    meta-step count. Evaluation and serving read θ only, so
+    ``TrainState(theta)`` is a valid state for them."""
     theta: dict
+    lam: Optional[torch.Tensor] = None
+    opt_state: Optional[dict] = None
+    step: int = 0
+
+
+def init_state(generator, cfg: SURFConfig, init="dgd", task=None):
+    """A fresh state: θ from ``init_udgd(generator, ...)`` on the
+    generator's device, λ = 0, Adam's zero moments, step 0."""
+    theta = U.init_udgd(generator, cfg, init=init, task=task)
+    return TrainState(theta=theta,
+                      lam=torch.zeros((cfg.n_layers,),
+                                      device=generator.device),
+                      opt_state=adam(cfg.lr_theta).init(theta), step=0)
+
+
+def _check_mix(mix_fn):
+    """Mixers of slices not ported yet raise, naming their ROADMAP item
+    (baked-S ring/halo mixers raise in ``core.unroll._mix``)."""
+    for attr, what in (("seed_batched", "seed-batched mixers (ROADMAP "
+                        "queue 1 item 7)"),
+                       ("scheduled", "scheduled mixers (time-varying "
+                        "topology, ROADMAP queue 1 item 6)"),
+                       ("adaptive", "adaptive-depth mixers (ROADMAP queue "
+                        "1 item 2)")):
+        if getattr(mix_fn, attr, False):
+            raise NotImplementedError(f"{what} are not ported yet")
+
+
+def _layer_fn(cfg):
+    return U.udgd_layer_star if cfg.topology == "star" else U.udgd_layer
+
+
+def _meta_step_core(cfg: SURFConfig, constrained=True, activation="relu",
+                    mix_fn=None, task=None):
+    """S-as-argument meta step: ``meta_step_s(S, state, batch,
+    generator=None, draws=None)`` and ``forward_s(S, theta, W0, Xl,
+    Yl)``. ``batch``: dict with Xtr (n,m,F), Ytr (n,m), Xte (n,t,F),
+    Yte (n,t) tensors. ``task`` is the inner problem (None resolves the
+    config's task)."""
+    task = resolve_task(cfg, task)
+    _check_mix(mix_fn)
+    if cfg.robust_sigma > 0.0 and cfg.robust_samples > 0:
+        raise NotImplementedError(C.ROBUST_TODO)
+    opt = adam(cfg.lr_theta)
+    layer_fn = _layer_fn(cfg)
+
+    def forward_s(S, theta, W0, Xl, Yl):
+        Ws = [W0]
+        for l, p_l in enumerate(U.unbind_layers(theta)):
+            Ws.append(layer_fn(p_l, S, Ws[-1], Xl[l], Yl[l], cfg,
+                               activation, mix_fn=mix_fn, task=task))
+        return Ws[-1], torch.stack(Ws)
+
+    def lagrangian_fn(theta, lam, S, W0, Xl, Yl, Xte, Yte):
+        W_L, W_all = forward_s(S, theta, W0, Xl, Yl)
+        test_loss = task.fl_loss(W_L, Xte, Yte)
+        gnorms = C.layer_grad_norms(W_all, Xl, Yl, cfg, task=task)
+        slack = C.slacks(gnorms, cfg.eps)
+        lag = C.lagrangian(test_loss, slack, lam) if constrained else test_loss
+        return lag, (test_loss, slack, gnorms, W_L)
+
+    def meta_step_s(S, state: TrainState, batch, generator=None,
+                    draws=None):
+        W0, Xl, Yl = U.featurize_cohort(generator, batch, cfg, task=task,
+                                        draws=draws)
+        theta = {k: v.detach().requires_grad_(True)
+                 for k, v in state.theta.items()}
+        with torch.enable_grad():
+            lag, (tl, slack, gnorms, W_L) = lagrangian_fn(
+                theta, state.lam, S, W0, Xl, Yl, batch["Xte"], batch["Yte"])
+            grads = torch.autograd.grad(lag, list(theta.values()))
+        with torch.no_grad():
+            grads, gn = clip_by_global_norm(dict(zip(theta, grads)),
+                                            CLIP_NORM)
+            upd, opt_state = opt.update(grads, state.opt_state)
+            new_theta = apply_updates(
+                {k: v.detach() for k, v in theta.items()}, upd)
+            slack = slack.detach()
+            lam = (C.dual_ascent(state.lam, slack, cfg.lr_lambda)
+                   if constrained else state.lam)
+            test_acc = task.fl_metric(W_L.detach(), batch["Xte"],
+                                      batch["Yte"])
+            metrics = {"lagrangian": lag.detach(), "test_loss": tl.detach(),
+                       "test_acc": test_acc, "slack_max": slack.max(),
+                       "slack_mean": slack.mean(),
+                       "gnorm_first": gnorms[0].detach(),
+                       "gnorm_last": gnorms[-1].detach(),
+                       "grad_norm": gn, "lam_sum": lam.sum()}
+        return TrainState(new_theta, lam, opt_state, state.step + 1), metrics
+
+    return meta_step_s, forward_s
+
+
+def make_meta_step(cfg: SURFConfig, S, *, constrained=True,
+                   activation="relu", mix_fn=None, task=None):
+    """The meta-training step ``meta_step(state, batch, generator=None,
+    draws=None) -> (state, metrics)`` and ``forward(theta, W0, Xl, Yl)``
+    with S bound. ``constrained=False`` is the ablation of Appendix D
+    (λ frozen at 0); ``cfg.topology == "star"`` selects the star
+    layers; ``mix_fn`` overrides the default mixer (see
+    ``core.unroll._mix``)."""
+    meta_step_s, forward_s = _meta_step_core(cfg, constrained, activation,
+                                             mix_fn, task)
+
+    def meta_step(state, batch, generator=None, draws=None):
+        return meta_step_s(S, state, batch, generator, draws)
+
+    def forward(theta, W0, Xl, Yl):
+        return forward_s(S, theta, W0, Xl, Yl)
+
+    return meta_step, forward
 
 
 def _eval_core(cfg: SURFConfig, activation="relu", mix_fn=None, task=None):
@@ -25,18 +161,16 @@ def _eval_core(cfg: SURFConfig, activation="relu", mix_fn=None, task=None):
     draws=None)``: featurize the cohort, run the L layers and report the
     test loss and ``task.fl_metric`` after every layer."""
     task = resolve_task(cfg, task)
-    if cfg.topology == "star":
-        raise NotImplementedError(
-            "star-topology layers (udgd_layer_star) are not ported yet: "
-            "they land with the training slice")
+    _check_mix(mix_fn)
+    layer_fn = _layer_fn(cfg)
 
     def evaluate_s(S, theta, batch, generator, draws=None):
         W, Xl, Yl = U.featurize_cohort(generator, batch, cfg, task=task,
                                        draws=draws)
         losses, accs = [], []
         for l in range(cfg.n_layers):
-            W = U.udgd_layer(U.layer_params(theta, l), S, W, Xl[l], Yl[l],
-                             cfg, activation, mix_fn=mix_fn, task=task)
+            W = layer_fn(U.layer_params(theta, l), S, W, Xl[l], Yl[l], cfg,
+                         activation, mix_fn=mix_fn, task=task)
             losses.append(task.fl_loss(W, batch["Xte"], batch["Yte"]))
             accs.append(task.fl_metric(W, batch["Xte"], batch["Yte"]))
         losses, accs = torch.stack(losses), torch.stack(accs)
@@ -44,3 +178,15 @@ def _eval_core(cfg: SURFConfig, activation="relu", mix_fn=None, task=None):
                 "final_loss": losses[-1], "final_acc": accs[-1]}
 
     return evaluate_s
+
+
+def make_eval(cfg: SURFConfig, S, *, activation="relu", mix_fn=None,
+              task=None):
+    """Per-layer loss/metric trajectory on one downstream dataset with S
+    bound: ``evaluate(theta, batch, generator, draws=None)``."""
+    evaluate_s = _eval_core(cfg, activation, mix_fn, task)
+
+    def evaluate(theta, batch, generator, draws=None):
+        return evaluate_s(S, theta, batch, generator, draws)
+
+    return evaluate

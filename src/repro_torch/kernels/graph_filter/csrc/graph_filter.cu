@@ -3,7 +3,10 @@
 // Replaces the Pallas TPU kernel of the reference package:
 // src/repro/kernels/graph_filter/kernel.py (_kernel, graph_filter_pallas),
 // reached through ops.py::graph_filter and make_pallas_mix. It runs in
-// every unrolled U-DGD layer of a serve tick and of a single-cohort solve.
+// every unrolled U-DGD layer of a serve tick, of a single-cohort solve and
+// of a meta-step's forward. Its transposed-S entry is the meta-step's
+// backward: dW = sum_k h_k (S^T)^k G, the same filter on S^T applied to
+// the cotangent G (the Pallas call inside ops.py::_bwd of the reference).
 //
 // Contract (batched natively, one launch per layer of a serve tick):
 //   S (B, n, n) f32, W (B, n, d) f32 or bf16, h (K+1,) f32 shared by the
@@ -14,9 +17,12 @@
 // does 2 K n^2 d B = 2.69 GFLOP on 42.5 MB (S, W read once, Y written
 // once). On an H100 SXM that is about 40 us of non-tensor f32 FMA
 // (67 TFLOP/s) against about 13 us of memory traffic (3.35 TB/s): the
-// kernel is bound by f32 operations. TF32 tensor cores would be faster but
-// keep about three decimal digits, and the f32 tolerance (5e-5) of the
-// reference would not hold, so the product stays in FFMA.
+// kernel is bound by f32 operations. The backward's dW launch at the
+// training shape (B=1, n=100, d=5130, K=2) is 0.21 GFLOP on 4.1 MB: about
+// 3.1 us of f32 FMA against 1.2 us of memory, bound by operations too.
+// TF32 tensor cores would be faster but keep about three decimal digits,
+// and the f32 tolerance (5e-5) of the reference would not hold, so the
+// product stays in FFMA.
 //
 // Design (simple and correct first; mma/wgmma and TMA are later work):
 //   * grid (ceil(d / 64), B); a block of 16 x 16 threads owns one column
@@ -33,6 +39,10 @@
 //   * ragged n and d are masked at the global loads and stores; rows
 //     past n are zero in shared memory, so no padded copies exist in
 //     device memory (the reference's (8, 128) tile padding is a TPU rule).
+//   * the backward entry stages S^T instead of S: the staging loop reads
+//     S row by row (coalesced) and writes the transpose into shared
+//     memory, so no transposed copy of S exists in device memory; the
+//     hops are unchanged.
 //   * S (n x n f32) must fit shared memory beside the Y buffer: TM <= 8
 //     gives the largest n this kernel takes, MAX_N = 128 (the top of the
 //     default serve bucket ladder), with 98,816 bytes of dynamic shared
@@ -61,7 +71,7 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <typename T, int TM>
+template <typename T, int TM, bool TRANS_S>
 __global__ void __launch_bounds__(TX * TY, 2)
 graph_filter_kernel(const float* __restrict__ S, const T* __restrict__ W,
                     const float* __restrict__ h, T* __restrict__ Y, int n,
@@ -81,10 +91,21 @@ graph_filter_kernel(const float* __restrict__ S, const T* __restrict__ W,
   const T* Wb = W + (size_t)b * n * d;
   T* Yb = Y + (size_t)b * n * d;
 
-  for (int e = tid; e < NR * NR; e += TX * TY) {
-    const int i = e / NR;
-    const int k = e - i * NR;
-    sS[i * SS + k] = (i < n && k < n) ? Sb[(size_t)i * n + k] : 0.f;
+  if constexpr (TRANS_S) {
+    // sS[i][k] = S[k][i]; neighbouring threads read neighbouring i of one
+    // row of S and write rows SS = NR + 1 (odd) floats apart: no bank
+    // conflicts.
+    for (int e = tid; e < NR * NR; e += TX * TY) {
+      const int k = e / NR;
+      const int i = e - k * NR;
+      sS[i * SS + k] = (i < n && k < n) ? Sb[(size_t)k * n + i] : 0.f;
+    }
+  } else {
+    for (int e = tid; e < NR * NR; e += TX * TY) {
+      const int i = e / NR;
+      const int k = e - i * NR;
+      sS[i * SS + k] = (i < n && k < n) ? Sb[(size_t)i * n + k] : 0.f;
+    }
   }
 
   float w[TM][TN];
@@ -144,22 +165,22 @@ graph_filter_kernel(const float* __restrict__ S, const T* __restrict__ W,
   }
 }
 
-template <typename T, int TM>
+template <typename T, int TM, bool TRANS_S>
 cudaError_t launch(const float* S, const T* W, const float* h, T* Y, int B,
                    int n, int d, int K, cudaStream_t stream) {
   constexpr int NR = TY * TM;
   const size_t smem = sizeof(float) * ((size_t)NR * (NR + 1) + (size_t)NR * BD);
   cudaError_t err = cudaFuncSetAttribute(
-      graph_filter_kernel<T, TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      graph_filter_kernel<T, TM, TRANS_S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((d + BD - 1) / BD, B);
   const dim3 block(TX, TY);
-  graph_filter_kernel<T, TM><<<grid, block, smem, stream>>>(S, W, h, Y, n, d, K);
+  graph_filter_kernel<T, TM, TRANS_S><<<grid, block, smem, stream>>>(S, W, h, Y, n, d, K);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool TRANS_S>
 cudaError_t dispatch(const void* S, const void* W, const void* h, void* Y,
                      int B, int n, int d, int K, void* stream) {
   if (B < 1 || B > 65535 || n < 1 || n > MAX_N || d < 1 || K < 0) {
@@ -171,14 +192,14 @@ cudaError_t dispatch(const void* S, const void* W, const void* h, void* Y,
   T* y = static_cast<T*>(Y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((n + TY - 1) / TY) {
-    case 1: return launch<T, 1>(s, w, hh, y, B, n, d, K, st);
-    case 2: return launch<T, 2>(s, w, hh, y, B, n, d, K, st);
-    case 3: return launch<T, 3>(s, w, hh, y, B, n, d, K, st);
-    case 4: return launch<T, 4>(s, w, hh, y, B, n, d, K, st);
-    case 5: return launch<T, 5>(s, w, hh, y, B, n, d, K, st);
-    case 6: return launch<T, 6>(s, w, hh, y, B, n, d, K, st);
-    case 7: return launch<T, 7>(s, w, hh, y, B, n, d, K, st);
-    default: return launch<T, 8>(s, w, hh, y, B, n, d, K, st);
+    case 1: return launch<T, 1, TRANS_S>(s, w, hh, y, B, n, d, K, st);
+    case 2: return launch<T, 2, TRANS_S>(s, w, hh, y, B, n, d, K, st);
+    case 3: return launch<T, 3, TRANS_S>(s, w, hh, y, B, n, d, K, st);
+    case 4: return launch<T, 4, TRANS_S>(s, w, hh, y, B, n, d, K, st);
+    case 5: return launch<T, 5, TRANS_S>(s, w, hh, y, B, n, d, K, st);
+    case 6: return launch<T, 6, TRANS_S>(s, w, hh, y, B, n, d, K, st);
+    case 7: return launch<T, 7, TRANS_S>(s, w, hh, y, B, n, d, K, st);
+    default: return launch<T, 8, TRANS_S>(s, w, hh, y, B, n, d, K, st);
   }
 }
 
@@ -190,12 +211,19 @@ extern "C" {
 // success); it does not synchronise and allocates nothing.
 int graph_filter_f32(const void* S, const void* W, const void* h, void* Y,
                      int B, int n, int d, int K, void* stream) {
-  return (int)dispatch<float>(S, W, h, Y, B, n, d, K, stream);
+  return (int)dispatch<float, false>(S, W, h, Y, B, n, d, K, stream);
 }
 
 int graph_filter_bf16(const void* S, const void* W, const void* h, void* Y,
                       int B, int n, int d, int K, void* stream) {
-  return (int)dispatch<__nv_bfloat16>(S, W, h, Y, B, n, d, K, stream);
+  return (int)dispatch<__nv_bfloat16, false>(S, W, h, Y, B, n, d, K, stream);
+}
+
+// The backward's dW: Y = sum_k h_k (S^T)^k W with S given untransposed
+// (f32 only: the reference casts the cotangent to f32 before its call).
+int graph_filter_t_f32(const void* S, const void* W, const void* h, void* Y,
+                       int B, int n, int d, int K, void* stream) {
+  return (int)dispatch<float, true>(S, W, h, Y, B, n, d, K, stream);
 }
 
 const char* graph_filter_error_string(int err) {

@@ -73,7 +73,8 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()["path"]))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            for name in ("graph_filter_f32", "graph_filter_bf16"):
+            for name in ("graph_filter_f32", "graph_filter_bf16",
+                         "graph_filter_t_f32"):
                 fn = getattr(lib, name)
                 fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
                 fn.restype = i32

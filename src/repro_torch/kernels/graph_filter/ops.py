@@ -1,4 +1,5 @@
-"""Public wrapper of the fused K-hop graph filter Y = Σ_k h_k S^k W.
+"""Public wrapper of the fused K-hop graph filter Y = Σ_k h_k S^k W, with
+its gradient.
 
 ``graph_filter(S, W, h)`` keeps the reference's argument order
 (``repro.kernels.graph_filter.ops.graph_filter``):
@@ -8,15 +9,30 @@
     (``csrc/graph_filter.cu``) or raises. No CUDA input is ever routed
     to the plain version.
 
+The gradient is a ``torch.autograd.Function`` that serves both devices,
+so the CPU tests run the same backward formulas as the card (the
+reference's custom VJP, ``ops.py::_bwd``):
+
+  * dW = Σ_k h_k (Sᵀ)^k Ḡ, the filter on Sᵀ applied to the cotangent: on
+    CUDA the kernel's transposed-S entry (``graph_filter_t_f32``, which
+    stages Sᵀ in shared memory, so no transposed copy of S is made);
+  * dh_k = ⟨Ḡ, S^k W⟩, summed over the batch axis (h is shared);
+  * dS = Σ_k h_k Σ_{a+b=k−1} (Sᵀ)^a Ḡ (S^b W)ᵀ, only when S needs a
+    gradient (topology-learning callers; SURF's graphs are fixed).
+
+Each is computed only when ``ctx.needs_input_grad`` asks for it. dh and
+dS are plain torch products and reductions, as in the reference (jnp
+outside Pallas). The backward is first-order only: SURF's grad-of-grad
+goes through the task's loss, never twice through the filter.
+
 The reference's (8, 128) padding, ``pick_block_d`` and
 ``pallas_profitable`` are TPU tiling rules and have no counterpart: the
-kernel masks ragged n and d itself. The backward (dW is the same kernel
-on Sᵀ) lands with the training slice; until then a CUDA call that would
-record a gradient raises.
+kernel masks ragged n and d itself.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.graph_filter import loader
 from repro_torch.kernels.graph_filter.ref import graph_filter_ref
@@ -43,21 +59,14 @@ def _check(S, W, h):
                          f"{W.device}, {h.device}")
     if W.dtype not in W_DTYPES:
         raise TypeError(f"W must be float32 or bfloat16, got {W.dtype}")
-
-
-def graph_filter(S, W, h):
-    """Σ_k h_k S^k W. S (B,n,n) or (n,n), W (B,n,d) or (n,d) f32 or bf16,
-    h (K+1,); the result is in W's dtype with f32 accumulation. On CUDA,
-    S and h must be f32, S and W contiguous, n ≤ ``MAX_N``."""
-    _check(S, W, h)
-    if W.device.type == "cpu":
-        return graph_filter_ref(S, W, h)
-    if W.device.type != "cuda":
+    if W.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {W.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (S, W, h)):
-        raise NotImplementedError(
-            "the graph-filter kernel has no backward yet: it lands with "
-            "the training slice; call under torch.no_grad()")
+
+
+def _launch(S, W, h, transpose_s=False):
+    """One launch of the kernel on CUDA tensors: Σ_k h_k S^k W, or
+    Σ_k h_k (Sᵀ)^k W with ``transpose_s`` (f32 W only). Raises on what
+    the kernel does not take and on a refused launch."""
     if S.dtype != torch.float32 or h.dtype != torch.float32:
         raise TypeError(f"the kernel takes f32 S and h, got {S.dtype}, "
                         f"{h.dtype}")
@@ -71,8 +80,14 @@ def graph_filter(S, W, h):
     h = h.contiguous()
     Y = torch.empty_like(W)
     lib = loader.load()
-    fn = (lib.graph_filter_f32 if W.dtype == torch.float32
-          else lib.graph_filter_bf16)
+    if transpose_s:
+        if W.dtype != torch.float32:
+            raise TypeError(f"the transposed-S entry takes f32 W, got "
+                            f"{W.dtype}")
+        fn = lib.graph_filter_t_f32
+    else:
+        fn = (lib.graph_filter_f32 if W.dtype == torch.float32
+              else lib.graph_filter_bf16)
     with torch.cuda.device(W.device):
         stream = torch.cuda.current_stream(W.device).cuda_stream
         err = fn(S.data_ptr(), W.data_ptr(), h.data_ptr(), Y.data_ptr(),
@@ -80,23 +95,91 @@ def graph_filter(S, W, h):
     if err:
         raise RuntimeError("graph_filter kernel launch failed: "
                            + lib.graph_filter_error_string(err).decode())
+    return Y
+
+
+def _filter(S, W, h):
+    """The forward on either device."""
+    if W.device.type == "cpu":
+        return graph_filter_ref(S, W, h)
+    Y = _launch(S, W, h)
     graph_filter.launches += 1
     return Y
 
 
-# Kernel launches in this process; ``chip_smoke.py`` zeroes it before the
-# serve run and reads it after.
+def graph_filter_bwd(S, G, h):
+    """The backward's dW = Σ_k h_k (Sᵀ)^k G for f32 G, with S given
+    untransposed: the plain filter on Sᵀ for CPU tensors, one launch of
+    the kernel's transposed-S entry for CUDA tensors (counted in
+    ``graph_filter.bwd_launches``)."""
+    if G.device.type == "cpu":
+        return graph_filter_ref(S.mT, G, h)
+    dW = _launch(S, G, h, transpose_s=True)
+    graph_filter.bwd_launches += 1
+    return dW
+
+
+def _powers(S, W, K):
+    """[W, S W, ..., S^K W] in f32."""
+    P = [W]
+    for _ in range(K):
+        P.append(S @ P[-1])
+    return P
+
+
+def _grad_h(P, G):
+    """dh_k = ⟨G, S^k W⟩ over every axis, the batch axis included."""
+    return torch.stack([(G * p).sum() for p in P])
+
+
+def _grad_S(S, G, h, P):
+    """dS = Σ_k h_k Σ_{a+b=k−1} (Sᵀ)^a G (S^b W)ᵀ, per batch item."""
+    K = h.shape[0] - 1
+    GT = _powers(S.mT, G, K - 1)          # (Sᵀ)^a G, a < K
+    dS = torch.zeros_like(S)
+    for k in range(1, K + 1):
+        for a in range(k):
+            dS = dS + h[k] * (GT[a] @ P[k - 1 - a].mT)
+    return dS
+
+
+class _GraphFilter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, S, W, h):
+        ctx.save_for_backward(S, W, h)
+        return _filter(S, W, h)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, G):
+        S, W, h = ctx.saved_tensors
+        need_S, need_W, need_h = ctx.needs_input_grad
+        G = G.to(torch.float32).contiguous()
+        hf, Sf = h.to(torch.float32), S.to(torch.float32)
+        dS = dW = dh = None
+        if need_W:
+            dW = graph_filter_bwd(S, G, hf).to(W.dtype)
+        if need_S or need_h:
+            P = _powers(Sf, W.to(torch.float32), h.shape[0] - 1)
+            if need_h:
+                dh = _grad_h(P, G).to(h.dtype)
+            if need_S:
+                dS = _grad_S(Sf, G, hf, P).to(S.dtype)
+        return dS, dW, dh
+
+
+def graph_filter(S, W, h):
+    """Σ_k h_k S^k W. S (B,n,n) or (n,n), W (B,n,d) or (n,d) f32 or bf16,
+    h (K+1,); the result is in W's dtype with f32 accumulation. On CUDA,
+    S and h must be f32, S and W contiguous, n ≤ ``MAX_N``.
+    Differentiable in S, W and h (first order)."""
+    _check(S, W, h)
+    return _GraphFilter.apply(S, W, h)
+
+
+# Kernel launches in this process: ``launches`` counts the forward, and
+# ``bwd_launches`` the backward's dW launches (the transposed-S entry).
+# ``chip_smoke.py`` zeroes both before each path it drives and reads them
+# after.
 graph_filter.launches = 0
-
-
-def make_cuda_mix(*, tag=None):
-    """The S-as-argument mixer of every unrolled layer through the
-    kernel: ``mix_fn(S, W, h)`` with ``takes_S = True``, the protocol
-    that tells ``core.unroll._mix`` to pass the current (per-request)
-    mixing matrix. The port of ``make_pallas_mix``."""
-    def mix_fn(S, W, h):
-        return graph_filter(S, W, h)
-
-    mix_fn.takes_S = True
-    mix_fn.tag = ("cuda",) if tag is None else tag
-    return mix_fn
+graph_filter.bwd_launches = 0

@@ -81,9 +81,9 @@ class FederationServer:
 
     ``cfg``/``theta`` come from meta-training; the model serves ANY
     cohort size (the perceptron is shared across agents, so its parameter
-    shapes never mention n_agents). ``mix`` is None/"dense" (plain
-    filter) or "cuda"/"pallas" (the graph-filter kernel; see
-    ``solver.resolve_serve_mix``). ``device=None`` means the CUDA card;
+    shapes never mention n_agents). ``mix`` is None/"dense" or
+    "cuda"/"pallas": on the card each runs the graph-filter kernel, on
+    the CPU the plain filter (see ``solver.resolve_serve_mix``). ``device=None`` means the CUDA card;
     without one, pass ``device="cpu"``."""
 
     def __init__(self, cfg: SURFConfig, theta, *, activation="relu",

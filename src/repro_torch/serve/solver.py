@@ -4,8 +4,9 @@
 A REQUEST BATCH of cohorts, stacked to a common bucket shape
 ``(B, n_pad, ...)`` with per-request mixing matrices, runs through one
 masked forward whose every tensor carries the leading request axis (the
-reference's ``vmap`` over requests, written out). Under ``mix="cuda"``
-each layer is one batched launch of the graph-filter kernel.
+reference's ``vmap`` over requests, written out). On the card each
+layer is one batched launch of the graph-filter kernel, whichever
+serve mix is named.
 
   * masked padding — padded AGENT rows are zeroed through every layer
     (zero S rows/cols make them invisible to the graph filter) and
@@ -28,19 +29,17 @@ from repro_torch.configs.base import SURFConfig
 from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
 
-SERVE_MIXES = (None, "dense", "pallas", "cuda")
+SERVE_MIXES = U.MIXES
 
 
 def resolve_serve_mix(mix):
-    """Serving supports the S-as-argument mixers only: None/"dense" (the
-    plain Horner filter) or "cuda" — also spelled "pallas", the
-    reference's name — for the fused kernel. Baked-S mixers (ring/halo)
-    close over ONE topology and cannot serve per-request graphs."""
-    if mix in (None, "dense"):
+    """Serving supports the S-as-argument mixers only: every name in
+    ``core.unroll.MIXES`` selects the default path (``mix_fn=None``), the
+    fused kernel on the card and the plain filter on the CPU. Baked-S
+    mixers (ring/halo) close over ONE topology and cannot serve
+    per-request graphs."""
+    if mix in U.MIXES:
         return None
-    if mix in ("pallas", "cuda"):
-        from repro_torch.kernels.graph_filter import make_cuda_mix
-        return make_cuda_mix()
     raise ValueError(
         f"serve mix must be one of {SERVE_MIXES}, got {mix!r} — baked-S "
         "mixers (ring/halo) cannot serve per-request topologies")

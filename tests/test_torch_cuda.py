@@ -1,6 +1,7 @@
 """Tests of the port that need the CUDA card: the hand-written
-graph-filter kernel against its plain version, the wrapper's checks on
-CUDA tensors, and the served path through the kernel.
+graph-filter kernel (forward and backward) against its plain version,
+the wrapper's checks on CUDA tensors, and the served and training paths
+through the kernel.
 
 They are marked ``cuda`` and skip without a card. They import no jax, so
 they run on a card machine without it:
@@ -9,7 +10,9 @@ they run on a card machine without it:
         tests/test_torch_cuda.py
 
 Tolerances: 5e-5 in f32 and 5e-2 in bf16, the reference's kernel
-tolerances (``tests/test_kernels.py``)."""
+tolerances, and 5e-4 for the gradients, its VJP tolerance
+(``tests/test_kernels.py``); 5e-6 for a meta-step's state through the
+kernel against the plain filter (``tests/test_torch_train.py``)."""
 import dataclasses
 
 import numpy as np
@@ -18,10 +21,12 @@ import torch
 
 from repro_torch.configs.surf_paper import SMOKE
 from repro_torch.core import surf, unroll
-from repro_torch.data.synthetic import sample_dataset
-from repro_torch.engine.core import TrainState
+from repro_torch.core.tasks import resolve_task
+from repro_torch.data.synthetic import make_meta_dataset, sample_dataset
+from repro_torch.engine.core import TrainState, init_state, make_meta_step
 from repro_torch.kernels.graph_filter import (MAX_N, graph_filter,
-                                              graph_filter_ref)
+                                              graph_filter_ref,
+                                              make_plain_mix)
 from repro_torch.serve import BucketSpec, FederationServer
 
 pytestmark = pytest.mark.cuda
@@ -66,8 +71,11 @@ def test_kernel_matches_plain_version(cuda, B, n, d, K, dtype):
 def test_kernel_refuses_what_it_does_not_take(cuda):
     S, W, h = _inputs(None, 16, 32, 2, cuda)
     W.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        graph_filter(S, W, h)
+    # a graph-recording call goes through the kernel both ways
+    before = (graph_filter.launches, graph_filter.bwd_launches)
+    graph_filter(S, W, h).sum().backward()
+    assert (graph_filter.launches, graph_filter.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
     with torch.no_grad():
         graph_filter(S, W, h)             # no graph recorded: launches
     W = W.detach()
@@ -97,7 +105,72 @@ def test_served_path_runs_through_the_kernel(cuda):
     srv.drain()
     assert graph_filter.launches - before == srv.metrics.ticks * SMOKE.n_layers
     for i, (cfg_r, S, ds, fut) in enumerate(reqs):
-        ref = surf.solve_federation(cfg_r, TrainState(theta), S, ds, seed=i)
+        ref = surf.solve_federation(cfg_r, TrainState(theta), S, ds, seed=i,
+                                    mix_fn=make_plain_mix())
         np.testing.assert_allclose(fut.result()["loss_per_layer"],
                                    ref["loss_per_layer"], atol=5e-5,
                                    rtol=5e-5)
+
+
+@pytest.mark.parametrize("B,n,d,K", SHAPES)
+def test_backward_kernel_matches_plain_version(cuda, B, n, d, K):
+    """dW (the transposed-S launch) and dh through the Function against
+    autograd through the plain version, at 5e-4."""
+    S, W, h = _inputs(B, n, d, K, cuda)
+    G = torch.randn(W.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    Wk, hk = W.clone().requires_grad_(True), h.clone().requires_grad_(True)
+    before = graph_filter.bwd_launches
+    dW, dh = torch.autograd.grad(graph_filter(S, Wk, hk), (Wk, hk), G)
+    torch.cuda.synchronize()
+    assert graph_filter.bwd_launches == before + 1
+    Wp, hp = W.clone().requires_grad_(True), h.clone().requires_grad_(True)
+    dWp, dhp = torch.autograd.grad(graph_filter_ref(S, Wp, hp), (Wp, hp), G)
+    torch.testing.assert_close(dW, dWp, atol=5e-4, rtol=5e-4)
+    torch.testing.assert_close(dh, dhp, atol=5e-4, rtol=5e-4)
+
+
+def test_default_mixer_launches_the_kernel(cuda):
+    """``mix_fn=None`` (every entry point's default) runs the kernel on
+    CUDA tensors: L launches per solve, and a default server ticks × L."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    theta = unroll.init_udgd(gen, SMOKE)
+    _, S = surf.make_problem(SMOKE, seed=0)
+    ds = sample_dataset(SMOKE, seed=3)
+    before = graph_filter.launches
+    surf.solve_federation(SMOKE, TrainState(theta), S, ds)
+    assert graph_filter.launches - before == SMOKE.n_layers
+    srv = FederationServer(SMOKE, theta, max_batch=2,
+                           buckets=BucketSpec((8,), (4,)))
+    before = graph_filter.launches
+    srv.submit(S, ds)
+    srv.drain()
+    assert graph_filter.launches - before == (srv.metrics.ticks
+                                              * SMOKE.n_layers)
+
+
+def test_meta_step_through_kernel_matches_plain(cuda):
+    """One meta-step through the kernel (default mixer) makes L forward
+    and L−1 backward launches and lands within 5e-6 of the same step
+    through the plain filter, on the same draws."""
+    _, S = surf.make_problem(SMOKE, seed=0)
+    batch = resolve_task(SMOKE).to_batch(make_meta_dataset(SMOKE, 1)[0],
+                                         cuda)
+    state = init_state(torch.Generator(cuda).manual_seed(0), SMOKE)
+    draws = unroll.featurize_cohort(unroll.step_generator(0, 0, cuda),
+                                    batch, SMOKE)
+    kern, _ = make_meta_step(SMOKE, S)
+    plain, _ = make_meta_step(SMOKE, S, mix_fn=make_plain_mix())
+    before = (graph_filter.launches, graph_filter.bwd_launches)
+    sk, mk = kern(state, batch, draws=draws)
+    torch.cuda.synchronize()
+    assert (graph_filter.launches - before[0],
+            graph_filter.bwd_launches - before[1]) == (SMOKE.n_layers,
+                                                       SMOKE.n_layers - 1)
+    sp, mp = plain(state, batch, draws=draws)
+    for k in sk.theta:
+        torch.testing.assert_close(sk.theta[k], sp.theta[k], atol=5e-6,
+                                   rtol=5e-6)
+    torch.testing.assert_close(sk.lam, sp.lam, atol=5e-6, rtol=5e-6)
+    for k in mk:
+        torch.testing.assert_close(mk[k], mp[k], atol=5e-6, rtol=5e-6)

@@ -5,8 +5,12 @@ tensors lie on the CPU); the reference runs its Pallas kernel in
 interpret mode, as ``tests/test_kernels.py`` runs it. Inputs come from
 numpy with a seed. Tolerances are the reference's own
 (``tests/test_kernels.py``): 5e-5 in f32 (the two sum in different
-orders), 5e-2 in bf16 (one bf16 rounding of the output). The kernel
-itself runs only on the card: ``tests/test_torch_cuda.py``."""
+orders), 5e-2 in bf16 (one bf16 rounding of the output), and 5e-4 for
+the gradients (dS, dW, dh), the reference's VJP tolerance. The port's
+``autograd.Function`` runs the same backward formulas on both devices;
+here its dW takes the plain filter on Sᵀ, on the card the kernel. The
+kernel itself runs only on the card: ``tests/test_torch_cuda.py``."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +21,7 @@ from repro.kernels.graph_filter import graph_filter as jgraph_filter
 from repro_torch.core import unroll as tunroll
 from repro_torch.kernels.graph_filter import (MAX_N, graph_filter,
                                               graph_filter_ref,
-                                              make_cuda_mix)
+                                              make_plain_mix, ops)
 
 TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -86,12 +90,80 @@ def test_cpu_takes_plain_version_without_launching():
 
 
 def test_cpu_path_is_differentiable():
-    """CPU tensors that require grad go through the plain version, which
-    autograd differentiates (the kernel's backward comes with training)."""
+    """CPU tensors that require grad go through the port's
+    ``autograd.Function``; its gradient equals autograd through the plain
+    version."""
     S, W, h = _inputs(8, 16, 1, torch.float32)
     W.requires_grad_(True)
     graph_filter(S, W, h).sum().backward()
     assert W.grad is not None and W.grad.shape == W.shape
+    Wr = W.detach().clone().requires_grad_(True)
+    graph_filter_ref(S, Wr, h).sum().backward()
+    torch.testing.assert_close(W.grad, Wr.grad, atol=5e-6, rtol=5e-6)
+
+
+# tests/test_kernels.py::test_graph_filter_vjp_parity shapes
+VJP_SHAPES = [(8, 16, 1), (33, 100, 2), (64, 128, 4)]
+
+
+@pytest.mark.parametrize("n,d,K", VJP_SHAPES)
+def test_backward_matches_reference_vjp(n, d, K):
+    """(dS, dW, dh) of the port's Function against ``jax.vjp`` of the
+    reference's custom-VJP filter (Pallas in interpret mode), at 5e-4."""
+    S, W, h = _inputs(n, d, K, torch.float32)
+    G = torch.from_numpy(np.random.default_rng(n * d + K).standard_normal(
+        (n, d)).astype(np.float32))
+    _, vjp = jax.vjp(lambda S, W, h: jgraph_filter(S, W, h, impl="pallas",
+                                                   interpret=True),
+                     *(jnp.asarray(t.numpy()) for t in (S, W, h)))
+    want = vjp(jnp.asarray(G.numpy()))
+    St, Wt, ht = (t.clone().requires_grad_(True) for t in (S, W, h))
+    got = torch.autograd.grad(graph_filter(St, Wt, ht), (St, Wt, ht), G)
+    for name, a, b in zip(("dS", "dW", "dh"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-4,
+                                   rtol=5e-4, err_msg=name)
+
+
+def test_batched_backward_matches_per_item_reference():
+    """With a batch axis, dS and dW are per item and dh sums the items
+    (h is shared)."""
+    S, W, h = _inputs(33, 100, 2, torch.float32, B=3)
+    G = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (3, 33, 100)).astype(np.float32))
+    St, Wt, ht = (t.clone().requires_grad_(True) for t in (S, W, h))
+    dS, dW, dh = torch.autograd.grad(graph_filter(St, Wt, ht), (St, Wt, ht),
+                                     G)
+    dh_want = 0
+    for b in range(3):
+        _, vjp = jax.vjp(lambda S, W, h: jgraph_filter(
+            S, W, h, impl="pallas", interpret=True),
+            *(jnp.asarray(t.numpy()) for t in (S[b], W[b], h)))
+        wS, wW, wh = vjp(jnp.asarray(G[b].numpy()))
+        np.testing.assert_allclose(dS[b].numpy(), wS, atol=5e-4, rtol=5e-4)
+        np.testing.assert_allclose(dW[b].numpy(), wW, atol=5e-4, rtol=5e-4)
+        dh_want = dh_want + np.asarray(wh)
+    np.testing.assert_allclose(dh.numpy(), dh_want, atol=5e-4, rtol=5e-4)
+
+
+def test_backward_computes_only_the_gradients_asked_for(monkeypatch):
+    """dS is computed only when S needs a gradient (SURF's graphs are
+    fixed), dW only when W does."""
+    def never(*args):
+        raise AssertionError("computed a gradient nobody asked for")
+
+    S, W, h = _inputs(33, 100, 2, torch.float32)
+    monkeypatch.setattr(ops, "_grad_S", never)
+    Wt, ht = W.clone().requires_grad_(True), h.clone().requires_grad_(True)
+    dW, dh = torch.autograd.grad(graph_filter(S, Wt, ht).sum(), (Wt, ht))
+    assert dW.shape == W.shape and dh.shape == h.shape
+    # the Function is first-order only: the meta-gradient never needs more
+    y = graph_filter(S, Wt, h)
+    (g,) = torch.autograd.grad(y.square().sum(), Wt, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable|twice"):
+        g.sum().backward()
+    monkeypatch.setattr(ops, "graph_filter_bwd", never)
+    (dh2,) = torch.autograd.grad(graph_filter(S, W, ht).sum(), (ht,))
+    torch.testing.assert_close(dh2, dh)
 
 
 def test_shape_and_dtype_validation():
@@ -107,9 +179,17 @@ def test_shape_and_dtype_validation():
 
 
 def test_cuda_mix_protocol():
-    mix = make_cuda_mix()
-    assert mix.takes_S and mix.tag == ("cuda",)
+    """Every ported mix name ("cuda" among them) selects the default
+    mixer, ``graph_filter``; the plain filter is the one explicit
+    mixer."""
+    from repro_torch.serve import resolve_serve_mix
+    assert "cuda" in tunroll.MIXES
+    assert all(resolve_serve_mix(m) is None for m in tunroll.MIXES)
+    plain = make_plain_mix()
+    assert plain.takes_S and plain.tag == ("plain",)
     S, W, h = _inputs(9, 5, 1, torch.float32)
-    torch.testing.assert_close(tunroll._mix(mix, S, W, h),
+    torch.testing.assert_close(tunroll._mix(None, S, W, h),
+                               graph_filter(S, W, h))
+    torch.testing.assert_close(tunroll._mix(plain, S, W, h),
                                tunroll._mix(None, S, W, h))
     assert MAX_N >= 128       # the top of the default serve bucket ladder

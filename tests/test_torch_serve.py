@@ -106,15 +106,15 @@ def test_port_server_matches_reference_server(trained):
         _match(tf.result(), jf.result())
 
 
-@pytest.mark.parametrize("mix", [None, "cuda"])
+@pytest.mark.parametrize("mix", [None, "plain"])
 def test_port_solve_federation_matches_reference(trained, mix):
-    from repro_torch.kernels.graph_filter import make_cuda_mix
+    from repro_torch.kernels.graph_filter import make_plain_mix
     state, theta = trained
     cfg_r, S, ds = _cohort(12, 4, seed=5)
     ref = jsurf.solve_federation(cfg_r, state, S, ds, seed=3)
     res = surf.solve_federation(_tcfg(cfg_r), TrainState(theta), S, ds,
                                 seed=3, device="cpu",
-                                mix_fn=make_cuda_mix() if mix else None,
+                                mix_fn=make_plain_mix() if mix else None,
                                 draws=_draws(cfg_r, ds, 3))
     _match(res, ref, W=False)
     assert res["final_loss"] == res["loss_per_layer"][-1]

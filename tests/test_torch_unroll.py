@@ -24,7 +24,7 @@ from repro_torch.checkpoint.convert import theta_from_numpy
 from repro_torch.configs import surf_paper as tcfgs
 from repro_torch.core import unroll as TU
 from repro_torch.core.tasks import resolve_task as tresolve_task
-from repro_torch.kernels.graph_filter import make_cuda_mix
+from repro_torch.kernels.graph_filter import make_plain_mix
 from repro_torch.topology.families import build_topology
 
 TOL = 5e-5
@@ -50,8 +50,11 @@ def _t(x, dtype=torch.float32):
 @pytest.mark.parametrize("mix", [None, "pallas"])
 def test_udgd_forward_matches_reference(name, mix):
     jcfg, tcfg, theta, S, W0, Xl, Yl = _problem(name)
+    # Like for like: the reference's default mixer is its plain filter
+    # and "pallas" its kernel; the port's default is its kernel path and
+    # ``make_plain_mix`` its plain filter.
     jmix = make_pallas_mix() if mix else None
-    tmix = make_cuda_mix() if mix else None
+    tmix = None if mix else make_plain_mix()
     WLj, Wallj = JU.udgd_forward(theta, jnp.asarray(S), jnp.asarray(W0),
                                  jnp.asarray(Xl), jnp.asarray(Yl), jcfg,
                                  mix_fn=jmix)
@@ -75,7 +78,7 @@ def test_udgd_layer_random_init_matches_reference(activation):
     yj = JU.udgd_layer(pj, jnp.asarray(S), jnp.asarray(W0),
                        jnp.asarray(Xl[0]), jnp.asarray(Yl[0]), jcfg,
                        activation)
-    for mix in (None, make_cuda_mix()):
+    for mix in (None, make_plain_mix()):
         yt = TU.udgd_layer(TU.layer_params(th, 0), _t(S), _t(W0),
                            _t(Xl[0]), _t(Yl[0], torch.long), tcfg,
                            activation, mix_fn=mix)
@@ -179,6 +182,15 @@ def test_unported_paths_raise():
     baked = lambda W, h: W                                  # noqa: E731
     with pytest.raises(NotImplementedError, match="baked-S"):
         TU._mix(baked, None, torch.zeros(2, 2), torch.ones(2))
+    # star-topology layers are ported now: the star evaluation body runs
+    from repro_torch.data.synthetic import sample_dataset
     from repro_torch.engine.core import _eval_core
-    with pytest.raises(NotImplementedError, match="star-topology"):
-        _eval_core(dataclasses.replace(tcfgs.SMOKE, topology="star"))
+    star = dataclasses.replace(tcfgs.SMOKE, topology="star")
+    _, S = build_topology("star", star.n_agents, seed=0)
+    out = _eval_core(star)(
+        torch.from_numpy(np.asarray(S, np.float32)),
+        TU.init_udgd(torch.Generator().manual_seed(0), star),
+        tresolve_task(star).to_batch(sample_dataset(star, seed=0), "cpu"),
+        TU.solve_generator(0, 0, "cpu"))
+    assert out["loss_per_layer"].shape == (star.n_layers,)
+    assert torch.isfinite(out["loss_per_layer"]).all()
