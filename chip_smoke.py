@@ -9,36 +9,55 @@ order; any failure exits non-zero:
 
   1. environment — torch version, the card's name and power limit, the
      TF32 switches (both off);
-  2. build — the graph-filter kernel from ``csrc/graph_filter.cu``;
-  3. kernel vs plain — the kernel against its plain PyTorch version on
-     the same inputs (numpy, seeded) at the reference's test shapes and
-     at every PAPER shape: one serve tick layer per bucket the serve run
-     warms (derived from the same ``BucketSpec``) and the single-cohort
-     solve, with the kernel's and the plain version's times there;
+  2. build — the three kernel libraries (graph filter, flash attention,
+     wkv), one ``nvcc`` each, all started together;
+  3. kernel vs plain — the graph-filter kernel against its plain PyTorch
+     version on the same inputs (numpy, seeded) at the reference's test
+     shapes and at every PAPER shape: one serve tick layer per bucket the
+     serve run warms (derived from the same ``BucketSpec``) and the
+     single-cohort solve, with the kernel's and the plain version's
+     times there;
   4. backward vs plain — the graph filter's gradient (dW through the
      kernel's transposed-S entry, dh) against autograd through the plain
      version at the reference's VJP shapes and the PAPER training shape
      (n=100, d=5130, K=2), with the dW launch's time there;
-  5. serve — ``FederationServer`` at PAPER width (n=100, F=512, C=10,
+  5. flash attention vs plain — at the reference's sweep shapes, the
+     qwen3-4b prefill shape (B=4, H=32, KV=8, S=2048, dh=128) and a
+     gemma3 window-1024 shape (H=32, KV=16), f32 and bf16, at 10x the
+     reference's kernel tolerance; µs per launch (CUDA events, median),
+     the plain version's and ``scaled_dot_product_attention``'s times
+     and the bound;
+  6. wkv vs plain — at the reference's sweep shapes and the rwkv6-1.6b
+     prefill shape (B=4, H=32, T=2048, dk=64), y and the final state at
+     20x the reference's tolerance; µs per launch, plain time, bound;
+  7. serve — ``FederationServer`` at PAPER width (n=100, F=512, C=10,
      L=10, K=2) built with the DEFAULT mixer, so through the kernel: 24
      requests over two buckets; the kernel's launch count must be
      ticks × L, every request's loss and accuracy must match
      ``solve_federation`` of the same cohort and seed through the plain
      filter, and its served W the plain forward on the same draws;
-  6. meta-step parity — 3 PAPER meta-steps from one ``init_state`` on
+  8. meta-step parity — 3 PAPER meta-steps from one ``init_state`` on
      identical draws, through the kernel (default mixer) and through the
      plain filter: θ, λ and the metrics must agree;
-  7. train — ``train_surf(PAPER, make_meta_dataset(PAPER, 8), steps=20)``
+  9. train — ``train_surf(PAPER, make_meta_dataset(PAPER, 8), steps=20)``
      through the kernel: L forward and L−1 backward launches per step,
      ms per meta-step (CUDA events), meta-steps/s, peak memory, one
      profiled meta-step's device time by kernel;
-  8. quickstart — the config of ``examples/quickstart.py`` trained for
+ 10. quickstart — the config of ``examples/quickstart.py`` trained for
      250 meta-steps and evaluated on 5 unseen datasets under 4 seeds:
-     ``final_acc`` must clear the reference quickstart's 0.5.
-
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
-prints no result.
+     ``final_acc`` must clear the reference quickstart's 0.5;
+ 11. qwen3-4b serve at full width, f32 — ``launch.serve.main`` (4 prompts
+     of 2048 seeded ids, 32 new tokens, parameters from ``init_lm`` with
+     a seeded generator): 36 flash launches, none of another kernel;
+     then the prefill and decode steps timed (36 launches per prefill, 0
+     added by decode), peak memory, the same prefill through the plain
+     versions (``plain_kernels=True``): last-position logits and the
+     final hidden state within 1e-3 of their largest entry, then 31
+     decode steps teacher-forced on the kernel path's tokens through
+     both caches at the same bound; one profiled prefill's and 4 decode
+     steps' device time by kernel and the device-busy share;
+ 12. rwkv6-1.6b serve at full width, f32 — the same, with 24 wkv
+     launches per prefill.
 """
 from __future__ import annotations
 
@@ -77,6 +96,17 @@ MAX_BATCH = 8
 SIZES = (100, 60)    # served cohorts: 16 of SIZES[0] agents, 8 of SIZES[1]
 TRAIN_POOL, TRAIN_STEPS, PARITY_STEPS = 8, 20, 3
 QUICKSTART_STEPS = 250
+# Flash attention: the reference's sweep shapes (B, H, KV, S, dh, window),
+# the qwen3-4b prefill and a gemma3 local-layer shape; wkv: the sweep
+# shapes (B, H, T, dk) and the rwkv6-1.6b prefill.
+FLASH_SWEEP = [(1, 4, 4, 64, 32, 0), (2, 4, 2, 80, 32, 0),
+               (1, 8, 2, 128, 64, 16), (1, 2, 1, 48, 16, 8)]
+FLASH_QWEN = (4, 32, 8, 2048, 128, 0)
+FLASH_GEMMA = (4, 32, 16, 2048, 128, 1024)
+WKV_SWEEP = [(1, 2, 32, 16), (2, 3, 50, 16), (1, 4, 64, 64), (2, 1, 17, 8)]
+WKV_RWKV = (4, 32, 2048, 64)
+LLM_BATCH, LLM_PROMPT, LLM_TOKENS = 4, 2048, 32
+LLM_REL_TOL = 1e-3   # kernel vs plain model: of the largest |entry|
 
 
 def card() -> str:
@@ -109,20 +139,25 @@ def filter_inputs(rng, B, n, d, K):
     return [torch.tensor(x, device="cuda") for x in (S, W, h)]
 
 
-def filter_bound_ms(B, n, d, K, w_bytes=4):
-    """Least time for one filter call: each input read once, the output
-    written once, against 2Kn²dB + (2K+1)ndB f32 operations."""
-    B = max(B, 1)
-    nbytes = 4 * B * n * n + 2 * w_bytes * B * n * d + 4 * (K + 1)
-    flops = 2 * K * n * n * d * B + (2 * K + 1) * n * d * B
+def bound(nbytes, flops):
+    """Least time in ms (max of bytes / 3.35 TB/s and f32 FFMA operations /
+    67 TFLOP/s: no kernel uses the tensor cores) and what bounds it."""
     t_mem, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
     return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem > t_ops
                                      else "operations")
 
 
-def median_ms(fn, reps=15, inner=20):
+def filter_bound_ms(B, n, d, K, w_bytes=4):
+    """Least time for one filter call: each input read once, the output
+    written once, against 2Kn²dB + (2K+1)ndB f32 operations."""
+    B = max(B, 1)
+    nbytes = 4 * B * n * n + 2 * w_bytes * B * n * d + 4 * (K + 1)
+    return bound(nbytes, 2 * K * n * n * d * B + (2 * K + 1) * n * d * B)
+
+
+def median_ms(fn, reps=15, inner=20, warm=5):
     """Median over ``reps`` of CUDA-event time over ``inner`` calls."""
-    for _ in range(5):
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
@@ -618,12 +653,413 @@ def quickstart(tag, device="cuda"):
     return final_acc
 
 
+def build_all(tag):
+    """Build the three kernel libraries, one ``nvcc`` each, all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.graph_filter import ops as gf_ops
+    from repro_torch.kernels.ssm_scan import ops as wkv_ops
+    libs = {"graph_filter": gf_ops.LIB, "flash_attention": fa_ops.LIB,
+            "wkv": wkv_ops.LIB}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        infos = dict(zip(libs, pool.map(lambda lib: lib.build(),
+                                        libs.values())))
+    print(f"[{tag}] built {len(libs)} libraries in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, info in infos.items():
+        print(f"[{tag}] {info['path'].name}: {info['seconds']:.1f} s")
+        print(info["log"])
+
+
+def counts():
+    """Every kernel's launch counter."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.graph_filter import graph_filter
+    from repro_torch.kernels.ssm_scan import wkv
+    return {"graph_filter": graph_filter.launches,
+            "graph_filter_bwd": graph_filter.bwd_launches,
+            "flash_attention": flash_attention.launches,
+            "wkv": wkv.launches}
+
+
+def zero_counts():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.graph_filter import graph_filter
+    from repro_torch.kernels.ssm_scan import wkv
+    graph_filter.launches = graph_filter.bwd_launches = 0
+    flash_attention.launches = wkv.launches = 0
+
+
+def flash_bound_ms(B, H, KV, S, dh, window, elem):
+    """Each of q, k, v, o moved once; 4 dh operations per live (query, key)
+    pair (q·k and p·v), the pairs that this mask keeps (causal, and inside
+    the window where there is one)."""
+    i = np.arange(S)
+    live = np.minimum(i + 1, window) if window else i + 1
+    flops = 4 * B * H * dh * int(live.sum())
+    nbytes = elem * (2 * B * H * S * dh + 2 * B * KV * S * dh)
+    return bound(nbytes, flops)
+
+
+def wkv_bound_ms(B, H, T, dk, elem):
+    """r, k, v, w read and y written once, u read, S_T (f32) written; about
+    5 dk² operations per (b, h, t)."""
+    nbytes = 5 * B * H * T * dk * elem + 4 * (H * dk + B * H * dk * dk)
+    return bound(nbytes, 5 * B * H * T * dk * dk)
+
+
+def check_flash(tag):
+    """Flash kernel vs plain at the sweep, qwen3-4b and gemma3 shapes, f32
+    and bf16; times at the two full-width shapes. Returns the largest f32
+    |error| and the qwen3-4b f32 timing."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    rng = np.random.default_rng(2)
+    max_err, timing = 0.0, None
+    for B, H, KV, S, dh, win in FLASH_SWEEP + [FLASH_QWEN, FLASH_GEMMA]:
+        full = (B, H, KV, S, dh, win) in (FLASH_QWEN, FLASH_GEMMA)
+        qkv32 = [torch.tensor(rng.standard_normal((B, n, S, dh)).astype(
+            np.float32), device="cuda") for n in (H, KV, KV)]
+        for dtype, tol in ((torch.float32, 10 * F32_TOL),
+                           (torch.bfloat16, 10 * BF16_TOL)):
+            q, k, v = (t.to(dtype) for t in qkv32)
+            o = flash_attention(q, k, v, causal=True, window=win)
+            torch.cuda.synchronize()
+            o_ref = attention_ref(q, k, v, causal=True, window=win)
+            err = (o.float() - o_ref.float()).abs().max().item()
+            if not torch.allclose(o.float(), o_ref.float(), atol=tol,
+                                  rtol=tol):
+                raise AssertionError(f"flash kernel != plain at {(B, H, KV, S, dh, win)} "
+                                     f"{dtype}: max |err| {err}")
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+            print(f"flash vs plain B={B} H={H} KV={KV} S={S} dh={dh} "
+                  f"window={win} {dtype}: max |err| {err:.3e} (tol {tol})")
+            if not full:
+                continue
+            elem = q.element_size()
+            ms = median_ms(lambda: flash_attention(q, k, v, window=win),
+                           reps=7, inner=5, warm=2)
+            plain_ms = median_ms(lambda: attention_ref(q, k, v, window=win),
+                                 reps=3, inner=2, warm=1)
+            mask = None
+            if win:
+                i = torch.arange(S, device="cuda")
+                mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - win)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib_ms = median_ms(
+                lambda: sdpa(q, k, v, attn_mask=mask, is_causal=not win,
+                             enable_gqa=True), reps=7, inner=5, warm=2)
+            bound_ms, bound_by = flash_bound_ms(B, H, KV, S, dh, win, elem)
+            if (B, H, KV, S, dh, win) == FLASH_QWEN and dtype == torch.float32:
+                timing = (ms, plain_ms, bound_ms, bound_by, lib_ms)
+            print(f"[{tag}] flash_attention {dtype} B={B} H={H} KV={KV} "
+                  f"S={S} dh={dh} window={win}: kernel {ms * 1e3:.1f} us, "
+                  f"bound {bound_ms * 1e3:.1f} us ({bound_by}), plain "
+                  f"PyTorch version {plain_ms * 1e3:.1f} us, "
+                  f"scaled_dot_product_attention {lib_ms * 1e3:.1f} us")
+        del qkv32, q, k, v, o, o_ref
+        torch.cuda.empty_cache()
+    return max_err, timing
+
+
+def check_wkv(tag):
+    """wkv kernel vs plain (y and S_T) at the sweep and rwkv6-1.6b shapes;
+    times at the latter (f32). Returns the largest f32 |error| and the
+    timing."""
+    from repro_torch.kernels.ssm_scan import wkv, wkv_ref
+    rng = np.random.default_rng(3)
+    max_err, timing = 0.0, None
+    for B, H, T, dk in WKV_SWEEP + [WKV_RWKV]:
+        def mk():
+            return 0.5 * rng.standard_normal((B, H, T, dk)).astype(np.float32)
+        r, k, v = mk(), mk(), mk()
+        w = (0.5 + 0.5 / (1 + np.exp(-mk()))).astype(np.float32)
+        u = torch.tensor((0.1 * rng.standard_normal((H, dk))).astype(
+            np.float32), device="cuda")
+        f32 = [torch.tensor(a, device="cuda") for a in (r, k, v, w)]
+        for dtype, tol in ((torch.float32, 20 * F32_TOL),
+                           (torch.bfloat16, 20 * BF16_TOL)):
+            args = [a.to(dtype) for a in f32]
+            y, S = wkv(*args, u)
+            torch.cuda.synchronize()
+            yr, Sr = wkv_ref(*args, u)
+            errs = [(y.float() - yr.float()).abs().max().item(),
+                    (S - Sr).abs().max().item()]
+            if not (torch.allclose(y.float(), yr.float(), atol=tol, rtol=tol)
+                    and torch.allclose(S, Sr, atol=tol, rtol=tol)):
+                raise AssertionError(f"wkv kernel != plain at {(B, H, T, dk)} "
+                                     f"{dtype}: max |err| y, S {errs}")
+            if dtype == torch.float32:
+                max_err = max(max_err, *errs)
+            print(f"wkv vs plain B={B} H={H} T={T} dk={dk} {dtype}: max "
+                  f"|err| y {errs[0]:.3e}, S {errs[1]:.3e} (tol {tol})")
+            if (B, H, T, dk) == WKV_RWKV:
+                ms = median_ms(lambda: wkv(*args, u), reps=7, inner=5,
+                               warm=2)
+                plain_ms = median_ms(lambda: wkv_ref(*args, u), reps=2,
+                                     inner=1, warm=1)
+                bound_ms, bound_by = wkv_bound_ms(B, H, T, dk,
+                                                  args[0].element_size())
+                if dtype == torch.float32:
+                    timing = (ms, plain_ms, bound_ms, bound_by)
+                print(f"[{tag}] wkv {dtype} B={B} H={H} T={T} dk={dk}: "
+                      f"kernel {ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} "
+                      f"us ({bound_by}), plain PyTorch version "
+                      f"{plain_ms * 1e3:.1f} us (no single PyTorch call "
+                      "computes this recurrence)")
+    return max_err, timing
+
+
+def _rel_err(a, b):
+    """max |a − b| over max |b|."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serve_llm(tag, arch, kernel, device="cuda", full=True):
+    """One full-width LLM served through ``launch.serve.main`` (the main
+    path: its launches are the JSON record's), then its steps timed and
+    held against the plain versions (phases 11-12). Returns the main
+    path's launch count of ``kernel`` and the step times. ``full=False``
+    serves the reduced config (a CPU rehearsal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    cfg = get_config(arch) if full else get_config(arch).reduced()
+    B, P, N, L = LLM_BATCH, LLM_PROMPT, LLM_TOKENS, cfg.n_layers
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = M.init_lm(cfg, 0, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[{tag}] {arch}: init_lm {n_params / 1e9:.3f} B parameters, f32, "
+          f"in {time.perf_counter() - t0:.1f} s")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (B, P))
+
+    zero_counts()
+    argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
+            "--tokens", str(N), "--device", device] + (["--full"] if full
+                                                       else [])
+    gen = serve.main(argv, prompts=prompts, params=params)
+    main_counts = counts()
+    want = dict.fromkeys(main_counts, 0)
+    want[kernel] = L
+    if main_counts != want or gen.shape != (B, N):
+        raise AssertionError(f"serve.main: launches {main_counts}, expected "
+                             f"{want}; ids {gen.shape}")
+    print(f"[{tag}] {arch} serve.main: ids {gen.shape}, launches "
+          f"{json.dumps(main_counts)}")
+
+    prefill = make_prefill_step(cfg, P + N)
+    decode = make_decode_step(cfg, P + N)
+    tokens = torch.as_tensor(prompts, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = []
+    with torch.no_grad():
+        for _ in range(3):
+            cache = None
+            zero_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            tok, cache = prefill(params, {"tokens": tokens})
+            ev[1].record()
+            torch.cuda.synchronize()
+            prefill_ms.append(ev[0].elapsed_time(ev[1]))
+            if counts()[kernel] != L:
+                raise AssertionError(f"{kernel}: {counts()[kernel]} launches "
+                                     f"per prefill, expected {L}")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        for i in range(N - 1):
+            tok, cache = decode(params, cache, tok, P + i)
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if counts()[kernel] != L:
+        raise AssertionError(f"decode launched {kernel}")
+    decode_ms = ev[0].elapsed_time(ev[1])
+    timing = {"prefill_ms": float(np.median(prefill_ms)),
+              "prefill_ms_runs": prefill_ms,
+              "prefill_tok_per_s": B * P / (np.median(prefill_ms) / 1e3),
+              "decode_ms_per_token": decode_ms / (N - 1),
+              "decode_tok_per_s": B * (N - 1) / (decode_ms / 1e3),
+              "decode_wall_ms_per_token": 1e3 * wall / (N - 1),
+              "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    print(f"[{tag}] {arch} B={B} prompt={P} new={N}: {kernel} {L} launches "
+          f"per prefill, 0 added by {N - 1} decode steps; "
+          f"{json.dumps(timing)}")
+    del cache
+    llm_parity(tag, arch, cfg, params, tokens, P, N)
+    profile_llm(tag, arch, params, prefill, decode, tokens, P, device)
+    del params
+    torch.cuda.empty_cache()
+    return main_counts[kernel], timing
+
+
+def _wkv_f64(r, k, v, w, u):
+    """The wkv recurrence evaluated in f64 (then rounded to f32): the
+    yardstick of ``llm_parity``'s noise floor."""
+    r, k, v, w, u = (a.to(torch.float64) for a in (r, k, v, w, u))
+    B, H, T, dk = r.shape
+    S = torch.zeros((B, H, dk, dk), dtype=torch.float64, device=r.device)
+    ys = []
+    for t in range(T):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, :, t],
+                               S + u[..., None] * kv))
+        S = w[:, :, t, :, None] * S + kv
+    return torch.stack(ys, dim=2).float(), S.float()
+
+
+def llm_parity(tag, arch, cfg, params, tokens, P, N):
+    """The prefill through the kernels against the same prefill through
+    the plain versions (``plain_kernels=True``, which must launch
+    nothing), then N − 1 decode steps teacher-forced on the kernel path's
+    tokens through both caches. Gates, relative to the largest |entry| of
+    the plain result:
+
+      * last-position logits and every decode step's logits: LLM_REL_TOL;
+      * the final hidden state at every position: LLM_REL_TOL, or, where
+        the model has a recurrence (RWKV6), twice the plain f32 path's own
+        distance from the same model with the recurrence evaluated in f64,
+        whichever is larger. At the first positions the per-head group
+        norm of a nearly rank-one y_t amplifies f32 rounding (the plain
+        path is 100x further from f64 there than at the median position,
+        on the CPU at reduced width), so two f32 evaluations differ there
+        by more than LLM_REL_TOL; the kernel path must be no further from
+        the plain one than that."""
+    from unittest import mock
+
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    with torch.no_grad():
+        hk, ck = M.forward_hidden(cfg, params, tokens, want_cache=True,
+                                  cache_len=P + N)
+        lk = M._logits(cfg, params, hk[:, -1:])
+        before = counts()
+        hp, cp = M.forward_hidden(cfg, params, tokens, want_cache=True,
+                                  cache_len=P + N, plain_kernels=True)
+        if counts() != before:
+            raise AssertionError("the plain run launched a kernel")
+        lp = M._logits(cfg, params, hp[:, -1:])
+        scale = hp.abs().max()
+        per_pos = (hk - hp).abs().amax(dim=(0, 2)) / scale
+        errs = {"hidden": per_pos.max().item(),
+                "hidden_first_8_positions": per_pos[:8].max().item(),
+                "hidden_after_8_positions": per_pos[8:].max().item(),
+                "hidden_worst_position": int(per_pos.argmax()),
+                "prefill_logits": _rel_err(lk, lp)}
+        hidden_tol = LLM_REL_TOL
+        if cfg.attn is None:
+            with mock.patch.object(ssm, "wkv_ref", _wkv_f64):
+                h64, _ = M.forward_hidden(cfg, params, tokens,
+                                          plain_kernels=True)
+            errs["plain_vs_f64_recurrence"] = _rel_err(hp, h64)
+            errs["kernel_vs_f64_recurrence"] = _rel_err(hk, h64)
+            hidden_tol = max(hidden_tol, 2 * errs["plain_vs_f64_recurrence"])
+            del h64
+        finite = bool(torch.isfinite(hk).all() and torch.isfinite(lk).all())
+        scales = {"max_abs_hidden": scale.item(),
+                  "max_abs_logit": lp.abs().max().item()}
+        del hk, hp
+        tok = torch.argmax(lk, dim=-1)
+        dec = []
+        for i in range(N - 1):
+            lk, ck = M.decode_step(cfg, params, tok, ck, P + i, P + N)
+            lp, cp = M.decode_step(cfg, params, tok, cp, P + i, P + N)
+            dec.append(_rel_err(lk, lp))
+            finite = finite and bool(torch.isfinite(lk).all())
+            tok = torch.argmax(lk, dim=-1)
+    errs["decode_logits_max"] = max(dec)
+    print(f"[{tag}] {arch} kernels vs plain (max |d| / max |plain|; "
+          f"logits tol {LLM_REL_TOL}, hidden tol {hidden_tol:.3e}): "
+          f"{json.dumps(errs)}; {json.dumps(scales)}; per decode step "
+          f"{[f'{e:.2e}' for e in dec]}")
+    if not (finite and errs["hidden"] <= hidden_tol
+            and max(errs["prefill_logits"], errs["decode_logits_max"])
+            <= LLM_REL_TOL):
+        raise AssertionError(f"{arch}: kernel path != plain path {errs} "
+                             f"(finite {finite})")
+
+
+def _kind(name):
+    name = name.lower()
+    if "flash_attention_kernel" in name:
+        return "flash_attention"
+    if "wkv_kernel" in name:
+        return "wkv"
+    if name.startswith(("memcpy", "memset")):
+        return "copy"
+    if any(s in name for s in ("gemm", "gemv", "cutlass", "xmma")):
+        return "gemm"
+    if "reduce" in name:
+        return "reduce"
+    if "elementwise" in name or "vectorized" in name:
+        return "elementwise"
+    return "other"
+
+
+def _profiled(fn, device):
+    """Run ``fn`` under ``torch.profiler``; device time by kind, the wall
+    time between two synchronizations and the device-busy share."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kinds, kernels = {}, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        kinds[_kind(e.key)] = kinds.get(_kind(e.key), 0.0) + ms
+        kernels.append((round(ms, 4), e.count, e.key[:70]))
+    busy = sum(v for k, v in kinds.items() if k != "copy")
+    return {"wall_ms_profiled": wall_ms,
+            "device_ms": kinds if busy > 0 else "not measured",
+            "device_busy_share": busy / wall_ms if busy > 0
+            else "not measured",
+            "top_kernels": sorted(kernels, reverse=True)[:10]}
+
+
+def profile_llm(tag, arch, params, prefill, decode, tokens, P, device):
+    """One profiled prefill and 4 profiled decode steps after it."""
+    state = {}
+    with torch.no_grad():
+        def run_prefill():
+            state["tok"], state["cache"] = prefill(params, {"tokens": tokens})
+
+        def run_decode():
+            tok, cache = state["tok"], state["cache"]
+            for i in range(4):
+                tok, cache = decode(params, cache, tok, P + i)
+        print(f"[{tag}] {arch} profiled prefill: "
+              f"{json.dumps(_profiled(run_prefill, device))}")
+        print(f"[{tag}] {arch} profiled 4 decode steps: "
+              f"{json.dumps(_profiled(run_decode, device))}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.configs.surf_paper import PAPER
-    from repro_torch.kernels.graph_filter import loader
     from repro_torch.serve import BucketSpec
     from repro_torch.utils.device import resolve_device
 
@@ -632,15 +1068,15 @@ def main():
     tag = card()
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}); card "
           f"{tag}; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
-          f"cudnn {torch.backends.cudnn.allow_tf32}")
+          f"cudnn {torch.backends.cudnn.allow_tf32}; bf16 reduced-precision "
+          "reductions "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.backends.cudnn.allow_tf32):
         raise AssertionError("TF32 must be off")
 
-    # 2. build
-    info = loader.build()
-    print(f"[{tag}] built {info['path'].name} in {info['seconds']:.1f} s")
-    print(info["log"])
+    # 2. build, all three libraries at once
+    build_all(tag)
 
     # 3. kernel vs plain, at every shape the serve and training runs launch
     spec = BucketSpec()
@@ -652,25 +1088,44 @@ def main():
     train_shape = (PAPER.n_agents, PAPER.head_dim, PAPER.filter_taps)
     bwd_err, bwd_timing = check_backward(tag, train_shape)
 
-    # 5. serve, with the default mixer
+    # 5.-6. flash attention and wkv vs plain, up to the full-width shapes
+    fa_err, fa_timing = check_flash(tag)
+    wkv_err, wkv_timing = check_wkv(tag)
+
+    # 7. serve, with the default mixer
+    zero_counts()
     serve_launches = serve(tag, PAPER, spec, buckets)
 
-    # 6.-7. meta-step parity and the training run at PAPER width
+    # 8.-9. meta-step parity and the training run at PAPER width
     mds, pool = paper_pool(PAPER)
     meta_step_parity(tag, PAPER, pool)
+    zero_counts()
     _, train_fwd, train_bwd = train_paper(tag, PAPER, mds, pool)
-    del pool
+    if counts()["flash_attention"] or counts()["wkv"]:
+        raise AssertionError(f"SURF paths launched an LLM kernel {counts()}")
+    del pool, mds
 
-    # 8. the quickstart's bar
+    # 10. the quickstart's bar
     quickstart(tag)
 
-    # The forward record's times are those of the largest bucket's tick
-    # layer; its launches those of the serve and training runs.
+    # 11.-12. the LLM serving path at full width
+    fa_launches, _ = serve_llm(tag, "qwen3-4b", "flash_attention")
+    wkv_launches, _ = serve_llm(tag, "rwkv6-1.6b", "wkv")
+
+    # The graph filter's forward record's times are those of the largest
+    # bucket's tick layer; its launches those of the serve and training
+    # runs. Flash attention's and wkv's are those of the qwen3-4b and
+    # rwkv6-1.6b prefill shapes in f32, their launches those of the serve
+    # runs (one prefill each).
     src = "src/repro_torch/kernels/graph_filter/csrc/graph_filter.cu"
     ms, plain_ms, bound_ms, bound_by = timing[paper[0]]
     b_ms, b_plain_ms, b_bound_ms, b_bound_by = bwd_timing
+    f_ms, f_plain_ms, f_bound_ms, f_bound_by, f_lib_ms = fa_timing
+    w_ms, w_plain_ms, w_bound_ms, w_bound_by = wkv_timing
     print(f"launches: serve run forward {serve_launches}; training run "
-          f"forward {train_fwd}, backward {train_bwd}")
+          f"forward {train_fwd}, backward {train_bwd}; qwen3-4b serve "
+          f"flash_attention {fa_launches}; rwkv6-1.6b serve wkv "
+          f"{wkv_launches}")
     print(tag)
     print(json.dumps({"kernels": [
         {"name": "graph_filter", "route": "cuda", "source": src,
@@ -682,7 +1137,20 @@ def main():
          "replaces": "src/repro/kernels/graph_filter/ops.py:114",
          "launches": train_bwd, "max_abs_err": bwd_err, "ms": b_ms,
          "plain_ms": b_plain_ms, "bound_ms": b_bound_ms,
-         "bound_by": b_bound_by, "library_ms": None}]}))
+         "bound_by": b_bound_by, "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
+         "launches": fa_launches, "max_abs_err": fa_err, "ms": f_ms,
+         "plain_ms": f_plain_ms, "bound_ms": f_bound_ms,
+         "bound_by": f_bound_by, "library_ms": f_lib_ms},
+        {"name": "wkv", "route": "cuda",
+         "source": "src/repro_torch/kernels/ssm_scan/csrc/wkv.cu",
+         "replaces": "src/repro/kernels/ssm_scan/kernel.py:24",
+         "launches": wkv_launches, "max_abs_err": wkv_err, "ms": w_ms,
+         "plain_ms": w_plain_ms, "bound_ms": w_bound_ms,
+         "bound_by": w_bound_by, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

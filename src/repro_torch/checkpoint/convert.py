@@ -1,19 +1,23 @@
-"""Convert the reference package's U-DGD parameters and training state
-into the port's.
+"""Convert the reference package's parameters into the port's: U-DGD's θ
+and training state, and an LLM's parameter tree.
 
 The reference's θ is a dict of stacked per-layer arrays
 {h (L,K+1), M (L,din,d), d (L,d)}; as numpy (for example
 ``jax.tree.map(np.asarray, state.theta)``) it becomes the port's dict of
 tensors, so both packages compute the same function. A whole
 ``TrainState`` (θ, λ, Adam's ``{m, v, t}``, step) converts the same way,
-so both packages can train on from one state.
+so both packages can train on from one state. An LLM's tree (the
+reference's ``init_lm``, segments stacked on a leading repeats axis)
+maps key for key onto the port's (``lm_params_from_numpy``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.engine.core import TrainState
+from repro_torch.models.model import init_lm
 from repro_torch.utils.device import resolve_device, to_tensor
 
 KEYS = ("h", "M", "d")
@@ -62,3 +66,29 @@ def state_from_numpy(theta, lam, opt_state, step, device=None):
                      device=device)
     return TrainState(theta=theta, lam=to_tensor(lam, device),
                       opt_state={**moments, "t": t}, step=int(step))
+
+
+def lm_params_from_numpy(cfg: ArchConfig, tree, device=None) -> dict:
+    """The reference's ``init_lm`` tree for ``cfg`` as numpy (for example
+    ``jax.tree.map(np.asarray, params)``) -> the port's parameters on
+    ``device`` (None: the CUDA card), dtype kept. The keys
+    are the same (``segments.seg0.s0.attn.wq.w``, ...); raises on a
+    missing or extra key or a shape other than the port's ``init_lm``
+    gives for ``cfg``."""
+    device = resolve_device(device)
+
+    def convert(ref, want, path):
+        if isinstance(want, dict):
+            if not isinstance(ref, dict) or set(ref) != set(want):
+                got = sorted(ref) if isinstance(ref, dict) else type(ref)
+                raise ValueError(f"{path or 'params'}: keys {got}, expected "
+                                 f"{sorted(want)}")
+            return {k: convert(ref[k], want[k], f"{path}.{k}".lstrip("."))
+                    for k in want}
+        a = np.asarray(ref)
+        if a.shape != tuple(want.shape):
+            raise ValueError(f"{path}: shape {a.shape}, expected "
+                             f"{tuple(want.shape)}")
+        return to_tensor(a, device)
+
+    return convert(tree, init_lm(cfg, 0, device="meta"), "")

@@ -1,12 +1,184 @@
-"""SURF configuration dataclasses (the port's copy of the SURF half of
-``repro.configs.base``). The LLM ``ArchConfig`` family arrives with the
-LLM substrate; ``SparseRecoveryTaskConfig`` with the sparse-recovery
-slice.
+"""Configuration dataclasses (the port's copy of ``repro.configs.base``):
+the LLM architectures (``ArchConfig`` and its parts; every arch module
+exports one ``CONFIG``, ``ArchConfig.reduced()`` gives its CPU-smoke
+variant) and SURF's. ``SparseRecoveryTaskConfig`` arrives with the
+sparse-recovery slice.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class AttnConfig:
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    # sliding-window / chunked-local support: ``window`` is the local span;
+    # ``pattern_local`` / ``pattern_period`` encode "L locals then
+    # (period-L) globals" repeating blocks. pattern_period=0 => all global.
+    window: int = 0
+    pattern_local: int = 0
+    pattern_period: int = 0
+    rope_theta: float = 1e6
+
+    @property
+    def gqa_groups(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    n_shared: int = 0           # shared (always-on) experts
+    d_expert: Optional[int] = None  # expert hidden dim (fine-grained MoE); None => d_ff
+    every: int = 1              # MoE on layers where (idx % every == every-1); 1 => all
+    first_dense: int = 0        # leading dense layers before any MoE
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    kind: str                   # 'mamba' | 'rwkv6'
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    n_heads: int = 32           # rwkv6 heads (d_model // head_size)
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab: int
+    attn: Optional[AttnConfig] = None
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    layout: str = "uniform"     # uniform | jamba | gemma3 | llama4 | encdec
+    frontend: Optional[str] = None   # 'audio_stub' | 'vision_stub'
+    n_encoder_layers: int = 0   # enc-dec only
+    norm: str = "rmsnorm"       # rmsnorm | layernorm
+    act: str = "swiglu"         # swiglu | gelu
+    tie_embeddings: bool = False
+    subquadratic: bool = False  # eligible for long_500k decode
+    max_position: int = 131072
+    source: str = ""            # citation bracket from the assignment table
+
+    # ---- derived -----------------------------------------------------
+    def param_count(self, active_only: bool = False) -> int:
+        """Analytic parameter count (embeddings + blocks). Approximate but
+        close enough for MODEL_FLOPS = 6*N*D roofline accounting."""
+        d, ff, V = self.d_model, self.d_ff, self.vocab
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        total = emb
+        layers = self._layer_kinds()
+        for kind in layers:
+            mixer, ffn = kind
+            if mixer == "attn":
+                a = self.attn
+                total += d * a.n_heads * a.d_head + 2 * d * a.n_kv_heads * a.d_head \
+                    + a.n_heads * a.d_head * d
+            elif mixer == "ssm":
+                s = self.ssm
+                di = s.expand * d
+                if s.kind == "mamba":
+                    total += d * di * 2 + di * d + di * (2 * s.d_state + 1) + di * s.d_conv
+                else:  # rwkv6: r,k,v,g,w projections + output
+                    total += 5 * d * d + d * d
+            if ffn == "dense":
+                mult = 3 if self.act == "swiglu" else 2
+                total += mult * d * ff
+            elif ffn == "moe":
+                m = self.moe
+                de = m.d_expert or ff
+                mult = 3 if self.act == "swiglu" else 2
+                n_e = (m.top_k + m.n_shared) if active_only else (m.n_experts + m.n_shared)
+                total += n_e * mult * d * de + d * m.n_experts  # + router
+        if self.n_encoder_layers:
+            a = self.attn
+            per_enc = (d * a.n_heads * a.d_head + 2 * d * a.n_kv_heads * a.d_head
+                       + a.n_heads * a.d_head * d) + 2 * d * ff  # gelu mlp
+            # decoder cross-attention blocks
+            per_cross = d * a.n_heads * a.d_head + 2 * d * a.n_kv_heads * a.d_head \
+                + a.n_heads * a.d_head * d
+            total += self.n_encoder_layers * per_enc + self.n_layers * per_cross
+        return int(total)
+
+    def _layer_kinds(self) -> Tuple[Tuple[str, str], ...]:
+        """Sequence of (mixer, ffn) per decoder layer."""
+        out = []
+        for i in range(self.n_layers):
+            if self.layout == "jamba":
+                mixer = "attn" if (i % 8 == 4) else "ssm"
+                ffn = "moe" if (i % 2 == 1) else "dense"
+            elif self.ssm is not None and self.attn is None:
+                mixer, ffn = "ssm", "dense"
+            else:
+                mixer = "attn"
+                if self.moe is None or i < self.moe.first_dense:
+                    ffn = "dense"
+                else:
+                    ffn = "moe" if (i % self.moe.every == self.moe.every - 1) else "dense"
+            out.append((mixer, ffn))
+        return tuple(out)
+
+    def is_global_layer(self, i: int) -> bool:
+        """For local/global attention patterns (gemma3, llama4)."""
+        a = self.attn
+        if a is None or a.pattern_period == 0:
+            return True
+        return (i % a.pattern_period) >= a.pattern_local
+
+    def reduced(self) -> "ArchConfig":
+        """CPU smoke variant of the same family: ≤2 layers, d_model≤512, ≤4 experts."""
+        d = min(self.d_model, 256)
+        attn = self.attn
+        if attn is not None:
+            n_h = min(attn.n_heads, 4)
+            n_kv = max(1, min(attn.n_kv_heads, n_h if attn.n_kv_heads >= attn.n_heads else 2))
+            attn = dataclasses.replace(
+                attn, n_heads=n_h, n_kv_heads=n_kv, d_head=d // n_h,
+                window=min(attn.window, 8) if attn.window else 0,
+                pattern_local=1 if attn.pattern_local else 0,
+                pattern_period=2 if attn.pattern_period else 0)
+        moe = self.moe
+        if moe is not None:
+            n_e = min(moe.n_experts, 4)
+            k_e = min(moe.top_k, 2)
+            # capacity covers the worst case => no token drops; keeps the
+            # reduced-config smoke tests (prefill vs decode) deterministic.
+            moe = dataclasses.replace(
+                moe, n_experts=n_e, top_k=k_e,
+                n_shared=min(moe.n_shared, 1), first_dense=min(moe.first_dense, 1),
+                d_expert=(d // 2 if moe.d_expert else None),
+                capacity_factor=float(n_e) / k_e)
+        ssm = self.ssm
+        if ssm is not None:
+            ssm = dataclasses.replace(ssm, d_state=8, n_heads=4)
+        n_layers = min(self.n_layers, 8 if self.layout == "jamba" else 2)
+        if self.layout == "gemma3":
+            n_layers = 2
+        return dataclasses.replace(
+            self, name=self.name + "-reduced", n_layers=n_layers, d_model=d,
+            d_ff=min(self.d_ff, 512), vocab=min(self.vocab, 512), attn=attn,
+            moe=moe, ssm=ssm,
+            n_encoder_layers=min(self.n_encoder_layers, 2), max_position=4096)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                   # 'train' | 'prefill' | 'decode'
 
 
 @dataclass(frozen=True)
@@ -32,6 +204,7 @@ class ClassificationTaskConfig(TaskConfig):
     @property
     def dim(self) -> int:
         return self.feature_dim * self.n_classes + self.n_classes
+
 
 @dataclass(frozen=True)
 class SURFConfig:

@@ -1,0 +1,104 @@
+"""Public wrapper of the flash-attention kernel: blocked online-softmax
+attention, forward only, with causal and sliding-window masks and GQA.
+
+``flash_attention(q, k, v, causal=True, window=0)`` keeps the
+reference's layout and semantics
+(``repro.kernels.flash_attention.ops.flash_attention``):
+
+  * a CPU tensor takes the plain version (``ref.attention_ref``);
+  * a CUDA tensor launches the hand-written kernel
+    (``csrc/flash_attention.cu``, built by ``kernels._nvcc`` at first
+    use) or raises. No CUDA input is ever routed to the plain version.
+
+The reference's tiling knobs (``block_q``, ``block_kv``) and its
+``interpret`` switch do not exist here, nor do its padding of dh to 128
+lanes and of the sequence to block multiples, or its "non-causal needs
+Skv % block_kv == 0": those are TPU tiling rules. The kernel masks ragged
+Sq, Skv and dh itself and reads q, k and v through their strides (any
+strides over batch, head and sequence; unit stride over dh), so the
+model's (B, S, H, dh) projections go in as transposed views, without a
+copy. The output has q's strides.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._nvcc import Library
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+CSRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+_SIG = [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _ptr,
+        _i32, _i32, ctypes.c_float, _ptr]
+LIB = Library(CSRC, {"flash_attention_f32": _SIG,
+                     "flash_attention_bf16": _SIG},
+              "flash_attention_error_string")
+
+# Largest head dim the kernel takes (its 128-wide instance).
+MAX_DH = 128
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(q, k, v, window):
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q (B,H,Sq,dh), k and v (B,KV,Skv,dh); "
+                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    B, H, _, dh = q.shape
+    if k.shape[0] != B or k.shape[3] != dh or H % k.shape[1]:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} (H must be a multiple of KV)")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
+        raise TypeError(f"q, k and v must share one dtype of float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k and v must share a device, got {q.device}, "
+                         f"{k.device}, {v.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+
+
+def _launch(q, k, v, causal, window):
+    """One launch of the kernel on CUDA tensors; raises on what it does
+    not take and on a refused launch."""
+    B, H, Sq, dh = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    if dh > MAX_DH or max(B, H) > 65535:
+        raise ValueError(f"the kernel takes dh <= {MAX_DH} and B, H <= "
+                         f"65535; got dh={dh}, B={B}, H={H}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("the kernel takes unit stride over dh")
+    o = torch.empty_like(q)
+    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    lib = LIB.load()
+    fn = (lib.flash_attention_f32 if q.dtype == torch.float32
+          else lib.flash_attention_bf16)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 B, H, KV, Sq, Skv, dh, (ctypes.c_longlong * 12)(*strides),
+                 int(causal), int(window), dh ** -0.5, stream)
+    LIB.check(err, "flash_attention")
+    return o
+
+
+def flash_attention(q, k, v, causal=True, window=0):
+    """q (B,H,Sq,dh); k/v (B,KV,Skv,dh), f32 or bf16. Returns (B,H,Sq,dh)
+    in q's dtype: softmax(q kᵀ / sqrt(dh) + mask) v with head h reading kv
+    head h // (H // KV), f32 accumulation. On CUDA, dh ≤ ``MAX_DH``."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    o = _launch(q, k, v, causal, window)
+    flash_attention.launches += 1
+    return o
+
+
+# Kernel launches in this process; ``chip_smoke.py`` zeroes it before each
+# path it drives and reads it after.
+flash_attention.launches = 0

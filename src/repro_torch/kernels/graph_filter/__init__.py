@@ -1,6 +1,5 @@
 """Fused K-hop graph filter Y = Σ_k h_k S^k W: the hand-written CUDA
-kernel (``csrc/graph_filter.cu``, built and loaded by ``loader``), its
-wrapper and gradient (``ops``) and its plain version and plain
+kernel (``csrc/graph_filter.cu``), its wrapper and gradient (``ops``) and its plain version and plain
 mixer (``ref``)."""
 from repro_torch.kernels.graph_filter.ops import MAX_N, graph_filter
 from repro_torch.kernels.graph_filter.ref import (graph_filter_ref,

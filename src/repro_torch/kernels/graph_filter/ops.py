@@ -6,8 +6,8 @@ its gradient.
 
   * a CPU tensor takes the plain version (``ref.graph_filter_ref``);
   * a CUDA tensor launches the hand-written kernel
-    (``csrc/graph_filter.cu``) or raises. No CUDA input is ever routed
-    to the plain version.
+    (``csrc/graph_filter.cu``, built by ``kernels._nvcc`` at first use)
+    or raises. No CUDA input is ever routed to the plain version.
 
 The gradient is a ``torch.autograd.Function`` that serves both devices,
 so the CPU tests run the same backward formulas as the card (the
@@ -31,11 +31,21 @@ kernel masks ragged n and d itself.
 """
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
+
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels.graph_filter import loader
+from repro_torch.kernels._nvcc import Library
 from repro_torch.kernels.graph_filter.ref import graph_filter_ref
+
+CSRC = Path(__file__).resolve().parent / "csrc" / "graph_filter.cu"
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+_SIG = [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr]
+LIB = Library(CSRC, {"graph_filter_f32": _SIG, "graph_filter_bf16": _SIG,
+                     "graph_filter_t_f32": _SIG},
+              "graph_filter_error_string")
 
 # Largest agent count the kernel takes (MAX_N in csrc/graph_filter.cu):
 # S (n x n f32) stays resident in shared memory.
@@ -79,7 +89,7 @@ def _launch(S, W, h, transpose_s=False):
                          f"1 <= B <= 65535; got n={n}, d={d}, B={B}")
     h = h.contiguous()
     Y = torch.empty_like(W)
-    lib = loader.load()
+    lib = LIB.load()
     if transpose_s:
         if W.dtype != torch.float32:
             raise TypeError(f"the transposed-S entry takes f32 W, got "
@@ -92,9 +102,7 @@ def _launch(S, W, h, transpose_s=False):
         stream = torch.cuda.current_stream(W.device).cuda_stream
         err = fn(S.data_ptr(), W.data_ptr(), h.data_ptr(), Y.data_ptr(),
                  B, n, d, h.shape[0] - 1, stream)
-    if err:
-        raise RuntimeError("graph_filter kernel launch failed: "
-                           + lib.graph_filter_error_string(err).decode())
+    LIB.check(err, "graph_filter")
     return Y
 
 

@@ -1,0 +1,92 @@
+"""Public wrapper of the RWKV6 wkv kernel.
+
+``wkv(r, k, v, w, u)`` keeps the reference's layout and semantics
+(``repro.kernels.ssm_scan.ops.wkv``): the recurrence from S_0 = 0,
+returning y and the final f32 state, which a decode resumes from.
+
+  * a CPU tensor takes the plain version (``ref.wkv_ref``);
+  * a CUDA tensor launches the hand-written kernel (``csrc/wkv.cu``,
+    built by ``kernels._nvcc`` at first use) or raises. No CUDA input is
+    ever routed to the plain version.
+
+The reference's ``chunk`` and ``interpret`` arguments do not exist here,
+nor does its padding of time to a chunk multiple with w=1, k=0 no-op
+steps: the kernel loops over the real T. It reads r, k, v and w through
+their strides (any strides over batch, head and time; unit stride over
+dk), so the model's (B, T, H, dk) projections go in as transposed views;
+y has r's strides.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._nvcc import Library
+from repro_torch.kernels.ssm_scan.ref import wkv_ref
+
+CSRC = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+_SIG = [_ptr] * 7 + [_i32] * 4 + [_ptr, _ptr]
+LIB = Library(CSRC, {"wkv_f32": _SIG, "wkv_bf16": _SIG}, "wkv_error_string")
+
+# Largest head size the kernel takes: one thread holds a column of S.
+MAX_DK = 64
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(r, k, v, w, u):
+    if r.dim() != 4 or any(a.shape != r.shape for a in (k, v, w)):
+        raise ValueError(f"expected r, k, v, w of one shape (B,H,T,dk); got "
+                         f"{[tuple(a.shape) for a in (r, k, v, w)]}")
+    if u.shape != (r.shape[1], r.shape[3]):
+        raise ValueError(f"u must be (H, dk) = {(r.shape[1], r.shape[3])}, "
+                         f"got {tuple(u.shape)}")
+    if any(a.dtype != r.dtype for a in (k, v, w)) or r.dtype not in DTYPES:
+        raise TypeError(f"r, k, v, w must share one dtype of float32 or "
+                        f"bfloat16, got {[a.dtype for a in (r, k, v, w)]}")
+    if any(a.device != r.device for a in (k, v, w, u)):
+        raise ValueError("r, k, v, w and u must share a device")
+    if r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {r.device}")
+
+
+def _launch(r, k, v, w, u):
+    """One launch of the kernel on CUDA tensors; raises on what it does
+    not take and on a refused launch."""
+    B, H, T, dk = r.shape
+    if dk > MAX_DK or T < 1:
+        raise ValueError(f"the kernel takes dk <= {MAX_DK} and T >= 1; got "
+                         f"dk={dk}, T={T}")
+    if any(a.stride(3) != 1 for a in (r, k, v, w)):
+        raise ValueError("the kernel takes unit stride over dk")
+    u = u.to(torch.float32).contiguous()
+    y = torch.empty_like(r)
+    S = torch.empty((B, H, dk, dk), dtype=torch.float32, device=r.device)
+    strides = [s for a in (r, k, v, w, y) for s in a.stride()[:3]]
+    lib = LIB.load()
+    fn = lib.wkv_f32 if r.dtype == torch.float32 else lib.wkv_bf16
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), y.data_ptr(), S.data_ptr(), B, H, T, dk,
+                 (ctypes.c_longlong * 15)(*strides), stream)
+    LIB.check(err, "wkv")
+    return y, S
+
+
+def wkv(r, k, v, w, u):
+    """r/k/v/w (B,H,T,dk) f32 or bf16; u (H,dk). Returns (y (B,H,T,dk) in
+    r's dtype, S (B,H,dk,dk) f32). On CUDA, dk ≤ ``MAX_DK``."""
+    _check(r, k, v, w, u)
+    if r.device.type == "cpu":
+        return wkv_ref(r, k, v, w, u)
+    out = _launch(r, k, v, w, u)
+    wkv.launches += 1
+    return out
+
+
+# Kernel launches in this process; ``chip_smoke.py`` zeroes it before each
+# path it drives and reads it after.
+wkv.launches = 0

@@ -1,7 +1,9 @@
 """Tests of the port that need the CUDA card: the hand-written
-graph-filter kernel (forward and backward) against its plain version,
-the wrapper's checks on CUDA tensors, and the served and training paths
-through the kernel.
+graph-filter kernel (forward and backward), flash-attention kernel and
+wkv kernel against their plain versions, the wrappers' checks on CUDA
+tensors, the served and training paths through the graph filter, and a
+reduced-config LLM prefill and decode through the flash and wkv kernels
+against the same model run through the plain versions.
 
 They are marked ``cuda`` and skip without a card. They import no jax, so
 they run on a card machine without it:
@@ -11,22 +13,32 @@ they run on a card machine without it:
 
 Tolerances: 5e-5 in f32 and 5e-2 in bf16, the reference's kernel
 tolerances, and 5e-4 for the gradients, its VJP tolerance
-(``tests/test_kernels.py``); 5e-6 for a meta-step's state through the
-kernel against the plain filter (``tests/test_torch_train.py``)."""
+(``tests/test_kernels.py``); 10x those for flash attention and 20x for
+wkv (y and S), the reference's own for those kernels; 5e-6 for a
+meta-step's state through the kernel against the plain filter
+(``tests/test_torch_train.py``); 1e-4 for reduced-config LLM logits
+through the kernels against the plain versions
+(``tests/test_torch_lm.py``)."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.surf_paper import SMOKE
 from repro_torch.core import surf, unroll
 from repro_torch.core.tasks import resolve_task
 from repro_torch.data.synthetic import make_meta_dataset, sample_dataset
 from repro_torch.engine.core import TrainState, init_state, make_meta_step
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention)
 from repro_torch.kernels.graph_filter import (MAX_N, graph_filter,
                                               graph_filter_ref,
                                               make_plain_mix)
+from repro_torch.kernels.ssm_scan import wkv, wkv_ref
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import model as M
 from repro_torch.serve import BucketSpec, FederationServer
 
 pytestmark = pytest.mark.cuda
@@ -174,3 +186,139 @@ def test_meta_step_through_kernel_matches_plain(cuda):
     torch.testing.assert_close(sk.lam, sp.lam, atol=5e-6, rtol=5e-6)
     for k in mk:
         torch.testing.assert_close(mk[k], mp[k], atol=5e-6, rtol=5e-6)
+
+
+# The reference's sweep shapes (tests/test_kernels.py) and three more: the
+# 128-wide head, a window across tiles and a non-causal ragged Skv.
+FLASH_SHAPES = [(1, 4, 4, 64, 32, 0, True), (2, 4, 2, 80, 32, 0, True),
+                (1, 8, 2, 128, 64, 16, True), (1, 2, 1, 48, 16, 8, True),
+                (2, 4, 1, 200, 128, 0, True), (1, 4, 2, 300, 128, 70, True),
+                (1, 2, 2, 100, 64, 0, False)]
+WKV_SHAPES = [(1, 2, 32, 16), (2, 3, 50, 16), (1, 4, 64, 64), (2, 1, 17, 8),
+              (2, 4, 70, 64), (1, 2, 33, 40)]
+
+
+def _flash_inputs(B, H, KV, S, dh, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal((B, n, S, dh)).astype(np.float32),
+                         device=device).to(dtype) for n in (H, KV, KV)]
+
+
+@pytest.mark.parametrize("B,H,KV,S,dh,win,causal", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda, B, H, KV, S, dh, win,
+                                            causal, dtype):
+    q, k, v = _flash_inputs(B, H, KV, S, dh, dtype, cuda)
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert o.dtype == dtype and o.shape == q.shape
+    tol = 10 * TOL[dtype]
+    torch.testing.assert_close(
+        o.float(), attention_ref(q, k, v, causal=causal, window=win).float(),
+        atol=tol, rtol=tol)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """The model's (B, S, H, dh) projections go in as transposed views; the
+    output keeps q's strides."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _flash_inputs(2, 8, 2, 90, 64, torch.float32, cuda))
+    assert not q.is_contiguous()
+    o = flash_attention(q, k, v, window=32)
+    assert o.stride() == q.stride()
+    torch.testing.assert_close(o, attention_ref(q, k, v, window=32),
+                               atol=5e-4, rtol=5e-4)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _flash_inputs(1, 2, 1, 16, 160, torch.float32, cuda)
+    with pytest.raises(ValueError, match="dh <= 128"):
+        flash_attention(q, k, v)
+    q, k, v = _flash_inputs(1, 2, 1, 16, 32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="unit stride"):
+        flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention(q, k.double(), v)
+    with pytest.raises(ValueError, match="share a device"):
+        flash_attention(q, k.cpu(), v)
+
+
+def _wkv_inputs(B, H, T, dk, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda: 0.5 * rng.standard_normal((B, H, T, dk)).astype(np.float32)
+    r, k, v = mk(), mk(), mk()
+    w = 0.5 + 0.5 / (1 + np.exp(-mk()))
+    u = 0.1 * rng.standard_normal((H, dk)).astype(np.float32)
+    return ([torch.tensor(a, device=device).to(dtype) for a in (r, k, v, w)]
+            + [torch.tensor(u, device=device)])
+
+
+@pytest.mark.parametrize("B,H,T,dk", WKV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_matches_plain_version(cuda, B, H, T, dk, dtype):
+    r, k, v, w, u = _wkv_inputs(B, H, T, dk, dtype, cuda)
+    before = wkv.launches
+    y, S = wkv(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert wkv.launches == before + 1
+    assert y.dtype == dtype and S.dtype == torch.float32
+    yr, Sr = wkv_ref(r, k, v, w, u)
+    tol = 20 * TOL[dtype]
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(S, Sr, atol=tol, rtol=tol)
+
+
+def test_wkv_kernel_reads_strided_views_and_refuses(cuda):
+    r, k, v, w, u = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                     if t.dim() == 4 else t
+                     for t in _wkv_inputs(2, 4, 40, 64, torch.float32, cuda))
+    y, S = wkv(r, k, v, w, u)
+    assert y.stride() == r.stride()
+    yr, Sr = wkv_ref(r, k, v, w, u)
+    torch.testing.assert_close(y, yr, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(S, Sr, atol=1e-3, rtol=1e-3)
+    big = _wkv_inputs(1, 1, 4, 72, torch.float32, cuda)
+    with pytest.raises(ValueError, match="dk <= 64"):
+        wkv(*big)
+    with pytest.raises(ValueError, match="unit stride"):
+        wkv(*(a[..., ::2] for a in (r, k, v, w)), u[:, ::2])
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_reduced_prefill_and_decode_through_kernels(cuda, arch):
+    """A reduced-config prefill launches the flash kernel once per
+    attention layer or the wkv kernel once per RWKV layer, decode launches
+    neither, and logits and caches match the same model run through the
+    plain versions (``plain_kernels=True``) at 1e-4, over a prefill and 4
+    teacher-forced decode steps."""
+    cfg = get_config(arch).reduced()
+    params = M.init_lm(cfg, 0, device=cuda)
+    ids = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                         (2, 40)),
+                       device=cuda)
+    P, cache_len = 36, 40
+    before = (flash_attention.launches, wkv.launches)
+    logits, cache = M.forward(cfg, params, ids[:, :P], want_cache=True,
+                              cache_len=cache_len)
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    want = (0, n) if cfg.attn is None else (n, 0)
+    assert (flash_attention.launches - before[0],
+            wkv.launches - before[1]) == want
+    plain, pcache = M.forward(cfg, params, ids[:, :P], want_cache=True,
+                              cache_len=cache_len, plain_kernels=True)
+    torch.testing.assert_close(logits, plain, atol=1e-4, rtol=1e-4)
+    for pos in range(P, cache_len):
+        tok = ids[:, pos:pos + 1]
+        lk, cache = M.decode_step(cfg, params, tok, cache, pos, cache_len)
+        lp, pcache = M.decode_step(cfg, params, tok, pcache, pos, cache_len)
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    assert (flash_attention.launches - before[0],
+            wkv.launches - before[1]) == want
+    prefill = make_prefill_step(cfg, cache_len)
+    decode = make_decode_step(cfg, cache_len)
+    tok, cache = prefill(params, {"tokens": ids[:, :P]})
+    tok, cache = decode(params, cache, tok, P)
+    assert tok.shape == (2, 1) and 0 <= int(tok.min()) <= int(tok.max()) < cfg.vocab
