@@ -24,12 +24,16 @@ order; any failure exits non-zero:
   5. flash attention vs plain — at the reference's sweep shapes, the
      qwen3-4b prefill shape (B=4, H=32, KV=8, S=2048, dh=128) and a
      gemma3 window-1024 shape (H=32, KV=16), f32 and bf16, at 10x the
-     reference's kernel tolerance; µs per launch (CUDA events, median),
-     the plain version's and ``scaled_dot_product_attention``'s times
-     and the bound;
+     reference's kernel tolerance, and within 1e-5 in f32 at the qwen3-4b
+     shape (the split-TF32 products keep f32 accuracy); µs per launch
+     (CUDA events, median), the plain version's time,
+     ``scaled_dot_product_attention``'s (default dispatch, and in f32 also
+     the memory-efficient backend on K/V expanded to H heads), the
+     tensor-core bound and the f32 FFMA bound beside it;
   6. wkv vs plain — at the reference's sweep shapes and the rwkv6-1.6b
      prefill shape (B=4, H=32, T=2048, dk=64), y and the final state at
-     20x the reference's tolerance; µs per launch, plain time, bound;
+     20x the reference's tolerance; the launch's grid and block, µs per
+     launch, plain time, bound;
   7. serve — ``FederationServer`` at PAPER width (n=100, F=512, C=10,
      L=10, K=2) built with the DEFAULT mixer, so through the kernel: 24
      requests over two buckets; the kernel's launch count must be
@@ -75,10 +79,15 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): memory and non-tensor
-# f32 — the kernel runs FFMA in full f32.
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): memory; f32 on the
+# CUDA cores (FFMA: the graph filter and wkv); the tensor cores in bf16 and
+# in TF32 (the flash kernel: bf16 products, or three TF32 products per f32
+# product).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_TC_FLOP_PER_S = 989e12
+PEAK_TF32_TC_FLOP_PER_S = 495e12
+FLASH_F32_ERR_MAX = 1e-5     # flash f32 at every shape vs plain
 
 F32_TOL = 5e-5       # tests/test_kernels.py: f32 forward
 BF16_TOL = 5e-2      # tests/test_kernels.py: bf16 forward
@@ -139,10 +148,11 @@ def filter_inputs(rng, B, n, d, K):
     return [torch.tensor(x, device="cuda") for x in (S, W, h)]
 
 
-def bound(nbytes, flops):
-    """Least time in ms (max of bytes / 3.35 TB/s and f32 FFMA operations /
-    67 TFLOP/s: no kernel uses the tensor cores) and what bounds it."""
-    t_mem, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+def bound(nbytes, flops, flop_rate=PEAK_F32_FLOP_PER_S):
+    """Least time in ms, the larger of bytes / 3.35 TB/s and operations
+    over the peak rate of the units that do them (``flop_rate``: f32 FFMA
+    on the CUDA cores by default), and what bounds it."""
+    t_mem, t_ops = nbytes / PEAK_BYTES_PER_S, flops / flop_rate
     return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem > t_ops
                                      else "operations")
 
@@ -694,12 +704,17 @@ def zero_counts():
 def flash_bound_ms(B, H, KV, S, dh, window, elem):
     """Each of q, k, v, o moved once; 4 dh operations per live (query, key)
     pair (q·k and p·v), the pairs that this mask keeps (causal, and inside
-    the window where there is one)."""
+    the window where there is one). On the tensor cores, as the kernel
+    computes them: bf16 products at 989 TFLOP/s, f32 ones as three TF32
+    products at 495 TFLOP/s. Returns (ms, what bounds it, and the bound of
+    the same operations in f32 FFMA on the CUDA cores, in ms)."""
     i = np.arange(S)
     live = np.minimum(i + 1, window) if window else i + 1
     flops = 4 * B * H * dh * int(live.sum())
     nbytes = elem * (2 * B * H * S * dh + 2 * B * KV * S * dh)
-    return bound(nbytes, flops)
+    ms, by = (bound(nbytes, flops, PEAK_BF16_TC_FLOP_PER_S) if elem == 2
+              else bound(nbytes, 3 * flops, PEAK_TF32_TC_FLOP_PER_S))
+    return ms, by, bound(nbytes, flops)[0]
 
 
 def wkv_bound_ms(B, H, T, dk, elem):
@@ -709,12 +724,22 @@ def wkv_bound_ms(B, H, T, dk, elem):
     return bound(nbytes, 5 * B * H * T * dk * dk)
 
 
+def _bound_use(out, ref, bound):
+    """max over the elements of |out − ref| / bound: at most 1 passes."""
+    err = (out.float() - ref.float()).abs()
+    return (err / bound.clamp_min(1e-30)).max().item()
+
+
 def check_flash(tag):
     """Flash kernel vs plain at the sweep, qwen3-4b and gemma3 shapes, f32
-    and bf16; times at the two full-width shapes. Returns the largest f32
+    and bf16; times at the two full-width shapes. Besides the reference's
+    tolerances, f32 is held within FLASH_F32_ERR_MAX and bf16 within
+    ``ops.bf16_error_bound`` of plain, per element. Returns the largest f32
     |error| and the qwen3-4b f32 timing."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention)
+                                                     flash_attention, ops)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(2)
     max_err, timing = 0.0, None
     for B, H, KV, S, dh, win in FLASH_SWEEP + [FLASH_QWEN, FLASH_GEMMA]:
@@ -734,8 +759,27 @@ def check_flash(tag):
                                      f"{dtype}: max |err| {err}")
             if dtype == torch.float32:
                 max_err = max(max_err, err)
+                if err > FLASH_F32_ERR_MAX:
+                    raise AssertionError(
+                        f"flash f32 at {(B, H, KV, S, dh, win)}: max |err| "
+                        f"{err} > {FLASH_F32_ERR_MAX} (split TF32 must keep "
+                        "f32 accuracy)")
+                gate = f"<= {FLASH_F32_ERR_MAX}"
+            else:
+                use = _bound_use(o, o_ref, ops.bf16_error_bound(
+                    q, k, v, o_ref, causal=True, window=win))
+                if use > 1:
+                    raise AssertionError(
+                        f"flash bf16 at {(B, H, KV, S, dh, win)}: |err| "
+                        f"exceeds bf16_error_bound ({use:.3f} of it)")
+                gate = f"bf16 bound use {use:.3f}"
             print(f"flash vs plain B={B} H={H} KV={KV} S={S} dh={dh} "
-                  f"window={win} {dtype}: max |err| {err:.3e} (tol {tol})")
+                  f"window={win} {dtype}: max |err| {err:.3e} (tol {tol}; "
+                  f"{gate})")
+            if ((B, H, KV, S, dh, win) == FLASH_QWEN
+                    and dtype == torch.float32):
+                print(f"[{tag}] flash f32 qwen3-4b shape: max |kernel - "
+                      f"plain| {err:.3e} (<= {FLASH_F32_ERR_MAX})")
             if not full:
                 continue
             elem = q.element_size()
@@ -747,18 +791,42 @@ def check_flash(tag):
             if win:
                 i = torch.arange(S, device="cuda")
                 mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - win)
-            sdpa = torch.nn.functional.scaled_dot_product_attention
             lib_ms = median_ms(
                 lambda: sdpa(q, k, v, attn_mask=mask, is_causal=not win,
                              enable_gqa=True), reps=7, inner=5, warm=2)
-            bound_ms, bound_by = flash_bound_ms(B, H, KV, S, dh, win, elem)
-            if (B, H, KV, S, dh, win) == FLASH_QWEN and dtype == torch.float32:
-                timing = (ms, plain_ms, bound_ms, bound_by, lib_ms)
+            eff_ms = None
+            if dtype == torch.float32:
+                # f32 SDPA's default dispatch takes the math fallback; the
+                # memory-efficient backend takes f32 but not GQA, so K/V
+                # are expanded to H heads outside the timed call.
+                ke, ve = (t.repeat_interleave(H // KV, dim=1)
+                          for t in (k, v))
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    eff_ms = median_ms(
+                        lambda: sdpa(q, ke, ve, attn_mask=mask,
+                                     is_causal=not win),
+                        reps=7, inner=5, warm=2)
+                del ke, ve
+            bound_ms, bound_by, ffma_ms = flash_bound_ms(B, H, KV, S, dh,
+                                                         win, elem)
+            if (B, H, KV, S, dh, win) == FLASH_QWEN:
+                if dtype == torch.float32:
+                    timing = (ms, plain_ms, bound_ms, bound_by,
+                              min(lib_ms, eff_ms))
+                else:
+                    print(f"[{tag}] flash bf16 qwen3-4b shape: kernel "
+                          f"{ms * 1e3:.1f} us, scaled_dot_product_attention "
+                          f"{lib_ms * 1e3:.1f} us, tensor-core bound "
+                          f"{bound_ms * 1e3:.1f} us ({bound_by})")
+            eff = ("" if eff_ms is None else
+                   f", memory-efficient backend {eff_ms * 1e3:.1f} us")
             print(f"[{tag}] flash_attention {dtype} B={B} H={H} KV={KV} "
                   f"S={S} dh={dh} window={win}: kernel {ms * 1e3:.1f} us, "
-                  f"bound {bound_ms * 1e3:.1f} us ({bound_by}), plain "
+                  f"bound {bound_ms * 1e3:.1f} us ({bound_by}, tensor "
+                  f"cores; f32 FFMA bound {ffma_ms * 1e3:.1f} us), plain "
                   f"PyTorch version {plain_ms * 1e3:.1f} us, "
-                  f"scaled_dot_product_attention {lib_ms * 1e3:.1f} us")
+                  f"scaled_dot_product_attention {lib_ms * 1e3:.1f} us"
+                  f"{eff}")
         del qkv32, q, k, v, o, o_ref
         torch.cuda.empty_cache()
     return max_err, timing
@@ -766,11 +834,21 @@ def check_flash(tag):
 
 def check_wkv(tag):
     """wkv kernel vs plain (y and S_T) at the sweep and rwkv6-1.6b shapes;
-    times at the latter (f32). Returns the largest f32 |error| and the
-    timing."""
-    from repro_torch.kernels.ssm_scan import wkv, wkv_ref
+    times at the latter (f32). Besides the reference's tolerances, bf16's
+    y is held within ``ops.bf16_error_bound`` of plain, per element, and
+    its f32 S at the f32 tolerance. Returns the largest f32 |error| and
+    the timing."""
+    from repro_torch.kernels.ssm_scan import ops, wkv, wkv_ref
     rng = np.random.default_rng(3)
     max_err, timing = 0.0, None
+    B, H, _, dk = WKV_RWKV
+    blocks, threads = ops.launch_shape(B, H, dk)
+    print(f"[{tag}] wkv launch at the rwkv6-1.6b shape: {blocks} blocks of "
+          f"{threads} threads")
+    if blocks < 256:
+        raise AssertionError(f"wkv launches {blocks} blocks at "
+                             f"{WKV_RWKV}; the design spreads each head's "
+                             "state over several blocks (>= 256)")
     for B, H, T, dk in WKV_SWEEP + [WKV_RWKV]:
         def mk():
             return 0.5 * rng.standard_normal((B, H, T, dk)).astype(np.float32)
@@ -791,10 +869,22 @@ def check_wkv(tag):
                     and torch.allclose(S, Sr, atol=tol, rtol=tol)):
                 raise AssertionError(f"wkv kernel != plain at {(B, H, T, dk)} "
                                      f"{dtype}: max |err| y, S {errs}")
+            gate = ""
             if dtype == torch.float32:
                 max_err = max(max_err, *errs)
+            else:
+                use = _bound_use(y, yr, ops.bf16_error_bound(yr))
+                s_tol = 20 * F32_TOL
+                if use > 1 or not torch.allclose(S, Sr, atol=s_tol,
+                                                 rtol=s_tol):
+                    raise AssertionError(
+                        f"wkv bf16 at {(B, H, T, dk)}: y uses {use:.3f} of "
+                        f"bf16_error_bound, S max |err| {errs[1]} (f32 tol "
+                        f"{s_tol})")
+                gate = f"; y bf16 bound use {use:.3f}, S tol {s_tol}"
             print(f"wkv vs plain B={B} H={H} T={T} dk={dk} {dtype}: max "
-                  f"|err| y {errs[0]:.3e}, S {errs[1]:.3e} (tol {tol})")
+                  f"|err| y {errs[0]:.3e}, S {errs[1]:.3e} (tol {tol}"
+                  f"{gate})")
             if (B, H, T, dk) == WKV_RWKV:
                 ms = median_ms(lambda: wkv(*args, u), reps=7, inner=5,
                                warm=2)

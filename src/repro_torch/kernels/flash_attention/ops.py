@@ -3,7 +3,8 @@ attention, forward only, with causal and sliding-window masks and GQA.
 
 ``flash_attention(q, k, v, causal=True, window=0)`` keeps the
 reference's layout and semantics
-(``repro.kernels.flash_attention.ops.flash_attention``):
+(``repro.kernels.flash_attention.ops.flash_attention``), computed on the
+tensor cores (see the kernel's header):
 
   * a CPU tensor takes the plain version (``ref.attention_ref``);
   * a CUDA tensor launches the hand-written kernel
@@ -17,7 +18,17 @@ Skv % block_kv == 0": those are TPU tiling rules. The kernel masks ragged
 Sq, Skv and dh itself and reads q, k and v through their strides (any
 strides over batch, head and sequence; unit stride over dh), so the
 model's (B, S, H, dh) projections go in as transposed views, without a
-copy. The output has q's strides.
+copy. The output has q's strides when q is dense (no gaps between its
+elements, as in the model's transposed views) and contiguous strides
+otherwise (``torch.empty_like``). Tensors whose rows all start on 16 bytes
+(``_layout.vector_loads``) are tiled with ``cp.async``; others take the
+same kernel with per-element loads.
+
+The kernel's arithmetic departs from the reference's in two places, both
+held by the tests: for f32 inputs each product is split TF32 (x = hi +
+lo, three TF32 products, f32 accuracy); for bf16 inputs P is rounded to
+bf16 before P·V (the reference keeps it in f32), within
+``bf16_error_bound`` of the plain version.
 """
 from __future__ import annotations
 
@@ -26,13 +37,16 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels._layout import vector_loads
 from repro_torch.kernels._nvcc import Library
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+# q, k, v, o, B, H, KV, Sq, Skv, dh, strides, causal, window, scale_log2,
+# vec, stream
 _SIG = [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _ptr,
-        _i32, _i32, ctypes.c_float, _ptr]
+        _i32, _i32, ctypes.c_float, _i32, _ptr]
 LIB = Library(CSRC, {"flash_attention_f32": _SIG,
                      "flash_attention_bf16": _SIG},
               "flash_attention_error_string")
@@ -40,6 +54,7 @@ LIB = Library(CSRC, {"flash_attention_f32": _SIG,
 # Largest head dim the kernel takes (its 128-wide instance).
 MAX_DH = 128
 DTYPES = (torch.float32, torch.bfloat16)
+LOG2E = 1.4426950408889634
 
 
 def _check(q, k, v, window):
@@ -68,9 +83,10 @@ def _launch(q, k, v, causal, window):
     not take and on a refused launch."""
     B, H, Sq, dh = q.shape
     KV, Skv = k.shape[1], k.shape[2]
-    if dh > MAX_DH or max(B, H) > 65535:
-        raise ValueError(f"the kernel takes dh <= {MAX_DH} and B, H <= "
-                         f"65535; got dh={dh}, B={B}, H={H}")
+    if dh > MAX_DH or B * H >= 2 ** 31 or Sq > 64 * 65535:
+        raise ValueError(f"the kernel takes dh <= {MAX_DH}, B H < 2^31 and "
+                         f"Sq <= {64 * 65535}; got dh={dh}, B={B}, H={H}, "
+                         f"Sq={Sq}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("the kernel takes unit stride over dh")
     o = torch.empty_like(q)
@@ -82,15 +98,33 @@ def _launch(q, k, v, causal, window):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  B, H, KV, Sq, Skv, dh, (ctypes.c_longlong * 12)(*strides),
-                 int(causal), int(window), dh ** -0.5, stream)
+                 int(causal), int(window), dh ** -0.5 * LOG2E,
+                 int(vector_loads(q, k, v, o)), stream)
     LIB.check(err, "flash_attention")
     return o
+
+
+def bf16_error_bound(q, k, v, o_ref, causal=True, window=0):
+    """Per-element bound on |kernel − plain| for bf16 inputs, ``o_ref``
+    being the plain version's output on the same inputs.
+
+    Both take softmax(q kᵀ) v in f32 from the same bf16 values and round o
+    to bf16 once. The kernel rounds P to bf16 before P·V (at most 2⁻⁹ of
+    each entry; l sums the f32 P), which moves o by at most 2⁻⁹ of
+    A = softmax(q kᵀ) |v|; the two roundings of o differ by at most 2⁻⁷ of
+    |o|. The bound takes A at 2⁻⁸ (room for the tensor cores' f32
+    accumulation) and the rounding at 1.02 · 2⁻⁷ |o_ref|. A key dropped
+    or counted twice moves o by its softmax weight times |v − o|."""
+    a = attention_ref(q.float(), k.float(), v.float().abs(), causal=causal,
+                      window=window)
+    return 2.0 ** -8 * a + 1.02 * 2.0 ** -7 * o_ref.float().abs()
 
 
 def flash_attention(q, k, v, causal=True, window=0):
     """q (B,H,Sq,dh); k/v (B,KV,Skv,dh), f32 or bf16. Returns (B,H,Sq,dh)
     in q's dtype: softmax(q kᵀ / sqrt(dh) + mask) v with head h reading kv
-    head h // (H // KV), f32 accumulation. On CUDA, dh ≤ ``MAX_DH``."""
+    head h // (H // KV), f32 accumulation. On CUDA, dh ≤ ``MAX_DH``, f32
+    products in split TF32 and, for bf16 inputs, P rounded to bf16."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)

@@ -14,7 +14,13 @@ nor does its padding of time to a chunk multiple with w=1, k=0 no-op
 steps: the kernel loops over the real T. It reads r, k, v and w through
 their strides (any strides over batch, head and time; unit stride over
 dk), so the model's (B, T, H, dk) projections go in as transposed views;
-y has r's strides.
+y has r's strides when r is dense (no gaps between its elements) and
+contiguous strides otherwise (``torch.empty_like``). Tensors whose rows
+all start on 16 bytes (``_layout.vector_loads``) are staged with
+``cp.async``; others take the same kernel with per-element loads. y is
+summed in another order than the reference's (the bonus term Σᵢ rᵢuᵢkᵢ
+apart, the dot product over the state in partial sums), so it agrees to
+f32 rounding (for bf16 inputs, within ``bf16_error_bound``).
 """
 from __future__ import annotations
 
@@ -23,15 +29,20 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels._layout import vector_loads
 from repro_torch.kernels._nvcc import Library
 from repro_torch.kernels.ssm_scan.ref import wkv_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
-_SIG = [_ptr] * 7 + [_i32] * 4 + [_ptr, _ptr]
-LIB = Library(CSRC, {"wkv_f32": _SIG, "wkv_bf16": _SIG}, "wkv_error_string")
+# r, k, v, w, u, y, S, B, H, T, dk, strides, vec, stream
+_SIG = [_ptr] * 7 + [_i32] * 4 + [_ptr, _i32, _ptr]
+LIB = Library(CSRC, {"wkv_f32": _SIG, "wkv_bf16": _SIG,
+                     "wkv_launch_shape": [_i32] * 3 + [_ptr]},
+              "wkv_error_string")
 
-# Largest head size the kernel takes: one thread holds a column of S.
+# Largest head size the kernel takes: a value column of S is spread over
+# 16 lanes of 4 rows each.
 MAX_DK = 64
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -71,9 +82,28 @@ def _launch(r, k, v, w, u):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), y.data_ptr(), S.data_ptr(), B, H, T, dk,
-                 (ctypes.c_longlong * 15)(*strides), stream)
+                 (ctypes.c_longlong * 15)(*strides),
+                 int(vector_loads(r, k, v, w)), stream)
     LIB.check(err, "wkv")
     return y, S
+
+
+def launch_shape(B, H, dk):
+    """(blocks, threads per block) of the kernel's launch for this shape
+    (builds and loads the library)."""
+    grid = (ctypes.c_int * 2)()
+    LIB.check(LIB.load().wkv_launch_shape(B, H, dk, grid), "wkv")
+    return grid[0], grid[1]
+
+
+def bf16_error_bound(y_ref):
+    """Per-element bound on |kernel − plain| of y for bf16 inputs, ``y_ref``
+    being the plain version's y on the same inputs. Both widen the inputs
+    to f32, run the recurrence in f32 and round y to bf16 once: they differ
+    by the order of y's sums (within the reference's f32 tolerance, 5e-5)
+    and by one rounding each, together at most 2⁻⁷ of |y| (with 2% to
+    spare). S is f32 for both dtypes and is held at the f32 tolerance."""
+    return 5e-5 + 1.02 * 2.0 ** -7 * y_ref.float().abs()
 
 
 def wkv(r, k, v, w, u):

@@ -14,7 +14,11 @@ they run on a card machine without it:
 Tolerances: 5e-5 in f32 and 5e-2 in bf16, the reference's kernel
 tolerances, and 5e-4 for the gradients, its VJP tolerance
 (``tests/test_kernels.py``); 10x those for flash attention and 20x for
-wkv (y and S), the reference's own for those kernels; 5e-6 for a
+wkv (y and S), the reference's own for those kernels, and besides them
+the kernels' own: flash f32 within 1e-5 (split TF32 keeps f32
+accuracy), flash bf16 and wkv bf16's y within each wrapper's
+``bf16_error_bound`` per element, and wkv bf16's f32 S at wkv's f32
+tolerance; 5e-6 for a
 meta-step's state through the kernel against the plain filter
 (``tests/test_torch_train.py``); 1e-4 for reduced-config LLM logits
 through the kernels against the plain versions
@@ -31,11 +35,14 @@ from repro_torch.core import surf, unroll
 from repro_torch.core.tasks import resolve_task
 from repro_torch.data.synthetic import make_meta_dataset, sample_dataset
 from repro_torch.engine.core import TrainState, init_state, make_meta_step
+from repro_torch.kernels._layout import vector_loads
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention)
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.graph_filter import (MAX_N, graph_filter,
                                               graph_filter_ref,
                                               make_plain_mix)
+from repro_torch.kernels.ssm_scan import ops as wkv_ops
 from repro_torch.kernels.ssm_scan import wkv, wkv_ref
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import model as M
@@ -198,10 +205,28 @@ WKV_SHAPES = [(1, 2, 32, 16), (2, 3, 50, 16), (1, 4, 64, 64), (2, 1, 17, 8),
               (2, 4, 70, 64), (1, 2, 33, 40)]
 
 
+FLASH_F32_ERR_MAX = 1e-5   # as chip_smoke.py
+
+
 def _flash_inputs(B, H, KV, S, dh, dtype, device, seed=0):
     rng = np.random.default_rng(seed)
     return [torch.tensor(rng.standard_normal((B, n, S, dh)).astype(np.float32),
                          device=device).to(dtype) for n in (H, KV, KV)]
+
+
+def _assert_flash_matches(o, q, k, v, causal, window):
+    """The reference's flash tolerance, then the kernel's own: f32 within
+    FLASH_F32_ERR_MAX, bf16 within ``bf16_error_bound`` per element."""
+    o_ref = attention_ref(q, k, v, causal=causal, window=window)
+    tol = 10 * TOL[q.dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    err = (o.float() - o_ref.float()).abs()
+    if q.dtype == torch.float32:
+        assert err.max().item() <= FLASH_F32_ERR_MAX
+    else:
+        bound = flash_ops.bf16_error_bound(q, k, v, o_ref, causal=causal,
+                                           window=window)
+        assert (err <= bound).all(), (err / bound).max().item()
 
 
 @pytest.mark.parametrize("B,H,KV,S,dh,win,causal", FLASH_SHAPES)
@@ -214,10 +239,7 @@ def test_flash_kernel_matches_plain_version(cuda, B, H, KV, S, dh, win,
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert o.dtype == dtype and o.shape == q.shape
-    tol = 10 * TOL[dtype]
-    torch.testing.assert_close(
-        o.float(), attention_ref(q, k, v, causal=causal, window=win).float(),
-        atol=tol, rtol=tol)
+    _assert_flash_matches(o, q, k, v, causal, win)
 
 
 def test_flash_kernel_reads_strided_views(cuda):
@@ -264,10 +286,22 @@ def test_wkv_kernel_matches_plain_version(cuda, B, H, T, dk, dtype):
     torch.cuda.synchronize()
     assert wkv.launches == before + 1
     assert y.dtype == dtype and S.dtype == torch.float32
+    _assert_wkv_matches(y, S, r, k, v, w, u)
+
+
+def _assert_wkv_matches(y, S, r, k, v, w, u):
+    """The reference's wkv tolerance, then, for bf16, the kernel's own: y
+    within ``bf16_error_bound`` per element, the f32 S at f32's."""
     yr, Sr = wkv_ref(r, k, v, w, u)
-    tol = 20 * TOL[dtype]
+    tol = 20 * TOL[r.dtype]
     torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(S, Sr, atol=tol, rtol=tol)
+    if r.dtype == torch.bfloat16:
+        err = (y.float() - yr.float()).abs()
+        bound = wkv_ops.bf16_error_bound(yr)
+        assert (err <= bound).all(), (err / bound).max().item()
+        f32_tol = 20 * TOL[torch.float32]
+        torch.testing.assert_close(S, Sr, atol=f32_tol, rtol=f32_tol)
 
 
 def test_wkv_kernel_reads_strided_views_and_refuses(cuda):
@@ -284,6 +318,82 @@ def test_wkv_kernel_reads_strided_views_and_refuses(cuda):
         wkv(*big)
     with pytest.raises(ValueError, match="unit stride"):
         wkv(*(a[..., ::2] for a in (r, k, v, w)), u[:, ::2])
+
+
+# The tensor-core tiling's edges (64 query rows per block; 32 keys per f32
+# and 64 per bf16 kv tile; k-steps of 8 and 16): Sq and Skv off the tile
+# multiples, Sq != Skv, ragged k-steps (dh 24 and 80), a window narrower
+# than one tile, MQA (KV = 1), non-causal. (B, H, KV, Sq, Skv, dh, window,
+# causal)
+FLASH_EDGES = [(1, 4, 2, 77, 77, 64, 0, True), (2, 2, 1, 65, 130, 24, 0, True),
+               (1, 3, 3, 100, 51, 80, 0, False), (1, 4, 1, 150, 150, 128, 5, True),
+               (2, 4, 4, 33, 97, 80, 0, False), (1, 2, 1, 129, 129, 24, 40, False)]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal", FLASH_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_tile_edges(cuda, B, H, KV, Sq, Skv, dh, win, causal,
+                                 dtype):
+    rng = np.random.default_rng(Sq + Skv + dh)
+    q, k, v = (torch.tensor(rng.standard_normal((B, n, s, dh)).astype(
+        np.float32), device=cuda).to(dtype)
+        for n, s in ((H, Sq), (KV, Skv), (KV, Skv)))
+    o = flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    _assert_flash_matches(o, q, k, v, causal, win)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_per_element_path(cuda, dtype):
+    """Rows that do not start on 16 bytes (an odd sequence stride) take the
+    kernel's per-element loads and stores, not a copy or a refusal. q is
+    not dense, so o has contiguous strides."""
+    q, k, v = (t[..., :40] for t in _flash_inputs(2, 4, 2, 70, 41, dtype,
+                                                  cuda))
+    assert not vector_loads(q, k, v)
+    o = flash_attention(q, k, v, window=20)
+    assert o.is_contiguous()
+    _assert_flash_matches(o, q, k, v, True, 20)
+
+
+# T = 1, T off the 16-step chunk, ragged dk (50: four column blocks, the
+# last with 2 live columns; 8: the 16-wide instance). (B, H, T, dk)
+WKV_EDGES = [(2, 3, 1, 64), (1, 2, 33, 64), (2, 2, 40, 50), (1, 3, 33, 8)]
+
+
+@pytest.mark.parametrize("B,H,T,dk", WKV_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "transposed", "unaligned"])
+def test_wkv_kernel_tile_edges(cuda, B, H, T, dk, dtype, layout):
+    """The edges in three layouts: contiguous, the model's (B, T, H, dk)
+    transposed view, and rows that do not start on 16 bytes (per-element
+    loads). y has r's strides where r is dense, contiguous ones where it
+    is not."""
+    if layout == "unaligned":
+        *rkvw, u = _wkv_inputs(B, H, T, dk + 1, dtype, cuda)
+        r, k, v, w = (a[..., :dk] for a in rkvw)
+        u = u[:, :dk]
+        assert not vector_loads(r, k, v, w)
+    else:
+        r, k, v, w, u = _wkv_inputs(B, H, T, dk, dtype, cuda)
+        if layout == "transposed":
+            r, k, v, w = (a.transpose(1, 2).contiguous().transpose(1, 2)
+                          for a in (r, k, v, w))
+    y, S = wkv(r, k, v, w, u)
+    torch.cuda.synchronize()
+    if layout == "unaligned":
+        assert y.is_contiguous()
+    else:
+        assert y.stride() == r.stride()
+    _assert_wkv_matches(y, S, r, k, v, w, u)
+
+
+def test_wkv_launch_shape(cuda):
+    """The rwkv6-1.6b prefill shape spreads each head over 2 blocks of 128
+    threads (32 value columns each): 256 blocks."""
+    assert wkv_ops.launch_shape(4, 32, 64) == (256, 128)
+    assert wkv_ops.launch_shape(1, 2, 16) == (2, 128)
+    assert wkv_ops.launch_shape(2, 2, 50) == (8, 128)
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
