@@ -13,14 +13,19 @@ order; any failure exits non-zero:
      wkv), one ``nvcc`` each, all started together;
   3. kernel vs plain — the graph-filter kernel against its plain PyTorch
      version on the same inputs (numpy, seeded) at the reference's test
-     shapes and at every PAPER shape: one serve tick layer per bucket the
-     serve run warms (derived from the same ``BucketSpec``) and the
-     single-cohort solve, with the kernel's and the plain version's
-     times there;
+     shapes, at n = 129, 256 and 1000 (past the kernel's resident limit)
+     and at every PAPER shape: one serve tick layer per bucket the serve
+     run warms (derived from the same ``BucketSpec``) and the
+     single-cohort solve; f32 within 5e-5, bf16 within
+     ``ops.bf16_error_bound`` per element. At the PAPER shapes and at
+     DRYRUN's n = 256 (B = 8): the kernel's device time (profiler), its
+     CUDA-event time, the wrapper's host time per call, the plain
+     version's time, and the split-TF32 tensor-core and f32 FFMA bounds;
   4. backward vs plain — the graph filter's gradient (dW through the
      kernel's transposed-S entry, dh) against autograd through the plain
-     version at the reference's VJP shapes and the PAPER training shape
-     (n=100, d=5130, K=2), with the dW launch's time there;
+     version at the reference's VJP shapes, n = 129, 256 and 1000, and
+     the PAPER training shape (n=100, d=5130, K=2), with the dW launch's
+     times there;
   5. flash attention vs plain — at the reference's sweep shapes, the
      qwen3-4b prefill shape (B=4, H=32, KV=8, S=2048, dh=128) and a
      gemma3 window-1024 shape (H=32, KV=16), f32 and bf16, at 10x the
@@ -40,6 +45,10 @@ order; any failure exits non-zero:
      ticks × L, every request's loss and accuracy must match
      ``solve_federation`` of the same cohort and seed through the plain
      filter, and its served W the plain forward on the same draws;
+  7b. serve past the resident limit — a SMOKE-width ``FederationServer``
+     over a bucket ladder reaching 256: federations of 200 and 150
+     agents through the kernel (launches = ticks × L), each matching
+     ``solve_federation`` through the plain filter;
   8. meta-step parity — 3 PAPER meta-steps from one ``init_state`` on
      identical draws, through the kernel (default mixer) and through the
      plain filter: θ, λ and the metrics must agree;
@@ -98,9 +107,15 @@ STATE_TOL = 5e-6     # tests/test_torch_train.py: θ, λ, metrics
 # apart; they may be at most NOISE_SHARE of each tensor's entries, about
 # twice the largest share read on an H100 (0.089% of M, PAPER step 0).
 NOISE_REL, NOISE_SHARE = 1e-4, 2e-3
+# The reference's shapes, then agent counts past the kernel's resident
+# limit (128): S streamed through shared memory, n = 256 is DRYRUN's, 1000
+# the reference kernel's "~1k agents".
+LARGE_N_SHAPES = [(129, 300, 2), (256, 130, 2), (1000, 70, 2)]
 TEST_SHAPES = [(8, 16, 1), (100, 650, 2), (64, 128, 4), (33, 100, 2),
-               (9, 5, 1)]
-VJP_SHAPES = [(8, 16, 1), (33, 100, 2), (64, 128, 4)]
+               (9, 5, 1)] + LARGE_N_SHAPES
+VJP_SHAPES = [(8, 16, 1), (33, 100, 2), (64, 128, 4)] + LARGE_N_SHAPES
+DRYRUN_N = 256       # configs/surf_paper.py DRYRUN's agent count
+LARGE_SIZES = (200, 150)    # federations served past the resident limit
 MAX_BATCH = 8
 SIZES = (100, 60)    # served cohorts: 16 of SIZES[0] agents, 8 of SIZES[1]
 TRAIN_POOL, TRAIN_STEPS, PARITY_STEPS = 8, 20, 3
@@ -159,10 +174,46 @@ def bound(nbytes, flops, flop_rate=PEAK_F32_FLOP_PER_S):
 
 def filter_bound_ms(B, n, d, K, w_bytes=4):
     """Least time for one filter call: each input read once, the output
-    written once, against 2Kn²dB + (2K+1)ndB f32 operations."""
+    written once, against the 2Kn²dB operations of the S·Y products as the
+    kernel computes them, three TF32 products each on the tensor cores
+    (495 TFLOP/s). Returns (ms, what bounds it, and the bound of the
+    2Kn²dB + (2K+1)ndB operations in f32 FFMA on the CUDA cores, the
+    previous design's, in ms)."""
     B = max(B, 1)
     nbytes = 4 * B * n * n + 2 * w_bytes * B * n * d + 4 * (K + 1)
-    return bound(nbytes, 2 * K * n * n * d * B + (2 * K + 1) * n * d * B)
+    products = 2 * K * n * n * d * B
+    ms, by = bound(nbytes, 3 * products, PEAK_TF32_TC_FLOP_PER_S)
+    return ms, by, bound(nbytes, products + (2 * K + 1) * n * d * B)[0]
+
+
+def device_ms(fn, reps=50, key="graph_filter_kernel"):
+    """The kernel's own time per launch: ``torch.profiler`` (CUPTI) device
+    time of the kernels whose name holds ``key`` over ``reps`` calls, over
+    their count; the wrapper's host time per call (``time.perf_counter``
+    over ``reps`` calls without a synchronisation) beside it."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and key in e.key):
+            total += e.self_device_time_total
+            count += e.count
+    if count != reps:
+        raise AssertionError(f"profiled {count} {key} launches of {reps}")
+    return total / count / 1e3, host_us
 
 
 def median_ms(fn, reps=15, inner=20, warm=5):
@@ -183,12 +234,17 @@ def median_ms(fn, reps=15, inner=20, warm=5):
 
 
 def check_kernel(tag, paper):
-    """Kernel vs plain at the test shapes and the ``paper`` shapes; times
-    the latter. Returns the largest f32 |error| and {shape: times}."""
-    from repro_torch.kernels.graph_filter import graph_filter, graph_filter_ref
+    """Kernel vs plain at the test shapes, the ``paper`` shapes and a
+    B = MAX_BATCH layer at DRYRUN's n; times the latter two. Returns the
+    largest f32 |error| and {shape: times}."""
+    from repro_torch.kernels.graph_filter import (bf16_error_bound,
+                                                  graph_filter,
+                                                  graph_filter_ref)
     rng = np.random.default_rng(0)
     max_err, timing = 0.0, {}
-    shapes = [(0,) + s for s in TEST_SHAPES] + list(paper)
+    d, K = paper[0][2], paper[0][3]
+    timed = list(paper) + [(MAX_BATCH, DRYRUN_N, d, K)]
+    shapes = [(0,) + s for s in TEST_SHAPES] + timed
     for B, n, d, K in shapes:
         S, W, h = filter_inputs(rng, B, n, d, K)
         for dtype, tol in ((torch.float32, F32_TOL),
@@ -203,18 +259,31 @@ def check_kernel(tag, paper):
                                      f"K={K} {dtype}: max |err| {err}")
             if dtype == torch.float32:
                 max_err = max(max_err, err)
+                gate = ""
+            else:
+                use = _bound_use(y, yr, bf16_error_bound(yr))
+                if use > 1:
+                    raise AssertionError(
+                        f"graph filter bf16 at B={B} n={n} d={d} K={K}: "
+                        f"|err| exceeds bf16_error_bound ({use:.3f} of it)")
+                gate = f"; bf16 bound use {use:.3f}"
             print(f"kernel vs plain B={B} n={n} d={d} K={K} {dtype}: "
-                  f"max |err| {err:.3e} (tol {tol})")
-        if (B, n, d, K) in paper:
-            ms = median_ms(lambda: graph_filter(S, W, h))
+                  f"max |err| {err:.3e} (tol {tol}{gate})")
+        if (B, n, d, K) in timed:
+            ms, host_us = device_ms(lambda: graph_filter(S, W, h))
+            event_ms = median_ms(lambda: graph_filter(S, W, h))
             plain_ms = median_ms(lambda: graph_filter_ref(S, W, h))
-            bound_ms, bound_by = filter_bound_ms(B, n, d, K)
+            bound_ms, bound_by, ffma_ms = filter_bound_ms(B, n, d, K)
             timing[(B, n, d, K)] = (ms, plain_ms, bound_ms, bound_by)
             print(f"[{tag}] graph_filter f32 B={B} n={n} d={d} K={K}: "
-                  f"kernel {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
-                  f"({bound_by}), plain PyTorch version {plain_ms * 1e3:.2f} "
-                  "us (labelled, no yardstick; no single PyTorch call "
-                  "computes this function)")
+                  f"kernel {ms * 1e3:.2f} us device time (profiler), "
+                  f"{event_ms * 1e3:.2f} us by CUDA events over back-to-back "
+                  f"calls, host {host_us:.2f} us per call; bound "
+                  f"{bound_ms * 1e3:.2f} us ({bound_by}; split TF32 on the "
+                  f"tensor cores), f32 FFMA bound {ffma_ms * 1e3:.2f} us; "
+                  f"plain PyTorch version {plain_ms * 1e3:.2f} us (labelled, "
+                  "no yardstick; no single PyTorch call computes this "
+                  "function)")
     return max_err, timing
 
 
@@ -252,15 +321,20 @@ def check_backward(tag, paper):
         print(f"backward vs plain n={n} d={d} K={K}: max |err| dW "
               f"{errs[0]:.3e}, dh {errs[1]:.3e} (tol {VJP_TOL})")
         if (n, d, K) == paper:
-            ms = median_ms(lambda: ops.graph_filter_bwd(S, G, h))
+            ms, host_us = device_ms(lambda: ops.graph_filter_bwd(S, G, h))
+            event_ms = median_ms(lambda: ops.graph_filter_bwd(S, G, h))
             plain_ms = median_ms(lambda: graph_filter_ref(S.mT, G, h))
-            bound_ms, bound_by = filter_bound_ms(1, n, d, K)
+            bound_ms, bound_by, ffma_ms = filter_bound_ms(1, n, d, K)
             timing = (ms, plain_ms, bound_ms, bound_by)
             print(f"[{tag}] graph_filter_bwd (dW) f32 n={n} d={d} K={K}: "
-                  f"kernel {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
-                  f"({bound_by}), plain PyTorch version {plain_ms * 1e3:.2f} "
-                  "us (the Horner filter on S^T; no single PyTorch call "
-                  "computes this function)")
+                  f"kernel {ms * 1e3:.2f} us device time (profiler), "
+                  f"{event_ms * 1e3:.2f} us by CUDA events over back-to-back "
+                  f"calls, host {host_us:.2f} us per call; bound "
+                  f"{bound_ms * 1e3:.2f} us ({bound_by}; split TF32 on the "
+                  f"tensor cores), f32 FFMA bound {ffma_ms * 1e3:.2f} us; "
+                  f"plain PyTorch version {plain_ms * 1e3:.2f} us (the Horner "
+                  "filter on S^T; no single PyTorch call computes this "
+                  "function)")
     return max_err, timing
 
 
@@ -348,6 +422,52 @@ def serve(tag, cfg, spec, buckets, device="cuda", sizes=SIZES):
     print(f"[{tag}] serve {cfg.n_layers} layers, d={cfg.head_dim}: "
           f"{json.dumps(summ)}")
     profile_tick(tag, server, cfg, device, sizes[0])
+    return launches
+
+
+def serve_large(tag, device="cuda", sizes=LARGE_SIZES):
+    """Federations of ``sizes`` agents (past the kernel's resident limit)
+    at SMOKE width through a ``FederationServer`` whose bucket ladder
+    reaches 256, with the default mixer: the kernel's launches must be
+    ticks × L, and each request's losses must match ``solve_federation``
+    of the same cohort and seed through the plain filter. Returns the
+    launch count."""
+    from repro_torch.configs.surf_paper import SMOKE as cfg
+    from repro_torch.core import surf, unroll
+    from repro_torch.data.synthetic import sample_dataset
+    from repro_torch.engine.core import TrainState
+    from repro_torch.kernels.graph_filter import graph_filter, make_plain_mix
+    from repro_torch.serve import BucketSpec, FederationServer
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    theta = unroll.init_udgd(gen, cfg, init="dgd")
+    server = FederationServer(cfg, theta, buckets=BucketSpec((64, 256), (4, 8)),
+                              max_batch=2, device=device)
+    requests = []
+    graph_filter.launches = graph_filter.bwd_launches = 0
+    for i, n in enumerate(sizes):
+        cfg_r = dataclasses.replace(cfg, n_agents=n)
+        _, S = surf.make_problem(cfg_r, seed=i, device=device)
+        ds = sample_dataset(cfg_r, seed=500 + i)
+        requests.append((cfg_r, S, ds, server.submit(S, ds, seed=i)))
+    server.drain()
+    launches, ticks = graph_filter.launches, server.metrics.ticks
+    if (not launches or launches != ticks * cfg.n_layers
+            or graph_filter.bwd_launches):
+        raise AssertionError(f"kernel launches {launches} != ticks {ticks} "
+                             f"x L {cfg.n_layers}")
+    worst = 0.0
+    for i, (cfg_r, S, ds, fut) in enumerate(requests):
+        ref = surf.solve_federation(cfg_r, TrainState(theta), S, ds, seed=i,
+                                    mix_fn=make_plain_mix(), device=device)
+        got = fut.result()["loss_per_layer"]
+        np.testing.assert_allclose(got, ref["loss_per_layer"], atol=F32_TOL,
+                                   rtol=F32_TOL)
+        worst = max(worst, float(np.abs(got - ref["loss_per_layer"]).max()))
+    print(f"[{tag}] served SMOKE federations of {list(sizes)} agents "
+          f"(bucket ladder to 256): graph_filter launches {launches} = "
+          f"{ticks} ticks x {cfg.n_layers} layers; max |dloss| vs the plain "
+          f"single-cohort solve {worst:.3e} (tol {F32_TOL})")
     return launches
 
 
@@ -611,7 +731,8 @@ def profile_meta_step(tag, step, state, pool, device="cuda"):
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
         if "graph_filter_kernel" in name:
-            kind = ("graph_filter_bwd" if ", true>" in name
+            # the transposed-S (dW) instances: <float, true, ...>
+            kind = ("graph_filter_bwd" if "<float, true" in name
                     else "graph_filter")
         elif name.startswith(("memcpy", "memset")):
             kind = "copy"
@@ -1186,6 +1307,10 @@ def main():
     zero_counts()
     serve_launches = serve(tag, PAPER, spec, buckets)
 
+    # 7b. serve federations past the kernel's resident limit
+    zero_counts()
+    large_launches = serve_large(tag)
+
     # 8.-9. meta-step parity and the training run at PAPER width
     mds, pool = paper_pool(PAPER)
     meta_step_parity(tag, PAPER, pool)
@@ -1203,16 +1328,17 @@ def main():
     wkv_launches, _ = serve_llm(tag, "rwkv6-1.6b", "wkv")
 
     # The graph filter's forward record's times are those of the largest
-    # bucket's tick layer; its launches those of the serve and training
-    # runs. Flash attention's and wkv's are those of the qwen3-4b and
-    # rwkv6-1.6b prefill shapes in f32, their launches those of the serve
-    # runs (one prefill each).
+    # bucket's tick layer; its launches those of the two serve runs and
+    # the training run. Flash attention's and wkv's are those of the
+    # qwen3-4b and rwkv6-1.6b prefill shapes in f32, their launches those
+    # of the serve runs (one prefill each).
     src = "src/repro_torch/kernels/graph_filter/csrc/graph_filter.cu"
     ms, plain_ms, bound_ms, bound_by = timing[paper[0]]
     b_ms, b_plain_ms, b_bound_ms, b_bound_by = bwd_timing
     f_ms, f_plain_ms, f_bound_ms, f_bound_by, f_lib_ms = fa_timing
     w_ms, w_plain_ms, w_bound_ms, w_bound_by = wkv_timing
-    print(f"launches: serve run forward {serve_launches}; training run "
+    print(f"launches: serve run forward {serve_launches}; serve past the "
+          f"resident limit forward {large_launches}; training run "
           f"forward {train_fwd}, backward {train_bwd}; qwen3-4b serve "
           f"flash_attention {fa_launches}; rwkv6-1.6b serve wkv "
           f"{wkv_launches}")
@@ -1220,7 +1346,8 @@ def main():
     print(json.dumps({"kernels": [
         {"name": "graph_filter", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/graph_filter/kernel.py:27",
-         "launches": serve_launches + train_fwd, "max_abs_err": max_err,
+         "launches": serve_launches + large_launches + train_fwd,
+         "max_abs_err": max_err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": None},
         {"name": "graph_filter_bwd", "route": "cuda", "source": src,

@@ -80,6 +80,8 @@ class Library:
         return build(self.src)
 
     def load(self):
+        if self._lib is not None:        # loaded: no lock on the hot path
+            return self._lib
         with self._lock:
             if self._lib is None:
                 lib = ctypes.CDLL(str(build(self.src)["path"]))

@@ -7,7 +7,11 @@ its gradient.
   * a CPU tensor takes the plain version (``ref.graph_filter_ref``);
   * a CUDA tensor launches the hand-written kernel
     (``csrc/graph_filter.cu``, built by ``kernels._nvcc`` at first use)
-    or raises. No CUDA input is ever routed to the plain version.
+    or raises. No CUDA input is ever routed to the plain version. Any
+    agent count n: up to ``RESIDENT_N`` S stays on chip (in registers, as
+    the tensor cores' A operand) for every hop; beyond it the kernel
+    streams S through shared memory and keeps the iterate between hops in
+    an f32 scratch that this wrapper allocates.
 
 The gradient is a ``torch.autograd.Function`` that serves both devices,
 so the CPU tests run the same backward formulas as the card (the
@@ -42,14 +46,21 @@ from repro_torch.kernels.graph_filter.ref import graph_filter_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc" / "graph_filter.cu"
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
-_SIG = [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr]
-LIB = Library(CSRC, {"graph_filter_f32": _SIG, "graph_filter_bf16": _SIG,
-                     "graph_filter_t_f32": _SIG},
+# S, W, h, Y, work, B, n, d, K, stream
+_SIG = [_ptr, _ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _ptr]
+_ENTRIES = {(torch.float32, False): "graph_filter_f32",
+            (torch.bfloat16, False): "graph_filter_bf16",
+            (torch.float32, True): "graph_filter_t_f32"}
+LIB = Library(CSRC, {**{name: _SIG for name in _ENTRIES.values()},
+                     "graph_filter_resident_n": []},
               "graph_filter_error_string")
+_FNS = {}          # (W dtype, transpose_s) -> bound entry, after LIB.load()
 
-# Largest agent count the kernel takes (MAX_N in csrc/graph_filter.cu):
-# S (n x n f32) stays resident in shared memory.
-MAX_N = 128
+# The largest n whose S stays on chip for all hops (RESIDENT_N in
+# csrc/graph_filter.cu, which ``graph_filter_resident_n`` returns). Larger
+# n launch the streamed path, which for K >= 2 needs the f32 scratch
+# ``_launch`` allocates. No n is refused.
+RESIDENT_N = 128
 W_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -73,6 +84,19 @@ def _check(S, W, h):
         raise ValueError(f"unsupported device {W.device}")
 
 
+def _entry(dtype, transpose_s):
+    """The bound C entry for W's dtype; the library is loaded once."""
+    fn = _FNS.get((dtype, transpose_s))
+    if fn is None:
+        lib = LIB.load()
+        if lib.graph_filter_resident_n() != RESIDENT_N:
+            raise RuntimeError("ops.RESIDENT_N does not match "
+                               "csrc/graph_filter.cu")
+        _FNS.update({k: getattr(lib, v) for k, v in _ENTRIES.items()})
+        fn = _FNS[(dtype, transpose_s)]
+    return fn
+
+
 def _launch(S, W, h, transpose_s=False):
     """One launch of the kernel on CUDA tensors: Σ_k h_k S^k W, or
     Σ_k h_k (Sᵀ)^k W with ``transpose_s`` (f32 W only). Raises on what
@@ -80,30 +104,49 @@ def _launch(S, W, h, transpose_s=False):
     if S.dtype != torch.float32 or h.dtype != torch.float32:
         raise TypeError(f"the kernel takes f32 S and h, got {S.dtype}, "
                         f"{h.dtype}")
+    if transpose_s and W.dtype != torch.float32:
+        raise TypeError(f"the transposed-S entry takes f32 W, got {W.dtype}")
     if not (S.is_contiguous() and W.is_contiguous()):
         raise ValueError("the kernel takes contiguous S and W")
     n, d = W.shape[-2], W.shape[-1]
     B = W.shape[0] if W.dim() == 3 else 1
-    if not (1 <= n <= MAX_N and d >= 1 and 1 <= B <= 65535):
-        raise ValueError(f"the kernel takes 1 <= n <= {MAX_N}, d >= 1 and "
+    if not (n >= 1 and d >= 1 and 1 <= B <= 65535):
+        raise ValueError(f"the kernel takes n >= 1, d >= 1 and "
                          f"1 <= B <= 65535; got n={n}, d={d}, B={B}")
+    K = h.shape[0] - 1
     h = h.contiguous()
     Y = torch.empty_like(W)
-    lib = LIB.load()
-    if transpose_s:
-        if W.dtype != torch.float32:
-            raise TypeError(f"the transposed-S entry takes f32 W, got "
-                            f"{W.dtype}")
-        fn = lib.graph_filter_t_f32
+    work = None
+    if n > RESIDENT_N and K >= 2:
+        work = torch.empty((min(K - 1, 2), B, n, d), dtype=torch.float32,
+                           device=W.device)
+    fn = _entry(W.dtype, transpose_s)
+    args = (S.data_ptr(), W.data_ptr(), h.data_ptr(), Y.data_ptr(),
+            None if work is None else work.data_ptr(), B, n, d, K)
+    if W.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
     else:
-        fn = (lib.graph_filter_f32 if W.dtype == torch.float32
-              else lib.graph_filter_bf16)
-    with torch.cuda.device(W.device):
-        stream = torch.cuda.current_stream(W.device).cuda_stream
-        err = fn(S.data_ptr(), W.data_ptr(), h.data_ptr(), Y.data_ptr(),
-                 B, n, d, h.shape[0] - 1, stream)
+        with torch.cuda.device(W.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     LIB.check(err, "graph_filter")
     return Y
+
+
+def bf16_error_bound(y_ref):
+    """Per-element bound on |kernel − plain| for bf16 W, ``y_ref`` being
+    the plain version's bf16 result on the same inputs.
+
+    Both widen W to f32, run Horner's rule in f32 and round Y to bf16
+    once. Their f32 results y_k and y_p differ by the order of the sums
+    and the kernel's split-TF32 products: |y_k − y_p| ≤ δ, within the
+    reference's f32 tolerance, δ ≤ 5e-5 at these inputs' scale. Rounding
+    to nearest bf16 (8 significant bits) moves each by at most half an
+    ulp, 2⁻⁸ of its magnitude, so |r(y_k) − r(y_p)| ≤ δ + 2⁻⁸(|y_k| +
+    |y_p|) ≤ δ + 2⁻⁷(1 + 2⁻⁸)|y_ref| + 2⁻⁸δ: one bf16 ulp of y_ref plus an
+    f32-sized term, 5e-5 + 1.02·2⁻⁷|y_ref| with room to spare. A kernel
+    that drops a k-tile of 8 agents moves y by about 0.03 at PAPER
+    width, far outside it, though inside the reference's 5e-2."""
+    return 5e-5 + 1.02 * 2.0 ** -7 * y_ref.float().abs()
 
 
 def _filter(S, W, h):
@@ -179,7 +222,7 @@ class _GraphFilter(torch.autograd.Function):
 def graph_filter(S, W, h):
     """Σ_k h_k S^k W. S (B,n,n) or (n,n), W (B,n,d) or (n,d) f32 or bf16,
     h (K+1,); the result is in W's dtype with f32 accumulation. On CUDA,
-    S and h must be f32, S and W contiguous, n ≤ ``MAX_N``.
+    S and h must be f32, S and W contiguous; any n ≥ 1.
     Differentiable in S, W and h (first order)."""
     _check(S, W, h)
     return _GraphFilter.apply(S, W, h)

@@ -12,7 +12,9 @@ they run on a card machine without it:
         tests/test_torch_cuda.py
 
 Tolerances: 5e-5 in f32 and 5e-2 in bf16, the reference's kernel
-tolerances, and 5e-4 for the gradients, its VJP tolerance
+tolerances (bf16 graph-filter outputs also within
+``graph_filter.ops.bf16_error_bound`` per element), and 5e-4 for the
+gradients, its VJP tolerance
 (``tests/test_kernels.py``); 10x those for flash attention and 20x for
 wkv (y and S), the reference's own for those kernels, and besides them
 the kernels' own: flash f32 within 1e-5 (split TF32 keeps f32
@@ -39,7 +41,8 @@ from repro_torch.kernels._layout import vector_loads
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention)
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.graph_filter import (MAX_N, graph_filter,
+from repro_torch.kernels.graph_filter import (bf16_error_bound,
+                                              graph_filter,
                                               graph_filter_ref,
                                               make_plain_mix)
 from repro_torch.kernels.ssm_scan import ops as wkv_ops
@@ -51,9 +54,14 @@ from repro_torch.serve import BucketSpec, FederationServer
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
+# The reference's shapes, batched ones, and agent counts past the resident
+# limit (128: S streamed, the iterate in scratch; K = 0, 1 and 3 take no,
+# no and two scratch planes).
 SHAPES = [(None, 8, 16, 1), (None, 100, 650, 2), (None, 64, 128, 4),
           (None, 33, 100, 2), (None, 9, 5, 1), (3, 33, 100, 2),
-          (2, 128, 300, 3), (4, 17, 1, 0)]
+          (2, 128, 300, 3), (4, 17, 1, 0), (None, 129, 300, 2),
+          (2, 256, 130, 3), (None, 1000, 70, 2), (3, 129, 33, 0),
+          (None, 200, 77, 1)]
 
 
 @pytest.fixture
@@ -83,8 +91,13 @@ def test_kernel_matches_plain_version(cuda, B, n, d, K, dtype):
     torch.cuda.synchronize()
     assert graph_filter.launches == before + 1
     assert y.dtype == dtype and y.shape == W.shape
-    torch.testing.assert_close(y.float(), graph_filter_ref(S, W, h).float(),
+    y_ref = graph_filter_ref(S, W, h)
+    torch.testing.assert_close(y.float(), y_ref.float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
+    if dtype == torch.bfloat16:
+        err = (y.float() - y_ref.float()).abs()
+        assert (err <= bf16_error_bound(y_ref)).all(), (
+            f"bf16 outside bf16_error_bound: max |err| {err.max().item()}")
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -102,9 +115,19 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         graph_filter(S.t(), W, h)
     with pytest.raises(TypeError, match="f32 S and h"):
         graph_filter(S.double(), W, h)
-    S2, W2, h2 = _inputs(None, MAX_N + 1, 8, 1, cuda)
-    with pytest.raises(ValueError, match="n <= 128"):
-        graph_filter(S2, W2, h2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        graph_filter(S, W.double(), h)
+    # no agent count is refused: past the resident limit the kernel
+    # streams S, and still launches once per call
+    for n in (129, 256):
+        S2, W2, h2 = _inputs(None, n, 40, 2, cuda)
+        before = graph_filter.launches
+        y = graph_filter(S2, W2, h2)
+        torch.cuda.synchronize()
+        assert graph_filter.launches == before + 1
+        torch.testing.assert_close(y, graph_filter_ref(S2, W2, h2),
+                                   atol=TOL[torch.float32],
+                                   rtol=TOL[torch.float32])
 
 
 def test_served_path_runs_through_the_kernel(cuda):
@@ -129,6 +152,27 @@ def test_served_path_runs_through_the_kernel(cuda):
         np.testing.assert_allclose(fut.result()["loss_per_layer"],
                                    ref["loss_per_layer"], atol=5e-5,
                                    rtol=5e-5)
+
+
+def test_served_federation_past_the_resident_limit(cuda):
+    """A 200-agent federation at SMOKE width, served through a bucket
+    ladder that reaches 256, launches the kernel (ticks × L) and matches
+    the single-cohort solve through the plain filter."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    theta = unroll.init_udgd(gen, SMOKE)
+    srv = FederationServer(SMOKE, theta, max_batch=2,
+                           buckets=BucketSpec((64, 256), (4, 8)))
+    cfg_r = dataclasses.replace(SMOKE, n_agents=200)
+    _, S = surf.make_problem(cfg_r, seed=5)
+    ds = sample_dataset(cfg_r, seed=105)
+    before = graph_filter.launches
+    fut = srv.submit(S, ds, seed=5)
+    srv.drain()
+    assert graph_filter.launches - before == srv.metrics.ticks * SMOKE.n_layers
+    ref = surf.solve_federation(cfg_r, TrainState(theta), S, ds, seed=5,
+                                mix_fn=make_plain_mix())
+    np.testing.assert_allclose(fut.result()["loss_per_layer"],
+                               ref["loss_per_layer"], atol=5e-5, rtol=5e-5)
 
 
 @pytest.mark.parametrize("B,n,d,K", SHAPES)

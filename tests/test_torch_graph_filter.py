@@ -9,7 +9,9 @@ orders), 5e-2 in bf16 (one bf16 rounding of the output), and 5e-4 for
 the gradients (dS, dW, dh), the reference's VJP tolerance. The port's
 ``autograd.Function`` runs the same backward formulas on both devices;
 here its dW takes the plain filter on Sᵀ, on the card the kernel. The
-kernel itself runs only on the card: ``tests/test_torch_cuda.py``."""
+kernel itself runs only on the card: ``tests/test_torch_cuda.py``; its
+arithmetic (split TF32 on the tensor cores) is emulated here in plain
+torch and held against the reference's kernel."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,15 +21,18 @@ import torch
 from repro.core import unroll as junroll
 from repro.kernels.graph_filter import graph_filter as jgraph_filter
 from repro_torch.core import unroll as tunroll
-from repro_torch.kernels.graph_filter import (MAX_N, graph_filter,
-                                              graph_filter_ref,
+from repro_torch.kernels.graph_filter import (RESIDENT_N, bf16_error_bound,
+                                              graph_filter, graph_filter_ref,
                                               make_plain_mix, ops)
+from repro_torch.serve import BucketSpec
 
 TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 # tests/test_kernels.py::GF_SHAPES: non-aligned n (not x8) and d (not x128)
 GF_SHAPES = [(8, 16, 1), (100, 650, 2), (64, 128, 4), (33, 100, 2),
              (9, 5, 1)]
+# Agent counts past the kernel's resident limit (128): n = 256 is DRYRUN's
+LARGE_N_SHAPES = [(129, 300, 2), (256, 130, 2)]
 
 
 def _inputs(n, d, K, dtype, B=None, seed=0):
@@ -52,7 +57,7 @@ def _close(a, b, dtype):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
-@pytest.mark.parametrize("n,d,K", GF_SHAPES)
+@pytest.mark.parametrize("n,d,K", GF_SHAPES + LARGE_N_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_graph_filter_matches_pallas(n, d, K, dtype):
     S, W, h = _inputs(n, d, K, dtype)
@@ -106,7 +111,7 @@ def test_cpu_path_is_differentiable():
 VJP_SHAPES = [(8, 16, 1), (33, 100, 2), (64, 128, 4)]
 
 
-@pytest.mark.parametrize("n,d,K", VJP_SHAPES)
+@pytest.mark.parametrize("n,d,K", VJP_SHAPES + LARGE_N_SHAPES)
 def test_backward_matches_reference_vjp(n, d, K):
     """(dS, dW, dh) of the port's Function against ``jax.vjp`` of the
     reference's custom-VJP filter (Pallas in interpret mode), at 5e-4."""
@@ -192,4 +197,117 @@ def test_cuda_mix_protocol():
                                graph_filter(S, W, h))
     torch.testing.assert_close(tunroll._mix(plain, S, W, h),
                                tunroll._mix(None, S, W, h))
-    assert MAX_N >= 128       # the top of the default serve bucket ladder
+    # the default serve bucket ladder keeps S resident in the kernel; no
+    # agent count is refused past it (the CPU path here, the kernel's
+    # streamed path on the card)
+    assert RESIDENT_N >= max(BucketSpec().agent_sizes)
+    S, W, h = _inputs(RESIDENT_N + 1, 5, 2, torch.float32)
+    torch.testing.assert_close(tunroll._mix(None, S, W, h),
+                               graph_filter_ref(S, W, h))
+
+
+# The CUDA kernel's arithmetic, emulated in plain torch on the CPU (the
+# kernel itself runs only on the card): Horner's rule with every S·Y
+# product in split TF32. Each operand x is hi + lo, hi = x rounded to TF32
+# (10 mantissa bits, to nearest with ties away from zero, as the kernel's
+# integer add and mask), lo = x − hi, which the tensor core reads as TF32
+# by dropping its low 13 bits. Up to 128 agents (wgmma) one f32
+# accumulator takes, for each k-step of 8, lo·hi, then hi·lo, then hi·hi;
+# past 128 (mma.sync) the small products have their own accumulator:
+# (lo·hi + hi·lo) + hi·hi. W is widened to f32 and Y rounded to W's dtype
+# once.
+def _tf32_round(x):
+    bits = x.contiguous().view(torch.int32).to(torch.int64)
+    bits = (bits + 0x1000) & ~0x1FFF
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split_mm(a, b):
+    """a @ b in split TF32 as the kernel sums it (see above)."""
+    ah, bh = _tf32_round(a), _tf32_round(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    if a.shape[-1] > RESIDENT_N:
+        return (al @ bh + ah @ bl) + ah @ bh
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k in range(0, a.shape[-1], 8):
+        ks = slice(k, k + 8)
+        acc = acc + al[..., ks] @ bh[..., ks, :]
+        acc = acc + ah[..., ks] @ bl[..., ks, :]
+        acc = acc + ah[..., ks] @ bh[..., ks, :]
+    return acc
+
+
+def _one_pass_mm(a, b):
+    """a @ b in one TF32 pass (the control)."""
+    return _tf32_round(a) @ _tf32_round(b)
+
+
+def _kernel_emulation(S, W, h, mm=_split_mm, drop=None):
+    """Σ_k h_k S^k W as the kernel computes it. ``drop=(k, a)``: the hop
+    for h_k loses the k-tile of agents a .. a+7 (a faulty kernel)."""
+    K = h.shape[0] - 1
+    Wf = W.float()
+    Y = h[K] * Wf
+    for k in range(K - 1, -1, -1):
+        Sk = S
+        if drop is not None and drop[0] == k:
+            Sk = S.clone()
+            Sk[..., drop[1]:drop[1] + 8] = 0
+        Y = mm(Sk, Y) + h[k] * Wf
+    return Y.to(W.dtype)
+
+
+@pytest.mark.parametrize("n,d,K", GF_SHAPES + [(256, 130, 2)])
+def test_kernel_arithmetic_matches_pallas(n, d, K):
+    """The kernel's split-TF32 Horner against the reference's Pallas
+    kernel at the reference's f32 tolerance, 5e-5."""
+    S, W, h = _inputs(n, d, K, torch.float32)
+    yj = jgraph_filter(_jax(S, torch.float32), _jax(W, torch.float32),
+                       _jax(h, torch.float32), impl="pallas")
+    _close(_kernel_emulation(S, W, h).numpy(), yj, torch.float32)
+
+
+@pytest.mark.parametrize("n,d,K", [(100, 650, 2), (64, 128, 4),
+                                   (33, 100, 2)])
+def test_one_pass_tf32_fails_the_f32_tolerance(n, d, K):
+    """Control: the same Horner with one TF32 pass per product (about
+    2⁻¹¹ per operand) misses 5e-5 against the reference's kernel at the
+    reference's VJP shapes, so the split is what holds f32 accuracy. (At
+    (8, 16, 1), one hop over 8 agents, and at (256, 130, 2) its error
+    happens to stay under 5e-5; the control is held where it can bite.)"""
+    S, W, h = _inputs(n, d, K, torch.float32)
+    yj = jgraph_filter(_jax(S, torch.float32), _jax(W, torch.float32),
+                       _jax(h, torch.float32), impl="pallas")
+    with pytest.raises(AssertionError):
+        _close(_kernel_emulation(S, W, h, mm=_one_pass_mm).numpy(), yj,
+               torch.float32)
+
+
+@pytest.mark.parametrize("n,d,K", GF_SHAPES + LARGE_N_SHAPES
+                         + [(100, 5130, 2)])
+def test_bf16_error_bound_holds_for_the_kernel_arithmetic(n, d, K):
+    """``ops.bf16_error_bound``, the card's per-element bf16 gate, holds
+    for the kernel's arithmetic on bf16 W against the plain version."""
+    S, W, h = _inputs(n, d, K, torch.bfloat16)
+    S, h = S.float(), h.float()
+    y_ref = graph_filter_ref(S, W, h)
+    err = (_kernel_emulation(S, W, h).float() - y_ref.float()).abs()
+    assert (err <= bf16_error_bound(y_ref)).all()
+
+
+@pytest.mark.parametrize("d", [650, 5130])
+def test_bf16_error_bound_rejects_a_dropped_k_tile(d):
+    """A kernel that loses one k-tile of 8 agents in the last hop is far
+    outside ``bf16_error_bound``, yet inside the reference's bf16
+    tolerance, 5e-2, at n = 100 (PAPER's cohort, up to PAPER's width)."""
+    S, W, h = _inputs(100, d, 2, torch.bfloat16)
+    S, h = S.float(), h.float()
+    y_ref = graph_filter_ref(S, W, h)
+    y_bad = _kernel_emulation(S, W, h, drop=(0, 0)).float()
+    assert not (((y_bad - y_ref.float()).abs()
+                 <= bf16_error_bound(y_ref)).all())
+    _close(y_bad.numpy(), y_ref.float().numpy(), torch.bfloat16)
