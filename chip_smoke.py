@@ -49,6 +49,24 @@ order; any failure exits non-zero:
      over a bucket ladder reaching 256: federations of 200 and 150
      agents through the kernel (launches = ticks × L), each matching
      ``solve_federation`` through the plain filter;
+  7c. adaptive serve — phase 7's 24 requests through
+     ``FederationServer(depth="adaptive")``: at exit_threshold 0 every
+     depth is L and W, final_loss and final_acc are bit-equal to phase
+     7's (launches = ticks × L); at one threshold > 0 (min_layers 2)
+     picked from the plain path's grad-norm ratios so that depths spread,
+     every depth equals the adaptive ``solve_federation`` through the
+     plain filter with each exit decision at least 1e-5 from its level,
+     W and loss within 5e-5, accuracy within 1.5/(n t), launches = Σ
+     layers_run < ticks × L; ms per tick beside phase 7's, and one
+     profiled adaptive tick (the per-layer ``act.any()`` host reads);
+  7d. async driver — the same 24 requests through ``AsyncDriver`` on a
+     fresh fixed server: each result bit-equal to phase 7's, the driver's
+     tick utilization;
+  7e. launchers — ``launch.surf_serve`` and ``launch.surf_earlyexit`` at
+     their defaults (output under build/bench_torch), gated by their own
+     assertions; the early-exit frontier claim is reported
+     (``--frontier report``): the reference's launcher no longer meets it
+     at its own default seed either;
   8. meta-step parity — 3 PAPER meta-steps from one ``init_state`` on
      identical draws, through the kernel (default mixer) and through the
      plain filter: θ, λ and the metrics must agree;
@@ -341,7 +359,9 @@ def check_backward(tag, paper):
 def serve(tag, cfg, spec, buckets, device="cuda", sizes=SIZES):
     """Serve 24 requests (16 of ``sizes[0]`` agents, 8 of ``sizes[1]``)
     at ``cfg``'s widths through the kernel, over ``spec``'s ``buckets``
-    (the ones the kernel was checked at); returns the launch count."""
+    (the ones the kernel was checked at). Returns the launch count and
+    what phases 7c-7d hold against: θ, the requests with their futures,
+    the summary and the profiled tick."""
     from repro_torch.core import surf, unroll
     from repro_torch.core.tasks import resolve_task
     from repro_torch.data.synthetic import sample_dataset
@@ -421,8 +441,9 @@ def serve(tag, cfg, spec, buckets, device="cuda", sizes=SIZES):
     summ["ms_per_tick"] = 1e3 * server.metrics.solve_time / ticks
     print(f"[{tag}] serve {cfg.n_layers} layers, d={cfg.head_dim}: "
           f"{json.dumps(summ)}")
-    profile_tick(tag, server, cfg, device, sizes[0])
-    return launches
+    prof = profile_tick(tag, server, cfg, device, sizes[0])
+    return launches, {"theta": theta, "requests": requests,
+                      "summary": summ, "profile": prof}
 
 
 def serve_large(tag, device="cuda", sizes=LARGE_SIZES):
@@ -471,13 +492,309 @@ def serve_large(tag, device="cuda", sizes=LARGE_SIZES):
     return launches
 
 
+def _plain_trajectory(cfg_r, theta, S, ds, seed, device):
+    """One request's solve through the plain filter, layer by layer:
+    the probe-batch grad-norm ratio after each layer, computed as
+    ``unroll.udgd_forward_adaptive`` computes it, and each layer's W."""
+    from repro_torch.core import unroll
+    from repro_torch.core.tasks import resolve_task
+    from repro_torch.kernels.graph_filter import make_plain_mix
+    task, plain = resolve_task(cfg_r), make_plain_mix()
+    batch = task.to_batch(ds, device)
+    with torch.no_grad():
+        W, Xl, Yl = unroll.featurize_cohort(
+            unroll.solve_generator(seed, 0, device), batch, cfg_r, task=task)
+        Xp, Yp = unroll.probe_batch(batch, cfg_r)
+        g, Ws = [task.grad_norm(W, Xp, Yp)], []
+        for l in range(cfg_r.n_layers):
+            W = unroll.udgd_layer(unroll.layer_params(theta, l), S, W, Xl[l],
+                                  Yl[l], cfg_r, mix_fn=plain, task=task)
+            Ws.append(W)
+            g.append(task.grad_norm(W, Xp, Yp))
+        g = torch.stack(g)
+        ratios = (g[1:] / g[:-1].clamp(min=1e-12)).cpu().numpy()
+    return ratios, Ws
+
+
+def _exit_depths(ratios, c, min_layers):
+    """Realized depths under exit level c = 1 − threshold (the first
+    layer l + 1 ≥ min_layers whose ratio reaches c, else L) and the
+    smallest margin |ratio − c| over the decisions each request makes."""
+    L_ = ratios.shape[1]
+    depths, margin = [], math.inf
+    for r in ratios:
+        depth = L_
+        for l in range(min_layers - 1, L_):
+            margin = min(margin, abs(float(r[l]) - c))
+            if r[l] >= c:
+                depth = l + 1
+                break
+        depths.append(depth)
+    return depths, margin
+
+
+def tick_groups(buckets, max_batch):
+    """The requests each tick admits when requests of these ``buckets``
+    (in submission order) are queued at once and drained: the server's
+    fullest-bucket rule, FIFO within a bucket and on ties (no deadlines;
+    too few ticks for aging)."""
+    queue, groups = list(enumerate(buckets)), []
+    while queue:
+        counts, first = {}, {}
+        for pos, (_, b) in enumerate(queue):
+            counts[b] = counts.get(b, 0) + 1
+            first.setdefault(b, pos)
+        pick = max(counts, key=lambda b: (min(counts[b], max_batch),
+                                          -first[b]))
+        group = [i for i, b in queue if b == pick][:max_batch]
+        groups.append(group)
+        queue = [(i, b) for i, b in queue if i not in group]
+    return groups
+
+
+def pick_threshold(ratios, min_layers, groups):
+    """The exit threshold of phase 7c, chosen from the plain path's
+    ratios by a fixed rule: every midpoint between two neighbouring
+    ratios the requests could decide on is a candidate; keep those under
+    which some tick (``groups``: the requests of each tick) ends before
+    L, preferring those that leave a request at L, and take the one with
+    the widest decision margin."""
+    L_ = ratios.shape[1]
+    vals = np.unique(ratios[:, min_layers - 1:].astype(np.float64))
+    cands = []
+    # midpoints, and one level under every ratio (all exit at min_layers)
+    for c in np.append((vals[1:] + vals[:-1]) / 2, vals[0] - 0.01):
+        if not 0.0 < c < 1.0:
+            continue
+        thr = 1.0 - float(c)
+        depths, margin = _exit_depths(
+            ratios, float(np.float32(1.0 - thr)), min_layers)
+        if any(max(depths[i] for i in g) < L_ for g in groups):
+            cands.append((max(depths) == L_, margin, thr, depths))
+    if not cands:
+        raise AssertionError("no exit threshold ends a tick before L")
+    _, margin, thr, depths = max(cands, key=lambda x: (x[0], x[1]))
+    return thr, depths, margin
+
+
+def serve_adaptive(tag, cfg, spec, fixed, device="cuda", min_layers=2,
+                   sizes=SIZES):
+    """Phase 7c: the 24 requests of phase 7 through adaptive servers.
+
+      * exit_threshold 0: every depth is L, and W, final_loss and
+        final_acc are bit-equal to phase 7's fixed server; launches =
+        ticks × L;
+      * one threshold > 0 (``pick_threshold``): each depth equals the
+        adaptive ``solve_federation`` through the plain filter, every
+        exit decision of the plain path sits at least 1e-5 from the
+        level, W and the loss agree within F32_TOL and the accuracy
+        within 1.5/(n t); launches = Σ layers_run < ticks × L.
+
+    Then one profiled adaptive tick. Returns the launch count."""
+    from repro_torch.core import surf
+    from repro_torch.engine.core import TrainState
+    from repro_torch.kernels.graph_filter import graph_filter, make_plain_mix
+    from repro_torch.serve import FederationServer
+    theta, requests = fixed["theta"], fixed["requests"]
+    L_ = cfg.n_layers
+    cohorts = [(n, cfg.test_per_agent) for n in sizes]
+
+    def run(cfg_s):
+        server = FederationServer(cfg_s, theta, buckets=spec,
+                                  max_batch=MAX_BATCH, depth="adaptive",
+                                  device=device)
+        server.warm(cohorts)
+        graph_filter.launches = 0
+        futs = [server.submit(S, ds, seed=i)
+                for i, (_, S, ds, _) in enumerate(requests)]
+        server.drain()
+        return server, futs, graph_filter.launches
+
+    # threshold 0: the fixed path bit for bit
+    srv0, futs0, launches0 = run(cfg)
+    if launches0 != srv0.metrics.ticks * L_:
+        raise AssertionError(f"thr 0: launches {launches0} != ticks "
+                             f"{srv0.metrics.ticks} x L")
+    for i, ((_, _, _, ffut), afut) in enumerate(zip(requests, futs0)):
+        f, a = ffut.result(), afut.result()
+        if int(a["depth"]) != L_ or not all(
+                np.array_equal(a[k], f[k])
+                for k in ("W", "final_loss", "final_acc")):
+            raise AssertionError(f"thr 0, request {i}: depth {a['depth']}, "
+                                 "or W / final_loss / final_acc not "
+                                 "bit-equal to the fixed server's")
+    s0 = srv0.metrics.summary()
+    print(f"[{tag}] 7c adaptive, exit_threshold 0: 24 requests at depth "
+          f"{L_}, W and final metrics bit-equal to the fixed server; "
+          f"launches {launches0} = {srv0.metrics.ticks} ticks x {L_}")
+
+    # a threshold that spreads the depths, from the plain path's ratios
+    trajs = [_plain_trajectory(cfg_r, theta, S, ds, i, device)
+             for i, (cfg_r, S, ds, _) in enumerate(requests)]
+    ratios = np.stack([r for r, _ in trajs])
+    groups = tick_groups([spec.bucket_for(cfg_r.n_agents, cfg_r.test_per_agent)
+                          for cfg_r, *_ in requests], MAX_BATCH)
+    thr, predicted, margin = pick_threshold(ratios, min_layers, groups)
+    if margin < 1e-5:
+        raise AssertionError(f"an exit decision sits {margin:.3e} from the "
+                             "level (< 1e-5)")
+    cfg_t = dataclasses.replace(cfg, exit_threshold=thr,
+                                min_layers=min_layers)
+    srv, futs, launches = run(cfg_t)
+    m = srv.metrics
+    expected = sum(max(predicted[i] for i in g) for g in groups)
+    if not launches == m.layers_run == expected < m.ticks * L_:
+        raise AssertionError(f"launches {launches}, layers_run "
+                             f"{m.layers_run}, predicted {expected}, "
+                             f"ticks {m.ticks} x L")
+    plain = make_plain_mix()
+    worst = {"W": 0.0, "loss": 0.0, "acc": 0.0}
+    for i, ((cfg_r, S, ds, _), fut, (_, Ws)) in enumerate(
+            zip(requests, futs, trajs)):
+        res = fut.result()
+        ref = surf.solve_federation(
+            dataclasses.replace(cfg_r, exit_threshold=thr,
+                                min_layers=min_layers),
+            TrainState(theta), S, ds, seed=i, depth="adaptive",
+            mix_fn=plain, device=device)
+        depth = int(res["depth"])
+        if not depth == int(ref["depth"]) == predicted[i]:
+            raise AssertionError(f"request {i}: depth {depth}, plain solve "
+                                 f"{ref['depth']}, predicted {predicted[i]}")
+        n, t = cfg_r.n_agents, cfg_r.test_per_agent
+        W_ref = Ws[depth - 1].cpu().numpy()
+        np.testing.assert_allclose(res["W"], W_ref, atol=F32_TOL,
+                                   rtol=F32_TOL)
+        np.testing.assert_allclose(res["final_loss"], ref["final_loss"],
+                                   atol=F32_TOL, rtol=F32_TOL)
+        np.testing.assert_allclose(res["final_acc"], ref["final_acc"],
+                                   atol=1.5 / (n * t), rtol=0)
+        worst["W"] = max(worst["W"], float(np.abs(res["W"] - W_ref).max()))
+        worst["loss"] = max(worst["loss"], abs(float(res["final_loss"]
+                                                     - ref["final_loss"])))
+        worst["acc"] = max(worst["acc"], abs(float(res["final_acc"]
+                                                   - ref["final_acc"])))
+    summ = m.summary()
+    if sum(summ["depth_hist"].values()) != len(requests):
+        raise AssertionError(f"depth_hist {summ['depth_hist']}")
+    fixed_s = fixed["summary"]
+    rows = {"fixed (phase 7)": (fixed_s["ms_per_tick"],
+                                fixed_s["federations_per_sec"], L_, 0.0),
+            "adaptive thr 0": (1e3 * srv0.metrics.solve_time
+                               / srv0.metrics.ticks,
+                               s0["federations_per_sec"], s0["mean_depth"],
+                               s0["batch_flops_saved"]),
+            f"adaptive thr {thr:.6g}": (1e3 * m.solve_time / m.ticks,
+                                        summ["federations_per_sec"],
+                                        summ["mean_depth"],
+                                        summ["batch_flops_saved"])}
+    print(f"[{tag}] 7c adaptive, exit_threshold {thr!r} (min_layers "
+          f"{min_layers}): depth_hist {summ['depth_hist']}, smallest exit "
+          f"margin {margin:.4e} (plain path), launches {launches} = "
+          f"Σ layers_run < {m.ticks} ticks x {L_}; vs the plain adaptive "
+          f"solve: max |dW| {worst['W']:.3e}, |dloss| {worst['loss']:.3e}, "
+          f"|dacc| {worst['acc']:.3e}")
+    for name, (ms, fps, depth, saved) in rows.items():
+        print(f"[{tag}] 7c {name}: {ms:.3f} ms per tick, {fps:.2f} "
+              f"federations/s, mean depth {depth:.4f}, batch_flops_saved "
+              f"{saved:.4f}")
+    prof = profile_tick(tag, srv, cfg_t, device, sizes[0])
+    fp = fixed["profile"]
+    if isinstance(fp["device_idle_ms"], float) and isinstance(
+            prof["device_idle_ms"], float):
+        layers = prof["graph_filter_launches"]
+        print(f"[{tag}] 7c host read cost: adaptive tick {layers} layers, "
+              f"{prof['host_reads']} reads blocking "
+              f"{prof['host_read_blocked_ms']:.3f} ms, device idle "
+              f"{prof['device_idle_ms'] / layers:.4f} ms per layer; fixed "
+              f"tick {fp['host_reads']} reads, device idle "
+              f"{fp['device_idle_ms'] / L_:.4f} ms per layer")
+    return launches0 + launches
+
+
+def serve_async(tag, cfg, spec, fixed, device="cuda", sizes=SIZES):
+    """Phase 7d: phase 7's 24 requests through ``AsyncDriver`` on a fresh
+    fixed server; each result must equal the manual tick loop's (phase 7)
+    bit for bit. Returns the launch count (ticks × L)."""
+    from repro_torch.kernels.graph_filter import graph_filter
+    from repro_torch.serve import AsyncDriver, FederationServer
+    theta, requests = fixed["theta"], fixed["requests"]
+    server = FederationServer(cfg, theta, buckets=spec, max_batch=MAX_BATCH,
+                              device=device)
+    server.warm([(n, cfg.test_per_agent) for n in sizes])
+    graph_filter.launches = 0
+    driver = AsyncDriver(server)
+    try:
+        driver.start()
+        futs = [driver.submit(S, ds, seed=i)
+                for i, (_, S, ds, _) in enumerate(requests)]
+        driver.wait(futs, timeout_s=300.0)
+    finally:
+        driver.stop(timeout_s=300.0)
+    launches, ticks = graph_filter.launches, server.metrics.ticks
+    if launches != ticks * cfg.n_layers:
+        raise AssertionError(f"7d launches {launches} != ticks {ticks} x L")
+    for i, ((_, _, _, mfut), afut) in enumerate(zip(requests, futs)):
+        m, a = mfut.result(), afut.result()
+        diff = [k for k in m if not np.array_equal(m[k], a[k])]
+        if diff:
+            raise AssertionError(f"7d request {i}: {diff} differ from the "
+                                 "manual tick loop's")
+    stats = driver.stats()
+    print(f"[{tag}] 7d AsyncDriver: 24 results bit-equal to the manual "
+          f"tick loop; launches {launches} = {ticks} ticks x "
+          f"{cfg.n_layers}; driver {json.dumps(stats)}; server "
+          f"{server.metrics.summary()['federations_per_sec']:.2f} "
+          "federations/s")
+    return launches
+
+
+def launchers(tag):
+    """Phase 7e: ``launch.surf_serve`` and ``launch.surf_earlyexit`` at
+    their defaults on the card, writing under build/bench_torch; their
+    own assertions are the gates, except the early-exit frontier (claim
+    3), which is reported: it is a property of the trained θ that the
+    reference's launcher no longer meets at its own default seed either
+    (ROADMAP queue 3). Returns the forward and dW launches."""
+    from repro_torch.kernels.graph_filter import graph_filter
+    from repro_torch.launch import surf_earlyexit, surf_serve
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "bench_torch")
+    graph_filter.launches = graph_filter.bwd_launches = 0
+    t0 = time.perf_counter()
+    srv = surf_serve.main(["--out", out_dir])
+    t1 = time.perf_counter()
+    ee = surf_earlyexit.main(["--out", out_dir, "--frontier", "report"])
+    t2 = time.perf_counter()
+    fwd, bwd = graph_filter.launches, graph_filter.bwd_launches
+    if not (fwd and bwd):
+        raise AssertionError(f"7e launched forward {fwd}, dW {bwd}")
+    (row,) = srv["sharded_async"]
+    print(f"[{tag}] 7e surf_serve ({t1 - t0:.1f} s): "
+          f"{srv['serve']['federations_per_sec']:.2f} federations/s, p50 "
+          f"{srv['serve']['latency_p50_ms']:.3f} ms, p99 "
+          f"{srv['serve']['latency_p99_ms']:.3f} ms, parity "
+          f"{json.dumps(srv['parity'])}; async row: "
+          f"{row['async_federations_per_sec']:.2f} federations/s, "
+          f"tick_utilization {row['tick_utilization']:.4f}")
+    print(f"[{tag}] 7e surf_earlyexit ({t2 - t1:.1f} s): fixed acc "
+          f"{ee['fixed']['final_acc']:.4f}, frontier "
+          f"{json.dumps(ee['fig5_frontier'])}, claim 3 "
+          f"{'met' if ee['frontier_claim']['met'] else 'NOT met'} at eps "
+          f"{ee['eps']}; serve depth_hist {ee['serve']['depth_hist']}")
+    print(f"[{tag}] 7e launches: forward {fwd}, dW {bwd}")
+    return fwd, bwd
+
+
 def profile_tick(tag, server, cfg, device, n):
     """Where one full tick's device time goes: one more tick of
     ``max_batch`` n-agent requests under ``torch.profiler`` (after the
     launch count was read), device time summed by kind. The busy share
     is kernel time over the solve's wall time between two
     synchronizations; the copy of the results to the host follows the
-    solve and is reported apart."""
+    solve and is reported apart. Host reads of a device value
+    (``aten::_local_scalar_dense``: the adaptive loop's ``act.any()``)
+    are counted with the host time they block. Returns the record."""
     from repro_torch.core import surf
     from repro_torch.data.synthetic import sample_dataset
     cfg_r = dataclasses.replace(cfg, n_agents=n)
@@ -504,13 +821,24 @@ def profile_tick(tag, server, cfg, device, n):
         kinds[kind] += ms
         kernels.append((round(ms, 4), e.count, e.key[:60]))
     busy = kinds["graph_filter"] + kinds["gemm"] + kinds["other"]
+    reads = [e for e in prof.key_averages()
+             if e.key == "aten::_local_scalar_dense"]
     out = {"solve_ms_profiled": solve_ms,
            "device_ms": kinds if busy > 0 else "not measured",
            "device_busy_share": busy / solve_ms if busy > 0
            else "not measured",
+           "device_idle_ms": solve_ms - busy if busy > 0
+           else "not measured",
+           "host_reads": sum(e.count for e in reads),
+           "host_read_blocked_ms": sum(e.cpu_time_total for e in reads) / 1e3,
+           "graph_filter_launches": sum(
+               e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "graph_filter_kernel" in e.key),
            "top_kernels": sorted(kernels, reverse=True)[:8]}
-    print(f"[{tag}] profiled tick (B={server.max_batch}, n={n}): "
-          f"{json.dumps(out)}")
+    print(f"[{tag}] profiled tick (B={server.max_batch}, n={n}, depth "
+          f"{server.depth}): {json.dumps(out)}")
+    return out
 
 
 def paper_pool(cfg, device="cuda"):
@@ -1305,11 +1633,23 @@ def main():
 
     # 7. serve, with the default mixer
     zero_counts()
-    serve_launches = serve(tag, PAPER, spec, buckets)
+    serve_launches, fixed = serve(tag, PAPER, spec, buckets)
 
     # 7b. serve federations past the kernel's resident limit
     zero_counts()
     large_launches = serve_large(tag)
+
+    # 7c.-7d. the same 24 requests through adaptive servers and through
+    #    the async driver
+    zero_counts()
+    adaptive_launches = serve_adaptive(tag, PAPER, spec, fixed)
+    zero_counts()
+    async_launches = serve_async(tag, PAPER, spec, fixed)
+    del fixed
+
+    # 7e. the SURF launchers at their defaults
+    zero_counts()
+    launch_fwd, launch_bwd = launchers(tag)
 
     # 8.-9. meta-step parity and the training run at PAPER width
     mds, pool = paper_pool(PAPER)
@@ -1328,17 +1668,21 @@ def main():
     wkv_launches, _ = serve_llm(tag, "rwkv6-1.6b", "wkv")
 
     # The graph filter's forward record's times are those of the largest
-    # bucket's tick layer; its launches those of the two serve runs and
-    # the training run. Flash attention's and wkv's are those of the
-    # qwen3-4b and rwkv6-1.6b prefill shapes in f32, their launches those
-    # of the serve runs (one prefill each).
+    # bucket's tick layer; its launches those of the serve runs (7-7d),
+    # the launchers (7e) and the training run, and dW's those of the
+    # launchers and the training run. Flash attention's and wkv's are
+    # those of the qwen3-4b and rwkv6-1.6b prefill shapes in f32, their
+    # launches those of the serve runs (one prefill each).
     src = "src/repro_torch/kernels/graph_filter/csrc/graph_filter.cu"
     ms, plain_ms, bound_ms, bound_by = timing[paper[0]]
     b_ms, b_plain_ms, b_bound_ms, b_bound_by = bwd_timing
     f_ms, f_plain_ms, f_bound_ms, f_bound_by, f_lib_ms = fa_timing
     w_ms, w_plain_ms, w_bound_ms, w_bound_by = wkv_timing
     print(f"launches: serve run forward {serve_launches}; serve past the "
-          f"resident limit forward {large_launches}; training run "
+          f"resident limit forward {large_launches}; adaptive serve "
+          f"forward {adaptive_launches}; async driver forward "
+          f"{async_launches}; launchers forward {launch_fwd}, backward "
+          f"{launch_bwd}; training run "
           f"forward {train_fwd}, backward {train_bwd}; qwen3-4b serve "
           f"flash_attention {fa_launches}; rwkv6-1.6b serve wkv "
           f"{wkv_launches}")
@@ -1346,13 +1690,15 @@ def main():
     print(json.dumps({"kernels": [
         {"name": "graph_filter", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/graph_filter/kernel.py:27",
-         "launches": serve_launches + large_launches + train_fwd,
+         "launches": (serve_launches + large_launches + adaptive_launches
+                      + async_launches + launch_fwd + train_fwd),
          "max_abs_err": max_err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": None},
         {"name": "graph_filter_bwd", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/graph_filter/ops.py:114",
-         "launches": train_bwd, "max_abs_err": bwd_err, "ms": b_ms,
+         "launches": train_bwd + launch_bwd, "max_abs_err": bwd_err,
+         "ms": b_ms,
          "plain_ms": b_plain_ms, "bound_ms": b_bound_ms,
          "bound_by": b_bound_by, "library_ms": None},
         {"name": "flash_attention", "route": "cuda",

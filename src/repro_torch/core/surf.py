@@ -16,9 +16,46 @@ from repro_torch import engine as E
 from repro_torch.configs.base import SURFConfig
 from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
-from repro_torch.engine.core import _eval_core
 from repro_torch.topology.families import build_topology
+from repro_torch.utils.cache import BoundedLRU
 from repro_torch.utils.device import resolve_device, to_tensor
+
+# Evaluation bodies, one per distinct computation (``engine._engine_cache_key``
+# with the "eval" variant, or ``adaptive_variant(cfg, "eval")``): a sweep
+# re-evaluating one config reuses its body, and the cache's ``misses``
+# count the builds (``repro_torch.cache_stats()["surf-eval"]``). An
+# untagged custom mix_fn is uncacheable and rebuilt per call.
+_EVAL_CACHE = BoundedLRU(maxsize=64, name="surf-eval")
+
+DEPTHS = ("fixed", "adaptive")
+
+
+def _resolve_depth(cfg, depth):
+    """Normalize the ``depth=`` opt-in of the solve paths: None means
+    fixed L (the paper's forward); "adaptive" selects the early-exit
+    solve configured by cfg.exit_threshold / min_layers / probe_size."""
+    depth = "fixed" if depth is None else depth
+    if depth not in DEPTHS:
+        raise ValueError(f"depth must be one of {DEPTHS}, got {depth!r}")
+    if depth == "adaptive" and cfg.min_layers > cfg.n_layers:
+        raise ValueError(
+            f"min_layers={cfg.min_layers} exceeds n_layers={cfg.n_layers}")
+    return depth
+
+
+def _evaluator(cfg, activation, mix_fn, task, depth):
+    """The (cached) evaluation body for ``depth``."""
+    adaptive = depth == "adaptive"
+
+    def build():
+        core = E._adaptive_eval_core if adaptive else E._eval_core
+        return core(cfg, activation, mix_fn=mix_fn, task=task)
+
+    variant = E.adaptive_variant(cfg, "eval") if adaptive else "eval"
+    key = E._engine_cache_key(cfg, variant, activation, mix_fn=mix_fn,
+                              task=task)
+    return build() if key is None else _EVAL_CACHE.get_or_build(key, build)
+
 
 def make_problem(cfg: SURFConfig, seed=0, device=None):
     """Returns (adjacency, mixing matrix S as an f32 tensor on ``device``)."""
@@ -82,7 +119,7 @@ def train_surf(cfg: SURFConfig, meta_datasets, steps, seed=0,
 
 def evaluate_surf(cfg: SURFConfig, state, S, datasets, seed=0,
                   activation="relu", seeds=None, mix_fn=None, task=None,
-                  device=None, draws=None):
+                  device=None, draws=None, depth=None):
     """Per-layer loss/metric trajectories averaged over the downstream
     ``datasets``. Dataset q draws from ``unroll.solve_generator(seed, q)``
     unless ``draws`` (one ``(W0, Xl, Yl)`` per dataset) replaces them.
@@ -91,9 +128,19 @@ def evaluate_surf(cfg: SURFConfig, state, S, datasets, seed=0,
 
     ``seeds``: a batch of evaluation seeds; every returned metric then
     gains a leading (n_seeds,) axis, row i equal to the
-    ``seed=seeds[i]`` call (the reference's ``_eval_keys`` fold)."""
+    ``seed=seeds[i]`` call (the reference's ``_eval_keys`` fold).
+
+    ``depth="adaptive"`` solves with the convergence-adaptive early-exit
+    unroll (``core.unroll.udgd_forward_adaptive``): layers stop once the
+    probe-batch grad-norm ratio plateaus at 1 − ``cfg.exit_threshold``
+    (≥ ``cfg.min_layers`` layers). The draws are those of the fixed path,
+    so ``exit_threshold=0`` reproduces the fixed final row exactly. The
+    return drops the per-layer stacks and carries ``final_loss`` /
+    ``final_acc`` and ``depth``, the realized layer count averaged over
+    the datasets."""
     device = resolve_device(device)
     task = resolve_task(cfg, task)
+    depth = _resolve_depth(cfg, depth)
     if draws is not None and len(draws) != len(datasets):
         raise ValueError(f"{len(draws)} draws for {len(datasets)} datasets")
     if seeds is not None:
@@ -105,9 +152,10 @@ def evaluate_surf(cfg: SURFConfig, state, S, datasets, seed=0,
                              "not seeds=")
         rows = [evaluate_surf(cfg, state, S, datasets, seed=s,
                               activation=activation, mix_fn=mix_fn,
-                              task=task, device=device) for s in seeds]
+                              task=task, device=device, depth=depth)
+                for s in seeds]
         return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
-    evaluate_s = _eval_core(cfg, activation, mix_fn=mix_fn, task=task)
+    evaluate_s = _evaluator(cfg, activation, mix_fn, task, depth)
     S = to_tensor(S, device, torch.float32)
     theta = {k: to_tensor(v, device) for k, v in state.theta.items()}
     with torch.no_grad():
@@ -121,14 +169,17 @@ def evaluate_surf(cfg: SURFConfig, state, S, datasets, seed=0,
 
 def solve_federation(cfg: SURFConfig, state, S, dataset, seed=0,
                      activation="relu", mix_fn=None, task=None, device=None,
-                     draws=None):
+                     draws=None, depth=None):
     """Solve ONE new federation with the trained model: the amortization
     primitive (paper §4) as a single call, and the reference the serving
     layer is held against. ``FederationServer.submit(S, dataset,
     seed=seed)`` draws from the same ``solve_generator(seed, 0)``.
     ``cfg.n_agents`` must match the cohort. ``draws=(W0, Xl, Yl)``
-    replaces the random draws."""
+    replaces the random draws. ``depth="adaptive"`` solves with the
+    early-exit unroll and adds the realized ``depth``: the reference of
+    the adaptive serve path."""
     return evaluate_surf(cfg, state, S, [dataset], seed=seed,
                          activation=activation, mix_fn=mix_fn, task=task,
                          device=device,
-                         draws=None if draws is None else [draws])
+                         draws=None if draws is None else [draws],
+                         depth=depth)

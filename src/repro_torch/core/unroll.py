@@ -154,6 +154,55 @@ def udgd_forward(params, S, W0, Xl, Yl, cfg: SURFConfig, activation="relu",
     return Ws[-1], torch.stack(Ws)
 
 
+def probe_batch(batch, cfg: SURFConfig):
+    """The held-aside convergence-probe batch: the first
+    ``cfg.probe_size`` TRAINING rows per agent (capped at the split
+    size). It draws nothing, so the per-layer mini-batch stack stays the
+    one the fixed-depth path draws."""
+    p = min(int(cfg.probe_size), int(batch["Xtr"].shape[1]))
+    return batch["Xtr"][:, :p], batch["Ytr"][:, :p]
+
+
+def udgd_forward_adaptive(params, S, W0, Xl, Yl, Xp, Yp, cfg: SURFConfig,
+                          activation="relu", mix_fn=None, task=None,
+                          layer_fn=None):
+    """Convergence-adaptive forward: run the unrolled layers in order and
+    stop once the probe-batch grad-norm ratio
+    ‖∇f(W_l)‖/‖∇f(W_{l-1})‖ reaches 1 − ``cfg.exit_threshold`` (the layer bought less than an
+    ``exit_threshold`` fractional descent: the descending-constraint
+    certificate as a stopping rule) and at least ``cfg.min_layers``
+    layers have run. The reference's ``lax.while_loop`` is a Python loop
+    over l < L that reads the exit decision on the host after each layer.
+
+    Xl/Yl are the SAME pre-sampled (L, n, b) stacks ``udgd_forward``
+    consumes, and (Xp, Yp) the probe split (``probe_batch``). With
+    ``exit_threshold == 0`` the exit is off: the loop makes the calls
+    ``udgd_forward`` makes, in its order, and computes no probe norms, so
+    W_L is bit-equal to its W_L on one device.
+
+    Returns ``(W_L, depth)``: the final iterate and the number of layers
+    run (an int, L when no certificate fired)."""
+    task = resolve_task(cfg, task)
+    if layer_fn is None:
+        layer_fn = (udgd_layer_star if cfg.topology == "star"
+                    else udgd_layer)
+    thr = float(cfg.exit_threshold)
+    min_l = int(cfg.min_layers)
+    adaptive = thr > 0.0
+    W = W0
+    g_prev = task.grad_norm(W0, Xp, Yp) if adaptive else None
+    for l in range(cfg.n_layers):
+        W = layer_fn(layer_params(params, l), S, W, Xl[l], Yl[l], cfg,
+                     activation, mix_fn=mix_fn, task=task)
+        if adaptive:
+            g = task.grad_norm(W, Xp, Yp)
+            ratio = g / g_prev.clamp(min=1e-12)
+            if l + 1 >= min_l and bool(ratio >= 1.0 - thr):
+                return W, l + 1
+            g_prev = g
+    return W, cfg.n_layers
+
+
 # Seeding scheme of the port's generators (JAX's threefry keys have no
 # torch counterpart; each ``fold_in`` of the reference becomes a
 # generator with a seed of its own):

@@ -1,6 +1,8 @@
 """The SURF engine: ``core`` holds ``TrainState``, the meta-step and the
 evaluation body; ``scan`` the training drivers (``train_scan``,
 ``train``)."""
-from repro_torch.engine.core import (TrainState, _eval_core,  # noqa: F401
+from repro_torch.engine.core import (TrainState,  # noqa: F401
+                                     _adaptive_eval_core, _engine_cache_key,
+                                     _eval_core, adaptive_variant,
                                      init_state, make_eval, make_meta_step)
 from repro_torch.engine.scan import train, train_scan  # noqa: F401

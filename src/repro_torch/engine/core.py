@@ -11,8 +11,11 @@ projected ascent step on λ (eq. 7).
 
 S stays out of the closures (``meta_step_s(S, state, batch, ...)``,
 ``evaluate_s(S, theta, batch, ...)``), as in the reference. PyTorch runs
-eagerly, so there is no compiled-engine cache to key: the drivers in
-``engine.scan`` call the bodies in a Python loop.
+eagerly, so nothing is compiled: the drivers in ``engine.scan`` call the
+bodies in a Python loop. The evaluation and serve bodies are still built
+once per distinct computation and cached (``core.surf``'s evaluator
+cache, the server's bucket cache) under keys from ``_engine_cache_key``,
+whose cache misses count the builds (the reference's ``TRACE_COUNTS``).
 
 Random draws come from an explicit ``torch.Generator``
 (``core.unroll.step_generator`` per meta-step); ``draws=(W0, Xl, Yl)``
@@ -24,6 +27,7 @@ carries no gradient, L−1 backward (dW) launches per meta-step.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -64,9 +68,7 @@ def _check_mix(mix_fn):
     for attr, what in (("seed_batched", "seed-batched mixers (ROADMAP "
                         "queue 1 item 7)"),
                        ("scheduled", "scheduled mixers (time-varying "
-                        "topology, ROADMAP queue 1 item 6)"),
-                       ("adaptive", "adaptive-depth mixers (ROADMAP queue "
-                        "1 item 2)")):
+                        "topology, ROADMAP queue 1 item 6)")):
         if getattr(mix_fn, attr, False):
             raise NotImplementedError(f"{what} are not ported yet")
 
@@ -178,6 +180,65 @@ def _eval_core(cfg: SURFConfig, activation="relu", mix_fn=None, task=None):
                 "final_loss": losses[-1], "final_acc": accs[-1]}
 
     return evaluate_s
+
+
+def _adaptive_eval_core(cfg: SURFConfig, activation="relu", mix_fn=None,
+                        task=None):
+    """ADAPTIVE-depth evaluation body, same contract as ``_eval_core``,
+    but the unroll stops early (``core.unroll.udgd_forward_adaptive``)
+    once the probe-batch grad-norm ratio plateaus at 1 −
+    ``cfg.exit_threshold``. No per-layer metric stacks; returns the final
+    loss and metric and the realized ``depth`` (a float tensor). With
+    ``cfg.exit_threshold == 0`` all L layers run and the result equals
+    ``_eval_core``'s final row (same draws, same layer calls)."""
+    task = resolve_task(cfg, task)
+    _check_mix(mix_fn)
+    layer_fn = _layer_fn(cfg)
+
+    def evaluate_s(S, theta, batch, generator, draws=None):
+        W0, Xl, Yl = U.featurize_cohort(generator, batch, cfg, task=task,
+                                        draws=draws)
+        Xp, Yp = U.probe_batch(batch, cfg)
+        W_L, depth = U.udgd_forward_adaptive(
+            theta, S, W0, Xl, Yl, Xp, Yp, cfg, activation, mix_fn=mix_fn,
+            task=task, layer_fn=layer_fn)
+        return {"final_loss": task.fl_loss(W_L, batch["Xte"], batch["Yte"]),
+                "final_acc": task.fl_metric(W_L, batch["Xte"],
+                                            batch["Yte"]),
+                "depth": torch.tensor(float(depth), device=W_L.device)}
+
+    return evaluate_s
+
+
+def adaptive_variant(cfg: SURFConfig, base):
+    """Cache-key variant tag of an adaptive-depth computation:
+    ``_engine_cache_key`` scrubs the exit fields from cfg (fixed-depth
+    bodies ignore them), so every adaptive builder carries them here —
+    two thresholds build two bodies."""
+    return (base + "-adaptive", float(cfg.exit_threshold),
+            int(cfg.min_layers), int(cfg.probe_size))
+
+
+def _engine_cache_key(cfg: SURFConfig, variant, activation, mix_fn=None,
+                      task=None):
+    """Key of a built body: cfg normalized to the fields that shape the
+    computation, the ``variant`` tag, the activation, the mixer's tag and
+    the task's tag. Off the star path the topology fields only say how S
+    was built (S is an argument), so they are scrubbed; so are the
+    adaptive-depth exit fields, which only the early-exit bodies read and
+    carry in their variant (``adaptive_variant``): fixed-depth bodies are
+    shared across exit-threshold sweeps. None for an untagged custom
+    ``mix_fn`` (uncacheable: the closure could compute anything)."""
+    if mix_fn is not None and getattr(mix_fn, "tag", None) is None:
+        return None
+    task = resolve_task(cfg, task)
+    if cfg.topology != "star":
+        cfg = dataclasses.replace(cfg, topology="regular", degree=0,
+                                  er_p=0.0)
+    cfg = dataclasses.replace(cfg, exit_threshold=0.0, min_layers=1,
+                              probe_size=0)
+    return (cfg, variant, activation,
+            None if mix_fn is None else mix_fn.tag, task.cache_tag)
 
 
 def make_eval(cfg: SURFConfig, S, *, activation="relu", mix_fn=None,

@@ -16,9 +16,9 @@ The reference's tiling knobs (``block_q``, ``block_kv``) and its
 lanes and of the sequence to block multiples, or its "non-causal needs
 Skv % block_kv == 0": those are TPU tiling rules. The kernel masks ragged
 Sq, Skv and dh itself and reads q, k and v through their strides (any
-strides over batch, head and sequence; unit stride over dh), so the
-model's (B, S, H, dh) projections go in as transposed views, without a
-copy. The output has q's strides when q is dense (no gaps between its
+strides over batch, head and sequence), so the model's (B, S, H, dh)
+projections go in as transposed views, without a copy; an input whose
+stride over dh is not 1 is copied to a contiguous one first. The output has q's strides when q is dense (no gaps between its
 elements, as in the model's transposed views) and contiguous strides
 otherwise (``torch.empty_like``). Tensors whose rows all start on 16 bytes
 (``_layout.vector_loads``) are tiled with ``cp.async``; others take the
@@ -87,8 +87,9 @@ def _launch(q, k, v, causal, window):
         raise ValueError(f"the kernel takes dh <= {MAX_DH}, B H < 2^31 and "
                          f"Sq <= {64 * 65535}; got dh={dh}, B={B}, H={H}, "
                          f"Sq={Sq}")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise ValueError("the kernel takes unit stride over dh")
+    # the kernel reads dh with unit stride; the few layouts without it are
+    # copied here, so the card takes what the plain version takes
+    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty_like(q)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     lib = LIB.load()
@@ -121,7 +122,9 @@ def bf16_error_bound(q, k, v, o_ref, causal=True, window=0):
 
 
 def flash_attention(q, k, v, causal=True, window=0):
-    """q (B,H,Sq,dh); k/v (B,KV,Skv,dh), f32 or bf16. Returns (B,H,Sq,dh)
+    """q (B,H,Sq,dh); k/v (B,KV,Skv,dh), all three of one dtype, f32 or
+    bf16 (the reference casts each input to f32 and so also takes mixed
+    dtypes; this wrapper refuses them on both devices). Returns (B,H,Sq,dh)
     in q's dtype: softmax(q kᵀ / sqrt(dh) + mask) v with head h reading kv
     head h // (H // KV), f32 accumulation. On CUDA, dh ≤ ``MAX_DH``, f32
     products in split TF32 and, for bf16 inputs, P rounded to bf16."""

@@ -19,7 +19,9 @@ reference's custom VJP, ``ops.py::_bwd``):
 
   * dW = Σ_k h_k (Sᵀ)^k Ḡ, the filter on Sᵀ applied to the cotangent: on
     CUDA the kernel's transposed-S entry (``graph_filter_t_f32``, which
-    stages Sᵀ in shared memory, so no transposed copy of S is made);
+    reads S in transposed order: for n ≤ ``RESIDENT_N`` it loads Sᵀ's
+    split-TF32 fragments into registers, beyond it it streams Sᵀ's
+    panels through shared memory, so no transposed copy of S is made);
   * dh_k = ⟨Ḡ, S^k W⟩, summed over the batch axis (h is shared);
   * dS = Σ_k h_k Σ_{a+b=k−1} (Sᵀ)^a Ḡ (S^b W)ᵀ, only when S needs a
     gradient (topology-learning callers; SURF's graphs are fixed).
@@ -99,22 +101,22 @@ def _entry(dtype, transpose_s):
 
 def _launch(S, W, h, transpose_s=False):
     """One launch of the kernel on CUDA tensors: Σ_k h_k S^k W, or
-    Σ_k h_k (Sᵀ)^k W with ``transpose_s`` (f32 W only). Raises on what
-    the kernel does not take and on a refused launch."""
-    if S.dtype != torch.float32 or h.dtype != torch.float32:
-        raise TypeError(f"the kernel takes f32 S and h, got {S.dtype}, "
-                        f"{h.dtype}")
+    Σ_k h_k (Sᵀ)^k W with ``transpose_s`` (f32 W only). S and h are cast
+    to f32 and S and W made contiguous first, as the reference casts and
+    pads them into fresh arrays, so the card takes what the plain version
+    takes. Raises on what the kernel does not take and on a refused
+    launch."""
     if transpose_s and W.dtype != torch.float32:
         raise TypeError(f"the transposed-S entry takes f32 W, got {W.dtype}")
-    if not (S.is_contiguous() and W.is_contiguous()):
-        raise ValueError("the kernel takes contiguous S and W")
+    S = S.to(torch.float32).contiguous()
+    W = W.contiguous()
     n, d = W.shape[-2], W.shape[-1]
     B = W.shape[0] if W.dim() == 3 else 1
     if not (n >= 1 and d >= 1 and 1 <= B <= 65535):
         raise ValueError(f"the kernel takes n >= 1, d >= 1 and "
                          f"1 <= B <= 65535; got n={n}, d={d}, B={B}")
     K = h.shape[0] - 1
-    h = h.contiguous()
+    h = h.to(torch.float32).contiguous()
     Y = torch.empty_like(W)
     work = None
     if n > RESIDENT_N and K >= 2:
@@ -221,8 +223,9 @@ class _GraphFilter(torch.autograd.Function):
 
 def graph_filter(S, W, h):
     """Σ_k h_k S^k W. S (B,n,n) or (n,n), W (B,n,d) or (n,d) f32 or bf16,
-    h (K+1,); the result is in W's dtype with f32 accumulation. On CUDA,
-    S and h must be f32, S and W contiguous; any n ≥ 1.
+    h (K+1,) of any float dtype; the result is in W's dtype with f32
+    accumulation. S and h are read as f32, and on CUDA S and W are made
+    contiguous before the one launch; any n ≥ 1.
     Differentiable in S, W and h (first order)."""
     _check(S, W, h)
     return _GraphFilter.apply(S, W, h)

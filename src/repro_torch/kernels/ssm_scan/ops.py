@@ -12,8 +12,9 @@ returning y and the final f32 state, which a decode resumes from.
 The reference's ``chunk`` and ``interpret`` arguments do not exist here,
 nor does its padding of time to a chunk multiple with w=1, k=0 no-op
 steps: the kernel loops over the real T. It reads r, k, v and w through
-their strides (any strides over batch, head and time; unit stride over
-dk), so the model's (B, T, H, dk) projections go in as transposed views;
+their strides (any strides over batch, head and time), so the model's
+(B, T, H, dk) projections go in as transposed views; an input whose stride
+over dk is not 1 is copied to a contiguous one first.
 y has r's strides when r is dense (no gaps between its elements) and
 contiguous strides otherwise (``torch.empty_like``). Tensors whose rows
 all start on 16 bytes (``_layout.vector_loads``) are staged with
@@ -70,8 +71,10 @@ def _launch(r, k, v, w, u):
     if dk > MAX_DK or T < 1:
         raise ValueError(f"the kernel takes dk <= {MAX_DK} and T >= 1; got "
                          f"dk={dk}, T={T}")
-    if any(a.stride(3) != 1 for a in (r, k, v, w)):
-        raise ValueError("the kernel takes unit stride over dk")
+    # the kernel reads dk with unit stride; the few layouts without it are
+    # copied here, so the card takes what the plain version takes
+    r, k, v, w = (a if a.stride(3) == 1 else a.contiguous()
+                  for a in (r, k, v, w))
     u = u.to(torch.float32).contiguous()
     y = torch.empty_like(r)
     S = torch.empty((B, H, dk, dk), dtype=torch.float32, device=r.device)
@@ -107,7 +110,9 @@ def bf16_error_bound(y_ref):
 
 
 def wkv(r, k, v, w, u):
-    """r/k/v/w (B,H,T,dk) f32 or bf16; u (H,dk). Returns (y (B,H,T,dk) in
+    """r/k/v/w (B,H,T,dk), all four of one dtype, f32 or bf16 (the
+    reference casts each input to f32 and so also takes mixed dtypes; this
+    wrapper refuses them on both devices); u (H,dk). Returns (y (B,H,T,dk) in
     r's dtype, S (B,H,dk,dk) f32). On CUDA, dk ≤ ``MAX_DK``."""
     _check(r, k, v, w, u)
     if r.device.type == "cpu":

@@ -13,8 +13,8 @@ Padding is inert:
     contribution exactly.
 
 ``pad_cohort`` runs AFTER ``core.unroll.featurize_cohort``: W0 and the
-layer batches were drawn at the true cohort shape. The probe padding of
-adaptive depth (``pad_probe``) lands with that slice.
+layer batches were drawn at the true cohort shape. ``pad_probe`` pads the
+convergence-probe split of adaptive depth over the agent axis only.
 """
 from __future__ import annotations
 
@@ -89,3 +89,18 @@ def pad_cohort(S, W0, Xl, Yl, Xte, Yte, bucket: Bucket):
     mask = torch.zeros(npad, dtype=torch.bool, device=S.device)
     mask[:n] = True
     return Sp, W0p, Xlp, Ylp, Xtep, Ytep, mask, float(t)
+
+
+def pad_probe(Xp, Yp, bucket: Bucket):
+    """Pad the convergence-probe split (``core.unroll.probe_batch``) to
+    ``bucket``'s agent count. Probe ROWS are a config constant
+    (``cfg.probe_size``), so only the agent axis pads, with zeros, which
+    ``task.masked_grad_norm`` removes from the certificate exactly."""
+    n, npad = Xp.shape[0], int(bucket.n_agents)
+    if n > npad:
+        raise ValueError(f"probe (n={n}) does not fit bucket {bucket}")
+    Xpp = Xp.new_zeros((npad,) + Xp.shape[1:])
+    Xpp[:n] = Xp
+    Ypp = Yp.new_zeros((npad,) + Yp.shape[1:])
+    Ypp[:n] = Yp
+    return Xpp, Ypp

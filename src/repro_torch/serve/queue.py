@@ -1,5 +1,5 @@
 """Continuous-batching federation server (the port of
-``repro.serve.queue``, fixed depth, one device).
+``repro.serve.queue``, one device).
 
 ``FederationServer`` turns the bucketed request-batched solver into a
 request/response loop: ``submit()`` featurizes ONE new federation (its
@@ -16,12 +16,21 @@ ticks wins outright (oldest-waiting first), and a request submitted with
 ``deadline_ticks=`` outranks both once passing it over would miss the
 deadline.
 
-Adaptive depth, ``mesh=`` request sharding and the background
-``AsyncDriver`` (with the queue lock it needs) land with later slices.
+``depth="adaptive"`` serves through the batched early-exit solver
+(``solver._serve_core_adaptive``): each request also carries a padded
+convergence-probe split, results gain a realized ``depth``, and
+``metrics.summary()`` grows a depth histogram and FLOPs-saved estimates.
+
+``serve.AsyncDriver`` wraps the server in a background tick thread
+(``submit`` returns at once, ticks fire at a cadence); queue mutations are
+guarded by a server lock, so driver ticks and caller submits interleave
+safely. The reference's ``mesh=`` request sharding lands with the
+multi-device slice (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from collections import deque
 
@@ -30,7 +39,7 @@ import torch
 from repro_torch.configs.base import SURFConfig
 from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
-from repro_torch.serve.buckets import BucketSpec, pad_cohort
+from repro_torch.serve.buckets import BucketSpec, pad_cohort, pad_probe
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.solver import make_bucket_solver, resolve_serve_mix
 from repro_torch.utils.cache import BoundedLRU
@@ -65,7 +74,7 @@ class ServeFuture:
 @dataclasses.dataclass
 class _Request:
     bucket: object
-    arrays: tuple                        # padded (S, W0, Xl, Yl, Xte, Yte)
+    arrays: tuple          # padded (S, W0, Xl, Yl, Xte, Yte[, Xp, Yp])
     mask: torch.Tensor
     t_real: float
     n_real: int
@@ -83,13 +92,16 @@ class FederationServer:
     cohort size (the perceptron is shared across agents, so its parameter
     shapes never mention n_agents). ``mix`` is None/"dense" or
     "cuda"/"pallas": on the card each runs the graph-filter kernel, on
-    the CPU the plain filter (see ``solver.resolve_serve_mix``). ``device=None`` means the CUDA card;
-    without one, pass ``device="cpu"``."""
+    the CPU the plain filter (see ``solver.resolve_serve_mix``).
+    ``depth`` is "fixed" or "adaptive" (the early exit configured by
+    cfg.exit_threshold / min_layers / probe_size). ``device=None`` means
+    the CUDA card; without one, pass ``device="cpu"``."""
 
     def __init__(self, cfg: SURFConfig, theta, *, activation="relu",
                  mix=None, task=None, buckets: BucketSpec = None,
                  max_batch: int = 8, max_buckets: int = 16,
-                 max_wait_ticks: int = 8, device=None):
+                 depth: str = "fixed", max_wait_ticks: int = 8,
+                 device=None):
         if cfg.topology == "star":
             raise ValueError(
                 "star-topology serving is unsupported: the server-row "
@@ -97,10 +109,14 @@ class FederationServer:
                 "— serve decentralized configs")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if depth not in ("fixed", "adaptive"):
+            raise ValueError(f"depth must be 'fixed' or 'adaptive', got "
+                             f"{depth!r}")
         if max_wait_ticks < 1:
             raise ValueError(f"max_wait_ticks must be >= 1, got "
                              f"{max_wait_ticks}")
         self.device = resolve_device(device)
+        self.depth = depth
         self.max_wait_ticks = int(max_wait_ticks)
         self.cfg = cfg
         self.theta = {k: to_tensor(v, self.device) for k, v in theta.items()}
@@ -112,6 +128,10 @@ class FederationServer:
         self._cache = BoundedLRU(maxsize=max_buckets, name="serve-buckets")
         self.metrics = ServeMetrics(cache=self._cache)
         self._queue = deque()
+        # guards queue mutations only (submit's append, tick's admission
+        # sweep) so an async driver can tick while submits keep landing;
+        # the solve itself runs outside the lock
+        self._lock = threading.RLock()
 
     # ------------------------------------------------------------ admit
     def submit(self, S, dataset, *, seed=0, q=0, deadline_ticks=None,
@@ -151,29 +171,43 @@ class FederationServer:
         bucket = self.buckets.bucket_for(n, t)
         *arrays, mask, t_real = pad_cohort(S, W0, Xl, Yl, batch["Xte"],
                                            batch["Yte"], bucket)
+        if self.depth == "adaptive":
+            m = batch["Xtr"].shape[1]
+            if m < self.cfg.probe_size:
+                raise ValueError(
+                    f"adaptive serving needs probe_size="
+                    f"{self.cfg.probe_size} training rows per agent for "
+                    f"the convergence probe, got {m} — probe rows must "
+                    "be shape-constant per bucket solver")
+            arrays += pad_probe(*U.probe_batch(batch, cfg_r), bucket)
         fut = ServeFuture()
-        self._queue.append(_Request(
+        req = _Request(
             bucket=bucket, arrays=tuple(arrays), mask=mask, t_real=t_real,
             n_real=n, rows_real=t, future=fut,
             t_submit=time.perf_counter(),
             deadline_ticks=(None if deadline_ticks is None
-                            else int(deadline_ticks))))
+                            else int(deadline_ticks)))
+        with self._lock:
+            self._queue.append(req)
         return fut
 
     def pending(self) -> int:
         """Requests currently queued (a tick completes what it admits)."""
-        return len(self._queue)
+        with self._lock:
+            return len(self._queue)
 
     # ------------------------------------------------------------ solve
     def _solver(self, bucket):
         return make_bucket_solver(self.cfg, bucket, self.max_batch,
                                   activation=self.activation,
                                   mix_fn=self.mix_fn, task=self.task,
-                                  cache=self._cache)
+                                  cache=self._cache, depth=self.depth)
 
     def _empty_slot(self, bucket):
         """All-zero, all-masked batch slot — t_real = t_pad keeps the
-        padded-loss corrections on their identity branch."""
+        padded-loss corrections on their identity branch. The all-false
+        mask also starts adaptive slots INACTIVE (depth 0, no layer work
+        charged to them)."""
         d, b = self.task.dim, self.cfg.batch_per_agent
         F, L = self.task.feat_dim, self.cfg.n_layers
         n, t = int(bucket.n_agents), int(bucket.rows)
@@ -182,6 +216,9 @@ class FederationServer:
             shape, dtype=dtype, device=self.device)
         arrays = (z(n, n), z(n, d), z(L, n, b, F), z(L, n, b, dtype=ydt),
                   z(n, t, F), z(n, t, dtype=ydt))
+        if self.depth == "adaptive":
+            p = int(self.cfg.probe_size)
+            arrays += (z(n, p, F), z(n, p, dtype=ydt))
         return arrays, z(n, dtype=torch.bool), float(t)
 
     def _select_bucket(self):
@@ -241,19 +278,22 @@ class FederationServer:
         (``_select_bucket``), admit up to ``max_batch`` of its requests
         FIFO-within-bucket, solve, complete their futures. Passed-over
         requests age by one tick. Returns the number of requests
-        completed (0 on an empty queue)."""
-        if not self._queue:
-            return 0
-        bucket = self._select_bucket()
-        admitted, rest = [], deque()
-        while self._queue:
-            r = self._queue.popleft()
-            if r.bucket == bucket and len(admitted) < self.max_batch:
-                admitted.append(r)
-            else:
-                r.ticks_waited += 1
-                rest.append(r)
-        self._queue = rest
+        completed (0 on an empty queue). Bucket selection and admission
+        run under the server lock (an async driver may tick while
+        submits keep landing); the solve itself does not."""
+        with self._lock:
+            if not self._queue:
+                return 0
+            bucket = self._select_bucket()
+            admitted, rest = [], deque()
+            while self._queue:
+                r = self._queue.popleft()
+                if r.bucket == bucket and len(admitted) < self.max_batch:
+                    admitted.append(r)
+                else:
+                    r.ticks_waited += 1
+                    rest.append(r)
+            self._queue = rest
         empty, e_mask, e_t = self._empty_slot(bucket)
         n_empty = self.max_batch - len(admitted)
         out, wall = self._run(
@@ -272,14 +312,21 @@ class FederationServer:
             lats.append(lat)
         useful = sum(r.n_real * r.rows_real for r in admitted)
         padded = self.max_batch * int(bucket.n_agents) * int(bucket.rows)
+        kw = {}
+        if self.depth == "adaptive":
+            # empty slots have depth 0, so the layers this tick ran (one
+            # graph-filter launch each) are the deepest request's
+            depths = [int(d) for d in out["depth"][:len(admitted)]]
+            kw = {"depths": depths, "layers_run": max(depths, default=0),
+                  "n_layers": self.cfg.n_layers}
         self.metrics.record_tick(bucket, len(admitted), self.max_batch,
-                                 useful, padded, lats, wall)
+                                 useful, padded, lats, wall, **kw)
         return len(admitted)
 
     def drain(self) -> int:
         """Tick until the queue is empty; returns requests completed."""
         done = 0
-        while self._queue:
+        while self.pending():
             done += self.tick()
         return done
 

@@ -1,5 +1,5 @@
 """Request-batched amortized solver: the serving hot path (the port of
-``repro.serve.solver``, fixed depth).
+``repro.serve.solver``).
 
 A REQUEST BATCH of cohorts, stacked to a common bucket shape
 ``(B, n_pad, ...)`` with per-request mixing matrices, runs through one
@@ -16,8 +16,9 @@ serve mix is named.
   * admission-time featurization — ``core.unroll.featurize_cohort`` ran
     at the request's TRUE shape before padding.
 
-Adaptive depth (``_serve_core_adaptive``) and request sharding over
-devices (``request_shardings``) land with later slices.
+``_serve_core_adaptive`` is the early-exit solver of ``depth="adaptive"``.
+Request sharding over devices (the reference's ``request_shardings``)
+lands with the multi-device slice (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch
 from repro_torch.configs.base import SURFConfig
 from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
+from repro_torch.engine.core import _engine_cache_key
 
 SERVE_MIXES = U.MIXES
 
@@ -92,34 +94,99 @@ def _serve_core(cfg: SURFConfig, activation="relu", mix_fn=None, task=None):
     return solve
 
 
-def serve_cache_key(cfg: SURFConfig, bucket, max_batch, activation,
-                    mix_fn=None, task=None):
-    """Per-bucket solver key: the bucket dims, the batch size and the
-    config with its cohort-shape fields scrubbed (requests of any true
-    size share the bucket's solver), plus the activation, the mixer's
-    tag and the task's tag. None for an untagged custom ``mix_fn``
-    (uncacheable)."""
-    if mix_fn is not None and getattr(mix_fn, "tag", None) is None:
-        return None
+def _serve_core_adaptive(cfg: SURFConfig, activation="relu", mix_fn=None,
+                         task=None):
+    """Batched early-exit solver for one bucket: ``solve(S, theta, W0, Xl,
+    Yl, Xte, Yte, Xp, Yp, mask, t_real)``, the fixed solver's arguments
+    with the padded probe split Xp (B,n,p,F), Yp (B,n,p) after Yte.
+
+    Every layer runs on the whole (B, n_pad, ...) batch (one kernel
+    launch per layer) under a per-request ACTIVE mask: a request whose
+    grad-norm certificate fired keeps its W (``torch.where``), exactly as
+    in the reference's shared ``lax.while_loop``. The loop stops once no
+    request is active or L layers ran; with the exit on, that takes one
+    host read of ``act.any()`` per layer. The certificate uses
+    ``task.masked_grad_norm`` on the padded probe split, which equals the
+    unpadded ``grad_norm``, so padding never flips an exit decision.
+    ``depth`` (B,) int32 is each request's realized layer count (0 for
+    empty slots, whose all-false mask starts them inactive). With
+    ``exit_threshold == 0`` W equals the fixed solver's bit for bit."""
     task = resolve_task(cfg, task)
+    masked_scores = _masked_scores(task)
+    thr = float(cfg.exit_threshold)
+    min_l = int(cfg.min_layers)
+    adaptive = thr > 0.0
+
+    def solve(S, theta, W0, Xl, Yl, Xte, Yte, Xp, Yp, mask, t_real):
+        keep = mask[..., None]
+        W = torch.where(keep, W0, 0.0)
+        act = mask.any(-1)
+        depth = torch.zeros(act.shape, dtype=torch.int32, device=W.device)
+        g_prev = task.masked_grad_norm(W, Xp, Yp, mask) if adaptive else None
+        for l in range(cfg.n_layers):
+            # the exit decisions live on the device; without the exit,
+            # act never changes after layer 0
+            if (adaptive or l == 0) and not bool(act.any()):
+                break
+            Wn = U.udgd_layer(U.layer_params(theta, l), S, W, Xl[:, l],
+                              Yl[:, l], cfg, activation, mix_fn=mix_fn,
+                              task=task)
+            # the fixed path's padded-agent re-zero, then freeze requests
+            # whose certificate already fired
+            Wn = torch.where(keep, Wn, 0.0)
+            W = torch.where(act[:, None, None], Wn, W)
+            depth += act.to(torch.int32)
+            if adaptive:
+                g = torch.where(act, task.masked_grad_norm(W, Xp, Yp, mask),
+                                g_prev)
+                ratio = g / g_prev.clamp(min=1e-12)
+                fire = (l + 1 >= min_l) & (ratio >= 1.0 - thr)
+                act = act & ~fire
+                g_prev = g
+        loss, met = masked_scores(W, Xte, Yte, mask, t_real)
+        return {"W": W, "final_loss": loss, "final_acc": met,
+                "depth": depth}
+
+    return solve
+
+
+def serve_cache_key(cfg: SURFConfig, bucket, max_batch, activation,
+                    mix_fn=None, task=None, depth="fixed"):
+    """Per-bucket solver key: ``engine._engine_cache_key`` with a
+    ("serve", n_pad, t_pad, B) variant tag and the cohort-shape cfg
+    fields scrubbed (requests of any true size share the bucket's
+    solver). That key also scrubs the exit fields, so fixed solvers are
+    shared across threshold sweeps; the adaptive path carries them in a
+    ("serve-adaptive", ..., thr, min_layers, probe_size) variant
+    instead. None for an untagged custom ``mix_fn`` (uncacheable)."""
+    variant = ("serve", int(bucket.n_agents), int(bucket.rows),
+               int(max_batch))
+    if depth == "adaptive":
+        variant = ("serve-adaptive",) + variant[1:] + (
+            float(cfg.exit_threshold), int(cfg.min_layers),
+            int(cfg.probe_size))
     cfg = dataclasses.replace(cfg, n_agents=0, train_per_agent=0,
                               test_per_agent=0)
-    return (("serve", int(bucket.n_agents), int(bucket.rows),
-             int(max_batch)), cfg, activation,
-            None if mix_fn is None else mix_fn.tag, task.cache_tag)
+    return _engine_cache_key(cfg, variant, activation, mix_fn=mix_fn,
+                             task=task)
 
 
 def make_bucket_solver(cfg: SURFConfig, bucket, max_batch, *,
                        activation="relu", mix_fn=None, task=None,
-                       cache=None):
-    """The request-batched solver for one shape bucket (see
-    ``_serve_core`` for its signature). ``cache`` (a ``BoundedLRU``)
-    keeps it under ``serve_cache_key``."""
+                       cache=None, depth="fixed"):
+    """The request-batched solver for one shape bucket: ``_serve_core``
+    for ``depth="fixed"``, ``_serve_core_adaptive`` (probe arrays after
+    Yte, a ``depth`` (B,) field in the result) for ``depth="adaptive"``.
+    ``cache`` (a ``BoundedLRU``) keeps it under ``serve_cache_key``; its
+    ``misses`` count the builds."""
+    core = _serve_core_adaptive if depth == "adaptive" else _serve_core
+
     def build():
-        return _serve_core(cfg, activation, mix_fn=mix_fn, task=task)
+        return core(cfg, activation, mix_fn=mix_fn, task=task)
 
     key = None if cache is None else serve_cache_key(
-        cfg, bucket, max_batch, activation, mix_fn=mix_fn, task=task)
+        cfg, bucket, max_batch, activation, mix_fn=mix_fn, task=task,
+        depth=depth)
     if key is None:
         return build()
     return cache.get_or_build(key, build)

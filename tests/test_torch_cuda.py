@@ -1,7 +1,8 @@
 """Tests of the port that need the CUDA card: the hand-written
 graph-filter kernel (forward and backward), flash-attention kernel and
 wkv kernel against their plain versions, the wrappers' checks on CUDA
-tensors, the served and training paths through the graph filter, and a
+tensors, the served (fixed and adaptive depth) and training paths
+through the graph filter, and a
 reduced-config LLM prefill and decode through the flash and wkv kernels
 against the same model run through the plain versions.
 
@@ -111,10 +112,6 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with torch.no_grad():
         graph_filter(S, W, h)             # no graph recorded: launches
     W = W.detach()
-    with pytest.raises(ValueError, match="contiguous"):
-        graph_filter(S.t(), W, h)
-    with pytest.raises(TypeError, match="f32 S and h"):
-        graph_filter(S.double(), W, h)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         graph_filter(S, W.double(), h)
     # no agent count is refused: past the resident limit the kernel
@@ -128,6 +125,34 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         torch.testing.assert_close(y, graph_filter_ref(S2, W2, h2),
                                    atol=TOL[torch.float32],
                                    rtol=TOL[torch.float32])
+
+
+@pytest.mark.parametrize("case", ["f64 S", "f64 h", "strided S",
+                                  "strided W", "strided batched W"])
+def test_kernel_takes_what_the_plain_version_takes(cuda, case):
+    """f64 S or h and non-contiguous S or W: the CPU path and the
+    reference take them, so the card does too. One launch each, equal to
+    the plain filter on the cast, contiguous inputs."""
+    batched = case == "strided batched W"
+    S, W, h = _inputs(3 if batched else None, 40, 70, 2, cuda)
+    if case == "f64 S":
+        S = S.double()
+    elif case == "f64 h":
+        h = h.double()
+    elif case == "strided S":
+        S = S.t().contiguous().t()       # S's values, column-major
+    else:
+        W = torch.cat([W, W], dim=-1)[..., ::2]
+    assert S.is_contiguous() != (case == "strided S")
+    before = graph_filter.launches
+    y = graph_filter(S, W, h)
+    torch.cuda.synchronize()
+    assert graph_filter.launches == before + 1
+    assert y.dtype == torch.float32 and y.shape == W.shape
+    y_ref = graph_filter_ref(S.float().contiguous(), W.contiguous(),
+                             h.float())
+    torch.testing.assert_close(y, y_ref, atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
 
 
 def test_served_path_runs_through_the_kernel(cuda):
@@ -173,6 +198,37 @@ def test_served_federation_past_the_resident_limit(cuda):
                                 mix_fn=make_plain_mix())
     np.testing.assert_allclose(fut.result()["loss_per_layer"],
                                ref["loss_per_layer"], atol=5e-5, rtol=5e-5)
+
+
+def test_adaptive_tick_launches_once_per_layer_run(cuda):
+    """An adaptive tick launches the kernel once per layer it runs, for
+    the whole batch: launches == layers_run (< L once every request has
+    exited; threshold 10 fires at min_layers = 2 on any ratio), and each
+    request matches the adaptive single-cohort solve through the plain
+    filter (depth exactly, loss at 5e-5)."""
+    cfg = dataclasses.replace(SMOKE, exit_threshold=10.0, min_layers=2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    theta = unroll.init_udgd(gen, cfg)
+    srv = FederationServer(cfg, theta, max_batch=4, depth="adaptive",
+                           buckets=BucketSpec((8, 16), (4, 8)))
+    reqs = []
+    for i, n in enumerate([6, 8, 12]):
+        cfg_r = dataclasses.replace(cfg, n_agents=n)
+        _, S = surf.make_problem(cfg_r, seed=i)
+        ds = sample_dataset(cfg_r, seed=100 + i)
+        reqs.append((cfg_r, S, ds, srv.submit(S, ds, seed=i)))
+    before = graph_filter.launches
+    assert srv.tick() == 2
+    torch.cuda.synchronize()
+    assert graph_filter.launches - before == srv.metrics.layers_run == 2
+    srv.drain()
+    assert graph_filter.launches - before == srv.metrics.layers_run == 4
+    for i, (cfg_r, S, ds, fut) in enumerate(reqs):
+        ref = surf.solve_federation(cfg_r, TrainState(theta), S, ds, seed=i,
+                                    mix_fn=make_plain_mix(), depth="adaptive")
+        assert int(fut.result()["depth"]) == int(ref["depth"]) == 2
+        np.testing.assert_allclose(fut.result()["final_loss"],
+                                   ref["final_loss"], atol=5e-5, rtol=5e-5)
 
 
 @pytest.mark.parametrize("B,n,d,K", SHAPES)
@@ -303,12 +359,24 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="dh <= 128"):
         flash_attention(q, k, v)
     q, k, v = _flash_inputs(1, 2, 1, 16, 32, torch.float32, cuda)
-    with pytest.raises(ValueError, match="unit stride"):
-        flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
     with pytest.raises(TypeError, match="one dtype"):
         flash_attention(q, k.double(), v)
     with pytest.raises(ValueError, match="share a device"):
         flash_attention(q, k.cpu(), v)
+
+
+def test_flash_kernel_takes_a_strided_head_dim(cuda):
+    """A stride over dh other than 1 is copied in the wrapper, as the
+    plain version takes it; one launch."""
+    q, k, v = _flash_inputs(1, 4, 2, 70, 64, torch.float32, cuda)
+    qs, ks, vs = (t[..., ::2] for t in (q, k, v))
+    assert qs.stride(3) == 2
+    before = flash_attention.launches
+    o = flash_attention(qs, ks, vs, window=20)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _assert_flash_matches(o, qs.contiguous(), ks.contiguous(),
+                          vs.contiguous(), True, 20)
 
 
 def _wkv_inputs(B, H, T, dk, dtype, device, seed=0):
@@ -360,8 +428,14 @@ def test_wkv_kernel_reads_strided_views_and_refuses(cuda):
     big = _wkv_inputs(1, 1, 4, 72, torch.float32, cuda)
     with pytest.raises(ValueError, match="dk <= 64"):
         wkv(*big)
-    with pytest.raises(ValueError, match="unit stride"):
-        wkv(*(a[..., ::2] for a in (r, k, v, w)), u[:, ::2])
+    # a stride over dk other than 1 is copied in the wrapper: one launch,
+    # equal to the plain version
+    strided = [a[..., ::2] for a in (r, k, v, w)] + [u[:, ::2]]
+    before = wkv.launches
+    y, S = wkv(*strided)
+    torch.cuda.synchronize()
+    assert wkv.launches == before + 1
+    _assert_wkv_matches(y, S, *(a.contiguous() for a in strided))
 
 
 # The tensor-core tiling's edges (64 query rows per block; 32 keys per f32

@@ -444,8 +444,7 @@ def test_unported_training_paths_raise(smoke):
         TC.robust_layer_grad_norms(None, None, None, tcfg, None)
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         TC.robust_slacks(None, None, 0.1)
-    for attr, item in (("seed_batched", 7), ("scheduled", 6),
-                       ("adaptive", 2)):
+    for attr, item in (("seed_batched", 7), ("scheduled", 6)):
         mix = lambda S, W, h: W                        # noqa: E731
         mix.takes_S = True
         setattr(mix, attr, True)
