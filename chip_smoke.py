@@ -74,6 +74,26 @@ order; any failure exits non-zero:
      through the kernel: L forward and L−1 backward launches per step,
      ms per meta-step (CUDA events), meta-steps/s, peak memory, one
      profiled meta-step's device time by kernel;
+  9b. scheduled training — ``make_scenario(PAPER, s, 20, seed=0)`` for
+     the link-failure, dropout, markov and anneal scenarios: the graph
+     filter forward (within 5e-5) and dW (within 5e-4) against the plain
+     version on each S_0 and on one S_t that isolates agents; 3 PAPER
+     meta-steps under the link-failure schedule kernel vs plain at phase
+     8's gates; ``train_surf(PAPER, ..., steps=20,
+     scenario="link-failure")`` through the kernel: L and L−1 launches
+     per step, the returned S equal to ``make_problem(PAPER, 0)``'s, ms
+     per meta-step beside phase 9's, peak memory;
+  9c. async study — ``evaluate_async`` at PAPER width on 8 test datasets,
+     n_async 10, 20, 40, seeds (0, 1), through the kernel (L launches per
+     dataset and seed) and through the plain filter on the same draws
+     and masks: per-layer loss within 5e-5 of max(|loss|, 1), accuracy
+     within 1.5/(n t); n_async = 0 equal to ``evaluate_surf``'s per-layer
+     loss and accuracy bit for bit on the same draws; ms per call;
+  9d. baselines — DGD, DSGD, DFedAvgM on PAPER's S for 200 rounds and
+     FedAvg, FedProx, SCAFFOLD on PAPER_STAR for 25, fig. 5's learning
+     rates, on the card and on the CPU from one set of numpy draws:
+     per-round loss within 1e-4 of the run's largest |loss|, accuracy
+     within 2/(n t), no graph-filter launch; ms per round;
  10. quickstart — the config of ``examples/quickstart.py`` trained for
      250 meta-steps and evaluated on 5 unseen datasets under 4 seeds:
      ``final_acc`` must clear the reference quickstart's 0.5;
@@ -137,6 +157,17 @@ LARGE_SIZES = (200, 150)    # federations served past the resident limit
 MAX_BATCH = 8
 SIZES = (100, 60)    # served cohorts: 16 of SIZES[0] agents, 8 of SIZES[1]
 TRAIN_POOL, TRAIN_STEPS, PARITY_STEPS = 8, 20, 3
+# Phase 9b: the scenarios of make_scenario (the static one aside).
+SCHEDULE_SCENARIOS = ("link-failure", "dropout", "markov", "anneal")
+# Phase 9c: fig. 8's stale-agent counts, 8 test datasets, 2 eval seeds.
+N_ASYNC, ASYNC_POOL, ASYNC_SEEDS = (10, 20, 40), 8, (0, 1)
+# Phase 9d: fig. 5's rounds and learning rates; 10 participants per
+# classical round (the baselines' default), 6 local steps.
+BASELINE_ROUNDS, BASELINE_ROUNDS_STAR, BASELINE_PART = 200, 25, 10
+LOCAL_STEPS = 6
+BASELINE_LRS = {"dgd": 0.5, "dsgd": 0.2, "dfedavgm": 0.05,
+                "fedavg": 0.5, "fedprox": 0.5, "scaffold": 0.5}
+BASELINE_LOSS_TOL = 1e-4     # card vs CPU, of the run's largest |loss|
 QUICKSTART_STEPS = 250
 # Flash attention: the reference's sweep shapes (B, H, KV, S, dh, window),
 # the qwen3-4b prefill and a gemma3 local-layer shape; wkv: the sweep
@@ -913,28 +944,54 @@ def _worst_entries(a, b, key, k=5):
     return {"index": idx.tolist(), "kernel": rows[0], "plain": rows[1]}
 
 
-def meta_step_parity(tag, cfg, pool, device="cuda"):
+def _powers_mix():
+    """The plain filter summed in another f32 order, Σ_k h_k (S^k W) with
+    the powers built one product at a time: a positive control for the
+    parity gate (an f32-accurate filter that is not the plain one)."""
+    def mix_fn(S, W, h):
+        Y, P = h[0] * W, W
+        for k in range(1, h.shape[0]):
+            P = S @ P
+            Y = Y + h[k] * P
+        return Y
+
+    mix_fn.takes_S = True
+    mix_fn.tag = ("plain-powers",)
+    return mix_fn
+
+
+def meta_step_parity(tag, cfg, pool, device="cuda", schedule=None):
     """PARITY_STEPS meta-steps from one ``init_state`` (seed 0) on
     identical draws, through the kernel (default mixer) and through the
     plain filter, held as ``_state_err`` says. Each step starts both
     paths from the same state, the kernel path's: PAPER's first Adam
     steps drive the test loss to ~1e9 (the reference does the same at
     F=128), and chained runs would measure that chaos, not the kernel.
-    The free-running difference is printed beside it.
+    The free-running difference is printed beside it. With a
+    ``schedule`` (phase 9b) step t mixes with its S[t % T], as the
+    training drivers do; else with ``make_problem(cfg, 0)``'s S.
 
     Negative control: at step 0 the plain path runs once more with TF32
     matmuls, a gradient about 1e-3 less precise; the gate must reject
-    it, or it could not tell a lower-precision gradient from f32."""
+    it, or it could not tell a lower-precision gradient from f32. Beside
+    it, not gated, the plain filter in another f32 order shows the noise
+    floor an f32-accurate filter meets on the same inputs."""
+    from functools import partial
+
     from repro_torch.core import surf, unroll
-    from repro_torch.engine.core import init_state, make_meta_step
+    from repro_torch.engine.core import _meta_step_core, init_state
     from repro_torch.kernels.graph_filter import make_plain_mix
     _, S = surf.make_problem(cfg, seed=0, device=device)
     n_q = next(iter(pool.values())).shape[0]
-    kern, _ = make_meta_step(cfg, S)
-    plain, _ = make_meta_step(cfg, S, mix_fn=make_plain_mix())
+    kern_s, _ = _meta_step_core(cfg)
+    plain_s, _ = _meta_step_core(cfg, mix_fn=make_plain_mix())
+    reorder_s, _ = _meta_step_core(cfg, mix_fn=_powers_mix())
     state = init_state(unroll.seeded_generator(0, device), cfg)
     free, ok = state, True
     for t in range(PARITY_STEPS):
+        S_t = S if schedule is None else schedule.S[t % schedule.steps]
+        kern, plain = partial(kern_s, S_t), partial(plain_s, S_t)
+        reorder = partial(reorder_s, S_t)
         batch = {k: v[t % n_q] for k, v in pool.items()}
         draws = unroll.featurize_cohort(unroll.step_generator(0, t, device),
                                         batch, cfg)
@@ -965,6 +1022,14 @@ def meta_step_parity(tag, cfg, pool, device="cuda"):
             if control_ok:
                 raise AssertionError("the parity gate passed a TF32 "
                                      "gradient")
+            # not gated: two f32 orders of the plain filter, the noise
+            # floor that any f32-accurate filter meets on these inputs
+            sr, _ = reorder(state, batch, draws=draws)
+            rows_r, _ = _state_err(sr, sp)
+            del sr
+            print(f"[{tag}] f32 reorder control (plain filter as h_0 W + "
+                  f"h_1 SW + h_2 S(SW)) vs plain at step 0, not gated: "
+                  f"{_fmt_rows(rows_r)}")
         print(f"[{tag}] largest theta.M differences at step {t}: "
               f"{json.dumps(_worst_entries(sk, sp, 'M'))}")
         ok = ok and step_ok and not m_bad
@@ -976,23 +1041,34 @@ def meta_step_parity(tag, cfg, pool, device="cuda"):
         raise AssertionError("meta-step through the kernel != plain filter")
 
 
-def train_paper(tag, cfg, mds, pool, device="cuda"):
+def train_paper(tag, cfg, mds, pool, device="cuda", scenario=None):
     """``train_surf`` at PAPER width through the kernel: launch counts
     (read just after), wall time, then the median meta-step time by CUDA
-    events, peak memory and one profiled meta-step."""
+    events, peak memory and one profiled meta-step. With a ``scenario``
+    (phase 9b) ``train_surf`` trains under ``make_scenario(cfg, scenario,
+    TRAIN_STEPS, seed=0)``, must return the nominal S, and the timed
+    steps mix with the schedule's S[t % T]; no step is profiled."""
     from repro_torch.core import surf, unroll
-    from repro_torch.engine.core import make_meta_step
+    from repro_torch.engine.core import _meta_step_core
     from repro_torch.kernels.graph_filter import graph_filter
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     graph_filter.launches = graph_filter.bwd_launches = 0
     t0 = time.perf_counter()
     state, hist, S = surf.train_surf(cfg, mds, steps=TRAIN_STEPS,
-                                     log_every=5, device=device)
+                                     log_every=5, device=device,
+                                     scenario=scenario)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = graph_filter.launches, graph_filter.bwd_launches
     peak = torch.cuda.max_memory_allocated()
+    sched = surf.make_scenario(cfg, scenario, TRAIN_STEPS, seed=0,
+                               device=device)
+    if sched is not None:
+        _, S_nominal = surf.make_problem(cfg, seed=0, device=device)
+        if not torch.equal(S, S_nominal):
+            raise AssertionError("train_surf under a scenario did not "
+                                 "return the nominal static S")
     want = (TRAIN_STEPS * cfg.n_layers, TRAIN_STEPS * (cfg.n_layers - 1))
     if (fwd, bwd) != want:
         raise AssertionError(f"launches forward {fwd}, backward {bwd}; "
@@ -1000,13 +1076,19 @@ def train_paper(tag, cfg, mds, pool, device="cuda"):
     for row in hist:
         if not all(np.isfinite(v) for v in row.values()):
             raise AssertionError(f"non-finite metrics {row}")
-    print(f"[{tag}] train_surf PAPER {TRAIN_STEPS} steps: {wall:.3f} s "
+    print(f"[{tag}] train_surf PAPER {TRAIN_STEPS} steps, scenario "
+          f"{scenario}: {wall:.3f} s "
           f"wall (first step included); launches forward {fwd} = "
           f"{TRAIN_STEPS} x {cfg.n_layers}, backward {bwd} = {TRAIN_STEPS} "
           f"x {cfg.n_layers - 1}; peak memory {peak / 2**30:.3f} GiB; "
           f"last logged {json.dumps(hist[-1])}")
 
-    step, _ = make_meta_step(cfg, S)
+    step_s, _ = _meta_step_core(cfg)
+
+    def step(st, batch, gen):
+        S_t = S if sched is None else sched.S[st.step % sched.steps]
+        return step_s(S_t, st, batch, gen)
+
     n_q = next(iter(pool.values())).shape[0]
     times = []
     for i in range(13):
@@ -1027,9 +1109,10 @@ def train_paper(tag, cfg, mds, pool, device="cuda"):
            "peak_memory_bytes": peak, "launches_forward": fwd,
            "launches_backward": bwd,
            "train_surf_wall_ms_per_step": 1e3 * wall / TRAIN_STEPS}
-    print(f"[{tag}] PAPER meta-step (median of {len(times)} after 3 warm, "
-          f"CUDA events): {json.dumps(out)}")
-    profile_meta_step(tag, step, state, pool, device)
+    print(f"[{tag}] PAPER meta-step, scenario {scenario} (median of "
+          f"{len(times)} after 3 warm, CUDA events): {json.dumps(out)}")
+    if sched is None:
+        profile_meta_step(tag, step, state, pool, device)
     return out, fwd, bwd
 
 
@@ -1081,6 +1164,256 @@ def profile_meta_step(tag, step, state, pool, device="cuda"):
            else "not measured",
            "top_kernels": sorted(kernels, reverse=True)[:12]}
     print(f"[{tag}] profiled PAPER meta-step: {json.dumps(out)}")
+
+
+def check_schedule_kernel(tag, cfg, scheds, device="cuda"):
+    """Phase 9b's kernel check: the filter forward and its dW against the
+    plain version at the PAPER training shape (one cohort, unbatched) on
+    each schedule's S_0 and on the first S_t (t >= 1, schedules in
+    order) that isolates an agent (a row equal to e_i). Forward within
+    F32_TOL, dW within VJP_TOL. Returns the largest errors."""
+    from repro_torch.kernels.graph_filter import graph_filter, graph_filter_ref
+    n, d, K = cfg.n_agents, cfg.head_dim, cfg.filter_taps
+    eye = torch.eye(n, device=device)
+    cases = [(f"{name} S_0", sch.S[0]) for name, sch in scheds.items()]
+    isolated = next(((name, t) for name, sch in scheds.items()
+                     for t in range(1, sch.steps)
+                     if (sch.S[t] == eye).all(-1).any()), None)
+    if isolated is None:
+        raise AssertionError("no schedule isolates an agent")
+    name, t = isolated
+    S_iso = scheds[name].S[t]
+    n_iso = int((S_iso == eye).all(-1).sum().item())
+    cases.append((f"{name} S_{t} ({n_iso} isolated)", S_iso))
+    rng = np.random.default_rng(4)
+    worst = [0.0, 0.0]
+    for label, S in cases:
+        W = torch.tensor(rng.standard_normal((n, d)).astype(np.float32),
+                         device=device)
+        h = torch.tensor((0.5 * rng.standard_normal(K + 1)).astype(
+            np.float32), device=device)
+        G = torch.tensor(rng.standard_normal((n, d)).astype(np.float32),
+                         device=device)
+        Wk = W.clone().requires_grad_(True)
+        y = graph_filter(S, Wk, h)
+        (dW,) = torch.autograd.grad(y, Wk, G)
+        Wp = W.clone().requires_grad_(True)
+        yp = graph_filter_ref(S, Wp, h)
+        (dWp,) = torch.autograd.grad(yp, Wp, G)
+        torch.cuda.synchronize()
+        errs = [(y - yp).abs().max().item(), (dW - dWp).abs().max().item()]
+        if not (torch.allclose(y, yp, atol=F32_TOL, rtol=F32_TOL)
+                and torch.allclose(dW, dWp, atol=VJP_TOL, rtol=VJP_TOL)):
+            raise AssertionError(f"kernel != plain on {label}: {errs}")
+        if "isolated" in label:
+            # an isolated agent's row of S^k W is its own row of W
+            rows = (S == eye).all(-1)
+            hold = h.sum() * W[rows]
+            if not torch.allclose(yp[rows], hold, atol=F32_TOL,
+                                  rtol=F32_TOL):
+                raise AssertionError("isolated rows do not hold their value")
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+        print(f"[{tag}] 9b kernel vs plain on {label}, n={n} d={d} K={K}: "
+              f"max |err| forward {errs[0]:.3e} (tol {F32_TOL}), dW "
+              f"{errs[1]:.3e} (tol {VJP_TOL})")
+    return worst
+
+
+def scheduled_training(tag, cfg, mds, pool, static_ms, device="cuda"):
+    """Phase 9b: the graph filter on the scenarios' S_t, 3 scheduled
+    meta-steps kernel vs plain at phase 8's gates, then ``train_surf``
+    under the link-failure scenario through the kernel (counted from
+    zero just before it). Returns (forward, dW launches, the record)."""
+    from repro_torch.core import surf
+    scheds = {name: surf.make_scenario(cfg, name, TRAIN_STEPS, seed=0,
+                                       device=device)
+              for name in SCHEDULE_SCENARIOS}
+    errs = check_schedule_kernel(tag, cfg, scheds, device)
+    meta_step_parity(tag, cfg, pool, device,
+                     schedule=scheds["link-failure"])
+    zero_counts()
+    out, fwd, bwd = train_paper(tag, cfg, mds, pool, device,
+                                scenario="link-failure")
+    out["static_ms_per_meta_step"] = static_ms
+    out["kernel_max_abs_err"] = {"forward": errs[0], "dW": errs[1]}
+    print(f"[{tag}] 9b scheduled meta-step (link-failure, T = "
+          f"{TRAIN_STEPS}) vs static (phase 9): {out['ms_per_meta_step']:.3f}"
+          f" vs {static_ms:.3f} ms; peak memory "
+          f"{out['peak_memory_bytes'] / 2**30:.3f} GiB")
+    return fwd, bwd, out
+
+
+def async_eval(tag, cfg, device="cuda"):
+    """Phase 9c: ``evaluate_async`` at ``cfg``'s width on ASYNC_POOL test
+    datasets for each n_async of N_ASYNC under ASYNC_SEEDS, through the
+    kernel (launches counted from zero: L per dataset and seed) and
+    through the plain filter (same generators, so the same draws, and
+    the same numpy masks): per-layer loss within F32_TOL of max(|loss|,
+    1), accuracy within 1.5/(n t) (one flipped test row per layer). Then
+    n_async = 0 (every mask False) on explicit draws must equal
+    ``evaluate_surf``'s per-layer loss and accuracy on them bit for
+    bit. θ is a DGD-init state (a trained PAPER θ diverges, ROADMAP
+    queue 3). Returns (launches, record)."""
+    from repro_torch.core import surf, unroll
+    from repro_torch.core.tasks import resolve_task
+    from repro_torch.data.synthetic import make_meta_dataset
+    from repro_torch.engine.core import init_state
+    from repro_torch.kernels.graph_filter import graph_filter, make_plain_mix
+    state = init_state(unroll.seeded_generator(0, device), cfg)
+    _, S = surf.make_problem(cfg, seed=0, device=device)
+    test = make_meta_dataset(cfg, ASYNC_POOL, seed=888)
+    L, n, t = cfg.n_layers, cfg.n_agents, cfg.test_per_agent
+    launches, rec = 0, {"ms_per_call": {}, "final_acc": {}}
+    worst_loss = worst_acc = 0.0
+    plain = make_plain_mix()
+    for na in N_ASYNC:
+        masks = [surf.async_masks(cfg, ASYNC_POOL, na, seed=s)
+                 for s in ASYNC_SEEDS]
+        again = [surf.async_masks(cfg, ASYNC_POOL, na, seed=s)
+                 for s in ASYNC_SEEDS]
+        if not all(np.array_equal(a, b) and (a.sum(1) == na).all()
+                   for a, b in zip(masks, again)):
+            raise AssertionError(f"async masks differ at n_async={na}")
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kern = surf.evaluate_async(cfg, state, S, test, na,
+                                   seeds=ASYNC_SEEDS, device=device)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        got = graph_filter.launches
+        want = L * ASYNC_POOL * len(ASYNC_SEEDS)
+        if got != want or graph_filter.bwd_launches:
+            raise AssertionError(f"9c n_async={na}: {got} launches, "
+                                 f"expected {want}")
+        launches += got
+        ref = surf.evaluate_async(cfg, state, S, test, na,
+                                  seeds=ASYNC_SEEDS, mix_fn=plain,
+                                  device=device)
+        if graph_filter.launches != got:
+            raise AssertionError("the plain mixer launched the kernel")
+        d_loss = np.abs(kern["loss_per_layer"] - ref["loss_per_layer"])
+        d_acc = np.abs(kern["acc_per_layer"] - ref["acc_per_layer"])
+        scale = np.maximum(np.abs(ref["loss_per_layer"]), 1.0)
+        if not ((d_loss <= F32_TOL * scale).all()
+                and (d_acc <= 1.5 / (n * t)).all()
+                and np.isfinite(kern["loss_per_layer"]).all()):
+            raise AssertionError(f"9c n_async={na}: kernel vs plain loss "
+                                 f"{d_loss.max():.3e}, acc {d_acc.max():.3e}")
+        worst_loss = max(worst_loss, float(d_loss.max()))
+        worst_acc = max(worst_acc, float(d_acc.max()))
+        rec["ms_per_call"][na] = ms
+        rec["final_acc"][na] = kern["final_acc"].tolist()
+    task = resolve_task(cfg)
+    draws = [unroll.featurize_cohort(unroll.async_generator(0, q, device),
+                                     task.to_batch(ds, device), cfg)
+             for q, ds in enumerate(test)]
+    sync = surf.evaluate_async(cfg, state, S, test, 0, device=device,
+                               draws=draws)
+    fixed = surf.evaluate_surf(cfg, state, S, test, device=device,
+                               draws=draws)
+    # the per-layer stacks bit for bit; the final values are the last
+    # layer of the mean (as in the reference), where evaluate_surf means
+    # its per-dataset finals in another order (1 ulp apart on the card)
+    per_layer = ("loss_per_layer", "acc_per_layer")
+    if not (all(np.array_equal(sync[k], fixed[k]) for k in per_layer)
+            and sync["final_loss"] == fixed["loss_per_layer"][-1]
+            and sync["final_acc"] == fixed["acc_per_layer"][-1]):
+        raise AssertionError(
+            "n_async = 0 != evaluate_surf on the same draws: "
+            f"{ {k: float(np.abs(sync[k] - fixed[k]).max()) for k in fixed} }")
+    rec.update(launches=launches, max_abs_dloss=worst_loss,
+               max_abs_dacc=worst_acc, profiled_call=_profiled(
+                   lambda: surf.evaluate_async(cfg, state, S, test,
+                                               N_ASYNC[0], seeds=ASYNC_SEEDS,
+                                               device=device), device))
+    print(f"[{tag}] 9c evaluate_async PAPER, {ASYNC_POOL} datasets x seeds "
+          f"{ASYNC_SEEDS}: kernel vs plain max |dloss| {worst_loss:.3e}, "
+          f"max |dacc| {worst_acc:.3e}; n_async 0 == evaluate_surf per layer "
+          f"(bit for bit); launches {launches}; {json.dumps(rec)}")
+    return launches, rec
+
+
+def _baseline_draws(name, rng, cfg, rounds, participate):
+    """Phase 9d's numpy draws, in ``core.baselines``' formats."""
+    n, m, b = cfg.n_agents, cfg.train_per_agent, cfg.batch_per_agent
+    if name == "dgd":
+        return None
+    if name == "dsgd":
+        return {"idx": rng.integers(0, m, (rounds, n, 1))}
+    if name == "dfedavgm":
+        return {"idx": rng.integers(0, m, (rounds, LOCAL_STEPS, n, b))}
+    return {"sel": np.stack([rng.permutation(n)[:participate]
+                             for _ in range(rounds)]),
+            "idx": rng.integers(0, m, (rounds, LOCAL_STEPS, participate,
+                                       b))}
+
+
+def baselines_phase(tag, device="cuda"):
+    """Phase 9d: the six FL baselines at PAPER width (decentralized on
+    PAPER's S for BASELINE_ROUNDS rounds, classical on PAPER_STAR for
+    BASELINE_ROUNDS_STAR) with fig. 5's learning rates, each on the card
+    and on the CPU on one set of numpy draws: per-round loss within
+    BASELINE_LOSS_TOL of the run's largest |loss|, accuracy within
+    2/(n t); no graph-filter launch in the phase (the baselines mix with
+    a plain S @ W, as the reference does). Returns the record."""
+    from repro_torch.configs.surf_paper import PAPER, PAPER_STAR
+    from repro_torch.core import baselines as BL
+    from repro_torch.core import surf
+    from repro_torch.data.synthetic import sample_dataset
+    zero_counts()
+    rec = {}
+    for cfg, table, rounds in ((PAPER, BL.DECENTRALIZED, BASELINE_ROUNDS),
+                               (PAPER_STAR, BL.CLASSICAL,
+                                BASELINE_ROUNDS_STAR)):
+        ds = sample_dataset(cfg, seed=7)
+        _, S = surf.make_problem(cfg, seed=0, device="cpu")
+        rng = np.random.default_rng(9)
+        W0 = (cfg.w0_mean + cfg.w0_std * rng.standard_normal(
+            (cfg.n_agents, cfg.head_dim))).astype(np.float32)
+        n, t = cfg.n_agents, cfg.test_per_agent
+        for name, fn in table.items():
+            draws = _baseline_draws(name, rng, cfg, rounds, BASELINE_PART)
+            kw = {"rounds": rounds, "lr": BASELINE_LRS[name]}
+            if draws is not None:
+                kw["draws"] = draws
+            if table is BL.CLASSICAL:
+                kw["participate"] = BASELINE_PART
+                args = (W0, ds, None, cfg)
+            else:
+                args = (S, W0, ds, None, cfg)
+            warm = dict(kw, rounds=2)
+            if draws is not None:
+                warm["draws"] = {k: v[:2] for k, v in draws.items()}
+            fn(*args, device=device, **warm)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card_out = fn(*args, device=device, **kw)
+            ms = 1e3 * (time.perf_counter() - t0) / rounds
+            cpu_out = fn(*args, device="cpu", **kw)
+            scale = float(np.abs(cpu_out["loss"]).max())
+            d_loss = float(np.abs(card_out["loss"] - cpu_out["loss"]).max())
+            d_acc = float(np.abs(card_out["acc"] - cpu_out["acc"]).max())
+            if not (np.isfinite(card_out["loss"]).all()
+                    and d_loss <= BASELINE_LOSS_TOL * scale
+                    and d_acc <= 2.0 / (n * t)):
+                raise AssertionError(f"9d {name}: card vs CPU loss {d_loss}"
+                                     f" (scale {scale}), acc {d_acc}")
+            rec[name] = {"ms_per_round": ms, "rounds": rounds,
+                         "max_abs_dloss": d_loss, "loss_scale": scale,
+                         "max_abs_dacc": d_acc,
+                         "final_acc": float(card_out["acc"][-1])}
+    if any(counts().values()):
+        raise AssertionError(f"9d launched a kernel: {counts()}")
+    _, S = surf.make_problem(PAPER, seed=0, device="cpu")
+    ds = sample_dataset(PAPER, seed=7)
+    W0 = np.zeros((PAPER.n_agents, PAPER.head_dim), np.float32)
+    rec["dgd_profiled_20_rounds"] = _profiled(
+        lambda: BL.run_dgd(S, W0, ds, None, PAPER, rounds=20,
+                           lr=BASELINE_LRS["dgd"], device=device), device)
+    print(f"[{tag}] 9d baselines at PAPER width, card vs CPU on one set of "
+          f"numpy draws, no kernel launch: {json.dumps(rec)}")
+    return rec
 
 
 def quickstart(tag, device="cuda"):
@@ -1535,6 +1868,8 @@ def llm_parity(tag, arch, cfg, params, tokens, P, N):
 
 def _kind(name):
     name = name.lower()
+    if "graph_filter_kernel" in name:
+        return "graph_filter"
     if "flash_attention_kernel" in name:
         return "flash_attention"
     if "wkv_kernel" in name:
@@ -1655,10 +1990,23 @@ def main():
     mds, pool = paper_pool(PAPER)
     meta_step_parity(tag, PAPER, pool)
     zero_counts()
-    _, train_fwd, train_bwd = train_paper(tag, PAPER, mds, pool)
+    static, train_fwd, train_bwd = train_paper(tag, PAPER, mds, pool)
     if counts()["flash_attention"] or counts()["wkv"]:
         raise AssertionError(f"SURF paths launched an LLM kernel {counts()}")
+
+    # 9b. scheduled training at PAPER width (counts zeroed inside, just
+    #     before train_surf)
+    sched_fwd, sched_bwd, _ = scheduled_training(
+        tag, PAPER, mds, pool, static["ms_per_meta_step"])
+    if counts()["flash_attention"] or counts()["wkv"]:
+        raise AssertionError(f"9b launched an LLM kernel {counts()}")
     del pool, mds
+
+    # 9c. the async study at PAPER width (counts zeroed per n_async)
+    async_eval_launches, _ = async_eval(tag, PAPER)
+
+    # 9d. the FL baselines at PAPER width, card against CPU
+    baselines_phase(tag)
 
     # 10. the quickstart's bar
     quickstart(tag)
@@ -1669,8 +2017,8 @@ def main():
 
     # The graph filter's forward record's times are those of the largest
     # bucket's tick layer; its launches those of the serve runs (7-7d),
-    # the launchers (7e) and the training run, and dW's those of the
-    # launchers and the training run. Flash attention's and wkv's are
+    # the launchers (7e), the training runs (9, 9b) and the async study
+    # (9c), and dW's those of the launchers and the training runs. Flash attention's and wkv's are
     # those of the qwen3-4b and rwkv6-1.6b prefill shapes in f32, their
     # launches those of the serve runs (one prefill each).
     src = "src/repro_torch/kernels/graph_filter/csrc/graph_filter.cu"
@@ -1683,7 +2031,9 @@ def main():
           f"forward {adaptive_launches}; async driver forward "
           f"{async_launches}; launchers forward {launch_fwd}, backward "
           f"{launch_bwd}; training run "
-          f"forward {train_fwd}, backward {train_bwd}; qwen3-4b serve "
+          f"forward {train_fwd}, backward {train_bwd}; scheduled training "
+          f"run forward {sched_fwd}, backward {sched_bwd}; async study "
+          f"forward {async_eval_launches}; baselines none; qwen3-4b serve "
           f"flash_attention {fa_launches}; rwkv6-1.6b serve wkv "
           f"{wkv_launches}")
     print(tag)
@@ -1691,13 +2041,15 @@ def main():
         {"name": "graph_filter", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/graph_filter/kernel.py:27",
          "launches": (serve_launches + large_launches + adaptive_launches
-                      + async_launches + launch_fwd + train_fwd),
+                      + async_launches + launch_fwd + train_fwd
+                      + sched_fwd + async_eval_launches),
          "max_abs_err": max_err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": None},
         {"name": "graph_filter_bwd", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/graph_filter/ops.py:114",
-         "launches": train_bwd + launch_bwd, "max_abs_err": bwd_err,
+         "launches": train_bwd + launch_bwd + sched_bwd,
+         "max_abs_err": bwd_err,
          "ms": b_ms,
          "plain_ms": b_plain_ms, "bound_ms": b_bound_ms,
          "bound_by": b_bound_by, "library_ms": None},

@@ -1,7 +1,8 @@
 """Public SURF API of the port: build the FL problem, meta-train U-DGD
-(``train_surf``), evaluate a trained model, and solve one new federation
-(the port of ``repro.core.surf``). The asynchronous-agent study lands
-with a later slice.
+(``train_surf``, on the static graph or under a time-varying topology
+scenario), evaluate a trained model, solve one new federation, and the
+asynchronous-agent perturbation study (paper App. D, ``evaluate_async``):
+the port of ``repro.core.surf``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise. On the card every mixer
@@ -16,6 +17,8 @@ from repro_torch import engine as E
 from repro_torch.configs.base import SURFConfig
 from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
+from repro_torch.engine.core import _check_mix, _layer_fn
+from repro_torch.topology import schedule as SCH
 from repro_torch.topology.families import build_topology
 from repro_torch.utils.cache import BoundedLRU
 from repro_torch.utils.device import resolve_device, to_tensor
@@ -26,6 +29,9 @@ from repro_torch.utils.device import resolve_device, to_tensor
 # count the builds (``repro_torch.cache_stats()["surf-eval"]``). An
 # untagged custom mix_fn is uncacheable and rebuilt per call.
 _EVAL_CACHE = BoundedLRU(maxsize=64, name="surf-eval")
+# The async study's bodies (``_async_core``), keyed the same way with the
+# "async" variant (``cache_stats()["surf-async"]``).
+_ASYNC_CACHE = BoundedLRU(maxsize=32, name="surf-async")
 
 DEPTHS = ("fixed", "adaptive")
 
@@ -65,6 +71,45 @@ def make_problem(cfg: SURFConfig, seed=0, device=None):
                               device=resolve_device(device))
 
 
+SCENARIOS = ("static", "link-failure", "dropout", "markov", "anneal")
+
+
+def make_scenario(cfg: SURFConfig, scenario, steps, seed=0, *,
+                  p_fail=0.2, n_drop=None, p_drop=0.05, p_recover=0.5,
+                  device=None):
+    """Named training scenario -> ``TopologySchedule`` over the config's
+    base graph (graph seed ``seed``), on ``device``; None for "static" or
+    None (train on the static S).
+
+      * "link-failure": each link down i.i.d. w.p. ``p_fail`` per step,
+      * "dropout": ``n_drop`` agents (default n/10) drop out per step,
+      * "markov": bursty link outages (``p_drop``/``p_recover`` chain),
+      * "anneal": ring→random Watts–Strogatz rewiring curriculum.
+
+    The schedule has ``steps`` matrices (one per meta-step; the drivers
+    cycle mod T if trained longer). Bit-equal to the reference's."""
+    if scenario in (None, "static"):
+        return None
+    A, _ = build_topology(cfg.topology, cfg.n_agents, degree=cfg.degree,
+                          p=cfg.er_p, seed=seed)
+    if scenario == "link-failure":
+        return SCH.link_failure_schedule(A, steps, p_fail=p_fail, seed=seed,
+                                         device=device)
+    if scenario == "dropout":
+        nd = n_drop if n_drop is not None else max(1, cfg.n_agents // 10)
+        return SCH.dropout_schedule(A, steps, n_drop=nd, seed=seed,
+                                    device=device)
+    if scenario == "markov":
+        return SCH.markov_link_schedule(A, steps, p_drop=p_drop,
+                                        p_recover=p_recover, seed=seed,
+                                        device=device)
+    if scenario == "anneal":
+        return SCH.ring_to_random_anneal(cfg.n_agents, steps,
+                                         k=max(2, 2 * (cfg.degree // 2)),
+                                         seed=seed, device=device)
+    raise ValueError(f"unknown scenario {scenario!r}; one of {SCENARIOS}")
+
+
 def train_surf(cfg: SURFConfig, meta_datasets, steps, seed=0,
                constrained=True, activation="relu", log_every=10,
                init="dgd", engine="scan", mix_fn=None, mix=None, mesh=None,
@@ -76,6 +121,13 @@ def train_surf(cfg: SURFConfig, meta_datasets, steps, seed=0,
     Returns (state, history, S); the history holds every
     ``log_every``-th step's metrics and the last.
 
+    ``scenario`` (a name from ``SCENARIOS``, see ``make_scenario``) or
+    ``schedule`` (an explicit ``TopologySchedule``) trains under
+    TIME-VARYING graphs: meta-step t mixes with the schedule's S[t % T].
+    The returned S is still the nominal static mixing matrix, which
+    evaluation uses (robustness protocols train on perturbed topologies
+    and test on the nominal one). Passing both raises ``ValueError``.
+
     ``engine`` is "scan" (``engine.scan.train_scan``, no host sync in the
     loop) or "python" (``engine.scan.train``, a host copy at each logged
     step); both run the same meta-step and draws. ``mix`` is one of
@@ -83,13 +135,11 @@ def train_surf(cfg: SURFConfig, meta_datasets, steps, seed=0,
     kernel on the card; it is exclusive with an explicit ``mix_fn``. Ring and
     halo mixers (ROADMAP queue 1 item 8) are not ported yet.
 
-    The reference's ``mesh``, ``q_sharded``, ``scenario``, ``schedule``,
-    ``seeds``, ``eval_every``, ``eval_datasets`` and ``checkpoint_*``
-    options are not ported yet: passing one raises
-    ``NotImplementedError`` naming its ROADMAP item."""
+    The reference's ``mesh``, ``q_sharded``, ``seeds``, ``eval_every``,
+    ``eval_datasets`` and ``checkpoint_*`` options are not ported yet:
+    passing one raises ``NotImplementedError`` naming its ROADMAP item."""
     for name, value, item in (
             ("mesh", mesh, 8), ("q_sharded", q_sharded, 8),
-            ("scenario", scenario, 6), ("schedule", schedule, 6),
             ("seeds", seeds, 7), ("eval_every", eval_every, 7),
             ("eval_datasets", eval_datasets, 7),
             ("checkpoint_every", checkpoint_every, 7),
@@ -108,13 +158,37 @@ def train_surf(cfg: SURFConfig, meta_datasets, steps, seed=0,
     if mix is not None and mix_fn is not None:
         raise ValueError("pass either mix= (a mixer name) or mix_fn= (an "
                          "explicit mixer), not both")
+    if scenario is not None and schedule is not None:
+        raise ValueError("pass either scenario= (a name) or schedule= "
+                         "(an explicit TopologySchedule), not both")
     _, S = make_problem(cfg, seed, device=device)
+    if schedule is None:
+        schedule = make_scenario(cfg, scenario, steps, seed,
+                                 device=S.device)
+    S_train = schedule if schedule is not None else S
     driver = E.train_scan if engine == "scan" else E.train
-    state, hist = driver(cfg, S, meta_datasets, steps, seed=seed,
+    state, hist = driver(cfg, S_train, meta_datasets, steps, seed=seed,
                          constrained=constrained, activation=activation,
                          log_every=log_every, init=init, mix_fn=mix_fn,
                          task=task, device=S.device)
     return state, hist, S
+
+
+def _check_draws_and_seeds(datasets, draws, seeds):
+    """Validate ``draws`` (one per dataset) and normalize ``seeds`` to a
+    non-empty list of ints (None stays None); draws replace ONE seed's
+    draws, so they do not combine with ``seeds``."""
+    if draws is not None and len(draws) != len(datasets):
+        raise ValueError(f"{len(draws)} draws for {len(datasets)} datasets")
+    if seeds is None:
+        return None
+    seeds = [int(s) for s in np.asarray(list(seeds)).reshape(-1)]
+    if not seeds:
+        raise ValueError("seeds must be non-empty")
+    if draws is not None:
+        raise ValueError("draws replace one seed's draws; pass seed=, "
+                         "not seeds=")
+    return seeds
 
 
 def evaluate_surf(cfg: SURFConfig, state, S, datasets, seed=0,
@@ -138,18 +212,12 @@ def evaluate_surf(cfg: SURFConfig, state, S, datasets, seed=0,
     return drops the per-layer stacks and carries ``final_loss`` /
     ``final_acc`` and ``depth``, the realized layer count averaged over
     the datasets."""
+    E._check_static_s(S, "evaluate_surf")
     device = resolve_device(device)
     task = resolve_task(cfg, task)
     depth = _resolve_depth(cfg, depth)
-    if draws is not None and len(draws) != len(datasets):
-        raise ValueError(f"{len(draws)} draws for {len(datasets)} datasets")
+    seeds = _check_draws_and_seeds(datasets, draws, seeds)
     if seeds is not None:
-        seeds = [int(s) for s in np.asarray(list(seeds)).reshape(-1)]
-        if not seeds:
-            raise ValueError("seeds must be non-empty")
-        if draws is not None:
-            raise ValueError("draws replace one seed's draws; pass seed=, "
-                             "not seeds=")
         rows = [evaluate_surf(cfg, state, S, datasets, seed=s,
                               activation=activation, mix_fn=mix_fn,
                               task=task, device=device, depth=depth)
@@ -178,8 +246,120 @@ def solve_federation(cfg: SURFConfig, state, S, dataset, seed=0,
     replaces the random draws. ``depth="adaptive"`` solves with the
     early-exit unroll and adds the realized ``depth``: the reference of
     the adaptive serve path."""
+    E._check_static_s(S, "solve_federation")
     return evaluate_surf(cfg, state, S, [dataset], seed=seed,
                          activation=activation, mix_fn=mix_fn, task=task,
                          device=device,
                          draws=None if draws is None else [draws],
                          depth=depth)
+
+
+# ------------------------------------------------- asynchronous agents
+def _async_core(cfg: SURFConfig, activation="relu", mix_fn=None, task=None):
+    """S-as-argument async-inference body ``run_s(S, theta, batch,
+    generator, async_mask, draws=None) -> (losses (L,), metrics (L,))``
+    on one dataset (see ``make_async_run``)."""
+    task = resolve_task(cfg, task)
+    _check_mix(mix_fn)
+    layer_fn = _layer_fn(cfg)
+
+    def run_s(S, theta, batch, generator, async_mask, draws=None):
+        W0, Xl, Yl = U.featurize_cohort(generator, batch, cfg, task=task,
+                                        draws=draws)
+        stale = to_tensor(async_mask, W0.device, torch.bool)[:, None]
+        W_prev = W = W0
+        losses, accs = [], []
+        for l in range(cfg.n_layers):
+            # neighbours see the async agents' estimate of layer l − 2
+            W_seen = torch.where(stale, W_prev, W)
+            Wn = layer_fn(U.layer_params(theta, l), S, W_seen, Xl[l], Yl[l],
+                          cfg, activation, mix_fn=mix_fn, task=task)
+            # and the async agents skip their own update this layer
+            Wn = torch.where(stale, W, Wn)
+            losses.append(task.fl_loss(Wn, batch["Xte"], batch["Yte"]))
+            accs.append(task.fl_metric(Wn, batch["Xte"], batch["Yte"]))
+            W_prev, W = W, Wn
+        return torch.stack(losses), torch.stack(accs)
+
+    return run_s
+
+
+def make_async_run(cfg: SURFConfig, S, activation="relu", task=None):
+    """Single-dataset async-inference body (paper Fig. 8) with S bound:
+    ``run(theta, batch, generator, async_mask, draws=None) -> (losses,
+    metrics)``, each (L,). Agents flagged in ``async_mask`` (n,) fail to
+    update in sync: at layer l their neighbours consume the estimate
+    communicated at the previous layer (W_seen = where(mask, W_{l−2},
+    W_{l−1}), W_{−1} = W_0), and they keep W_{l−1}. The batched path
+    is ``evaluate_async``."""
+    run_s = _async_core(cfg, activation, task=task)
+
+    def run(theta, batch, generator, async_mask, draws=None):
+        return run_s(S, theta, batch, generator, async_mask, draws)
+
+    return run
+
+
+def async_masks(cfg: SURFConfig, n_datasets, n_async, seed=0):
+    """Per-dataset async-agent masks, (Q, n_agents) bool: each dataset gets
+    its own uniformly drawn set of ``n_async`` stale agents (numpy,
+    bit-equal to the reference's)."""
+    rng = np.random.default_rng(seed)
+    masks = np.zeros((n_datasets, cfg.n_agents), bool)
+    for q in range(n_datasets):
+        masks[q, rng.choice(cfg.n_agents, n_async, replace=False)] = True
+    return masks
+
+
+def _async_evaluator(cfg, activation, mix_fn, task):
+    """The (cached) async body for this computation."""
+    key = E._engine_cache_key(cfg, "async", activation, mix_fn=mix_fn,
+                              task=task)
+
+    def build():
+        return _async_core(cfg, activation, mix_fn, task)
+
+    return build() if key is None else _ASYNC_CACHE.get_or_build(key, build)
+
+
+def evaluate_async(cfg: SURFConfig, state, S, datasets, n_async, seed=0,
+                   activation="relu", seeds=None, task=None, mesh=None,
+                   mix_fn=None, device=None, draws=None):
+    """Asynchronous communications (paper Fig. 8) over all downstream
+    ``datasets``, each with its own mask from ``async_masks(cfg, Q,
+    n_async, seed)``. Dataset q draws from ``unroll.async_generator(seed,
+    q)`` unless ``draws`` (one ``(W0, Xl, Yl)`` per dataset) replaces
+    them. Returns numpy ``loss_per_layer`` / ``acc_per_layer`` (L,) and
+    ``final_loss`` / ``final_acc``, averaged over the datasets.
+
+    ``seeds``: a batch of evaluation seeds; each seed draws its own
+    masks and every returned metric gains a leading (n_seeds,) axis, row
+    i equal to the ``seed=seeds[i]`` call. ``mix_fn`` overrides the
+    default mixer (the plain reference is ``make_plain_mix()``).
+    ``mesh`` (Q sharded over devices) is ROADMAP queue 1 item 8."""
+    if mesh is not None:
+        raise NotImplementedError("evaluate_async(mesh=...) is not ported "
+                                  "yet: ROADMAP queue 1 item 8")
+    E._check_static_s(S, "evaluate_async")
+    device = resolve_device(device)
+    task = resolve_task(cfg, task)
+    seeds = _check_draws_and_seeds(datasets, draws, seeds)
+    if seeds is not None:
+        rows = [evaluate_async(cfg, state, S, datasets, n_async, seed=s,
+                               activation=activation, task=task,
+                               mix_fn=mix_fn, device=device)
+                for s in seeds]
+        return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+    run_s = _async_evaluator(cfg, activation, mix_fn, task)
+    masks = async_masks(cfg, len(datasets), n_async, seed=seed)
+    S = to_tensor(S, device, torch.float32)
+    theta = {k: to_tensor(v, device) for k, v in state.theta.items()}
+    with torch.no_grad():
+        outs = [run_s(S, theta, task.to_batch(ds, device),
+                      U.async_generator(seed, q, device), masks[q],
+                      None if draws is None else draws[q])
+                for q, ds in enumerate(datasets)]
+    losses = torch.stack([o[0] for o in outs]).mean(0).cpu().numpy()
+    accs = torch.stack([o[1] for o in outs]).mean(0).cpu().numpy()
+    return {"loss_per_layer": losses, "acc_per_layer": accs,
+            "final_loss": losses[-1], "final_acc": accs[-1]}

@@ -214,11 +214,19 @@ def udgd_forward_adaptive(params, S, W0, Xl, Yl, Xp, Yp, cfg: SURFConfig,
 #     ``fold_in(PRNGKey(seed), t)``, ``engine/scan.py``);
 #   * solve of dataset q under evaluation seed ``seed``:
 #     ``solve_generator`` = (1000 + seed) · 1_000_003 + q (the
-#     reference's ``fold_in(PRNGKey(1000 + seed), q)``).
+#     reference's ``fold_in(PRNGKey(1000 + seed), q)``);
+#   * async-study solve of dataset q under evaluation seed ``seed``
+#     (``core.surf.evaluate_async``): ``async_generator`` =
+#     (2000 + seed) · 1_000_003 + q (the reference's
+#     ``fold_in(PRNGKey(2000 + seed), q)``, ``_eval_keys`` in
+#     ``core/surf.py``).
 #
 # For seeds below 9·10^12 and t, q below 1_000_003 the step seeds lie at
 # or above 2**63 and the solve seeds below it, so no meta-step ever
-# shares a stream with an evaluation solve.
+# shares a stream with an evaluation solve. The async stream is the
+# solve stream shifted by 1000 seeds, exactly as in the reference:
+# ``async_generator(seed, q)`` draws what ``solve_generator(seed + 1000,
+# q)`` draws, and no other solve seed meets it.
 STEP_SEED_BASE = 2 ** 63
 
 
@@ -245,6 +253,15 @@ def solve_generator(seed, q, device) -> torch.Generator:
     all use it, so a served request and its single-cohort solve on one
     device see the same draws."""
     return seeded_generator((1000 + int(seed)) * 1_000_003 + int(q),
+                            device)
+
+
+def async_generator(seed, q, device) -> torch.Generator:
+    """The generator the async study's solve of dataset ``q`` under
+    evaluation seed ``seed`` draws from (``core.surf.evaluate_async``;
+    see the seeding scheme above: the stream of
+    ``solve_generator(seed + 1000, q)``)."""
+    return seeded_generator((2000 + int(seed)) * 1_000_003 + int(q),
                             device)
 
 

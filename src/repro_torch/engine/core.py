@@ -16,6 +16,10 @@ bodies in a Python loop. The evaluation and serve bodies are still built
 once per distinct computation and cached (``core.surf``'s evaluator
 cache, the server's bucket cache) under keys from ``_engine_cache_key``,
 whose cache misses count the builds (the reference's ``TRACE_COUNTS``).
+With S an argument, a time-varying schedule needs nothing here: the
+drivers hand each meta-step its S_t. The builders that bind one S
+(``make_meta_step``, ``make_eval``, and the evaluators of ``core.surf``)
+refuse a ``TopologySchedule`` (``_check_static_s``).
 
 Random draws come from an explicit ``torch.Generator``
 (``core.unroll.step_generator`` per meta-step); ``draws=(W0, Xl, Yl)``
@@ -37,6 +41,7 @@ from repro_torch.core import constraints as C
 from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
 from repro_torch.optim import adam, apply_updates, clip_by_global_norm
+from repro_torch.topology.schedule import TopologySchedule
 
 # Global-norm clip of the meta-gradient (the reference's constant).
 CLIP_NORM = 10.0
@@ -64,13 +69,26 @@ def init_state(generator, cfg: SURFConfig, init="dgd", task=None):
 
 def _check_mix(mix_fn):
     """Mixers of slices not ported yet raise, naming their ROADMAP item
-    (baked-S ring/halo mixers raise in ``core.unroll._mix``)."""
+    (baked-S ring/halo mixers raise in ``core.unroll._mix``). A
+    time-varying schedule needs no mixer of its own: the default and any
+    ``takes_S`` mixer take each step's S_t as an argument
+    (``engine.scan``); the scheduled HALO mixer is item 8's."""
     for attr, what in (("seed_batched", "seed-batched mixers (ROADMAP "
                         "queue 1 item 7)"),
-                       ("scheduled", "scheduled mixers (time-varying "
-                        "topology, ROADMAP queue 1 item 6)")):
+                       ("scheduled", "scheduled halo mixers (ROADMAP "
+                        "queue 1 item 8)")):
         if getattr(mix_fn, attr, False):
             raise NotImplementedError(f"{what} are not ported yet")
+
+
+def _check_static_s(S, where):
+    """The static-S builders cannot consume a time-varying schedule:
+    point the caller at the schedule-aware drivers instead."""
+    if isinstance(S, TopologySchedule):
+        raise TypeError(
+            f"{where} needs a static (n, n) mixing matrix, got a "
+            "TopologySchedule — pass a schedule to train_scan/train "
+            "(and evaluate on a static S, e.g. schedule.S[t])")
 
 
 def _layer_fn(cfg):
@@ -146,6 +164,7 @@ def make_meta_step(cfg: SURFConfig, S, *, constrained=True,
     (λ frozen at 0); ``cfg.topology == "star"`` selects the star
     layers; ``mix_fn`` overrides the default mixer (see
     ``core.unroll._mix``)."""
+    _check_static_s(S, "make_meta_step")
     meta_step_s, forward_s = _meta_step_core(cfg, constrained, activation,
                                              mix_fn, task)
 
@@ -245,6 +264,7 @@ def make_eval(cfg: SURFConfig, S, *, activation="relu", mix_fn=None,
               task=None):
     """Per-layer loss/metric trajectory on one downstream dataset with S
     bound: ``evaluate(theta, batch, generator, draws=None)``."""
+    _check_static_s(S, "make_eval")
     evaluate_s = _eval_core(cfg, activation, mix_fn, task)
 
     def evaluate(theta, batch, generator, draws=None):

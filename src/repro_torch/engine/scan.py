@@ -15,9 +15,18 @@ Meta-step t trains on dataset t mod Q and draws from
 ``core.unroll.step_generator(seed, t)``, the counterpart of the
 reference's ``fold_in(PRNGKey(seed), t)``.
 
-Time-varying schedules, in-scan snapshots, periodic checkpoints, sharded
-pools and seed batches are not ported yet; ``core.surf.train_surf``
-raises for them, naming their ROADMAP items.
+Both drivers are SCHEDULE-aware: ``S`` may be a
+``topology.schedule.TopologySchedule``, whose (T, n, n) stack moves to
+the run's device once, and meta-step t mixes with ``S[t % T]``. As for
+the dataset and the draws, t is the CARRIED ``state.step``, not the loop
+counter, so a run resumed from a ``TrainState`` continues at the right
+S_t. The default mixer and any S-as-argument (``takes_S``) mixer take
+each S_t; any other mixer is refused before the first step
+(``_check_schedule_mix``).
+
+In-scan snapshots, periodic checkpoints, sharded pools and seed batches
+are not ported yet; ``core.surf.train_surf`` raises for them, naming
+their ROADMAP items.
 """
 from __future__ import annotations
 
@@ -27,7 +36,8 @@ import torch
 from repro_torch.configs.base import SURFConfig
 from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
-from repro_torch.engine.core import _meta_step_core, init_state
+from repro_torch.engine.core import _check_mix, _meta_step_core, init_state
+from repro_torch.topology.schedule import TopologySchedule
 from repro_torch.utils.device import resolve_device, to_tensor
 
 
@@ -63,32 +73,55 @@ def _decimate_history(metrics, steps, log_every, start=0):
     return out
 
 
+def _check_schedule_mix(mix_fn):
+    """Validate the mixer of a scheduled run before its first step: the
+    default mixer (None) and any S-as-argument (``takes_S``) mixer are
+    handed each step's S_t; a baked-S mixer would silently ignore the
+    schedule, and seed-batched or scheduled halo mixers are not ported
+    (``engine.core._check_mix``)."""
+    _check_mix(mix_fn)
+    if mix_fn is not None and not getattr(mix_fn, "takes_S", False):
+        raise ValueError(
+            "a TopologySchedule requires the default mixer or an "
+            "S-as-argument mixer (takes_S, such as kernels.graph_filter."
+            "make_plain_mix): a baked-S mix_fn would silently ignore the "
+            "schedule")
+
+
 def _setup(cfg, S, meta_datasets, seed, constrained, activation, init,
            mix_fn, task, device, state):
+    """The meta-step body, S (an (n, n) tensor, or a schedule's (T, n, n)
+    stack) on the device, the stacked pool and the start state."""
     device = resolve_device(device)
     task = resolve_task(cfg, task)
+    sched = isinstance(S, TopologySchedule)
+    if sched:
+        _check_schedule_mix(mix_fn)
+        S = S.S
     meta_step_s, _ = _meta_step_core(cfg, constrained, activation, mix_fn,
                                      task)
     if state is None:
         state = init_state(U.seeded_generator(seed, device), cfg,
                            init=init, task=task)
     pool = stack_meta_datasets(meta_datasets, task, device)
-    return (meta_step_s, to_tensor(S, device, torch.float32), pool, state,
-            device)
+    return (meta_step_s, to_tensor(S, device, torch.float32), sched, pool,
+            state, device)
 
 
-def _run(meta_step_s, S, pool, state, seed, steps, device, draws):
+def _run(meta_step_s, S, sched, pool, state, seed, steps, device, draws):
     """``steps`` meta-steps from ``state``; yields (t, state, metrics)
-    after each. Dataset and draws follow the absolute step ``state.step``."""
+    after each. Dataset, draws and, when ``sched``, the mixing matrix
+    S[t % T] follow the absolute step t = ``state.step``."""
     n_q = next(iter(pool.values())).shape[0]
     for _ in range(int(steps)):
         t = state.step
         batch = {k: v[t % n_q] for k, v in pool.items()}
+        S_t = S[t % S.shape[0]] if sched else S
         if draws is None:
-            state, m = meta_step_s(S, state, batch,
+            state, m = meta_step_s(S_t, state, batch,
                                    U.step_generator(seed, t, device))
         else:
-            state, m = meta_step_s(S, state, batch, draws=draws[t])
+            state, m = meta_step_s(S_t, state, batch, draws=draws[t])
         yield t, state, m
 
 
@@ -98,17 +131,19 @@ def train_scan(cfg: SURFConfig, S, meta_datasets, steps, seed=0,
                draws=None):
     """Run ``steps`` meta-iterations, cycling the meta-training datasets
     on the device, with no host sync inside the loop. Returns (state,
-    history), the history decimated to ``log_every`` at the end.
+    history), the history decimated to ``log_every`` at the end. ``S``
+    is an (n, n) mixing matrix or a ``TopologySchedule`` (meta-step t
+    mixes with ``S.S[t % T]``).
 
     ``state`` starts from a given ``TrainState`` instead of
     ``init_state(seed)``; ``draws`` (indexed by the absolute step, one
     ``(W0, Xl, Yl)`` each) replaces the per-step random draws. The tests
     use both to replay a reference run."""
-    meta_step_s, S, pool, state, device = _setup(
+    meta_step_s, S, sched, pool, state, device = _setup(
         cfg, S, meta_datasets, seed, constrained, activation, init, mix_fn,
         task, device, state)
     start, rows = state.step, []
-    for _, state, m in _run(meta_step_s, S, pool, state, seed, steps,
+    for _, state, m in _run(meta_step_s, S, sched, pool, state, seed, steps,
                             device, draws):
         rows.append(m)
     if not rows:
@@ -122,13 +157,14 @@ def train(cfg: SURFConfig, S, meta_datasets, steps, seed=0,
           constrained=True, activation="relu", log_every=0, init="dgd",
           mix_fn=None, task=None, device=None, state=None, draws=None):
     """Step-wise Algorithm 1: the same loop, meta-step and draws as
-    ``train_scan``, copying the metrics to the host at each logged step.
-    Returns (state, history)."""
-    meta_step_s, S, pool, state, device = _setup(
+    ``train_scan``, copying the metrics to the host at each logged step;
+    ``S`` may be a ``TopologySchedule`` here too. Returns (state,
+    history)."""
+    meta_step_s, S, sched, pool, state, device = _setup(
         cfg, S, meta_datasets, seed, constrained, activation, init, mix_fn,
         task, device, state)
     hist, end = [], state.step + int(steps) - 1
-    for t, state, m in _run(meta_step_s, S, pool, state, seed, steps,
+    for t, state, m in _run(meta_step_s, S, sched, pool, state, seed, steps,
                             device, draws):
         if log_every and (t % log_every == 0 or t == end):
             hist.append({k: float(v) for k, v in m.items()} | {"step": t})

@@ -18,14 +18,17 @@
 //   scratch of min(K-1, 2) B n d elements (the iterate between hops);
 //   otherwise `work` may be null.
 //
-// Arithmetic: split TF32 ("3xTF32"), as the flash-attention kernel of the
-// port does. Each f32 operand x is x_hi + x_lo with x_hi = tf32(x) (round
-// to nearest, ties away, by an integer add and mask) and x_lo = x - x_hi,
-// which goes to the tensor core as f32 bits and is read as TF32 by
-// dropping its low 13 bits (at most 2^-21 of x). Each product is
-// s_lo y_hi + s_hi y_lo + s_hi y_hi with f32 accumulation; the dropped
-// s_lo y_lo is about 2^-22 of the product. One-pass TF32 (about 2^-11)
-// would not hold the reference's 5e-5; this does.
+// Arithmetic: split TF32 ("3xTF32"). Each f32 operand x is x_hi + x_lo
+// with x_hi = tf32(x) and x_lo = tf32(x - x_hi), both rounded to nearest
+// (ties away) by an integer add and mask: x_lo is within 2^-22 of x's
+// remainder. Each product is s_lo y_hi + s_hi y_lo + s_hi y_hi with f32
+// accumulation; the dropped s_lo y_lo is about 2^-22 of the product.
+// One-pass TF32 (about 2^-11) would not hold the reference's 5e-5; this
+// does. A truncated x_lo (the flash-attention kernel's, within 2^-21)
+// also holds 5e-5, but on mixing matrices whose entries TF32 does not
+// hold exactly (1/3, 2/3: a graph with failed links) it doubled the
+// meta-gradient entries at the f32 noise floor that chip_smoke.py's
+// parity gate counts, past its cap; rounding x_lo brought them back.
 //
 // What bounds it: at the serve shape (B=8, n=128, d=5130, K=2) one launch
 // does 2 K n^2 d B = 2.69 GFLOP on 42.5 MB (S, W read once, Y written
@@ -139,12 +142,12 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// x = hi + lo: hi = x rounded to TF32 (to nearest, ties away from zero:
-// cvt.rna.tf32.f32 for finite x); lo = x - hi is exact in f32, and the
-// tensor core reads its TF32 part (lo truncated, at most 2^-21 of x).
+// x ~ hi + lo: hi = x rounded to TF32 (to nearest, ties away from zero:
+// cvt.rna.tf32.f32 for finite x); x - hi is exact in f32, and lo is it
+// rounded to TF32 the same way (within 2^-22 of x).
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
 }
 
 // rows x cols of the n x n matrix G from (r0, c0) on into dst (row stride

@@ -6,8 +6,10 @@ Generators return a boolean symmetric adjacency with empty diagonal:
 regular (stub matching), er, star (node 0 is the server), ring,
 geometric, smallworld (Watts–Strogatz), pref (Barabási–Albert), torus.
 Weight rules turn an adjacency into a symmetric doubly-stochastic mixing
-matrix S: metropolis, lazy_metropolis, laplacian (I − εL).
-The spectral diagnostics arrive with the benchmarks that report them.
+matrix S: metropolis, lazy_metropolis, laplacian (I − εL);
+``metropolis_weights_loop`` is the double-loop oracle the vectorized
+rule is held against. Spectral diagnostics: algebraic connectivity
+(Fiedler value) and the SLEM of a mixing matrix.
 """
 from __future__ import annotations
 
@@ -164,6 +166,20 @@ def is_connected(A):
 
 
 # ------------------------------------------------------------- weight rules
+def metropolis_weights_loop(A):
+    """O(n²) double-loop Metropolis reference — kept verbatim as the
+    regression oracle for the vectorized ``metropolis_weights``."""
+    A = np.asarray(A, bool)
+    deg = A.sum(1)
+    n = len(A)
+    W = np.zeros((n, n))
+    for u in range(n):
+        for v in np.nonzero(A[u])[0]:
+            W[u, v] = 1.0 / (1 + max(deg[u], deg[v]))
+        W[u, u] = 1.0 - W[u].sum()
+    return W
+
+
 def metropolis_weights(A):
     """Symmetric doubly-stochastic mixing matrix from adjacency A:
     W_uv = 1 / (1 + max(deg u, deg v)) on edges, the diagonal takes the
@@ -202,6 +218,23 @@ WEIGHT_RULES = {
     "lazy_metropolis": lazy_metropolis_weights,
     "laplacian": laplacian_weights,
 }
+
+
+# -------------------------------------------------------------- diagnostics
+def algebraic_connectivity(A):
+    """Fiedler value λ₂(L) of the graph Laplacian: > 0 iff connected;
+    larger = better-connected (faster consensus)."""
+    A = np.asarray(A, bool)
+    L = np.diag(A.sum(1).astype(float)) - A.astype(float)
+    return float(np.sort(np.linalg.eigvalsh(L))[1])
+
+
+def second_eigenvalue(S):
+    """SLEM of a symmetric mixing matrix: max(|λ₂|, |λ_n|), the
+    per-mixing-round consensus contraction factor (< 1 ⟺ the chain
+    mixes; smaller = faster)."""
+    vals = np.sort(np.abs(np.linalg.eigvalsh(np.asarray(S, float))))
+    return float(vals[-2])
 
 
 # ---------------------------------------------------------------- frontend

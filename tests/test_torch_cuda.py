@@ -2,7 +2,9 @@
 graph-filter kernel (forward and backward), flash-attention kernel and
 wkv kernel against their plain versions, the wrappers' checks on CUDA
 tensors, the served (fixed and adaptive depth) and training paths
-through the graph filter, and a
+through the graph filter (static and under a topology schedule, whose
+S_t may isolate agents), the async study through the graph filter, one
+FL baseline on the card against the CPU, and a
 reduced-config LLM prefill and decode through the flash and wkv kernels
 against the same model run through the plain versions.
 
@@ -293,6 +295,101 @@ def test_meta_step_through_kernel_matches_plain(cuda):
     torch.testing.assert_close(sk.lam, sp.lam, atol=5e-6, rtol=5e-6)
     for k in mk:
         torch.testing.assert_close(mk[k], mp[k], atol=5e-6, rtol=5e-6)
+
+
+def test_kernel_on_isolated_agents(cuda):
+    """Dropout S_t (rows e_i for the dropped agents), unbatched at PAPER's
+    n and batched: forward within 5e-5 and dW within 5e-4 of the plain
+    version, and the isolated agents' rows hold Σ h_k · w_i."""
+    from repro_torch.configs.surf_paper import PAPER
+    sched = surf.make_scenario(PAPER, "dropout", 4, seed=1, device=cuda)
+    eye = torch.eye(PAPER.n_agents, device=cuda)
+    assert (sched.S[1:] == eye).all(-1).any(-1).all()
+    for S in (sched.S[1], sched.S[1:]):
+        B = None if S.dim() == 2 else S.shape[0]
+        _, W, h = _inputs(B, PAPER.n_agents, 650, 2, cuda, seed=3)
+        G = torch.randn(W.shape, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(2))
+        Wk = W.clone().requires_grad_(True)
+        y = graph_filter(S, Wk, h)
+        (dW,) = torch.autograd.grad(y, Wk, G)
+        Wp = W.clone().requires_grad_(True)
+        yp = graph_filter_ref(S, Wp, h)
+        (dWp,) = torch.autograd.grad(yp, Wp, G)
+        torch.testing.assert_close(y, yp, atol=5e-5, rtol=5e-5)
+        torch.testing.assert_close(dW, dWp, atol=5e-4, rtol=5e-4)
+        rows = (S == eye).all(-1)
+        torch.testing.assert_close(y[rows], h.sum() * W[rows], atol=5e-5,
+                                   rtol=5e-5)
+
+
+def test_scheduled_training_through_kernel_matches_plain(cuda):
+    """Three meta-steps under a dropout schedule (T = 2, so it cycles):
+    L forward and L−1 dW launches per step, and the state within 5e-6 of
+    the same run through the plain filter (same generators, so the same
+    draws)."""
+    from repro_torch.engine.scan import train_scan
+    sched = surf.make_scenario(SMOKE, "dropout", 2, seed=0, device=cuda)
+    mds = make_meta_dataset(SMOKE, 2)
+    before = (graph_filter.launches, graph_filter.bwd_launches)
+    sk, hk = train_scan(SMOKE, sched, mds, 3, log_every=1, device=cuda)
+    torch.cuda.synchronize()
+    assert (graph_filter.launches - before[0],
+            graph_filter.bwd_launches - before[1]) == (
+                3 * SMOKE.n_layers, 3 * (SMOKE.n_layers - 1))
+    sp, hp = train_scan(SMOKE, sched, mds, 3, log_every=1, device=cuda,
+                        mix_fn=make_plain_mix())
+    for k in sk.theta:
+        torch.testing.assert_close(sk.theta[k], sp.theta[k], atol=5e-6,
+                                   rtol=5e-6)
+    torch.testing.assert_close(sk.lam, sp.lam, atol=5e-6, rtol=5e-6)
+    for rk, rp in zip(hk, hp):
+        for k in rp:
+            np.testing.assert_allclose(rk[k], rp[k], atol=5e-6, rtol=5e-6)
+
+
+def test_async_evaluation_through_kernel_matches_plain(cuda):
+    """``evaluate_async`` through the kernel: L launches per dataset and
+    seed; per-layer loss within 5e-5 and accuracy within 1.5/(n t) (one
+    flipped test row) of the plain filter on the same draws and masks."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    state = init_state(gen, SMOKE, init="random")
+    _, S = surf.make_problem(SMOKE, seed=0)
+    mds = make_meta_dataset(SMOKE, 3, seed=5)
+    before = graph_filter.launches
+    kern = surf.evaluate_async(SMOKE, state, S, mds, 3, seeds=(0, 1))
+    torch.cuda.synchronize()
+    assert graph_filter.launches - before == SMOKE.n_layers * 3 * 2
+    plain = surf.evaluate_async(SMOKE, state, S, mds, 3, seeds=(0, 1),
+                                mix_fn=make_plain_mix())
+    np.testing.assert_allclose(kern["loss_per_layer"],
+                               plain["loss_per_layer"], atol=5e-5, rtol=5e-5)
+    n_t = SMOKE.n_agents * SMOKE.test_per_agent
+    np.testing.assert_allclose(kern["acc_per_layer"], plain["acc_per_layer"],
+                               atol=1.5 / n_t, rtol=0)
+
+
+def test_baseline_on_card_matches_cpu(cuda):
+    """DFedAvgM (the baseline with the most local steps) on the card and
+    on the CPU from one set of numpy draws: per-round loss within 1e-4 of
+    the largest, accuracy within 2/(n t); no graph-filter launch."""
+    from repro_torch.core import baselines
+    rng = np.random.default_rng(0)
+    n, m, b = SMOKE.n_agents, SMOKE.train_per_agent, SMOKE.batch_per_agent
+    _, S = surf.make_problem(SMOKE, seed=0, device="cpu")
+    ds = sample_dataset(SMOKE, seed=7)
+    W0 = (0.1 * rng.standard_normal((n, SMOKE.head_dim))).astype(np.float32)
+    draws = {"idx": rng.integers(0, m, (40, 6, n, b))}
+    before = (graph_filter.launches, graph_filter.bwd_launches)
+    card = baselines.run_dfedavgm(S, W0, ds, None, SMOKE, rounds=40,
+                                  lr=0.05, draws=draws)
+    assert (graph_filter.launches, graph_filter.bwd_launches) == before
+    cpu = baselines.run_dfedavgm(S, W0, ds, None, SMOKE, rounds=40, lr=0.05,
+                                 draws=draws, device="cpu")
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=0,
+                               atol=1e-4 * np.abs(cpu["loss"]).max())
+    np.testing.assert_allclose(card["acc"], cpu["acc"], rtol=0,
+                               atol=2.0 / (n * SMOKE.test_per_agent))
 
 
 # The reference's sweep shapes (tests/test_kernels.py) and three more: the

@@ -210,8 +210,8 @@ def test_cuda_mix_protocol():
 # kernel itself runs only on the card): Horner's rule with every S·Y
 # product in split TF32. Each operand x is hi + lo, hi = x rounded to TF32
 # (10 mantissa bits, to nearest with ties away from zero, as the kernel's
-# integer add and mask), lo = x − hi, which the tensor core reads as TF32
-# by dropping its low 13 bits. Up to 128 agents (wgmma) one f32
+# integer add and mask), lo = x − hi rounded to TF32 the same way. Up to
+# 128 agents (wgmma) one f32
 # accumulator takes, for each k-step of 8, lo·hi, then hi·lo, then hi·hi;
 # past 128 (mma.sync) the small products have their own accumulator:
 # (lo·hi + hi·lo) + hi·hi. W is widened to f32 and Y rounded to W's dtype
@@ -222,14 +222,10 @@ def _tf32_round(x):
     return bits.to(torch.int32).view(torch.float32)
 
 
-def _tf32_trunc(x):
-    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
 def _split_mm(a, b):
     """a @ b in split TF32 as the kernel sums it (see above)."""
     ah, bh = _tf32_round(a), _tf32_round(b)
-    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    al, bl = _tf32_round(a - ah), _tf32_round(b - bh)
     if a.shape[-1] > RESIDENT_N:
         return (al @ bh + ah @ bl) + ah @ bh
     acc = torch.zeros(a.shape[:-1] + b.shape[-1:])

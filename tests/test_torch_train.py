@@ -425,8 +425,8 @@ def test_state_from_numpy_validates(smoke):
 
 # ------------------------------------------------------ not ported: raises
 @pytest.mark.parametrize("option,value,item", [
-    ("mesh", object(), 8), ("q_sharded", True, 8), ("scenario", "dropout", 6),
-    ("schedule", object(), 6), ("seeds", (0, 1), 7), ("eval_every", 5, 7),
+    ("mesh", object(), 8), ("q_sharded", True, 8),
+    ("seeds", (0, 1), 7), ("eval_every", 5, 7),
     ("eval_datasets", [], 7), ("checkpoint_every", 5, 7),
     ("checkpoint_dir", "ckpt", 7)])
 def test_unported_train_options_raise(smoke, option, value, item):
@@ -444,7 +444,7 @@ def test_unported_training_paths_raise(smoke):
         TC.robust_layer_grad_norms(None, None, None, tcfg, None)
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         TC.robust_slacks(None, None, 0.1)
-    for attr, item in (("seed_batched", 7), ("scheduled", 6)):
+    for attr, item in (("seed_batched", 7), ("scheduled", 8)):
         mix = lambda S, W, h: W                        # noqa: E731
         mix.takes_S = True
         setattr(mix, attr, True)
