@@ -25,7 +25,10 @@ order; any failure exits non-zero:
      kernel's transposed-S entry, dh) against autograd through the plain
      version at the reference's VJP shapes, n = 129, 256 and 1000, and
      the PAPER training shape (n=100, d=5130, K=2), with the dW launch's
-     times there;
+     times there; then (3/4 additions) forward within 5e-5 and dW within
+     5e-4 on the S the new paths mix with: SPARSE_SMOKE's (n = 8,
+     d = 16), the quickstart's (n = 20, d = 330) and
+     ``make_problem(PAPER, i)``'s for the training seeds i = 0-3;
   5. flash attention vs plain — at the reference's sweep shapes, the
      qwen3-4b prefill shape (B=4, H=32, KV=8, S=2048, dh=128) and a
      gemma3 window-1024 shape (H=32, KV=16), f32 and bf16, at 10x the
@@ -69,7 +72,8 @@ order; any failure exits non-zero:
      at its own default seed either;
   8. meta-step parity — 3 PAPER meta-steps from one ``init_state`` on
      identical draws, through the kernel (default mixer) and through the
-     plain filter: θ, λ and the metrics must agree;
+     plain filter: θ, λ and the metrics must agree; a TF32 plain step
+     must fail the same gate;
   9. train — ``train_surf(PAPER, make_meta_dataset(PAPER, 8), steps=20)``
      through the kernel: L forward and L−1 backward launches per step,
      ms per meta-step (CUDA events), meta-steps/s, peak memory, one
@@ -89,14 +93,41 @@ order; any failure exits non-zero:
      and masks: per-layer loss within 5e-5 of max(|loss|, 1), accuracy
      within 1.5/(n t); n_async = 0 equal to ``evaluate_surf``'s per-layer
      loss and accuracy bit for bit on the same draws; ms per call;
-  9d. baselines — DGD, DSGD, DFedAvgM on PAPER's S for 200 rounds and
+  9e. seed-batched training — ``train_surf(PAPER, 8 datasets, steps=10,
+     seeds=(0, 1, 2, 3), eval_every=5, eval_datasets=4 test datasets)``
+     through the kernel: 4 × L forward and 4 × (L − 1) dW launches per
+     lockstep step plus L per eval dataset per seed per snapshot;
+     S_stack[i] equal to ``make_problem(PAPER, i)``'s S; states, history
+     and snapshots bit-equal, row for row, to the four sequential runs;
+     the last snapshot bit-equal to ``snapshot_reference`` from the
+     returned θ; ms per lockstep step and per seed beside phase 9's
+     meta-step, one lockstep step profiled by kernel kind (device time,
+     copies, busy share), and the peak memory;
+  9f. RSDUN — 3 PAPER meta-steps with robust_sigma 0.1 and 2 samples,
+     kernel vs plain on the same draws and δ at phase 8's gates;
+     robust_sigma 0 with 4 samples gives phase 8's kernel trajectory bit
+     for bit; ms per robust meta-step beside a nominal one;
+     ``train_surf`` on the robust config: L and L − 1 launches per step;
+
      FedAvg, FedProx, SCAFFOLD on PAPER_STAR for 25, fig. 5's learning
      rates, on the card and on the CPU from one set of numpy draws:
      per-round loss within 1e-4 of the run's largest |loss|, accuracy
      within 2/(n t), no graph-filter launch; ms per round;
+  9g. checkpoint and resume — the quickstart config, 20 steps with
+     ``checkpoint_every=5`` (under build/), resumed from step 10:
+     bit-equal to the uninterrupted run, single-seed and with 4 seeds;
+  9h. sparse recovery — 20 SPARSE_SMOKE meta-steps kernel vs plain from
+     one state per step (phase 8's gates, the TF32 control included);
+     ``train_surf(SPARSE_SMOKE)`` 20 steps through the kernel (L and
+     L − 1 launches per step); ``launch.surf_serve --task sparse`` at its
+     defaults, gated by its own assertions; a seed-batched sparse run
+     bit-equal per row;
  10. quickstart — the config of ``examples/quickstart.py`` trained for
      250 meta-steps and evaluated on 5 unseen datasets under 4 seeds:
      ``final_acc`` must clear the reference quickstart's 0.5;
+ 10b. quickstart ``--seeds 4 --eval-every 50`` — 4 seeds in lockstep with
+     a snapshot every 50 steps; the seed mean of ``final_acc`` must clear
+     0.5; each seed's value and the snapshot curve are printed;
  11. qwen3-4b serve at full width, f32 — ``launch.serve.main`` (4 prompts
      of 2048 seeded ids, 32 new tokens, parameters from ``init_lm`` with
      a seeded generator): 36 flash launches, none of another kernel;
@@ -169,6 +200,13 @@ BASELINE_LRS = {"dgd": 0.5, "dsgd": 0.2, "dfedavgm": 0.05,
                 "fedavg": 0.5, "fedprox": 0.5, "scaffold": 0.5}
 BASELINE_LOSS_TOL = 1e-4     # card vs CPU, of the run's largest |loss|
 QUICKSTART_STEPS = 250
+# Phases 9e-10b: the training seeds of figures 5-8 (benchmarks/common.py
+# TRAIN_SEEDS), 9e's run and snapshot pool, 9g's checkpoint grid, 9h's
+# run length.
+SEEDS = (0, 1, 2, 3)
+SEED_STEPS, SEED_EVAL_EVERY, SEED_EVAL_POOL = 10, 5, 4
+CKPT_STEPS, CKPT_EVERY, CKPT_RESUME = 20, 5, 10
+SPARSE_STEPS = 20
 # Flash attention: the reference's sweep shapes (B, H, KV, S, dh, window),
 # the qwen3-4b prefill and a gemma3 local-layer shape; wkv: the sweep
 # shapes (B, H, T, dk) and the rwkv6-1.6b prefill.
@@ -180,6 +218,14 @@ WKV_SWEEP = [(1, 2, 32, 16), (2, 3, 50, 16), (1, 4, 64, 64), (2, 1, 17, 8)]
 WKV_RWKV = (4, 32, 2048, 64)
 LLM_BATCH, LLM_PROMPT, LLM_TOKENS = 4, 2048, 32
 LLM_REL_TOL = 1e-3   # kernel vs plain model: of the largest |entry|
+
+
+def quickstart_cfg():
+    """The config of ``examples/quickstart.py``."""
+    from repro_torch.configs.base import SURFConfig
+    return SURFConfig(n_agents=20, n_layers=8, filter_taps=2, feature_dim=32,
+                      n_classes=10, batch_per_agent=8, topology="regular",
+                      degree=3, eps=0.01)
 
 
 def card() -> str:
@@ -875,7 +921,7 @@ def profile_tick(tag, server, cfg, device, n):
 def paper_pool(cfg, device="cuda"):
     from repro_torch.core.tasks import resolve_task
     from repro_torch.data.synthetic import make_meta_dataset
-    from repro_torch.engine.scan import stack_meta_datasets
+    from repro_torch.data.pipeline import stack_meta_datasets
     mds = make_meta_dataset(cfg, TRAIN_POOL, seed=0)
     return mds, stack_meta_datasets(mds, resolve_task(cfg), device)
 
@@ -960,7 +1006,8 @@ def _powers_mix():
     return mix_fn
 
 
-def meta_step_parity(tag, cfg, pool, device="cuda", schedule=None):
+def meta_step_parity(tag, cfg, pool, device="cuda", schedule=None,
+                     steps=PARITY_STEPS):
     """PARITY_STEPS meta-steps from one ``init_state`` (seed 0) on
     identical draws, through the kernel (default mixer) and through the
     plain filter, held as ``_state_err`` says. Each step starts both
@@ -973,9 +1020,13 @@ def meta_step_parity(tag, cfg, pool, device="cuda", schedule=None):
 
     Negative control: at step 0 the plain path runs once more with TF32
     matmuls, a gradient about 1e-3 less precise; the gate must reject
-    it, or it could not tell a lower-precision gradient from f32. Beside
-    it, not gated, the plain filter in another f32 order shows the noise
-    floor an f32-accurate filter meets on the same inputs."""
+    it, or it could not tell a lower-precision gradient from f32 (on
+    the CPU, which has no TF32 mode, it is reported only). Beside it,
+    not gated, the
+    plain filter in another f32 order shows the noise floor an
+    f32-accurate filter meets on the same inputs. A robust config (phase
+    9f) hands both paths step t's δ from ``robust_generator(0, t)``.
+    Returns the kernel path's state after ``steps`` steps."""
     from functools import partial
 
     from repro_torch.core import surf, unroll
@@ -988,13 +1039,16 @@ def meta_step_parity(tag, cfg, pool, device="cuda", schedule=None):
     reorder_s, _ = _meta_step_core(cfg, mix_fn=_powers_mix())
     state = init_state(unroll.seeded_generator(0, device), cfg)
     free, ok = state, True
-    for t in range(PARITY_STEPS):
+    for t in range(steps):
         S_t = S if schedule is None else schedule.S[t % schedule.steps]
-        kern, plain = partial(kern_s, S_t), partial(plain_s, S_t)
-        reorder = partial(reorder_s, S_t)
         batch = {k: v[t % n_q] for k, v in pool.items()}
         draws = unroll.featurize_cohort(unroll.step_generator(0, t, device),
                                         batch, cfg)
+        dl = ({"deltas": unroll.sample_deltas(
+            unroll.robust_generator(0, t, device), cfg)}
+            if kern_s.robust else {})
+        kern, plain = partial(kern_s, S_t, **dl), partial(plain_s, S_t, **dl)
+        reorder = partial(reorder_s, S_t, **dl)
         sk, mk = kern(state, batch, draws=draws)
         sp, mp = plain(state, batch, draws=draws)
         free, _ = plain(free, batch, draws=draws)
@@ -1019,7 +1073,7 @@ def meta_step_parity(tag, cfg, pool, device="cuda", schedule=None):
             print(f"[{tag}] negative control, TF32 plain vs f32 plain at "
                   f"step 0: {_fmt_rows(rows_c)}; gate "
                   f"{'passed (wrong)' if control_ok else 'rejected it'}")
-            if control_ok:
+            if control_ok and device != "cpu":
                 raise AssertionError("the parity gate passed a TF32 "
                                      "gradient")
             # not gated: two f32 orders of the plain filter, the noise
@@ -1035,10 +1089,11 @@ def meta_step_parity(tag, cfg, pool, device="cuda", schedule=None):
         ok = ok and step_ok and not m_bad
         state = sk
     free_err = max(r[1] for r in _state_err(state, free)[0])
-    print(f"[{tag}] free-running after {PARITY_STEPS} steps (not gated): "
+    print(f"[{tag}] free-running after {steps} steps (not gated): "
           f"max |d state| kernel vs plain {free_err:.3e}")
     if not ok:
         raise AssertionError("meta-step through the kernel != plain filter")
+    return state
 
 
 def train_paper(tag, cfg, mds, pool, device="cuda", scenario=None):
@@ -1112,26 +1167,25 @@ def train_paper(tag, cfg, mds, pool, device="cuda", scenario=None):
     print(f"[{tag}] PAPER meta-step, scenario {scenario} (median of "
           f"{len(times)} after 3 warm, CUDA events): {json.dumps(out)}")
     if sched is None:
-        profile_meta_step(tag, step, state, pool, device)
+        t = state.step
+        batch = {k: v[t % n_q] for k, v in pool.items()}
+        gen = unroll.step_generator(0, t, device)
+        profile_step(tag, "PAPER meta-step",
+                     lambda: step(state, batch, gen), device)
     return out, fwd, bwd
 
 
-def profile_meta_step(tag, step, state, pool, device="cuda"):
-    """Device time of one PAPER meta-step by kernel kind under
-    ``torch.profiler``; busy share = kernel time over the step's wall
-    time between two synchronizations."""
-    from repro_torch.core import unroll
-    t = state.step
-    n_q = next(iter(pool.values())).shape[0]
-    batch = {k: v[t % n_q] for k, v in pool.items()}
-    gen = unroll.step_generator(0, t, device)
+def profile_step(tag, label, fn, device="cuda"):
+    """Device time of ``fn()`` by kernel kind under ``torch.profiler``;
+    busy share = kernel time over the wall time between two
+    synchronizations. Returns the printed record."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        step(state, batch, gen)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kinds = {}
@@ -1163,7 +1217,8 @@ def profile_meta_step(tag, step, state, pool, device="cuda"):
            "device_busy_share": busy / wall_ms if busy > 0
            else "not measured",
            "top_kernels": sorted(kernels, reverse=True)[:12]}
-    print(f"[{tag}] profiled PAPER meta-step: {json.dumps(out)}")
+    print(f"[{tag}] profiled {label}: {json.dumps(out)}")
+    return out
 
 
 def check_schedule_kernel(tag, cfg, scheds, device="cuda"):
@@ -1416,14 +1471,370 @@ def baselines_phase(tag, device="cuda"):
     return rec
 
 
-def quickstart(tag, device="cuda"):
-    """The reference quickstart's config, data and bar on the card."""
-    from repro_torch.configs.base import SURFConfig
+def check_slice_shapes(tag, device="cuda"):
+    """Phases 3/4 additions: the filter forward (within F32_TOL) and dW
+    (within VJP_TOL) against the plain version on the S the new paths
+    mix with, unbatched as they launch it: SPARSE_SMOKE (n = 8, d = 16,
+    K = 2; d far below one tile), the quickstart's (n = 20, d = 330) and
+    ``make_problem(PAPER, i)``'s S for the four training seeds of 9e at
+    d = 5130. Returns the largest errors."""
+    from repro_torch.configs.surf_paper import PAPER, SPARSE_SMOKE
+    from repro_torch.core import surf
+    from repro_torch.kernels.graph_filter import graph_filter, graph_filter_ref
+    cases = [("SPARSE_SMOKE", SPARSE_SMOKE, 0),
+             ("quickstart", quickstart_cfg(), 0)]
+    cases += [(f"PAPER seed {i}", PAPER, i) for i in SEEDS]
+    rng = np.random.default_rng(6)
+    worst = [0.0, 0.0]
+    for label, cfg, seed in cases:
+        _, S = surf.make_problem(cfg, seed=seed, device=device)
+        n, d, K = cfg.n_agents, cfg.head_dim, cfg.filter_taps
+        W, G = (torch.tensor(rng.standard_normal((n, d)).astype(np.float32),
+                             device=device) for _ in range(2))
+        h = torch.tensor((0.5 * rng.standard_normal(K + 1)).astype(
+            np.float32), device=device)
+        Wk, Wp = W.clone().requires_grad_(True), W.clone().requires_grad_(True)
+        y = graph_filter(S, Wk, h)
+        (dW,) = torch.autograd.grad(y, Wk, G)
+        yp = graph_filter_ref(S, Wp, h)
+        (dWp,) = torch.autograd.grad(yp, Wp, G)
+        torch.cuda.synchronize()
+        errs = [(y - yp).abs().max().item(), (dW - dWp).abs().max().item()]
+        if not (torch.allclose(y, yp, atol=F32_TOL, rtol=F32_TOL)
+                and torch.allclose(dW, dWp, atol=VJP_TOL, rtol=VJP_TOL)):
+            raise AssertionError(f"kernel != plain on {label}: {errs}")
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+        print(f"[{tag}] 3/4 kernel vs plain on {label}'s S, n={n} d={d} "
+              f"K={K}: max |err| forward {errs[0]:.3e} (tol {F32_TOL}), dW "
+              f"{errs[1]:.3e} (tol {VJP_TOL})")
+    return worst
+
+
+def _states_equal(a, b, what):
+    """Bit-equality of two TrainStates (every tensor leaf and the step),
+    ``b`` on the card or on the host."""
+    from repro_torch.checkpoint.io import flatten
+    for (p, x), (_, y) in zip(flatten(a), flatten(b)):
+        same = (torch.equal(x.to(y.device), y) if isinstance(x, torch.Tensor)
+                else x == y)
+        if not same:
+            raise AssertionError(f"{what}: {p} differs")
+
+
+def _on_host(state):
+    """A TrainState's tensors copied to the host."""
+    from repro_torch.checkpoint.io import flatten, unflatten
+    return unflatten(state, iter(
+        x.cpu() if isinstance(x, torch.Tensor) else x
+        for _, x in flatten(state)))
+
+
+def _rows_equal(batched, single, i, what):
+    """Row i of a seed-batched history / snapshot list against a
+    sequential run's, bit for bit."""
+    if [r["step"] for r in batched] != [r["step"] for r in single]:
+        raise AssertionError(f"{what}: steps differ")
+    for rb, rs in zip(batched, single):
+        for k in rs:
+            if k != "step" and not np.array_equal(np.asarray(rb[k])[i],
+                                                  rs[k]):
+                raise AssertionError(f"{what}: step {rs['step']} {k}")
+
+
+def seeds_paper(tag, cfg, mds, pool, static_ms, device="cuda"):
+    """Phase 9e: ``train_surf(PAPER, seeds=SEEDS, eval_every)`` through
+    the kernel, counted from zero: n_seeds × L forward and n_seeds ×
+    (L − 1) dW launches per step plus L per eval dataset per seed per
+    snapshot; S_stack[i] = make_problem(cfg, i)'s S; states, history and
+    snapshots bit-equal, row for row, to the four sequential runs; the
+    last snapshot bit-equal to ``snapshot_reference`` from the returned
+    θ. Then ms per lockstep step (CUDA events), one lockstep step
+    profiled by kernel kind, and the peak memory."""
+    from repro_torch import engine as E
+    from repro_torch.core import surf
+    from repro_torch.core.tasks import resolve_task
+    from repro_torch.data.synthetic import make_meta_dataset
+    from repro_torch.engine.core import _meta_step_core
+    from repro_torch.engine.scan import _Hooks, _run
+    eval_ds = make_meta_dataset(cfg, SEED_EVAL_POOL, seed=123)
+    n, L = len(SEEDS), cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    states, hist, snaps, S_stack = surf.train_surf(
+        cfg, mds, steps=SEED_STEPS, seeds=SEEDS, eval_every=SEED_EVAL_EVERY,
+        eval_datasets=eval_ds, log_every=1, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_snaps = SEED_STEPS // SEED_EVAL_EVERY
+    want = (SEED_STEPS * n * L + n_snaps * n * SEED_EVAL_POOL * L,
+            SEED_STEPS * n * (L - 1))
+    if (c["graph_filter"], c["graph_filter_bwd"]) != want:
+        raise AssertionError(f"9e launches {c}, expected {want}")
+    print(f"[{tag}] 9e train_surf(PAPER, {SEED_STEPS} steps, seeds {SEEDS}, "
+          f"eval_every {SEED_EVAL_EVERY} on {SEED_EVAL_POOL} datasets): "
+          f"{wall:.3f} s wall; launches forward {want[0]} = {SEED_STEPS} x "
+          f"{n} x {L} + {n_snaps} x {n} x {SEED_EVAL_POOL} x {L}, dW "
+          f"{want[1]}; peak memory {peak / 2**30:.3f} GiB ({peak / 1e9:.2f} "
+          f"GB; predicted 38-40 GB)")
+    for i, s in enumerate(SEEDS):
+        _, S_i = surf.make_problem(cfg, seed=s, device=device)
+        if not torch.equal(S_stack[i], S_i):
+            raise AssertionError(f"S_stack[{i}] != make_problem(PAPER, {s})")
+        st, h, sn, _ = surf.train_surf(
+            cfg, mds, steps=SEED_STEPS, seed=s, eval_every=SEED_EVAL_EVERY,
+            eval_datasets=eval_ds, log_every=1, device=device)
+        _states_equal(E.state_for_seed(states, i), st, f"9e seed {s} state")
+        _rows_equal(hist, h, i, f"9e seed {s} history")
+        _rows_equal(snaps, sn, i, f"9e seed {s} snapshots")
+        del st
+    print(f"[{tag}] 9e rows bit-equal to the {n} sequential runs (states, "
+          f"{len(hist)} history rows, {len(snaps)} snapshots)")
+    ref = E.snapshot_reference(cfg, E.state_for_seed(states, 0).theta,
+                               S_stack[0], eval_ds, SEEDS[0], SEED_STEPS - 1,
+                               device=device)
+    last = snaps[-1]
+    for k, v in ref.items():
+        if not np.array_equal(np.asarray(last[k])[0], v):
+            raise AssertionError(f"9e snapshot {k} != snapshot_reference")
+    print(f"[{tag}] 9e snapshot at step {last['step']} equals "
+          f"snapshot_reference from the saved theta; final_acc by seed "
+          f"{np.round(last['final_acc'], 4).tolist()}")
+    # The driver's lockstep step, timed on its own: each seed's
+    # engine.scan._run loop (the one train_scan_seeds advances) on fresh
+    # copies of the returned rows, one meta-step each per lockstep step.
+    step_s, _ = _meta_step_core(cfg)
+    idle = _Hooks(cfg, "relu", None, resolve_task(cfg), device, None, 0,
+                  None, None, 0, None)
+    per = E.seeds._unstack(states, n, device)
+    del states
+    runs = [_run(step_s, S_stack[i].clone(), False, pool, per[i], s, 6,
+                 device, None, None, idle) for i, s in enumerate(SEEDS)]
+    per.clear()
+
+    def lockstep():
+        for run in runs:
+            next(run)
+
+    times = []
+    for i in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        lockstep()
+        end.record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(start.elapsed_time(end))
+    prof = profile_step(tag, f"9e lockstep step ({n} seeds)", lockstep,
+                        device)
+    for run in runs:
+        run.close()
+    del runs
+    ms = float(np.median(times))
+    out = {"ms_per_lockstep_step": ms, "ms_per_seed": ms / n,
+           "ms_spread": [float(min(times)), float(max(times))],
+           "phase9_ms_per_meta_step": static_ms,
+           "profiled_device_ms": prof["device_ms"],
+           "profiled_busy_share": prof["device_busy_share"],
+           "peak_memory_bytes": peak, "train_surf_wall_s": wall,
+           "launches_forward": want[0], "launches_backward": want[1]}
+    print(f"[{tag}] 9e lockstep step (median of {len(times)} after 1 warm, "
+          f"CUDA events): {json.dumps(out)}")
+    return out
+
+
+def robust_paper(tag, cfg, mds, pool, phase8, device="cuda"):
+    """Phase 9f: RSDUN at PAPER width (σ = 0.1, 2 samples, the
+    reference's test values): PARITY_STEPS meta-steps kernel vs plain on
+    the same draws and δ at phase 8's gates; σ = 0 with 4 samples gives
+    phase 8's kernel trajectory (``phase8``) bit for bit; the ms per
+    robust meta-step; ``train_surf`` on the robust config, counted from
+    zero (L and L − 1 launches per step)."""
+    from functools import partial
+
+    from repro_torch.core import surf, unroll
+    from repro_torch.engine.core import _meta_step_core, init_state
+    rob = dataclasses.replace(cfg, robust_sigma=0.1, robust_samples=2)
+    meta_step_parity(tag, rob, pool, device)
+    zero = dataclasses.replace(cfg, robust_sigma=0.0, robust_samples=4)
+    step_s, _ = _meta_step_core(zero)
+    _, S = surf.make_problem(cfg, seed=0, device=device)
+    n_q = next(iter(pool.values())).shape[0]
+    state = init_state(unroll.seeded_generator(0, device), zero)
+    for t in range(PARITY_STEPS):
+        batch = {k: v[t % n_q] for k, v in pool.items()}
+        draws = unroll.featurize_cohort(unroll.step_generator(0, t, device),
+                                        batch, zero)
+        state, _ = step_s(S, state, batch, draws=draws)
+    _states_equal(state, phase8, "9f sigma=0 vs phase 8's kernel trajectory")
+    print(f"[{tag}] 9f robust_sigma=0, robust_samples=4: phase 8's kernel "
+          f"trajectory bit for bit over {PARITY_STEPS} steps")
+    del state
+    rob_s, _ = _meta_step_core(rob)
+    nom_s, _ = _meta_step_core(cfg)
+    st0 = init_state(unroll.seeded_generator(0, device), cfg)
+    batch = {k: v[0] for k, v in pool.items()}
+    gen = partial(unroll.step_generator, 0, 0, device)
+    dgen = partial(unroll.robust_generator, 0, 0, device)
+    ms = {}
+    for name, fn in (("robust", lambda: rob_s(S, st0, batch, gen(),
+                                               delta_generator=dgen())),
+                     ("nominal", lambda: nom_s(S, st0, batch, gen()))):
+        times = []
+        for i in range(6):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(start.elapsed_time(end))
+        ms[name] = (float(np.median(times)), float(min(times)),
+                    float(max(times)))
+    zero_counts()
+    st, hist, _ = surf.train_surf(rob, mds, steps=PARITY_STEPS, log_every=1,
+                                  device=device)
+    c = counts()
+    want = (PARITY_STEPS * cfg.n_layers, PARITY_STEPS * (cfg.n_layers - 1))
+    if (c["graph_filter"], c["graph_filter_bwd"]) != want:
+        raise AssertionError(f"9f launches {c}, expected {want}")
+    print(f"[{tag}] 9f ms per meta-step (median, min, max of 5 after 1 "
+          f"warm, CUDA events, same state and draws): robust {ms['robust']}"
+          f", nominal {ms['nominal']}; train_surf robust {PARITY_STEPS} "
+          f"steps: launches forward {want[0]}, dW {want[1]}; last logged "
+          f"{json.dumps(hist[-1])}")
+    return want, ms
+
+
+def checkpoint_resume(tag, device="cuda"):
+    """Phase 9g: the quickstart config trained CKPT_STEPS steps with
+    ``checkpoint_every=CKPT_EVERY``, then resumed from step CKPT_RESUME:
+    bit-equal to the uninterrupted run, single-seed and with SEEDS (not
+    at PAPER width: one PAPER state is 6.37 GB on disk per seed). Written
+    under build/ and removed after. Returns the launches of the
+    checkpointing runs and the resumes."""
+    import shutil
+
+    from repro_torch import engine as E
     from repro_torch.core import surf
     from repro_torch.data.synthetic import make_meta_dataset
-    cfg = SURFConfig(n_agents=20, n_layers=8, filter_taps=2, feature_dim=32,
-                     n_classes=10, batch_per_agent=8, topology="regular",
-                     degree=3, eps=0.01)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    qs = quickstart_cfg()
+    mds = make_meta_dataset(qs, 20, seed=0)
+    zero_counts()
+    full, hist, S = surf.train_surf(qs, mds, steps=CKPT_STEPS,
+                                    log_every=5, checkpoint_every=CKPT_EVERY,
+                                    checkpoint_dir=os.path.join(root, "one"),
+                                    device=device)
+    res, rhist = E.resume.resume_train_scan(
+        qs, S, mds, CKPT_STEPS, 0, os.path.join(root, "one"),
+        step=CKPT_RESUME, log_every=5, device=device)
+    _states_equal(res, full, "9g single-seed resume")
+    if rhist != [h for h in hist if h["step"] >= CKPT_RESUME]:
+        raise AssertionError("9g resumed history differs")
+    states, shist, S_stack = surf.train_surf(
+        qs, mds, steps=CKPT_STEPS, seeds=SEEDS, log_every=5,
+        checkpoint_every=CKPT_EVERY,
+        checkpoint_dir=os.path.join(root, "seeds"), device=device)
+    rs, rshist = E.resume.resume_train_scan_seeds(
+        qs, S_stack, mds, CKPT_STEPS, SEEDS,
+        os.path.join(root, "seeds"), step=CKPT_RESUME, log_every=5,
+        device=device)
+    torch.cuda.synchronize()
+    c = counts()
+    _states_equal(rs, states, "9g seed-batched resume")
+    tail = [h for h in shist if h["step"] >= CKPT_RESUME]
+    if [h["step"] for h in rshist] != [h["step"] for h in tail] or not all(
+            np.array_equal(a[k], b[k]) for a, b in zip(rshist, tail)
+            for k in b):
+        raise AssertionError("9g seed-batched resumed history differs")
+    files = sorted(os.listdir(os.path.join(root, "one")))
+    shutil.rmtree(root)
+    print(f"[{tag}] 9g quickstart config, {CKPT_STEPS} steps, checkpoint "
+          f"every {CKPT_EVERY} ({files}), resumed from {CKPT_RESUME}: "
+          f"single-seed and {len(SEEDS)}-seed runs bit-equal to the "
+          f"uninterrupted ones; launches forward {c['graph_filter']}, dW "
+          f"{c['graph_filter_bwd']}")
+    return c["graph_filter"], c["graph_filter_bwd"]
+
+
+def sparse_phase(tag, device="cuda"):
+    """Phase 9h: the sparse-recovery task. 20 SPARSE_SMOKE meta-steps
+    kernel vs plain from one state per step on the same draws (phase 8's
+    gates, the TF32 control included); ``train_surf`` 20 steps
+    through the kernel (L and L − 1 launches per step, counted from
+    zero), its free-running losses beside the plain filter's;
+    ``launch.surf_serve --task sparse`` at its defaults (its own
+    assertions); a seed-batched sparse run bit-equal per row. Returns
+    the forward and dW launches of the driven paths."""
+    from repro_torch import engine as E
+    from repro_torch.configs.surf_paper import SPARSE_SMOKE as cfg
+    from repro_torch.core import surf
+    from repro_torch.core.tasks import resolve_task
+    from repro_torch.data.pipeline import stack_meta_datasets
+    from repro_torch.kernels.graph_filter import make_plain_mix
+    from repro_torch.launch import surf_serve
+    task = resolve_task(cfg)
+    mds = task.synth_datasets(cfg, 4, seed=0)
+    meta_step_parity(tag, cfg, stack_meta_datasets(mds, task, device),
+                     device, steps=SPARSE_STEPS)
+    L, fwd, bwd = cfg.n_layers, 0, 0
+    zero_counts()
+    st, hist, S = surf.train_surf(cfg, mds, steps=SPARSE_STEPS, log_every=1,
+                                  device=device)
+    c = counts()
+    want = (SPARSE_STEPS * L, SPARSE_STEPS * (L - 1))
+    if (c["graph_filter"], c["graph_filter_bwd"]) != want:
+        raise AssertionError(f"9h launches {c}, expected {want}")
+    fwd, bwd = fwd + want[0], bwd + want[1]
+    _, phist, _ = surf.train_surf(cfg, mds, steps=SPARSE_STEPS, log_every=1,
+                                  device=device, mix_fn=make_plain_mix())
+    dl = [abs(a["test_loss"] - b["test_loss"]) for a, b in zip(hist, phist)]
+    print(f"[{tag}] 9h train_surf(SPARSE_SMOKE, {SPARSE_STEPS}): launches "
+          f"{want}; test loss by step {[round(h['test_loss'], 5) for h in hist]}"
+          f"; NMSE by step {[round(h['test_acc'], 4) for h in hist]}; "
+          f"free-running |d test loss| kernel vs plain, max {max(dl):.3e} "
+          "(not gated)")
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "bench_torch_sparse")
+    zero_counts()
+    srv = surf_serve.main(["--out", out_dir, "--task", "sparse"])
+    c = counts()
+    fwd, bwd = fwd + c["graph_filter"], bwd + c["graph_filter_bwd"]
+    print(f"[{tag}] 9h surf_serve --task sparse: "
+          f"{srv['serve']['federations_per_sec']:.2f} federations/s, parity "
+          f"{json.dumps(srv['parity'])}; launches forward "
+          f"{c['graph_filter']}, dW {c['graph_filter_bwd']}")
+    zero_counts()
+    states, shist, S_stack = surf.train_surf(cfg, mds, steps=SPARSE_STEPS,
+                                             seeds=SEEDS, log_every=1,
+                                             device=device)
+    c = counts()
+    fwd, bwd = fwd + c["graph_filter"], bwd + c["graph_filter_bwd"]
+    for i, s in enumerate(SEEDS):
+        one, h, _ = surf.train_surf(cfg, mds, steps=SPARSE_STEPS, seed=s,
+                                    log_every=1, device=device)
+        _states_equal(E.state_for_seed(states, i), one,
+                      f"9h sparse seed {s}")
+        _rows_equal(shist, h, i, f"9h sparse seed {s} history")
+    print(f"[{tag}] 9h seed-batched sparse run ({SEEDS}): rows bit-equal to "
+          f"the sequential runs; launches forward {c['graph_filter']}, dW "
+          f"{c['graph_filter_bwd']}")
+    return fwd, bwd
+
+
+def quickstart(tag, device="cuda"):
+    """The reference quickstart's config, data and bar on the card."""
+    from repro_torch.core import surf
+    from repro_torch.data.synthetic import make_meta_dataset
+    cfg = quickstart_cfg()
     meta_train = make_meta_dataset(cfg, 20, seed=0)
     meta_test = make_meta_dataset(cfg, 5, seed=123)
     t0 = time.perf_counter()
@@ -1443,6 +1854,43 @@ def quickstart(tag, device="cuda"):
     if not final_acc > 0.5:
         raise AssertionError(f"quickstart final_acc {final_acc} <= 0.5")
     return final_acc
+
+
+def quickstart_seeds(tag, device="cuda"):
+    """Phase 10b: ``examples/quickstart.py --seeds 4 --eval-every 50`` on
+    the card: the quickstart trained for SEEDS in lockstep with a
+    snapshot every 50 steps on its 5 unseen datasets, each seed's model
+    then evaluated under 4 evaluation seeds; the seed mean of
+    ``final_acc`` must clear 0.5. Returns the forward and dW launches."""
+    from repro_torch import engine as E
+    from repro_torch.core import surf
+    from repro_torch.data.synthetic import make_meta_dataset
+    cfg = quickstart_cfg()
+    meta_train = make_meta_dataset(cfg, 20, seed=0)
+    meta_test = make_meta_dataset(cfg, 5, seed=123)
+    zero_counts()
+    t0 = time.perf_counter()
+    states, hist, snaps, S = surf.train_surf(
+        cfg, meta_train, steps=QUICKSTART_STEPS, log_every=50, seeds=SEEDS,
+        eval_every=50, eval_datasets=meta_test, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts()
+    finals = [float(np.mean(surf.evaluate_surf(
+        cfg, E.state_for_seed(states, i), S[i], meta_test,
+        seeds=(0, 1, 2, 3), device=device)["final_acc"]))
+        for i in range(len(SEEDS))]
+    mean = float(np.mean(finals))
+    curve = [(sn["step"], round(float(np.mean(sn["final_acc"])), 4),
+              round(float(np.std(sn["final_acc"])), 4)) for sn in snaps]
+    print(f"[{tag}] 10b quickstart --seeds {len(SEEDS)} --eval-every 50: "
+          f"{QUICKSTART_STEPS} lockstep steps in {wall:.3f} s; final_acc by "
+          f"seed {[round(f, 4) for f in finals]}, mean {mean:.4f}; snapshot "
+          f"curve (step, mean, std of held-out final_acc) {curve}; launches "
+          f"forward {c['graph_filter']}, dW {c['graph_filter_bwd']}")
+    if not mean > 0.5:
+        raise AssertionError(f"10b seed-mean final_acc {mean} <= 0.5")
+    return c["graph_filter"], c["graph_filter_bwd"]
 
 
 def build_all(tag):
@@ -1962,6 +2410,10 @@ def main():
     train_shape = (PAPER.n_agents, PAPER.head_dim, PAPER.filter_taps)
     bwd_err, bwd_timing = check_backward(tag, train_shape)
 
+    # 3/4 additions: the S of the sparse, quickstart and seed-batched paths
+    slice_err = check_slice_shapes(tag)
+    max_err, bwd_err = max(max_err, slice_err[0]), max(bwd_err, slice_err[1])
+
     # 5.-6. flash attention and wkv vs plain, up to the full-width shapes
     fa_err, fa_timing = check_flash(tag)
     wkv_err, wkv_timing = check_wkv(tag)
@@ -1988,7 +2440,9 @@ def main():
 
     # 8.-9. meta-step parity and the training run at PAPER width
     mds, pool = paper_pool(PAPER)
-    meta_step_parity(tag, PAPER, pool)
+    # phase 8's kernel trajectory waits for 9f on the host, so the peak
+    # memory of phases 9-9e is that of their own paths
+    phase8 = _on_host(meta_step_parity(tag, PAPER, pool))
     zero_counts()
     static, train_fwd, train_bwd = train_paper(tag, PAPER, mds, pool)
     if counts()["flash_attention"] or counts()["wkv"]:
@@ -2000,7 +2454,15 @@ def main():
         tag, PAPER, mds, pool, static["ms_per_meta_step"])
     if counts()["flash_attention"] or counts()["wkv"]:
         raise AssertionError(f"9b launched an LLM kernel {counts()}")
-    del pool, mds
+
+    # 9e. seed-batched PAPER training with in-loop snapshots (counts
+    #     zeroed inside, just before train_surf)
+    seeds_rec = seeds_paper(tag, PAPER, mds, pool,
+                            static["ms_per_meta_step"])
+
+    # 9f. RSDUN at PAPER width
+    (rob_fwd, rob_bwd), _ = robust_paper(tag, PAPER, mds, pool, phase8)
+    del pool, mds, phase8
 
     # 9c. the async study at PAPER width (counts zeroed per n_async)
     async_eval_launches, _ = async_eval(tag, PAPER)
@@ -2008,8 +2470,15 @@ def main():
     # 9d. the FL baselines at PAPER width, card against CPU
     baselines_phase(tag)
 
-    # 10. the quickstart's bar
+    # 9g.-9h. checkpoint and resume; the sparse-recovery task
+    ckpt_fwd, ckpt_bwd = checkpoint_resume(tag)
+    sparse_fwd, sparse_bwd = sparse_phase(tag)
+
+    # 10. the quickstart's bar; 10b. with 4 seeds and snapshots
     quickstart(tag)
+    qs_fwd, qs_bwd = quickstart_seeds(tag)
+    if counts()["flash_attention"] or counts()["wkv"]:
+        raise AssertionError(f"9e-10b launched an LLM kernel {counts()}")
 
     # 11.-12. the LLM serving path at full width
     fa_launches, _ = serve_llm(tag, "qwen3-4b", "flash_attention")
@@ -2017,8 +2486,9 @@ def main():
 
     # The graph filter's forward record's times are those of the largest
     # bucket's tick layer; its launches those of the serve runs (7-7d),
-    # the launchers (7e), the training runs (9, 9b) and the async study
-    # (9c), and dW's those of the launchers and the training runs. Flash attention's and wkv's are
+    # the launchers (7e), the training runs (9, 9b, 9e-9h, 10b) and the
+    # async study (9c), and dW's those of the launchers and the training
+    # runs. Flash attention's and wkv's are
     # those of the qwen3-4b and rwkv6-1.6b prefill shapes in f32, their
     # launches those of the serve runs (one prefill each).
     src = "src/repro_torch/kernels/graph_filter/csrc/graph_filter.cu"
@@ -2033,7 +2503,13 @@ def main():
           f"{launch_bwd}; training run "
           f"forward {train_fwd}, backward {train_bwd}; scheduled training "
           f"run forward {sched_fwd}, backward {sched_bwd}; async study "
-          f"forward {async_eval_launches}; baselines none; qwen3-4b serve "
+          f"forward {async_eval_launches}; baselines none; seed-batched "
+          f"training forward {seeds_rec['launches_forward']}, backward "
+          f"{seeds_rec['launches_backward']}; robust training forward "
+          f"{rob_fwd}, backward {rob_bwd}; checkpoint and resume forward "
+          f"{ckpt_fwd}, backward {ckpt_bwd}; sparse recovery forward "
+          f"{sparse_fwd}, backward {sparse_bwd}; quickstart with seeds "
+          f"forward {qs_fwd}, backward {qs_bwd}; qwen3-4b serve "
           f"flash_attention {fa_launches}; rwkv6-1.6b serve wkv "
           f"{wkv_launches}")
     print(tag)
@@ -2042,13 +2518,17 @@ def main():
          "replaces": "src/repro/kernels/graph_filter/kernel.py:27",
          "launches": (serve_launches + large_launches + adaptive_launches
                       + async_launches + launch_fwd + train_fwd
-                      + sched_fwd + async_eval_launches),
+                      + sched_fwd + async_eval_launches
+                      + seeds_rec["launches_forward"] + rob_fwd + ckpt_fwd
+                      + sparse_fwd + qs_fwd),
          "max_abs_err": max_err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": None},
         {"name": "graph_filter_bwd", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/graph_filter/ops.py:114",
-         "launches": train_bwd + launch_bwd + sched_bwd,
+         "launches": (train_bwd + launch_bwd + sched_bwd
+                      + seeds_rec["launches_backward"] + rob_bwd + ckpt_bwd
+                      + sparse_bwd + qs_bwd),
          "max_abs_err": bwd_err,
          "ms": b_ms,
          "plain_ms": b_plain_ms, "bound_ms": b_bound_ms,

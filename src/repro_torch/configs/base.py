@@ -207,6 +207,22 @@ class ClassificationTaskConfig(TaskConfig):
 
 
 @dataclass(frozen=True)
+class SparseRecoveryTaskConfig(TaskConfig):
+    """Federated LASSO (arxiv 2010.12616): per-agent
+    ½·mean((A_i w − y_i)²) + ρ‖w‖₁ over a shared k-sparse signal."""
+    kind: str = "sparse_recovery"
+    signal_dim: int = 32        # p — recovered signal length
+    rho: float = 0.02           # ℓ1 penalty weight
+    sparsity: int = 4           # nonzeros in the synthetic ground truth
+    noise: float = 0.01         # measurement noise std in synthesis
+    signal_scale: float = 1.0   # std of the nonzero ground-truth entries
+
+    @property
+    def dim(self) -> int:
+        return self.signal_dim
+
+
+@dataclass(frozen=True)
 class SURFConfig:
     """Paper-faithful SURF / U-DGD hyperparameters (§6 of the paper)."""
     n_agents: int = 100

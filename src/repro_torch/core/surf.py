@@ -1,8 +1,9 @@
 """Public SURF API of the port: build the FL problem, meta-train U-DGD
 (``train_surf``, on the static graph or under a time-varying topology
-scenario), evaluate a trained model, solve one new federation, and the
-asynchronous-agent perturbation study (paper App. D, ``evaluate_async``):
-the port of ``repro.core.surf``.
+scenario, one seed or a batch of seeds, with in-loop snapshots and
+periodic checkpoints), evaluate a trained model, solve one new
+federation, and the asynchronous-agent perturbation study (paper App.
+D, ``evaluate_async``): the port of ``repro.core.surf``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise. On the card every mixer
@@ -128,27 +129,36 @@ def train_surf(cfg: SURFConfig, meta_datasets, steps, seed=0,
     evaluation uses (robustness protocols train on perturbed topologies
     and test on the nominal one). Passing both raises ``ValueError``.
 
+    ``seeds``: a batch of TRAINING seeds, trained in lockstep
+    (``engine.seeds``), each with its own init, draws and topology (and
+    its own perturbation stream under a scenario); the returned
+    state, history and S gain a leading (n_seeds,) axis, and row i equals
+    the sequential ``seed=seeds[i]`` run bit for bit.
+
+    ``eval_every``: evaluate θ on ``eval_datasets`` after every
+    ``eval_every``-th meta-step against the NOMINAL static S
+    (``engine.snapshots``); adds a ``snapshots`` list to the return:
+    (state, hist, snapshots, S) / (states, hist, snapshots, S_stack).
+
+    ``checkpoint_every``/``checkpoint_dir``: write the carried state at
+    that cadence, ``ckpt_<step>`` payloads (``ckpt_<step>/seeds`` with
+    ``seeds``) that ``engine.resume`` restores bit-exactly.
+
     ``engine`` is "scan" (``engine.scan.train_scan``, no host sync in the
     loop) or "python" (``engine.scan.train``, a host copy at each logged
-    step); both run the same meta-step and draws. ``mix`` is one of
+    step); both run the same meta-step and draws, and seeds, snapshots and
+    checkpoints take "scan", as in the reference. ``mix`` is one of
     ``unroll.MIXES``, all of which run the graph filter through the CUDA
-    kernel on the card; it is exclusive with an explicit ``mix_fn``. Ring and
-    halo mixers (ROADMAP queue 1 item 8) are not ported yet.
+    kernel on the card; it is exclusive with an explicit ``mix_fn``.
 
-    The reference's ``mesh``, ``q_sharded``, ``seeds``, ``eval_every``,
-    ``eval_datasets`` and ``checkpoint_*`` options are not ported yet:
-    passing one raises ``NotImplementedError`` naming its ROADMAP item."""
-    for name, value, item in (
-            ("mesh", mesh, 8), ("q_sharded", q_sharded, 8),
-            ("seeds", seeds, 7), ("eval_every", eval_every, 7),
-            ("eval_datasets", eval_datasets, 7),
-            ("checkpoint_every", checkpoint_every, 7),
-            ("checkpoint_dir", checkpoint_dir, 7)):
-        if not (value is None or value is False
-                or (isinstance(value, int) and value == 0)):
+    The reference's ``mesh`` and ``q_sharded`` options and its ring and
+    halo mixers are ROADMAP queue 1 item 8: passing one raises
+    ``NotImplementedError``."""
+    for name, value in (("mesh", mesh), ("q_sharded", q_sharded)):
+        if not (value is None or value is False):
             raise NotImplementedError(
                 f"train_surf({name}=...) is not ported yet: ROADMAP queue "
-                f"1 item {item}")
+                "1 item 8")
     if mix not in U.MIXES:
         raise NotImplementedError(
             f"mix={mix!r} is not ported yet (the port has {U.MIXES}): ring "
@@ -161,17 +171,52 @@ def train_surf(cfg: SURFConfig, meta_datasets, steps, seed=0,
     if scenario is not None and schedule is not None:
         raise ValueError("pass either scenario= (a name) or schedule= "
                          "(an explicit TopologySchedule), not both")
+    for name, on in (("eval_every (in-loop snapshots)", eval_every),
+                     ("checkpoint_every (periodic checkpoints)",
+                      checkpoint_every),
+                     ("seed batching", seeds is not None)):
+        if on and engine != "scan":
+            raise ValueError(f"{name} requires engine='scan'")
+    E.scan._check_cadences(eval_every, eval_datasets, checkpoint_every,
+                           checkpoint_dir)
+    kw = dict(constrained=constrained, activation=activation,
+              log_every=log_every, init=init, mix_fn=mix_fn, task=task,
+              eval_every=eval_every, eval_datasets=eval_datasets,
+              checkpoint_every=checkpoint_every,
+              checkpoint_dir=checkpoint_dir)
+    if seeds is not None:
+        if seed != 0:
+            raise ValueError(
+                "pass either seed= (one run) or seeds= (a seed-batched "
+                "run), not both — the batch defines every per-seed "
+                "init/topology/RNG stream")
+        E.seeds._check_seed_mix(mix_fn)
+        seed_list = E.seeds._seed_list(np.asarray(list(seeds)).reshape(-1))
+        device = resolve_device(device)
+        S_stack = torch.stack([make_problem(cfg, s, device=device)[1]
+                               for s in seed_list])
+        if schedule is not None:
+            S_sched = to_tensor(schedule.S, device, torch.float32)
+            S_train = S_sched.expand(len(seed_list), *S_sched.shape)
+        elif scenario not in (None, "static"):
+            S_train = E.stack_schedules(
+                [make_scenario(cfg, scenario, steps, s, device=device)
+                 for s in seed_list], device=device)
+        else:
+            S_train = S_stack
+        out = E.train_scan_seeds(
+            cfg, S_train, meta_datasets, steps, seed_list, device=device,
+            S_eval_stack=S_stack if eval_every else None, **kw)
+        return (*out, S_stack)
     _, S = make_problem(cfg, seed, device=device)
     if schedule is None:
         schedule = make_scenario(cfg, scenario, steps, seed,
                                  device=S.device)
     S_train = schedule if schedule is not None else S
     driver = E.train_scan if engine == "scan" else E.train
-    state, hist = driver(cfg, S_train, meta_datasets, steps, seed=seed,
-                         constrained=constrained, activation=activation,
-                         log_every=log_every, init=init, mix_fn=mix_fn,
-                         task=task, device=S.device)
-    return state, hist, S
+    out = driver(cfg, S_train, meta_datasets, steps, seed=seed,
+                 device=S.device, S_eval=S if eval_every else None, **kw)
+    return (*out, S)
 
 
 def _check_draws_and_seeds(datasets, draws, seeds):

@@ -69,6 +69,11 @@ class Task:
         Xb (..., n, b, F), Yb (..., n, b) -> (..., n, b*batch_feat)."""
         raise NotImplementedError
 
+    def synth_datasets(self, cfg, Q, seed=0, **kw):
+        """Q synthetic downstream datasets (numpy ``Xtr``/``Ytr``/``Xte``/
+        ``Yte`` dicts in the (n, m, F) / (n, m) layout)."""
+        raise NotImplementedError
+
     # ------------------------------------------------- shared FL lifts
     def fl_loss(self, W, X, Y):
         """f(W) = (1/n) Σ_i f_i(w_i).  W (..., n, d), X (..., n, b, F)."""
@@ -168,7 +173,7 @@ def resolve_task(cfg, task=None):
         return ClassificationTask(feat_dim=tc.feature_dim,
                                   n_classes=tc.n_classes)
     if kind == "sparse_recovery":
-        raise NotImplementedError(
-            "the sparse-recovery task is not ported yet: it lands with "
-            "the sparse recovery / RSDUN slice (ROADMAP queue 1)")
+        from repro_torch.core.tasks.sparse_recovery import SparseRecoveryTask
+        return SparseRecoveryTask(signal_dim=tc.signal_dim, rho=tc.rho,
+                                  sparsity=tc.sparsity, noise=tc.noise)
     raise ValueError(f"unknown task kind {kind!r}")

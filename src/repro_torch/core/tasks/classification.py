@@ -75,3 +75,7 @@ class ClassificationTask(Task):
         Xb (..., n, b, F), Yb (..., n, b) -> (..., n, b*(F+C))."""
         oh = Fn.one_hot(Yb, self.n_classes).to(Xb.dtype)
         return torch.cat([Xb, oh], dim=-1).flatten(-2)
+
+    def synth_datasets(self, cfg, Q, seed=0, **kw):
+        from repro_torch.data.synthetic import make_meta_dataset
+        return make_meta_dataset(cfg, Q, seed=seed, **kw)

@@ -219,15 +219,29 @@ def udgd_forward_adaptive(params, S, W0, Xl, Yl, Xp, Yp, cfg: SURFConfig,
 #     (``core.surf.evaluate_async``): ``async_generator`` =
 #     (2000 + seed) · 1_000_003 + q (the reference's
 #     ``fold_in(PRNGKey(2000 + seed), q)``, ``_eval_keys`` in
-#     ``core/surf.py``).
+#     ``core/surf.py``);
+#   * the in-loop snapshot after meta-step t of a run with seed ``seed``,
+#     on eval dataset q (``engine.snapshots``): ``snapshot_generator`` =
+#     2**62 + (seed · 1_000_003 + t) · 1_000_003 + q (the reference's
+#     ``fold_in(fold_in(fold_in(PRNGKey(seed), SNAP), t), q)``);
+#   * the RSDUN perturbations of meta-step t (a robust config,
+#     ``engine.core``): ``robust_generator`` = 3 · 2**62 + seed ·
+#     1_000_003 + t. The reference splits them off the step key, so its
+#     robust runs draw other W0 and mini-batches than its nominal ones;
+#     here the step stream is untouched by the robust option.
 #
-# For seeds below 9·10^12 and t, q below 1_000_003 the step seeds lie at
-# or above 2**63 and the solve seeds below it, so no meta-step ever
-# shares a stream with an evaluation solve. The async stream is the
-# solve stream shifted by 1000 seeds, exactly as in the reference:
-# ``async_generator(seed, q)`` draws what ``solve_generator(seed + 1000,
-# q)`` draws, and no other solve seed meets it.
+# The streams hold disjoint quarters of the 64-bit seed space: solve and
+# async seeds below 2**62 (seeds below 4.6·10^12, q below 1_000_003),
+# snapshot seeds in [2**62, 2**63) (seeds below 4.6·10^6, t and q below
+# 1_000_003), step seeds in [2**63, 3 · 2**62) and robust seeds above
+# (seeds below 4.6·10^12, t below 1_000_003). So no two kinds of draw
+# ever share a stream. The async stream is the solve stream shifted by
+# 1000 seeds, exactly as in the reference: ``async_generator(seed, q)``
+# draws what ``solve_generator(seed + 1000, q)`` draws, and no other
+# solve seed meets it.
 STEP_SEED_BASE = 2 ** 63
+SNAPSHOT_SEED_BASE = 2 ** 62
+ROBUST_SEED_BASE = 3 * 2 ** 62
 
 
 def seeded_generator(seed, device) -> torch.Generator:
@@ -263,6 +277,42 @@ def async_generator(seed, q, device) -> torch.Generator:
     ``solve_generator(seed + 1000, q)``)."""
     return seeded_generator((2000 + int(seed)) * 1_000_003 + int(q),
                             device)
+
+
+def snapshot_generator(seed, t, q, device) -> torch.Generator:
+    """The generator the in-loop snapshot after meta-step ``t`` (the
+    carried step) of a run with seed ``seed`` draws from for eval dataset
+    ``q`` (see the seeding scheme above)."""
+    return seeded_generator(
+        SNAPSHOT_SEED_BASE + (int(seed) * 1_000_003 + int(t)) * 1_000_003
+        + int(q), device)
+
+
+def robust_generator(seed, t, device) -> torch.Generator:
+    """The generator meta-step ``t`` of a robust run with seed ``seed``
+    draws its RSDUN perturbations from (see the seeding scheme above)."""
+    return seeded_generator(
+        ROBUST_SEED_BASE + int(seed) * 1_000_003 + int(t), device)
+
+
+def sample_deltas(generator, cfg: SURFConfig, task=None, deltas=None,
+                  device=None):
+    """The RSDUN perturbations δ ~ N(0, I) of one meta-step, shape
+    (robust_samples, L+1, n, d), drawn from ``generator`` on its device;
+    ``deltas`` (numpy or a tensor of that shape) replaces the draw."""
+    shape = (cfg.robust_samples, cfg.n_layers + 1, cfg.n_agents,
+             resolve_task(cfg, task).dim)
+    if deltas is not None:
+        deltas = to_tensor(deltas, device, torch.float32)
+        if tuple(deltas.shape) != shape:
+            raise ValueError(f"deltas must have shape {shape}, got "
+                             f"{tuple(deltas.shape)}")
+        return deltas
+    if generator is None:
+        raise ValueError("a robust meta-step needs delta_generator= "
+                         "(unroll.robust_generator) or deltas=")
+    return torch.randn(shape, generator=generator,
+                       device=generator.device).to(device)
 
 
 def sample_w0(generator, cfg: SURFConfig, task=None):

@@ -1,1 +1,2 @@
-"""Synthetic downstream datasets (numpy, bit-equal to the reference)."""
+"""Synthetic downstream datasets (numpy, bit-equal to the reference),
+Dirichlet partitions and the stacked meta-training pool."""

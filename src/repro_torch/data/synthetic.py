@@ -1,6 +1,6 @@
-"""Synthetic frozen-feature datasets: the port's copy of
-``repro.data.synthetic`` (classification part). Pure numpy
-(``default_rng``), so every array is bit-equal to the reference's.
+"""Synthetic downstream datasets: the port's copy of
+``repro.data.synthetic``. Pure numpy (``default_rng``), so every array
+is bit-equal to the reference's, the sparse ground truths included.
 
 The feature extractor is a fixed map: class c => N(μ_c, σ²I) in R^F with
 frozen class means μ_c shared by ALL datasets. Datasets differ in their
@@ -8,7 +8,8 @@ LABEL distribution:
   * meta-training pool: a global class distribution ~ Dirichlet(imbalance)
     shared by every agent;
   * heterogeneous pool: per-AGENT class distributions ~ Dirichlet(alpha).
-The sparse-recovery datasets arrive with the sparse-recovery slice.
+The sparse-recovery (federated LASSO) problems share the flat-dict
+layout: Xtr (n, m, p) sensing rows, Ytr (n, m) f32 measurements.
 """
 from __future__ import annotations
 
@@ -62,3 +63,45 @@ def make_meta_dataset(cfg: SURFConfig, Q, seed=0, **kw):
     mu = class_means(cfg)
     return [sample_dataset(cfg, seed * 100003 + q, mu=mu, **kw)
             for q in range(Q)]
+
+
+# ------------------------------------------------- sparse recovery (LASSO)
+def sample_sparse_dataset(cfg: SURFConfig, task, seed, *,
+                          return_truth=False):
+    """One federated-LASSO downstream problem: a shared k-sparse ground
+    truth w* ∈ R^p (nonzeros ~ N(0, signal_scale²)), per-agent Gaussian
+    sensing rows A_i (scaled 1/√p so row energy is O(1)) and
+    measurements y_i = A_i w* + noise: Xtr (n, m, p) f32 sensing rows,
+    Ytr (n, m) f32 measurements (and the test split alike)."""
+    rng = np.random.default_rng(seed)
+    n, p = cfg.n_agents, task.signal_dim
+    w_star = np.zeros(p, np.float32)
+    support = rng.choice(p, size=task.sparsity, replace=False)
+    w_star[support] = (task.signal_scale
+                       * rng.normal(size=task.sparsity)).astype(np.float32)
+
+    def measure(m):
+        A = (rng.normal(size=(n, m, p)) / np.sqrt(p)).astype(np.float32)
+        y = (A @ w_star + task.noise * rng.normal(size=(n, m))
+             ).astype(np.float32)
+        return A, y
+    Xtr, Ytr = measure(cfg.train_per_agent)
+    Xte, Yte = measure(cfg.test_per_agent)
+    out = {"Xtr": Xtr, "Ytr": Ytr, "Xte": Xte, "Yte": Yte}
+    if return_truth:
+        return out, w_star
+    return out
+
+
+def make_sparse_meta_dataset(cfg: SURFConfig, Q, task, seed=0,
+                             return_truth=False):
+    """Q sparse-recovery downstream problems, each with its own ground
+    truth and sensing matrices (the seed stream of
+    ``make_meta_dataset``). ``return_truth`` also returns the stacked
+    (Q, p) ground-truth signals."""
+    outs = [sample_sparse_dataset(cfg, task, seed * 100003 + q,
+                                  return_truth=return_truth)
+            for q in range(Q)]
+    if return_truth:
+        return [d for d, _ in outs], np.stack([w for _, w in outs])
+    return outs

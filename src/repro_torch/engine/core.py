@@ -23,7 +23,11 @@ refuse a ``TopologySchedule`` (``_check_static_s``).
 
 Random draws come from an explicit ``torch.Generator``
 (``core.unroll.step_generator`` per meta-step); ``draws=(W0, Xl, Yl)``
-replaces them, so the tests can replay the reference's draws.
+replaces them, so the tests can replay the reference's draws. The RSDUN
+perturbations of a robust config (``cfg.robust_sigma > 0``) come from a
+generator of their own (``core.unroll.robust_generator``, apart from
+the step stream, so W0 and the mini-batches are those of the nominal
+run), or ``deltas=`` replaces them.
 
 On the card every layer's graph filter runs through the CUDA kernel
 (the default ``mix_fn=None``): L forward launches and, since W_0
@@ -70,11 +74,12 @@ def init_state(generator, cfg: SURFConfig, init="dgd", task=None):
 def _check_mix(mix_fn):
     """Mixers of slices not ported yet raise, naming their ROADMAP item
     (baked-S ring/halo mixers raise in ``core.unroll._mix``). A
-    time-varying schedule needs no mixer of its own: the default and any
-    ``takes_S`` mixer take each step's S_t as an argument
-    (``engine.scan``); the scheduled HALO mixer is item 8's."""
-    for attr, what in (("seed_batched", "seed-batched mixers (ROADMAP "
-                        "queue 1 item 7)"),
+    time-varying schedule or a seed batch needs no mixer of its own: the
+    default and any ``takes_S`` mixer take each step's (and each seed's)
+    S as an argument (``engine.scan``, ``engine.seeds``); the scheduled
+    and seed-batched HALO mixers are item 8's."""
+    for attr, what in (("seed_batched", "seed-batched halo mixers (ROADMAP "
+                        "queue 1 item 8)"),
                        ("scheduled", "scheduled halo mixers (ROADMAP "
                         "queue 1 item 8)")):
         if getattr(mix_fn, attr, False):
@@ -98,14 +103,19 @@ def _layer_fn(cfg):
 def _meta_step_core(cfg: SURFConfig, constrained=True, activation="relu",
                     mix_fn=None, task=None):
     """S-as-argument meta step: ``meta_step_s(S, state, batch,
-    generator=None, draws=None)`` and ``forward_s(S, theta, W0, Xl,
-    Yl)``. ``batch``: dict with Xtr (n,m,F), Ytr (n,m), Xte (n,t,F),
-    Yte (n,t) tensors. ``task`` is the inner problem (None resolves the
-    config's task)."""
+    generator=None, draws=None, delta_generator=None, deltas=None)`` and
+    ``forward_s(S, theta, W0, Xl, Yl)``. ``batch``: dict with Xtr
+    (n,m,F), Ytr (n,m), Xte (n,t,F), Yte (n,t) tensors. ``task`` is the
+    inner problem (None resolves the config's task).
+
+    A robust config (``C.robust_enabled(cfg)``, also set as
+    ``meta_step_s.robust``) needs the perturbations: drawn from
+    ``delta_generator`` (the drivers pass ``unroll.robust_generator(seed,
+    t)``) or given as ``deltas`` (robust_samples, L+1, n, d). A nominal
+    config reads neither."""
     task = resolve_task(cfg, task)
     _check_mix(mix_fn)
-    if cfg.robust_sigma > 0.0 and cfg.robust_samples > 0:
-        raise NotImplementedError(C.ROBUST_TODO)
+    robust = C.robust_enabled(cfg)
     opt = adam(cfg.lr_theta)
     layer_fn = _layer_fn(cfg)
 
@@ -116,23 +126,32 @@ def _meta_step_core(cfg: SURFConfig, constrained=True, activation="relu",
                                activation, mix_fn=mix_fn, task=task))
         return Ws[-1], torch.stack(Ws)
 
-    def lagrangian_fn(theta, lam, S, W0, Xl, Yl, Xte, Yte):
+    def lagrangian_fn(theta, lam, S, W0, Xl, Yl, Xte, Yte, deltas):
         W_L, W_all = forward_s(S, theta, W0, Xl, Yl)
         test_loss = task.fl_loss(W_L, Xte, Yte)
         gnorms = C.layer_grad_norms(W_all, Xl, Yl, cfg, task=task)
-        slack = C.slacks(gnorms, cfg.eps)
+        if robust:
+            g_rob = C.robust_layer_grad_norms(W_all, Xl, Yl, cfg, deltas,
+                                              task=task, nominal=gnorms)
+            slack = C.robust_slacks(g_rob, gnorms, cfg.eps)
+        else:
+            slack = C.slacks(gnorms, cfg.eps)
         lag = C.lagrangian(test_loss, slack, lam) if constrained else test_loss
         return lag, (test_loss, slack, gnorms, W_L)
 
     def meta_step_s(S, state: TrainState, batch, generator=None,
-                    draws=None):
+                    draws=None, delta_generator=None, deltas=None):
         W0, Xl, Yl = U.featurize_cohort(generator, batch, cfg, task=task,
                                         draws=draws)
+        if robust:
+            deltas = U.sample_deltas(delta_generator, cfg, task=task,
+                                     deltas=deltas, device=W0.device)
         theta = {k: v.detach().requires_grad_(True)
                  for k, v in state.theta.items()}
         with torch.enable_grad():
             lag, (tl, slack, gnorms, W_L) = lagrangian_fn(
-                theta, state.lam, S, W0, Xl, Yl, batch["Xte"], batch["Yte"])
+                theta, state.lam, S, W0, Xl, Yl, batch["Xte"], batch["Yte"],
+                deltas)
             grads = torch.autograd.grad(lag, list(theta.values()))
         with torch.no_grad():
             grads, gn = clip_by_global_norm(dict(zip(theta, grads)),
@@ -153,23 +172,27 @@ def _meta_step_core(cfg: SURFConfig, constrained=True, activation="relu",
                        "grad_norm": gn, "lam_sum": lam.sum()}
         return TrainState(new_theta, lam, opt_state, state.step + 1), metrics
 
+    meta_step_s.robust = robust
     return meta_step_s, forward_s
 
 
 def make_meta_step(cfg: SURFConfig, S, *, constrained=True,
                    activation="relu", mix_fn=None, task=None):
     """The meta-training step ``meta_step(state, batch, generator=None,
-    draws=None) -> (state, metrics)`` and ``forward(theta, W0, Xl, Yl)``
-    with S bound. ``constrained=False`` is the ablation of Appendix D
-    (λ frozen at 0); ``cfg.topology == "star"`` selects the star
-    layers; ``mix_fn`` overrides the default mixer (see
-    ``core.unroll._mix``)."""
+    draws=None, delta_generator=None, deltas=None) -> (state, metrics)``
+    and ``forward(theta, W0, Xl, Yl)`` with S bound. ``constrained=False``
+    is the ablation of Appendix D (λ frozen at 0); ``cfg.topology ==
+    "star"`` selects the star layers; ``mix_fn`` overrides the default
+    mixer (see ``core.unroll._mix``); a robust config takes its
+    perturbations as ``_meta_step_core`` says."""
     _check_static_s(S, "make_meta_step")
     meta_step_s, forward_s = _meta_step_core(cfg, constrained, activation,
                                              mix_fn, task)
 
-    def meta_step(state, batch, generator=None, draws=None):
-        return meta_step_s(S, state, batch, generator, draws)
+    def meta_step(state, batch, generator=None, draws=None,
+                  delta_generator=None, deltas=None):
+        return meta_step_s(S, state, batch, generator, draws,
+                           delta_generator, deltas)
 
     def forward(theta, W0, Xl, Yl):
         return forward_s(S, theta, W0, Xl, Yl)

@@ -39,10 +39,10 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.surf_paper import SMOKE
+from repro_torch.configs.surf_paper import SMOKE, SPARSE_SMOKE
 from repro_torch.core import surf
 from repro_torch.core import unroll as U
-from repro_torch.data import synthetic
+from repro_torch.core.tasks import resolve_task
 from repro_torch.serve import AsyncDriver, BucketSpec, FederationServer
 from repro_torch.utils.device import resolve_device
 
@@ -88,7 +88,7 @@ def _size_probs(sizes, dist):
     return w / w.sum()
 
 
-def synth_trace(cfg, sizes, rows, dist, n_requests, seed, device):
+def synth_trace(cfg, task, sizes, rows, dist, n_requests, seed, device):
     """The synthetic request stream: per request a cohort size n and
     test-rows t from the configured distribution, a FRESH topology
     (request-indexed graph seed) and a FRESH dataset — every request is
@@ -101,7 +101,7 @@ def synth_trace(cfg, sizes, rows, dist, n_requests, seed, device):
         t = int(rng.choice(rows))
         cfg_r = dataclasses.replace(cfg, n_agents=n, test_per_agent=t)
         _, S = surf.make_problem(cfg_r, seed=10_000 + i, device=device)
-        ds = synthetic.sample_dataset(cfg_r, seed=20_000 + i)
+        ds = task.synth_datasets(cfg_r, 1, seed=20_000 + i)[0]
         out.append({"cfg": cfg_r, "S": S, "ds": ds, "seed": i % 16})
     return out
 
@@ -158,24 +158,21 @@ def bench_sharded_async(cfg, state, trace, args, sizes, rows, tol, device):
 
 def main(argv=None, parser=None):
     args = (parser or build_parser()).parse_args(argv)
-    if args.task == "sparse":
-        raise NotImplementedError(
-            "--task sparse: the sparse-recovery task is not ported yet "
-            "(ROADMAP queue 1 item 5)")
     sizes = [int(s) for s in args.sizes.split(",")]
     rows = [int(r) for r in args.rows.split(",")]
     device = resolve_device(args.device)
-    cfg = SMOKE
+    cfg = SPARSE_SMOKE if args.task == "sparse" else SMOKE
+    task = resolve_task(cfg)
     print(f"serve bench: device={device} mix={args.mix} task={args.task} "
           f"requests={args.requests}")
 
     # ---- meta-train once; the trained theta serves EVERY cohort size
     # (shared perceptron => permutation equivariance, Remark 5.1)
-    mds = synthetic.make_meta_dataset(cfg, 4, seed=args.seed)
+    mds = task.synth_datasets(cfg, 4, seed=args.seed)
     state, _, _ = surf.train_surf(cfg, mds, steps=args.steps,
                                   seed=args.seed, log_every=0, device=device)
 
-    trace = synth_trace(cfg, sizes, rows, args.dist, args.requests,
+    trace = synth_trace(cfg, task, sizes, rows, args.dist, args.requests,
                         args.seed, device)
     server = FederationServer(cfg, state.theta, mix=args.mix,
                               max_batch=args.max_batch, buckets=BUCKETS,

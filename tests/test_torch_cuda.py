@@ -3,7 +3,9 @@ graph-filter kernel (forward and backward), flash-attention kernel and
 wkv kernel against their plain versions, the wrappers' checks on CUDA
 tensors, the served (fixed and adaptive depth) and training paths
 through the graph filter (static and under a topology schedule, whose
-S_t may isolate agents), the async study through the graph filter, one
+S_t may isolate agents; seed-batched, with snapshots; the sparse task
+and RSDUN; a resume from a checkpoint), the async study through the
+graph filter, one
 FL baseline on the card against the CPU, and a
 reduced-config LLM prefill and decode through the flash and wkv kernels
 against the same model run through the plain versions.
@@ -64,7 +66,9 @@ SHAPES = [(None, 8, 16, 1), (None, 100, 650, 2), (None, 64, 128, 4),
           (None, 33, 100, 2), (None, 9, 5, 1), (3, 33, 100, 2),
           (2, 128, 300, 3), (4, 17, 1, 0), (None, 129, 300, 2),
           (2, 256, 130, 3), (None, 1000, 70, 2), (3, 129, 33, 0),
-          (None, 200, 77, 1)]
+          (None, 200, 77, 1),
+          # SPARSE_SMOKE (d = 16, far below one tile) and the quickstart
+          (None, 8, 16, 2), (4, 8, 16, 2), (None, 20, 330, 2)]
 
 
 @pytest.fixture
@@ -367,6 +371,81 @@ def test_async_evaluation_through_kernel_matches_plain(cuda):
     n_t = SMOKE.n_agents * SMOKE.test_per_agent
     np.testing.assert_allclose(kern["acc_per_layer"], plain["acc_per_layer"],
                                atol=1.5 / n_t, rtol=0)
+
+
+def test_seed_batched_training_launches_and_rows(cuda):
+    """Seed-batched training through the kernel: per lockstep step
+    n_seeds × L forward and n_seeds × (L − 1) dW launches, plus L per
+    eval dataset per seed per snapshot; each row bit-equal to the
+    sequential run on the card."""
+    mds = make_meta_dataset(SMOKE, 3)
+    ev = make_meta_dataset(SMOKE, 2, seed=9)
+    seeds, steps, L = (0, 1, 2), 4, SMOKE.n_layers
+    before = (graph_filter.launches, graph_filter.bwd_launches)
+    states, hist, snaps, S_stack = surf.train_surf(
+        SMOKE, mds, steps, seeds=seeds, log_every=1, eval_every=2,
+        eval_datasets=ev)
+    torch.cuda.synchronize()
+    n = len(seeds)
+    assert (graph_filter.launches - before[0],
+            graph_filter.bwd_launches - before[1]) == (
+                steps * n * L + 2 * n * len(ev) * L, steps * n * (L - 1))
+    from repro_torch.engine import state_for_seed
+    for i, s in enumerate(seeds):
+        st, h, sn, S = surf.train_surf(SMOKE, mds, steps, seed=s,
+                                       log_every=1, eval_every=2,
+                                       eval_datasets=ev)
+        assert torch.equal(S_stack[i], S)
+        row = state_for_seed(states, i)
+        for k in st.theta:
+            assert torch.equal(row.theta[k], st.theta[k])
+        for a, b in zip(snaps, sn):
+            assert np.array_equal(a["acc_per_layer"][i], b["acc_per_layer"])
+
+
+@pytest.mark.parametrize("kind", ["sparse", "robust"])
+def test_sparse_and_robust_meta_steps_through_kernel(cuda, kind):
+    """A SPARSE_SMOKE (d = 16) or RSDUN meta-step through the kernel: L
+    and L − 1 launches, the state within 5e-6 of the plain filter on the
+    same draws (and, robust, the same δ)."""
+    from repro_torch.configs.surf_paper import SPARSE_SMOKE
+    cfg = (SPARSE_SMOKE if kind == "sparse" else dataclasses.replace(
+        SMOKE, robust_sigma=0.1, robust_samples=2))
+    task = resolve_task(cfg)
+    _, S = surf.make_problem(cfg, seed=0)
+    batch = task.to_batch(task.synth_datasets(cfg, 1)[0], cuda)
+    state = init_state(torch.Generator(cuda).manual_seed(0), cfg)
+    draws = unroll.featurize_cohort(unroll.step_generator(0, 0, cuda),
+                                    batch, cfg)
+    deltas = (unroll.sample_deltas(unroll.robust_generator(0, 0, cuda), cfg)
+              if kind == "robust" else None)
+    before = (graph_filter.launches, graph_filter.bwd_launches)
+    sk, mk = make_meta_step(cfg, S)[0](state, batch, draws=draws,
+                                       deltas=deltas)
+    torch.cuda.synchronize()
+    assert (graph_filter.launches - before[0],
+            graph_filter.bwd_launches - before[1]) == (cfg.n_layers,
+                                                       cfg.n_layers - 1)
+    sp, mp = make_meta_step(cfg, S, mix_fn=make_plain_mix())[0](
+        state, batch, draws=draws, deltas=deltas)
+    for k in sk.theta:
+        torch.testing.assert_close(sk.theta[k], sp.theta[k], atol=5e-6,
+                                   rtol=5e-6)
+    for k in mk:
+        torch.testing.assert_close(mk[k], mp[k], atol=5e-6, rtol=5e-6)
+
+
+def test_resume_on_the_card_is_bit_exact(cuda, tmp_path):
+    from repro_torch.engine import resume
+    mds = make_meta_dataset(SMOKE, 3)
+    full, _, S = surf.train_surf(SMOKE, mds, 8, log_every=0,
+                                 checkpoint_every=2,
+                                 checkpoint_dir=str(tmp_path))
+    res, _ = resume.resume_train_scan(SMOKE, S, mds, 8, 0, str(tmp_path),
+                                      step=4)
+    for k in full.theta:
+        assert torch.equal(full.theta[k], res.theta[k])
+        assert res.theta[k].device.type == "cuda"
 
 
 def test_baseline_on_card_matches_cpu(cuda):

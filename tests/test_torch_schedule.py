@@ -374,7 +374,7 @@ def test_schedule_mixer_checks(smoke):
 
     with pytest.raises(ValueError, match="baked-S"):
         TS.train_scan(tcfg, sched, mds, 1, device="cpu", mix_fn=baked)
-    for attr, item in (("seed_batched", 7), ("scheduled", 8)):
+    for attr, item in (("seed_batched", 8), ("scheduled", 8)):
         mix = make_plain_mix()
         setattr(mix, attr, True)
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):

@@ -56,9 +56,17 @@ def test_surf_serve_small_trace_without_async_rows(tmp_path):
 
 
 def test_surf_serve_sparse_task_names_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        surf_serve.main(["--device", "cpu", "--out", str(tmp_path),
-                         "--task", "sparse"])
+    """ROADMAP item 5 is ported: ``--task sparse`` serves SPARSE_SMOKE
+    (federated LASSO) under the launcher's own claims: one build per
+    bucket, and every padded request's NMSE equal to the unpadded solve
+    within the launcher's 5e-5."""
+    out = surf_serve.main(["--device", "cpu", "--out", str(tmp_path),
+                           "--task", "sparse", "--requests", "40",
+                           "--steps", "4", "--sharded-requests", "8"])
+    assert out["task"] == "sparse" and out["requests"] == 40
+    assert out["build_counts"]["replay_builds"] == 0
+    assert out["parity"]["max_dacc"] < out["parity"]["tol"]
+    assert out == _read(tmp_path / "BENCH_serve.json")
 
 
 def test_surf_earlyexit_main_short_run(tmp_path):

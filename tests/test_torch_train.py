@@ -429,22 +429,51 @@ def test_state_from_numpy_validates(smoke):
     ("seeds", (0, 1), 7), ("eval_every", 5, 7),
     ("eval_datasets", [], 7), ("checkpoint_every", 5, 7),
     ("checkpoint_dir", "ckpt", 7)])
-def test_unported_train_options_raise(smoke, option, value, item):
+def test_unported_train_options_raise(smoke, option, value, item, tmp_path):
+    """Item 8's options still raise, naming their item. Item 7's are
+    ported: alone, each runs or is refused as the reference refuses it
+    (a cadence without its pool or directory)."""
     jcfg, tcfg, S, mds = smoke
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-        tsurf.train_surf(tcfg, mds, steps=1, device="cpu", **{option: value})
+    if item == 8:
+        with pytest.raises(NotImplementedError,
+                           match=f"queue 1 item {item}"):
+            tsurf.train_surf(tcfg, mds, steps=1, device="cpu",
+                             **{option: value})
+        return
+    refusals = {"eval_every": "eval_datasets",
+                "checkpoint_every": "checkpoint_dir"}
+    if option in refusals:
+        with pytest.raises(ValueError, match=refusals[option]):
+            tsurf.train_surf(tcfg, mds, steps=1, device="cpu",
+                             **{option: value})
+        return
+    if option == "checkpoint_dir":
+        value = str(tmp_path / value)
+    state, hist, S_out = tsurf.train_surf(tcfg, mds, steps=1, device="cpu",
+                                          log_every=1, **{option: value})
+    assert state.step == 1
+    if option == "seeds":
+        assert S_out.shape == (2, tcfg.n_agents, tcfg.n_agents)
+        assert hist[0]["test_loss"].shape == (2,)
+    if option == "checkpoint_dir":
+        assert not (tmp_path / "ckpt").exists()     # no cadence, no save
 
 
 def test_unported_training_paths_raise(smoke):
+    """RSDUN (item 5) is ported: a robust meta-step needs its
+    perturbations. Seed-batched and scheduled HALO mixers and the ring
+    and halo mixer names stay item 8's."""
     jcfg, tcfg, S, mds = smoke
     robust = dataclasses.replace(tcfg, robust_sigma=0.1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        TE.make_meta_step(robust, _t(S))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        TC.robust_layer_grad_norms(None, None, None, tcfg, None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        TC.robust_slacks(None, None, 0.1)
-    for attr, item in (("seed_batched", 7), ("scheduled", 8)):
+    step, _ = TE.make_meta_step(robust, _t(S))
+    state = TE.init_state(torch.Generator().manual_seed(0), robust)
+    with pytest.raises(ValueError, match="delta_generator"):
+        step(state, _tbatch(mds[0], tcfg), TU.step_generator(0, 0, "cpu"))
+    with pytest.raises(ValueError, match="deltas must"):
+        TC.robust_layer_grad_norms(torch.zeros(5, 8, 36), None, None,
+                                   robust, torch.zeros(1),
+                                   nominal=torch.zeros(5))
+    for attr, item in (("seed_batched", 8), ("scheduled", 8)):
         mix = lambda S, W, h: W                        # noqa: E731
         mix.takes_S = True
         setattr(mix, attr, True)

@@ -175,9 +175,14 @@ def test_theta_from_numpy_validates():
 
 
 def test_unported_paths_raise():
+    # the sparse-recovery task is ported: the config's task resolves,
+    # and an unknown kind is refused as in the reference
+    from repro_torch.core.tasks import SparseRecoveryTask
+    task = tresolve_task(tcfgs.SPARSE_SMOKE)
+    assert isinstance(task, SparseRecoveryTask) and task.dim == 16
     cfg = dataclasses.replace(tcfgs.SMOKE, task=type(
-        "Sparse", (), {"kind": "sparse_recovery"})())
-    with pytest.raises(NotImplementedError, match="sparse"):
+        "Bogus", (), {"kind": "nope"})())
+    with pytest.raises(ValueError, match="unknown task kind"):
         tresolve_task(cfg)
     baked = lambda W, h: W                                  # noqa: E731
     with pytest.raises(NotImplementedError, match="baked-S"):
