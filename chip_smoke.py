@@ -70,6 +70,12 @@ order; any failure exits non-zero:
      assertions; the early-exit frontier claim is reported
      (``--frontier report``): the reference's launcher no longer meets it
      at its own default seed either;
+  7f. sharded serving — phase 7's 24 requests through
+     ``FederationServer(mesh=)`` at 2, 4 and 8 shards SIMULATED on the one
+     card (``devices=["cuda:0"] * s``): each result within 5e-5 of the
+     unsharded server's, L launches per shard per tick, federations/s per
+     shard count; then ``launch.surf_serve --simulate-shards 8`` (its
+     sharded rows at 1, 2, 4, 8 shards, gated by its own parity);
   8. meta-step parity — 3 PAPER meta-steps from one ``init_state`` on
      identical draws, through the kernel (default mixer) and through the
      plain filter: θ, λ and the metrics must agree; a TF32 plain step
@@ -113,6 +119,25 @@ order; any failure exits non-zero:
      rates, on the card and on the CPU from one set of numpy draws:
      per-round loss within 1e-4 of the run's largest |loss|, accuracy
      within 2/(n t), no graph-filter launch; ms per round;
+  9i. agent-sharded training (shards SIMULATED on the card: they show
+     the decomposition's cost, not multi-card scaling) — first the
+     halo-pallas resident block (n = 25 and 20, d = 5130, h = [0, 1])
+     kernel vs plain, forward within 5e-5 and dW within 5e-4, with its
+     device times, bound, plain time and ``S0 @ Y``'s; then 3 PAPER
+     meta-steps of mix="halo" and "halo-pallas" at 1, 2, 4 and 5 shards
+     and of mix="ring" (ring variant, degree 2) at 4, each from one state
+     on replayed draws, against the dense kernel path at phase 8's gate;
+     halo-pallas launches shards · K · L forward and dW per step; ms per
+     meta-step, peak memory and exchange rows beside the dense path's;
+     one halo-pallas meta-step at 4 shards profiled by kernel kind;
+     ``train_surf(mix="halo-pallas")`` at 4 shards counted from zero;
+  9j. scheduled and seed-batched halo — the link-failure schedule through
+     the scheduled halo-pallas mixer at 4 shards, 3 steps at phase 8's
+     gate; ``train_surf(seeds=(0, 1), mix="halo")`` on a (2, 2) mesh, each
+     row bit-equal to its lane's sequential run on the same mesh;
+  9k. Q-sharded pools — ``train_surf(q_sharded=True)`` on 8 datasets over
+     4 shards against the replicated pool (1e-5), and
+     ``evaluate_async(mesh=)`` against the unsharded call;
   9g. checkpoint and resume — the quickstart config, 20 steps with
      ``checkpoint_every=5`` (under build/), resumed from step 10:
      bit-equal to the uninterrupted run, single-seed and with 4 seeds;
@@ -207,6 +232,10 @@ SEEDS = (0, 1, 2, 3)
 SEED_STEPS, SEED_EVAL_EVERY, SEED_EVAL_POOL = 10, 5, 4
 CKPT_STEPS, CKPT_EVERY, CKPT_RESUME = 20, 5, 10
 SPARSE_STEPS = 20
+# Phases 9i-9k and 7f: agent-shard counts of PAPER's n = 100 (s = 5:
+# 20 agents per shard), the sharded server's shard counts.
+HALO_SHARDS = (1, 2, 4, 5)
+SERVE_SHARDS = (2, 4, 8)
 # Flash attention: the reference's sweep shapes (B, H, KV, S, dh, window),
 # the qwen3-4b prefill and a gemma3 local-layer shape; wkv: the sweep
 # shapes (B, H, T, dk) and the rwkv6-1.6b prefill.
@@ -283,9 +312,10 @@ def filter_bound_ms(B, n, d, K, w_bytes=4):
 
 def device_ms(fn, reps=50, key="graph_filter_kernel"):
     """The kernel's own time per launch: ``torch.profiler`` (CUPTI) device
-    time of the kernels whose name holds ``key`` over ``reps`` calls, over
-    their count; the wrapper's host time per call (``time.perf_counter``
-    over ``reps`` calls without a synchronisation) beside it."""
+    time of the kernels whose name holds ``key`` over ``reps`` calls (the
+    profiler's second cycle, after a warm-up one), over their count; the
+    wrapper's host time per call (``time.perf_counter`` over ``reps``
+    calls without a synchronisation) beside it."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -294,14 +324,23 @@ def device_ms(fn, reps=50, key="graph_filter_kernel"):
         fn()
     host_us = 1e6 * (time.perf_counter() - t0) / reps
     torch.cuda.synchronize()
+    # one warm-up cycle of the profiler, then the recorded one: CUPTI may
+    # miss the first kernels of a window it has just started tracing
+    # (4 of 50 at the resident block's shape)
+    got = {}
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+            torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+            on_trace_ready=lambda p: got.update(events=p.key_averages())
+            ) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     total, count = 0.0, 0
-    for e in prof.key_averages():
+    for e in got["events"]:
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and key in e.key):
             total += e.self_device_time_total
@@ -826,6 +865,63 @@ def serve_async(tag, cfg, spec, fixed, device="cuda", sizes=SIZES):
     return launches
 
 
+def serve_sharded(tag, cfg, spec, fixed, device="cuda", sizes=SIZES):
+    """Phase 7f: phase 7's 24 requests through ``FederationServer(mesh=)``
+    on SERVE_SHARDS simulated shards of the card (``max_batch`` 8): each
+    result within 5e-5 of the unsharded server's (phase 7;
+    ``tests/test_qsharded.py``'s bound), L launches per shard per tick;
+    federations/s per shard count. Then ``launch.surf_serve`` with
+    ``--simulate-shards 8``: its sharded rows at 1, 2, 4 and 8 shards,
+    gated by its own parity. Returns the forward launches."""
+    from repro_torch.kernels.graph_filter import graph_filter
+    from repro_torch.launch import surf_serve
+    from repro_torch.serve import FederationServer
+    theta, requests = fixed["theta"], fixed["requests"]
+    total, rec = 0, {"unsharded": fixed["summary"]["federations_per_sec"]}
+    for shards in SERVE_SHARDS:
+        server = FederationServer(cfg, theta, buckets=spec,
+                                  max_batch=MAX_BATCH,
+                                  mesh=sim_mesh(1, shards))
+        server.warm([(n, cfg.test_per_agent) for n in sizes])
+        graph_filter.launches = 0
+        futs = [server.submit(S, ds, seed=i)
+                for i, (_, S, ds, _) in enumerate(requests)]
+        server.drain()
+        launches, ticks = graph_filter.launches, server.metrics.ticks
+        if launches != ticks * cfg.n_layers * shards:
+            raise AssertionError(f"7f launches {launches} != ticks {ticks} "
+                                 f"x L x {shards} shards")
+        total += launches
+        worst = 0.0
+        for i, ((_, _, _, mfut), sfut) in enumerate(zip(requests, futs)):
+            m, r = mfut.result(), sfut.result()
+            for k in ("final_loss", "final_acc", "loss_per_layer", "W"):
+                d = float(np.abs(np.asarray(m[k]) - np.asarray(r[k])).max())
+                worst = max(worst, d)
+                if d >= 5e-5:
+                    raise AssertionError(f"7f shards={shards} request {i} "
+                                         f"{k} differs by {d}")
+        rec[shards] = {"federations_per_sec":
+                       server.metrics.summary()["federations_per_sec"],
+                       "ticks": ticks, "launches": launches,
+                       "max_abs_diff": worst}
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "bench_torch_sharded")
+    graph_filter.launches = 0
+    srv = surf_serve.main(["--out", out_dir, "--simulate-shards", "8"])
+    total += graph_filter.launches
+    rows = {r["shards"]: round(r["async_federations_per_sec"], 2)
+            for r in srv["sharded_async"]}
+    if sorted(rows) != [1, 2, 4, 8] or not all(
+            r["simulated"] for r in srv["sharded_async"] if r["shards"] > 1):
+        raise AssertionError(f"7f surf_serve sharded rows {rows}")
+    rec["surf_serve_async_federations_per_sec"] = rows
+    print(f"[{tag}] 7f sharded serving on SIMULATED shards of one card "
+          f"(federations/s per shard count; results within 5e-5 of the "
+          f"unsharded server): {json.dumps(rec)}")
+    return total
+
+
 def launchers(tag):
     """Phase 7e: ``launch.surf_serve`` and ``launch.surf_earlyexit`` at
     their defaults on the card, writing under build/bench_torch; their
@@ -1296,6 +1392,326 @@ def scheduled_training(tag, cfg, mds, pool, static_ms, device="cuda"):
           f" vs {static_ms:.3f} ms; peak memory "
           f"{out['peak_memory_bytes'] / 2**30:.3f} GiB")
     return fwd, bwd, out
+
+
+def sim_mesh(seed_shards, agent_shards):
+    """A ('seed', 'agent') mesh of shards SIMULATED on the one card: every
+    shard is cuda:0, so the phases on it show the cost of the
+    decomposition, not multi-card scaling."""
+    from repro_torch.launch.mesh import make_surf_mesh
+    return make_surf_mesh(seed_shards, agent_shards,
+                          devices=["cuda:0"] * (seed_shards * agent_shards))
+
+
+def _mix_parity(tag, label, cfg, pool, paths, schedule=None, device="cuda"):
+    """PARITY_STEPS meta-steps from one ``init_state`` (seed 0) on one set
+    of replayed draws: at each step the dense kernel path and every path
+    of ``paths`` (label -> (mix_fn, shards or None)) start from the same
+    state, the kernel path's, and each path's state is held against the
+    kernel path's by ``_state_err`` (phase 8's gate). A halo-pallas path
+    must launch shards · K · L forward and as many dW per step. Returns
+    {label: {"max_state_err", "fwd", "bwd"}}."""
+    from repro_torch.core import surf, unroll
+    from repro_torch.engine.core import _meta_step_core, init_state
+    from repro_torch.kernels.graph_filter import graph_filter
+    _, S = surf.make_problem(cfg, seed=0, device=device)
+    n_q = next(iter(pool.values())).shape[0]
+    kern_s, _ = _meta_step_core(cfg)
+    cores = {k: _meta_step_core(cfg, mix_fn=m)[0]
+             for k, (m, _) in paths.items()}
+    state = init_state(unroll.seeded_generator(0, device), cfg)
+    out = {k: {"max_state_err": 0.0, "fwd": 0, "bwd": 0} for k in paths}
+    per = cfg.filter_taps * cfg.n_layers
+    ok = True
+    for t in range(PARITY_STEPS):
+        S_t = S if schedule is None else schedule.S[t % schedule.steps]
+        batch = {k: v[t % n_q] for k, v in pool.items()}
+        draws = unroll.featurize_cohort(unroll.step_generator(0, t, device),
+                                        batch, cfg)
+        sk, _ = kern_s(S_t, state, batch, draws=draws)
+        for k, core in cores.items():
+            before = (graph_filter.launches, graph_filter.bwd_launches)
+            sh, _ = core(S_t, state, batch, draws=draws)
+            torch.cuda.synchronize()
+            fwd = graph_filter.launches - before[0]
+            bwd = graph_filter.bwd_launches - before[1]
+            shards = paths[k][1]
+            if shards and (fwd, bwd) != (shards * per, shards * per):
+                raise AssertionError(f"{label} {k} step {t}: launches "
+                                     f"{(fwd, bwd)}, expected "
+                                     f"{shards * per} each")
+            rows, step_ok = _state_err(sh, sk)
+            del sh
+            rec = out[k]
+            rec["fwd"] += fwd
+            rec["bwd"] += bwd
+            rec["max_state_err"] = max(rec["max_state_err"],
+                                       max(r[1] for r in rows))
+            print(f"[{tag}] {label} {k} vs dense kernel, meta-step {t} "
+                  f"from one state (tensor, max |d|, max |d| / max |ref|, "
+                  f"outside, noise-floor entries): {_fmt_rows(rows)}")
+            ok = ok and step_ok
+        state = sk
+    if not ok:
+        raise AssertionError(f"{label}: a sharded meta-step != the dense "
+                             "kernel path")
+    return out
+
+
+def _ms_per_step(cfg, pool, mix_fn=None, schedule=None, device="cuda",
+                 steps=4):
+    """Median CUDA-event ms of ``steps`` − 1 single meta-steps (after one
+    warm) through ``mix_fn`` from a fresh state, and the peak memory of
+    those steps."""
+    from repro_torch.core import surf, unroll
+    from repro_torch.engine.core import _meta_step_core, init_state
+    _, S = surf.make_problem(cfg, seed=0, device=device)
+    core, _ = _meta_step_core(cfg, mix_fn=mix_fn)
+    state = init_state(unroll.seeded_generator(0, device), cfg)
+    n_q = next(iter(pool.values())).shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(steps):
+        t = state.step
+        S_t = S if schedule is None else schedule.S[t % schedule.steps]
+        batch = {k: v[t % n_q] for k, v in pool.items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = core(S_t, state, batch,
+                        unroll.step_generator(0, t, device))
+        end.record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(start.elapsed_time(end))
+    return float(np.median(times)), torch.cuda.max_memory_allocated()
+
+
+def check_resident(tag, cfg, shard_counts=(4, 5)):
+    """The halo-pallas resident block ``S0_loc @ Y`` at ``cfg``'s shard
+    shapes (n/s agents, d = head_dim): the kernel as the 1-tap filter
+    h = [0, 1] against the plain version (forward within F32_TOL, dW
+    within VJP_TOL); the forward's and dW's device time (profiler), the
+    bound, the plain version's time and the one PyTorch call that
+    computes the same product, ``S0 @ Y``. Returns the largest errors
+    and {n: times}."""
+    from repro_torch.kernels.graph_filter import (graph_filter,
+                                                  graph_filter_ref, ops)
+    rng = np.random.default_rng(5)
+    d, worst, out = cfg.head_dim, [0.0, 0.0], {}
+    for s in shard_counts:
+        n = cfg.n_agents // s
+        S0, Y, _ = filter_inputs(rng, 0, n, d, 1)
+        h = torch.tensor([0.0, 1.0], device="cuda")
+        G = torch.tensor(rng.standard_normal((n, d)).astype(np.float32),
+                         device="cuda")
+        Yk = Y.clone().requires_grad_(True)
+        yk = graph_filter(S0, Yk, h)
+        (dY,) = torch.autograd.grad(yk, Yk, G)
+        Yp = Y.clone().requires_grad_(True)
+        yp = graph_filter_ref(S0, Yp, h)
+        (dYp,) = torch.autograd.grad(yp, Yp, G)
+        torch.cuda.synchronize()
+        errs = [(yk - yp).abs().max().item(), (dY - dYp).abs().max().item()]
+        if not (torch.allclose(yk, yp, atol=F32_TOL, rtol=F32_TOL)
+                and torch.allclose(dY, dYp, atol=VJP_TOL, rtol=VJP_TOL)):
+            raise AssertionError(f"resident n={n}: kernel != plain {errs}")
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+        with torch.no_grad():
+            fwd_ms, fwd_host = device_ms(lambda: graph_filter(S0, Y, h))
+            bwd_ms, _ = device_ms(lambda: ops.graph_filter_bwd(S0, G, h))
+            plain_ms = median_ms(lambda: graph_filter_ref(S0, Y, h))
+            lib_ms = median_ms(lambda: S0 @ Y)
+        bound_ms, bound_by, ffma_ms = filter_bound_ms(1, n, d, 1)
+        out[n] = {"ms": fwd_ms, "dW_ms": bwd_ms, "host_us": fwd_host,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "ffma_bound_ms": ffma_ms, "plain_ms": plain_ms,
+                  "library_ms": lib_ms, "max_abs_err": errs}
+        print(f"[{tag}] 9i resident block n={n} d={d} K=1 (h = [0, 1]): "
+              f"kernel {fwd_ms * 1e3:.2f} us, dW {bwd_ms * 1e3:.2f} us "
+              f"device time (profiler), host {fwd_host:.2f} us per call; "
+              f"bound {bound_ms * 1e3:.2f} us ({bound_by}), f32 FFMA bound "
+              f"{ffma_ms * 1e3:.2f} us; plain {plain_ms * 1e3:.2f} us; "
+              f"S0 @ Y (torch.matmul) {lib_ms * 1e3:.2f} us; max |err| "
+              f"forward {errs[0]:.3e}, dW {errs[1]:.3e}")
+    return worst, out
+
+
+def halo_training(tag, cfg, mds, pool, static_ms, device="cuda"):
+    """Phase 9i: agent-sharded training at ``cfg``'s width on shards
+    simulated on the card. 3 meta-steps of mix="halo" and
+    mix="halo-pallas" at s in HALO_SHARDS, and of mix="ring" on the ring
+    variant (degree 2) at s = 4, each from one state and one set of
+    replayed draws, held against the dense kernel path by phase 8's gate
+    (``_mix_parity``; halo-pallas: s · K · L forward and dW launches per
+    step); then ms per meta-step and peak memory for each beside the
+    dense one, the exchange rows per mixing round against the
+    (s − 1) · n/s a dense gather moves, one halo-pallas s = 4 meta-step
+    profiled by kernel kind; then ``train_surf(mix="halo-pallas")`` at
+    s = 4 through the entry point, counted from zero.
+    The resident block's kernel checks and times come first
+    (``check_resident``). Returns (forward, dW launches of that run, the
+    record, the resident's largest errors)."""
+    from repro_torch.core import surf
+    from repro_torch.kernels.graph_filter import graph_filter
+    from repro_torch.topology.halo import halo_exchange_rows
+    n, K, L = cfg.n_agents, cfg.filter_taps, cfg.n_layers
+    res_err, res_times = check_resident(tag, cfg)
+    _, S = surf.make_problem(cfg, seed=0, device=device)
+    paths = {}
+    for s in HALO_SHARDS:
+        mesh = sim_mesh(1, s)
+        for mix in ("halo", "halo-pallas"):
+            paths[f"{mix} s={s}"] = (surf._resolve_mix(mix, mesh, cfg, S=S),
+                                     s if mix == "halo-pallas" else None)
+    par = _mix_parity(tag, "9i", cfg, pool, paths, device=device)
+    ring_cfg = dataclasses.replace(cfg, topology="ring", degree=2)
+    ring = surf._resolve_mix("ring", sim_mesh(1, 4), ring_cfg)
+    par.update(_mix_parity(tag, "9i ring", ring_cfg, pool,
+                           {"ring s=4": (ring, None)}, device=device))
+    rec = {"dense_ms_per_meta_step": _ms_per_step(cfg, pool,
+                                                   device=device)[0],
+           "phase9_ms_per_meta_step": static_ms, "resident": res_times,
+           "paths": {}}
+    for k, (mix_fn, _) in list(paths.items()) + [("ring s=4", (ring, None))]:
+        ms, peak = _ms_per_step(ring_cfg if k.startswith("ring") else cfg,
+                                pool, mix_fn, device=device)
+        s = int(k.split("s=")[1])
+        rec["paths"][k] = {
+            "ms_per_meta_step": ms, "peak_memory_bytes": peak,
+            "exchange_rows": halo_exchange_rows(mix_fn.plan[1]),
+            "dense_gather_rows": (s - 1) * n // s, **par[k]}
+    # one halo-pallas s = 4 meta-step by kernel kind: where its time goes
+    from repro_torch.core import unroll
+    from repro_torch.engine.core import _meta_step_core, init_state
+    core, _ = _meta_step_core(cfg, mix_fn=paths["halo-pallas s=4"][0])
+    st = init_state(unroll.seeded_generator(0, device), cfg)
+    batch = {k: v[0] for k, v in pool.items()}
+    prof = profile_step(
+        tag, "9i halo-pallas s=4 meta-step (simulated shards)",
+        lambda: core(S, st, batch, unroll.step_generator(0, 0, device)),
+        device)
+    rec["profiled_halo_pallas_s4"] = {
+        k: prof[k] for k in ("wall_ms_profiled", "device_ms",
+                             "device_busy_share")}
+    del paths, ring, core, st
+    print(f"[{tag}] 9i agent-sharded PAPER meta-steps on SIMULATED shards "
+          f"of one card (ms per meta-step median of 3 after 1 warm, CUDA "
+          f"events): {json.dumps(rec)}")
+    zero_counts()
+    state, hist, _ = surf.train_surf(cfg, mds, steps=PARITY_STEPS,
+                                     mix="halo-pallas", mesh=sim_mesh(1, 4),
+                                     log_every=1)
+    torch.cuda.synchronize()
+    fwd, bwd = graph_filter.launches, graph_filter.bwd_launches
+    want = PARITY_STEPS * 4 * K * L
+    if (fwd, bwd) != (want, want):
+        raise AssertionError(f"9i train_surf(halo-pallas, s=4) launches "
+                             f"{(fwd, bwd)}, expected {want} each")
+    if not all(np.isfinite(v) for row in hist for v in row.values()):
+        raise AssertionError(f"9i non-finite metrics {hist}")
+    print(f"[{tag}] 9i train_surf(PAPER, mix='halo-pallas', 4 simulated "
+          f"shards, {PARITY_STEPS} steps): launches forward {fwd}, dW {bwd}"
+          f" = {PARITY_STEPS} x 4 x {K} x {L} each")
+    return fwd, bwd, rec, res_err
+
+
+def halo_schedules_seeds(tag, cfg, mds, pool, device="cuda"):
+    """Phase 9j: fig. 6's link-failure schedule through the scheduled
+    halo-pallas mixer at s = 4, 3 meta-steps against the scheduled dense
+    kernel path (phase 8's gate), and its ms per meta-step; then
+    ``train_surf(cfg, seeds=(0, 1), mix="halo")`` on a (2, 2) simulated
+    mesh for 3 steps, each seed row bit-equal to its lane's sequential run
+    on the same mesh (``train_scan(mix_fn=seed_mix.lane(i))``)."""
+    from repro_torch import engine as E
+    from repro_torch.core import surf
+    from repro_torch.topology.halo import make_scheduled_halo_mix
+    from repro_torch.topology.halo import make_seed_halo_mix
+    sched = surf.make_scenario(cfg, "link-failure", TRAIN_STEPS, seed=0,
+                               device=device)
+    mix = make_scheduled_halo_mix(sim_mesh(1, 4), "agent", sched,
+                                  resident="pallas")
+    par = _mix_parity(tag, "9j link-failure", cfg, pool,
+                      {"halo-pallas s=4": (mix, 4)}, schedule=sched,
+                      device=device)
+    ms, peak = _ms_per_step(cfg, pool, mix, schedule=sched, device=device)
+    dense_ms = _ms_per_step(cfg, pool, schedule=sched, device=device)[0]
+    del mix
+    mesh = sim_mesh(2, 2)
+    seeds = (0, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, hist, S_stack = surf.train_surf(cfg, mds, steps=PARITY_STEPS,
+                                            seeds=seeds, mix="halo",
+                                            mesh=mesh, log_every=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lanes = make_seed_halo_mix(mesh, "agent", S_stack)
+    for i, s in enumerate(seeds):
+        st, h = E.train_scan(cfg, S_stack[i], mds, PARITY_STEPS, seed=s,
+                             mix_fn=lanes.lane(i), mesh=mesh, log_every=1)
+        _states_equal(E.state_for_seed(states, i), st, f"9j seed {s} state")
+        _rows_equal(hist, h, i, f"9j seed {s} history")
+        del st
+    rec = {"scheduled": {"ms_per_meta_step": ms, "dense_ms": dense_ms,
+                         "peak_memory_bytes": peak,
+                         **par["halo-pallas s=4"]},
+           "seeds_wall_s": wall,
+           "seed_exchange_rows": sum(len(r) for _, r, _ in lanes.plan[1])}
+    print(f"[{tag}] 9j on SIMULATED shards of one card: scheduled "
+          f"halo-pallas within phase 8's gate; train_surf(seeds={seeds}, "
+          f"mix='halo', (2, 2) mesh) rows bit-equal to their lanes' "
+          f"sequential runs; {json.dumps(rec)}")
+    return rec
+
+
+def qsharded_pools(tag, cfg, mds, device="cuda"):
+    """Phase 9k: ``train_surf(q_sharded=True)`` on the 8-dataset pool over
+    4 simulated shards against the replicated pool (θ within 1e-5; the
+    select copies one dataset, so bit-equality is reported), and
+    ``evaluate_async(mesh=)`` against the unsharded call (DGD-init θ,
+    n_async 10). Both counted from zero: L and L − 1 launches per step,
+    L per dataset. Returns (forward, dW launches, the record)."""
+    from repro_torch.core import surf, unroll
+    from repro_torch.data.synthetic import make_meta_dataset
+    from repro_torch.engine.core import init_state
+    from repro_torch.kernels.graph_filter import graph_filter
+    mesh = sim_mesh(1, 4)
+    ref, _, _ = surf.train_surf(cfg, mds, steps=PARITY_STEPS, log_every=0)
+    ref = _on_host(ref)
+    zero_counts()
+    t0 = time.perf_counter()
+    got, _, S = surf.train_surf(cfg, mds, steps=PARITY_STEPS, log_every=0,
+                                mesh=mesh, q_sharded=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = max((got.theta[k].cpu() - ref.theta[k]).abs().max().item()
+              for k in ref.theta)
+    exact = all(torch.equal(got.theta[k].cpu(), ref.theta[k])
+                for k in ref.theta)
+    del got, ref
+    if err > 1e-5:
+        raise AssertionError(f"9k q_sharded theta differs by {err}")
+    state = init_state(unroll.seeded_generator(0, device), cfg)
+    test = make_meta_dataset(cfg, ASYNC_POOL, seed=888)
+    a = surf.evaluate_async(cfg, state, S, test, 10, seed=0)
+    b = surf.evaluate_async(cfg, state, S, test, 10, seed=0, mesh=mesh)
+    torch.cuda.synchronize()
+    fwd, bwd = graph_filter.launches, graph_filter.bwd_launches
+    L = cfg.n_layers
+    want = (PARITY_STEPS * L + 2 * ASYNC_POOL * L, PARITY_STEPS * (L - 1))
+    if (fwd, bwd) != want:
+        raise AssertionError(f"9k launches {(fwd, bwd)}, expected {want}")
+    aerr = max(float(np.abs(a[k] - b[k]).max()) for k in a)
+    if not all(np.allclose(a[k], b[k], atol=1e-5, rtol=1e-5) for k in a):
+        raise AssertionError(f"9k evaluate_async(mesh=) differs: {aerr}")
+    rec = {"theta_max_abs_err": err, "theta_bit_equal": exact,
+           "train_wall_s": wall, "async_max_abs_err": aerr,
+           "launches": list(want)}
+    print(f"[{tag}] 9k Q-sharded pools on 4 SIMULATED shards of one card: "
+          f"{json.dumps(rec)}")
+    return fwd, bwd, rec
 
 
 def async_eval(tag, cfg, device="cuda"):
@@ -2432,6 +2848,11 @@ def main():
     adaptive_launches = serve_adaptive(tag, PAPER, spec, fixed)
     zero_counts()
     async_launches = serve_async(tag, PAPER, spec, fixed)
+
+    # 7f. the same requests through request-sharded servers on simulated
+    #     shards of the card, then surf_serve's sharded rows
+    zero_counts()
+    sharded_launches = serve_sharded(tag, PAPER, spec, fixed)
     del fixed
 
     # 7e. the SURF launchers at their defaults
@@ -2462,7 +2883,19 @@ def main():
 
     # 9f. RSDUN at PAPER width
     (rob_fwd, rob_bwd), _ = robust_paper(tag, PAPER, mds, pool, phase8)
-    del pool, mds, phase8
+    del phase8
+
+    # 9i.-9k. the multi-device paths on shards simulated on the card:
+    #     agent-sharded training (halo, halo-pallas, ring), scheduled and
+    #     seed-batched halo, Q-sharded pools
+    halo_fwd, halo_bwd, _, res_err = halo_training(
+        tag, PAPER, mds, pool, static["ms_per_meta_step"])
+    max_err, bwd_err = max(max_err, res_err[0]), max(bwd_err, res_err[1])
+    halo_schedules_seeds(tag, PAPER, mds, pool)
+    qsh_fwd, qsh_bwd, _ = qsharded_pools(tag, PAPER, mds)
+    if counts()["flash_attention"] or counts()["wkv"]:
+        raise AssertionError(f"9i-9k launched an LLM kernel {counts()}")
+    del pool, mds
 
     # 9c. the async study at PAPER width (counts zeroed per n_async)
     async_eval_launches, _ = async_eval(tag, PAPER)
@@ -2485,10 +2918,11 @@ def main():
     wkv_launches, _ = serve_llm(tag, "rwkv6-1.6b", "wkv")
 
     # The graph filter's forward record's times are those of the largest
-    # bucket's tick layer; its launches those of the serve runs (7-7d),
-    # the launchers (7e), the training runs (9, 9b, 9e-9h, 10b) and the
-    # async study (9c), and dW's those of the launchers and the training
-    # runs. Flash attention's and wkv's are
+    # bucket's tick layer; its launches those of the serve runs (7-7d,
+    # 7f), the launchers (7e), the training runs (9, 9b, 9e-9h, 9i's
+    # halo-pallas train_surf, 9k, 10b) and the async studies (9c, 9k), and
+    # dW's those of the launchers and the training runs. Flash
+    # attention's and wkv's are
     # those of the qwen3-4b and rwkv6-1.6b prefill shapes in f32, their
     # launches those of the serve runs (one prefill each).
     src = "src/repro_torch/kernels/graph_filter/csrc/graph_filter.cu"
@@ -2499,7 +2933,8 @@ def main():
     print(f"launches: serve run forward {serve_launches}; serve past the "
           f"resident limit forward {large_launches}; adaptive serve "
           f"forward {adaptive_launches}; async driver forward "
-          f"{async_launches}; launchers forward {launch_fwd}, backward "
+          f"{async_launches}; sharded serve (7f) forward "
+          f"{sharded_launches}; launchers forward {launch_fwd}, backward "
           f"{launch_bwd}; training run "
           f"forward {train_fwd}, backward {train_bwd}; scheduled training "
           f"run forward {sched_fwd}, backward {sched_bwd}; async study "
@@ -2507,7 +2942,9 @@ def main():
           f"training forward {seeds_rec['launches_forward']}, backward "
           f"{seeds_rec['launches_backward']}; robust training forward "
           f"{rob_fwd}, backward {rob_bwd}; checkpoint and resume forward "
-          f"{ckpt_fwd}, backward {ckpt_bwd}; sparse recovery forward "
+          f"{ckpt_fwd}, backward {ckpt_bwd}; halo-pallas training (9i) "
+          f"forward {halo_fwd}, backward {halo_bwd}; Q-sharded pools (9k) "
+          f"forward {qsh_fwd}, backward {qsh_bwd}; sparse recovery forward "
           f"{sparse_fwd}, backward {sparse_bwd}; quickstart with seeds "
           f"forward {qs_fwd}, backward {qs_bwd}; qwen3-4b serve "
           f"flash_attention {fa_launches}; rwkv6-1.6b serve wkv "
@@ -2520,7 +2957,8 @@ def main():
                       + async_launches + launch_fwd + train_fwd
                       + sched_fwd + async_eval_launches
                       + seeds_rec["launches_forward"] + rob_fwd + ckpt_fwd
-                      + sparse_fwd + qs_fwd),
+                      + sparse_fwd + qs_fwd + sharded_launches + halo_fwd
+                      + qsh_fwd),
          "max_abs_err": max_err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": None},
@@ -2528,7 +2966,7 @@ def main():
          "replaces": "src/repro/kernels/graph_filter/ops.py:114",
          "launches": (train_bwd + launch_bwd + sched_bwd
                       + seeds_rec["launches_backward"] + rob_bwd + ckpt_bwd
-                      + sparse_bwd + qs_bwd),
+                      + sparse_bwd + qs_bwd + halo_bwd + qsh_bwd),
          "max_abs_err": bwd_err,
          "ms": b_ms,
          "plain_ms": b_plain_ms, "bound_ms": b_bound_ms,

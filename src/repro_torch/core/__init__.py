@@ -1,18 +1,21 @@
 """SURF core: tasks, the unrolled U-DGD network (``unroll``), the
-descending constraints, the FL baselines (``baselines``) and the public
-solve API (``surf``).
+descending constraints, the FL baselines (``baselines``), the ring mixer
+(``ring``), the public solve API (``surf``) and the compatibility shims
+``graph``, ``task`` and ``trainer``.
 
-``surf`` depends on the engine package, which itself imports
-``core.constraints`` and ``core.unroll``, so it is not imported eagerly
-here (that would close the cycle when ``repro_torch.engine`` is imported
-first); ``repro_torch.core.surf`` resolves on first attribute access, as
-in the reference.
+``trainer`` and ``surf`` depend on the engine package, which itself
+imports ``core.constraints`` and ``core.unroll``, so they are not
+imported eagerly here (that would close the cycle when
+``repro_torch.engine`` is imported first); they resolve on first
+attribute access, as in the reference.
 """
-from repro_torch.core import baselines, constraints, unroll  # noqa: F401
+from repro_torch.core import (baselines, constraints, graph,  # noqa: F401
+                              task, unroll)
 
-__all__ = ["unroll", "constraints", "baselines", "surf"]
+__all__ = ["graph", "task", "unroll", "constraints", "trainer",
+           "baselines", "surf"]
 
-_LAZY = ("surf",)
+_LAZY = ("trainer", "surf")
 
 
 def __getattr__(name):

@@ -8,6 +8,13 @@ D, ``evaluate_async``): the port of ``repro.core.surf``.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without a card they raise. On the card every mixer
 runs the graph filter through the CUDA kernel.
+
+``mesh=`` (a ``launch.mesh.Mesh``) runs an entry point on the mesh's
+devices: the run lives on the mesh's home device, the ``mix`` names
+"ring", "halo" and "halo-pallas" build a halo exchange over its agent
+axis (``_resolve_mix``), seed lanes go to their seed shard, and the
+dataset pools are Q-sharded over the agent-role axis (evaluation one
+dataset per owning device; ``q_sharded=True`` for the training pool).
 """
 from __future__ import annotations
 
@@ -18,7 +25,9 @@ from repro_torch import engine as E
 from repro_torch.configs.base import SURFConfig
 from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
-from repro_torch.engine.core import _check_mix, _layer_fn
+from repro_torch.engine.core import _check_static_mix, _layer_fn
+from repro_torch.launch.mesh import mesh_device
+from repro_torch.sharding import surf_rules as R
 from repro_torch.topology import schedule as SCH
 from repro_torch.topology.families import build_topology
 from repro_torch.utils.cache import BoundedLRU
@@ -111,6 +120,58 @@ def make_scenario(cfg: SURFConfig, scenario, steps, seed=0, *,
     raise ValueError(f"unknown scenario {scenario!r}; one of {SCENARIOS}")
 
 
+MIXES = U.MIXES
+
+
+def _resolve_mix(mix, mesh, cfg, *, S=None, schedule=None, S_stack=None):
+    """Build the ``mix_fn`` a ``mix=`` name stands for against the run's
+    topology and the mesh's AGENT-role axis — exactly one of ``S``
+    (single-seed static), ``schedule`` (single-seed time-varying) or
+    ``S_stack`` (seed-batched, (n_seeds, n, n) or (n_seeds, T, n, n))
+    describes the run.
+
+    The dense names (``unroll.DENSE_MIXES``) select the default mixer:
+    S stays an argument, so they need no mesh and compose with schedules
+    and seed batches. "halo" is the block-sparse exchange (the scheduled
+    mixer for a schedule, the seed-batched one for a seed batch);
+    "halo-pallas" the same with each shard's on-shard block through the
+    graph-filter kernel; "ring" the circulant case, for a static ring
+    only."""
+    if mix in U.DENSE_MIXES:
+        return None
+    if mix not in MIXES:
+        raise ValueError(f"mix must be one of {MIXES}, got {mix!r}")
+    if mesh is None:
+        raise ValueError(
+            f"mix={mix!r} needs mesh= (the mesh whose agent axis the halo "
+            "exchange runs over — launch.mesh.make_surf_mesh); for the "
+            "meshless kernel path use mix='cuda'")
+    from repro_torch.topology import halo
+    axis = R.axis_for_role(mesh, "agent")
+    if mix == "ring":
+        if cfg.topology != "ring":
+            raise ValueError("mix='ring' needs cfg.topology='ring' (the "
+                             "circulant special case); use mix='halo' "
+                             "for arbitrary topologies")
+        if schedule is not None or S_stack is not None:
+            raise ValueError("mix='ring' bakes one static circulant — "
+                             "use mix='halo' for schedules or "
+                             "seed-batched runs")
+        from repro_torch.core.ring import make_ring_mix
+        return make_ring_mix(mesh, axis, cfg.n_agents,
+                             max(1, cfg.degree // 2))
+    resident = "pallas" if mix == "halo-pallas" else "dense"
+    if S_stack is not None:
+        # the stack OBJECT itself: the mixer remembers it, so the engine's
+        # content-digest guard short-circuits on identity
+        return halo.make_seed_halo_mix(mesh, axis, S_stack,
+                                       resident=resident)
+    if schedule is not None:
+        return halo.make_scheduled_halo_mix(mesh, axis, schedule,
+                                            resident=resident)
+    return halo.make_halo_mix(mesh, axis, S, resident=resident)
+
+
 def train_surf(cfg: SURFConfig, meta_datasets, steps, seed=0,
                constrained=True, activation="relu", log_every=10,
                init="dgd", engine="scan", mix_fn=None, mix=None, mesh=None,
@@ -146,31 +207,31 @@ def train_surf(cfg: SURFConfig, meta_datasets, steps, seed=0,
 
     ``engine`` is "scan" (``engine.scan.train_scan``, no host sync in the
     loop) or "python" (``engine.scan.train``, a host copy at each logged
-    step); both run the same meta-step and draws, and seeds, snapshots and
-    checkpoints take "scan", as in the reference. ``mix`` is one of
-    ``unroll.MIXES``, all of which run the graph filter through the CUDA
-    kernel on the card; it is exclusive with an explicit ``mix_fn``.
+    step); both run the same meta-step and draws, and seeds, snapshots,
+    checkpoints and meshes take "scan", as in the reference. ``mix`` is
+    one of ``MIXES`` (see ``_resolve_mix``), exclusive with an explicit
+    ``mix_fn``.
 
-    The reference's ``mesh`` and ``q_sharded`` options and its ring and
-    halo mixers are ROADMAP queue 1 item 8: passing one raises
-    ``NotImplementedError``."""
-    for name, value in (("mesh", mesh), ("q_sharded", q_sharded)):
-        if not (value is None or value is False):
-            raise NotImplementedError(
-                f"train_surf({name}=...) is not ported yet: ROADMAP queue "
-                "1 item 8")
-    if mix not in U.MIXES:
-        raise NotImplementedError(
-            f"mix={mix!r} is not ported yet (the port has {U.MIXES}): ring "
-            "and halo mixers land with ROADMAP queue 1 item 8")
+    ``mesh``: a ``launch.mesh.Mesh``; the run lives on its home device.
+    With ``mix="ring"|"halo"|"halo-pallas"`` every layer's filter
+    exchanges boundary rows over its agent axis (with ``seeds``, on a
+    2-D ('seed', 'agent') mesh, each lane over its seed row's).
+    ``q_sharded=True`` shards the training pool's Q axis over the agent
+    axis (default or kernel mixing only; with ``seeds`` the mesh must be
+    2-D)."""
     if engine not in ("scan", "python"):
         raise ValueError(f"engine must be 'scan' or 'python', got {engine!r}")
-    if mix is not None and mix_fn is not None:
-        raise ValueError("pass either mix= (a mixer name) or mix_fn= (an "
-                         "explicit mixer), not both")
+    if mesh is not None and engine != "scan":
+        raise ValueError("mesh placements require engine='scan' (the "
+                         "step-wise python driver is unsharded)")
     if scenario is not None and schedule is not None:
         raise ValueError("pass either scenario= (a name) or schedule= "
                          "(an explicit TopologySchedule), not both")
+    if mix is not None and mix_fn is not None:
+        raise ValueError("pass either mix= (a mixer name) or mix_fn= (an "
+                         "explicit mixer), not both")
+    if mix is not None and mix not in MIXES:
+        raise ValueError(f"mix must be one of {MIXES}, got {mix!r}")
     for name, on in (("eval_every (in-loop snapshots)", eval_every),
                      ("checkpoint_every (periodic checkpoints)",
                       checkpoint_every),
@@ -179,8 +240,10 @@ def train_surf(cfg: SURFConfig, meta_datasets, steps, seed=0,
             raise ValueError(f"{name} requires engine='scan'")
     E.scan._check_cadences(eval_every, eval_datasets, checkpoint_every,
                            checkpoint_dir)
+    device = (resolve_device(device) if mesh is None
+              else mesh_device(mesh, device))
     kw = dict(constrained=constrained, activation=activation,
-              log_every=log_every, init=init, mix_fn=mix_fn, task=task,
+              log_every=log_every, init=init, task=task,
               eval_every=eval_every, eval_datasets=eval_datasets,
               checkpoint_every=checkpoint_every,
               checkpoint_dir=checkpoint_dir)
@@ -190,9 +253,16 @@ def train_surf(cfg: SURFConfig, meta_datasets, steps, seed=0,
                 "pass either seed= (one run) or seeds= (a seed-batched "
                 "run), not both — the batch defines every per-seed "
                 "init/topology/RNG stream")
-        E.seeds._check_seed_mix(mix_fn)
+        if (mix_fn is not None
+                and not getattr(mix_fn, "seed_batched", False)
+                and not getattr(mix_fn, "takes_S", False)):
+            raise ValueError(
+                "seed-batched training needs a SEED-BATCHED mixer "
+                "(topology.halo.make_seed_halo_mix / mix='halo'), an "
+                "S-as-argument mixer (kernels.graph_filter.make_plain_mix) "
+                "or the default path — a static mix_fn bakes one topology "
+                "and would silently override the per-seed S_i stream")
         seed_list = E.seeds._seed_list(np.asarray(list(seeds)).reshape(-1))
-        device = resolve_device(device)
         S_stack = torch.stack([make_problem(cfg, s, device=device)[1]
                                for s in seed_list])
         if schedule is not None:
@@ -204,19 +274,46 @@ def train_surf(cfg: SURFConfig, meta_datasets, steps, seed=0,
                  for s in seed_list], device=device)
         else:
             S_train = S_stack
+        if mix is not None:
+            mix_fn = _resolve_mix(mix, mesh, cfg, S_stack=S_train)
         out = E.train_scan_seeds(
             cfg, S_train, meta_datasets, steps, seed_list, device=device,
-            S_eval_stack=S_stack if eval_every else None, **kw)
+            mix_fn=mix_fn, S_eval_stack=S_stack if eval_every else None,
+            mesh=mesh, q_sharded=q_sharded, **kw)
         return (*out, S_stack)
     _, S = make_problem(cfg, seed, device=device)
     if schedule is None:
         schedule = make_scenario(cfg, scenario, steps, seed,
                                  device=S.device)
     S_train = schedule if schedule is not None else S
-    driver = E.train_scan if engine == "scan" else E.train
-    out = driver(cfg, S_train, meta_datasets, steps, seed=seed,
-                 device=S.device, S_eval=S if eval_every else None, **kw)
+    if mix is not None:
+        mix_fn = _resolve_mix(mix, mesh, cfg, S=S, schedule=schedule)
+    if engine == "scan":
+        out = E.train_scan(cfg, S_train, meta_datasets, steps, seed=seed,
+                           device=S.device, mix_fn=mix_fn,
+                           S_eval=S if eval_every else None, mesh=mesh,
+                           q_sharded=q_sharded, **kw)
+    elif q_sharded:
+        raise ValueError("q_sharded=True requires engine='scan' (the "
+                         "step-wise python driver is unsharded)")
+    else:
+        out = E.train(cfg, S_train, meta_datasets, steps, seed=seed,
+                      device=S.device, mix_fn=mix_fn,
+                      S_eval=S if eval_every else None, **kw)
     return (*out, S)
+
+
+def _placed(n_q, mesh, device, **replicated):
+    """Yield (q, device, values) for datasets 0..n_q−1: dataset q's device
+    under the Q-sharded placement of ``mesh`` (``stacked_q_sharding``;
+    ``device`` without a mesh or when Q does not divide) and the
+    ``replicated`` values (S, θ) copied there once."""
+    place = (R.stacked_q_sharding(mesh, n_q) if mesh is not None
+             else R.Placement(None, None, (device,)))
+    reps = R.Replicas(**replicated)
+    for q in range(n_q):
+        dev = place.device_of(q, n_q)
+        yield q, dev, reps.on(dev)
 
 
 def _check_draws_and_seeds(datasets, draws, seeds):
@@ -237,8 +334,8 @@ def _check_draws_and_seeds(datasets, draws, seeds):
 
 
 def evaluate_surf(cfg: SURFConfig, state, S, datasets, seed=0,
-                  activation="relu", seeds=None, mix_fn=None, task=None,
-                  device=None, draws=None, depth=None):
+                  activation="relu", seeds=None, mix_fn=None, mesh=None,
+                  task=None, device=None, draws=None, depth=None):
     """Per-layer loss/metric trajectories averaged over the downstream
     ``datasets``. Dataset q draws from ``unroll.solve_generator(seed, q)``
     unless ``draws`` (one ``(W0, Xl, Yl)`` per dataset) replaces them.
@@ -256,26 +353,40 @@ def evaluate_surf(cfg: SURFConfig, state, S, datasets, seed=0,
     so ``exit_threshold=0`` reproduces the fixed final row exactly. The
     return drops the per-layer stacks and carries ``final_loss`` /
     ``final_acc`` and ``depth``, the realized layer count averaged over
-    the datasets."""
+    the datasets.
+
+    ``mix_fn`` replaces the default filter (a static halo/ring exchange,
+    or the plain ``make_plain_mix()``). ``mesh`` Q-shards the datasets
+    over its agent-role axis (``surf_rules.stacked_q_sharding``): each
+    is evaluated on the device that holds it, with S and θ copied there
+    once, and the rows are gathered to the home device for the mean —
+    data-parallel evaluation over downstream datasets."""
     E._check_static_s(S, "evaluate_surf")
-    device = resolve_device(device)
+    device = (resolve_device(device) if mesh is None
+              else mesh_device(mesh, device))
     task = resolve_task(cfg, task)
     depth = _resolve_depth(cfg, depth)
     seeds = _check_draws_and_seeds(datasets, draws, seeds)
     if seeds is not None:
         rows = [evaluate_surf(cfg, state, S, datasets, seed=s,
                               activation=activation, mix_fn=mix_fn,
-                              task=task, device=device, depth=depth)
+                              mesh=mesh, task=task, device=device,
+                              depth=depth)
                 for s in seeds]
         return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
     evaluate_s = _evaluator(cfg, activation, mix_fn, task, depth)
-    S = to_tensor(S, device, torch.float32)
-    theta = {k: to_tensor(v, device) for k, v in state.theta.items()}
+    outs = []
     with torch.no_grad():
-        outs = [evaluate_s(S, theta, task.to_batch(ds, device),
-                           U.solve_generator(seed, q, device),
+        for q, dev, r in _placed(
+                len(datasets), mesh, device,
+                S=to_tensor(S, device, torch.float32),
+                theta={k: to_tensor(v, device)
+                       for k, v in state.theta.items()}):
+            o = evaluate_s(r["S"], r["theta"],
+                           task.to_batch(datasets[q], dev),
+                           U.solve_generator(seed, q, dev),
                            None if draws is None else draws[q])
-                for q, ds in enumerate(datasets)]
+            outs.append({k: v.to(device) for k, v in o.items()})
     return {k: torch.stack([o[k] for o in outs]).mean(0).cpu().numpy()
             for k in outs[0]}
 
@@ -305,7 +416,7 @@ def _async_core(cfg: SURFConfig, activation="relu", mix_fn=None, task=None):
     generator, async_mask, draws=None) -> (losses (L,), metrics (L,))``
     on one dataset (see ``make_async_run``)."""
     task = resolve_task(cfg, task)
-    _check_mix(mix_fn)
+    _check_static_mix(mix_fn, "the async body")
     layer_fn = _layer_fn(cfg)
 
     def run_s(S, theta, batch, generator, async_mask, draws=None):
@@ -381,29 +492,33 @@ def evaluate_async(cfg: SURFConfig, state, S, datasets, n_async, seed=0,
     masks and every returned metric gains a leading (n_seeds,) axis, row
     i equal to the ``seed=seeds[i]`` call. ``mix_fn`` overrides the
     default mixer (the plain reference is ``make_plain_mix()``).
-    ``mesh`` (Q sharded over devices) is ROADMAP queue 1 item 8."""
-    if mesh is not None:
-        raise NotImplementedError("evaluate_async(mesh=...) is not ported "
-                                  "yet: ROADMAP queue 1 item 8")
+    ``mesh`` Q-shards the datasets over its agent-role axis, exactly as
+    ``evaluate_surf`` does (same masks and draws per dataset index)."""
     E._check_static_s(S, "evaluate_async")
-    device = resolve_device(device)
+    device = (resolve_device(device) if mesh is None
+              else mesh_device(mesh, device))
     task = resolve_task(cfg, task)
     seeds = _check_draws_and_seeds(datasets, draws, seeds)
     if seeds is not None:
         rows = [evaluate_async(cfg, state, S, datasets, n_async, seed=s,
                                activation=activation, task=task,
-                               mix_fn=mix_fn, device=device)
+                               mesh=mesh, mix_fn=mix_fn, device=device)
                 for s in seeds]
         return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
     run_s = _async_evaluator(cfg, activation, mix_fn, task)
     masks = async_masks(cfg, len(datasets), n_async, seed=seed)
-    S = to_tensor(S, device, torch.float32)
-    theta = {k: to_tensor(v, device) for k, v in state.theta.items()}
+    outs = []
     with torch.no_grad():
-        outs = [run_s(S, theta, task.to_batch(ds, device),
-                      U.async_generator(seed, q, device), masks[q],
-                      None if draws is None else draws[q])
-                for q, ds in enumerate(datasets)]
+        for q, dev, r in _placed(
+                len(datasets), mesh, device,
+                S=to_tensor(S, device, torch.float32),
+                theta={k: to_tensor(v, device)
+                       for k, v in state.theta.items()}):
+            loss, acc = run_s(r["S"], r["theta"],
+                              task.to_batch(datasets[q], dev),
+                              U.async_generator(seed, q, dev), masks[q],
+                              None if draws is None else draws[q])
+            outs.append((loss.to(device), acc.to(device)))
     losses = torch.stack([o[0] for o in outs]).mean(0).cpu().numpy()
     accs = torch.stack([o[1] for o in outs]).mean(0).cpu().numpy()
     return {"loss_per_layer": losses, "acc_per_layer": accs,

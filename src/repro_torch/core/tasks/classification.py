@@ -4,8 +4,10 @@ classifier head on frozen features (the port of
 
 Per-agent head weights are flattened into rows of W ∈ R^{n×d},
 d = F·C + C. Every function takes any number of leading axes (see
-``core.tasks.base``). ``features_from_backbone`` arrives with the LLM
-substrate (``models/``).
+``core.tasks.base``). The legacy functional forms ``fl_loss``,
+``fl_accuracy``, ``fl_grad`` and ``grad_norm`` (re-exported by the
+``core.task`` shim) call the task's methods. ``features_from_backbone``
+arrives with the LLM substrate (``models/``).
 """
 from __future__ import annotations
 
@@ -79,3 +81,22 @@ class ClassificationTask(Task):
     def synth_datasets(self, cfg, Q, seed=0, **kw):
         from repro_torch.data.synthetic import make_meta_dataset
         return make_meta_dataset(cfg, Q, seed=seed, **kw)
+
+
+def fl_loss(W, X, Y, feat_dim, n_classes):
+    """f(W) = (1/n) Σ_i f_i(w_i). X (..., n, b, F), Y (..., n, b)."""
+    return ClassificationTask(feat_dim, n_classes).fl_loss(W, X, Y)
+
+
+def fl_accuracy(W, X, Y, feat_dim, n_classes):
+    return ClassificationTask(feat_dim, n_classes).fl_metric(W, X, Y)
+
+
+def fl_grad(W, X, Y, feat_dim, n_classes):
+    """Stochastic ∇f(W): row i is ∇f_i(w_i)/n (matches f's 1/n)."""
+    return ClassificationTask(feat_dim, n_classes).fl_grad(W, X, Y)
+
+
+def grad_norm(W, X, Y, feat_dim, n_classes):
+    """‖∇f(W)‖_F, the quantity the descending constraints control."""
+    return ClassificationTask(feat_dim, n_classes).grad_norm(W, X, Y)

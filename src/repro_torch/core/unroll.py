@@ -26,11 +26,16 @@ from repro_torch.utils.device import to_tensor
 
 ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh}
 
-# The ported mixer names. Each selects the default mixer (``mix_fn=None``):
-# "dense" is the reference's name for its plain filter, "pallas" for its
-# kernel and "cuda" the port's, and on the card all of them launch the
-# kernel. The server and ``train_surf`` accept these names.
-MIXES = (None, "dense", "pallas", "cuda")
+# The mixer names. The DENSE ones select the default mixer
+# (``mix_fn=None``): "dense" is the reference's name for its plain filter,
+# "pallas" for its kernel and "cuda" the port's, and on the card all of
+# them launch the kernel. The server takes these only. The halo names
+# build a baked-S exchange over a mesh's agent axis (``core.surf.
+# _resolve_mix``): "ring" (``core.ring``), "halo" and "halo-pallas"
+# (``topology.halo``, the latter with each shard's on-shard block
+# through the kernel).
+DENSE_MIXES = (None, "dense", "pallas", "cuda")
+MIXES = DENSE_MIXES + ("ring", "halo", "halo-pallas")
 
 
 def _mix(mix_fn, S, W, h):
@@ -41,17 +46,14 @@ def _mix(mix_fn, S, W, h):
         the plain Horner filter on CPU tensors;
       * ``mix_fn.takes_S`` — ``mix_fn(S, W, h)``: an S-as-argument filter,
         such as ``kernels.graph_filter.make_plain_mix``, the plain filter
-        the kernel path is held against.
-
-    Baked-S mixers (ring / halo exchanges) arrive with the multi-device
-    slice."""
+        the kernel path is held against;
+      * otherwise — ``mix_fn(W, h)``: a baked-S exchange (the ring / halo
+        mixers of ``core.ring`` / ``topology.halo``), which ignores S."""
     if mix_fn is None:
         return graph_filter(S, W, h)
     if getattr(mix_fn, "takes_S", False):
         return mix_fn(S, W, h)
-    raise NotImplementedError(
-        "baked-S mixers (ring / halo) are not ported yet: they land with "
-        "the multi-device slice")
+    return mix_fn(W, h)
 
 
 def perceptron_in_dim(cfg: SURFConfig, task=None) -> int:
@@ -102,7 +104,7 @@ def _mix_and_update(params_l, S, W, Xb, Yb, cfg, activation, mix_fn,
 def udgd_layer(params_l, S, W, Xb, Yb, cfg: SURFConfig, activation="relu",
                mix_fn=None, task=None):
     """One unrolled layer. W (..., n, d); Xb (..., n, b, F); Yb (..., n, b);
-    S (..., n, n). A ``takes_S`` mixer replaces the dense filter."""
+    S (..., n, n). ``mix_fn`` replaces the dense filter (see ``_mix``)."""
     mixed, update = _mix_and_update(params_l, S, W, Xb, Yb, cfg, activation,
                                     mix_fn, task)
     return mixed - update

@@ -32,6 +32,15 @@ run), or ``deltas=`` replaces them.
 On the card every layer's graph filter runs through the CUDA kernel
 (the default ``mix_fn=None``): L forward launches and, since W_0
 carries no gradient, L−1 backward (dW) launches per meta-step.
+
+``mix_fn`` replaces the dense filter with a halo exchange over a mesh's
+agent axis (``core.ring.make_ring_mix`` / ``topology.halo``). A
+SCHEDULED mixer (``make_scheduled_halo_mix``, ``.scheduled = True``) is
+bound per meta-step by the CARRIED step, ``mix_fn.at_step(state.step)``,
+so a resumed run continues its mixing stream. A SEED-BATCHED mixer
+(``make_seed_halo_mix``, ``.seed_batched = True``) is bound lane by
+lane by ``engine.seeds`` (``mix_fn.lane(i)``); the single-seed builders
+refuse it (``_reject_seed_batched_mix``).
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ from repro_torch.core import constraints as C
 from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
 from repro_torch.optim import adam, apply_updates, clip_by_global_norm
+from repro_torch.sharding.surf_rules import mesh_fingerprint
 from repro_torch.topology.schedule import TopologySchedule
 
 # Global-norm clip of the meta-gradient (the reference's constant).
@@ -71,19 +81,28 @@ def init_state(generator, cfg: SURFConfig, init="dgd", task=None):
                       opt_state=adam(cfg.lr_theta).init(theta), step=0)
 
 
-def _check_mix(mix_fn):
-    """Mixers of slices not ported yet raise, naming their ROADMAP item
-    (baked-S ring/halo mixers raise in ``core.unroll._mix``). A
-    time-varying schedule or a seed batch needs no mixer of its own: the
-    default and any ``takes_S`` mixer take each step's (and each seed's)
-    S as an argument (``engine.scan``, ``engine.seeds``); the scheduled
-    and seed-batched HALO mixers are item 8's."""
-    for attr, what in (("seed_batched", "seed-batched halo mixers (ROADMAP "
-                        "queue 1 item 8)"),
-                       ("scheduled", "scheduled halo mixers (ROADMAP "
-                        "queue 1 item 8)")):
-        if getattr(mix_fn, attr, False):
-            raise NotImplementedError(f"{what} are not ported yet")
+def _reject_seed_batched_mix(mix_fn, where):
+    """Single-seed builders cannot bind a seed-batched mixer (its per-seed
+    blocks are bound lane by lane by ``engine.seeds``): point the caller
+    at the seed-batched engine instead."""
+    if getattr(mix_fn, "seed_batched", False):
+        raise ValueError(
+            f"{where} is a single-seed builder but got a SEED-BATCHED "
+            "mixer (topology.halo.make_seed_halo_mix) — its per-seed "
+            "blocks are bound lane by lane in engine.seeds; pass it to "
+            "train_surf(seeds=...)/train_scan_seeds, or build a static "
+            "make_halo_mix / make_ring_mix here (or seed_mix.lane(i))")
+
+
+def _check_static_mix(mix_fn, where):
+    """The evaluation bodies bind one filter for every layer: a scheduled
+    or seed-batched mixer has no step counter / seed lane there."""
+    _reject_seed_batched_mix(mix_fn, where)
+    if getattr(mix_fn, "scheduled", False):
+        raise ValueError(
+            f"{where} has no step counter to bind a scheduled mix_fn — "
+            "pass a statically bound filter (or mix_fn.at_step(t)), or "
+            "use the meta step, which binds the carried state.step")
 
 
 def _check_static_s(S, where):
@@ -114,20 +133,25 @@ def _meta_step_core(cfg: SURFConfig, constrained=True, activation="relu",
     t)``) or given as ``deltas`` (robust_samples, L+1, n, d). A nominal
     config reads neither."""
     task = resolve_task(cfg, task)
-    _check_mix(mix_fn)
+    _reject_seed_batched_mix(mix_fn, "the single-seed meta-step")
+    scheduled = bool(getattr(mix_fn, "scheduled", False))
     robust = C.robust_enabled(cfg)
     opt = adam(cfg.lr_theta)
     layer_fn = _layer_fn(cfg)
 
-    def forward_s(S, theta, W0, Xl, Yl):
+    def _forward(S, theta, W0, Xl, Yl, mf):
         Ws = [W0]
         for l, p_l in enumerate(U.unbind_layers(theta)):
             Ws.append(layer_fn(p_l, S, Ws[-1], Xl[l], Yl[l], cfg,
-                               activation, mix_fn=mix_fn, task=task))
+                               activation, mix_fn=mf, task=task))
         return Ws[-1], torch.stack(Ws)
 
-    def lagrangian_fn(theta, lam, S, W0, Xl, Yl, Xte, Yte, deltas):
-        W_L, W_all = forward_s(S, theta, W0, Xl, Yl)
+    def forward_s(S, theta, W0, Xl, Yl):
+        _check_static_mix(mix_fn, "forward_s")
+        return _forward(S, theta, W0, Xl, Yl, mix_fn)
+
+    def lagrangian_fn(theta, lam, S, W0, Xl, Yl, Xte, Yte, deltas, mf):
+        W_L, W_all = _forward(S, theta, W0, Xl, Yl, mf)
         test_loss = task.fl_loss(W_L, Xte, Yte)
         gnorms = C.layer_grad_norms(W_all, Xl, Yl, cfg, task=task)
         if robust:
@@ -151,7 +175,8 @@ def _meta_step_core(cfg: SURFConfig, constrained=True, activation="relu",
         with torch.enable_grad():
             lag, (tl, slack, gnorms, W_L) = lagrangian_fn(
                 theta, state.lam, S, W0, Xl, Yl, batch["Xte"], batch["Yte"],
-                deltas)
+                deltas,
+                mix_fn.at_step(state.step) if scheduled else mix_fn)
             grads = torch.autograd.grad(lag, list(theta.values()))
         with torch.no_grad():
             grads, gn = clip_by_global_norm(dict(zip(theta, grads)),
@@ -186,6 +211,7 @@ def make_meta_step(cfg: SURFConfig, S, *, constrained=True,
     mixer (see ``core.unroll._mix``); a robust config takes its
     perturbations as ``_meta_step_core`` says."""
     _check_static_s(S, "make_meta_step")
+    _reject_seed_batched_mix(mix_fn, "make_meta_step")
     meta_step_s, forward_s = _meta_step_core(cfg, constrained, activation,
                                              mix_fn, task)
 
@@ -205,7 +231,7 @@ def _eval_core(cfg: SURFConfig, activation="relu", mix_fn=None, task=None):
     draws=None)``: featurize the cohort, run the L layers and report the
     test loss and ``task.fl_metric`` after every layer."""
     task = resolve_task(cfg, task)
-    _check_mix(mix_fn)
+    _check_static_mix(mix_fn, "the evaluation body")
     layer_fn = _layer_fn(cfg)
 
     def evaluate_s(S, theta, batch, generator, draws=None):
@@ -234,7 +260,7 @@ def _adaptive_eval_core(cfg: SURFConfig, activation="relu", mix_fn=None,
     ``cfg.exit_threshold == 0`` all L layers run and the result equals
     ``_eval_core``'s final row (same draws, same layer calls)."""
     task = resolve_task(cfg, task)
-    _check_mix(mix_fn)
+    _check_static_mix(mix_fn, "the evaluation body")
     layer_fn = _layer_fn(cfg)
 
     def evaluate_s(S, theta, batch, generator, draws=None):
@@ -262,11 +288,13 @@ def adaptive_variant(cfg: SURFConfig, base):
 
 
 def _engine_cache_key(cfg: SURFConfig, variant, activation, mix_fn=None,
-                      task=None):
+                      task=None, mesh=None):
     """Key of a built body: cfg normalized to the fields that shape the
-    computation, the ``variant`` tag, the activation, the mixer's tag and
-    the task's tag. Off the star path the topology fields only say how S
-    was built (S is an argument), so they are scrubbed; so are the
+    computation, the ``variant`` tag, the activation, the mixer's tag,
+    the task's tag and the mesh's fingerprint (a body placed on a mesh is
+    another computation than the unsharded one). Off the star path the
+    topology fields only say how S was built (S is an argument), so they
+    are scrubbed; so are the
     adaptive-depth exit fields, which only the early-exit bodies read and
     carry in their variant (``adaptive_variant``): fixed-depth bodies are
     shared across exit-threshold sweeps. None for an untagged custom
@@ -280,7 +308,8 @@ def _engine_cache_key(cfg: SURFConfig, variant, activation, mix_fn=None,
     cfg = dataclasses.replace(cfg, exit_threshold=0.0, min_layers=1,
                               probe_size=0)
     return (cfg, variant, activation,
-            None if mix_fn is None else mix_fn.tag, task.cache_tag)
+            None if mix_fn is None else mix_fn.tag, task.cache_tag,
+            mesh_fingerprint(mesh))
 
 
 def make_eval(cfg: SURFConfig, S, *, activation="relu", mix_fn=None,

@@ -33,10 +33,19 @@ loop counter, so a run resumed from a ``TrainState``
     ``<checkpoint_dir>/ckpt_<step>`` after every ``checkpoint_every``-th
     meta-step, on the absolute step grid (``checkpoint.io``).
 
-Sharded pools (``mesh``, ``q_sharded``) are ROADMAP queue 1 item 8;
-``core.surf.train_surf`` raises for them.
+MESH-aware: on a ``launch.mesh.Mesh`` the run lives on the mesh's home
+device, and ``mix_fn`` may be a halo/ring exchange over its agent axis
+(``topology.halo``; a SCHEDULED halo mixer built from the same schedule
+is re-bound at each step by ``mix_fn.at_step(state.step)``). The
+snapshot pool is Q-sharded over the agent-role axis (data-parallel
+snapshots); ``q_sharded=True`` Q-shards the TRAINING pool too (each
+device holds Q/P datasets) and selects meta-step t's dataset by copying
+it from its owner (``surf_rules.make_q_select``), bit-equal to the
+replicated index. Placements come from ``surf_rules.train_scan_shardings``.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -46,8 +55,12 @@ from repro_torch.configs.base import SURFConfig
 from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
 from repro_torch.data.pipeline import stack_meta_datasets
-from repro_torch.engine.core import _check_mix, _meta_step_core, init_state
+from repro_torch.engine.core import (_meta_step_core,
+                                     _reject_seed_batched_mix, init_state)
 from repro_torch.engine.snapshots import make_snapshot_fn
+from repro_torch.launch.mesh import mesh_device
+from repro_torch.sharding import surf_rules as R
+from repro_torch.topology.halo import _digest, _np32
 from repro_torch.topology.schedule import TopologySchedule
 from repro_torch.utils.device import resolve_device, to_tensor
 
@@ -75,19 +88,59 @@ def _decimate_history(metrics, steps, log_every, start=0):
     return out
 
 
-def _check_schedule_mix(mix_fn):
-    """Validate the mixer of a scheduled run before its first step: the
-    default mixer (None) and any S-as-argument (``takes_S``) mixer are
-    handed each step's S_t; a baked-S mixer would silently ignore the
-    schedule, and seed-batched or scheduled halo mixers are not ported
-    (``engine.core._check_mix``)."""
-    _check_mix(mix_fn)
+def _check_schedule_mix(S, mix_fn):
+    """Validate a (TopologySchedule, mix_fn) pair before the first step:
+    the default mixer (None) and any S-as-argument (``takes_S``) mixer
+    are handed each step's S_t; a baked-S mixer would silently ignore
+    the schedule; a SCHEDULED halo mixer must match the schedule in
+    length AND content (its coefficient blocks ARE the mixing
+    matrices)."""
+    _reject_seed_batched_mix(mix_fn, "the single-seed engine")
+    scheduled = bool(getattr(mix_fn, "scheduled", False))
+    if (mix_fn is not None and not scheduled
+            and not getattr(mix_fn, "takes_S", False)):
+        raise ValueError(
+            "a TopologySchedule requires the default mixer, an "
+            "S-as-argument mixer (takes_S, such as kernels.graph_filter."
+            "make_plain_mix) or a SCHEDULED mixer (topology.halo."
+            "make_scheduled_halo_mix): a baked-S mix_fn would silently "
+            "ignore the schedule")
+    if scheduled:
+        if mix_fn.steps != S.steps:
+            raise ValueError(
+                f"scheduled mix_fn has {mix_fn.steps} steps but the "
+                f"TopologySchedule has {S.steps} — build the mixer from "
+                "the same schedule (topology.halo.make_scheduled_halo_mix)")
+        if mix_fn.schedule_digest != _digest(_np32(S.S)):
+            raise ValueError(
+                "scheduled mix_fn was built from a DIFFERENT schedule "
+                "(content digest mismatch) — its coefficient blocks "
+                "would silently override this schedule's S_t stream; "
+                "rebuild it from this TopologySchedule via "
+                "topology.halo.make_scheduled_halo_mix")
+
+
+def _check_q_sharded(mesh, mix_fn, n_q):
+    """The reference's q_sharded guards; returns the select, or None when
+    the pool replicates anyway (an axis of one device)."""
+    if mesh is None:
+        raise ValueError(
+            "q_sharded=True needs mesh (the Q-sharded placement and the "
+            "select are built from the mesh's agent-role axis and the "
+            "pool's Q size)")
     if mix_fn is not None and not getattr(mix_fn, "takes_S", False):
         raise ValueError(
-            "a TopologySchedule requires the default mixer or an "
-            "S-as-argument mixer (takes_S, such as kernels.graph_filter."
-            "make_plain_mix): a baked-S mix_fn would silently ignore the "
-            "schedule")
+            "q_sharded=True requires the default mixing path or an "
+            "S-as-argument (takes_S) mixer: ring/halo mixers split the "
+            "AGENT axis over the same devices the Q axis would shard "
+            "over — one axis, one role")
+    agent_ax = R.axis_for_role(mesh, "agent")
+    R.check_divides(n_q, R._axis_size(mesh, agent_ax),
+                    "q_sharded train pool", "Q",
+                    "the Q (meta-dataset pool) axis shards over the "
+                    "mesh's agent-role axis")
+    q_ax = R.q_select_axis(mesh, n_q, agent_ax)
+    return None if q_ax is None else R.make_q_select(mesh, q_ax)
 
 
 def _check_cadences(eval_every, eval_datasets, checkpoint_every,
@@ -103,36 +156,50 @@ def _check_cadences(eval_every, eval_datasets, checkpoint_every,
 
 def _setup(cfg, S, meta_datasets, seed, constrained, activation, init,
            mix_fn, task, device, state, eval_every=0, eval_datasets=None,
-           S_eval=None, checkpoint_every=0, checkpoint_dir=None):
+           S_eval=None, checkpoint_every=0, checkpoint_dir=None, mesh=None,
+           q_sharded=False):
     """The meta-step body, S (an (n, n) tensor, or a schedule's (T, n, n)
-    stack) on the device, the stacked pool, the start state and the
-    cadence hooks (``_Hooks``)."""
-    device = resolve_device(device)
+    stack) on the device, the stacked pool, the start state, the cadence
+    hooks (``_Hooks``) and the pool's select (None: the replicated
+    index). On a ``mesh`` the device is its home device."""
+    device = (resolve_device(device) if mesh is None
+              else mesh_device(mesh, device))
     task = resolve_task(cfg, task)
     _check_cadences(eval_every, eval_datasets, checkpoint_every,
                     checkpoint_dir)
+    _reject_seed_batched_mix(mix_fn, "the single-seed engine")
     sched = isinstance(S, TopologySchedule)
     if sched:
-        _check_schedule_mix(mix_fn)
+        _check_schedule_mix(S, mix_fn)
         if eval_every and S_eval is None:
             raise ValueError(
                 "in-loop snapshots under a TopologySchedule need an "
                 "explicit S_eval (the nominal static mixing matrix: "
                 "robustness protocols evaluate on the unperturbed graph)")
         S = S.S
+    elif getattr(mix_fn, "scheduled", False):
+        raise ValueError("a scheduled mix_fn needs a TopologySchedule S "
+                         "(its per-step blocks follow the schedule)")
+    pool = stack_meta_datasets(meta_datasets, task, device)
+    n_q = int(next(iter(pool.values())).shape[0])
+    select = _check_q_sharded(mesh, mix_fn, n_q) if q_sharded else None
+    if select is not None:
+        pool = R.ShardedPool(pool, R.train_scan_shardings(
+            mesh, q_sharded=True, n_q=n_q)["pool"])
     meta_step_s, _ = _meta_step_core(cfg, constrained, activation, mix_fn,
                                      task)
     if state is None:
         state = init_state(U.seeded_generator(seed, device), cfg,
                            init=init, task=task)
-    pool = stack_meta_datasets(meta_datasets, task, device)
     S = to_tensor(S, device, torch.float32)
     hooks = _Hooks(cfg, activation, mix_fn, task, device, seed,
                    eval_every, eval_datasets,
                    S if S_eval is None else S_eval, checkpoint_every,
                    state_save_callback(str(checkpoint_dir))
-                   if checkpoint_every else None)
-    return meta_step_s, S, sched, pool, state, device, hooks
+                   if checkpoint_every else None, mesh=mesh)
+    if select is not None:
+        select = partial(select, device=device)
+    return meta_step_s, S, sched, pool, state, device, hooks, select
 
 
 class _Hooks:
@@ -142,7 +209,8 @@ class _Hooks:
     seed-batched driver keeps one per seed, without ``save``."""
 
     def __init__(self, cfg, activation, mix_fn, task, device, seed,
-                 eval_every, eval_datasets, S_eval, checkpoint_every, save):
+                 eval_every, eval_datasets, S_eval, checkpoint_every, save,
+                 mesh=None):
         self.n_layers, self.seed = cfg.n_layers, seed
         self.eval_every = int(eval_every or 0)
         self.checkpoint_every = int(checkpoint_every or 0)
@@ -152,6 +220,12 @@ class _Hooks:
             self.snap = make_snapshot_fn(cfg, activation, mix_fn, task)
             self.eval_pool = stack_meta_datasets(eval_datasets, task,
                                                  device)
+            if mesh is not None:
+                # Q-sharded over the mesh: data-parallel snapshots
+                n = int(next(iter(self.eval_pool.values())).shape[0])
+                self.eval_pool = R.ShardedPool(
+                    self.eval_pool,
+                    R.train_scan_shardings(mesh, n_eval_q=n)["eval_pool"])
             self.S_eval = (None if S_eval is None
                            else to_tensor(S_eval, device, torch.float32))
 
@@ -177,15 +251,21 @@ class _Hooks:
 
 
 def _run(meta_step_s, S, sched, pool, state, seed, steps, device, draws,
-         deltas, hooks):
+         deltas, hooks, select=None):
     """``steps`` meta-steps from ``state``; yields (t, state, metrics)
     after each. Dataset, draws and, when ``sched``, the mixing matrix
     S[t % T] follow the absolute step t = ``state.step``; ``draws`` and
-    ``deltas`` (indexed by t) replace the step's random draws."""
-    n_q = next(iter(pool.values())).shape[0]
+    ``deltas`` (indexed by t) replace the step's random draws.
+    ``select(pool, t)`` replaces the index of a replicated pool (the
+    Q-sharded pool's copy from its owner)."""
+    if select is None:
+        n_q = next(iter(pool.values())).shape[0]
+
+        def select(pool, t):
+            return {k: v[t % n_q] for k, v in pool.items()}
     for i in range(int(steps)):
         t = state.step
-        batch = {k: v[t % n_q] for k, v in pool.items()}
+        batch = select(pool, t)
         S_t = S[t % S.shape[0]] if sched else S
         kw = {}
         if meta_step_s.robust:
@@ -204,7 +284,8 @@ def train_scan(cfg: SURFConfig, S, meta_datasets, steps, seed=0,
                constrained=True, activation="relu", log_every=0,
                init="dgd", mix_fn=None, task=None, device=None, state=None,
                draws=None, deltas=None, eval_every=0, eval_datasets=None,
-               S_eval=None, checkpoint_every=0, checkpoint_dir=None):
+               S_eval=None, checkpoint_every=0, checkpoint_dir=None,
+               mesh=None, q_sharded=False):
     """Run ``steps`` meta-iterations, cycling the meta-training datasets
     on the device, with no host sync inside the loop. Returns (state,
     history) — or (state, history, snapshots) when ``eval_every`` > 0 —
@@ -219,14 +300,20 @@ def train_scan(cfg: SURFConfig, S, meta_datasets, steps, seed=0,
     robust config's perturbations), both indexed by the absolute step,
     replace the per-step random draws. The tests use them to replay a
     reference run. ``checkpoint_every``/``checkpoint_dir`` write the
-    carried state at that cadence (``engine.resume`` restores it)."""
-    meta_step_s, S, sched, pool, state, device, hooks = _setup(
+    carried state at that cadence (``engine.resume`` restores it).
+
+    ``mesh`` runs on the mesh's home device with its snapshot pool
+    Q-sharded; ``mix_fn`` may then be a ring/halo exchange over its
+    agent axis (a scheduled one with a schedule). ``q_sharded=True``
+    Q-shards the training pool over the agent-role axis; it needs
+    ``mesh`` and the default or a ``takes_S`` mixer."""
+    meta_step_s, S, sched, pool, state, device, hooks, select = _setup(
         cfg, S, meta_datasets, seed, constrained, activation, init, mix_fn,
         task, device, state, eval_every, eval_datasets, S_eval,
-        checkpoint_every, checkpoint_dir)
+        checkpoint_every, checkpoint_dir, mesh, q_sharded)
     start, rows = state.step, []
     for _, state, m in _run(meta_step_s, S, sched, pool, state, seed, steps,
-                            device, draws, deltas, hooks):
+                            device, draws, deltas, hooks, select):
         rows.append(m)
     metrics = ({k: torch.stack([r[k] for r in rows]).cpu() for k in rows[0]}
                if rows else {})
@@ -243,9 +330,10 @@ def train(cfg: SURFConfig, S, meta_datasets, steps, seed=0,
           checkpoint_every=0, checkpoint_dir=None):
     """Step-wise Algorithm 1: the same loop, meta-step, draws and
     cadences as ``train_scan``, copying the metrics to the host at each
-    logged step. Returns (state, history), or (state, history,
-    snapshots) with ``eval_every``."""
-    meta_step_s, S, sched, pool, state, device, hooks = _setup(
+    logged step (unsharded, as the reference's step-wise driver).
+    Returns (state, history), or (state, history, snapshots) with
+    ``eval_every``."""
+    meta_step_s, S, sched, pool, state, device, hooks, _ = _setup(
         cfg, S, meta_datasets, seed, constrained, activation, init, mix_fn,
         task, device, state, eval_every, eval_datasets, S_eval,
         checkpoint_every, checkpoint_dir)

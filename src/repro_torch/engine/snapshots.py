@@ -32,6 +32,7 @@ from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
 from repro_torch.data.pipeline import stack_meta_datasets
 from repro_torch.engine.core import _eval_core
+from repro_torch.sharding.surf_rules import Placement, Replicas, ShardedPool
 from repro_torch.utils.device import resolve_device, to_tensor
 
 SNAPSHOT_KEYS = ("loss_per_layer", "acc_per_layer", "final_loss",
@@ -53,15 +54,32 @@ def make_snapshot_fn(cfg: SURFConfig, activation="relu", mix_fn=None,
     """``snap(S, theta, eval_pool, seed, t)`` -> the eval-pool-mean
     snapshot dict of tensors: ``_eval_core`` on each dataset of the
     stacked pool with ``snapshot_generator(seed, t, q)``, then the mean
-    over the pool (the aggregation of ``core.surf.evaluate_surf``)."""
+    over the pool (the aggregation of ``core.surf.evaluate_surf``).
+
+    ``eval_pool`` is a dict of (Q, ...) tensors, or a
+    ``sharding.surf_rules.ShardedPool`` Q-sharded over a mesh: each
+    dataset is then evaluated on the device that holds it, with S and θ
+    copied there once, and the rows are gathered to S's device for the
+    mean (data-parallel snapshots). A mixer that bakes the TRAINING S
+    (ring / halo) does not apply to the nominal S: snapshots take the
+    default filter then, as the reference's dense snapshots do."""
+    if not getattr(mix_fn, "takes_S", False):
+        mix_fn = None
     ev_s = _eval_core(cfg, activation, mix_fn, task)
 
     @torch.no_grad()
     def snap(S, theta, eval_pool, seed, t):
-        n_q = next(iter(eval_pool.values())).shape[0]
-        outs = [ev_s(S, theta, {k: v[q] for k, v in eval_pool.items()},
-                     U.snapshot_generator(seed, t, q, S.device))
-                for q in range(n_q)]
+        if not isinstance(eval_pool, ShardedPool):
+            eval_pool = ShardedPool(eval_pool, Placement(None, None,
+                                                         (S.device,)))
+        reps = Replicas(S=S, theta=theta)
+        outs = []
+        for q in range(len(eval_pool)):
+            dev = eval_pool.device_of(q)
+            r = reps.on(dev)
+            o = ev_s(r["S"], r["theta"], eval_pool.get(q),
+                     U.snapshot_generator(seed, t, q, dev))
+            outs.append({k: o[k].to(S.device) for k in SNAPSHOT_KEYS})
         return {k: torch.stack([o[k] for o in outs]).mean(0)
                 for k in SNAPSHOT_KEYS}
 

@@ -16,14 +16,18 @@ The run ASSERTS the three claims that make the numbers trustworthy:
   3. coverage — the trace spans >= 2 shape buckets (the default trace
      has 220 requests, over the serving claim's floor of 200).
 
-A ``sharded_async`` section then replays a trace prefix through a server
-driven by ``serve.AsyncDriver``: federations/s, tick utilization and a
-parity spot-check. The port runs its one-shard row on one device; rows of
-more than one shard need the server's ``mesh=`` request sharding, which
-lands with the multi-device slice (ROADMAP queue 1 item 8).
+A ``sharded_async`` section then replays a trace prefix per shard count
+through a MESH-SHARDED server (the request axis split over the devices
+of the mesh's 'agent' axis, ``serve.request_shardings``) driven by
+``serve.AsyncDriver``: federations/s against shards, tick utilization
+and a parity spot-check, with the mesh fingerprint stamped. Shard counts
+come from the visible CUDA cards (1, 2, 4, 8 that divide their count
+and ``--max-batch``), or, with ``--simulate-shards K``, from K copies of
+the run's one device: every row then says ``"simulated": true``, because
+shards of one device show the cost of the decomposition, not scaling.
 
   PYTHONPATH=src python -m repro_torch.launch.surf_serve --device cpu \\
-      --requests 220
+      --requests 220 --simulate-shards 4
 
 On the card (the default device) every layer's graph filter runs through
 the CUDA kernel; the JSON names the device.
@@ -43,7 +47,9 @@ from repro_torch.configs.surf_paper import SMOKE, SPARSE_SMOKE
 from repro_torch.core import surf
 from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
+from repro_torch.launch.mesh import host_device_count, make_surf_mesh
 from repro_torch.serve import AsyncDriver, BucketSpec, FederationServer
+from repro_torch.sharding.surf_rules import mesh_fingerprint
 from repro_torch.utils.device import resolve_device
 
 DEFAULT_OUT = os.path.join("build", "bench_torch")
@@ -60,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="test-rows-per-agent values the trace draws from")
     ap.add_argument("--dist", choices=("uniform", "zipf"), default="zipf",
                     help="cohort-size distribution (zipf skews small)")
-    ap.add_argument("--mix", choices=tuple(m for m in U.MIXES if m),
+    ap.add_argument("--mix", choices=tuple(m for m in U.DENSE_MIXES if m),
                     default="dense",
                     help="serve mixer (on the card every name runs the "
                     "graph-filter kernel)")
@@ -70,6 +76,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sharded-requests", type=int, default=64,
                     help="trace prefix replayed per sharded+async row "
                          "(0 disables the sharded section)")
+    ap.add_argument("--simulate-shards", type=int, default=0,
+                    help="build the sharded rows' meshes from this many "
+                         "copies of the run's device (simulated shards; "
+                         "default: the visible CUDA cards)")
     ap.add_argument("--steps", type=int, default=40,
                     help="meta-training steps before serving")
     ap.add_argument("--seed", type=int, default=0)
@@ -120,40 +130,59 @@ def _max_delta(state, reqs, futs, device):
 
 
 def bench_sharded_async(cfg, state, trace, args, sizes, rows, tol, device):
-    """The sharded+async rows: replay a trace prefix through a server
-    driven by ``AsyncDriver``, one row per shard count, with a parity
-    spot-check against the solo solve. One shard only: more need
-    ``mesh=`` (ROADMAP queue 1 item 8)."""
+    """The sharded+async rows: replay a trace prefix through a
+    mesh-sharded server driven by ``AsyncDriver``, one row per shard
+    count, with a parity spot-check against the solo solve. The meshes
+    span the visible CUDA cards, or ``--simulate-shards`` copies of
+    ``device`` (rows stamped ``simulated``)."""
+    if args.simulate_shards:
+        ndev, devices = args.simulate_shards, [device] * args.simulate_shards
+    else:
+        ndev = host_device_count() if device.type == "cuda" else 1
+        devices = None
+    shard_counts = [s for s in (1, 2, 4, 8)
+                    if s <= ndev and ndev % s == 0
+                    and args.max_batch % s == 0]
     sub = trace[:args.sharded_requests]
-    server = FederationServer(cfg, state.theta, mix=args.mix,
-                              max_batch=args.max_batch, buckets=BUCKETS,
-                              device=device)
-    server.warm((n, t) for n in sizes for t in rows)
-    driver = AsyncDriver(server)
-    with driver:
-        t0 = time.perf_counter()
-        futs = [driver.submit(req["S"], req["ds"], seed=req["seed"])
-                for req in sub]
-        driver.wait(futs, timeout_s=300.0)
-        wall = time.perf_counter() - t0
-    max_d = max(_max_delta(state, sub[:8], futs[:8], device))
-    if max_d >= tol:
-        raise AssertionError(f"async serve diverged from the single-cohort "
-                             f"solve: {max_d:.2e} (tol {tol})")
-    stats = driver.stats()
-    summary = server.metrics.summary()
-    row = {"shards": 1, "requests": len(sub),
-           "federations_per_sec": summary["federations_per_sec"],
-           "async_wall_s": wall,
-           "async_federations_per_sec": len(sub) / wall if wall > 0 else 0.0,
-           "tick_utilization": stats["tick_utilization"],
-           "ticks": stats["ticks"], "parity_spot_max_delta": max_d,
-           "bucket_cache": server.cache_stats()}
-    print(f"sharded+async shards=1: "
-          f"{row['async_federations_per_sec']:.1f} federations/s "
-          f"util={row['tick_utilization']:.2f} parity={max_d:.2e}; rows of "
-          "more shards need mesh= (ROADMAP queue 1 item 8)")
-    return [row]
+    out = []
+    for shards in shard_counts:
+        mesh = (make_surf_mesh(1, shards, devices=devices) if shards > 1
+                else None)
+        server = FederationServer(cfg, state.theta, mix=args.mix,
+                                  max_batch=args.max_batch, buckets=BUCKETS,
+                                  device=device, mesh=mesh)
+        server.warm((n, t) for n in sizes for t in rows)
+        driver = AsyncDriver(server)
+        with driver:
+            t0 = time.perf_counter()
+            futs = [driver.submit(req["S"], req["ds"], seed=req["seed"])
+                    for req in sub]
+            driver.wait(futs, timeout_s=300.0)
+            wall = time.perf_counter() - t0
+        max_d = max(_max_delta(state, sub[:8], futs[:8], device))
+        if max_d >= tol:
+            raise AssertionError(
+                f"sharded serve (shards={shards}) diverged from the "
+                f"single-cohort solve: {max_d:.2e} (tol {tol})")
+        stats = driver.stats()
+        summary = server.metrics.summary()
+        row = {"shards": shards,
+               "mesh_fingerprint": mesh_fingerprint(mesh),
+               "simulated": bool(mesh is not None and mesh.simulated),
+               "requests": len(sub),
+               "federations_per_sec": summary["federations_per_sec"],
+               "async_wall_s": wall,
+               "async_federations_per_sec": (len(sub) / wall
+                                             if wall > 0 else 0.0),
+               "tick_utilization": stats["tick_utilization"],
+               "ticks": stats["ticks"], "parity_spot_max_delta": max_d,
+               "bucket_cache": server.cache_stats()}
+        out.append(row)
+        sim = " (simulated shards of one device)" if row["simulated"] else ""
+        print(f"sharded+async shards={shards}{sim}: "
+              f"{row['async_federations_per_sec']:.1f} federations/s "
+              f"util={row['tick_utilization']:.2f} parity={max_d:.2e}")
+    return out
 
 
 def main(argv=None, parser=None):

@@ -19,9 +19,10 @@ from repro_torch.serve.driver import AsyncDriver
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.queue import FederationServer, ServeFuture
 from repro_torch.serve.solver import (SERVE_MIXES, make_bucket_solver,
-                                      resolve_serve_mix, serve_cache_key)
+                                      request_shardings, resolve_serve_mix,
+                                      serve_cache_key)
 
 __all__ = ["Bucket", "BucketSpec", "pad_cohort", "pad_probe",
            "AsyncDriver", "ServeMetrics", "FederationServer",
            "ServeFuture", "SERVE_MIXES", "make_bucket_solver",
-           "resolve_serve_mix", "serve_cache_key"]
+           "request_shardings", "resolve_serve_mix", "serve_cache_key"]

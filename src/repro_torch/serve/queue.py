@@ -1,5 +1,5 @@
 """Continuous-batching federation server (the port of
-``repro.serve.queue``, one device).
+``repro.serve.queue``).
 
 ``FederationServer`` turns the bucketed request-batched solver into a
 request/response loop: ``submit()`` featurizes ONE new federation (its
@@ -24,8 +24,13 @@ convergence-probe split, results gain a realized ``depth``, and
 ``serve.AsyncDriver`` wraps the server in a background tick thread
 (``submit`` returns at once, ticks fire at a cadence); queue mutations are
 guarded by a server lock, so driver ticks and caller submits interleave
-safely. The reference's ``mesh=`` request sharding lands with the
-multi-device slice (ROADMAP queue 1 item 8).
+safely.
+
+``mesh=`` splits the request axis of every bucket solve over the mesh's
+agent-role axis (``solver.request_shardings``): a batch of B requests
+runs as B/shards slots per device, θ copied to each, and the results
+come back to the host in slot order. Requests are featurized and padded
+on the mesh's home device.
 """
 from __future__ import annotations
 
@@ -39,9 +44,11 @@ import torch
 from repro_torch.configs.base import SURFConfig
 from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.serve.buckets import BucketSpec, pad_cohort, pad_probe
 from repro_torch.serve.metrics import ServeMetrics
-from repro_torch.serve.solver import make_bucket_solver, resolve_serve_mix
+from repro_torch.serve.solver import (make_bucket_solver, request_shardings,
+                                      resolve_serve_mix)
 from repro_torch.utils.cache import BoundedLRU
 from repro_torch.utils.device import resolve_device, to_tensor
 
@@ -86,7 +93,7 @@ class _Request:
 
 
 class FederationServer:
-    """Amortized-solver server for one trained model on one device.
+    """Amortized-solver server for one trained model.
 
     ``cfg``/``theta`` come from meta-training; the model serves ANY
     cohort size (the perceptron is shared across agents, so its parameter
@@ -95,13 +102,16 @@ class FederationServer:
     the CPU the plain filter (see ``solver.resolve_serve_mix``).
     ``depth`` is "fixed" or "adaptive" (the early exit configured by
     cfg.exit_threshold / min_layers / probe_size). ``device=None`` means
-    the CUDA card; without one, pass ``device="cpu"``."""
+    the CUDA card; without one, pass ``device="cpu"``. ``mesh`` (a
+    ``launch.mesh.Mesh``) splits each bucket batch over its agent-role
+    axis; ``max_batch`` must divide over it, and the server's device is
+    the mesh's home device."""
 
     def __init__(self, cfg: SURFConfig, theta, *, activation="relu",
                  mix=None, task=None, buckets: BucketSpec = None,
                  max_batch: int = 8, max_buckets: int = 16,
                  depth: str = "fixed", max_wait_ticks: int = 8,
-                 device=None):
+                 device=None, mesh=None):
         if cfg.topology == "star":
             raise ValueError(
                 "star-topology serving is unsupported: the server-row "
@@ -115,7 +125,13 @@ class FederationServer:
         if max_wait_ticks < 1:
             raise ValueError(f"max_wait_ticks must be >= 1, got "
                              f"{max_wait_ticks}")
-        self.device = resolve_device(device)
+        if mesh is not None:
+            # fail at construction, not at the first tick: the request
+            # axis must split evenly over the mesh
+            request_shardings(mesh, int(max_batch), depth)
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh_device(mesh, device))
+        self.mesh = mesh
         self.depth = depth
         self.max_wait_ticks = int(max_wait_ticks)
         self.cfg = cfg
@@ -201,7 +217,8 @@ class FederationServer:
         return make_bucket_solver(self.cfg, bucket, self.max_batch,
                                   activation=self.activation,
                                   mix_fn=self.mix_fn, task=self.task,
-                                  cache=self._cache, depth=self.depth)
+                                  cache=self._cache, depth=self.depth,
+                                  mesh=self.mesh)
 
     def _empty_slot(self, bucket):
         """All-zero, all-masked batch slot — t_real = t_pad keeps the
@@ -255,8 +272,11 @@ class FederationServer:
             min(counts[b], self.max_batch), -first_pos[b]))
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = ({self.device} if self.mesh is None
+                   else set(self.mesh.devices.flat))
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _run(self, solve, arrays, mask, t_real):
         """Stack per-slot tensors to (B, ...) and solve; returns the

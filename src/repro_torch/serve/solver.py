@@ -17,8 +17,13 @@ serve mix is named.
     at the request's TRUE shape before padding.
 
 ``_serve_core_adaptive`` is the early-exit solver of ``depth="adaptive"``.
-Request sharding over devices (the reference's ``request_shardings``)
-lands with the multi-device slice (ROADMAP queue 1 item 8).
+
+``mesh=`` splits a bucket's request axis over the devices of the mesh's
+agent-role axis (``request_shardings``): each device solves its
+max_batch/shards slots with its own copy of θ, every shard launched
+before any is gathered, and the results are gathered to the home device
+in slot order. Requests are independent, so no shard reads another's
+data.
 """
 from __future__ import annotations
 
@@ -30,17 +35,18 @@ from repro_torch.configs.base import SURFConfig
 from repro_torch.core import unroll as U
 from repro_torch.core.tasks import resolve_task
 from repro_torch.engine.core import _engine_cache_key
+from repro_torch.sharding import surf_rules as R
 
-SERVE_MIXES = U.MIXES
+SERVE_MIXES = U.DENSE_MIXES
 
 
 def resolve_serve_mix(mix):
     """Serving supports the S-as-argument mixers only: every name in
-    ``core.unroll.MIXES`` selects the default path (``mix_fn=None``), the
-    fused kernel on the card and the plain filter on the CPU. Baked-S
+    ``core.unroll.DENSE_MIXES`` selects the default path (``mix_fn=None``),
+    the fused kernel on the card and the plain filter on the CPU. Baked-S
     mixers (ring/halo) close over ONE topology and cannot serve
     per-request graphs."""
-    if mix in U.MIXES:
+    if mix in U.DENSE_MIXES:
         return None
     raise ValueError(
         f"serve mix must be one of {SERVE_MIXES}, got {mix!r} — baked-S "
@@ -151,14 +157,16 @@ def _serve_core_adaptive(cfg: SURFConfig, activation="relu", mix_fn=None,
 
 
 def serve_cache_key(cfg: SURFConfig, bucket, max_batch, activation,
-                    mix_fn=None, task=None, depth="fixed"):
+                    mix_fn=None, task=None, depth="fixed", mesh=None):
     """Per-bucket solver key: ``engine._engine_cache_key`` with a
     ("serve", n_pad, t_pad, B) variant tag and the cohort-shape cfg
     fields scrubbed (requests of any true size share the bucket's
     solver). That key also scrubs the exit fields, so fixed solvers are
     shared across threshold sweeps; the adaptive path carries them in a
     ("serve-adaptive", ..., thr, min_layers, probe_size) variant
-    instead. None for an untagged custom ``mix_fn`` (uncacheable)."""
+    instead. ``mesh`` rides as its fingerprint: a request-sharded solver
+    never shares a key with the one-device solver. None for an untagged
+    custom ``mix_fn`` (uncacheable)."""
     variant = ("serve", int(bucket.n_agents), int(bucket.rows),
                int(max_batch))
     if depth == "adaptive":
@@ -168,25 +176,79 @@ def serve_cache_key(cfg: SURFConfig, bucket, max_batch, activation,
     cfg = dataclasses.replace(cfg, n_agents=0, train_per_agent=0,
                               test_per_agent=0)
     return _engine_cache_key(cfg, variant, activation, mix_fn=mix_fn,
-                             task=task)
+                             task=task, mesh=mesh)
+
+
+def request_shardings(mesh, max_batch, depth="fixed"):
+    """(in placements, out placement) of a bucket solver on ``mesh``: the
+    REQUEST axis (the leading B of every argument and output) split over
+    the mesh's agent-role axis, θ (argument 1) replicated on every shard.
+    ``max_batch`` must divide over the shards: ragged traffic already
+    rides as masked empty slots, so the constraint is on the bucket's
+    batch shape, not on traffic."""
+    axis = R.axis_for_role(mesh, "agent")
+    shards = R._axis_size(mesh, axis)
+    R.check_divides(max_batch, shards, "the sharded serve batch",
+                    "max_batch",
+                    "each device solves an equal block of request slots "
+                    "(ragged traffic rides as masked empty slots)")
+    req = R.Placement(axis, 0, mesh.along(axis)) if shards > 1 else (
+        R.replicated(mesh))
+    theta = R.Placement(None, None, req.devices)
+    n_args = 11 if depth == "adaptive" else 9
+    return tuple(theta if i == 1 else req for i in range(n_args)), req
+
+
+def _request_sharded(solve, mesh, max_batch, depth):
+    """``solve`` with its request axis split by ``request_shardings``:
+    every shard's solve is launched before any result is gathered (the
+    shards of several cards overlap), then the outputs are concatenated
+    on the home device (S's) in slot order. θ is copied to each shard's
+    device once per θ object."""
+    in_place, out = request_shardings(mesh, max_batch, depth)
+    copies = {}
+
+    def theta_on(theta, dev):
+        if copies.get("of") is not theta:
+            copies.clear()
+            copies["of"] = theta
+        if dev not in copies:
+            copies[dev] = {k: v.to(dev) for k, v in theta.items()}
+        return copies[dev]
+
+    def solve_sharded(S, theta, *rest):
+        args = (S,) + rest
+        places = in_place[:1] + in_place[2:]
+        blocks = [p.split(a) for p, a in zip(places, args)]
+        outs = [solve(blocks[0][a], theta_on(theta, dev),
+                      *(b[a] for b in blocks[1:]))
+                for a, dev in enumerate(out.devices)]
+        return {k: torch.cat([o[k].to(S.device) for o in outs])
+                for k in outs[0]}
+
+    return solve_sharded
 
 
 def make_bucket_solver(cfg: SURFConfig, bucket, max_batch, *,
                        activation="relu", mix_fn=None, task=None,
-                       cache=None, depth="fixed"):
+                       cache=None, depth="fixed", mesh=None):
     """The request-batched solver for one shape bucket: ``_serve_core``
     for ``depth="fixed"``, ``_serve_core_adaptive`` (probe arrays after
     Yte, a ``depth`` (B,) field in the result) for ``depth="adaptive"``.
-    ``cache`` (a ``BoundedLRU``) keeps it under ``serve_cache_key``; its
-    ``misses`` count the builds."""
+    ``mesh`` splits the request axis over the mesh's agent-role axis
+    (``request_shardings``). ``cache`` (a ``BoundedLRU``) keeps it under
+    ``serve_cache_key``; its ``misses`` count the builds."""
     core = _serve_core_adaptive if depth == "adaptive" else _serve_core
 
     def build():
-        return core(cfg, activation, mix_fn=mix_fn, task=task)
+        solve = core(cfg, activation, mix_fn=mix_fn, task=task)
+        if mesh is None:
+            return solve
+        return _request_sharded(solve, mesh, max_batch, depth)
 
     key = None if cache is None else serve_cache_key(
         cfg, bucket, max_batch, activation, mix_fn=mix_fn, task=task,
-        depth=depth)
+        depth=depth, mesh=mesh)
     if key is None:
         return build()
     return cache.get_or_build(key, build)

@@ -28,7 +28,10 @@ self-weight 1 and holds its value):
 Builders take ``device=`` like every entry point of the port: None is
 the CUDA card, and without one the caller passes ``device="cpu"``.
 Schedules compose with the default mixer and any S-as-argument
-(``takes_S``) mixer; the scheduled halo mixer is ROADMAP queue 1 item 8.
+(``takes_S``) mixer; a baked-S halo/ring mixer would ignore them, unless
+it is a SCHEDULED halo mixer built from the same schedule
+(``topology.halo.make_scheduled_halo_mix``), which the drivers re-bind
+at every meta-step by the carried step.
 """
 from __future__ import annotations
 

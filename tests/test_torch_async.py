@@ -36,6 +36,7 @@ from repro_torch.core import unroll as TU
 from repro_torch.core.tasks import resolve_task
 from repro_torch.engine.core import TrainState
 from repro_torch.kernels.graph_filter import make_plain_mix
+from repro_torch.launch.mesh import make_surf_mesh
 
 LOSS_TOL, ACC_TOL = 5e-5, 1e-6
 STAR = dict(n_agents=12, n_layers=3, feature_dim=8, n_classes=4,
@@ -216,9 +217,11 @@ def test_async_cache_counts_one_build_per_config():
 def test_evaluate_async_refusals():
     jcfg, tcfg, theta, S, mds = _setup("SMOKE", n_q=2)
     state = TrainState(theta_from_numpy(theta, "cpu"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tsurf.evaluate_async(tcfg, state, S, mds, 1, mesh=object(),
-                             device="cpu")
+    # a run on a mesh lives on the mesh's home device
+    mesh = make_surf_mesh(1, 2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="home device"):
+        tsurf.evaluate_async(tcfg, state, S, mds, 1, mesh=mesh,
+                             device="cuda")
     draws = _ref_draws(jcfg, mds, 0)
     with pytest.raises(ValueError, match="draws for"):
         tsurf.evaluate_async(tcfg, state, S, mds, 1, device="cpu",

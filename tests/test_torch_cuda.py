@@ -5,7 +5,8 @@ tensors, the served (fixed and adaptive depth) and training paths
 through the graph filter (static and under a topology schedule, whose
 S_t may isolate agents; seed-batched, with snapshots; the sparse task
 and RSDUN; a resume from a checkpoint), the async study through the
-graph filter, one
+graph filter, the halo-pallas resident block and one halo-pallas
+meta-step on simulated shards of the card, one
 FL baseline on the card against the CPU, and a
 reduced-config LLM prefill and decode through the flash and wkv kernels
 against the same model run through the plain versions.
@@ -272,6 +273,51 @@ def test_default_mixer_launches_the_kernel(cuda):
     srv.drain()
     assert graph_filter.launches - before == (srv.metrics.ticks
                                               * SMOKE.n_layers)
+
+
+@pytest.mark.parametrize("n", [25, 20])
+def test_halo_pallas_resident_matches_plain(cuda, n):
+    """The halo-pallas resident block ``S0_loc @ Y`` at PAPER's shard
+    shapes (n = 100 over 4 and 5 shards, d = 5130): the kernel as its
+    1-tap case h = [0, 1] against the plain version, forward at 5e-5 and
+    dW at 5e-4, one forward and one dW launch."""
+    from repro_torch.topology.halo import _resident_matmul
+    S0, Y, _ = _inputs(None, n, 5130, 1, cuda, seed=n)
+    G = torch.randn(Y.shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2))
+    res = _resident_matmul("pallas")
+    before = (graph_filter.launches, graph_filter.bwd_launches)
+    Yk = Y.clone().requires_grad_(True)
+    out = res(S0, Yk)
+    (dY,) = torch.autograd.grad(out, Yk, G)
+    torch.cuda.synchronize()
+    assert (graph_filter.launches - before[0],
+            graph_filter.bwd_launches - before[1]) == (1, 1)
+    Yp = Y.clone().requires_grad_(True)
+    outp = S0 @ Yp
+    (dYp,) = torch.autograd.grad(outp, Yp, G)
+    torch.testing.assert_close(out, outp, atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(dY, dYp, atol=5e-4, rtol=5e-4)
+
+
+def test_halo_pallas_meta_step_on_simulated_shards(cuda):
+    """One ``train_surf`` step with mix="halo-pallas" on 2 simulated
+    shards of the card: shards·K·L forward and as many dW launches, θ
+    within 5e-6 of the dense kernel path on the same draws."""
+    from repro_torch.launch.mesh import make_surf_mesh
+    mds = make_meta_dataset(SMOKE, 2, seed=0)
+    mesh = make_surf_mesh(1, 2, devices=["cuda:0"] * 2)
+    before = (graph_filter.launches, graph_filter.bwd_launches)
+    halo, _, _ = surf.train_surf(SMOKE, mds, steps=1, mix="halo-pallas",
+                                 mesh=mesh, log_every=0)
+    torch.cuda.synchronize()
+    per = 2 * SMOKE.filter_taps * SMOKE.n_layers
+    assert (graph_filter.launches - before[0],
+            graph_filter.bwd_launches - before[1]) == (per, per)
+    dense, _, _ = surf.train_surf(SMOKE, mds, steps=1, log_every=0)
+    for k in dense.theta:
+        torch.testing.assert_close(halo.theta[k], dense.theta[k], atol=5e-6,
+                                   rtol=5e-6)
 
 
 def test_meta_step_through_kernel_matches_plain(cuda):

@@ -184,12 +184,15 @@ def test_shape_and_dtype_validation():
 
 
 def test_cuda_mix_protocol():
-    """Every ported mix name ("cuda" among them) selects the default
-    mixer, ``graph_filter``; the plain filter is the one explicit
-    mixer."""
+    """Every dense mix name ("cuda" among them) selects the default
+    mixer, ``graph_filter``; the server refuses the baked-S halo names;
+    the plain filter is the one explicit S-as-argument mixer."""
     from repro_torch.serve import resolve_serve_mix
-    assert "cuda" in tunroll.MIXES
-    assert all(resolve_serve_mix(m) is None for m in tunroll.MIXES)
+    assert "cuda" in tunroll.DENSE_MIXES
+    assert all(resolve_serve_mix(m) is None for m in tunroll.DENSE_MIXES)
+    for m in set(tunroll.MIXES) - set(tunroll.DENSE_MIXES):
+        with pytest.raises(ValueError, match="baked-S"):
+            resolve_serve_mix(m)
     plain = make_plain_mix()
     assert plain.takes_S and plain.tag == ("plain",)
     S, W, h = _inputs(9, 5, 1, torch.float32)

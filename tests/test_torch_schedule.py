@@ -34,8 +34,10 @@ from repro_torch.core import unroll as TU
 from repro_torch.engine import core as TE
 from repro_torch.engine import scan as TS
 from repro_torch.kernels.graph_filter import make_plain_mix, ops
+from repro_torch.launch.mesh import make_surf_mesh
 from repro_torch.topology import families as TF
 from repro_torch.topology import schedule as TSCH
+from repro_torch.topology.halo import make_scheduled_halo_mix
 
 STATE_TOL = 5e-6
 SIZES = ("SMOKE", "BENCH")
@@ -357,7 +359,8 @@ def test_evaluators_refuse_a_schedule(smoke):
 def test_schedule_mixer_checks(smoke):
     """The default and any ``takes_S`` mixer compose with a schedule; a
     baked-S mixer is refused before the first step, and the seed-batched
-    and scheduled halo mixers name their ROADMAP items."""
+    mixer is refused, as is a scheduled halo mixer built from another
+    schedule, and a seed-batched mixer in the single-seed drivers."""
     jcfg, tcfg, mds = smoke
     sched = tsurf.make_scenario(tcfg, "dropout", 2, device="cpu")
     a, _ = TS.train(tcfg, sched, mds, 2, device="cpu")
@@ -374,11 +377,22 @@ def test_schedule_mixer_checks(smoke):
 
     with pytest.raises(ValueError, match="baked-S"):
         TS.train_scan(tcfg, sched, mds, 1, device="cpu", mix_fn=baked)
-    for attr, item in (("seed_batched", 8), ("scheduled", 8)):
-        mix = make_plain_mix()
-        setattr(mix, attr, True)
-        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            TS.train(tcfg, sched, mds, 1, device="cpu", mix_fn=mix)
+    seeded = make_plain_mix()
+    seeded.seed_batched = True
+    with pytest.raises(ValueError, match="single-seed"):
+        TS.train(tcfg, sched, mds, 1, device="cpu", mix_fn=seeded)
+    mesh = make_surf_mesh(1, 2, devices=["cpu"] * 2)
+    for other, match in (
+            (tsurf.make_scenario(tcfg, "dropout", 2, seed=5, device="cpu"),
+             "DIFFERENT schedule"),
+            (tsurf.make_scenario(tcfg, "dropout", 3, device="cpu"),
+             "steps")):
+        with pytest.raises(ValueError, match=match):
+            TS.train(tcfg, sched, mds, 1, device="cpu",
+                     mix_fn=make_scheduled_halo_mix(mesh, "agent", other))
+    with pytest.raises(ValueError, match="needs a TopologySchedule"):
+        TS.train_scan(tcfg, sched.S[0], mds, 1, device="cpu",
+                      mix_fn=make_scheduled_halo_mix(mesh, "agent", sched))
 
 
 def test_schedule_stack_moves_once(smoke):

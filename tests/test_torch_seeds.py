@@ -32,6 +32,7 @@ from repro_torch.core import unroll as TU
 from repro_torch.core.tasks import resolve_task
 from repro_torch.data import synthetic as tsyn
 from repro_torch.kernels.graph_filter import make_plain_mix
+from repro_torch.launch.mesh import make_surf_mesh
 
 STATE_TOL = 5e-6
 CFG = tcfgs.SMOKE
@@ -215,7 +216,7 @@ def test_seed_batched_rejects_bad_inputs(mds):
                          mix_fn=lambda W, h: W, device="cpu")
     halo = make_plain_mix()
     halo.seed_batched = True
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(ValueError, match="'seed', 'agent'"):
         tsurf.train_surf(CFG, mds, steps=2, seeds=[0, 1], mix_fn=halo,
                          device="cpu")
     with pytest.raises(ValueError, match="seed rows"):
@@ -229,6 +230,7 @@ def test_seed_batched_rejects_bad_inputs(mds):
     with pytest.raises(ValueError, match="S_eval_stack"):
         E.train_scan_seeds(CFG, torch.zeros((2, 5, n, n)), mds, 2, [0, 1],
                            eval_every=2, eval_datasets=mds, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsurf.train_surf(CFG, mds, steps=2, seeds=[0, 1], mesh=object(),
-                         device="cpu")
+    # a named 'seed' axis never silently replicates a seed batch
+    with pytest.raises(ValueError, match="n_seeds=3 does not divide"):
+        tsurf.train_surf(CFG, mds, steps=2, seeds=[0, 1, 2], mix="halo",
+                         mesh=make_surf_mesh(2, 1, devices=["cpu"] * 2))

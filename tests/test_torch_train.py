@@ -49,6 +49,7 @@ from repro_torch.core.tasks import resolve_task as tresolve_task
 from repro_torch.engine import core as TE
 from repro_torch.engine import scan as TS
 from repro_torch.kernels.graph_filter import ops
+from repro_torch.launch.mesh import make_surf_mesh
 from repro_torch.optim import adam as tadam
 from repro_torch.optim import clip_by_global_norm as tclip
 
@@ -430,16 +431,18 @@ def test_state_from_numpy_validates(smoke):
     ("eval_datasets", [], 7), ("checkpoint_every", 5, 7),
     ("checkpoint_dir", "ckpt", 7)])
 def test_unported_train_options_raise(smoke, option, value, item, tmp_path):
-    """Item 8's options still raise, naming their item. Item 7's are
-    ported: alone, each runs or is refused as the reference refuses it
-    (a cadence without its pool or directory)."""
+    """Every option is ported now. Alone, each runs or is refused as the
+    reference refuses it: a cadence without its pool or directory,
+    ``q_sharded`` without a mesh; ``mesh`` (item 8) trains on the mesh's
+    home device."""
     jcfg, tcfg, S, mds = smoke
-    if item == 8:
-        with pytest.raises(NotImplementedError,
-                           match=f"queue 1 item {item}"):
+    if option == "q_sharded":
+        with pytest.raises(ValueError, match="q_sharded=True needs mesh"):
             tsurf.train_surf(tcfg, mds, steps=1, device="cpu",
                              **{option: value})
         return
+    if option == "mesh":
+        value = make_surf_mesh(1, 2, devices=["cpu"] * 2)
     refusals = {"eval_every": "eval_datasets",
                 "checkpoint_every": "checkpoint_dir"}
     if option in refusals:
@@ -461,8 +464,10 @@ def test_unported_train_options_raise(smoke, option, value, item, tmp_path):
 
 def test_unported_training_paths_raise(smoke):
     """RSDUN (item 5) is ported: a robust meta-step needs its
-    perturbations. Seed-batched and scheduled HALO mixers and the ring
-    and halo mixer names stay item 8's."""
+    perturbations. The halo mixers (item 8) are ported with the
+    reference's guards: a seed-batched mixer is refused by the
+    single-seed builders, a scheduled one by the unbound forward, and a
+    halo name needs a mesh."""
     jcfg, tcfg, S, mds = smoke
     robust = dataclasses.replace(tcfg, robust_sigma=0.1)
     step, _ = TE.make_meta_step(robust, _t(S))
@@ -473,13 +478,15 @@ def test_unported_training_paths_raise(smoke):
         TC.robust_layer_grad_norms(torch.zeros(5, 8, 36), None, None,
                                    robust, torch.zeros(1),
                                    nominal=torch.zeros(5))
-    for attr, item in (("seed_batched", 8), ("scheduled", 8)):
+    for attr, match in (("seed_batched", "single-seed"),
+                        ("scheduled", "step counter")):
         mix = lambda S, W, h: W                        # noqa: E731
         mix.takes_S = True
         setattr(mix, attr, True)
-        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            TE.make_meta_step(tcfg, _t(S), mix_fn=mix)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        with pytest.raises(ValueError, match=match):
+            _, forward = TE.make_meta_step(tcfg, _t(S), mix_fn=mix)
+            forward(state.theta, None, None, None)
+    with pytest.raises(ValueError, match="needs mesh="):
         tsurf.train_surf(tcfg, mds, steps=1, mix="halo", device="cpu")
     with pytest.raises(ValueError, match="engine"):
         tsurf.train_surf(tcfg, mds, steps=1, engine="jit", device="cpu")

@@ -184,9 +184,10 @@ def test_unported_paths_raise():
         "Bogus", (), {"kind": "nope"})())
     with pytest.raises(ValueError, match="unknown task kind"):
         tresolve_task(cfg)
-    baked = lambda W, h: W                                  # noqa: E731
-    with pytest.raises(NotImplementedError, match="baked-S"):
-        TU._mix(baked, None, torch.zeros(2, 2), torch.ones(2))
+    # a baked-S mixer (ring / halo) is called as mix_fn(W, h)
+    baked = lambda W, h: 2 * W                              # noqa: E731
+    W = torch.ones(2, 2)
+    assert torch.equal(TU._mix(baked, None, W, torch.ones(2)), 2 * W)
     # star-topology layers are ported now: the star evaluation body runs
     from repro_torch.data.synthetic import sample_dataset
     from repro_torch.engine.core import _eval_core
