@@ -9,8 +9,9 @@ order; any failure exits non-zero:
 
   1. environment — torch version, the card's name and power limit, the
      TF32 switches (both off);
-  2. build — the three kernel libraries (graph filter, flash attention,
-     wkv), one ``nvcc`` each, all started together;
+  2. build — the five kernel libraries (graph filter, flash attention and
+     its backward, wkv and its backward), one ``nvcc`` each, all started
+     together;
   3. kernel vs plain — the graph-filter kernel against its plain PyTorch
      version on the same inputs (numpy, seeded) at the reference's test
      shapes, at n = 129, 256 and 1000 (past the kernel's resident limit)
@@ -38,10 +39,23 @@ order; any failure exits non-zero:
      ``scaled_dot_product_attention``'s (default dispatch, and in f32 also
      the memory-efficient backend on K/V expanded to H heads), the
      tensor-core bound and the f32 FFMA bound beside it;
+  5b. flash backward vs plain — dq, dk, dv of the backward kernel
+     against autograd through the plain version at phase 5's shapes (f32,
+     causal; the gemma3 shape windowed): each within 1e-4 of the plain
+     gradient's largest entry, a rerun bit-equal; at the qwen3-4b and
+     gemma3 shapes µs per launch, the bound (split TF32 on the tensor
+     cores; the FFMA bound beside it), the plain backward's time and
+     ``scaled_dot_product_attention``'s backward (memory-efficient
+     backend, K/V expanded);
   6. wkv vs plain — at the reference's sweep shapes and the rwkv6-1.6b
      prefill shape (B=4, H=32, T=2048, dk=64), y and the final state at
      20x the reference's tolerance; the launch's grid and block, µs per
      launch, plain time, bound;
+  6b. wkv backward vs plain — dr, dk, dv, dw, du of the backward kernel
+     against autograd through the plain version at phase 6's shapes (f32;
+     decays of 1e-7 at one of them), each within 1e-4 of the plain
+     gradient's largest entry, a rerun bit-equal; µs per launch, bound and
+     plain time at the rwkv6-1.6b shape;
   7. serve — ``FederationServer`` at PAPER width (n=100, F=512, C=10,
      L=10, K=2) built with the DEFAULT mixer, so through the kernel: 24
      requests over two buckets; the kernel's launch count must be
@@ -164,7 +178,24 @@ order; any failure exits non-zero:
      both caches at the same bound; one profiled prefill's and 4 decode
      steps' device time by kernel and the device-busy share;
  12. rwkv6-1.6b serve at full width, f32 — the same, with 24 wkv
-     launches per prefill.
+     launches per prefill;
+ 13. LM training at full width, f32 — qwen3-4b cut to 8 of its 36 layers
+     (f32 Adam state of the whole model, 70.6 GB, does not fit one card)
+     and rwkv6-1.6b at full depth, B=4, S=2048, remat, ``chunked_ce=512``:
+     the loss within 1e-5 relative, the gradient norm and every gradient
+     tensor within 1e-3 of its largest entry, kernels against
+     ``plain_kernels=True`` from the same parameters and batch (rwkv6's
+     plain step at S=512, its wkv being a Python loop over T; its gates at
+     least twice the plain path's distance from an f64 recurrence, as
+     phase 12's; its gradients gated at 6 layers, its loss at full depth,
+     where the f32 gradient of the random model is chaotic); one
+     ``make_train_step`` step counted from zero: 2L
+     forward (remat) and L backward launches; ms per step, tokens/s, peak
+     memory and one profiled step by kernel kind;
+ 13b. ``launch.train.main`` on rwkv6-1.6b at full width, 20 steps, with
+     ``--ckpt`` under build/, gated by its own "loss decreases"; the
+     checkpoint restored bit-equal and one more step from it bit-equal to
+     the step from the in-memory state.
 """
 from __future__ import annotations
 
@@ -247,6 +278,18 @@ WKV_SWEEP = [(1, 2, 32, 16), (2, 3, 50, 16), (1, 4, 64, 64), (2, 1, 17, 8)]
 WKV_RWKV = (4, 32, 2048, 64)
 LLM_BATCH, LLM_PROMPT, LLM_TOKENS = 4, 2048, 32
 LLM_REL_TOL = 1e-3   # kernel vs plain model: of the largest |entry|
+# Phases 5b-6b: a backward kernel's gradients against autograd through the
+# plain version, of each gradient's largest |entry| (f32 sums over up to
+# 2048 keys or steps in another order; one-pass TF32 would miss it).
+BWD_REL_TOL = 1e-4
+# Phase 13: LM training at full width (qwen3-4b cut to 8 of its 36 layers:
+# with f32 Adam the full model's 70.6 GB of state does not fit one card).
+TRAIN_LLMS = (("qwen3-4b", 8), ("rwkv6-1.6b", None))
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_OPTS, TRAIN_LR = 4, 2048, "chunked_ce=512", 3e-4
+RWKV_PARITY_SEQ = 512      # rwkv6's plain step: a Python loop over T
+RWKV_PARITY_LAYERS = 6     # rwkv6's well-conditioned depth cut (phase 13)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-3
+DRIVER_STEPS = 20          # phase 13b
 
 
 def quickstart_cfg():
@@ -310,12 +353,17 @@ def filter_bound_ms(B, n, d, K, w_bytes=4):
     return ms, by, bound(nbytes, products + (2 * K + 1) * n * d * B)[0]
 
 
-def device_ms(fn, reps=50, key="graph_filter_kernel"):
+def device_ms(fn, reps=50, key="graph_filter_kernel", tries=3):
     """The kernel's own time per launch: ``torch.profiler`` (CUPTI) device
     time of the kernels whose name holds ``key`` over ``reps`` calls (the
     profiler's second cycle, after a warm-up one), over their count; the
     wrapper's host time per call (``time.perf_counter`` over ``reps``
-    calls without a synchronisation) beside it."""
+    calls without a synchronisation) beside it. A profile that does not
+    hold exactly ``reps`` such launches is taken again, up to ``tries``
+    times; if none does (CUPTI may be held by another tracer of the
+    process, and then records no kernel at all), the time per call is
+    taken by CUDA events over back-to-back calls instead. Returns (ms,
+    host µs, how the ms was measured)."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -324,30 +372,35 @@ def device_ms(fn, reps=50, key="graph_filter_kernel"):
         fn()
     host_us = 1e6 * (time.perf_counter() - t0) / reps
     torch.cuda.synchronize()
-    # one warm-up cycle of the profiler, then the recorded one: CUPTI may
-    # miss the first kernels of a window it has just started tracing
-    # (4 of 50 at the resident block's shape)
-    got = {}
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA],
-            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
-            on_trace_ready=lambda p: got.update(events=p.key_averages())
-            ) as prof:
-        for _ in range(2):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    total, count = 0.0, 0
-    for e in got["events"]:
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and key in e.key):
-            total += e.self_device_time_total
-            count += e.count
-    if count != reps:
-        raise AssertionError(f"profiled {count} {key} launches of {reps}")
-    return total / count / 1e3, host_us
+    seen = []
+    for _ in range(tries):
+        # one warm-up cycle of the profiler, then the recorded one: CUPTI
+        # may miss the first kernels of a window it has just started
+        # tracing (4 of 50 at the resident block's shape)
+        got = {}
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                on_trace_ready=lambda p: got.update(events=p.key_averages())
+                ) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        total, count = 0.0, 0
+        for e in got.get("events", ()):
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and key in e.key):
+                total += e.self_device_time_total
+                count += e.count
+        if count == reps:
+            return total / count / 1e3, host_us, "profiler"
+        seen.append(count)
+    how = (f"CUDA events over back-to-back calls; the profiler saw {seen} "
+           f"{key} launches of {reps}")
+    return median_ms(fn, inner=reps), host_us, how
 
 
 def median_ms(fn, reps=15, inner=20, warm=5):
@@ -404,13 +457,13 @@ def check_kernel(tag, paper):
             print(f"kernel vs plain B={B} n={n} d={d} K={K} {dtype}: "
                   f"max |err| {err:.3e} (tol {tol}{gate})")
         if (B, n, d, K) in timed:
-            ms, host_us = device_ms(lambda: graph_filter(S, W, h))
+            ms, host_us, how = device_ms(lambda: graph_filter(S, W, h))
             event_ms = median_ms(lambda: graph_filter(S, W, h))
             plain_ms = median_ms(lambda: graph_filter_ref(S, W, h))
             bound_ms, bound_by, ffma_ms = filter_bound_ms(B, n, d, K)
             timing[(B, n, d, K)] = (ms, plain_ms, bound_ms, bound_by)
             print(f"[{tag}] graph_filter f32 B={B} n={n} d={d} K={K}: "
-                  f"kernel {ms * 1e3:.2f} us device time (profiler), "
+                  f"kernel {ms * 1e3:.2f} us device time ({how}), "
                   f"{event_ms * 1e3:.2f} us by CUDA events over back-to-back "
                   f"calls, host {host_us:.2f} us per call; bound "
                   f"{bound_ms * 1e3:.2f} us ({bound_by}; split TF32 on the "
@@ -455,13 +508,14 @@ def check_backward(tag, paper):
         print(f"backward vs plain n={n} d={d} K={K}: max |err| dW "
               f"{errs[0]:.3e}, dh {errs[1]:.3e} (tol {VJP_TOL})")
         if (n, d, K) == paper:
-            ms, host_us = device_ms(lambda: ops.graph_filter_bwd(S, G, h))
+            ms, host_us, how = device_ms(
+                lambda: ops.graph_filter_bwd(S, G, h))
             event_ms = median_ms(lambda: ops.graph_filter_bwd(S, G, h))
             plain_ms = median_ms(lambda: graph_filter_ref(S.mT, G, h))
             bound_ms, bound_by, ffma_ms = filter_bound_ms(1, n, d, K)
             timing = (ms, plain_ms, bound_ms, bound_by)
             print(f"[{tag}] graph_filter_bwd (dW) f32 n={n} d={d} K={K}: "
-                  f"kernel {ms * 1e3:.2f} us device time (profiler), "
+                  f"kernel {ms * 1e3:.2f} us device time ({how}), "
                   f"{event_ms * 1e3:.2f} us by CUDA events over back-to-back "
                   f"calls, host {host_us:.2f} us per call; bound "
                   f"{bound_ms * 1e3:.2f} us ({bound_by}; split TF32 on the "
@@ -816,8 +870,9 @@ def serve_adaptive(tag, cfg, spec, fixed, device="cuda", min_layers=2,
               f"{saved:.4f}")
     prof = profile_tick(tag, srv, cfg_t, device, sizes[0])
     fp = fixed["profile"]
-    if isinstance(fp["device_idle_ms"], float) and isinstance(
-            prof["device_idle_ms"], float):
+    if (isinstance(fp["device_idle_ms"], float)
+            and isinstance(prof["device_idle_ms"], float)
+            and prof["graph_filter_launches"]):
         layers = prof["graph_filter_launches"]
         print(f"[{tag}] 7c host read cost: adaptive tick {layers} layers, "
               f"{prof['host_reads']} reads blocking "
@@ -1519,8 +1574,10 @@ def check_resident(tag, cfg, shard_counts=(4, 5)):
             raise AssertionError(f"resident n={n}: kernel != plain {errs}")
         worst = [max(a, b) for a, b in zip(worst, errs)]
         with torch.no_grad():
-            fwd_ms, fwd_host = device_ms(lambda: graph_filter(S0, Y, h))
-            bwd_ms, _ = device_ms(lambda: ops.graph_filter_bwd(S0, G, h))
+            fwd_ms, fwd_host, how = device_ms(
+                lambda: graph_filter(S0, Y, h))
+            bwd_ms, _, bwd_how = device_ms(
+                lambda: ops.graph_filter_bwd(S0, G, h))
             plain_ms = median_ms(lambda: graph_filter_ref(S0, Y, h))
             lib_ms = median_ms(lambda: S0 @ Y)
         bound_ms, bound_by, ffma_ms = filter_bound_ms(1, n, d, 1)
@@ -1530,7 +1587,8 @@ def check_resident(tag, cfg, shard_counts=(4, 5)):
                   "library_ms": lib_ms, "max_abs_err": errs}
         print(f"[{tag}] 9i resident block n={n} d={d} K=1 (h = [0, 1]): "
               f"kernel {fwd_ms * 1e3:.2f} us, dW {bwd_ms * 1e3:.2f} us "
-              f"device time (profiler), host {fwd_host:.2f} us per call; "
+              f"device time ({how}; dW: {bwd_how}), host {fwd_host:.2f} "
+              f"us per call; "
               f"bound {bound_ms * 1e3:.2f} us ({bound_by}), f32 FFMA bound "
               f"{ffma_ms * 1e3:.2f} us; plain {plain_ms * 1e3:.2f} us; "
               f"S0 @ Y (torch.matmul) {lib_ms * 1e3:.2f} us; max |err| "
@@ -2310,13 +2368,14 @@ def quickstart_seeds(tag, device="cuda"):
 
 
 def build_all(tag):
-    """Build the three kernel libraries, one ``nvcc`` each, all at once."""
+    """Build the five kernel libraries, one ``nvcc`` each, all at once."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.graph_filter import ops as gf_ops
     from repro_torch.kernels.ssm_scan import ops as wkv_ops
     libs = {"graph_filter": gf_ops.LIB, "flash_attention": fa_ops.LIB,
-            "wkv": wkv_ops.LIB}
+            "wkv": wkv_ops.LIB, "flash_attention_bwd": fa_ops.BWD_LIB,
+            "wkv_bwd": wkv_ops.BWD_LIB}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         infos = dict(zip(libs, pool.map(lambda lib: lib.build(),
@@ -2336,7 +2395,8 @@ def counts():
     return {"graph_filter": graph_filter.launches,
             "graph_filter_bwd": graph_filter.bwd_launches,
             "flash_attention": flash_attention.launches,
-            "wkv": wkv.launches}
+            "flash_attention_bwd": flash_attention.bwd_launches,
+            "wkv": wkv.launches, "wkv_bwd": wkv.bwd_launches}
 
 
 def zero_counts():
@@ -2344,7 +2404,8 @@ def zero_counts():
     from repro_torch.kernels.graph_filter import graph_filter
     from repro_torch.kernels.ssm_scan import wkv
     graph_filter.launches = graph_filter.bwd_launches = 0
-    flash_attention.launches = wkv.launches = 0
+    flash_attention.launches = flash_attention.bwd_launches = 0
+    wkv.launches = wkv.bwd_launches = 0
 
 
 def flash_bound_ms(B, H, KV, S, dh, window, elem):
@@ -2548,17 +2609,428 @@ def check_wkv(tag):
     return max_err, timing
 
 
+def flash_bwd_bound_ms(B, H, KV, S, dh, window):
+    """The f32 gradient: q, k, v, o, do and the row lse read once, dq, dk,
+    dv written once; 10 dh operations per live (query, key) pair (five
+    products: q kᵀ and do vᵀ to rebuild P and dP, Pᵀ do, dSᵀ q, dS k). As
+    three TF32 products each on the tensor cores (495 TFLOP/s), the
+    forward's convention; returns (ms, what bounds it, the f32 FFMA bound
+    of the same operations in ms)."""
+    i = np.arange(S)
+    live = np.minimum(i + 1, window) if window else i + 1
+    flops = 10 * B * H * dh * int(live.sum())
+    nbytes = 4 * (4 * B * H * S * dh + 4 * B * KV * S * dh + B * H * S)
+    ms, by = bound(nbytes, 3 * flops, PEAK_TF32_TC_FLOP_PER_S)
+    return ms, by, bound(nbytes, flops)[0]
+
+
+def wkv_bwd_bound_ms(B, H, T, dk):
+    """r, k, v, w, dy read and dr, dk, dv, dw written once (f32), u read
+    and du written; about 14 dk² operations per (b, h, t) in f32 FFMA: the
+    G update, the four gradient products and S_{t-1}'s update."""
+    nbytes = 4 * (9 * B * H * T * dk + 2 * H * dk)
+    return bound(nbytes, 14 * B * H * T * dk * dk)
+
+
+def check_flash_bwd(tag):
+    """Phase 5b: the flash backward kernel against autograd through the
+    plain version (``attention_ref``) at the sweep, qwen3-4b and gemma3
+    window-1024 shapes, f32: dq, dk and dv each within BWD_REL_TOL of the
+    plain gradient's largest entry (f32 sums over up to 2048 keys in
+    another order; one-pass TF32 products would miss it), and a rerun
+    bit-equal (no atomics). At the two full-width shapes: µs per launch
+    (CUDA events, median), the bound, the plain backward's time and
+    ``scaled_dot_product_attention``'s backward (the memory-efficient
+    backend on K/V expanded to H heads, as phase 5 times its forward).
+    Returns the largest |error| and the qwen3-4b timing."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import attention_ref, ops
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(5)
+    max_err, timing = 0.0, None
+    for B, H, KV, S, dh, win in FLASH_SWEEP + [FLASH_QWEN, FLASH_GEMMA]:
+        shape = (B, H, KV, S, dh, win)
+        q, k, v, do = (torch.tensor(rng.standard_normal((B, n, S, dh)).astype(
+            np.float32), device="cuda") for n in (H, KV, KV, H))
+        o, lse = ops._launch(q, k, v, True, win, want_lse=True)
+        grads = ops._launch_bwd(q, k, v, o, lse, do, True, win)
+        again = ops._launch_bwd(q, k, v, o, lse, do, True, win)
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+        del again
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        o_ref = attention_ref(*xs, causal=True, window=win)
+        ref = torch.autograd.grad(o_ref, xs, do, retain_graph=True)
+        errs = {n: (g - r).abs().max().item() for n, g, r in
+                zip(("dq", "dk", "dv"), grads, ref)}
+        rel = {n: errs[n] / r.abs().max().item() for n, r in
+               zip(("dq", "dk", "dv"), ref)}
+        print(f"flash backward vs plain {shape}: max |err| "
+              f"{json.dumps(errs)}, of the largest |plain| "
+              f"{json.dumps(rel)}; rerun bit-equal {bit_equal}")
+        if max(rel.values()) > BWD_REL_TOL or not bit_equal:
+            raise AssertionError(f"flash backward at {shape}: {rel} > "
+                                 f"{BWD_REL_TOL} or rerun not bit-equal")
+        max_err = max(max_err, *errs.values())
+        if shape in (FLASH_QWEN, FLASH_GEMMA):
+            ms = median_ms(lambda: ops._launch_bwd(q, k, v, o, lse, do, True,
+                                                   win), reps=5, inner=3,
+                           warm=1)
+            plain_ms = median_ms(lambda: torch.autograd.grad(
+                o_ref, xs, do, retain_graph=True), reps=3, inner=1, warm=1)
+            del o_ref, xs, ref
+            torch.cuda.empty_cache()
+            mask = None
+            if win:
+                i = torch.arange(S, device="cuda")
+                mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - win)
+            ke, ve = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
+            xe = [t.clone().requires_grad_() for t in (q, ke, ve)]
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                oe = sdpa(*xe, attn_mask=mask, is_causal=not win)
+                lib_ms = median_ms(lambda: torch.autograd.grad(
+                    oe, xe, do, retain_graph=True), reps=5, inner=3, warm=1)
+            del ke, ve, xe, oe
+            bound_ms, bound_by, ffma_ms = flash_bwd_bound_ms(B, H, KV, S, dh,
+                                                             win)
+            if shape == FLASH_QWEN:
+                timing = (ms, plain_ms, bound_ms, bound_by, lib_ms)
+            print(f"[{tag}] flash_attention_bwd f32 B={B} H={H} KV={KV} "
+                  f"S={S} dh={dh} window={win}: kernel {ms * 1e3:.1f} us, "
+                  f"bound {bound_ms * 1e3:.1f} us ({bound_by}, split TF32 "
+                  f"on the tensor cores; f32 FFMA bound {ffma_ms * 1e3:.1f} "
+                  f"us), plain PyTorch backward {plain_ms * 1e3:.1f} us, "
+                  f"scaled_dot_product_attention backward (memory-efficient"
+                  f", K/V expanded) {lib_ms * 1e3:.1f} us")
+        del q, k, v, do, o, lse, grads
+        torch.cuda.empty_cache()
+    return max_err, timing
+
+
+def check_wkv_bwd(tag):
+    """Phase 6b: the wkv backward kernel against autograd through the plain
+    version (``wkv_ref``, a loop over T) at the sweep and rwkv6-1.6b
+    shapes, f32: dr, dk, dv, dw and du each within BWD_REL_TOL of the plain
+    gradient's largest entry, and a rerun bit-equal; the first three decays
+    of every row near 0 (1e-7) at one sweep shape. µs per launch, the
+    bound and the plain backward's time at the rwkv6-1.6b shape (no
+    PyTorch call computes this recurrence). Returns the largest |error|
+    and the timing."""
+    from repro_torch.kernels.ssm_scan import ops, wkv_ref
+    rng = np.random.default_rng(6)
+    max_err, timing = 0.0, None
+    names = ("dr", "dk", "dv", "dw", "du")
+    for B, H, T, dk in WKV_SWEEP + [WKV_RWKV]:
+        def mk():
+            return 0.5 * rng.standard_normal((B, H, T, dk)).astype(np.float32)
+        r, k, v = mk(), mk(), mk()
+        w = (0.5 + 0.5 / (1 + np.exp(-mk()))).astype(np.float32)
+        if (B, H, T, dk) == WKV_SWEEP[1]:
+            w[..., :3, :] = 1e-7
+        u = (0.1 * rng.standard_normal((H, dk))).astype(np.float32)
+        args = [torch.tensor(a, device="cuda") for a in (r, k, v, w, u)]
+        dy = torch.tensor(mk(), device="cuda")
+        grads = ops._launch_bwd(*args, dy)
+        again = ops._launch_bwd(*args, dy)
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+        del again
+        xs = [a.clone().requires_grad_() for a in args]
+        y_ref, _ = wkv_ref(*xs)
+        ref = torch.autograd.grad(y_ref, xs, dy, retain_graph=True)
+        errs = {n: (g - q).abs().max().item() for n, g, q in
+                zip(names, grads, ref)}
+        rel = {n: errs[n] / q.abs().max().item() for n, q in zip(names, ref)}
+        print(f"wkv backward vs plain B={B} H={H} T={T} dk={dk}: max |err| "
+              f"{json.dumps(errs)}, of the largest |plain| "
+              f"{json.dumps(rel)}; rerun bit-equal {bit_equal}")
+        if max(rel.values()) > BWD_REL_TOL or not bit_equal:
+            raise AssertionError(f"wkv backward at {(B, H, T, dk)}: {rel} > "
+                                 f"{BWD_REL_TOL} or rerun not bit-equal")
+        max_err = max(max_err, *errs.values())
+        if (B, H, T, dk) == WKV_RWKV:
+            ms = median_ms(lambda: ops._launch_bwd(*args, dy), reps=7,
+                           inner=5, warm=2)
+            plain_ms = median_ms(lambda: torch.autograd.grad(
+                y_ref, xs, dy, retain_graph=True), reps=2, inner=1, warm=1)
+            bound_ms, bound_by = wkv_bwd_bound_ms(B, H, T, dk)
+            timing = (ms, plain_ms, bound_ms, bound_by)
+            print(f"[{tag}] wkv_bwd f32 B={B} H={H} T={T} dk={dk}: kernel "
+                  f"{ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+                  f"({bound_by}), plain PyTorch backward "
+                  f"{plain_ms * 1e3:.1f} us (no single PyTorch call "
+                  "computes this recurrence)")
+        del xs, y_ref, ref, grads
+        torch.cuda.empty_cache()
+    return max_err, timing
+
+
+def _named(tree, prefix=""):
+    """(dotted name, tensor) of every leaf, in the tree's order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}.{k}".lstrip("."))
+    else:
+        yield prefix, tree
+
+
+def _grad_rows(got, ref):
+    """{name: max |got − ref| / max |ref|} per gradient tensor."""
+    return {n: ((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
+            for (n, g), (_, r) in zip(_named(got), _named(ref))}
+
+
+def _global_norm(tree):
+    return torch.sqrt(sum(t.square().sum() for _, t in _named(tree))).item()
+
+
+def _train_parity(tag, arch, cfg, params, batch, derived, grads_gated=True):
+    """Phase 13's gate: the loss and every gradient of one step's
+    ``loss_and_grads`` through the kernels against ``plain_kernels=True``
+    from the same parameters and batch: the loss within TRAIN_LOSS_TOL
+    relative, the global gradient norm and each gradient tensor within
+    TRAIN_GRAD_TOL (of the norm; of the tensor's largest entry). With
+    ``derived`` (rwkv6) each gate is at least twice the plain step's own
+    distance from the same step with the wkv recurrence in f64, as phase
+    12 derives its hidden-state gate, and the kernel step's own distance
+    from f64 is printed. Without ``grads_gated`` only the loss is gated
+    and the gradients' distances are printed."""
+    from unittest import mock
+
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import ssm
+    zero_counts()
+    (lk, _), gk = loss_and_grads(cfg, params, batch, remat=True)
+    par_counts = {k: v for k, v in counts().items() if v}
+    (lp, _), gp = loss_and_grads(cfg, params, batch, remat=True,
+                                 plain_kernels=True)
+    if {k: v for k, v in counts().items() if v} != par_counts:
+        raise AssertionError("13: the plain step launched a kernel")
+    rows = _grad_rows(gk, gp)
+    norm_k, norm_p = _global_norm(gk), _global_norm(gp)
+    errs = {"loss_rel": abs(lk.item() - lp.item()) / abs(lp.item()),
+            "grad_norm_rel": abs(norm_k - norm_p) / norm_p,
+            "worst_grad": max(rows, key=rows.get),
+            "worst_grad_rel": max(rows.values()),
+            "grad_norm_kernel": norm_k, "grad_norm_plain": norm_p}
+    tol = {"loss": TRAIN_LOSS_TOL, "norm": TRAIN_GRAD_TOL,
+           "grads": dict.fromkeys(rows, TRAIN_GRAD_TOL)}
+    if derived:
+        with mock.patch.object(ssm, "wkv_ref", _wkv_f64):
+            (l64, _), g64 = loss_and_grads(cfg, params, batch, remat=True,
+                                           plain_kernels=True)
+        floor = _grad_rows(gp, g64)
+        norm_64 = _global_norm(g64)
+        errs.update(plain_vs_f64_loss_rel=abs(lp.item() - l64.item())
+                    / abs(lp.item()),
+                    plain_vs_f64_grad_norm_rel=abs(norm_p - norm_64) / norm_p,
+                    plain_vs_f64_worst_grad=max(floor, key=floor.get),
+                    plain_vs_f64_worst_grad_rel=max(floor.values()),
+                    kernel_vs_f64_worst_grad_rel=max(_grad_rows(gk, g64)
+                                                     .values()),
+                    grad_norm_f64=norm_64)
+        tol = {"loss": max(TRAIN_LOSS_TOL,
+                           2 * errs["plain_vs_f64_loss_rel"]),
+               "norm": max(TRAIN_GRAD_TOL,
+                           2 * errs["plain_vs_f64_grad_norm_rel"]),
+               "grads": {n: max(TRAIN_GRAD_TOL, 2 * floor[n])
+                         for n in rows}}
+    del gk, gp
+    if derived:
+        del g64
+    bad = {n: e for n, e in rows.items() if e > tol["grads"][n]}
+    errs["worst_use_of_grad_tol"] = max(e / tol["grads"][n]
+                                        for n, e in rows.items())
+    gates = (f"grad norm tol {tol['norm']:.3e}, gradient tol "
+             f"{TRAIN_GRAD_TOL}"
+             f"{' or twice the plain step distance from f64' if derived else ''}"
+             if grads_gated else "gradients not gated (printed)")
+    print(f"[{tag}] 13 {arch} ({cfg.n_layers} layers) loss and gradients, "
+          f"kernels vs plain at B={batch['tokens'].shape[0]} "
+          f"S={batch['tokens'].shape[1]}: {json.dumps(errs)}; loss tol "
+          f"{tol['loss']:.3e}, {gates}; launches {par_counts}")
+    grads_ok = not bad and errs["grad_norm_rel"] <= tol["norm"]
+    if ((grads_gated and not grads_ok) or errs["loss_rel"] > tol["loss"]
+            or not math.isfinite(lk.item())):
+        raise AssertionError(f"13 {arch}: kernel step != plain step: "
+                             f"{errs}; outside: {bad}")
+
+
+def train_llm(tag, arch, n_layers=None, device="cuda"):
+    """Phase 13: LM training on the card at full width (``n_layers`` cuts
+    the depth: qwen3-4b's 36 layers do not fit one card with f32 Adam,
+    so it trains 8), B=TRAIN_BATCH, S=TRAIN_SEQ, remat, ``--opts
+    TRAIN_OPTS``, on the token pipeline's first batch.
+
+      * parity (``_train_parity``): one step's loss and gradients through
+        the kernels against ``plain_kernels=True``. qwen3-4b at S=2048.
+        rwkv6's plain step runs at S = RWKV_PARITY_SEQ (its wkv is a
+        Python loop over T, differentiated step by step), with gates
+        derived from an f64 step as phase 12's (the first positions are
+        ill-conditioned, ROADMAP queue 3 item 2): the loss and gradients
+        at a depth cut to RWKV_PARITY_LAYERS, then the loss at full depth.
+        At 12 layers and more the f32 gradient of the randomly drawn
+        model is chaotic: its norm is 1e2–1e5 and three f32 evaluations
+        (the kernels, the plain recurrence, the plain recurrence with the
+        bonus term summed apart as the kernel sums it) scatter 0.13–4.1
+        of the largest entry around the f64 step, the kernels sometimes
+        nearest (``scripts/rwkv_grad_conditioning.py`` on an H100). So at
+        full depth the gradients' distances are printed, not gated; the
+        backward kernel itself is held at full shape in 6b.
+      * the main path: one ``make_train_step`` step through the kernels,
+        counted from zero: 2L forward launches (remat: the forward and the
+        recompute) and L backward launches of the layer kind's kernel,
+        none of another; then ms per step (CUDA events, median of 3 after
+        that warm step), tokens/s, peak memory and one profiled step's
+        device time by kernel kind with the device-busy share.
+
+    Returns (forward, backward launches of the main path, the record)."""
+    from repro_torch import flags
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    L, B, S = cfg.n_layers, TRAIN_BATCH, TRAIN_SEQ
+    kernel = "flash_attention" if cfg.attn is not None else "wkv"
+    prev = flags.get()
+    flags.parse_opts(TRAIN_OPTS)
+    try:
+        torch.cuda.empty_cache()
+        batch = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
+                 for k, v in next(TokenPipeline(cfg.vocab, B, S,
+                                                seed=0)).items()}
+        rwkv = cfg.attn is None
+        if rwkv:
+            pb = {k: v[:, :RWKV_PARITY_SEQ] for k, v in batch.items()}
+            cut = dataclasses.replace(cfg, n_layers=RWKV_PARITY_LAYERS)
+            _train_parity(tag, arch, cut, M.init_lm(cut, 0, device=device),
+                          pb, derived=True)
+            torch.cuda.empty_cache()
+        else:
+            pb = batch
+        params = M.init_lm(cfg, 0, device=device)
+        n_params = sum(t.numel() for _, t in _named(params))
+        _train_parity(tag, arch, cfg, params, pb, derived=rwkv,
+                      grads_gated=not rwkv)
+
+        step, opt = make_train_step(cfg, lr=TRAIN_LR, remat=True)
+        opt_state = opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        params, opt_state, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        main = counts()
+        want = dict.fromkeys(main, 0)
+        want[kernel], want[kernel + "_bwd"] = 2 * L, L
+        if main != want:
+            raise AssertionError(f"13 {arch}: launches {main}, expected "
+                                 f"{want}")
+        losses, times = [m["loss"].item()], []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            params, opt_state, m = step(params, opt_state, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+            losses.append(m["loss"].item())
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"13 {arch}: losses {losses}")
+        ms = float(np.median(times))
+        record = {"parameters": n_params, "ms_per_step": ms,
+                  "ms_per_step_runs": times,
+                  "tokens_per_s": B * S / (ms / 1e3),
+                  "peak_memory_bytes": peak, "losses": losses,
+                  "grad_norm": m["grad_norm"].item(),
+                  "launches_per_step": {k: v for k, v in main.items() if v}}
+        print(f"[{tag}] 13 {arch} train step ({L} layers) B={B} S={S} remat "
+              f"{TRAIN_OPTS}: {json.dumps(record)}")
+        print(f"[{tag}] 13 {arch} profiled train step: "
+              f"{json.dumps(_profiled(lambda: step(params, opt_state, batch), device))}")
+    finally:
+        flags.set_flags(**dataclasses.asdict(prev))
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return main[kernel], main[kernel + "_bwd"], record
+
+
+def train_driver(tag, device="cuda"):
+    """Phase 13b: ``launch.train.main`` on rwkv6-1.6b at full width and
+    depth for DRIVER_STEPS steps at the driver's defaults (B=4, S=64, no
+    remat), with ``--ckpt`` under build/, gated by its own assertion that
+    the loss falls (L forward and L backward wkv launches per step). Then
+    the checkpoint is restored (parameters bit-equal to the run's) and one
+    more step from it is bit-equal to the same step from the run's
+    in-memory parameters and Adam state. The files are removed after.
+    Returns the run's (forward, backward) launches."""
+    import shutil
+
+    from repro_torch import checkpoint as CKPT
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    arch = "rwkv6-1.6b"
+    cfg = get_config(arch)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_lm_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    path = os.path.join(root, "rwkv6")
+    state = {}
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = train.main(["--arch", arch, "--full", "--steps",
+                         str(DRIVER_STEPS), "--device", device, "--ckpt",
+                         path], state=state)
+    wall = time.perf_counter() - t0
+    main = counts()
+    want = dict.fromkeys(main, 0)
+    want["wkv"] = want["wkv_bwd"] = DRIVER_STEPS * cfg.n_layers
+    if main != want:
+        raise AssertionError(f"13b: launches {main}, expected {want}")
+    t0 = time.perf_counter()
+    got = CKPT.restore(path, {"params": M.init_lm(cfg, 0, device="meta"),
+                              "step": 0}, device=device)
+    restore_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(root, f))
+               for f in os.listdir(root))
+    shutil.rmtree(root)
+    same = got["step"] == DRIVER_STEPS and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(_named(got["params"]),
+                                                    _named(state["params"])))
+    batch = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
+             for k, v in next(TokenPipeline(cfg.vocab, 4, 64,
+                                            seed=1)).items()}
+    step, _ = make_train_step(cfg, lr=3e-4, remat=False)
+    pa, _, ma = step(state["params"], state["opt_state"], batch)
+    del state["params"]
+    pb, _, mb = step(got["params"], state["opt_state"], batch)
+    equal = ma["loss"].item() == mb["loss"].item() and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(_named(pa), _named(pb)))
+    print(f"[{tag}] 13b launch.train.main {arch} --full --steps "
+          f"{DRIVER_STEPS}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(5-step means {np.mean(losses[:5]):.4f} -> "
+          f"{np.mean(losses[-5:]):.4f}) in {wall:.1f} s; launches "
+          f"{json.dumps({k: v for k, v in main.items() if v})}; checkpoint "
+          f"{size / 1e9:.2f} GB restored in {restore_s:.1f} s, parameters "
+          f"bit-equal {same}; the next step from it bit-equal {equal}")
+    if not (same and equal):
+        raise AssertionError("13b: the restored checkpoint's step differs")
+    del got, pa, pb, state
+    torch.cuda.empty_cache()
+    return main["wkv"], main["wkv_bwd"]
+
+
 def _rel_err(a, b):
     """max |a − b| over max |b|."""
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def serve_llm(tag, arch, kernel, device="cuda", full=True):
@@ -2577,7 +3049,7 @@ def serve_llm(tag, arch, kernel, device="cuda", full=True):
     t0 = time.perf_counter()
     params = M.init_lm(cfg, 0, device=device)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for _, t in _named(params))
     print(f"[{tag}] {arch}: init_lm {n_params / 1e9:.3f} B parameters, f32, "
           f"in {time.perf_counter() - t0:.1f} s")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (B, P))
@@ -2681,11 +3153,11 @@ def llm_parity(tag, arch, cfg, params, tokens, P, N):
     from repro_torch.models import model as M
     from repro_torch.models import ssm
     with torch.no_grad():
-        hk, ck = M.forward_hidden(cfg, params, tokens, want_cache=True,
+        hk, ck, _ = M.forward_hidden(cfg, params, tokens, want_cache=True,
                                   cache_len=P + N)
         lk = M._logits(cfg, params, hk[:, -1:])
         before = counts()
-        hp, cp = M.forward_hidden(cfg, params, tokens, want_cache=True,
+        hp, cp, _ = M.forward_hidden(cfg, params, tokens, want_cache=True,
                                   cache_len=P + N, plain_kernels=True)
         if counts() != before:
             raise AssertionError("the plain run launched a kernel")
@@ -2700,7 +3172,7 @@ def llm_parity(tag, arch, cfg, params, tokens, P, N):
         hidden_tol = LLM_REL_TOL
         if cfg.attn is None:
             with mock.patch.object(ssm, "wkv_ref", _wkv_f64):
-                h64, _ = M.forward_hidden(cfg, params, tokens,
+                h64, _, _ = M.forward_hidden(cfg, params, tokens,
                                           plain_kernels=True)
             errs["plain_vs_f64_recurrence"] = _rel_err(hp, h64)
             errs["kernel_vs_f64_recurrence"] = _rel_err(hk, h64)
@@ -2736,6 +3208,10 @@ def _kind(name):
         return "graph_filter"
     if "flash_attention_kernel" in name:
         return "flash_attention"
+    if any(s in name for s in ("dkdv_kernel", "dq_kernel", "delta_kernel")):
+        return "flash_attention_bwd"
+    if "wkv_bwd_kernel" in name or "du_kernel" in name:
+        return "wkv_bwd"
     if "wkv_kernel" in name:
         return "wkv"
     if name.startswith(("memcpy", "memset")):
@@ -2813,7 +3289,7 @@ def main():
             or torch.backends.cudnn.allow_tf32):
         raise AssertionError("TF32 must be off")
 
-    # 2. build, all three libraries at once
+    # 2. build, all five libraries at once
     build_all(tag)
 
     # 3. kernel vs plain, at every shape the serve and training runs launch
@@ -2833,6 +3309,10 @@ def main():
     # 5.-6. flash attention and wkv vs plain, up to the full-width shapes
     fa_err, fa_timing = check_flash(tag)
     wkv_err, wkv_timing = check_wkv(tag)
+
+    # 5b.-6b. the backward kernels vs autograd through the plain versions
+    fab_err, fab_timing = check_flash_bwd(tag)
+    wkvb_err, wkvb_timing = check_wkv_bwd(tag)
 
     # 7. serve, with the default mixer
     zero_counts()
@@ -2917,6 +3397,14 @@ def main():
     fa_launches, _ = serve_llm(tag, "qwen3-4b", "flash_attention")
     wkv_launches, _ = serve_llm(tag, "rwkv6-1.6b", "wkv")
 
+    # 13. LM training at full width (counts zeroed inside, just before each
+    #     main-path step); 13b. the training driver with a checkpoint
+    trained = {arch: train_llm(tag, arch, n_layers)
+               for arch, n_layers in TRAIN_LLMS}
+    drv_fwd, drv_bwd = train_driver(tag)
+    fa_train_fwd, fa_train_bwd, _ = trained["qwen3-4b"]
+    wkv_train_fwd, wkv_train_bwd, _ = trained["rwkv6-1.6b"]
+
     # The graph filter's forward record's times are those of the largest
     # bucket's tick layer; its launches those of the serve runs (7-7d,
     # 7f), the launchers (7e), the training runs (9, 9b, 9e-9h, 9i's
@@ -2924,12 +3412,16 @@ def main():
     # dW's those of the launchers and the training runs. Flash
     # attention's and wkv's are
     # those of the qwen3-4b and rwkv6-1.6b prefill shapes in f32, their
-    # launches those of the serve runs (one prefill each).
+    # launches those of the serve runs (one prefill each), the training
+    # steps (13) and the driver (13b); their backward kernels' times are
+    # those of the same shapes, their launches those of 13 and 13b.
     src = "src/repro_torch/kernels/graph_filter/csrc/graph_filter.cu"
     ms, plain_ms, bound_ms, bound_by = timing[paper[0]]
     b_ms, b_plain_ms, b_bound_ms, b_bound_by = bwd_timing
     f_ms, f_plain_ms, f_bound_ms, f_bound_by, f_lib_ms = fa_timing
     w_ms, w_plain_ms, w_bound_ms, w_bound_by = wkv_timing
+    fb_ms, fb_plain_ms, fb_bound_ms, fb_bound_by, fb_lib_ms = fab_timing
+    wb_ms, wb_plain_ms, wb_bound_ms, wb_bound_by = wkvb_timing
     print(f"launches: serve run forward {serve_launches}; serve past the "
           f"resident limit forward {large_launches}; adaptive serve "
           f"forward {adaptive_launches}; async driver forward "
@@ -2948,7 +3440,10 @@ def main():
           f"{sparse_fwd}, backward {sparse_bwd}; quickstart with seeds "
           f"forward {qs_fwd}, backward {qs_bwd}; qwen3-4b serve "
           f"flash_attention {fa_launches}; rwkv6-1.6b serve wkv "
-          f"{wkv_launches}")
+          f"{wkv_launches}; qwen3-4b training step (13) flash_attention "
+          f"{fa_train_fwd}, backward {fa_train_bwd}; rwkv6-1.6b training "
+          f"step (13) wkv {wkv_train_fwd}, backward {wkv_train_bwd}; "
+          f"training driver (13b) wkv {drv_fwd}, backward {drv_bwd}")
     print(tag)
     print(json.dumps({"kernels": [
         {"name": "graph_filter", "route": "cuda", "source": src,
@@ -2975,15 +3470,29 @@ def main():
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
-         "launches": fa_launches, "max_abs_err": fa_err, "ms": f_ms,
-         "plain_ms": f_plain_ms, "bound_ms": f_bound_ms,
+         "launches": fa_launches + fa_train_fwd, "max_abs_err": fa_err,
+         "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": f_bound_ms,
          "bound_by": f_bound_by, "library_ms": f_lib_ms},
         {"name": "wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/ssm_scan/csrc/wkv.cu",
          "replaces": "src/repro/kernels/ssm_scan/kernel.py:24",
-         "launches": wkv_launches, "max_abs_err": wkv_err, "ms": w_ms,
+         "launches": wkv_launches + wkv_train_fwd + drv_fwd,
+         "max_abs_err": wkv_err, "ms": w_ms,
          "plain_ms": w_plain_ms, "bound_ms": w_bound_ms,
-         "bound_by": w_bound_by, "library_ms": None}]}))
+         "bound_by": w_bound_by, "library_ms": None},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_bwd.cu",
+         "replaces": "src/repro/models/attention.py:56",
+         "launches": fa_train_bwd, "max_abs_err": fab_err, "ms": fb_ms,
+         "plain_ms": fb_plain_ms, "bound_ms": fb_bound_ms,
+         "bound_by": fb_bound_by, "library_ms": fb_lib_ms},
+        {"name": "wkv_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/ssm_scan/csrc/wkv_bwd.cu",
+         "replaces": "src/repro/models/ssm.py:42",
+         "launches": wkv_train_bwd + drv_bwd, "max_abs_err": wkvb_err,
+         "ms": wb_ms, "plain_ms": wb_plain_ms, "bound_ms": wb_bound_ms,
+         "bound_by": wb_bound_by, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,7 +8,8 @@ tensors, so both packages compute the same function. A whole
 ``TrainState`` (θ, λ, Adam's ``{m, v, t}``, step) converts the same way,
 so both packages can train on from one state. An LLM's tree (the
 reference's ``init_lm``, segments stacked on a leading repeats axis)
-maps key for key onto the port's (``lm_params_from_numpy``).
+maps key for key onto the port's (``lm_params_from_numpy``), and so does
+its Adam state ``{"m", "v", "t"}`` (``lm_opt_state_from_numpy``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.engine.core import TrainState
 from repro_torch.models.model import init_lm
 from repro_torch.utils.device import resolve_device, to_tensor
+from repro_torch.utils.tree import _map
 
 KEYS = ("h", "M", "d")
 
@@ -92,3 +94,21 @@ def lm_params_from_numpy(cfg: ArchConfig, tree, device=None) -> dict:
         return to_tensor(a, device)
 
     return convert(tree, init_lm(cfg, 0, device="meta"), "")
+
+
+def lm_opt_state_from_numpy(cfg: ArchConfig, opt_state, device=None) -> dict:
+    """The reference's LM Adam state ``{"m": params-like, "v": params-like,
+    "t": int}`` as numpy -> the port's on ``device`` (None: the CUDA
+    card): f32 moments checked against ``cfg``'s parameter tree as
+    ``lm_params_from_numpy`` checks parameters, ``t`` a 0-d int32
+    tensor."""
+    if set(opt_state) != {"m", "v", "t"}:
+        raise ValueError(f"opt_state must have keys m, v, t, got "
+                         f"{sorted(opt_state)}")
+    device = resolve_device(device)
+    moments = {k: _map(lambda a: a.to(torch.float32),
+                       lm_params_from_numpy(cfg, opt_state[k], device))
+               for k in ("m", "v")}
+    t = torch.tensor(int(np.asarray(opt_state["t"])), dtype=torch.int32,
+                     device=device)
+    return {**moments, "t": t}

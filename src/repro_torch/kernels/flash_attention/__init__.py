@@ -1,5 +1,6 @@
-"""Blocked online-softmax attention (forward): the hand-written CUDA
-kernel (``csrc/flash_attention.cu``), its wrapper (``ops``) and its plain
+"""Blocked online-softmax attention: the hand-written CUDA kernels
+(``csrc/flash_attention.cu``, forward; ``csrc/flash_attention_bwd.cu``,
+backward), their wrapper and autograd function (``ops``) and the plain
 version (``ref``)."""
 from repro_torch.kernels.flash_attention.ops import MAX_DH, flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref

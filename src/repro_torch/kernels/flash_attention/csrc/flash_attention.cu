@@ -16,7 +16,9 @@
 // softmax denominator is max(l, 1e-30), as in the reference. Output o in
 // q's dtype, through the strides it is given (the wrapper's torch.empty_like:
 // q's strides when q is dense, contiguous otherwise); the softmax state
-// (m, l) and O accumulate in f32.
+// (m, l) and O accumulate in f32. For training, the launch also writes each
+// row's m + log2(l) to `lse` (one store per row after the loop), which the
+// backward kernel (flash_attention_bwd.cu) reads; serving passes null.
 //
 // Departures from the reference's arithmetic:
 //   * bf16 inputs: P is rounded to bf16 before P.V (the reference keeps P
@@ -336,7 +338,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int H,
                        int G, int Sq, int Skv, int dh, Strides qs, Strides ks,
                        Strides vs, Strides os, int causal, int window,
-                       float scale_log2) {
+                       float scale_log2, float* __restrict__ lse) {
   constexpr int BKV = Tile<T>::BKV;
   constexpr int LD = DHP + Tile<T>::PAD;
   constexpr int NS = BKV / 8;          // n8 score tiles per warp
@@ -466,6 +468,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = fmaxf(l[r], 1e-30f);
   }
+  if (lse != nullptr && t == 0) {       // the backward's row statistics
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = qi0 + r * 8;
+      if (qi < Sq) lse[(long long)blockIdx.x * Sq + qi] = m[r] + log2f(l[r]);
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = qi0 + r * 8;
@@ -489,7 +498,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DHP, bool VEC>
 cudaError_t launch(const T* q, const T* k, const T* v, T* o, int B, int H,
                    int KV, int Sq, int Skv, int dh, const Strides* st,
-                   int causal, int window, float scale_log2,
+                   int causal, int window, float scale_log2, float* lse,
                    cudaStream_t stream) {
   const size_t smem = sizeof(T) * (BQ + 2 * Tile<T>::BKV) *
                       (size_t)(DHP + Tile<T>::PAD);
@@ -500,7 +509,7 @@ cudaError_t launch(const T* q, const T* k, const T* v, T* o, int B, int H,
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   flash_attention_kernel<T, DHP, VEC><<<grid, NT, smem, stream>>>(
       q, k, v, o, H, H / KV, Sq, Skv, dh, st[0], st[1], st[2], st[3], causal,
-      window, scale_log2);
+      window, scale_log2, lse);
   return cudaGetLastError();
 }
 
@@ -508,7 +517,7 @@ template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int B, int H, int KV, int Sq, int Skv, int dh,
                      const long long* strides, int causal, int window,
-                     float scale_log2, int vec, void* stream) {
+                     float scale_log2, int vec, float* lse, void* stream) {
   if (B < 1 || H < 1 || (long long)B * H > 2147483647LL || KV < 1 ||
       H % KV != 0 || Sq < 1 || (Sq + BQ - 1) / BQ > 65535 || Skv < 1 ||
       dh < 1 || dh > 128 || window < 0) {
@@ -534,7 +543,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_LAUNCH(DHP, VEC)                                                \
   launch<T, DHP, VEC>(qq, kk, vv, oo, B, H, KV, Sq, Skv, dh, st, causal,      \
-                      window, scale_log2, s)
+                      window, scale_log2, lse, s)
   if (dh <= 64) return vec ? FLASH_LAUNCH(64, true) : FLASH_LAUNCH(64, false);
   return vec ? FLASH_LAUNCH(128, true) : FLASH_LAUNCH(128, false);
 #undef FLASH_LAUNCH
@@ -550,21 +559,25 @@ extern "C" {
 // `scale_log2` is dh^-0.5 log2(e); `vec` (0/1) says that every row of
 // q, k, v and o starts 16-byte aligned and dh fills whole 16-byte chunks,
 // so tiles load with cp.async (checked: cudaErrorMisalignedAddress).
+// `lse`, when not null, receives each row's m + log2(l) as (B, H, Sq)
+// f32 (in log2 units of the scaled scores): the backward kernel's
+// (flash_attention_bwd.cu) softmax statistics. Serving passes null.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int KV, int Sq, int Skv, int dh,
                         const long long* strides, int causal, int window,
-                        float scale_log2, int vec, void* stream) {
+                        float scale_log2, int vec, void* lse, void* stream) {
   return (int)dispatch<float>(q, k, v, o, B, H, KV, Sq, Skv, dh, strides,
-                              causal, window, scale_log2, vec, stream);
+                              causal, window, scale_log2, vec,
+                              static_cast<float*>(lse), stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          int B, int H, int KV, int Sq, int Skv, int dh,
                          const long long* strides, int causal, int window,
-                         float scale_log2, int vec, void* stream) {
+                         float scale_log2, int vec, void* lse, void* stream) {
   return (int)dispatch<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Skv, dh,
                                       strides, causal, window, scale_log2,
-                                      vec, stream);
+                                      vec, static_cast<float*>(lse), stream);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -8,6 +8,15 @@ returning y and the final f32 state, which a decode resumes from.
   * a CUDA tensor launches the hand-written kernel (``csrc/wkv.cu``,
     built by ``kernels._nvcc`` at first use) or raises. No CUDA input is
     ever routed to the plain version.
+  * when an input requires a gradient (grad mode on), a CUDA call goes
+    through ``WKV``, a ``torch.autograd.Function`` whose backward launches
+    the hand-written backward kernel (``csrc/wkv_bwd.cu``: dr, dk, dv, dw
+    and du in reverse time, S_{t-1} rebuilt from states stored every 16
+    steps, never by dividing by w). The final state S is treated as
+    having no gradient (training leaves it unused); a nonzero one raises
+    rather than being dropped. The backward takes f32 only (the reference
+    trains in f32): bf16 inputs that require a gradient raise. On the CPU
+    autograd differentiates the plain version.
 
 The reference's ``chunk`` and ``interpret`` arguments do not exist here,
 nor does its padding of time to a chunk multiple with w=1, k=0 no-op
@@ -35,12 +44,20 @@ from repro_torch.kernels._nvcc import Library
 from repro_torch.kernels.ssm_scan.ref import wkv_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
+CSRC_BWD = CSRC.with_name("wkv_bwd.cu")
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 # r, k, v, w, u, y, S, B, H, T, dk, strides, vec, stream
 _SIG = [_ptr] * 7 + [_i32] * 4 + [_ptr, _i32, _ptr]
 LIB = Library(CSRC, {"wkv_f32": _SIG, "wkv_bf16": _SIG,
                      "wkv_launch_shape": [_i32] * 3 + [_ptr]},
               "wkv_error_string")
+# r, k, v, w, u, dy, dr, dk, dv, dw, du, du_part, ckpt, B, H, T, dk,
+# strides, stream
+BWD_LIB = Library(CSRC_BWD, {"wkv_bwd_f32": [_ptr] * 13 + [_i32] * 4
+                             + [_ptr, _ptr]},
+                  "wkv_bwd_error_string")
+# Steps between the states the backward kernel stores (its chunk).
+BWD_CHUNK = 16
 
 # Largest head size the kernel takes: a value column of S is spread over
 # 16 lanes of 4 rows each.
@@ -91,6 +108,60 @@ def _launch(r, k, v, w, u):
     return y, S
 
 
+def _launch_bwd(r, k, v, w, u, dy):
+    """One launch of the backward kernel on f32 CUDA tensors. Returns
+    contiguous (dr, dk, dv, dw) and du (H, dk) f32."""
+    B, H, T, dk = r.shape
+    r, k, v, w, dy = (a if a.stride(3) == 1 else a.contiguous()
+                      for a in (r, k, v, w, dy))
+    u = u.to(torch.float32).contiguous()
+    grads = [torch.empty((B, H, T, dk), dtype=torch.float32, device=r.device)
+             for _ in range(4)]
+    du = torch.empty((H, dk), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, H, dk), dtype=torch.float32, device=r.device)
+    n_ch = -(-T // BWD_CHUNK)
+    ckpt = torch.empty(B * H * n_ch * 64 * 64, dtype=torch.float32,
+                       device=r.device)
+    strides = [s for a in (r, k, v, w, dy) for s in a.stride()[:3]]
+    fn = BWD_LIB.load().wkv_bwd_f32
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), dy.data_ptr(),
+                 *(g.data_ptr() for g in grads), du.data_ptr(),
+                 du_part.data_ptr(), ckpt.data_ptr(), B, H, T, dk,
+                 (ctypes.c_longlong * 15)(*strides), stream)
+    BWD_LIB.check(err, "wkv backward")
+    return (*grads, du)
+
+
+class WKV(torch.autograd.Function):
+    """The kernels as one differentiable function of (r, k, v, w, u) on
+    CUDA: the forward launch and the backward launch. ``wkv`` applies it
+    whenever an input requires a gradient."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        y, S = _launch(r, k, v, w, u)
+        wkv.launches += 1
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        return y, S
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        if dS is not None and bool(dS.any()):
+            raise NotImplementedError(
+                "wkv: the backward kernel treats the final state as having "
+                "no gradient (training leaves it unused); got a nonzero one")
+        r, k, v, w, u = ctx.saved_tensors
+        if dy is None:
+            return None, None, None, None, None
+        dr, dk, dv, dw, du = _launch_bwd(r, k, v, w, u, dy)
+        wkv.bwd_launches += 1
+        return dr, dk, dv, dw, du.to(u.dtype)
+
+
 def launch_shape(B, H, dk):
     """(blocks, threads per block) of the kernel's launch for this shape
     (builds and loads the library)."""
@@ -113,15 +184,30 @@ def wkv(r, k, v, w, u):
     """r/k/v/w (B,H,T,dk), all four of one dtype, f32 or bf16 (the
     reference casts each input to f32 and so also takes mixed dtypes; this
     wrapper refuses them on both devices); u (H,dk). Returns (y (B,H,T,dk) in
-    r's dtype, S (B,H,dk,dk) f32). On CUDA, dk ≤ ``MAX_DK``."""
+    r's dtype, S (B,H,dk,dk) f32). On CUDA, dk ≤ ``MAX_DK``; when an input
+    requires a gradient, the call is ``WKV`` (f32 only), whose backward is
+    the backward kernel."""
     _check(r, k, v, w, u)
     if r.device.type == "cpu":
         return wkv_ref(r, k, v, w, u)
+    return _on_card(r, k, v, w, u)
+
+
+def _on_card(r, k, v, w, u):
+    """The CUDA path of ``wkv``: ``WKV`` when an input requires a
+    gradient, else one forward launch."""
+    if torch.is_grad_enabled() and any(a.requires_grad
+                                       for a in (r, k, v, w, u)):
+        if r.dtype != torch.float32:
+            raise TypeError(f"the wkv backward kernel takes float32; got "
+                            f"{r.dtype} inputs that require a gradient")
+        return WKV.apply(r, k, v, w, u)
     out = _launch(r, k, v, w, u)
     wkv.launches += 1
     return out
 
 
-# Kernel launches in this process; ``chip_smoke.py`` zeroes it before each
-# path it drives and reads it after.
+# Kernel launches in this process (forward, backward); ``chip_smoke.py``
+# zeroes them before each path it drives and reads them after.
 wkv.launches = 0
+wkv.bwd_launches = 0

@@ -4,20 +4,25 @@ and KV caches (full and ring-buffer): the port's copy of
 
 Shapes: x (B, S, d_model); q (B, S, H, dh); k/v (B, S, KV, dh).
 
-Causal self-attention over a whole sequence (the prefill) runs through
-the hand-written flash-attention kernel (``kernels.flash_attention``),
-reading the projections through transposed views. Decode (one query
+Causal self-attention over a whole sequence (the prefill, and every
+attention of a training step) runs through the hand-written
+flash-attention kernel (``kernels.flash_attention``), reading the
+projections through transposed views; when the projections require a
+gradient, its backward is the hand-written backward kernel. The kernel
+is blockwise by construction (it never holds the S × S scores), so the
+``blockwise`` flag does not change the kernel path. Decode (one query
 against the cache) stays the plain grouped ``sdpa``, as in the
 reference: the kernel's causal mask has no query offset. ``plain=True``
-runs the prefill through ``sdpa`` too: the explicit reference run.
+runs the full-sequence attention through ``sdpa`` too (the explicit
+reference run); with ``blockwise``, the plain path (``plain`` or a CPU
+tensor) takes ``blockwise_sdpa``, the reference's query-chunked path.
 
 Caches are updated in place (``fill_cache_from_prefill``,
 ``decode_attention``): the reference returns new arrays, the port writes
 the one slot a token adds instead of copying the cache.
 Every ported layer is causal self-attention with RoPE: the reference's
 non-causal, RoPE-free and cross-attention variants are the enc-dec path
-(ROADMAP queue 1 item 14), and ``blockwise_sdpa`` (the
-``flags.blockwise_prefill`` path) waits for item 17.
+(ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -89,16 +94,23 @@ def causal_window_mask(s, window, device=None):
     return m
 
 
-def full_attention(p, a: AttnConfig, x, positions, *, window=0, plain=False):
-    """Full-sequence causal self-attention (the prefill), optionally within
-    a local ``window``. Returns (y, (k, v)): k/v are the cache material
-    (RoPE applied). Runs through ``kernels.flash_attention``, or with
+def full_attention(p, a: AttnConfig, x, positions, *, window=0, plain=False,
+                   blockwise=False, q_chunk=512):
+    """Full-sequence causal self-attention (the prefill and training),
+    optionally within a local ``window``. Returns (y, (k, v)): k/v are the
+    cache material (RoPE applied). Runs through ``kernels.flash_attention``
+    (blockwise by construction, whatever ``blockwise`` says), or with
     ``plain`` through the grouped ``sdpa`` under the causal-window mask
-    (the reference's own path)."""
+    (the reference's own path). ``blockwise`` on the plain path (``plain``
+    or a CPU tensor) takes ``blockwise_sdpa`` in query chunks of
+    ``q_chunk``."""
     B, S, _ = x.shape
     q = _project_q(p, a, x, positions)
     k, v = _project_kv(p, a, x, positions)
-    if plain:
+    if blockwise and (plain or x.device.type == "cpu"):
+        y = blockwise_sdpa(q, k, v, a.n_kv_heads, causal=True, window=window,
+                           q_chunk=q_chunk)
+    elif plain:
         y = sdpa(q, k, v, causal_window_mask(S, window, x.device)[None],
                  a.n_kv_heads)
     else:
@@ -106,6 +118,43 @@ def full_attention(p, a: AttnConfig, x, positions, *, window=0, plain=False):
                                v.transpose(1, 2), causal=True, window=window)
         y = y.transpose(1, 2).reshape(B, S, a.n_heads * a.d_head)
     return L.dense(p["wo"], y), (k, v)
+
+
+def blockwise_sdpa(q, k, v, n_kv, *, causal=True, window=0, q_chunk=512):
+    """Memory-bounded attention (the reference's ``blockwise_sdpa``): a loop
+    over query chunks, so scores are (B, KV, G, qc, Skv) instead of
+    (…, Sq, Skv). For sliding-window layers each chunk reads only the
+    (qc + W) kv slice it can see. The same softmax and masking as ``sdpa``
+    with the causal-window mask. Returns (B, Sq, H·dh)."""
+    B, Sq, H, dh = q.shape
+    Skv = k.shape[1]
+    qc = min(q_chunk, Sq)
+    if Sq % qc:
+        qc = next(c for c in range(qc, 0, -1) if Sq % c == 0)
+    use_slice = bool(window) and window + qc < Skv
+    if use_slice:
+        # pad kv by W in front so slice [q_lo, q_lo + qc + W) covers
+        # positions q_lo - W … q_lo + qc - 1 with in-bounds indices.
+        kp = torch.nn.functional.pad(k, (0, 0, 0, 0, window, 0))
+        vp = torch.nn.functional.pad(v, (0, 0, 0, 0, window, 0))
+    ys = []
+    for q_lo in range(0, Sq, qc):
+        if use_slice:
+            k_c = kp[:, q_lo:q_lo + qc + window]
+            v_c = vp[:, q_lo:q_lo + qc + window]
+            kj = q_lo - window + torch.arange(qc + window, device=q.device)
+        else:
+            k_c, v_c = k, v
+            kj = torch.arange(Skv, device=q.device)
+        kj = kj[None, :]
+        qi = q_lo + torch.arange(qc, device=q.device)[:, None]
+        mask = kj >= 0
+        if causal:
+            mask = mask & (kj <= qi)
+        if window:
+            mask = mask & (kj > qi - window)
+        ys.append(sdpa(q[:, q_lo:q_lo + qc], k_c, v_c, mask[None], n_kv))
+    return torch.cat(ys, dim=1)
 
 
 # ------------------------------------------------------------------- caches

@@ -102,7 +102,11 @@ def init_embedding(init: Init, vocab, d):
 
 
 def embed(p, ids):
-    return p["table"][ids]
+    """Rows ``ids`` of the table. ``F.embedding``, not indexing: its
+    backward sums repeated ids deterministically (indexing's backward
+    accumulates in an order that changes from run to run), so a training
+    step is reproducible bit for bit."""
+    return F.embedding(ids, p["table"])
 
 
 def unembed(p, x):

@@ -2,11 +2,15 @@
 state per head) and its channel-mix: the RWKV6 half of
 ``repro.models.ssm``.
 
-The full-sequence path (the prefill) runs the recurrence through the
-hand-written wkv kernel (``kernels.ssm_scan``), which returns the final
-state the decode resumes from; ``plain=True`` runs it through the plain
-version instead (the explicit reference run). The decode path is the
-plain one-step recurrence over the carried state, as in the reference.
+The full-sequence path (the prefill, and every time-mix of a training
+step) runs the recurrence through the hand-written wkv kernel
+(``kernels.ssm_scan``), which returns the final state the decode resumes
+from; when its inputs require a gradient, its backward is the
+hand-written wkv backward kernel (the final state gets none: training
+leaves it unused). ``plain=True`` runs it through the plain version
+instead (the explicit reference run, differentiated by autograd). The
+decode path is the plain one-step recurrence over the carried state, as
+in the reference.
 
 Mamba (ROADMAP queue 1 item 13) is not ported yet, nor are the
 reference's sharding hints (``_hint``), which have no counterpart on one

@@ -12,14 +12,29 @@ Sub-layer kinds ported here:
   ('rwkv',)
 The kinds ``('attn', 'moe', w)``, ``('mamba', ffn)``, ``('enc',)`` and
 ``('dec',)`` raise ``NotImplementedError`` naming their ROADMAP item.
+
+Training: with ``Ctx.remat`` each repeat's body runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
+after the forward and recomputed in the backward, as the reference's
+``jax.checkpoint`` does. So in a step with remat the forward kernels
+(flash attention, wkv) launch twice per layer (the forward, then the
+recompute) and their backward kernels once. ``flags.nested_remat_group``
+= g > 1 checkpoints groups of g checkpointed repeats, on the reference's
+condition (full mode, no cache, g divides the repeats and is smaller);
+then a layer's forward runs three times. Every layer also returns the
+auxiliary losses {"lb", "z"} (zero until MoE, ROADMAP queue 1 item 12),
+summed over the segment.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import flags
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -102,6 +117,22 @@ class Ctx:
     # through the kernels' plain versions even on CUDA tensors. Only the
     # caller sets it (chip_smoke.py and the card tests); never implied.
     plain_kernels: bool = False
+    remat: bool = False           # checkpoint each repeat (training)
+
+
+def _zero_aux(device):
+    return {"lb": torch.zeros((), dtype=L.ACC, device=device),
+            "z": torch.zeros((), dtype=L.ACC, device=device)}
+
+
+def _add_aux(a, b):
+    return {k: a[k] + b[k] for k in a}
+
+
+# Non-reentrant, so checkpoints nest and closures over parameters get
+# their gradients; nothing in a layer draws random numbers.
+_checkpoint = partial(checkpoint, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 # ------------------------------------------------------------- layer bodies
@@ -137,16 +168,20 @@ def init_layer_cache(cfg: ArchConfig, kind, batch, cache_len, dtype,
 
 
 def apply_layer_full(cfg: ArchConfig, kind, p, x, ctx: Ctx):
-    """Full-sequence sub-layer. Returns (x, cache_entry)."""
+    """Full-sequence sub-layer. Returns (x, cache_entry, aux)."""
     _ported(kind)
     B, Sq, d = x.shape
     cache = {}
     if kind[0] == "attn":
         _, _, w = kind
+        f = flags.get()
         positions = torch.arange(Sq, device=x.device).expand(B, Sq)
         h = L.apply_norm(cfg.norm, p["ln1"], x)
         y, (k, v) = A.full_attention(p["attn"], cfg.attn, h, positions,
-                                     window=w, plain=ctx.plain_kernels)
+                                     window=w, plain=ctx.plain_kernels,
+                                     blockwise=(f.blockwise_prefill
+                                                and Sq >= 2048),
+                                     q_chunk=f.q_chunk)
         x = x + y
         if ctx.want_cache:
             cache = A.fill_cache_from_prefill(
@@ -154,7 +189,7 @@ def apply_layer_full(cfg: ArchConfig, kind, p, x, ctx: Ctx):
                              x.dtype, x.device), k, v,
                 ring=bool(w) and w < ctx.cache_len)
         h2 = L.apply_norm(cfg.norm, p["ln2"], x)
-        return x + L.mlp(p["ffn"], h2, cfg.act), cache
+        return x + L.mlp(p["ffn"], h2, cfg.act), cache, _zero_aux(x.device)
     h = L.layernorm(p["ln1"], x)
     y, st = S.rwkv6_full(p["tmix"], cfg.ssm, h, plain=ctx.plain_kernels)
     x = x + y
@@ -164,7 +199,7 @@ def apply_layer_full(cfg: ArchConfig, kind, p, x, ctx: Ctx):
     if ctx.want_cache:
         st["cm_prev"] = h2[:, -1:, :].to(L.ACC)
         cache = st
-    return x + y2, cache
+    return x + y2, cache, _zero_aux(x.device)
 
 
 def apply_layer_decode(cfg: ArchConfig, kind, p, x1, cache, ctx: Ctx):
@@ -241,25 +276,55 @@ def _first_leaf(tree):
 def apply_segment(cfg, kinds, params, x, cache, ctx: Ctx):
     """Run one segment, repeat by repeat. In decode mode ``cache`` (stacked
     like the parameters) is updated in place; in full mode with
-    ``ctx.want_cache`` a new stacked cache is built. Returns
-    (x, cache or None)."""
+    ``ctx.want_cache`` a new stacked cache is built; with ``ctx.remat``
+    (and grad mode on) each repeat, or each group of
+    ``flags.nested_remat_group`` repeats, is checkpointed. Returns
+    (x, cache or None, aux sums)."""
     decode = ctx.mode == "decode"
     reps = _first_leaf(params).shape[0]
+    aux = _zero_aux(x.device)
+    if decode:
+        for r in range(reps):
+            p = _index(params, r)
+            for j, kind in enumerate(kinds):
+                cj = _index(cache[f"s{j}"], r)
+                x, new = apply_layer_decode(cfg, kind, p[f"s{j}"], x, cj, ctx)
+                _write(cj, new)
+        return x, cache, aux
+
+    def body(r, x):
+        """Repeat ``r``: (x, its cache entries, its aux sum)."""
+        p = _index(params, r)
+        entries, aux_r = {}, _zero_aux(x.device)
+        for j, kind in enumerate(kinds):
+            x, entries[f"s{j}"], a = apply_layer_full(cfg, kind, p[f"s{j}"],
+                                                      x, ctx)
+            aux_r = _add_aux(aux_r, a)
+        return x, entries, aux_r
+
+    remat = ctx.remat and not ctx.want_cache and torch.is_grad_enabled()
+    g = flags.get().nested_remat_group
+    if remat and g > 1 and reps % g == 0 and reps > g:
+        # nested (sqrt) remat: checkpointed groups of g checkpointed
+        # repeats store reps/g + g hiddens instead of reps.
+        def group(r0, x):
+            aux_g = _zero_aux(x.device)
+            for r in range(r0, r0 + g):
+                x, _, a = _checkpoint(body, r, x)
+                aux_g = _add_aux(aux_g, a)
+            return x, aux_g
+
+        for r0 in range(0, reps, g):
+            x, a = _checkpoint(group, r0, x)
+            aux = _add_aux(aux, a)
+        return x, None, aux
     out = {}
     for r in range(reps):
-        p = _index(params, r)
-        for j, kind in enumerate(kinds):
-            name = f"s{j}"
-            if decode:
-                cj = _index(cache[name], r)
-                x, new = apply_layer_decode(cfg, kind, p[name], x, cj, ctx)
-                _write(cj, new)
-            else:
-                x, new = apply_layer_full(cfg, kind, p[name], x, ctx)
-                if ctx.want_cache:
-                    if name not in out:
-                        out[name] = _stack_like(new, reps)
-                    _write(_index(out[name], r), new)
-    if decode:
-        return x, cache
-    return x, (out if ctx.want_cache else None)
+        x, entries, a = _checkpoint(body, r, x) if remat else body(r, x)
+        aux = _add_aux(aux, a)
+        if ctx.want_cache:
+            for name, new in entries.items():
+                if name not in out:
+                    out[name] = _stack_like(new, reps)
+                _write(_index(out[name], r), new)
+    return x, (out if ctx.want_cache else None), aux

@@ -1,5 +1,6 @@
-"""Plain-tensor optimizers on dicts of tensors: SGD, momentum, Adam; the
-port of ``repro.optim.optimizers``.
+"""Plain-tensor optimizers on trees of tensors (nested dicts: U-DGD's θ,
+an LM's parameters): SGD, momentum, Adam; the port of
+``repro.optim.optimizers``.
 
 An optimizer is a pair of functions bundled in ``Optimizer``:
   init(params) -> state
@@ -10,7 +11,8 @@ code, not ``torch.optim``, so Adam's state is the reference's
 0-d int32 tensor) and converts across (``checkpoint.convert``). Every
 function returns new tensors and leaves its inputs as they are, as the
 reference does; updates are elementwise passes over each tensor, in the
-reference's order of operations.
+reference's order of operations. Leaves are visited in the trees' own
+order (``utils.tree``); the global norm sums them in that order.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+
+from repro_torch.utils.tree import _leaves, _map
 
 
 @dataclass(frozen=True)
@@ -27,21 +31,20 @@ class Optimizer:
 
 
 def _zeros_f32(params):
-    return {k: torch.zeros_like(p, dtype=torch.float32)
-            for k, p in params.items()}
+    return _map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
 def apply_updates(params, updates):
-    return {k: p + updates[k].to(p.dtype) for k, p in params.items()}
+    return _map(lambda p, u: p + u.to(p.dtype), params, updates)
 
 
 def clip_by_global_norm(grads, max_norm):
     """Scale ``grads`` to a global L2 norm of at most ``max_norm``;
     returns (clipped grads, the norm before clipping)."""
     gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                        for g in grads.values()))
+                        for g in _leaves(grads)))
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
-    return {k: g * scale for k, g in grads.items()}, gn
+    return _map(lambda g: g * scale, grads), gn
 
 
 def sgd(lr):
@@ -49,7 +52,7 @@ def sgd(lr):
         return ()
 
     def update(grads, state, params=None):
-        return {k: -lr * g for k, g in grads.items()}, state
+        return _map(lambda g: -lr * g, grads), state
     return Optimizer(init, update)
 
 
@@ -58,28 +61,28 @@ def momentum(lr, beta=0.9):
         return _zeros_f32(params)
 
     def update(grads, state, params=None):
-        new_m = {k: beta * m + grads[k].to(torch.float32)
-                 for k, m in state.items()}
-        return {k: -lr * m for k, m in new_m.items()}, new_m
+        new_m = _map(lambda m, g: beta * m + g.to(torch.float32), state,
+                     grads)
+        return _map(lambda m: -lr * m, new_m), new_m
     return Optimizer(init, update)
 
 
 def adam(lr, b1=0.9, b2=0.999, eps=1e-8):
     def init(params):
-        device = next(iter(params.values())).device
+        device = _leaves(params)[0].device
         return {"m": _zeros_f32(params), "v": _zeros_f32(params),
                 "t": torch.zeros((), dtype=torch.int32, device=device)}
 
     def update(grads, state, params=None):
         t = state["t"] + 1
-        g32 = {k: g.to(torch.float32) for k, g in grads.items()}
-        m = {k: b1 * m_ + (1 - b1) * g32[k] for k, m_ in state["m"].items()}
-        v = {k: b2 * v_ + (1 - b2) * torch.square(g32[k])
-             for k, v_ in state["v"].items()}
+        m = _map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(torch.float32),
+                 state["m"], grads)
+        v = _map(lambda v_, g: b2 * v_ + (1 - b2)
+                 * torch.square(g.to(torch.float32)), state["v"], grads)
         tf = t.to(torch.float32)
         bc1 = 1 - torch.pow(b1, tf)
         bc2 = 1 - torch.pow(b2, tf)
-        upd = {k: -lr * (m[k] / bc1) / (torch.sqrt(v[k] / bc2) + eps)
-               for k in m}
+        upd = _map(lambda m_, v_: -lr * (m_ / bc1)
+                   / (torch.sqrt(v_ / bc2) + eps), m, v)
         return upd, {"m": m, "v": v, "t": t}
     return Optimizer(init, update)

@@ -7,9 +7,11 @@ S_t may isolate agents; seed-batched, with snapshots; the sparse task
 and RSDUN; a resume from a checkpoint), the async study through the
 graph filter, the halo-pallas resident block and one halo-pallas
 meta-step on simulated shards of the card, one
-FL baseline on the card against the CPU, and a
+FL baseline on the card against the CPU, a
 reduced-config LLM prefill and decode through the flash and wkv kernels
-against the same model run through the plain versions.
+against the same model run through the plain versions, the flash and wkv
+backward kernels against autograd through the plain versions, and a
+reduced-config LM train step through the kernels against the plain one.
 
 They are marked ``cuda`` and skip without a card. They import no jax, so
 they run on a card machine without it:
@@ -30,7 +32,9 @@ tolerance; 5e-6 for a
 meta-step's state through the kernel against the plain filter
 (``tests/test_torch_train.py``); 1e-4 for reduced-config LLM logits
 through the kernels against the plain versions
-(``tests/test_torch_lm.py``)."""
+(``tests/test_torch_lm.py``); 1e-4 of each gradient's largest entry for
+the backward kernels and the train step's gradients (f32 sums in
+another order, ``chip_smoke.py`` phases 5b-6b)."""
 import dataclasses
 
 import numpy as np
@@ -750,14 +754,14 @@ def test_reduced_prefill_and_decode_through_kernels(cuda, arch):
                        device=cuda)
     P, cache_len = 36, 40
     before = (flash_attention.launches, wkv.launches)
-    logits, cache = M.forward(cfg, params, ids[:, :P], want_cache=True,
+    logits, cache, _ = M.forward(cfg, params, ids[:, :P], want_cache=True,
                               cache_len=cache_len)
     torch.cuda.synchronize()
     n = cfg.n_layers
     want = (0, n) if cfg.attn is None else (n, 0)
     assert (flash_attention.launches - before[0],
             wkv.launches - before[1]) == want
-    plain, pcache = M.forward(cfg, params, ids[:, :P], want_cache=True,
+    plain, pcache, _ = M.forward(cfg, params, ids[:, :P], want_cache=True,
                               cache_len=cache_len, plain_kernels=True)
     torch.testing.assert_close(logits, plain, atol=1e-4, rtol=1e-4)
     for pos in range(P, cache_len):
@@ -772,3 +776,116 @@ def test_reduced_prefill_and_decode_through_kernels(cuda, arch):
     tok, cache = prefill(params, {"tokens": ids[:, :P]})
     tok, cache = decode(params, cache, tok, P)
     assert tok.shape == (2, 1) and 0 <= int(tok.min()) <= int(tok.max()) < cfg.vocab
+
+
+# ------------------------------------------------------ backward kernels
+# Gradients of the backward kernels against autograd through the plain
+# versions, within BWD_REL_TOL of each gradient's largest entry (as
+# chip_smoke.py phases 5b-6b: f32 sums in another order).
+BWD_REL_TOL = 1e-4
+FLASH_BWD_SHAPES = ([(B, H, KV, S, S, dh, win, causal)
+                     for B, H, KV, S, dh, win, causal in FLASH_SHAPES]
+                    + FLASH_EDGES)
+
+
+def _rel_grads_close(got, ref):
+    for g, r in zip(got, ref):
+        err = (g - r).abs().max().item()
+        assert err <= BWD_REL_TOL * r.abs().max().item(), err
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal", FLASH_BWD_SHAPES)
+def test_flash_backward_kernel_matches_plain_version(cuda, B, H, KV, Sq, Skv,
+                                                     dh, win, causal):
+    rng = np.random.default_rng(Sq + dh)
+    q, k, v, do = (torch.tensor(rng.standard_normal((B, n, s, dh)).astype(
+        np.float32), device=cuda) for n, s in ((H, Sq), (KV, Skv),
+                                               (KV, Skv), (H, Sq)))
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    o = flash_attention(*xs, causal=causal, window=win)
+    got = torch.autograd.grad(o, xs, do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_flash_matches(o.detach(), q, k, v, causal, win)
+    xr = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(attention_ref(*xr, causal=causal, window=win),
+                              xr, do)
+    _rel_grads_close(got, ref)
+    again = torch.autograd.grad(flash_attention(*xs, causal=causal,
+                                                window=win), xs, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,H,T,dk", WKV_SHAPES + WKV_EDGES)
+def test_wkv_backward_kernel_matches_plain_version(cuda, B, H, T, dk):
+    args = _wkv_inputs(B, H, T, dk, torch.float32, cuda, seed=T + dk)
+    dy = torch.tensor(np.random.default_rng(T).standard_normal(
+        (B, H, T, dk)).astype(np.float32), device=cuda)
+    xs = [a.clone().requires_grad_() for a in args]
+    before = (wkv.launches, wkv.bwd_launches)
+    y, S = wkv(*xs)
+    got = torch.autograd.grad(y, xs, dy)
+    torch.cuda.synchronize()
+    assert (wkv.launches, wkv.bwd_launches) == (before[0] + 1,
+                                                before[1] + 1)
+    xr = [a.clone().requires_grad_() for a in args]
+    # at T = 1 the plain recurrence never reads w: its gradient is zero
+    ref = [torch.zeros_like(x) if g is None else g for x, g in zip(
+        xr, torch.autograd.grad(wkv_ref(*xr)[0], xr, dy, allow_unused=True))]
+    _rel_grads_close(got, ref)
+    again = torch.autograd.grad(wkv(*xs)[0], xs, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_backward_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v = _flash_inputs(1, 2, 1, 40, 32, torch.bfloat16, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention(q.requires_grad_(), k, v)
+    args = _wkv_inputs(1, 2, 20, 16, torch.bfloat16, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        wkv(args[0].requires_grad_(), *args[1:])
+    args = [a.float().requires_grad_() for a in args]
+    y, S = wkv(*args)
+    with pytest.raises(NotImplementedError, match="final state"):
+        (y.sum() + S.sum()).backward()
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_reduced_train_step_through_kernels_matches_plain(cuda, arch):
+    """A reduced-config train step with remat through the kernels: 2L
+    forward and L backward launches of the layer's kernel, the loss and
+    every gradient within 1e-4 of the plain versions' (each tensor's
+    largest entry), and the step's parameters finite."""
+    from repro_torch import flags
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    cfg = get_config(arch).reduced()
+    params = M.init_lm(cfg, 0, device=cuda)
+    ids = np.random.default_rng(1).integers(0, cfg.vocab, (2, 65))
+    batch = {"tokens": torch.tensor(ids[:, :-1], device=cuda),
+             "labels": torch.tensor(ids[:, 1:], device=cuda)}
+    flags.set_flags(chunked_ce=16)
+    try:
+        kernel = flash_attention if cfg.attn is not None else wkv
+        before = (kernel.launches, kernel.bwd_launches)
+        (lk, _), gk = loss_and_grads(cfg, params, batch, remat=True)
+        L = cfg.n_layers
+        assert (kernel.launches - before[0],
+                kernel.bwd_launches - before[1]) == (2 * L, L)
+        (lp, _), gp = loss_and_grads(cfg, params, batch, remat=True,
+                                     plain_kernels=True)
+        assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
+        _rel_grads_close(_leaf_list(gk), _leaf_list(gp))
+        step, opt = make_train_step(cfg, lr=1e-3, remat=True)
+        new, _, m = step(params, opt.init(params), batch)
+        assert all(torch.isfinite(t).all() for t in _leaf_list(new))
+        assert abs(m["loss"].item() - lk.item()) <= 1e-6 * abs(lk.item())
+    finally:
+        flags.set_flags(chunked_ce=0)
+
+
+def _leaf_list(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaf_list(v)]
+    return [tree]

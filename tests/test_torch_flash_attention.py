@@ -10,6 +10,7 @@ Tolerance: 10x the reference's kernel tolerance (5e-5 f32, 5e-2 bf16),
 the reference's own for this kernel (``test_flash_attention_sweep``);
 the emulated CUDA arithmetic is also held to ``ops.bf16_error_bound``,
 the card's per-element bf16 gate."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -261,3 +262,164 @@ def test_vector_loads_decision():
     assert not vector_loads(q33[..., :32])               # stride 33
     assert vector_loads(q.to(torch.bfloat16))
     assert not vector_loads(q.to(torch.bfloat16)[..., :20])  # 40-byte rows
+
+
+# ------------------------------------------------------------- backward
+# The reference has no Pallas backward: its LM differentiates plain
+# attention. So the port's gradient (autograd through ``attention_ref`` on
+# the CPU; the backward kernel on the card) is held against ``jax.vjp`` of
+# the reference's plain version, within 1e-4 of each gradient's largest
+# entry (f32 sums over up to Skv keys in another order; the kernel is at
+# most 4.7e-6 from autograd of the plain version on an H100, at the
+# qwen3-4b shape, ``chip_smoke.py`` 5b).
+GRAD_TOL = 1e-4
+GRAD_CASES = [(B, H, KV, S, S, dh, win, True) for B, H, KV, S, dh, win
+              in SWEEP] + [(2, 4, 2, 50, 37, 32, 0, False),
+                           (2, 4, 2, 50, 37, 32, 24, False),
+                           (1, 4, 1, 97, 97, 24, 40, True)]
+
+
+def _grad_inputs(B, H, KV, Sq, Skv, dh, seed):
+    (jq, jk, jv), (q, k, v) = _inputs(B, H, KV, Sq, dh, "float32", seed=seed,
+                                      Skv=Skv)
+    do = np.random.default_rng(seed + 1).standard_normal(
+        (B, H, Sq, dh)).astype(np.float32)
+    return (jq, jk, jv), (q, k, v), do
+
+
+def _reference_grads(jargs, do, causal, window):
+    _, vjp = jax.vjp(lambda q, k, v: jattention_ref(
+        q, k, v, causal=causal, window=window), *jargs)
+    return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _close_grads(got, ref):
+    for name, g, gr in zip("qkv", got, ref):
+        np.testing.assert_allclose(_np(g), gr, atol=GRAD_TOL * np.abs(gr).max(),
+                                   rtol=GRAD_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal", GRAD_CASES)
+def test_plain_gradient_matches_reference(B, H, KV, Sq, Skv, dh, win, causal):
+    jargs, args, do = _grad_inputs(B, H, KV, Sq, Skv, dh, seed=Sq + dh)
+    args = [a.requires_grad_() for a in args]
+    flash_attention(*args, causal=causal, window=win).backward(
+        torch.tensor(do))
+    _close_grads([a.grad for a in args],
+                 _reference_grads(jargs, do, causal, win))
+
+
+def _bwd_emulation(q, k, v, do, causal, window, skip_first=False):
+    """The backward kernel's algorithm in f32 on the CPU: P rebuilt from the
+    forward's row log-sum-exp (log2 units), delta = rowsum(do ∘ o); the
+    dk/dv kernel's loop per kv tile of 64 keys over the G query heads of
+    its kv head and over the query tiles of 32 rows that can see it (its
+    range arithmetic), the dq kernel's loop per query tile over the kv
+    tiles it sees. ``skip_first`` drops each kv tile's first query tile
+    (a faulty range)."""
+    B, H, Sq, dh = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    G = H // KV
+    BQ, BKV = 32, 64
+    sl2 = dh ** -0.5 * LOG2E
+    kh, vh = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    qi, kj = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
+    live = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        live &= kj <= qi
+    if window:
+        live &= kj > qi - window
+    s2 = (q @ kh.mT) * sl2
+    lse = torch.logsumexp(torch.where(live, s2, -1e30) / LOG2E, -1) * LOG2E
+    o = attention_ref(q, k, v, causal=causal, window=window)
+    delta = (do * o).sum(-1)
+
+    def tiles(rows, cols):
+        p = torch.where(live[rows, cols], torch.exp2(
+            s2[:, :, rows, cols] - lse[:, :, rows, None]), 0.0)
+        dp = do[:, :, rows] @ vh[:, :, cols].mT
+        return p, p * (dp - delta[:, :, rows, None])
+
+    n_q, n_kv = -(-Sq // BQ), -(-Skv // BKV)
+    dk, dv, dq = torch.zeros_like(k), torch.zeros_like(v), torch.zeros_like(q)
+    for jt in range(n_kv):
+        k_lo = jt * BKV
+        k_hi = min(k_lo + BKV, Skv) - 1
+        cols = slice(k_lo, k_hi + 1)
+        i_begin = k_lo // BQ if causal else 0
+        i_end = min(n_q, (k_hi + window - 1) // BQ + 1) if window else n_q
+        for g in range(G):
+            heads = slice(g, H, G)     # the heads kv head h // G reads
+            for it in range(i_begin + skip_first, i_end):
+                rows = slice(it * BQ, min(it * BQ + BQ, Sq))
+                p, ds = (t[:, heads] for t in tiles(rows, cols))
+                dv[:, :, cols] += p.mT @ do[:, heads, rows]
+                dk[:, :, cols] += ds.mT @ q[:, heads, rows]
+    for it in range(n_q):
+        q_lo = it * BQ
+        q_hi = min(q_lo + BQ, Sq) - 1
+        rows = slice(q_lo, q_hi + 1)
+        j_end = min(n_kv, q_hi // BKV + 1) if causal else n_kv
+        j_begin = max(0, q_lo - window + 1) // BKV if window else 0
+        for jt in range(j_begin, j_end):
+            cols = slice(jt * BKV, min(jt * BKV + BKV, Skv))
+            dq[:, :, rows] += tiles(rows, cols)[1] @ kh[:, :, cols]
+    scale = dh ** -0.5
+    return dq * scale, dk * scale, dv
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal",
+                         GRAD_CASES + [(1, 4, 2, 200, 200, 16, 70, True),
+                                       (1, 2, 1, 150, 150, 16, 0, True)])
+def test_backward_kernel_algorithm_matches_reference(B, H, KV, Sq, Skv, dh,
+                                                     win, causal):
+    """The backward kernel's tiling and tile ranges (causal, windowed,
+    non-causal ragged, GQA; several tiles each way at S = 150 and 200)
+    against ``jax.vjp`` of the reference."""
+    jargs, args, do = _grad_inputs(B, H, KV, Sq, Skv, dh, seed=Sq + dh)
+    got = _bwd_emulation(*args, torch.tensor(do), causal, win)
+    _close_grads(got, _reference_grads(jargs, do, causal, win))
+
+
+def test_backward_algorithm_check_catches_a_dropped_tile():
+    jargs, args, do = _grad_inputs(1, 4, 2, 200, 200, 16, seed=4)
+    got = _bwd_emulation(*args, torch.tensor(do), True, 70, skip_first=True)
+    with pytest.raises(AssertionError):
+        _close_grads(got, _reference_grads(jargs, do, True, 70))
+
+
+def test_cuda_style_call_keeps_the_gradient(monkeypatch):
+    """A CUDA call's output comes from a ctypes launch and carries no
+    ``grad_fn``. Under grad, the card path now goes through
+    ``FlashAttention``, whose backward launches the backward kernel: with
+    both launches stubbed by plain computations on CPU tensors (outputs
+    detached, as a launch's are), q, k and v get the reference's gradients
+    and the counters count one launch each way. Without grad it is one
+    forward launch; bf16 inputs that require a gradient raise."""
+    jargs, args, do = _grad_inputs(2, 4, 2, 40, 40, 16, seed=3)
+
+    def launch(q, k, v, causal, window, want_lse=False):
+        o = attention_ref(q, k, v, causal=causal, window=window).detach()
+        return (o, torch.zeros(q.shape[:3])) if want_lse else o
+
+    def launch_bwd(q, k, v, o, lse, do, causal, window):
+        return tuple(g.detach() for g in _bwd_emulation(q, k, v, do, causal,
+                                                        window))
+
+    monkeypatch.setattr(ops, "_launch", launch)
+    monkeypatch.setattr(ops, "_launch_bwd", launch_bwd)
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    args = [a.requires_grad_() for a in args]
+    o = ops._on_card(*args, True, 8)
+    assert o.grad_fn is not None
+    o.backward(torch.tensor(do))
+    assert (flash_attention.launches, flash_attention.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    _close_grads([a.grad for a in args],
+                 _reference_grads(jargs, do, True, 8))
+    with torch.no_grad():
+        o = ops._on_card(*args, True, 8)
+    assert o.grad_fn is None and flash_attention.launches == before[0] + 2
+    with pytest.raises(TypeError, match="float32"):
+        ops._on_card(*(a.detach().bfloat16().requires_grad_() for a in args),
+                     True, 0)

@@ -158,8 +158,9 @@ def test_params_round_trip(pair):
 def test_forward_logits_match_reference(pair):
     jcfg, tcfg, jparams, tparams, ids = pair
     jl, _, _ = JM.forward(jcfg, jparams, jnp.asarray(ids))
-    tl, cache = M.forward(tcfg, tparams, torch.tensor(ids))
+    tl, cache, aux = M.forward(tcfg, tparams, torch.tensor(ids))
     assert cache is None and tl.dtype == torch.float32
+    assert {k: float(v) for k, v in aux.items()} == {"lb": 0.0, "z": 0.0}
     assert tl.shape == (2, PROMPT + NEW, tcfg.vocab)
     _close(tl, jl, "logits")
 
@@ -169,8 +170,8 @@ def test_plain_kernels_switch_runs_the_reference_path(pair):
     own plain attention / recurrence; on the CPU both are plain, so the
     hidden states agree to f32 rounding."""
     _, tcfg, _, tparams, ids = pair
-    h, _ = M.forward_hidden(tcfg, tparams, torch.tensor(ids))
-    hp, _ = M.forward_hidden(tcfg, tparams, torch.tensor(ids),
+    h, _, _ = M.forward_hidden(tcfg, tparams, torch.tensor(ids))
+    hp, _, _ = M.forward_hidden(tcfg, tparams, torch.tensor(ids),
                              plain_kernels=True)
     torch.testing.assert_close(h, hp, atol=TOL, rtol=TOL)
 
@@ -183,7 +184,7 @@ def test_prefill_cache_and_teacher_forced_decode_match_reference(pair):
     cache_len = PROMPT + NEW
     jl, jcache, _ = JM.forward(jcfg, jparams, jnp.asarray(ids[:, :PROMPT]),
                                want_cache=True, cache_len=cache_len)
-    tl, tcache = M.forward(tcfg, tparams, torch.tensor(ids[:, :PROMPT]),
+    tl, tcache, _ = M.forward(tcfg, tparams, torch.tensor(ids[:, :PROMPT]),
                            want_cache=True, cache_len=cache_len)
     _close(tl, jl, "prefill logits")
     ref, got = _leaves(jcache), _leaves(tcache)

@@ -1,0 +1,443 @@
+"""The port's LM training path against the reference, on the CPU, at the
+reduced configs of qwen3-4b, rwkv6-1.6b and gemma3-27b: ``lm_loss`` and
+its gradients (chunked cross-entropy, remat, nested remat),
+``make_train_step`` (with gradient accumulation), ``blockwise_sdpa``,
+``TokenPipeline``, the ``launch.train`` driver and LM checkpoints.
+
+Both packages run the same parameters: the reference's ``init_lm`` tree
+converted with ``checkpoint.convert.lm_params_from_numpy`` (Adam's state
+with ``lm_opt_state_from_numpy``), and the same token ids from numpy. The
+reference runs its own model code; the port runs its kernels' wrappers,
+which take their plain versions (autograd-differentiated) on CPU tensors.
+
+Tolerances, each with its reason:
+
+  * 1e-4 (atol and rtol) for losses, gradients, parameters and Adam's
+    moments (relative to each tensor's largest entry): f32 sums in another
+    order, the tolerance of ``tests/test_torch_lm.py`` (measured at most
+    2.5e-5 on the gradients, in rwkv6's time-mix);
+  * Adam's noise floor: where a gradient entry is at the f32 noise floor,
+    the two packages' f32 evaluations differ by more than 1e-4 of Adam's
+    m, and Adam's first, sign-like step (about −lr·sign(g) even for a
+    gradient of 1e-10) turns that into a parameter difference of up to
+    2·lr. Parameter entries outside 1e-4 there are counted apart (the
+    noise rule of ``chip_smoke.py``'s meta-step gate) and may be at most
+    0.2% of the tree (about 30 of 1.4 M entries show it here);
+  * 2e-5 for ``blockwise_sdpa`` (``tests/test_perf_opts.py``'s);
+  * microbatches against one batch at ``tests/test_perf_opts.py``'s: loss
+    within 1e-4 relative, the first parameter leaf within 5e-5.
+"""
+import dataclasses
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import checkpoint as JCKPT
+from repro import flags as jflags
+from repro.configs import get_config as jget_config
+from repro.data.pipeline import TokenPipeline as JTokenPipeline
+from repro.launch import train as jtrain
+from repro.launch.steps import make_train_step as jmake_train_step
+from repro.models import attention as JA
+from repro.models import model as JM
+from repro_torch import checkpoint as CKPT
+from repro_torch import flags
+from repro_torch.checkpoint.convert import (lm_opt_state_from_numpy,
+                                            lm_params_from_numpy)
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.kernels.ssm_scan import ops as WKV
+from repro_torch.launch import train
+from repro_torch.launch.steps import loss_and_grads, make_train_step
+from repro_torch.models import attention as A
+from repro_torch.models import model as M
+from repro_torch.models import ssm as SSM
+from repro_torch.models import stack as ST
+from repro_torch.utils.tree import _leaves
+
+TOL = 1e-4
+NOISE_REL, NOISE_SHARE = 1e-4, 2e-3
+ARCH_NAMES = sorted(ARCHS)
+B, S = 2, 16
+# (chunked_ce, remat, nested_remat_group): the flag cases of lm_loss
+LOSS_CASES = {"plain": (0, False, 1), "chunked_ce": (4, False, 1),
+              "remat": (0, True, 1), "nested_remat+chunked_ce": (4, True, 2)}
+
+
+@pytest.fixture(autouse=True)
+def reset_flags():
+    yield
+    for f in (jflags, flags):
+        f.set_flags(**dataclasses.asdict(f.Flags()))
+
+
+def _set_flags(**kw):
+    jflags.set_flags(**kw)
+    flags.set_flags(**kw)
+
+
+def _pair(arch, n_layers=None):
+    """(reference cfg, port cfg, reference params, port params)."""
+    jcfg, tcfg = jget_config(arch).reduced(), get_config(arch).reduced()
+    if n_layers is not None:
+        jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
+        tcfg = dataclasses.replace(tcfg, n_layers=n_layers)
+    jparams = JM.init_lm(jcfg, jax.random.PRNGKey(0))
+    tparams = lm_params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams),
+                                   device="cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+def _batch(vocab, seed, batch=B, seq=S):
+    ids = np.random.default_rng(seed).integers(0, vocab, (batch, seq + 1))
+    return {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+
+
+def _j(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _t(batch):
+    return {k: torch.tensor(v) for k, v in batch.items()}
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}.{k}".lstrip(".")))
+        return out
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach()
+    return {prefix: np.asarray(tree, np.float32)}
+
+
+def _close_tree(got, ref, what):
+    """Each tensor within TOL of the reference, relative to its largest
+    entry."""
+    got, ref = _flat(got), _flat(ref)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        scale = max(np.abs(ref[k]).max(), 1.0)
+        np.testing.assert_allclose(got[k], ref[k], atol=TOL * scale,
+                                   rtol=TOL, err_msg=f"{what} {k}")
+
+
+def _state_close(tp, to, jp, jo):
+    """Parameters and Adam state after one step from one state: m and v
+    within TOL of each tensor's largest entry; parameters within TOL,
+    except entries at the noise floor (m apart by more than NOISE_REL of
+    it), which are counted apart: at most NOISE_SHARE of the tree.
+    Returns that count."""
+    for name in ("m", "v"):
+        _close_tree(to[name], jo[name], f"adam {name}")
+    assert int(to["t"]) == int(jo["t"])
+    tp, jp = _flat(tp), _flat(jp)
+    tm, jm = _flat(to["m"]), _flat(jo["m"])
+    n_noise = n_all = 0
+    for k in jp:
+        noise = np.abs(tm[k] - jm[k]) > NOISE_REL * np.abs(jm[k])
+        outside = ~np.isclose(tp[k], jp[k], atol=TOL, rtol=TOL)
+        assert not (outside & ~noise).any(), (
+            k, np.abs(tp[k] - jp[k])[outside & ~noise].max())
+        n_noise += int((outside & noise).sum())
+        n_all += noise.size
+    assert n_noise <= NOISE_SHARE * n_all, (n_noise, n_all)
+    return n_noise
+
+
+@pytest.mark.parametrize("case", sorted(LOSS_CASES))
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_lm_loss_and_grads_match_reference(arch, case, monkeypatch):
+    """``lm_loss`` and every gradient against ``jax.value_and_grad`` of the
+    reference's, with chunked CE, remat and nested remat (at 8 layers, so
+    groups of 2 repeats nest: the port checkpoints the groups)."""
+    ce, remat, group = LOSS_CASES[case]
+    jcfg, tcfg, jparams, tparams = _pair(arch, 8 if group > 1 else None)
+    _set_flags(chunked_ce=ce, nested_remat_group=group)
+    batch = _batch(tcfg.vocab, 1)
+    (jl, jaux), jg = jax.jit(jax.value_and_grad(
+        lambda p: JM.lm_loss(jcfg, p, _j(batch), remat=remat),
+        has_aux=True))(jparams)
+    calls = []
+    checkpoint = ST._checkpoint
+    monkeypatch.setattr(ST, "_checkpoint", lambda fn, *a: (
+        calls.append(fn.__name__), checkpoint(fn, *a))[1])
+    (tl, taux), tg = loss_and_grads(tcfg, tparams, _t(batch), remat=remat)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=TOL)
+    assert {k: float(v) for k, v in taux.items()} == {
+        k: float(v) for k, v in jaux.items()} == {"lb": 0.0, "z": 0.0}
+    _close_tree(tg, jg, "grad")
+    assert ("group" in calls) == (group > 1)
+    assert ("body" in calls) == remat
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_three_train_steps_match_reference(arch):
+    """Three steps of ``make_train_step`` against the reference's jitted
+    step: each from the reference's state (converted), so differences do
+    not compound; the free-running losses of both over the three steps
+    agree too."""
+    jcfg, tcfg, jparams, tparams = _pair(arch)
+    jstep, jopt = jmake_train_step(jcfg, lr=1e-3, remat=False)
+    jstep = jax.jit(jstep)
+    tstep, topt = make_train_step(tcfg, lr=1e-3, remat=False)
+    jp, jo = jparams, jopt.init(jparams)
+    tp_run, to_run = tparams, topt.init(tparams)
+    for s in range(3):
+        batch = _batch(tcfg.vocab, 10 + s, batch=4)
+        tp = lm_params_from_numpy(tcfg, jax.tree.map(np.asarray, jp),
+                                  device="cpu")
+        to = lm_opt_state_from_numpy(tcfg, jax.tree.map(np.asarray, jo),
+                                     device="cpu")
+        tp, to, tm = tstep(tp, to, _t(batch))
+        jp, jo, jm = jstep(jp, jo, _j(batch))
+        for key in ("loss", "grad_norm", "moe_lb"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                       rtol=TOL, atol=1e-7, err_msg=key)
+        _state_close(tp, to, jp, jo)
+        tp_run, to_run, tm_run = tstep(tp_run, to_run, _t(batch))
+        np.testing.assert_allclose(float(tm_run["loss"]), float(jm["loss"]),
+                                   rtol=TOL)
+
+
+@pytest.mark.parametrize("mb", [1, 2, 4])
+def test_microbatched_step_matches_reference_and_single(mb):
+    """Gradient accumulation over ``mb`` microbatches against the
+    reference's step with the same ``mb``, and against the port's single
+    batch at the reference's own tolerances (``test_perf_opts.py``)."""
+    jcfg, tcfg, jparams, tparams = _pair("qwen3-4b")
+    batch = _batch(tcfg.vocab, 3, batch=4)
+    jstep, jopt = jmake_train_step(jcfg, lr=1e-3, remat=False,
+                                   microbatches=mb)
+    jp, jo, jm = jax.jit(jstep)(jparams, jopt.init(jparams), _j(batch))
+    out = {}
+    for m in sorted({1, mb}):
+        tstep, topt = make_train_step(tcfg, lr=1e-3, remat=False,
+                                      microbatches=m)
+        out[m] = tstep(tparams, topt.init(tparams), _t(batch))
+    tp, to, tm = out[mb]
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=TOL)
+    np.testing.assert_allclose(float(tm["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=TOL)
+    _state_close(tp, to, jp, jo)
+    assert float(out[1][2]["loss"]) == pytest.approx(float(tm["loss"]),
+                                                     rel=1e-4)
+    np.testing.assert_allclose(_leaves(out[1][0])[0].numpy(),
+                               _leaves(tp)[0].numpy(), atol=5e-5)
+
+
+@pytest.mark.parametrize("S,W,qc", [(64, 0, 16), (64, 12, 16),
+                                    (96, 24, 32), (100, 7, 32)])
+def test_blockwise_sdpa_matches_reference(S, W, qc):
+    """The reference's shapes and tolerance (``test_perf_opts.py``):
+    against the reference's ``blockwise_sdpa`` and the port's own masked
+    ``sdpa``."""
+    rng = np.random.default_rng(S + W)
+    q = rng.standard_normal((2, S, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, S, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    y = A.blockwise_sdpa(*map(torch.tensor, (q, k, v)), 2, causal=True,
+                         window=W, q_chunk=qc)
+    y_ref = JA.blockwise_sdpa(q, k, v, 2, causal=True, window=W, q_chunk=qc)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=2e-5)
+    mask = A.causal_window_mask(S, W)[None]
+    y_full = A.sdpa(*map(torch.tensor, (q, k, v)), mask, 2)
+    np.testing.assert_allclose(y.numpy(), y_full.numpy(), atol=2e-5)
+
+
+def test_blockwise_flag_routes_the_plain_path(monkeypatch):
+    """``blockwise_prefill`` takes ``blockwise_sdpa`` on the plain path at
+    Sq >= 2048 (the reference's condition), with the same output as the
+    masked ``sdpa``; below 2048 it does not."""
+    _, tcfg, _, tparams = _pair("gemma3-27b")
+    calls = []
+    blockwise = A.blockwise_sdpa
+    monkeypatch.setattr(A, "blockwise_sdpa", lambda *a, **k: (
+        calls.append(k["q_chunk"]), blockwise(*a, **k))[1])
+    p = ST._index(tparams["segments"]["seg0"], 0)["s0"]
+    kind = ST.build_segments(tcfg)[0][2][0]
+    x = torch.tensor(np.random.default_rng(0).standard_normal(
+        (1, 2048, tcfg.d_model)).astype(np.float32))
+    ctx = ST.Ctx(mode="full", plain_kernels=True)
+    with torch.no_grad():
+        y0, _, _ = ST.apply_layer_full(tcfg, kind, p, x, ctx)
+        flags.set_flags(blockwise_prefill=True, q_chunk=256)
+        y1, _, _ = ST.apply_layer_full(tcfg, kind, p, x, ctx)
+        assert calls == [256]
+        ST.apply_layer_full(tcfg, kind, p, x[:, :2047], ctx)
+    assert calls == [256]
+    torch.testing.assert_close(y1, y0, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_token_pipeline_bit_equal(seed):
+    jpipe = JTokenPipeline(512, 3, 24, seed=seed)
+    tpipe = TokenPipeline(512, 3, 24, seed=seed)
+    for _ in range(4):
+        a, b = next(jpipe), next(tpipe)
+        for k in ("tokens", "labels"):
+            assert a[k].dtype == b[k].dtype == np.int32
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_train_main_lowers_the_loss(capsys):
+    """``launch.train.main`` on the CPU with the reference system test's
+    arguments (``tests/test_system.py``): the loss decreases, and from
+    the reference's parameters the per-step losses follow the reference
+    driver's."""
+    argv = ["--arch", "qwen3-4b", "--steps", "30", "--batch", "4", "--seq",
+            "32", "--lr", "3e-3", "--log-every", "10"]
+    losses = train.main(argv + ["--device", "cpu"])
+    assert len(losses) == 30 and np.mean(losses[-5:]) < np.mean(losses[:5])
+    out = capsys.readouterr().out
+    assert "arch=qwen3-4b-reduced" in out and "done: loss" in out
+    jcfg, tcfg, jparams, tparams = _pair("qwen3-4b")
+    ref = jtrain.main(argv[:3] + ["12"] + argv[4:])
+    got = train.main(argv[:3] + ["12"] + argv[4:] + ["--device", "cpu"],
+                     params=tparams)
+    np.testing.assert_allclose(got, ref, rtol=1e-3)
+
+
+def test_train_main_flags_and_state(tmp_path):
+    """``--opts`` holds for the run only; ``state=`` receives the final
+    parameters and Adam state; ``--ckpt`` writes {"params", "step"} in the
+    reference's format, which the reference restores."""
+    state = {}
+    path = str(tmp_path / "ck")
+    train.main(["--arch", "rwkv6-1.6b", "--steps", "6", "--batch", "2",
+                "--seq", "8", "--lr", "3e-3", "--device", "cpu", "--opts",
+                "chunked_ce=4,nested_remat_group=2", "--ckpt", path],
+               state=state)
+    assert flags.get() == flags.Flags()
+    assert int(state["opt_state"]["t"]) == 6
+    jcfg = jget_config("rwkv6-1.6b").reduced()
+    like = jax.eval_shape(lambda: {"params": JM.init_lm(
+        jcfg, jax.random.PRNGKey(0)), "step": jnp.int32(0)})
+    restored = JCKPT.restore(path, like)
+    assert int(restored["step"]) == 6
+    ref = _flat(restored["params"])
+    for k, v in _flat(state["params"]).items():
+        np.testing.assert_array_equal(v, ref[k], err_msg=k)
+
+
+def test_checkpoint_resume_training(tmp_path):
+    """Save -> restore -> the next step from the restored parameters is
+    bit-equal to the step from the in-memory ones (``test_system.py``'s
+    resume test, which holds the losses at 1e-6)."""
+    tcfg = get_config("qwen3-4b").reduced()
+    params = M.init_lm(tcfg, 0, device="cpu")
+    batch = _t(_batch(tcfg.vocab, 5))
+    step, opt = make_train_step(tcfg, lr=1e-3, remat=False)
+    opt_state = opt.init(params)
+    params, opt_state, _ = step(params, opt_state, batch)
+    path = str(tmp_path / "ck")
+    CKPT.save(path, params)
+    params2 = CKPT.restore(path, M.init_lm(tcfg, 0, device="meta"),
+                           device="cpu")
+    pa, _, ma = step(params, opt_state, batch)
+    pb, _, mb = step(params2, opt_state, batch)
+    assert float(ma["loss"]) == float(mb["loss"])
+    for a, b in zip(_leaves(pa), _leaves(pb)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "rwkv6-1.6b"])
+def test_reference_lm_checkpoint_restores_with_the_same_loss(arch, tmp_path):
+    """An LM checkpoint written by the reference ({"params", "step"}, its
+    train driver's) restored by the port gives the reference's loss."""
+    jcfg, tcfg, jparams, _ = _pair(arch)
+    path = str(tmp_path / "ref")
+    JCKPT.save(path, {"params": jparams, "step": 3})
+    like = {"params": M.init_lm(tcfg, 0, device="meta"), "step": 0}
+    got = CKPT.restore(path, like, device="cpu")
+    assert got["step"] == 3
+    batch = _batch(tcfg.vocab, 6)
+    jl, _ = JM.lm_loss(jcfg, jparams, _j(batch))
+    with torch.no_grad():
+        tl, _ = M.lm_loss(tcfg, got["params"], _t(batch))
+    np.testing.assert_allclose(float(tl), float(jl), rtol=TOL)
+
+
+def test_opt_state_conversion_validates():
+    jcfg, tcfg, jparams, _ = _pair("qwen3-4b")
+    _, jopt = jmake_train_step(jcfg)
+    jo = jax.tree.map(np.asarray, jopt.init(jparams))
+    to = lm_opt_state_from_numpy(tcfg, jo, device="cpu")
+    assert to["t"].dtype == torch.int32 and int(to["t"]) == 0
+    assert all(t.dtype == torch.float32 for t in _leaves(to["m"]))
+    with pytest.raises(ValueError, match="keys m, v, t"):
+        lm_opt_state_from_numpy(tcfg, {"m": jo["m"]}, device="cpu")
+    jo["v"]["embed"]["table"] = jo["v"]["embed"]["table"][:-1]
+    with pytest.raises(ValueError, match="embed.table"):
+        lm_opt_state_from_numpy(tcfg, jo, device="cpu")
+
+
+
+def _stub_card_path(monkeypatch):
+    """Route the model's flash and wkv calls to the wrappers' card paths
+    (``_on_card``) on CPU tensors, each launch stubbed by a plain
+    computation whose outputs are detached, as a ctypes launch's are."""
+    def fa_launch(q, k, v, causal, window, want_lse=False):
+        o = FA.attention_ref(q, k, v, causal=causal, window=window).detach()
+        return (o, torch.zeros(q.shape[:3])) if want_lse else o
+
+    def fa_launch_bwd(q, k, v, o, lse, do, causal, window):
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(FA.attention_ref(
+                *xs, causal=causal, window=window), xs, do)
+
+    def wkv_launch(*args):
+        return tuple(t.detach() for t in WKV.wkv_ref(*args))
+
+    def wkv_launch_bwd(r, k, v, w, u, dy):
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_() for t in (r, k, v, w, u)]
+            return torch.autograd.grad(WKV.wkv_ref(*xs)[0], xs, dy)
+
+    monkeypatch.setattr(FA, "_launch", fa_launch)
+    monkeypatch.setattr(FA, "_launch_bwd", fa_launch_bwd)
+    monkeypatch.setattr(WKV, "_launch", wkv_launch)
+    monkeypatch.setattr(WKV, "_launch_bwd", wkv_launch_bwd)
+    monkeypatch.setattr(A, "FA", SimpleNamespace(
+        flash_attention=lambda q, k, v, causal=True, window=0:
+        FA._on_card(q, k, v, causal, window)))
+    monkeypatch.setattr(SSM, "WKV", SimpleNamespace(wkv=WKV._on_card))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_card_path_gradients_reach_every_projection(arch, remat,
+                                                    monkeypatch):
+    """On the card a kernel's output comes from a ctypes launch with no
+    ``grad_fn``, so before the autograd functions a loss through the
+    kernels got no gradient for wq, wk, wv or the RWKV time-mix
+    projections (the residual stream still carried one: nothing raised).
+    With the launches stubbed on CPU tensors, the card path's gradients
+    equal the plain path's for every parameter, and the kernels launch as
+    stated: per step, L forward launches (2L with remat) and L backward."""
+    _, tcfg, _, tparams = _pair(arch)
+    batch = _t(_batch(tcfg.vocab, 8))
+    (ref_loss, _), ref = loss_and_grads(tcfg, tparams, batch, remat=remat)
+    _stub_card_path(monkeypatch)
+    kernel = FA.flash_attention if tcfg.attn is not None else WKV.wkv
+    before = (kernel.launches, kernel.bwd_launches)
+    (loss, _), got = loss_and_grads(tcfg, tparams, batch, remat=remat)
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-6)
+    _close_tree(got, ref, "grad")
+    proj = ("attn.wq.w", "attn.wk.w", "attn.wv.w") if tcfg.attn else (
+        "tmix.wr.w", "tmix.wk.w", "tmix.wv.w", "tmix.wa.w", "tmix.u")
+    flat = _flat(got)
+    for name in proj:
+        hits = [k for k in flat if k.endswith(name)]
+        assert hits and all(np.abs(flat[k]).max() > 0 for k in hits), name
+    L = tcfg.n_layers
+    assert (kernel.launches - before[0], kernel.bwd_launches - before[1]) == (
+        (2 if remat else 1) * L, L)

@@ -9,6 +9,7 @@ Tolerance: 20x the reference's kernel tolerance (5e-5 f32, 5e-2 bf16)
 for y and the final state, the reference's own (``test_wkv_sweep``);
 the emulated CUDA summation order is also held to
 ``ops.bf16_error_bound``, the card's per-element gate on bf16's y."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -162,3 +163,144 @@ def test_bf16_error_bound_catches_a_lost_bonus_term():
     assert (err > ops.bf16_error_bound(y_ref)).any()
     tol = 20 * TOL["bfloat16"]
     assert torch.allclose(y.float(), y_ref.float(), atol=tol, rtol=tol)
+
+
+# ------------------------------------------------------------- backward
+# The reference has no Pallas backward: its LM differentiates the plain
+# recurrence. So the port's gradient (autograd through ``wkv_ref`` on the
+# CPU; the backward kernel on the card) is held against ``jax.vjp`` of the
+# reference's plain version, within 1e-4 of each gradient's largest entry
+# (f32 sums over up to T steps in another order; the kernel is at most
+# 1.7e-6 from autograd of the plain version on an H100, ``chip_smoke.py``
+# 6b).
+GRAD_TOL = 1e-4
+
+
+def _grad_inputs(B, H, T, dk, seed):
+    jargs, args = _inputs(B, H, T, dk, "float32", seed=seed)
+    dy = np.random.default_rng(seed + 1).standard_normal(
+        (B, H, T, dk)).astype(np.float32)
+    return jargs, args, dy
+
+
+def _reference_grads(jargs, dy):
+    """(dr, dk, dv, dw, du) of Σ y·dy by ``jax.vjp`` of the reference's
+    plain recurrence (the final state gets no cotangent)."""
+    (y, S), vjp = jax.vjp(lambda *a: jwkv_ref(*a), *jargs)
+    return [np.asarray(g) for g in vjp((jnp.asarray(dy), jnp.zeros_like(S)))]
+
+
+def _close_grads(got, ref, what=""):
+    for name, g, gr in zip("rkvwu", got, ref):
+        scale = np.abs(gr).max()
+        np.testing.assert_allclose(_np(g), gr, atol=GRAD_TOL * scale,
+                                   rtol=GRAD_TOL, err_msg=f"{what} d{name}")
+
+
+@pytest.mark.parametrize("B,H,T,dk,chunk", SWEEP)
+def test_plain_gradient_matches_reference(B, H, T, dk, chunk):
+    jargs, args, dy = _grad_inputs(B, H, T, dk, seed=T + dk)
+    args = [a.requires_grad_() for a in args]
+    y, _ = wkv(*args)
+    y.backward(torch.tensor(dy))
+    _close_grads([a.grad for a in args], _reference_grads(jargs, dy))
+
+
+def _bwd_emulation(r, k, v, w, u, dy, chunk=ops.BWD_CHUNK, stale=False):
+    """The backward kernel's algorithm in f32 on the CPU: a forward pass
+    storing the state at the start of every chunk, then the chunks last to
+    first, each step's S_{t-1} rebuilt from its chunk's stored state (never
+    by dividing by w), G_{t-1} = w_t G_t + r_t dy_tᵀ carried from G_T = 0,
+    du summed over time per batch item and then over the batch. ``stale``
+    rebuilds from the previous chunk's state (a faulty kernel)."""
+    B, H, T, dk = r.shape
+    n_ch = -(-T // chunk)
+    kv = k[..., :, None] * v[..., None, :]
+    S = torch.zeros((B, H, dk, dk))
+    starts = []
+    for c in range(n_ch):
+        starts.append(S)
+        for t in range(c * chunk, min((c + 1) * chunk, T)):
+            S = w[:, :, t, :, None] * S + kv[:, :, t]
+    grads = [torch.zeros((B, H, T, dk)) for _ in range(4)]
+    dr, dk_, dv, dw = grads
+    du_part = torch.zeros((B, H, dk))
+    G = torch.zeros((B, H, dk, dk))
+    for c in reversed(range(n_ch)):
+        t0 = c * chunk
+        for t in reversed(range(t0, min(t0 + chunk, T))):
+            Sp = starts[max(c - 1, 0)] if stale else starts[c]
+            for s in range(t0, t):
+                Sp = w[:, :, s, :, None] * Sp + kv[:, :, s]
+            rt, kt, vt, wt, gt = (a[:, :, t] for a in (r, k, v, w, dy))
+            vdy = (vt * gt).sum(-1, keepdim=True)
+            ruk = (rt * u * kt).sum(-1, keepdim=True)
+            dk_[:, :, t] = (G @ vt[..., None])[..., 0] + u * rt * vdy
+            dw[:, :, t] = (G * Sp).sum(-1)
+            dr[:, :, t] = (Sp @ gt[..., None])[..., 0] + u * kt * vdy
+            dv[:, :, t] = (G.mT @ kt[..., None])[..., 0] + ruk * gt
+            du_part = du_part + rt * kt * vdy
+            G = wt[..., :, None] * G + rt[..., :, None] * gt[..., None, :]
+    return dr, dk_, dv, dw, du_part.sum(0)
+
+
+@pytest.mark.parametrize("B,H,T,dk,chunk", SWEEP + [(2, 2, 40, 50, 8)])
+def test_backward_kernel_algorithm_matches_reference(B, H, T, dk, chunk):
+    """The backward kernel's algorithm (chunk-start states, S_{t-1}
+    rebuilt per step, the reverse G recurrence, du over time then batch)
+    against ``jax.vjp`` of the reference, also with decays near 0 (no
+    division by w anywhere)."""
+    jargs, args, dy = _grad_inputs(B, H, T, dk, seed=T + dk)
+    w = args[3].numpy().copy()
+    w[..., :3, :] = 1e-7
+    jargs[3], args[3] = jnp.asarray(w), torch.tensor(w)
+    got = _bwd_emulation(*args, torch.tensor(dy))
+    _close_grads(got, _reference_grads(jargs, dy))
+
+
+def test_backward_algorithm_check_catches_a_stale_state():
+    """Rebuilding S_{t-1} from the wrong chunk's state (the previous one)
+    breaks the gradient gate."""
+    jargs, args, dy = _grad_inputs(1, 2, 40, 16, seed=5)
+    got = _bwd_emulation(*args, torch.tensor(dy), stale=True)
+    with pytest.raises(AssertionError):
+        _close_grads(got, _reference_grads(jargs, dy))
+
+
+def test_cuda_style_call_keeps_the_gradient(monkeypatch):
+    """A CUDA call's output comes from a ctypes launch and carries no
+    ``grad_fn``. Under grad, the card path now goes through ``WKV``, whose
+    backward launches the backward kernel: with both launches stubbed by
+    plain computations on CPU tensors (the stubs' outputs detached, as a
+    launch's are), r, k, v, w and u get the reference's gradients and the
+    counters count one launch each way. Without grad it is one forward
+    launch."""
+    jargs, args, dy = _grad_inputs(2, 2, 20, 16, seed=3)
+
+    def launch(r, k, v, w, u):
+        y, S = wkv_ref(r, k, v, w, u)
+        return y.detach(), S.detach()
+
+    def launch_bwd(r, k, v, w, u, dy):
+        return tuple(g.detach() for g in _bwd_emulation(r, k, v, w, u, dy))
+
+    monkeypatch.setattr(ops, "_launch", launch)
+    monkeypatch.setattr(ops, "_launch_bwd", launch_bwd)
+    before = (wkv.launches, wkv.bwd_launches)
+    args = [a.requires_grad_() for a in args]
+    y, S = ops._on_card(*args)
+    assert y.grad_fn is not None
+    y.backward(torch.tensor(dy))
+    assert (wkv.launches, wkv.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert all(a.grad is not None for a in args)
+    _close_grads([a.grad for a in args], _reference_grads(jargs, dy))
+    with torch.no_grad():
+        y, _ = ops._on_card(*args)
+    assert y.grad_fn is None and wkv.launches == before[0] + 2
+    # a nonzero final-state gradient raises rather than being dropped
+    y, S = ops._on_card(*args)
+    with pytest.raises(NotImplementedError, match="final state"):
+        (y.sum() + S.sum()).backward()
+    with pytest.raises(TypeError, match="float32"):
+        ops._on_card(*(a.detach().bfloat16().requires_grad_()
+                       for a in args[:4]), args[4])
