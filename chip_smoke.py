@@ -42,9 +42,12 @@ order; any failure exits non-zero:
   5b. flash backward vs plain — dq, dk, dv of the backward kernel
      against autograd through the plain version at phase 5's shapes (f32,
      causal; the gemma3 shape windowed): each within 1e-4 of the plain
-     gradient's largest entry, a rerun bit-equal; at the qwen3-4b and
-     gemma3 shapes µs per launch, the bound (split TF32 on the tensor
-     cores; the FFMA bound beside it), the plain backward's time and
+     gradient's largest entry, a rerun bit-equal; a negative control at
+     the qwen3-4b shape: autograd through the plain version with cuBLAS's
+     one-pass TF32 switched on must miss the same gate; at the qwen3-4b
+     and gemma3 shapes µs per launch, the bound (split TF32 on the tensor
+     cores; the FFMA bound and the bound of the 7 products the kernel
+     runs beside it), the plain backward's time and
      ``scaled_dot_product_attention``'s backward (memory-efficient
      backend, K/V expanded);
   6. wkv vs plain — at the reference's sweep shapes and the rwkv6-1.6b
@@ -2672,6 +2675,8 @@ def check_flash_bwd(tag):
             raise AssertionError(f"flash backward at {shape}: {rel} > "
                                  f"{BWD_REL_TOL} or rerun not bit-equal")
         max_err = max(max_err, *errs.values())
+        if shape == FLASH_QWEN:
+            tf32_control(tag, q, k, v, do, win, ref)
         if shape in (FLASH_QWEN, FLASH_GEMMA):
             ms = median_ms(lambda: ops._launch_bwd(q, k, v, o, lse, do, True,
                                                    win), reps=5, inner=3,
@@ -2698,13 +2703,39 @@ def check_flash_bwd(tag):
             print(f"[{tag}] flash_attention_bwd f32 B={B} H={H} KV={KV} "
                   f"S={S} dh={dh} window={win}: kernel {ms * 1e3:.1f} us, "
                   f"bound {bound_ms * 1e3:.1f} us ({bound_by}, split TF32 "
-                  f"on the tensor cores; f32 FFMA bound {ffma_ms * 1e3:.1f} "
+                  f"on the tensor cores; the kernel's 7 products "
+                  f"{bound_ms * 1.4e3:.1f} us; f32 FFMA bound "
+                  f"{ffma_ms * 1e3:.1f} "
                   f"us), plain PyTorch backward {plain_ms * 1e3:.1f} us, "
                   f"scaled_dot_product_attention backward (memory-efficient"
                   f", K/V expanded) {lib_ms * 1e3:.1f} us")
         del q, k, v, do, o, lse, grads
         torch.cuda.empty_cache()
     return max_err, timing
+
+
+def tf32_control(tag, q, k, v, do, win, ref):
+    """Phase 5b's negative control: autograd through the plain version
+    with cuBLAS's one-pass TF32 on (restored after) must miss BWD_REL_TOL
+    against the f32 gradient ``ref``, so the gate tells one-pass TF32
+    from f32 accuracy at this shape."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(attention_ref(*xs, causal=True,
+                                                window=win), xs, do)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    rel = {n: ((g - r).abs().max() / r.abs().max()).item()
+           for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+    print(f"[{tag}] 5b control: one-pass TF32 (cuBLAS) gradient of the "
+          f"plain version, of the largest |f32 plain| {json.dumps(rel)} "
+          f"(must exceed {BWD_REL_TOL})")
+    if max(rel.values()) <= BWD_REL_TOL:
+        raise AssertionError(f"5b control: one-pass TF32 passed the "
+                             f"backward gate ({rel})")
 
 
 def check_wkv_bwd(tag):
@@ -3210,7 +3241,7 @@ def _kind(name):
         return "flash_attention"
     if any(s in name for s in ("dkdv_kernel", "dq_kernel", "delta_kernel")):
         return "flash_attention_bwd"
-    if "wkv_bwd_kernel" in name or "du_kernel" in name:
+    if "wkv_bwd_kernel" in name or "wkv_reduce_kernel" in name:
         return "wkv_bwd"
     if "wkv_kernel" in name:
         return "wkv"

@@ -4,7 +4,8 @@ softmax head, ``ClassificationTask``, and federated LASSO,
 ``SparseRecoveryTask``.
 """
 from repro_torch.core.tasks.base import Task, resolve_task
-from repro_torch.core.tasks.classification import ClassificationTask
+from repro_torch.core.tasks.classification import (ClassificationTask,
+                                                   classification_task)
 from repro_torch.core.tasks.sparse_recovery import (SparseRecoveryTask,
                                                     signal_nmse,
                                                     soft_threshold,
@@ -12,5 +13,6 @@ from repro_torch.core.tasks.sparse_recovery import (SparseRecoveryTask,
                                                     support_f1)
 
 __all__ = ["Task", "resolve_task", "ClassificationTask",
+           "classification_task",
            "SparseRecoveryTask", "sparse_recovery_task", "soft_threshold",
            "support_f1", "signal_nmse"]

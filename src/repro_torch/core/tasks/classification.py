@@ -83,6 +83,14 @@ class ClassificationTask(Task):
         return make_meta_dataset(cfg, Q, seed=seed, **kw)
 
 
+def classification_task(cfg) -> ClassificationTask:
+    """The classification task a config describes (its ``task`` field, or
+    the legacy ``feature_dim``/``n_classes`` pair when that is None)."""
+    tc = cfg.task_config
+    if tc.kind != "classification":
+        raise ValueError(f"cfg describes a {tc.kind!r} task")
+    return ClassificationTask(feat_dim=tc.feature_dim, n_classes=tc.n_classes)
+
 def fl_loss(W, X, Y, feat_dim, n_classes):
     """f(W) = (1/n) Σ_i f_i(w_i). X (..., n, b, F), Y (..., n, b)."""
     return ClassificationTask(feat_dim, n_classes).fl_loss(W, X, Y)

@@ -15,8 +15,9 @@ tensor cores (see the kernel's header):
     through ``FlashAttention``, a ``torch.autograd.Function``: its forward
     launch also writes each row's log-sum-exp, and its backward launches
     the hand-written backward kernel (``csrc/flash_attention_bwd.cu``:
-    dq, dk, dv in f32 FFMA, dk and dv summed over the G query heads of a
-    kv head, no atomics). The backward takes f32 only (the reference
+    dq, dk, dv on the tensor cores in split TF32, dk and dv per tile of
+    128 keys summed over the G query heads of a kv head, dq per tile of
+    64 query rows, no atomics). The backward takes f32 only (the reference
     trains in f32): bf16 inputs that require a gradient raise. On the CPU
     autograd differentiates the plain version.
 

@@ -11,8 +11,10 @@ returning y and the final f32 state, which a decode resumes from.
   * when an input requires a gradient (grad mode on), a CUDA call goes
     through ``WKV``, a ``torch.autograd.Function`` whose backward launches
     the hand-written backward kernel (``csrc/wkv_bwd.cu``: dr, dk, dv, dw
-    and du in reverse time, S_{t-1} rebuilt from states stored every 16
-    steps, never by dividing by w). The final state S is treated as
+    and du in reverse time over blocks of 32 value columns, dr, dk and dw
+    summed over the column groups in order by a second kernel; each
+    chunk's S_{t-1} rebuilt into shared memory from states stored every
+    16 steps, never by dividing by w). The final state S is treated as
     having no gradient (training leaves it unused); a nonzero one raises
     rather than being dropped. The backward takes f32 only (the reference
     trains in f32): bf16 inputs that require a gradient raise. On the CPU
@@ -51,13 +53,16 @@ _SIG = [_ptr] * 7 + [_i32] * 4 + [_ptr, _i32, _ptr]
 LIB = Library(CSRC, {"wkv_f32": _SIG, "wkv_bf16": _SIG,
                      "wkv_launch_shape": [_i32] * 3 + [_ptr]},
               "wkv_error_string")
-# r, k, v, w, u, dy, dr, dk, dv, dw, du, du_part, ckpt, B, H, T, dk,
-# strides, stream
-BWD_LIB = Library(CSRC_BWD, {"wkv_bwd_f32": [_ptr] * 13 + [_i32] * 4
+# r, k, v, w, u, dy, dr, dk, dv, dw, du, du_part, ckpt, part, B, H, T,
+# dk, strides, stream
+BWD_LIB = Library(CSRC_BWD, {"wkv_bwd_f32": [_ptr] * 14 + [_i32] * 4
                              + [_ptr, _ptr]},
                   "wkv_bwd_error_string")
-# Steps between the states the backward kernel stores (its chunk).
+# Steps between the states the backward kernel stores (its chunk; it
+# rebuilds them half a chunk at a time), and the value columns of one of
+# its blocks (a column group; dr, dk and dw are summed over the groups).
 BWD_CHUNK = 16
+BWD_COLUMNS = 32
 
 # Largest head size the kernel takes: a value column of S is spread over
 # 16 lanes of 4 rows each.
@@ -122,6 +127,8 @@ def _launch_bwd(r, k, v, w, u, dy):
     n_ch = -(-T // BWD_CHUNK)
     ckpt = torch.empty(B * H * n_ch * 64 * 64, dtype=torch.float32,
                        device=r.device)
+    part = torch.empty(3 * -(-dk // BWD_COLUMNS) * B * H * T * dk,
+                       dtype=torch.float32, device=r.device)
     strides = [s for a in (r, k, v, w, dy) for s in a.stride()[:3]]
     fn = BWD_LIB.load().wkv_bwd_f32
     with torch.cuda.device(r.device):
@@ -129,7 +136,8 @@ def _launch_bwd(r, k, v, w, u, dy):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), dy.data_ptr(),
                  *(g.data_ptr() for g in grads), du.data_ptr(),
-                 du_part.data_ptr(), ckpt.data_ptr(), B, H, T, dk,
+                 du_part.data_ptr(), ckpt.data_ptr(), part.data_ptr(), B,
+                 H, T, dk,
                  (ctypes.c_longlong * 15)(*strides), stream)
     BWD_LIB.check(err, "wkv backward")
     return (*grads, du)

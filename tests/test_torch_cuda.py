@@ -10,7 +10,8 @@ meta-step on simulated shards of the card, one
 FL baseline on the card against the CPU, a
 reduced-config LLM prefill and decode through the flash and wkv kernels
 against the same model run through the plain versions, the flash and wkv
-backward kernels against autograd through the plain versions, and a
+backward kernels against autograd through the plain versions (also at
+their tiling's edges, in three layouts, with bit-equal reruns), and a
 reduced-config LM train step through the kernels against the plain one.
 
 They are marked ``cuda`` and skip without a card. They import no jax, so
@@ -834,6 +835,82 @@ def test_wkv_backward_kernel_matches_plain_version(cuda, B, H, T, dk):
     # at T = 1 the plain recurrence never reads w: its gradient is zero
     ref = [torch.zeros_like(x) if g is None else g for x, g in zip(
         xr, torch.autograd.grad(wkv_ref(*xr)[0], xr, dy, allow_unused=True))]
+    _rel_grads_close(got, ref)
+    again = torch.autograd.grad(wkv(*xs)[0], xs, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# The backward kernels' tiling edges: dk/dv blocks of 128 keys over query
+# tiles of 32 rows, dq blocks of 64 rows over kv tiles of 32 keys, k-steps
+# of 8 over dh. dh 64 and 96, Sq and Skv off every tile multiple (and
+# Skv > Sq), windows narrower than a query tile and than a key block, GQA
+# and MQA. (B, H, KV, Sq, Skv, dh, window, causal)
+FLASH_BWD_EDGES = [(1, 4, 2, 200, 200, 96, 0, True),
+                   (1, 4, 1, 257, 257, 64, 0, True),
+                   (2, 2, 2, 130, 300, 64, 0, False),
+                   (1, 4, 2, 300, 300, 96, 20, True),
+                   (1, 2, 1, 161, 161, 128, 100, True),
+                   (1, 6, 2, 50, 45, 96, 7, False)]
+
+
+def _bwd_layout(ts, layout):
+    """The model's (B, S, heads, dh) transposed views, or rows that do not
+    start on 16 bytes (per-element loads), of the same values."""
+    if layout == "transposed":
+        return [t.transpose(1, 2).contiguous().transpose(1, 2) for t in ts]
+    if layout == "unaligned":
+        wide = [torch.nn.functional.pad(t, (0, 1)) for t in ts]
+        out = [t[..., :-1] for t in wide]
+        assert not vector_loads(*out)
+        return out
+    return ts
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal", FLASH_BWD_EDGES)
+@pytest.mark.parametrize("layout", ["contiguous", "transposed", "unaligned"])
+def test_flash_backward_kernel_tiling_edges(cuda, B, H, KV, Sq, Skv, dh, win,
+                                            causal, layout):
+    """dq, dk, dv at the tiling's edges within 1e-4 of each plain
+    gradient's largest entry, in three layouts; a rerun bit-equal."""
+    rng = np.random.default_rng(Sq + Skv + dh)
+    q, k, v, do = (torch.tensor(rng.standard_normal((B, n, s, dh)).astype(
+        np.float32), device=cuda) for n, s in ((H, Sq), (KV, Skv),
+                                               (KV, Skv), (H, Sq)))
+    q, k, v, do = _bwd_layout([q, k, v, do], layout)
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*xs, causal=causal,
+                                              window=win), xs, do)
+    xr = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(attention_ref(*xr, causal=causal, window=win),
+                              xr, do)
+    _rel_grads_close(got, ref)
+    again = torch.autograd.grad(flash_attention(*xs, causal=causal,
+                                                window=win), xs, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# dk below 64 (one and two column groups, a group with 8 live columns,
+# dk not a multiple of 4), T off the 16-step chunk and its 8-step halves
+# (T < 8, a last chunk of 1 and of 9 steps). (B, H, T, dk)
+WKV_BWD_EDGES = [(2, 2, 37, 40), (1, 3, 23, 24), (2, 2, 7, 64),
+                 (1, 2, 49, 33), (1, 1, 25, 16)]
+
+
+@pytest.mark.parametrize("B,H,T,dk", WKV_BWD_EDGES)
+@pytest.mark.parametrize("layout", ["contiguous", "transposed", "unaligned"])
+def test_wkv_backward_kernel_tiling_edges(cuda, B, H, T, dk, layout):
+    """dr, dk, dv, dw, du at the column groups' and chunks' edges, with
+    the first three decays of every row at 1e-7 (no division by w), within
+    1e-4 of each plain gradient's largest entry; a rerun bit-equal."""
+    args = _wkv_inputs(B, H, T, dk, torch.float32, cuda, seed=T + dk)
+    args[3][..., :3, :] = 1e-7
+    dy = torch.tensor(np.random.default_rng(T).standard_normal(
+        (B, H, T, dk)).astype(np.float32), device=cuda)
+    *rkvw, dy = _bwd_layout(args[:4] + [dy], layout)
+    xs = [a.detach().requires_grad_() for a in rkvw + [args[4]]]
+    got = torch.autograd.grad(wkv(*xs)[0], xs, dy)
+    xr = [a.detach().clone().requires_grad_() for a in xs]
+    ref = torch.autograd.grad(wkv_ref(*xr)[0], xr, dy)
     _rel_grads_close(got, ref)
     again = torch.autograd.grad(wkv(*xs)[0], xs, dy)
     assert all(torch.equal(a, b) for a, b in zip(got, again))

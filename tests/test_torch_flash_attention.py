@@ -270,7 +270,7 @@ def test_vector_loads_decision():
 # the CPU; the backward kernel on the card) is held against ``jax.vjp`` of
 # the reference's plain version, within 1e-4 of each gradient's largest
 # entry (f32 sums over up to Skv keys in another order; the kernel is at
-# most 4.7e-6 from autograd of the plain version on an H100, at the
+# most 4.9e-6 from autograd of the plain version on an H100, at the
 # qwen3-4b shape, ``chip_smoke.py`` 5b).
 GRAD_TOL = 1e-4
 GRAD_CASES = [(B, H, KV, S, S, dh, win, True) for B, H, KV, S, dh, win
@@ -309,19 +309,45 @@ def test_plain_gradient_matches_reference(B, H, KV, Sq, Skv, dh, win, causal):
                  _reference_grads(jargs, do, causal, win))
 
 
-def _bwd_emulation(q, k, v, do, causal, window, skip_first=False):
-    """The backward kernel's algorithm in f32 on the CPU: P rebuilt from the
-    forward's row log-sum-exp (log2 units), delta = rowsum(do ∘ o); the
-    dk/dv kernel's loop per kv tile of 64 keys over the G query heads of
-    its kv head and over the query tiles of 32 rows that can see it (its
-    range arithmetic), the dq kernel's loop per query tile over the kv
-    tiles it sees. ``skip_first`` drops each kv tile's first query tile
-    (a faulty range)."""
+def _split_rounded(x):
+    """x = hi + lo, each rounded to TF32 (the backward kernel's split: lo
+    rounded too, as the graph filter's, where the forward truncates it)."""
+    hi = _tf32_round(x)
+    return hi, _tf32_round(x - hi)
+
+
+def _mm3(a, b, one_pass=False):
+    """a @ b as the backward kernel's split-TF32 products (lo·hi + hi·lo +
+    hi·hi in f32), or as one-pass TF32 (hi·hi: a faulty kernel)."""
+    (ah, al), (bh, bl) = _split_rounded(a), _split_rounded(b)
+    if one_pass:
+        return ah @ bh
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+# The backward kernel's tiles: dk/dv blocks of 128 keys over query tiles of
+# 32 rows, dq blocks of 64 query rows over kv tiles of 32 keys.
+KV_BKV, KV_BQ, Q_BQ, Q_BKV = 128, 32, 64, 32
+
+
+def _bwd_emulation(q, k, v, do, causal, window, skip_first=False,
+                   one_pass=False):
+    """The backward kernel's algorithm and arithmetic in plain torch on the
+    CPU. P rebuilt from the forward's row log-sum-exp (log2 units), delta
+    = rowsum(do ∘ o). The dk/dv kernel per block of 128 keys: over the G
+    query heads of its kv head and the query tiles of 32 rows that can see
+    the block (its range arithmetic), the transposed scores Sᵀ = K Qᵀ and
+    dPᵀ = V dOᵀ with keys as rows, then Pᵀ dO and dSᵀ Q, each tile's
+    product added to the running dk, dv in f32. The dq kernel per query
+    tile of 64 rows over the kv tiles of 32 keys it sees. Every product in
+    split TF32 with lo rounded (``one_pass``: one-pass TF32, a faulty
+    kernel). ``skip_first`` drops each key block's first query tile (a
+    faulty range)."""
     B, H, Sq, dh = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     G = H // KV
-    BQ, BKV = 32, 64
     sl2 = dh ** -0.5 * LOG2E
+    mm = lambda a, b: _mm3(a, b, one_pass)
     kh, vh = (t.repeat_interleave(G, dim=1) for t in (k, v))
     qi, kj = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
     live = torch.ones((Sq, Skv), dtype=torch.bool)
@@ -334,48 +360,61 @@ def _bwd_emulation(q, k, v, do, causal, window, skip_first=False):
     o = attention_ref(q, k, v, causal=causal, window=window)
     delta = (do * o).sum(-1)
 
-    def tiles(rows, cols):
-        p = torch.where(live[rows, cols], torch.exp2(
-            s2[:, :, rows, cols] - lse[:, :, rows, None]), 0.0)
-        dp = do[:, :, rows] @ vh[:, :, cols].mT
-        return p, p * (dp - delta[:, :, rows, None])
+    def probs(s, dp, heads, rows, cols, keys_as_rows):
+        """P and dS of a tile from its scores and dP (keys as rows: the
+        transposed tiles of the dk/dv kernel)."""
+        m = live[rows, cols]
+        l, dl = lse[:, heads, rows, None], delta[:, heads, rows, None]
+        if keys_as_rows:
+            m, l, dl = m.T, l.mT, dl.mT
+        p = torch.where(m, torch.exp2(s * sl2 - l), 0.0)
+        return p, p * (dp - dl)
 
-    n_q, n_kv = -(-Sq // BQ), -(-Skv // BKV)
+    n_q = -(-Sq // KV_BQ)
     dk, dv, dq = torch.zeros_like(k), torch.zeros_like(v), torch.zeros_like(q)
-    for jt in range(n_kv):
-        k_lo = jt * BKV
-        k_hi = min(k_lo + BKV, Skv) - 1
+    for k_lo in range(0, Skv, KV_BKV):
+        k_hi = min(k_lo + KV_BKV, Skv) - 1
         cols = slice(k_lo, k_hi + 1)
-        i_begin = k_lo // BQ if causal else 0
-        i_end = min(n_q, (k_hi + window - 1) // BQ + 1) if window else n_q
+        i_begin = k_lo // KV_BQ if causal else 0
+        i_end = (min(n_q, (k_hi + window - 1) // KV_BQ + 1) if window
+                 else n_q)
         for g in range(G):
             heads = slice(g, H, G)     # the heads kv head h // G reads
             for it in range(i_begin + skip_first, i_end):
-                rows = slice(it * BQ, min(it * BQ + BQ, Sq))
-                p, ds = (t[:, heads] for t in tiles(rows, cols))
-                dv[:, :, cols] += p.mT @ do[:, heads, rows]
-                dk[:, :, cols] += ds.mT @ q[:, heads, rows]
-    for it in range(n_q):
-        q_lo = it * BQ
-        q_hi = min(q_lo + BQ, Sq) - 1
+                rows = slice(it * KV_BQ, min(it * KV_BQ + KV_BQ, Sq))
+                qt, dot = q[:, heads, rows], do[:, heads, rows]
+                st = mm(k[:, :, cols], qt.mT)          # Sᵀ: keys x queries
+                dpt = mm(v[:, :, cols], dot.mT)
+                pt, dst = probs(st, dpt, heads, rows, cols, True)
+                dv[:, :, cols] += mm(pt, dot)
+                dk[:, :, cols] += mm(dst, qt)
+    for q_lo in range(0, Sq, Q_BQ):
+        q_hi = min(q_lo + Q_BQ, Sq) - 1
         rows = slice(q_lo, q_hi + 1)
-        j_end = min(n_kv, q_hi // BKV + 1) if causal else n_kv
-        j_begin = max(0, q_lo - window + 1) // BKV if window else 0
+        n_kv = -(-Skv // Q_BKV)
+        j_end = min(n_kv, q_hi // Q_BKV + 1) if causal else n_kv
+        j_begin = max(0, q_lo - window + 1) // Q_BKV if window else 0
         for jt in range(j_begin, j_end):
-            cols = slice(jt * BKV, min(jt * BKV + BKV, Skv))
-            dq[:, :, rows] += tiles(rows, cols)[1] @ kh[:, :, cols]
+            cols = slice(jt * Q_BKV, min(jt * Q_BKV + Q_BKV, Skv))
+            dp = mm(do[:, :, rows], vh[:, :, cols].mT)
+            s = mm(q[:, :, rows], kh[:, :, cols].mT)
+            dq[:, :, rows] += mm(probs(s, dp, slice(None), rows, cols,
+                                       False)[1], kh[:, :, cols])
     scale = dh ** -0.5
     return dq * scale, dk * scale, dv
 
 
 @pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal",
                          GRAD_CASES + [(1, 4, 2, 200, 200, 16, 70, True),
-                                       (1, 2, 1, 150, 150, 16, 0, True)])
+                                       (1, 2, 1, 150, 150, 16, 0, True),
+                                       (1, 4, 2, 300, 300, 24, 20, True),
+                                       (1, 2, 2, 70, 140, 40, 0, False)])
 def test_backward_kernel_algorithm_matches_reference(B, H, KV, Sq, Skv, dh,
                                                      win, causal):
-    """The backward kernel's tiling and tile ranges (causal, windowed,
-    non-causal ragged, GQA; several tiles each way at S = 150 and 200)
-    against ``jax.vjp`` of the reference."""
+    """The backward kernel's tiling, tile ranges and split-TF32 arithmetic
+    (causal, windowed, non-causal ragged, GQA; several tiles each way at
+    S = 150 to 300, a window narrower than a query tile, Skv > Sq) against
+    ``jax.vjp`` of the reference."""
     jargs, args, do = _grad_inputs(B, H, KV, Sq, Skv, dh, seed=Sq + dh)
     got = _bwd_emulation(*args, torch.tensor(do), causal, win)
     _close_grads(got, _reference_grads(jargs, do, causal, win))
@@ -386,6 +425,18 @@ def test_backward_algorithm_check_catches_a_dropped_tile():
     got = _bwd_emulation(*args, torch.tensor(do), True, 70, skip_first=True)
     with pytest.raises(AssertionError):
         _close_grads(got, _reference_grads(jargs, do, True, 70))
+
+
+def test_backward_algorithm_check_catches_one_pass_tf32():
+    """The same products in one-pass TF32 miss the gradient gate: the
+    split is what keeps the kernel at f32 accuracy (``chip_smoke.py`` 5b
+    runs the same control on the card through cuBLAS's TF32 mode)."""
+    jargs, args, do = _grad_inputs(1, 4, 2, 200, 200, 64, seed=4)
+    ref = _reference_grads(jargs, do, True, 0)
+    _close_grads(_bwd_emulation(*args, torch.tensor(do), True, 0), ref)
+    got = _bwd_emulation(*args, torch.tensor(do), True, 0, one_pass=True)
+    with pytest.raises(AssertionError):
+        _close_grads(got, ref)
 
 
 def test_cuda_style_call_keeps_the_gradient(monkeypatch):

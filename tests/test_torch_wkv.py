@@ -171,7 +171,7 @@ def test_bf16_error_bound_catches_a_lost_bonus_term():
 # CPU; the backward kernel on the card) is held against ``jax.vjp`` of the
 # reference's plain version, within 1e-4 of each gradient's largest entry
 # (f32 sums over up to T steps in another order; the kernel is at most
-# 1.7e-6 from autograd of the plain version on an H100, ``chip_smoke.py``
+# 1.9e-6 from autograd of the plain version on an H100, ``chip_smoke.py``
 # 6b).
 GRAD_TOL = 1e-4
 
@@ -206,15 +206,25 @@ def test_plain_gradient_matches_reference(B, H, T, dk, chunk):
     _close_grads([a.grad for a in args], _reference_grads(jargs, dy))
 
 
-def _bwd_emulation(r, k, v, w, u, dy, chunk=ops.BWD_CHUNK, stale=False):
-    """The backward kernel's algorithm in f32 on the CPU: a forward pass
-    storing the state at the start of every chunk, then the chunks last to
-    first, each step's S_{t-1} rebuilt from its chunk's stored state (never
-    by dividing by w), G_{t-1} = w_t G_t + r_t dy_tᵀ carried from G_T = 0,
-    du summed over time per batch item and then over the batch. ``stale``
-    rebuilds from the previous chunk's state (a faulty kernel)."""
+def _bwd_emulation(r, k, v, w, u, dy, chunk=ops.BWD_CHUNK, stale=False,
+                   wrong_group=False):
+    """The backward kernel's algorithm in f32 on the CPU. A forward pass
+    stores the state at the start of every chunk. The chunks are taken last
+    to first, each in two halves (the later half first): the half's states S_{t-1} are built forward once from the
+    chunk's stored state (never by dividing by w), then its steps run in
+    reverse with G_{t-1} = w_t G_t + r_t dy_tᵀ from G_T = 0. The value
+    columns are split into groups of ``ops.BWD_COLUMNS``: each group's dr,
+    dk, dw sum over its own columns (the first group's with the bonus
+    terms), and the groups' partials are added in group order; dv sums over
+    the rows in the group; du sums over time per batch item, then over the
+    batch. ``stale`` builds from the previous chunk's state, and
+    ``wrong_group`` adds the first group's partial in place of the last
+    one's (faulty kernels)."""
     B, H, T, dk = r.shape
     n_ch = -(-T // chunk)
+    half = chunk // 2
+    groups = [slice(c, min(c + ops.BWD_COLUMNS, dk))
+              for c in range(0, dk, ops.BWD_COLUMNS)]
     kv = k[..., :, None] * v[..., None, :]
     S = torch.zeros((B, H, dk, dk))
     starts = []
@@ -222,40 +232,77 @@ def _bwd_emulation(r, k, v, w, u, dy, chunk=ops.BWD_CHUNK, stale=False):
         starts.append(S)
         for t in range(c * chunk, min((c + 1) * chunk, T)):
             S = w[:, :, t, :, None] * S + kv[:, :, t]
-    grads = [torch.zeros((B, H, T, dk)) for _ in range(4)]
-    dr, dk_, dv, dw = grads
+    parts = [[torch.zeros((B, H, T, dk)) for _ in range(3)] for _ in groups]
+    dv = torch.zeros((B, H, T, dk))
     du_part = torch.zeros((B, H, dk))
     G = torch.zeros((B, H, dk, dk))
     for c in reversed(range(n_ch)):
         t0 = c * chunk
-        for t in reversed(range(t0, min(t0 + chunk, T))):
+        nt = min(chunk, T - t0)
+        for h0 in (half, 0):
+            hn = min(half, nt - h0)
+            if hn <= 0:
+                continue
             Sp = starts[max(c - 1, 0)] if stale else starts[c]
-            for s in range(t0, t):
-                Sp = w[:, :, s, :, None] * Sp + kv[:, :, s]
-            rt, kt, vt, wt, gt = (a[:, :, t] for a in (r, k, v, w, dy))
-            vdy = (vt * gt).sum(-1, keepdim=True)
-            ruk = (rt * u * kt).sum(-1, keepdim=True)
-            dk_[:, :, t] = (G @ vt[..., None])[..., 0] + u * rt * vdy
-            dw[:, :, t] = (G * Sp).sum(-1)
-            dr[:, :, t] = (Sp @ gt[..., None])[..., 0] + u * kt * vdy
-            dv[:, :, t] = (G.mT @ kt[..., None])[..., 0] + ruk * gt
-            du_part = du_part + rt * kt * vdy
-            G = wt[..., :, None] * G + rt[..., :, None] * gt[..., None, :]
-    return dr, dk_, dv, dw, du_part.sum(0)
+            for t in range(t0, t0 + h0):
+                Sp = w[:, :, t, :, None] * Sp + kv[:, :, t]
+            states = []
+            for t in range(t0 + h0, t0 + h0 + hn):
+                states.append(Sp)
+                Sp = w[:, :, t, :, None] * Sp + kv[:, :, t]
+            for s in reversed(range(hn)):
+                t = t0 + h0 + s
+                Sp = states[s]
+                rt, kt, vt, wt, gt = (a[:, :, t] for a in (r, k, v, w, dy))
+                vdy = (vt * gt).sum(-1, keepdim=True)
+                ruk = (rt * u * kt).sum(-1, keepdim=True)
+                for n, cols in enumerate(groups):
+                    dr_g, dk_g, dw_g = parts[n]
+                    dr_g[:, :, t] = (Sp[..., cols] * gt[:, :, None, cols]).sum(-1)
+                    dk_g[:, :, t] = (G[..., cols] * vt[:, :, None, cols]).sum(-1)
+                    dw_g[:, :, t] = (G[..., cols] * Sp[..., cols]).sum(-1)
+                    if n == 0:
+                        dr_g[:, :, t] += u * kt * vdy[..., 0:1]
+                        dk_g[:, :, t] += u * rt * vdy[..., 0:1]
+                dv[:, :, t] = (G * kt[..., :, None]).sum(-2) + ruk * gt
+                du_part = du_part + rt * kt * vdy
+                G = wt[..., :, None] * G + rt[..., :, None] * gt[..., None, :]
+    order = list(range(len(groups)))
+    if wrong_group:
+        order[-1] = 0
+    dr_, dk_, dw = (sum((parts[n][a] for n in order[1:]), parts[order[0]][a])
+                    for a in range(3))
+    return dr_, dk_, dv, dw, du_part.sum(0)
 
 
-@pytest.mark.parametrize("B,H,T,dk,chunk", SWEEP + [(2, 2, 40, 50, 8)])
+@pytest.mark.parametrize("B,H,T,dk,chunk", SWEEP + [(2, 2, 40, 50, 8),
+                                              (1, 2, 37, 40, 8),
+                                              (2, 1, 7, 64, 8),
+                                              (1, 2, 25, 33, 8)])
 def test_backward_kernel_algorithm_matches_reference(B, H, T, dk, chunk):
-    """The backward kernel's algorithm (chunk-start states, S_{t-1}
-    rebuilt per step, the reverse G recurrence, du over time then batch)
-    against ``jax.vjp`` of the reference, also with decays near 0 (no
-    division by w anywhere)."""
+    """The backward kernel's algorithm (chunk-start states, each half
+    chunk's states built forward once, the reverse G recurrence, column
+    groups' partials added in order, du over time then batch) against
+    ``jax.vjp`` of the reference, also with decays near 0 (no division by
+    w anywhere); T off the chunk and its halves, one and two column
+    groups."""
     jargs, args, dy = _grad_inputs(B, H, T, dk, seed=T + dk)
     w = args[3].numpy().copy()
     w[..., :3, :] = 1e-7
     jargs[3], args[3] = jnp.asarray(w), torch.tensor(w)
     got = _bwd_emulation(*args, torch.tensor(dy))
     _close_grads(got, _reference_grads(jargs, dy))
+
+
+def test_backward_algorithm_check_catches_a_wrong_column_group():
+    """Adding the first column group's partial in place of the second's
+    breaks the gradient gate (dk = 64: two groups of 32 columns)."""
+    jargs, args, dy = _grad_inputs(1, 2, 40, 64, seed=6)
+    ref = _reference_grads(jargs, dy)
+    _close_grads(_bwd_emulation(*args, torch.tensor(dy)), ref)
+    got = _bwd_emulation(*args, torch.tensor(dy), wrong_group=True)
+    with pytest.raises(AssertionError):
+        _close_grads(got, ref)
 
 
 def test_backward_algorithm_check_catches_a_stale_state():
