@@ -198,7 +198,36 @@ order; any failure exits non-zero:
  13b. ``launch.train.main`` on rwkv6-1.6b at full width, 20 steps, with
      ``--ckpt`` under build/, gated by its own "loss decreases"; the
      checkpoint restored bit-equal and one more step from it bit-equal to
-     the step from the in-memory state.
+     the step from the in-memory state;
+ 14. MoE and hybrid serving at full width, f32 — phase 11's run for
+     deepseek-moe-16b at full depth (28 flash launches per prefill),
+     llama4-scout-17b-a16e cut to 4 of its 48 layers (one 3-local :
+     1-global period; 4 launches) and jamba-1.5-large-398b cut to 2 of
+     its 72 layers (Mamba + dense, Mamba + MoE; no attention layer, so no
+     launch), each cut to what fits 80 GB with the parity pass
+     (``serve.main`` reads the cut config through this script's patch of
+     its ``get_config``). The parity holds the expert choice fixed
+     (``RouteReplay``: the plain run replays the kernel run's top-k) and
+     prints how many (token, layer) choices would differ without it; the
+     profiled prefill and decode name the MoE FFN's parts (router,
+     dispatch maps, row gathers, expert GEMMs). Jamba's Mamba scan is
+     timed alone (one layer: CUDA events, host clock, kernel launches);
+ 15. MoE training at full width — phase 13's step for deepseek-moe-16b
+     cut to 4 layers (1 dense + 3 MoE), routing replayed in the parity,
+     lb and z printed (they enter the loss), and a rerun of the kernel
+     step's loss and gradients bit-equal;
+ 16. fig. 7's ablation timed — ``train_surf`` at BENCH for the four
+     (constrained, init) runs over seeds 0-3 in lockstep, 350 steps each
+     (the benchmark's 700 halved),
+     through the graph-filter kernel (L and L − 1 launches per seed and
+     step), then the per-layer evaluation on the test pool: ms per
+     lockstep step, launches, per-layer accuracies and the benchmark's
+     mid-layer line (reported, not gated);
+ 17. the examples — each ``examples/*_torch.py`` run in this process as
+     its command line would run it, on the card, at its defaults
+     (decentralized_fl at 200 meta-steps, not 800), gated by its own
+     assertions and output; ``serve_arch_torch.py`` launches flash once
+     (jamba's reduced attention layer).
 """
 from __future__ import annotations
 
@@ -293,6 +322,28 @@ RWKV_PARITY_SEQ = 512      # rwkv6's plain step: a Python loop over T
 RWKV_PARITY_LAYERS = 6     # rwkv6's well-conditioned depth cut (phase 13)
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-3
 DRIVER_STEPS = 20          # phase 13b
+# Phase 14: MoE and hybrid serving at full width, each cut in depth to
+# what fits 80 GB with its plain-path parity pass (None: full depth).
+SERVE_MOE = (("deepseek-moe-16b", None), ("llama4-scout-17b-a16e", 4),
+             ("jamba-1.5-large-398b", 2))
+# Phase 15: MoE training, deepseek-moe-16b cut to 1 dense + 3 MoE layers.
+TRAIN_MOE = ("deepseek-moe-16b", 4)
+# Phase 16: fig. 7's ablation at benchmarks/common.py's setup (BENCH,
+# 60 training datasets, 10 test datasets, SEEDS), its META_STEPS = 700
+# cut to 350: a timing window that keeps the whole script near 10
+# minutes on one H100 (the four runs take about 200 s at 700).
+FIG7_TRAIN_Q, FIG7_TEST_Q, FIG7_STEPS = 60, 10, 350
+# Phase 17: each example's arguments (its defaults; decentralized_fl's
+# 800 meta-steps cut to 200) and a line its output must hold.
+EXAMPLE_ARGS = {
+    "quickstart": ([], "quickstart OK"),
+    "classical_fl": ([], "U-DGD(SURF, star) @ 8 rounds"),
+    "decentralized_fl": (["--steps", "200"], "U-DGD(SURF)  @ 16 rounds"),
+    "serve_federations": ([], "solved in one forward pass"),
+    "serve_arch": ([], "sample ids"),
+    "train_lm": (["--arch", "qwen3-4b", "--steps", "200", "--batch", "8",
+                  "--seq", "128", "--lr", "3e-3"], "done: loss"),
+}
 
 
 def quickstart_cfg():
@@ -2815,7 +2866,102 @@ def _global_norm(tree):
     return torch.sqrt(sum(t.square().sum() for _, t in _named(tree))).item()
 
 
-def _train_parity(tag, arch, cfg, params, batch, derived, grads_gated=True):
+class _TorchProxy:
+    """``torch`` with some functions replaced, for one module's global
+    name ``torch`` (``mock.patch.object(moe, "torch", ...)``)."""
+
+    def __init__(self, **fns):
+        self.__dict__.update(fns)
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+
+class RouteReplay:
+    """Holds the expert choice of the MoE layers fixed between the kernel
+    path and its plain reference run (phases 14-15). Routing is
+    discontinuous: the flash kernel's ~1e-6 differences from the plain
+    attention can flip a near-tied top-k choice, and a flipped choice is a
+    different function, not an error. Under ``record()`` every top-k of
+    ``models.moe.route`` is kept in call order; under ``replay()`` each
+    top-k returns the recorded indices in the same order (the weights are
+    the plain path's own probabilities at those indices, renormalized by
+    ``route`` as usual) and counts the tokens whose own choice differs
+    (``flips``). The kernel path and the plain path make the same route
+    calls in the same order (layer by layer; with remat, the forward
+    then the backward's recomputes), so a FIFO pairs them."""
+
+    def __init__(self):
+        self.queue, self.flips, self.tokens = [], 0, 0
+
+    def _patch(self, topk):
+        from unittest import mock
+
+        from repro_torch.models import moe
+        return mock.patch.object(moe, "torch", _TorchProxy(topk=topk))
+
+    def record(self):
+        def topk(x, k, **kw):
+            out = torch.topk(x, k, **kw)
+            self.queue.append(out.indices)
+            return out
+        return self._patch(topk)
+
+    def replay(self):
+        def topk(x, k, **kw):
+            own = torch.topk(x, k, **kw).indices
+            idx = self.queue.pop(0)
+            if idx.shape != own.shape:
+                raise AssertionError(f"replayed route {tuple(idx.shape)} "
+                                     f"!= {tuple(own.shape)}")
+            self.flips += int((own != idx).any(-1).sum())
+            self.tokens += own.shape[0]
+            return torch.gather(x, -1, idx), idx
+        return self._patch(topk)
+
+    def done(self):
+        if self.queue:
+            raise AssertionError(f"{len(self.queue)} recorded routes were "
+                                 "not replayed")
+        return {"choices_differing_without_replay": self.flips,
+                "token_layer_choices": self.tokens}
+
+
+def _moe_ranges():
+    """Named profiler ranges around the MoE FFN's parts (phases 14-15):
+    the router (logits, softmax, top-k, losses), the dispatch maps (sort,
+    counts, slot maps), the row gathers (dispatch and combine) and the
+    expert GEMMs (``torch.bmm``). The ranges are siblings: on an H100 a
+    range around the whole FFN read less device time than the expert
+    GEMMs inside it, so none is nested. Kernels that autograd launches in
+    the backward fall outside every range."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    def named(name, fn):
+        def inner(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return inner
+
+    class Gather:
+        apply = staticmethod(named("moe.gather", moe._Gather.apply))
+
+    stack = contextlib.ExitStack()
+    for attr, name in (("route", "moe.router"),
+                       ("dispatch_maps", "moe.dispatch_maps")):
+        stack.enter_context(mock.patch.object(
+            moe, attr, named(name, getattr(moe, attr))))
+    stack.enter_context(mock.patch.object(moe, "_Gather", Gather))
+    stack.enter_context(mock.patch.object(moe, "torch", _TorchProxy(
+        bmm=named("moe.expert_gemm", torch.bmm))))
+    return stack
+
+
+def _train_parity(tag, arch, cfg, params, batch, derived, grads_gated=True,
+                  phase="13"):
     """Phase 13's gate: the loss and every gradient of one step's
     ``loss_and_grads`` through the kernels against ``plain_kernels=True``
     from the same parameters and batch: the loss within TRAIN_LOSS_TOL
@@ -2830,13 +2976,32 @@ def _train_parity(tag, arch, cfg, params, batch, derived, grads_gated=True):
 
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import ssm
+    routes = RouteReplay()
     zero_counts()
-    (lk, _), gk = loss_and_grads(cfg, params, batch, remat=True)
+    with routes.record():
+        (lk, auxk), gk = loss_and_grads(cfg, params, batch, remat=True)
     par_counts = {k: v for k, v in counts().items() if v}
-    (lp, _), gp = loss_and_grads(cfg, params, batch, remat=True,
-                                 plain_kernels=True)
+    with routes.replay():
+        (lp, auxp), gp = loss_and_grads(cfg, params, batch, remat=True,
+                                        plain_kernels=True)
     if {k: v for k, v in counts().items() if v} != par_counts:
-        raise AssertionError("13: the plain step launched a kernel")
+        raise AssertionError(f"{phase}: the plain step launched a kernel")
+    if cfg.moe is not None:
+        # no float atomics on the path (the MoE's gathers, the backward
+        # kernels): a rerun of the kernel step is bit-equal
+        (lk2, _), gk2 = loss_and_grads(cfg, params, batch, remat=True)
+        rerun_equal = lk2.item() == lk.item() and all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(_named(gk2),
+                                                        _named(gk)))
+        del gk2
+        print(f"[{tag}] {phase} {arch} MoE aux (kernels, plain): "
+              f"lb {auxk['lb'].item():.6f}, {auxp['lb'].item():.6f}; "
+              f"z {auxk['z'].item():.6f}, {auxp['z'].item():.6f}; routing "
+              f"replayed in the plain step: {json.dumps(routes.done())}; "
+              f"kernel step rerun bit-equal: {rerun_equal}")
+        if not rerun_equal:
+            raise AssertionError(f"{phase} {arch}: a rerun of the kernel "
+                                 "step is not bit-equal")
     rows = _grad_rows(gk, gp)
     norm_k, norm_p = _global_norm(gk), _global_norm(gp)
     errs = {"loss_rel": abs(lk.item() - lp.item()) / abs(lp.item()),
@@ -2876,22 +3041,25 @@ def _train_parity(tag, arch, cfg, params, batch, derived, grads_gated=True):
              f"{TRAIN_GRAD_TOL}"
              f"{' or twice the plain step distance from f64' if derived else ''}"
              if grads_gated else "gradients not gated (printed)")
-    print(f"[{tag}] 13 {arch} ({cfg.n_layers} layers) loss and gradients, "
+    print(f"[{tag}] {phase} {arch} ({cfg.n_layers} layers) loss and gradients, "
           f"kernels vs plain at B={batch['tokens'].shape[0]} "
           f"S={batch['tokens'].shape[1]}: {json.dumps(errs)}; loss tol "
           f"{tol['loss']:.3e}, {gates}; launches {par_counts}")
     grads_ok = not bad and errs["grad_norm_rel"] <= tol["norm"]
     if ((grads_gated and not grads_ok) or errs["loss_rel"] > tol["loss"]
             or not math.isfinite(lk.item())):
-        raise AssertionError(f"13 {arch}: kernel step != plain step: "
+        raise AssertionError(f"{phase} {arch}: kernel step != plain step: "
                              f"{errs}; outside: {bad}")
 
 
-def train_llm(tag, arch, n_layers=None, device="cuda"):
-    """Phase 13: LM training on the card at full width (``n_layers`` cuts
-    the depth: qwen3-4b's 36 layers do not fit one card with f32 Adam,
-    so it trains 8), B=TRAIN_BATCH, S=TRAIN_SEQ, remat, ``--opts
-    TRAIN_OPTS``, on the token pipeline's first batch.
+def train_llm(tag, arch, n_layers=None, device="cuda", phase="13"):
+    """Phases 13 and 15: LM training on the card at full width
+    (``n_layers`` cuts the depth: qwen3-4b's 36 layers do not fit one card
+    with f32 Adam, so it trains 8; deepseek-moe-16b trains 4, phase 15),
+    B=TRAIN_BATCH, S=TRAIN_SEQ, remat, ``--opts TRAIN_OPTS``, on the token
+    pipeline's first batch. With MoE layers the parity holds the expert
+    choice fixed (``RouteReplay``) and prints lb and z, and the profile
+    names the MoE FFN's parts.
 
       * parity (``_train_parity``): one step's loss and gradients through
         the kernels against ``plain_kernels=True``. qwen3-4b at S=2048.
@@ -2945,7 +3113,7 @@ def train_llm(tag, arch, n_layers=None, device="cuda"):
         params = M.init_lm(cfg, 0, device=device)
         n_params = sum(t.numel() for _, t in _named(params))
         _train_parity(tag, arch, cfg, params, pb, derived=rwkv,
-                      grads_gated=not rwkv)
+                      grads_gated=not rwkv, phase=phase)
 
         step, opt = make_train_step(cfg, lr=TRAIN_LR, remat=True)
         opt_state = opt.init(params)
@@ -2958,8 +3126,8 @@ def train_llm(tag, arch, n_layers=None, device="cuda"):
         want = dict.fromkeys(main, 0)
         want[kernel], want[kernel + "_bwd"] = 2 * L, L
         if main != want:
-            raise AssertionError(f"13 {arch}: launches {main}, expected "
-                                 f"{want}")
+            raise AssertionError(f"{phase} {arch}: launches {main}, "
+                                 f"expected {want}")
         losses, times = [m["loss"].item()], []
         for _ in range(3):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -2971,18 +3139,21 @@ def train_llm(tag, arch, n_layers=None, device="cuda"):
             losses.append(m["loss"].item())
         peak = torch.cuda.max_memory_allocated()
         if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"13 {arch}: losses {losses}")
+            raise AssertionError(f"{phase} {arch}: losses {losses}")
         ms = float(np.median(times))
         record = {"parameters": n_params, "ms_per_step": ms,
+                  "moe_lb": m["moe_lb"].item(),
                   "ms_per_step_runs": times,
                   "tokens_per_s": B * S / (ms / 1e3),
                   "peak_memory_bytes": peak, "losses": losses,
                   "grad_norm": m["grad_norm"].item(),
                   "launches_per_step": {k: v for k, v in main.items() if v}}
-        print(f"[{tag}] 13 {arch} train step ({L} layers) B={B} S={S} remat "
-              f"{TRAIN_OPTS}: {json.dumps(record)}")
-        print(f"[{tag}] 13 {arch} profiled train step: "
-              f"{json.dumps(_profiled(lambda: step(params, opt_state, batch), device))}")
+        print(f"[{tag}] {phase} {arch} train step ({L} layers) B={B} S={S} "
+              f"remat {TRAIN_OPTS}: {json.dumps(record)}")
+        with _moe_ranges():
+            prof = _profiled(lambda: step(params, opt_state, batch), device)
+        print(f"[{tag}] {phase} {arch} profiled train step: "
+              f"{json.dumps(prof)}")
     finally:
         flags.set_flags(**dataclasses.asdict(prev))
     del params, opt_state
@@ -3064,18 +3235,35 @@ def _rel_err(a, b):
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
-def serve_llm(tag, arch, kernel, device="cuda", full=True):
+def layer_kinds(cfg):
+    """Every layer's kind ('attn', 'mamba', 'rwkv'), in order."""
+    from repro_torch.models import stack as ST
+    return [k[0] for _, reps, body in ST.build_segments(cfg)
+            for k in body for _ in range(reps)]
+
+
+def serve_llm(tag, arch, kernel, device="cuda", full=True, n_layers=None):
     """One full-width LLM served through ``launch.serve.main`` (the main
     path: its launches are the JSON record's), then its steps timed and
-    held against the plain versions (phases 11-12). Returns the main
-    path's launch count of ``kernel`` and the step times. ``full=False``
-    serves the reduced config (a CPU rehearsal)."""
+    held against the plain versions (phases 11-12, 14). ``kernel``
+    launches once per layer of its kind per prefill (flash: attention
+    layers; wkv: RWKV layers). ``n_layers`` cuts the depth (phase 14:
+    what fits 80 GB): ``serve.main`` then reads the cut config, through
+    this script's patch of its ``get_config`` (the package has no depth
+    option). Returns the main path's launch count of ``kernel`` and the
+    step times. ``full=False`` serves the reduced config (a CPU
+    rehearsal)."""
+    from unittest import mock
+
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import model as M
     cfg = get_config(arch) if full else get_config(arch).reduced()
-    B, P, N, L = LLM_BATCH, LLM_PROMPT, LLM_TOKENS, cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    B, P, N = LLM_BATCH, LLM_PROMPT, LLM_TOKENS
+    L = layer_kinds(cfg).count("rwkv" if kernel == "wkv" else "attn")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = M.init_lm(cfg, 0, device=device)
@@ -3089,7 +3277,9 @@ def serve_llm(tag, arch, kernel, device="cuda", full=True):
     argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
             "--tokens", str(N), "--device", device] + (["--full"] if full
                                                        else [])
-    gen = serve.main(argv, prompts=prompts, params=params)
+    with mock.patch.object(serve, "get_config",
+                           lambda name: cfg if full else get_config(name)):
+        gen = serve.main(argv, prompts=prompts, params=params)
     main_counts = counts()
     want = dict.fromkeys(main_counts, 0)
     want[kernel] = L
@@ -3136,15 +3326,79 @@ def serve_llm(tag, arch, kernel, device="cuda", full=True):
               "decode_tok_per_s": B * (N - 1) / (decode_ms / 1e3),
               "decode_wall_ms_per_token": 1e3 * wall / (N - 1),
               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-    print(f"[{tag}] {arch} B={B} prompt={P} new={N}: {kernel} {L} launches "
-          f"per prefill, 0 added by {N - 1} decode steps; "
-          f"{json.dumps(timing)}")
+    print(f"[{tag}] {arch} ({cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters) B={B} prompt={P} new={N}: "
+          f"{kernel} {L} launches per prefill, 0 added by {N - 1} decode "
+          f"steps; {json.dumps(timing)}")
     del cache
     llm_parity(tag, arch, cfg, params, tokens, P, N)
     profile_llm(tag, arch, params, prefill, decode, tokens, P, device)
+    if "mamba" in layer_kinds(cfg):
+        mamba_scan(tag, arch, cfg, params, device)
     del params
     torch.cuda.empty_cache()
     return main_counts[kernel], timing
+
+
+def mamba_scan(tag, arch, cfg, params, device="cuda"):
+    """Phase 14's Mamba scan: the first Mamba layer's ``mamba_full`` at the
+    serve shape (B=LLM_BATCH, T=LLM_PROMPT, full width) on a seeded
+    normal input, its time scan (``chunked_time_scan``: a Python loop of
+    a few elementwise launches per step, host-bound by design) timed
+    within it by CUDA events and the host clock, then the scan alone
+    profiled: its kernel launches and device time per layer."""
+    from unittest import mock
+
+    from repro_torch.models import ssm as S
+    from repro_torch.models import stack as ST
+    name, j = next((name, j) for name, _, body in ST.build_segments(cfg)
+                   for j, kind in enumerate(body) if kind[0] == "mamba")
+    p = ST._index(params["segments"][name], 0)[f"s{j}"]["mixer"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn((LLM_BATCH, LLM_PROMPT, cfg.d_model), generator=gen,
+                    device=device)
+    scan, rec = S.chunked_time_scan, {}
+
+    def timed(*args):
+        rec["args"] = args
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = scan(*args)
+        ev[1].record()
+        torch.cuda.synchronize()
+        rec.setdefault("scan_ms", []).append(ev[0].elapsed_time(ev[1]))
+        rec.setdefault("scan_host_ms", []).append(
+            1e3 * (time.perf_counter() - t0))
+        return out
+
+    layer_ms = []
+    with torch.no_grad(), mock.patch.object(S, "chunked_time_scan", timed):
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            S.mamba_full(p, cfg.ssm, x)
+            ev[1].record()
+            torch.cuda.synchronize()
+            layer_ms.append(ev[0].elapsed_time(ev[1]))
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            scan(*rec["args"])
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"shape": {"B": LLM_BATCH, "T": LLM_PROMPT,
+                     "d_inner": cfg.ssm.expand * cfg.d_model,
+                     "d_state": cfg.ssm.d_state},
+           "mamba_full_ms_runs": layer_ms, "scan_ms_runs": rec["scan_ms"],
+           "scan_host_ms_runs": rec["scan_host_ms"],
+           "scan_kernel_launches": sum(e.count for e in kernels),
+           "scan_device_ms": sum(e.self_device_time_total
+                                 for e in kernels) / 1e3}
+    print(f"[{tag}] 14 {arch} Mamba scan, one layer: {json.dumps(out)}")
+    del rec
 
 
 def _wkv_f64(r, k, v, w, u):
@@ -3183,15 +3437,20 @@ def llm_parity(tag, arch, cfg, params, tokens, P, N):
 
     from repro_torch.models import model as M
     from repro_torch.models import ssm
+    routes = RouteReplay()
     with torch.no_grad():
-        hk, ck, _ = M.forward_hidden(cfg, params, tokens, want_cache=True,
-                                  cache_len=P + N)
+        with routes.record():
+            hk, ck, _ = M.forward_hidden(cfg, params, tokens,
+                                         want_cache=True, cache_len=P + N)
         lk = M._logits(cfg, params, hk[:, -1:])
         before = counts()
-        hp, cp, _ = M.forward_hidden(cfg, params, tokens, want_cache=True,
-                                  cache_len=P + N, plain_kernels=True)
+        with routes.replay():
+            hp, cp, _ = M.forward_hidden(cfg, params, tokens,
+                                         want_cache=True, cache_len=P + N,
+                                         plain_kernels=True)
         if counts() != before:
             raise AssertionError("the plain run launched a kernel")
+        prefill_routes = routes.done()
         lp = M._logits(cfg, params, hp[:, -1:])
         scale = hp.abs().max()
         per_pos = (hk - hp).abs().amax(dim=(0, 2)) / scale
@@ -3216,12 +3475,23 @@ def llm_parity(tag, arch, cfg, params, tokens, P, N):
         tok = torch.argmax(lk, dim=-1)
         dec = []
         for i in range(N - 1):
-            lk, ck = M.decode_step(cfg, params, tok, ck, P + i, P + N)
-            lp, cp = M.decode_step(cfg, params, tok, cp, P + i, P + N)
+            with routes.record():
+                lk, ck = M.decode_step(cfg, params, tok, ck, P + i, P + N)
+            with routes.replay():
+                lp, cp = M.decode_step(cfg, params, tok, cp, P + i, P + N)
             dec.append(_rel_err(lk, lp))
             finite = finite and bool(torch.isfinite(lk).all())
             tok = torch.argmax(lk, dim=-1)
     errs["decode_logits_max"] = max(dec)
+    if cfg.moe is not None:
+        decode_routes = routes.done()
+        decode_routes["token_layer_choices"] -= prefill_routes[
+            "token_layer_choices"]
+        decode_routes["choices_differing_without_replay"] -= prefill_routes[
+            "choices_differing_without_replay"]
+        print(f"[{tag}] {arch} MoE routing replayed in the plain run: "
+              f"prefill {json.dumps(prefill_routes)}; decode "
+              f"{json.dumps(decode_routes)}")
     print(f"[{tag}] {arch} kernels vs plain (max |d| / max |plain|; "
           f"logits tol {LLM_REL_TOL}, hidden tol {hidden_tol:.3e}): "
           f"{json.dumps(errs)}; {json.dumps(scales)}; per decode step "
@@ -3268,25 +3538,34 @@ def _profiled(fn, device):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kinds, kernels = {}, []
+    kinds, kernels, ranges = {}, [], {}
     for e in prof.key_averages():
+        if e.key.startswith("moe."):
+            # a named range (``_moe_ranges``): the device time of the
+            # kernels launched inside it, and its calls
+            ranges[e.key] = (e.device_time_total / 1e3, e.count)
+            continue
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = e.self_device_time_total / 1e3
         kinds[_kind(e.key)] = kinds.get(_kind(e.key), 0.0) + ms
         kernels.append((round(ms, 4), e.count, e.key[:70]))
     busy = sum(v for k, v in kinds.items() if k != "copy")
-    return {"wall_ms_profiled": wall_ms,
-            "device_ms": kinds if busy > 0 else "not measured",
-            "device_busy_share": busy / wall_ms if busy > 0
-            else "not measured",
-            "top_kernels": sorted(kernels, reverse=True)[:10]}
+    out = {"wall_ms_profiled": wall_ms,
+           "device_ms": kinds if busy > 0 else "not measured",
+           "device_busy_share": busy / wall_ms if busy > 0
+           else "not measured",
+           "top_kernels": sorted(kernels, reverse=True)[:10]}
+    if ranges:
+        out["moe_device_ms_and_calls"] = ranges
+    return out
 
 
 def profile_llm(tag, arch, params, prefill, decode, tokens, P, device):
-    """One profiled prefill and 4 profiled decode steps after it."""
+    """One profiled prefill and 4 profiled decode steps after it (with the
+    MoE FFN's parts as named ranges)."""
     state = {}
-    with torch.no_grad():
+    with torch.no_grad(), _moe_ranges():
         def run_prefill():
             state["tok"], state["cache"] = prefill(params, {"tokens": tokens})
 
@@ -3298,6 +3577,124 @@ def profile_llm(tag, arch, params, prefill, decode, tokens, P, device):
               f"{json.dumps(_profiled(run_prefill, device))}")
         print(f"[{tag}] {arch} profiled 4 decode steps: "
               f"{json.dumps(_profiled(run_decode, device))}")
+
+
+def fig7_ablation(tag, device="cuda", steps=None):
+    """Phase 16: fig. 7's ablation (``benchmarks/fig7_ablation.py``) on the
+    port, timed: ``train_surf`` at BENCH over the training seeds in
+    lockstep, constrained and not, from the random and the DGD init (the
+    four runs), through the graph-filter kernel; then each trained seed
+    evaluated on the test pool under 4 evaluation seeds. Prints ms per
+    lockstep step of each run (CUDA events over the whole ``train_surf``
+    call, over ``steps``), its launches, and the per-layer accuracies
+    with the benchmark's mid-layer line. The accuracies are reported, not
+    gated (the benchmark asserts nothing). Returns (forward, backward)
+    launches."""
+    from repro_torch import engine as E
+    from repro_torch.configs.surf_paper import BENCH
+    from repro_torch.core import surf
+    from repro_torch.data import synthetic
+    steps = FIG7_STEPS if steps is None else steps
+    mds = synthetic.make_meta_dataset(BENCH, FIG7_TRAIN_Q, seed=0)
+    test = synthetic.make_meta_dataset(BENCH, FIG7_TEST_Q, seed=777)
+    fwd = bwd = 0
+    summary, rows = {}, {}
+    for constrained in (True, False):
+        for init in ("random", "dgd"):
+            name = ("surf" if constrained else "no-constraints") + f"+{init}"
+            zero_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            states, _, S_stack = surf.train_surf(
+                BENCH, mds, steps=steps, seeds=SEEDS,
+                constrained=constrained, log_every=0, init=init,
+                device=device)
+            ev[1].record()
+            torch.cuda.synchronize()
+            c = counts()
+            want = dict.fromkeys(c, 0)
+            want["graph_filter"] = steps * len(SEEDS) * BENCH.n_layers
+            want["graph_filter_bwd"] = (steps * len(SEEDS)
+                                        * (BENCH.n_layers - 1))
+            if c != want:
+                raise AssertionError(f"16 {name}: launches {c}, expected "
+                                     f"{want}")
+            fwd += c["graph_filter"]
+            bwd += c["graph_filter_bwd"]
+            acc = np.concatenate([
+                surf.evaluate_surf(BENCH, E.state_for_seed(states, i),
+                                   S_stack[i], test, seeds=SEEDS,
+                                   device=device)["acc_per_layer"]
+                for i in range(len(SEEDS))])
+            fwd += counts()["graph_filter"] - c["graph_filter"]
+            if not np.isfinite(acc).all():
+                raise AssertionError(f"16 {name}: accuracies {acc}")
+            summary[name] = acc.mean(0)
+            rows[name] = {"ms_per_lockstep_step":
+                          ev[0].elapsed_time(ev[1]) / steps,
+                          "launches": {k: v for k, v in c.items() if v},
+                          "acc_per_layer": [round(float(a), 4)
+                                            for a in acc.mean(0)],
+                          "acc_std_per_layer": [round(float(a), 4)
+                                                for a in acc.std(0)]}
+            print(f"[{tag}] 16 fig. 7 {name}: train_surf(BENCH, steps="
+                  f"{steps}, seeds={SEEDS}) {json.dumps(rows[name])}")
+            del states, S_stack
+    mid = BENCH.n_layers // 2
+    print(f"[{tag}] 16 fig. 7 mid-layer (l={mid}) acc (random init): "
+          f"surf={summary['surf+random'][mid]:.3f} "
+          f"no-constraints={summary['no-constraints+random'][mid]:.3f}")
+    return fwd, bwd
+
+
+def examples_phase(tag, device="cuda"):
+    """Phase 17: each ``examples/*_torch.py`` run in this process as its
+    command line would run it (``runpy`` with ``sys.argv``), on the card,
+    at the arguments of EXAMPLE_ARGS (the defaults, or a shorter run where
+    a default takes minutes), gated by its own assertions and by a line
+    its output must hold. ``serve_arch_torch.py`` must launch flash on
+    jamba's reduced attention layer (one per prefill). Returns the launch
+    counts of the whole phase."""
+    import contextlib
+    import io
+    import runpy
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(root, "build", "chip_smoke_train_lm_ckpt")
+    total = dict.fromkeys(counts(), 0)
+    for name, (argv, marker) in EXAMPLE_ARGS.items():
+        path = os.path.join(root, "examples", f"{name}_torch.py")
+        argv = list(argv) + (["--ckpt", ckpt] if name == "train_lm" else [])
+        zero_counts()
+        buf = io.StringIO()
+        saved = sys.argv
+        sys.argv = [path] + argv + ["--device", device]
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(path, run_name="__main__")
+        finally:
+            sys.argv = saved
+        wall = time.perf_counter() - t0
+        out = buf.getvalue()
+        c = counts()
+        print(f"[{tag}] 17 examples/{name}_torch.py {' '.join(argv)}: "
+              f"{wall:.1f} s, launches "
+              f"{json.dumps({k: v for k, v in c.items() if v})}; output "
+              f"tail: {out.strip().splitlines()[-3:]}")
+        if marker not in out:
+            raise AssertionError(f"17 {name}: {marker!r} not in its output")
+        if name == "serve_arch" and c["flash_attention"] != 1:
+            raise AssertionError(f"17 serve_arch: flash launches {c}, "
+                                 "expected 1 (jamba's reduced attention "
+                                 "layer, one prefill)")
+        for k, v in c.items():
+            total[k] += v
+    folder, base = os.path.split(ckpt)
+    for f in os.listdir(folder):          # the checkpoint's .npz and .json
+        if f.startswith(base):
+            os.remove(os.path.join(folder, f))
+    return total
 
 
 def main():
@@ -3436,16 +3833,27 @@ def main():
     fa_train_fwd, fa_train_bwd, _ = trained["qwen3-4b"]
     wkv_train_fwd, wkv_train_bwd, _ = trained["rwkv6-1.6b"]
 
+    # 14. MoE and hybrid serving at full width (depth cut to fit 80 GB)
+    moe_serve = {arch: serve_llm(tag, arch, "flash_attention",
+                                 n_layers=n_layers)[0]
+                 for arch, n_layers in SERVE_MOE}
+    # 15. MoE training at full width (counts zeroed inside)
+    moe_fwd, moe_bwd, _ = train_llm(tag, *TRAIN_MOE, phase="15")
+    # 16. fig. 7's ablation, timed; 17. the port's examples
+    fig7_fwd, fig7_bwd = fig7_ablation(tag)
+    ex = examples_phase(tag)
+
     # The graph filter's forward record's times are those of the largest
     # bucket's tick layer; its launches those of the serve runs (7-7d,
     # 7f), the launchers (7e), the training runs (9, 9b, 9e-9h, 9i's
-    # halo-pallas train_surf, 9k, 10b) and the async studies (9c, 9k), and
-    # dW's those of the launchers and the training runs. Flash
-    # attention's and wkv's are
+    # halo-pallas train_surf, 9k, 10b, 16), the async studies (9c, 9k)
+    # and the examples (17), and dW's those of the launchers, the training
+    # runs and the examples. Flash attention's and wkv's times are
     # those of the qwen3-4b and rwkv6-1.6b prefill shapes in f32, their
-    # launches those of the serve runs (one prefill each), the training
-    # steps (13) and the driver (13b); their backward kernels' times are
-    # those of the same shapes, their launches those of 13 and 13b.
+    # launches those of the serve runs (one prefill each; 11-12, 14), the
+    # training steps (13, 15), the driver (13b) and the examples (17);
+    # their backward kernels' times are those of the same shapes, their
+    # launches those of 13, 13b, 15 and 17.
     src = "src/repro_torch/kernels/graph_filter/csrc/graph_filter.cu"
     ms, plain_ms, bound_ms, bound_by = timing[paper[0]]
     b_ms, b_plain_ms, b_bound_ms, b_bound_by = bwd_timing
@@ -3474,7 +3882,12 @@ def main():
           f"{wkv_launches}; qwen3-4b training step (13) flash_attention "
           f"{fa_train_fwd}, backward {fa_train_bwd}; rwkv6-1.6b training "
           f"step (13) wkv {wkv_train_fwd}, backward {wkv_train_bwd}; "
-          f"training driver (13b) wkv {drv_fwd}, backward {drv_bwd}")
+          f"training driver (13b) wkv {drv_fwd}, backward {drv_bwd}; "
+          f"MoE and hybrid serve (14) flash_attention "
+          f"{json.dumps(moe_serve)}; deepseek-moe-16b training step (15) "
+          f"flash_attention {moe_fwd}, backward {moe_bwd}; fig. 7 (16) "
+          f"forward {fig7_fwd}, backward {fig7_bwd}; examples (17) "
+          f"{json.dumps({k: v for k, v in ex.items() if v})}")
     print(tag)
     print(json.dumps({"kernels": [
         {"name": "graph_filter", "route": "cuda", "source": src,
@@ -3484,7 +3897,7 @@ def main():
                       + sched_fwd + async_eval_launches
                       + seeds_rec["launches_forward"] + rob_fwd + ckpt_fwd
                       + sparse_fwd + qs_fwd + sharded_launches + halo_fwd
-                      + qsh_fwd),
+                      + qsh_fwd + fig7_fwd + ex["graph_filter"]),
          "max_abs_err": max_err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": None},
@@ -3492,7 +3905,8 @@ def main():
          "replaces": "src/repro/kernels/graph_filter/ops.py:114",
          "launches": (train_bwd + launch_bwd + sched_bwd
                       + seeds_rec["launches_backward"] + rob_bwd + ckpt_bwd
-                      + sparse_bwd + qs_bwd + halo_bwd + qsh_bwd),
+                      + sparse_bwd + qs_bwd + halo_bwd + qsh_bwd + fig7_bwd
+                      + ex["graph_filter_bwd"]),
          "max_abs_err": bwd_err,
          "ms": b_ms,
          "plain_ms": b_plain_ms, "bound_ms": b_bound_ms,
@@ -3501,13 +3915,15 @@ def main():
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
-         "launches": fa_launches + fa_train_fwd, "max_abs_err": fa_err,
+         "launches": (fa_launches + fa_train_fwd + sum(moe_serve.values())
+                      + moe_fwd + ex["flash_attention"]),
+         "max_abs_err": fa_err,
          "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": f_bound_ms,
          "bound_by": f_bound_by, "library_ms": f_lib_ms},
         {"name": "wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/ssm_scan/csrc/wkv.cu",
          "replaces": "src/repro/kernels/ssm_scan/kernel.py:24",
-         "launches": wkv_launches + wkv_train_fwd + drv_fwd,
+         "launches": wkv_launches + wkv_train_fwd + drv_fwd + ex["wkv"],
          "max_abs_err": wkv_err, "ms": w_ms,
          "plain_ms": w_plain_ms, "bound_ms": w_bound_ms,
          "bound_by": w_bound_by, "library_ms": None},
@@ -3515,7 +3931,8 @@ def main():
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_bwd.cu",
          "replaces": "src/repro/models/attention.py:56",
-         "launches": fa_train_bwd, "max_abs_err": fab_err, "ms": fb_ms,
+         "launches": fa_train_bwd + moe_bwd + ex["flash_attention_bwd"],
+         "max_abs_err": fab_err, "ms": fb_ms,
          "plain_ms": fb_plain_ms, "bound_ms": fb_bound_ms,
          "bound_by": fb_bound_by, "library_ms": fb_lib_ms},
         {"name": "wkv_bwd", "route": "cuda",

@@ -5,12 +5,12 @@ The downstream FL task is the ``core.tasks`` interface; this module
 re-exports the classification functions of
 ``core/tasks/classification.py`` (the same objects) so the historical
 ``task.fl_loss(W, X, Y, feat_dim, n_classes)`` entry points keep
-working. The reference's ``features_from_backbone`` arrives with the
-LLM substrate.
+working, and ``features_from_backbone`` with them.
 """
 from __future__ import annotations
 
 from repro_torch.core.tasks.classification import (  # noqa: F401
+    features_from_backbone,
     fl_accuracy,
     fl_grad,
     fl_loss,
@@ -24,4 +24,5 @@ from repro_torch.core.tasks.classification import (  # noqa: F401
 __all__ = [
     "head_dim", "unflatten", "local_loss", "local_accuracy",
     "fl_loss", "fl_accuracy", "fl_grad", "grad_norm",
+    "features_from_backbone",
 ]

@@ -7,7 +7,7 @@ d = F·C + C. Every function takes any number of leading axes (see
 ``core.tasks.base``). The legacy functional forms ``fl_loss``,
 ``fl_accuracy``, ``fl_grad`` and ``grad_norm`` (re-exported by the
 ``core.task`` shim) call the task's methods. ``features_from_backbone``
-arrives with the LLM substrate (``models/``).
+extracts frozen features from an LLM of ``models/``.
 """
 from __future__ import annotations
 
@@ -44,6 +44,21 @@ def local_loss(w, X, Y, feat_dim, n_classes):
 def local_accuracy(w, X, Y, feat_dim, n_classes):
     pred = _logits(w, X, feat_dim, n_classes).argmax(-1)
     return (pred == Y).to(torch.float32).mean(-1)
+
+
+def features_from_backbone(cfg, params, tokens):
+    """Frozen-feature extraction from an assigned architecture: the final
+    pre-logits hidden state, mean-pooled over the sequence. The forward
+    runs as the model's does (the kernels on the card)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import stack as ST
+    x = L.embed(params["embed"], tokens)
+    ctx = ST.Ctx(mode="full")
+    for name, reps, kinds in ST.build_segments(cfg):
+        x, _, _ = ST.apply_segment(cfg, kinds, params["segments"][name],
+                                   x, None, ctx)
+    x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    return torch.mean(x, dim=1)
 
 
 @dataclass(frozen=True)

@@ -10,11 +10,18 @@ and softmax-adjacent math run in f32 (``ACC``), as in the reference.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 ACC = torch.float32  # accumulation dtype
+
+# ``jax.checkpoint``'s counterpart: non-reentrant, so checkpoints nest and
+# closures over parameters get their gradients; nothing in a layer draws
+# random numbers.
+remat = partial(checkpoint, use_reentrant=False, preserve_rng_state=False)
 
 
 @dataclass(frozen=True)

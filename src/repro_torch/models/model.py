@@ -6,8 +6,9 @@ Works for every ported architecture through the segments of
 (``segments.seg0.s0.attn.wq.w``, ...), segments stacked on a leading
 repeats axis, so ``checkpoint.convert.lm_params_from_numpy`` maps the
 reference's tree one to one. ``forward_hidden`` and ``forward`` return
-the reference's third value, the auxiliary losses {"lb", "z"} (zero
-until MoE, ROADMAP queue 1 item 12), which ``lm_loss`` weighs in.
+the reference's third value, the auxiliary losses {"lb", "z"} of the
+MoE FFN layers summed over the stack (zero without MoE), which
+``lm_loss`` weighs in.
 ``encode`` arrives with the enc-dec slice (item 14).
 """
 from __future__ import annotations

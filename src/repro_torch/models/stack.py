@@ -8,10 +8,11 @@ the two packages' parameter trees map one to one; the port runs a body
 per repeat in a Python loop where the reference runs ``lax.scan``.
 
 Sub-layer kinds ported here:
-  ('attn', 'dense', window)  window=0 => global attention
+  ('attn', ffn, window)  window=0 => global attention
+  ('mamba', ffn)
   ('rwkv',)
-The kinds ``('attn', 'moe', w)``, ``('mamba', ffn)``, ``('enc',)`` and
-``('dec',)`` raise ``NotImplementedError`` naming their ROADMAP item.
+ffn ∈ {'dense', 'moe'}. The enc-dec kinds ``('enc',)`` and ``('dec',)``
+raise ``NotImplementedError`` naming their ROADMAP item.
 
 Training: with ``Ctx.remat`` each repeat's body runs under
 ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
@@ -22,27 +23,24 @@ recompute) and their backward kernels once. ``flags.nested_remat_group``
 = g > 1 checkpoints groups of g checkpointed repeats, on the reference's
 condition (full mode, no cache, g divides the repeats and is smaller);
 then a layer's forward runs three times. Every layer also returns the
-auxiliary losses {"lb", "z"} (zero until MoE, ROADMAP queue 1 item 12),
-summed over the segment.
+auxiliary losses {"lb", "z"} (nonzero on a MoE FFN layer, zero
+elsewhere), summed over the segment; decode drops them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import partial
 from typing import Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import flags
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 _UNPORTED = {
-    "moe": "MoE FFN layers: ROADMAP queue 1 item 12 (models/moe.py)",
-    "mamba": "mamba layers: ROADMAP queue 1 item 13",
     "enc": "enc-dec layers: ROADMAP queue 1 item 14",
     "dec": "enc-dec layers: ROADMAP queue 1 item 14",
 }
@@ -50,10 +48,9 @@ _UNPORTED = {
 
 def _ported(kind):
     """Raise for a kind the port does not run yet."""
-    key = "moe" if kind[0] in ("attn", "mamba") and kind[1] == "moe" else kind[0]
-    if key in _UNPORTED:
-        raise NotImplementedError(f"{kind}: {_UNPORTED[key]}")
-    if kind[0] not in ("attn", "rwkv"):
+    if kind[0] in _UNPORTED:
+        raise NotImplementedError(f"{kind}: {_UNPORTED[kind[0]]}")
+    if kind[0] not in ("attn", "mamba", "rwkv"):
         raise ValueError(kind)
 
 
@@ -129,21 +126,27 @@ def _add_aux(a, b):
     return {k: a[k] + b[k] for k in a}
 
 
-# Non-reentrant, so checkpoints nest and closures over parameters get
-# their gradients; nothing in a layer draws random numbers.
-_checkpoint = partial(checkpoint, use_reentrant=False,
-                      preserve_rng_state=False)
+_checkpoint = L.remat
 
 
 # ------------------------------------------------------------- layer bodies
+def _init_ffn(init: L.Init, cfg: ArchConfig, ffn):
+    d = cfg.d_model
+    if ffn == "moe":
+        return M.init_moe(init, d, cfg.moe, cfg.d_ff, cfg.act)
+    return L.init_mlp(init, d, cfg.d_ff, cfg.act)
+
+
 def init_layer(init: L.Init, cfg: ArchConfig, kind):
     _ported(kind)
     d = cfg.d_model
-    if kind[0] == "attn":
-        return {"ln1": L.init_norm(init, cfg.norm, d),
-                "attn": A.init_attn(init, d, cfg.attn),
+    if kind[0] in ("attn", "mamba"):
+        name, mixer = (("attn", A.init_attn(init, d, cfg.attn))
+                       if kind[0] == "attn" else
+                       ("mixer", S.init_mamba(init, d, cfg.ssm)))
+        return {"ln1": L.init_norm(init, cfg.norm, d), name: mixer,
                 "ln2": L.init_norm(init, cfg.norm, d),
-                "ffn": L.init_mlp(init, d, cfg.d_ff, cfg.act)}
+                "ffn": _init_ffn(init, cfg, kind[1])}
     return {"ln1": L.init_layernorm(init, d),
             "tmix": S.init_rwkv6(init, d, cfg.ssm),
             "ln2": L.init_layernorm(init, d),
@@ -161,10 +164,20 @@ def init_layer_cache(cfg: ArchConfig, kind, batch, cache_len, dtype,
     if kind[0] == "attn":
         return A.init_cache(batch, _cache_len(kind, cache_len), cfg.attn,
                             dtype, device)
+    if kind[0] == "mamba":
+        return S.init_mamba_state(batch, cfg.d_model, cfg.ssm, device)
     st = S.init_rwkv6_state(batch, cfg.d_model, cfg.ssm, device)
     st["cm_prev"] = torch.zeros((batch, 1, cfg.d_model), dtype=L.ACC,
                                 device=device)
     return st
+
+
+def _apply_ffn(p, cfg: ArchConfig, ffn, x):
+    """The FFN sub-layer: (y, {"lb", "z"})."""
+    if ffn == "moe":
+        y, lb, z = M.moe_apply(p, x, cfg.moe, cfg.act)
+        return y, {"lb": lb, "z": z}
+    return L.mlp(p, x, cfg.act), _zero_aux(x.device)
 
 
 def apply_layer_full(cfg: ArchConfig, kind, p, x, ctx: Ctx):
@@ -173,7 +186,7 @@ def apply_layer_full(cfg: ArchConfig, kind, p, x, ctx: Ctx):
     B, Sq, d = x.shape
     cache = {}
     if kind[0] == "attn":
-        _, _, w = kind
+        _, ffn, w = kind
         f = flags.get()
         positions = torch.arange(Sq, device=x.device).expand(B, Sq)
         h = L.apply_norm(cfg.norm, p["ln1"], x)
@@ -189,7 +202,17 @@ def apply_layer_full(cfg: ArchConfig, kind, p, x, ctx: Ctx):
                              x.dtype, x.device), k, v,
                 ring=bool(w) and w < ctx.cache_len)
         h2 = L.apply_norm(cfg.norm, p["ln2"], x)
-        return x + L.mlp(p["ffn"], h2, cfg.act), cache, _zero_aux(x.device)
+        y2, aux = _apply_ffn(p["ffn"], cfg, ffn, h2)
+        return x + y2, cache, aux
+    if kind[0] == "mamba":
+        h = L.apply_norm(cfg.norm, p["ln1"], x)
+        y, state = S.mamba_full(p["mixer"], cfg.ssm, h)
+        x = x + y
+        if ctx.want_cache:
+            cache = state
+        h2 = L.apply_norm(cfg.norm, p["ln2"], x)
+        y2, aux = _apply_ffn(p["ffn"], cfg, kind[1], h2)
+        return x + y2, cache, aux
     h = L.layernorm(p["ln1"], x)
     y, st = S.rwkv6_full(p["tmix"], cfg.ssm, h, plain=ctx.plain_kernels)
     x = x + y
@@ -205,15 +228,19 @@ def apply_layer_full(cfg: ArchConfig, kind, p, x, ctx: Ctx):
 def apply_layer_decode(cfg: ArchConfig, kind, p, x1, cache, ctx: Ctx):
     """Single-token sub-layer. Returns (x1, new_cache)."""
     _ported(kind)
-    if kind[0] == "attn":
-        _, _, w = kind
-        ring = bool(w) and cache["k"].shape[1] < ctx.cache_len
+    if kind[0] in ("attn", "mamba"):
         h = L.apply_norm(cfg.norm, p["ln1"], x1)
-        y, cache = A.decode_attention(p["attn"], cfg.attn, h, ctx.pos, cache,
-                                      ring=ring, window=w)
+        if kind[0] == "attn":
+            w = kind[2]
+            ring = bool(w) and cache["k"].shape[1] < ctx.cache_len
+            y, cache = A.decode_attention(p["attn"], cfg.attn, h, ctx.pos,
+                                          cache, ring=ring, window=w)
+        else:
+            y, cache = S.mamba_step(p["mixer"], cfg.ssm, h, cache)
         x1 = x1 + y
         h2 = L.apply_norm(cfg.norm, p["ln2"], x1)
-        return x1 + L.mlp(p["ffn"], h2, cfg.act), cache
+        y2, _ = _apply_ffn(p["ffn"], cfg, kind[1], h2)
+        return x1 + y2, cache
     h = L.layernorm(p["ln1"], x1)
     tm_state = {"S": cache["S"], "x_prev": cache["x_prev"]}
     y, tm_state = S.rwkv6_step(p["tmix"], cfg.ssm, h, tm_state)

@@ -60,6 +60,7 @@ from repro_torch.kernels.ssm_scan import ops as wkv_ops
 from repro_torch.kernels.ssm_scan import wkv, wkv_ref
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import model as M
+from repro_torch.models import stack as ST
 from repro_torch.serve import BucketSpec, FederationServer
 
 pytestmark = pytest.mark.cuda
@@ -744,8 +745,8 @@ def test_wkv_launch_shape(cuda):
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_reduced_prefill_and_decode_through_kernels(cuda, arch):
     """A reduced-config prefill launches the flash kernel once per
-    attention layer or the wkv kernel once per RWKV layer, decode launches
-    neither, and logits and caches match the same model run through the
+    attention layer and the wkv kernel once per RWKV layer (a Mamba layer
+    neither), decode launches neither, and logits and caches match the same model run through the
     plain versions (``plain_kernels=True``) at 1e-4, over a prefill and 4
     teacher-forced decode steps."""
     cfg = get_config(arch).reduced()
@@ -758,8 +759,8 @@ def test_reduced_prefill_and_decode_through_kernels(cuda, arch):
     logits, cache, _ = M.forward(cfg, params, ids[:, :P], want_cache=True,
                               cache_len=cache_len)
     torch.cuda.synchronize()
-    n = cfg.n_layers
-    want = (0, n) if cfg.attn is None else (n, 0)
+    kinds = _layer_kinds(cfg)
+    want = (kinds.count("attn"), kinds.count("rwkv"))
     assert (flash_attention.launches - before[0],
             wkv.launches - before[1]) == want
     plain, pcache, _ = M.forward(cfg, params, ids[:, :P], want_cache=True,
@@ -932,7 +933,8 @@ def test_backward_kernels_refuse_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_reduced_train_step_through_kernels_matches_plain(cuda, arch):
     """A reduced-config train step with remat through the kernels: 2L
-    forward and L backward launches of the layer's kernel, the loss and
+    forward and L backward launches of the layer's kernel (L the layers
+    of its kind), the loss and
     every gradient within 1e-4 of the plain versions' (each tensor's
     largest entry), and the step's parameters finite."""
     from repro_torch import flags
@@ -947,7 +949,8 @@ def test_reduced_train_step_through_kernels_matches_plain(cuda, arch):
         kernel = flash_attention if cfg.attn is not None else wkv
         before = (kernel.launches, kernel.bwd_launches)
         (lk, _), gk = loss_and_grads(cfg, params, batch, remat=True)
-        L = cfg.n_layers
+        L = _layer_kinds(cfg).count("attn" if cfg.attn is not None
+                                    else "rwkv")
         assert (kernel.launches - before[0],
                 kernel.bwd_launches - before[1]) == (2 * L, L)
         (lp, _), gp = loss_and_grads(cfg, params, batch, remat=True,
@@ -962,7 +965,107 @@ def test_reduced_train_step_through_kernels_matches_plain(cuda, arch):
         flags.set_flags(chunked_ce=0)
 
 
+def _layer_kinds(cfg):
+    """Every layer's kind ('attn', 'mamba', 'rwkv'), in order."""
+    return [k[0] for _, reps, body in ST.build_segments(cfg)
+            for k in body for _ in range(reps)]
+
+
 def _leaf_list(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaf_list(v)]
     return [tree]
+
+
+def test_flash_kernel_gives_fully_masked_rows_zero(cuda):
+    """A non-causal windowed call with Sq > Skv + window − 1: the rows that
+    see no key get o = 0 from the kernel, as the reference's Pallas kernel
+    gives them, and no gradient (dq zero there, dk and dv those of the
+    call with those rows' output gradient zeroed); the other rows match
+    the plain version."""
+    Sq, Skv, win = 96, 40, 16
+    q, k, v = (torch.tensor(np.random.default_rng(s).standard_normal(
+        (1, n, L, 32)).astype(np.float32), device=cuda)
+        for s, n, L in ((0, 4, Sq), (1, 2, Skv), (2, 2, Skv)))
+    dead = torch.arange(Sq, device=cuda) >= Skv + win - 1
+    o = flash_attention(q, k, v, causal=False, window=win)
+    assert (o[:, :, dead] == 0).all()
+    o_ref = attention_ref(q, k, v, causal=False, window=win)
+    torch.testing.assert_close(o[:, :, ~dead], o_ref[:, :, ~dead],
+                               atol=FLASH_F32_ERR_MAX, rtol=0)
+    do = torch.randn_like(o)
+    grads = []
+    for g in (do, torch.where(dead[:, None], 0.0, do)):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        flash_attention(*xs, causal=False, window=win).backward(g)
+        grads.append([x.grad for x in xs])
+    assert (grads[0][0][:, :, dead] == 0).all()
+    for a, b in zip(grads[0], grads[1]):
+        assert torch.equal(a, b)
+
+
+def _moe_setup(device, T=4096, d=256, E=16, k=2, seed=0):
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    m = MoEConfig(n_experts=E, top_k=k, n_shared=1, d_expert=128,
+                  capacity_factor=0.5)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p = moe.init_moe(L.Init(gen, device=device), d, m, 512, "swiglu")
+    x = torch.randn((4, T // 4, d), generator=gen, device=device)
+    return moe, m, p, x
+
+
+def test_moe_forward_and_backward_bit_equal_on_rerun(cuda):
+    """The MoE FFN on the card (sort, gathers, batched GEMMs, the combine
+    summed over k in order; no float atomics): two runs give the same
+    output, losses and gradients bit for bit, with tokens dropped."""
+    moe, m, p, x = _moe_setup(cuda)
+    runs = []
+    for _ in range(2):
+        leaves = {n: t.clone().requires_grad_() for n, t in
+                  (("router", p["router"]["w"]), ("wg", p["wg"]),
+                   ("wu", p["wu"]), ("wd", p["wd"]))}
+        xx = x.clone().requires_grad_()
+        q = dict(p, router={"w": leaves["router"]}, wg=leaves["wg"],
+                 wu=leaves["wu"], wd=leaves["wd"])
+        y, lb, z = moe.moe_apply(q, xx, m, "swiglu")
+        (y.square().sum() + lb + z).backward()
+        runs.append([y, lb, z, xx.grad] + [t.grad for t in leaves.values()])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    tok_idx, _ = moe.dispatch_indices(
+        moe.route(p, x.reshape(-1, x.shape[-1]), m)[1], x.shape[0]
+        * x.shape[1], m)
+    T = x.shape[0] * x.shape[1]
+    assert 0 < int((tok_idx < T).sum()) < 2 * T       # some tokens dropped
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "llama4-scout-17b-a16e",
+                                  "jamba-1.5-large-398b"])
+def test_reduced_moe_and_hybrid_forward_on_card_match_cpu(cuda, arch):
+    """A reduced MoE / hybrid arch on the card (flash attention through
+    the kernel; MoE and Mamba in plain PyTorch) against the port on the
+    CPU, same parameters and ids: logits and the auxiliary losses within
+    1e-4 of the largest entry; flash launched once per attention layer."""
+    cfg = get_config(arch).reduced()
+    params = M.init_lm(cfg, 0, device="cpu")
+    ids = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16))
+    with torch.no_grad():
+        ref, _, ref_aux = M.forward(cfg, params, torch.tensor(ids))
+        on_card = _tree_to(params, cuda)
+        before = flash_ops.flash_attention.launches
+        got, _, aux = M.forward(cfg, on_card, torch.tensor(ids, device=cuda))
+    assert (flash_ops.flash_attention.launches - before
+            == _layer_kinds(cfg).count("attn"))
+    scale = ref.abs().max()
+    assert ((got.cpu() - ref).abs().max() / scale).item() <= 1e-4
+    for key in ("lb", "z"):
+        assert abs(aux[key].item() - ref_aux[key].item()) <= 1e-4 * max(
+            1.0, abs(ref_aux[key].item()))
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)

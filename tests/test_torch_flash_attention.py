@@ -474,3 +474,31 @@ def test_cuda_style_call_keeps_the_gradient(monkeypatch):
     with pytest.raises(TypeError, match="float32"):
         ops._on_card(*(a.detach().bfloat16().requires_grad_() for a in args),
                      True, 0)
+
+
+def test_fully_masked_rows_keep_each_reference_functions_semantics():
+    """A non-causal windowed call with Sq > Skv + window − 1: the last rows
+    see no key. The reference's Pallas kernel (interpret mode) gives them
+    o = 0 (dead blocks skipped, p zeroed under the mask, l floored at
+    1e-30), as the port's CUDA kernels do (``tests/test_torch_cuda.py``);
+    the reference's ``attention_ref`` masks with −1e30 and softmaxes, so
+    uniform weights over every key, as the port's ``attention_ref`` does.
+    The port keeps each reference function's semantics."""
+    Sq, Skv, win = 64, 32, 8
+    (jq, jk, jv), (q, k, v) = _inputs(1, 4, 2, Sq, 16, "float32", seed=11,
+                                      Skv=Skv)
+    dead = np.arange(Sq) >= Skv + win - 1
+    assert dead.sum() == Sq - (Skv + win - 1) > 0
+    o_kernel = _np(jflash(jq, jk, jv, causal=False, window=win, block_q=32,
+                          block_kv=32))
+    assert (o_kernel[:, :, dead] == 0).all()
+    assert (np.abs(o_kernel[:, :, ~dead]).max(-1) > 0).all()
+    o_ref = _np(jattention_ref(jq, jk, jv, causal=False, window=win))
+    o = attention_ref(q, k, v, causal=False, window=win)
+    np.testing.assert_allclose(_np(o), o_ref, atol=5e-6, rtol=5e-6)
+    uniform = np.repeat(_np(v).mean(2, keepdims=True), 2, axis=1)
+    np.testing.assert_allclose(_np(o)[:, :, dead],
+                               np.broadcast_to(uniform, o.shape)[:, :, dead],
+                               atol=5e-6)
+    np.testing.assert_allclose(o_kernel[:, :, ~dead], o_ref[:, :, ~dead],
+                               atol=10 * TOL["float32"])

@@ -1,7 +1,11 @@
 """The port's LLM serving path against the reference, on the CPU, at the
 reduced configs of qwen3-4b (dense GQA, qk-norm, RoPE), rwkv6-1.6b
-(RWKV6 time-mix and channel-mix) and gemma3-27b (a window-8 local layer
-with a ring cache, then a global layer).
+(RWKV6 time-mix and channel-mix), gemma3-27b (a window-8 local layer
+with a ring cache, then a global layer), deepseek-moe-16b (a dense layer,
+then a MoE layer with a shared expert), llama4-scout-17b-a16e (a local
+and a global attention layer, MoE top-1 with a shared expert) and
+jamba-1.5-large-398b (8 layers: Mamba with dense and MoE FFNs, the
+attention layer at position 4).
 
 Both packages run the same parameters: the reference's ``init_lm`` tree,
 converted with ``checkpoint.convert.lm_params_from_numpy``, and the same
@@ -78,17 +82,19 @@ def test_configs_match_reference():
 
 
 def test_unported_archs_name_their_roadmap_item():
-    with pytest.raises(KeyError, match="item 12"):
-        get_config("deepseek-moe-16b")
+    """What stays unported names its ROADMAP item: whisper-small and the
+    enc-dec kinds item 14, the multi-card archs item 18."""
     with pytest.raises(KeyError, match="item 14"):
         get_config("whisper-small")
+    with pytest.raises(KeyError, match="item 18"):
+        get_config("qwen2-72b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ST.init_layer_cache(get_config("qwen3-4b").reduced(),
-                            ("attn", "moe", 0), 1, 4, torch.float32)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ST._ported(("mamba", "dense"))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ST._ported(("enc",))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ST.init_layer_cache(get_config("qwen3-4b").reduced(), ("dec",), 1,
+                            4, torch.float32)
 
 
 @pytest.mark.parametrize("act", ["swiglu", "gelu"])
@@ -156,11 +162,15 @@ def test_params_round_trip(pair):
 
 
 def test_forward_logits_match_reference(pair):
+    """Logits and the auxiliary losses (nonzero with MoE layers)."""
     jcfg, tcfg, jparams, tparams, ids = pair
-    jl, _, _ = JM.forward(jcfg, jparams, jnp.asarray(ids))
+    jl, _, jaux = JM.forward(jcfg, jparams, jnp.asarray(ids))
     tl, cache, aux = M.forward(tcfg, tparams, torch.tensor(ids))
     assert cache is None and tl.dtype == torch.float32
-    assert {k: float(v) for k, v in aux.items()} == {"lb": 0.0, "z": 0.0}
+    assert sorted(aux) == sorted(jaux) == ["lb", "z"]
+    for k in aux:
+        _close(aux[k], jaux[k], f"aux {k}")
+    assert (float(aux["lb"]) > 0) == (tcfg.moe is not None)
     assert tl.shape == (2, PROMPT + NEW, tcfg.vocab)
     _close(tl, jl, "logits")
 
@@ -207,8 +217,8 @@ def test_prefill_cache_and_teacher_forced_decode_match_reference(pair):
 def test_prefill_calls_each_kernel_once_per_layer(pair, monkeypatch):
     """Every causal self-attention of the prefill goes through the flash
     wrapper and every RWKV time-mix through the wkv wrapper (counted by
-    wrapping them: on the CPU the kernels' counters stay 0); decode calls
-    neither."""
+    wrapping them: on the CPU the kernels' counters stay 0); a Mamba layer
+    calls neither; decode calls neither."""
     _, tcfg, _, tparams, ids = pair
     calls = {"flash": 0, "wkv": 0}
 
@@ -221,16 +231,17 @@ def test_prefill_calls_each_kernel_once_per_layer(pair, monkeypatch):
     monkeypatch.setattr(FA, "flash_attention",
                         counted(FA.flash_attention, "flash"))
     monkeypatch.setattr(WKV, "wkv", counted(WKV.wkv, "wkv"))
-    rwkv = tcfg.attn is None
+    kinds = [k[0] for _, reps, body in ST.build_segments(tcfg)
+             for k in body for _ in range(reps)]
+    want = {"flash": kinds.count("attn"), "wkv": kinds.count("rwkv")}
+    assert len(kinds) == tcfg.n_layers and sum(want.values()) > 0
     prefill = serve.make_prefill_step(tcfg, PROMPT + NEW)
     tok, cache = prefill(tparams, {"tokens": torch.tensor(ids[:, :PROMPT])})
-    n = tcfg.n_layers
-    assert calls == ({"flash": 0, "wkv": n} if rwkv else
-                     {"flash": n, "wkv": 0})
+    assert calls == want
     decode = serve.make_decode_step(tcfg, PROMPT + NEW)
     for i in range(NEW - 1):
         tok, cache = decode(tparams, cache, tok, PROMPT + i)
-    assert sum(calls.values()) == n
+    assert calls == want
 
 
 def test_serve_main_generates_the_reference_ids(pair):

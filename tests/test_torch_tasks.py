@@ -4,7 +4,8 @@ Every config that both packages ship with a classification task gives
 the same task (feature width, classes, head width) through each
 package's factory, and the same FL loss and accuracy on one numpy batch
 (f32 sums in another order: 1e-6 of the loss). A sparse-recovery config
-raises the same ``ValueError`` in both."""
+raises the same ``ValueError`` in both. ``features_from_backbone``
+(frozen features from an LLM of ``models/``) against the reference's."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -61,3 +62,30 @@ def test_classification_task_is_exported_like_the_reference():
     assert "classification_task" in ttasks.__all__
     assert not hasattr(jshim, "classification_task")
     assert not hasattr(tshim, "classification_task")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "deepseek-moe-16b"])
+def test_features_from_backbone_matches_reference(arch):
+    """Mean-pooled final hidden states of a reduced dense and a reduced MoE
+    arch, from the reference's parameters (converted) and the same ids,
+    at ``tests/test_torch_lm.py``'s 1e-4; both shims re-export it."""
+    import jax
+
+    import repro.core.task as jshim
+    import repro_torch.core.task as tshim
+    from repro.configs import get_config as jget_config
+    from repro.models import model as JM
+    from repro_torch.checkpoint.convert import lm_params_from_numpy
+    from repro_torch.configs import get_config
+    jcfg, tcfg = jget_config(arch).reduced(), get_config(arch).reduced()
+    jparams = JM.init_lm(jcfg, jax.random.PRNGKey(0))
+    tparams = lm_params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams),
+                                   device="cpu")
+    ids = np.random.default_rng(1).integers(0, tcfg.vocab, (3, 10))
+    ref = jshim.features_from_backbone(jcfg, jparams, jnp.asarray(ids))
+    with torch.no_grad():
+        got = tshim.features_from_backbone(tcfg, tparams, torch.tensor(ids))
+    assert got.shape == (3, tcfg.d_model) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=1e-4)
+    assert "features_from_backbone" in tshim.__all__
