@@ -38,7 +38,11 @@ order; any failure exits non-zero:
      (CUDA events, median), the plain version's time,
      ``scaled_dot_product_attention``'s (default dispatch, and in f32 also
      the memory-efficient backend on K/V expanded to H heads), the
-     tensor-core bound and the f32 FFMA bound beside it;
+     tensor-core bound and the f32 FFMA bound beside it; then at
+     whisper-small's two non-causal shapes (dh=64, MHA): the encoder's
+     self-attention (B=4, H=12, S=1500) and the cross-attention (448
+     decoder positions to 1500 frames), f32 within 1e-5, bf16 within
+     ``bf16_error_bound(..., causal=False)``, with the same times;
   5b. flash backward vs plain — dq, dk, dv of the backward kernel
      against autograd through the plain version at phase 5's shapes (f32,
      causal; the gemma3 shape windowed): each within 1e-4 of the plain
@@ -49,7 +53,8 @@ order; any failure exits non-zero:
      cores; the FFMA bound and the bound of the 7 products the kernel
      runs beside it), the plain backward's time and
      ``scaled_dot_product_attention``'s backward (memory-efficient
-     backend, K/V expanded);
+     backend, K/V expanded); then at phase 5's two whisper shapes, the
+     same gates and times;
   6. wkv vs plain — at the reference's sweep shapes and the rwkv6-1.6b
      prefill shape (B=4, H=32, T=2048, dk=64), y and the final state at
      20x the reference's tolerance; the launch's grid and block, µs per
@@ -227,7 +232,33 @@ order; any failure exits non-zero:
      its command line would run it, on the card, at its defaults
      (decentralized_fl at 200 meta-steps, not 800), gated by its own
      assertions and output; ``serve_arch_torch.py`` launches flash once
-     (jamba's reduced attention layer).
+     (jamba's reduced attention layer);
+ 18. whisper-small serving at full width and depth, f32, through
+     ``launch.serve.main``: B=4, 1500 seeded frames (30 s of audio after
+     the stubbed conv frontend), prompts of 416 seeded ids and 32 new
+     tokens (a 448 cache, whisper's decoder context). 36 flash launches
+     per prefill, 12 per kind (encoder, decoder self, cross), none in
+     decode; against ``plain_kernels=True`` from the same parameters and
+     frames the encoder output, last-position logits, final hidden state
+     and every layer's self and cross cache within 1e-3 of the largest
+     entry, then 31 decode steps teacher-forced through both caches at
+     the same bound; the cross caches after decode bit-equal to the
+     prefill's. Prefill ms, decode ms per token, peak memory, one
+     profiled prefill's and decode's device time by kind (GEMMs; flash by
+     encoder, self and cross from CUDA events around each call) and the
+     busy share;
+ 19. whisper-small training at full depth, f32 — phase 13's step at B=4,
+     1500 frames, S=448, remat, ``chunked_ce=512``: the loss within 1e-5
+     relative and every gradient within 1e-3 of its largest entry
+     against ``plain_kernels=True``, every encoder parameter's gradient
+     nonzero (its only path to the loss is the cross-attention's dk and
+     dv); one ``make_train_step`` step counted from zero: 72 forward (24
+     per kind) and 36 backward flash launches; ms per step, decoder
+     tokens/s, peak memory, one profiled step by kind;
+ 19b. ``launch.train.main(["--arch", "whisper-small", "--full",
+     "--steps", "20"])`` (its defaults: B=4, S=64, 24 frames per step, no
+     remat), gated by its own "loss decreases"; 36 forward and 36
+     backward flash launches per step.
 """
 from __future__ import annotations
 
@@ -238,6 +269,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -321,6 +353,20 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_OPTS, TRAIN_LR = 4, 2048, "chunked_ce=512", 3e-4
 RWKV_PARITY_SEQ = 512      # rwkv6's plain step: a Python loop over T
 RWKV_PARITY_LAYERS = 6     # rwkv6's well-conditioned depth cut (phase 13)
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-3
+# The key projection's bias (whisper's attentions: the one ported arch
+# with QKV bias) moves every logit of a query row by the same q·b, which
+# softmax ignores: its gradient is zero but for f32 rounding (the
+# reference's too). A gate relative to its own largest entry would compare
+# two roundings, so these tensors are held to zero instead: every entry,
+# in both paths, within ZERO_GRAD_TOL of the step's largest gradient entry.
+ZERO_GRAD_TOL = 1e-6
+
+
+def _key_bias(name):
+    """A key projection's bias: a gradient that is zero analytically."""
+    return name.endswith(".wk.b")
+
+
 DRIVER_STEPS = 20          # phase 13b
 # Phase 14: MoE and hybrid serving at full width, each cut in depth to
 # what fits 80 GB with its plain-path parity pass (None: full depth).
@@ -333,6 +379,16 @@ TRAIN_MOE = ("deepseek-moe-16b", 4)
 # cut to 350: a timing window that keeps the whole script near 10
 # minutes on one H100 (the four runs take about 200 s at 700).
 FIG7_TRAIN_Q, FIG7_TEST_Q, FIG7_STEPS = 60, 10, 350
+# Phases 5, 5b, 18, 19: whisper-small. The flash calls new to the main
+# path (B, H, KV, Sq, Skv, dh), non-causal: the encoder's self-attention
+# over 1500 frames and the cross-attention from the decoder's 448
+# positions to them. Phase 18 serves prompts of 416 ids and 32 new tokens
+# (448: whisper's decoder context); phase 19 trains at S = 448.
+WHISPER = "whisper-small"
+FLASH_WHISPER = {"encoder": (4, 12, 12, 1500, 1500, 64),
+                 "cross": (4, 12, 12, 448, 1500, 64)}
+WHISPER_PROMPT, WHISPER_TOKENS, WHISPER_SEQ = 416, 32, 448
+WHISPER_DRIVER_STEPS = 20  # phase 19b
 # Phase 17: each example's arguments (its defaults; decentralized_fl's
 # 800 meta-steps cut to 200) and a line its output must hold.
 EXAMPLE_ARGS = {
@@ -2462,17 +2518,26 @@ def zero_counts():
     wkv.launches = wkv.bwd_launches = 0
 
 
-def flash_bound_ms(B, H, KV, S, dh, window, elem):
-    """Each of q, k, v, o moved once; 4 dh operations per live (query, key)
-    pair (q·k and p·v), the pairs that this mask keeps (causal, and inside
-    the window where there is one). On the tensor cores, as the kernel
-    computes them: bf16 products at 989 TFLOP/s, f32 ones as three TF32
-    products at 495 TFLOP/s. Returns (ms, what bounds it, and the bound of
-    the same operations in f32 FFMA on the CUDA cores, in ms)."""
+def _live_pairs(S, skv, window, causal):
+    """The (query, key) pairs a mask keeps: causal ones (inside the window
+    where there is one), or all S · Skv of a non-causal call."""
+    if not causal:
+        return S * skv
     i = np.arange(S)
-    live = np.minimum(i + 1, window) if window else i + 1
-    flops = 4 * B * H * dh * int(live.sum())
-    nbytes = elem * (2 * B * H * S * dh + 2 * B * KV * S * dh)
+    return int((np.minimum(i + 1, window) if window else i + 1).sum())
+
+
+def flash_bound_ms(B, H, KV, S, dh, window, elem, skv=None, causal=True):
+    """Each of q (S rows), k, v (``skv`` rows, S by default) and o moved
+    once; 4 dh operations per live (query, key) pair (q·k and p·v), the
+    pairs that this mask keeps (causal, and inside the window where there
+    is one; all of them when not causal). On the tensor cores, as the
+    kernel computes them: bf16 products at 989 TFLOP/s, f32 ones as three
+    TF32 products at 495 TFLOP/s. Returns (ms, what bounds it, and the
+    bound of the same operations in f32 FFMA on the CUDA cores, in ms)."""
+    skv = S if skv is None else skv
+    flops = 4 * B * H * dh * _live_pairs(S, skv, window, causal)
+    nbytes = elem * (2 * B * H * S * dh + 2 * B * KV * skv * dh)
     ms, by = (bound(nbytes, flops, PEAK_BF16_TC_FLOP_PER_S) if elem == 2
               else bound(nbytes, 3 * flops, PEAK_TF32_TC_FLOP_PER_S))
     return ms, by, bound(nbytes, flops)[0]
@@ -2663,17 +2728,17 @@ def check_wkv(tag):
     return max_err, timing
 
 
-def flash_bwd_bound_ms(B, H, KV, S, dh, window):
+def flash_bwd_bound_ms(B, H, KV, S, dh, window, skv=None, causal=True):
     """The f32 gradient: q, k, v, o, do and the row lse read once, dq, dk,
     dv written once; 10 dh operations per live (query, key) pair (five
     products: q kᵀ and do vᵀ to rebuild P and dP, Pᵀ do, dSᵀ q, dS k). As
     three TF32 products each on the tensor cores (495 TFLOP/s), the
     forward's convention; returns (ms, what bounds it, the f32 FFMA bound
-    of the same operations in ms)."""
-    i = np.arange(S)
-    live = np.minimum(i + 1, window) if window else i + 1
-    flops = 10 * B * H * dh * int(live.sum())
-    nbytes = 4 * (4 * B * H * S * dh + 4 * B * KV * S * dh + B * H * S)
+    of the same operations in ms). ``skv`` and ``causal`` as in
+    ``flash_bound_ms``."""
+    skv = S if skv is None else skv
+    flops = 10 * B * H * dh * _live_pairs(S, skv, window, causal)
+    nbytes = 4 * (4 * B * H * S * dh + 4 * B * KV * skv * dh + B * H * S)
     ms, by = bound(nbytes, 3 * flops, PEAK_TF32_TC_FLOP_PER_S)
     return ms, by, bound(nbytes, flops)[0]
 
@@ -2857,9 +2922,20 @@ def _named(tree, prefix=""):
 
 
 def _grad_rows(got, ref):
-    """{name: max |got − ref| / max |ref|} per gradient tensor."""
+    """{name: max |got − ref| / max |ref|} per gradient tensor, the key
+    biases (``_key_bias``: zero analytically) aside."""
     return {n: ((g - r).abs().max() / r.abs().max().clamp_min(1e-30)).item()
-            for (n, g), (_, r) in zip(_named(got), _named(ref))}
+            for (n, g), (_, r) in zip(_named(got), _named(ref))
+            if not _key_bias(n)}
+
+
+def _zero_grads(got, ref):
+    """{name: max(|got|, |ref|) over the step's largest |ref| entry} for
+    the key biases, whose gradient is zero analytically."""
+    largest = max(r.abs().max().item() for _, r in _named(ref))
+    return {n: max(g.abs().max().item(), r.abs().max().item()) / largest
+            for (n, g), (_, r) in zip(_named(got), _named(ref))
+            if _key_bias(n)}
 
 
 def _global_norm(tree):
@@ -2961,7 +3037,7 @@ def _moe_ranges():
 
 
 def _train_parity(tag, arch, cfg, params, batch, derived, grads_gated=True,
-                  phase="13"):
+                  phase="13", nonzero=None):
     """Phase 13's gate: the loss and every gradient of one step's
     ``loss_and_grads`` through the kernels against ``plain_kernels=True``
     from the same parameters and batch: the loss within TRAIN_LOSS_TOL
@@ -2971,7 +3047,11 @@ def _train_parity(tag, arch, cfg, params, batch, derived, grads_gated=True,
     distance from the same step with the wkv recurrence in f64, as phase
     12 derives its hidden-state gate, and the kernel step's own distance
     from f64 is printed. Without ``grads_gated`` only the loss is gated
-    and the gradients' distances are printed."""
+    and the gradients' distances are printed. ``nonzero``: a name prefix
+    under which every gradient tensor of the kernel step must be nonzero
+    (phase 19: the encoder's, reached only through the cross-attention's
+    dk and dv), the key biases aside. Those (``_key_bias``) are held to
+    zero, in both steps, within ZERO_GRAD_TOL of the largest entry."""
     from unittest import mock
 
     from repro_torch.launch.steps import loss_and_grads
@@ -3002,13 +3082,25 @@ def _train_parity(tag, arch, cfg, params, batch, derived, grads_gated=True,
         if not rerun_equal:
             raise AssertionError(f"{phase} {arch}: a rerun of the kernel "
                                  "step is not bit-equal")
-    rows = _grad_rows(gk, gp)
+    if nonzero is not None:
+        sub = {n: g for n, g in _named(gk)
+               if n.startswith(nonzero) and not _key_bias(n)}
+        zero = [n for n, g in sub.items() if not g.abs().max().item() > 0]
+        print(f"[{tag}] {phase} {arch} kernel-step gradients under "
+              f"{nonzero!r}: {len(sub)} tensors, {len(zero)} all zero, "
+              f"norm {_global_norm(sub) if sub else 0.0:.4e}")
+        if not sub or zero:
+            raise AssertionError(f"{phase} {arch}: gradients under "
+                                 f"{nonzero!r} zero or missing: {zero}")
+    rows, zeros = _grad_rows(gk, gp), _zero_grads(gk, gp)
     norm_k, norm_p = _global_norm(gk), _global_norm(gp)
     errs = {"loss_rel": abs(lk.item() - lp.item()) / abs(lp.item()),
             "grad_norm_rel": abs(norm_k - norm_p) / norm_p,
             "worst_grad": max(rows, key=rows.get),
             "worst_grad_rel": max(rows.values()),
             "grad_norm_kernel": norm_k, "grad_norm_plain": norm_p}
+    if zeros:
+        errs["key_bias_grads_of_largest_entry"] = max(zeros.values())
     tol = {"loss": TRAIN_LOSS_TOL, "norm": TRAIN_GRAD_TOL,
            "grads": dict.fromkeys(rows, TRAIN_GRAD_TOL)}
     if derived:
@@ -3040,12 +3132,14 @@ def _train_parity(tag, arch, cfg, params, batch, derived, grads_gated=True,
     gates = (f"grad norm tol {tol['norm']:.3e}, gradient tol "
              f"{TRAIN_GRAD_TOL}"
              f"{' or twice the plain step distance from f64' if derived else ''}"
+             f"{f', key biases zero within {ZERO_GRAD_TOL}' if zeros else ''}"
              if grads_gated else "gradients not gated (printed)")
     print(f"[{tag}] {phase} {arch} ({cfg.n_layers} layers) loss and gradients, "
           f"kernels vs plain at B={batch['tokens'].shape[0]} "
           f"S={batch['tokens'].shape[1]}: {json.dumps(errs)}; loss tol "
           f"{tol['loss']:.3e}, {gates}; launches {par_counts}")
-    grads_ok = not bad and errs["grad_norm_rel"] <= tol["norm"]
+    grads_ok = (not bad and errs["grad_norm_rel"] <= tol["norm"]
+                and all(z <= ZERO_GRAD_TOL for z in zeros.values()))
     if ((grads_gated and not grads_ok) or errs["loss_rel"] > tol["loss"]
             or not math.isfinite(lk.item())):
         raise AssertionError(f"{phase} {arch}: kernel step != plain step: "
@@ -3059,7 +3153,11 @@ def train_llm(tag, arch, n_layers=None, device="cuda", phase="13"):
     B=TRAIN_BATCH, S=TRAIN_SEQ, remat, ``--opts TRAIN_OPTS``, on the token
     pipeline's first batch. With MoE layers the parity holds the expert
     choice fixed (``RouteReplay``) and prints lb and z, and the profile
-    names the MoE FFN's parts.
+    names the MoE FFN's parts. Phase 19 trains whisper-small at full
+    depth, S=WHISPER_SEQ, with ``whisper_frames`` (1500 per row); its L
+    is flash's call sites (``stack.attention_calls``: 12 encoder, 12
+    decoder self, 12 cross), counted by kind (``FlashKinds``), and every
+    encoder gradient of the parity's kernel step must be nonzero.
 
       * parity (``_train_parity``): one step's loss and gradients through
         the kernels against ``plain_kernels=True``. qwen3-4b at S=2048.
@@ -3089,11 +3187,14 @@ def train_llm(tag, arch, n_layers=None, device="cuda", phase="13"):
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model as M
+    from repro_torch.models import stack as ST
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    L, B, S = cfg.n_layers, TRAIN_BATCH, TRAIN_SEQ
+    encdec = cfg.layout == "encdec"
+    B, S = TRAIN_BATCH, WHISPER_SEQ if encdec else TRAIN_SEQ
     kernel = "flash_attention" if cfg.attn is not None else "wkv"
+    L = ST.attention_calls(cfg) if cfg.attn is not None else cfg.n_layers
     prev = flags.get()
     flags.parse_opts(TRAIN_OPTS)
     try:
@@ -3101,6 +3202,8 @@ def train_llm(tag, arch, n_layers=None, device="cuda", phase="13"):
         batch = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
                  for k, v in next(TokenPipeline(cfg.vocab, B, S,
                                                 seed=0)).items()}
+        if encdec:
+            batch["frames"] = whisper_frames(cfg, B, device)
         rwkv = cfg.attn is None
         if rwkv:
             pb = {k: v[:, :RWKV_PARITY_SEQ] for k, v in batch.items()}
@@ -3113,21 +3216,25 @@ def train_llm(tag, arch, n_layers=None, device="cuda", phase="13"):
         params = M.init_lm(cfg, 0, device=device)
         n_params = sum(t.numel() for _, t in _named(params))
         _train_parity(tag, arch, cfg, params, pb, derived=rwkv,
-                      grads_gated=not rwkv, phase=phase)
+                      grads_gated=not rwkv, phase=phase,
+                      nonzero="enc." if encdec else None)
 
         step, opt = make_train_step(cfg, lr=TRAIN_LR, remat=True)
         opt_state = opt.init(params)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        kinds = FlashKinds()
         zero_counts()
-        params, opt_state, m = step(params, opt_state, batch)
+        with kinds.active():
+            params, opt_state, m = step(params, opt_state, batch)
         torch.cuda.synchronize()
         main = counts()
         want = dict.fromkeys(main, 0)
         want[kernel], want[kernel + "_bwd"] = 2 * L, L
-        if main != want:
+        if main != want or (encdec and kinds.counts != kinds.expect(cfg, 2)):
             raise AssertionError(f"{phase} {arch}: launches {main}, "
-                                 f"expected {want}")
+                                 f"expected {want}; by kind "
+                                 f"{kinds.counts}")
         losses, times = [m["loss"].item()], []
         for _ in range(3):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -3142,15 +3249,17 @@ def train_llm(tag, arch, n_layers=None, device="cuda", phase="13"):
             raise AssertionError(f"{phase} {arch}: losses {losses}")
         ms = float(np.median(times))
         record = {"parameters": n_params, "ms_per_step": ms,
+                  "flash_launches_by_kind": kinds.counts,
                   "moe_lb": m["moe_lb"].item(),
                   "ms_per_step_runs": times,
                   "tokens_per_s": B * S / (ms / 1e3),
                   "peak_memory_bytes": peak, "losses": losses,
                   "grad_norm": m["grad_norm"].item(),
                   "launches_per_step": {k: v for k, v in main.items() if v}}
-        print(f"[{tag}] {phase} {arch} train step ({L} layers) B={B} S={S} "
+        print(f"[{tag}] {phase} {arch} train step ({cfg.n_layers} layers, "
+              f"{L} {kernel} call sites) B={B} S={S} "
               f"remat {TRAIN_OPTS}: {json.dumps(record)}")
-        with _moe_ranges():
+        with _moe_ranges(), FlashKinds().active():
             prof = _profiled(lambda: step(params, opt_state, batch), device)
         print(f"[{tag}] {phase} {arch} profiled train step: "
               f"{json.dumps(prof)}")
@@ -3540,10 +3649,11 @@ def _profiled(fn, device):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kinds, kernels, ranges = {}, [], {}
     for e in prof.key_averages():
-        if e.key.startswith("moe."):
-            # a named range (``_moe_ranges``): the device time of the
-            # kernels launched inside it, and its calls
-            ranges[e.key] = (e.device_time_total / 1e3, e.count)
+        if e.key.startswith(("moe.", "flash.")):
+            # a named range (``_moe_ranges``, ``FlashKinds``): the device
+            # time of the kernels launched inside it, and its calls
+            ranges.setdefault(e.key.split(".")[0], {})[e.key] = (
+                e.device_time_total / 1e3, e.count)
             continue
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -3556,8 +3666,8 @@ def _profiled(fn, device):
            "device_busy_share": busy / wall_ms if busy > 0
            else "not measured",
            "top_kernels": sorted(kernels, reverse=True)[:10]}
-    if ranges:
-        out["moe_device_ms_and_calls"] = ranges
+    for name, rows in ranges.items():
+        out[f"{name}_device_ms_and_calls"] = rows
     return out
 
 
@@ -3697,6 +3807,442 @@ def examples_phase(tag, device="cuda"):
     return total
 
 
+def whisper_frames(cfg, B, device, n_frames=None, seed=0):
+    """(B, n_frames, d) f32 frame embeddings, 0.02 N(0, 1) from a seeded
+    numpy generator (the scale of the reference drivers' draw); n_frames
+    defaults to ``frontend.AUDIO_FRAMES`` (30 s of audio after the stubbed
+    conv frontend)."""
+    from repro_torch.models import frontend
+    n = frontend.AUDIO_FRAMES if n_frames is None else n_frames
+    return torch.tensor((0.02 * np.random.default_rng(seed).standard_normal(
+        (B, n, cfg.d_model))).astype(np.float32), device=device)
+
+
+class FlashKinds:
+    """Names each flash-attention call of the model by its kind (phases
+    18-19): the encoder's non-causal self-attention ("encoder"), the
+    decoder's causal self-attention ("self") and its cross-attention
+    ("cross"). The kind is read from the ``models.attention.full_attention``
+    call that makes the flash call (causal, or keys and values projected
+    from ``kv_x``), never from the shapes, which collide when the prompt
+    is as long as the frames. Under ``active()`` every flash call made
+    through ``models.attention`` is counted by kind, runs inside a
+    profiler range ``flash.<kind>`` and, with ``timed``, between two CUDA
+    events whose elapsed times are summed per kind (``ms()``). The calls
+    still go through the wrapper, whose launch counter counts them."""
+
+    def __init__(self):
+        self.counts, self.events = {}, {}
+        self._kind = None
+
+    @staticmethod
+    def expect(cfg, per_call_site=1):
+        """The counts by kind of one forward (times ``per_call_site``: 2
+        for a step with remat)."""
+        out = {"encoder": cfg.n_encoder_layers, "self": cfg.n_layers,
+               "cross": cfg.n_layers}
+        return {k: per_call_site * v for k, v in out.items()}
+
+    def active(self, timed=False):
+        from contextlib import ExitStack
+        from unittest import mock
+
+        from repro_torch.kernels.flash_attention import ops
+        from repro_torch.models import attention as A
+        full_attention = A.full_attention
+
+        def full(*args, causal=True, kv_x=None, **kw):
+            outer, self._kind = self._kind, ("self" if causal else "encoder"
+                                             if kv_x is None else "cross")
+            try:
+                return full_attention(*args, causal=causal, kv_x=kv_x, **kw)
+            finally:
+                self._kind = outer
+
+        def call(q, k, v, causal=True, window=0):
+            kind = self._kind
+            if kind is None:
+                raise AssertionError("a flash call outside "
+                                     "models.attention.full_attention")
+            self.counts[kind] = self.counts.get(kind, 0) + 1
+            with torch.profiler.record_function(f"flash.{kind}"):
+                if not timed:
+                    return ops.flash_attention(q, k, v, causal=causal,
+                                               window=window)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                o = ops.flash_attention(q, k, v, causal=causal, window=window)
+                ev[1].record()
+                self.events.setdefault(kind, []).append(ev)
+                return o
+
+        stack = ExitStack()
+        stack.enter_context(mock.patch.object(A, "full_attention", full))
+        stack.enter_context(mock.patch.object(
+            A, "FA", SimpleNamespace(flash_attention=call)))
+        return stack
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b in evs)
+                for k, evs in self.events.items()}
+
+
+def check_flash_whisper(tag, device="cuda"):
+    """Phase 5 at whisper-small's non-causal shapes (``FLASH_WHISPER``: the
+    encoder's self-attention and the cross-attention, dh=64, MHA), f32 and
+    bf16: f32 within FLASH_F32_ERR_MAX of the plain version, bf16 within
+    ``ops.bf16_error_bound(..., causal=False)`` per element; µs per launch
+    (CUDA events, median), the plain version's time,
+    ``scaled_dot_product_attention``'s (default dispatch, and in f32 the
+    memory-efficient backend) and the bound. Returns the largest f32
+    |error| and {(shape name, dtype): µs and bounds}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention, ops)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(11)
+    max_err, timing = 0.0, {}
+    for name, (B, H, KV, Sq, Skv, dh) in FLASH_WHISPER.items():
+        f32 = [torch.tensor(rng.standard_normal((B, n, s, dh)).astype(
+            np.float32), device=device) for n, s in ((H, Sq), (KV, Skv),
+                                                     (KV, Skv))]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in f32)
+            o = flash_attention(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            o_ref = attention_ref(q, k, v, causal=False)
+            err = (o.float() - o_ref.float()).abs().max().item()
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+                ok, gate = err <= FLASH_F32_ERR_MAX, f"<= {FLASH_F32_ERR_MAX}"
+            else:
+                use = _bound_use(o, o_ref, ops.bf16_error_bound(
+                    q, k, v, o_ref, causal=False))
+                ok, gate = use <= 1, f"bf16 bound use {use:.3f}"
+            if not ok:
+                raise AssertionError(f"flash {name} {(B, H, KV, Sq, Skv, dh)} "
+                                     f"{dtype} non-causal: max |err| {err} "
+                                     f"({gate})")
+            ms = median_ms(lambda: flash_attention(q, k, v, causal=False),
+                           reps=7, inner=5, warm=2)
+            plain_ms = median_ms(lambda: attention_ref(q, k, v, causal=False),
+                                 reps=3, inner=2, warm=1)
+            lib_ms = median_ms(lambda: sdpa(q, k, v), reps=7, inner=5, warm=2)
+            eff_ms = None
+            if dtype == torch.float32:
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    eff_ms = median_ms(lambda: sdpa(q, k, v), reps=7,
+                                       inner=5, warm=2)
+            bound_ms, bound_by, ffma_ms = flash_bound_ms(
+                B, H, KV, Sq, dh, 0, q.element_size(), skv=Skv, causal=False)
+            timing[(name, str(dtype))] = {
+                "us": 1e3 * ms, "plain_us": 1e3 * plain_ms,
+                "sdpa_default_us": 1e3 * lib_ms,
+                "sdpa_mem_efficient_us": None if eff_ms is None
+                else 1e3 * eff_ms, "bound_us": 1e3 * bound_ms,
+                "bound_by": bound_by}
+            eff = ("" if eff_ms is None else
+                   f", memory-efficient backend {eff_ms * 1e3:.1f} us")
+            print(f"[{tag}] 5 flash_attention whisper {name} {dtype} B={B} "
+                  f"H={H} KV={KV} Sq={Sq} Skv={Skv} dh={dh} non-causal: max "
+                  f"|err| {err:.3e} ({gate}); kernel {ms * 1e3:.1f} us, "
+                  f"bound {bound_ms * 1e3:.1f} us ({bound_by}, tensor "
+                  f"cores; f32 FFMA bound {ffma_ms * 1e3:.1f} us), plain "
+                  f"PyTorch version {plain_ms * 1e3:.1f} us, "
+                  f"scaled_dot_product_attention {lib_ms * 1e3:.1f} us{eff}")
+        del f32, q, k, v, o, o_ref
+        torch.cuda.empty_cache()
+    return max_err, timing
+
+
+def check_flash_bwd_whisper(tag, device="cuda"):
+    """Phase 5b at phase 5's whisper shapes, f32, non-causal: dq, dk, dv of
+    the backward kernel each within BWD_REL_TOL of the plain gradient's
+    largest entry (autograd through ``attention_ref``), a rerun
+    bit-equal; µs per launch, the bound, the plain backward's time and
+    ``scaled_dot_product_attention``'s backward (memory-efficient
+    backend). Returns the largest |error| and {shape name: µs and
+    bounds}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import attention_ref, ops
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(13)
+    max_err, timing = 0.0, {}
+    for name, (B, H, KV, Sq, Skv, dh) in FLASH_WHISPER.items():
+        q, k, v, do = (torch.tensor(rng.standard_normal((B, n, s, dh)).astype(
+            np.float32), device=device) for n, s in ((H, Sq), (KV, Skv),
+                                                     (KV, Skv), (H, Sq)))
+        o, lse = ops._launch(q, k, v, False, 0, want_lse=True)
+        grads = ops._launch_bwd(q, k, v, o, lse, do, False, 0)
+        again = ops._launch_bwd(q, k, v, o, lse, do, False, 0)
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+        del again
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        o_ref = attention_ref(*xs, causal=False)
+        ref = torch.autograd.grad(o_ref, xs, do, retain_graph=True)
+        errs = {n: (g - r).abs().max().item() for n, g, r in
+                zip(("dq", "dk", "dv"), grads, ref)}
+        rel = {n: errs[n] / r.abs().max().item() for n, r in
+               zip(("dq", "dk", "dv"), ref)}
+        if max(rel.values()) > BWD_REL_TOL or not bit_equal:
+            raise AssertionError(f"flash backward whisper {name}: {rel} > "
+                                 f"{BWD_REL_TOL} or rerun not bit-equal")
+        max_err = max(max_err, *errs.values())
+        ms = median_ms(lambda: ops._launch_bwd(q, k, v, o, lse, do, False, 0),
+                       reps=5, inner=3, warm=1)
+        plain_ms = median_ms(lambda: torch.autograd.grad(
+            o_ref, xs, do, retain_graph=True), reps=3, inner=1, warm=1)
+        del o_ref, xs, ref
+        xe = [t.clone().requires_grad_() for t in (q, k, v)]
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            oe = sdpa(*xe)
+            lib_ms = median_ms(lambda: torch.autograd.grad(
+                oe, xe, do, retain_graph=True), reps=5, inner=3, warm=1)
+        del xe, oe
+        bound_ms, bound_by, ffma_ms = flash_bwd_bound_ms(
+            B, H, KV, Sq, dh, 0, skv=Skv, causal=False)
+        timing[name] = {"us": 1e3 * ms, "plain_us": 1e3 * plain_ms,
+                        "sdpa_mem_efficient_us": 1e3 * lib_ms,
+                        "bound_us": 1e3 * bound_ms, "bound_by": bound_by}
+        print(f"[{tag}] 5b flash_attention_bwd whisper {name} f32 B={B} "
+              f"H={H} KV={KV} Sq={Sq} Skv={Skv} dh={dh} non-causal: max "
+              f"|err| {json.dumps(errs)}, of the largest |plain| "
+              f"{json.dumps(rel)}; rerun bit-equal {bit_equal}; kernel "
+              f"{ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+              f"({bound_by}, split TF32 on the tensor cores; f32 FFMA bound "
+              f"{ffma_ms * 1e3:.1f} us), plain PyTorch backward "
+              f"{plain_ms * 1e3:.1f} us, scaled_dot_product_attention "
+              f"backward (memory-efficient) {lib_ms * 1e3:.1f} us")
+        del q, k, v, do, o, lse, grads
+        torch.cuda.empty_cache()
+    return max_err, timing
+
+
+def serve_whisper(tag, device="cuda", full=True):
+    """Phase 18: whisper-small served at full width and depth through
+    ``launch.serve.main`` (the main path: its launches are the JSON
+    record's): B=LLM_BATCH, 1500 seeded frames, WHISPER_PROMPT seeded ids,
+    WHISPER_TOKENS new tokens. Gates: one flash launch per encoder layer
+    and two per decoder layer in each prefill (12 of each kind), none in
+    decode; ``whisper_parity``. Prints prefill ms, decode ms per token,
+    peak memory and one profiled prefill's and 4 decode steps' device
+    time by kind, flash by kind from CUDA events around its calls.
+    ``full=False`` serves the reduced config with 24 frames (a CPU
+    rehearsal). Returns the main path's flash launches and the timing."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model as M
+    from repro_torch.models import stack as ST
+    cfg = get_config(WHISPER) if full else get_config(WHISPER).reduced()
+    B, P, N = LLM_BATCH, WHISPER_PROMPT, WHISPER_TOKENS
+    if not full:
+        P, N = 12, 6
+    L = ST.attention_calls(cfg)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = M.init_lm(cfg, 0, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _named(params))
+    print(f"[{tag}] 18 {WHISPER}: init_lm {n_params / 1e9:.3f} B parameters "
+          f"({cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder "
+          f"layers), f32, in {time.perf_counter() - t0:.1f} s")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (B, P))
+    frames = whisper_frames(cfg, B, device, None if full else 24)
+
+    kinds = FlashKinds()
+    zero_counts()
+    argv = ["--arch", WHISPER, "--batch", str(B), "--prompt-len", str(P),
+            "--tokens", str(N), "--device", device] + (["--full"] if full
+                                                       else [])
+    with kinds.active():
+        gen = serve.main(argv, prompts=prompts, params=params,
+                         frames=frames.cpu().numpy())
+    main_counts = counts()
+    want = dict.fromkeys(main_counts, 0)
+    want["flash_attention"] = L
+    if (main_counts != want or kinds.counts != kinds.expect(cfg)
+            or gen.shape != (B, N)):
+        raise AssertionError(f"18 serve.main: launches {main_counts}, "
+                             f"expected {want}; by kind {kinds.counts}; ids "
+                             f"{gen.shape}")
+    print(f"[{tag}] 18 {WHISPER} serve.main: ids {gen.shape}, launches "
+          f"{json.dumps(main_counts)}, flash by kind "
+          f"{json.dumps(kinds.counts)}")
+
+    prefill = make_prefill_step(cfg, P + N)
+    decode = make_decode_step(cfg, P + N)
+    batch = {"tokens": torch.as_tensor(prompts, device=device),
+             "frames": frames}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = []
+    with torch.no_grad():
+        for _ in range(3):
+            cache = None
+            zero_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            tok, cache = prefill(params, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            prefill_ms.append(ev[0].elapsed_time(ev[1]))
+            if counts()["flash_attention"] != L:
+                raise AssertionError(f"18: {counts()['flash_attention']} "
+                                     f"flash launches per prefill, expected "
+                                     f"{L}")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        for i in range(N - 1):
+            tok, cache = decode(params, cache, tok, P + i)
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if counts()["flash_attention"] != L:
+        raise AssertionError("18: decode launched flash_attention")
+    decode_ms = ev[0].elapsed_time(ev[1])
+    timing = {"prefill_ms": float(np.median(prefill_ms)),
+              "prefill_ms_runs": prefill_ms,
+              "prefill_tok_per_s": B * P / (np.median(prefill_ms) / 1e3),
+              "prefill_frames_per_s": B * frames.shape[1]
+              / (np.median(prefill_ms) / 1e3),
+              "decode_ms_per_token": decode_ms / (N - 1),
+              "decode_tok_per_s": B * (N - 1) / (decode_ms / 1e3),
+              "decode_wall_ms_per_token": 1e3 * wall / (N - 1),
+              "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    print(f"[{tag}] 18 {WHISPER} B={B} frames={frames.shape[1]} prompt={P} "
+          f"new={N}: flash {L} launches per prefill, 0 added by {N - 1} "
+          f"decode steps; {json.dumps(timing)}")
+    del cache
+    whisper_parity(tag, cfg, params, batch, P, N)
+    state = {}
+    with torch.no_grad():
+        def run_prefill():
+            state["tok"], state["cache"] = prefill(params, batch)
+
+        def run_decode():
+            tok, cache = state["tok"], state["cache"]
+            for i in range(4):
+                tok, cache = decode(params, cache, tok, P + i)
+        with FlashKinds().active():
+            print(f"[{tag}] 18 {WHISPER} profiled prefill: "
+                  f"{json.dumps(_profiled(run_prefill, device))}")
+            print(f"[{tag}] 18 {WHISPER} profiled 4 decode steps: "
+                  f"{json.dumps(_profiled(run_decode, device))}")
+        timed = FlashKinds()
+        with timed.active(timed=True):
+            run_prefill()
+        print(f"[{tag}] 18 {WHISPER} one prefill's flash device ms by kind "
+              f"(CUDA events around each call): {json.dumps(timed.ms())}, "
+              f"calls {json.dumps(timed.counts)}")
+    del params, state
+    torch.cuda.empty_cache()
+    return main_counts["flash_attention"], timing
+
+
+def whisper_parity(tag, cfg, params, batch, P, N):
+    """Phase 18's gates, the kernel path against ``plain_kernels=True``
+    (which must launch nothing) from the same parameters and frames, each
+    relative to the largest |entry| of the plain result and within
+    LLM_REL_TOL: the encoder's output, the final hidden state, the
+    last-position logits, every layer's self and cross cache after the
+    prefill; then N − 1 decode steps teacher-forced on the kernel path's
+    tokens through both caches (logits, and every layer's self cache at
+    the end). The kernel path's cross caches after decode must equal the
+    prefill's bit for bit (decode only reads them)."""
+    from repro_torch.models import model as M
+    tokens, frames = batch["tokens"], batch["frames"]
+    with torch.no_grad():
+        ek = M.encode(cfg, params, frames)
+        hk, ck, _ = M.forward_hidden(cfg, params, tokens, frames,
+                                     want_cache=True, cache_len=P + N)
+        before = counts()
+        ep = M.encode(cfg, params, frames, plain_kernels=True)
+        hp, cp, _ = M.forward_hidden(cfg, params, tokens, frames,
+                                     want_cache=True, cache_len=P + N,
+                                     plain_kernels=True)
+        if counts() != before:
+            raise AssertionError("18: the plain run launched a kernel")
+        lk = M._logits(cfg, params, hk[:, -1:])
+        lp = M._logits(cfg, params, hp[:, -1:])
+
+        def cache_errs(a, b):
+            """{kind: max over layers and k/v}, kind 'self' or 'cross'."""
+            out = {}
+            for (n, x), (_, y) in zip(_named(a), _named(b)):
+                kind = n.split(".")[2]
+                for layer in range(x.shape[0]):
+                    out[kind] = max(out.get(kind, 0.0),
+                                    _rel_err(x[layer], y[layer]))
+            return out
+
+        errs = {"encoder": _rel_err(ek, ep), "hidden": _rel_err(hk, hp),
+                "prefill_logits": _rel_err(lk, lp)}
+        errs.update({f"prefill_{k}_cache": v
+                     for k, v in cache_errs(ck, cp).items()})
+        finite = bool(torch.isfinite(hk).all() and torch.isfinite(lk).all()
+                      and torch.isfinite(ek).all())
+        scales = {"max_abs_encoder": ep.abs().max().item(),
+                  "max_abs_hidden": hp.abs().max().item(),
+                  "max_abs_logit": lp.abs().max().item()}
+        cross0 = {n: t.clone() for n, t in _named(ck) if ".cross." in n}
+        del ek, ep, hk, hp
+        tok = torch.argmax(lk, dim=-1)
+        dec = []
+        for i in range(N - 1):
+            lk, ck = M.decode_step(cfg, params, tok, ck, P + i, P + N)
+            lp, cp = M.decode_step(cfg, params, tok, cp, P + i, P + N)
+            dec.append(_rel_err(lk, lp))
+            finite = finite and bool(torch.isfinite(lk).all())
+            tok = torch.argmax(lk, dim=-1)
+        errs["decode_logits_max"] = max(dec)
+        errs["decoded_self_cache"] = cache_errs(ck, cp)["self"]
+        cross_equal = all(torch.equal(t, cross0[n]) for n, t in _named(ck)
+                          if n in cross0)
+    print(f"[{tag}] 18 {WHISPER} kernels vs plain (max |d| / max |plain|, "
+          f"tol {LLM_REL_TOL}): {json.dumps(errs)}; {json.dumps(scales)}; "
+          f"per decode step {[f'{e:.2e}' for e in dec]}; cross caches after "
+          f"{N - 1} decode steps bit-equal to the prefill's: {cross_equal}")
+    if not (finite and cross_equal
+            and max(errs.values()) <= LLM_REL_TOL):
+        raise AssertionError(f"18: kernel path != plain path {errs} (finite "
+                             f"{finite}, cross caches kept {cross_equal})")
+
+
+def whisper_driver(tag, device="cuda"):
+    """Phase 19b: ``launch.train.main`` on whisper-small at full width and
+    depth for WHISPER_DRIVER_STEPS steps at the driver's defaults (B=4,
+    S=64, 24 frames per step drawn by the driver, no remat), gated by its
+    own assertion that the loss falls; 36 forward and 36 backward flash
+    launches per step. Returns the run's (forward, backward) launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import stack as ST
+    per_step = ST.attention_calls(get_config(WHISPER))
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = train.main(["--arch", WHISPER, "--full", "--steps",
+                         str(WHISPER_DRIVER_STEPS), "--device", device])
+    wall = time.perf_counter() - t0
+    main = counts()
+    want = dict.fromkeys(main, 0)
+    want["flash_attention"] = want["flash_attention_bwd"] = (
+        WHISPER_DRIVER_STEPS * per_step)
+    print(f"[{tag}] 19b launch.train.main {WHISPER} --full --steps "
+          f"{WHISPER_DRIVER_STEPS}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(5-step means {np.mean(losses[:5]):.4f} -> "
+          f"{np.mean(losses[-5:]):.4f}) in {wall:.1f} s; launches "
+          f"{json.dumps({k: v for k, v in main.items() if v})}")
+    if main != want:
+        raise AssertionError(f"19b: launches {main}, expected {want}")
+    torch.cuda.empty_cache()
+    return main["flash_attention"], main["flash_attention_bwd"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3736,10 +4282,12 @@ def main():
 
     # 5.-6. flash attention and wkv vs plain, up to the full-width shapes
     fa_err, fa_timing = check_flash(tag)
+    fa_err = max(fa_err, check_flash_whisper(tag)[0])
     wkv_err, wkv_timing = check_wkv(tag)
 
     # 5b.-6b. the backward kernels vs autograd through the plain versions
     fab_err, fab_timing = check_flash_bwd(tag)
+    fab_err = max(fab_err, check_flash_bwd_whisper(tag)[0])
     wkvb_err, wkvb_timing = check_wkv_bwd(tag)
 
     # 7. serve, with the default mixer
@@ -3843,6 +4391,13 @@ def main():
     fig7_fwd, fig7_bwd = fig7_ablation(tag)
     ex = examples_phase(tag)
 
+    # 18. whisper-small serving at full width and depth; 19. its training
+    #     step (counts zeroed inside, just before the main-path step);
+    #     19b. the training driver on it
+    wh_serve, _ = serve_whisper(tag)
+    wh_fwd, wh_bwd, _ = train_llm(tag, WHISPER, phase="19")
+    whd_fwd, whd_bwd = whisper_driver(tag)
+
     # The graph filter's forward record's times are those of the largest
     # bucket's tick layer; its launches those of the serve runs (7-7d,
     # 7f), the launchers (7e), the training runs (9, 9b, 9e-9h, 9i's
@@ -3850,10 +4405,10 @@ def main():
     # and the examples (17), and dW's those of the launchers, the training
     # runs and the examples. Flash attention's and wkv's times are
     # those of the qwen3-4b and rwkv6-1.6b prefill shapes in f32, their
-    # launches those of the serve runs (one prefill each; 11-12, 14), the
-    # training steps (13, 15), the driver (13b) and the examples (17);
-    # their backward kernels' times are those of the same shapes, their
-    # launches those of 13, 13b, 15 and 17.
+    # launches those of the serve runs (one prefill each; 11-12, 14, 18),
+    # the training steps (13, 15, 19), the drivers (13b, 19b) and the
+    # examples (17); their backward kernels' times are those of the same
+    # shapes, their launches those of 13, 13b, 15, 17, 19 and 19b.
     src = "src/repro_torch/kernels/graph_filter/csrc/graph_filter.cu"
     ms, plain_ms, bound_ms, bound_by = timing[paper[0]]
     b_ms, b_plain_ms, b_bound_ms, b_bound_by = bwd_timing
@@ -3887,7 +4442,11 @@ def main():
           f"{json.dumps(moe_serve)}; deepseek-moe-16b training step (15) "
           f"flash_attention {moe_fwd}, backward {moe_bwd}; fig. 7 (16) "
           f"forward {fig7_fwd}, backward {fig7_bwd}; examples (17) "
-          f"{json.dumps({k: v for k, v in ex.items() if v})}")
+          f"{json.dumps({k: v for k, v in ex.items() if v})}; whisper-small "
+          f"serve (18) flash_attention {wh_serve}; whisper-small training "
+          f"step (19) flash_attention {wh_fwd}, backward {wh_bwd}; "
+          f"whisper-small training driver (19b) flash_attention {whd_fwd}, "
+          f"backward {whd_bwd}")
     print(tag)
     print(json.dumps({"kernels": [
         {"name": "graph_filter", "route": "cuda", "source": src,
@@ -3916,7 +4475,8 @@ def main():
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
          "launches": (fa_launches + fa_train_fwd + sum(moe_serve.values())
-                      + moe_fwd + ex["flash_attention"]),
+                      + moe_fwd + ex["flash_attention"] + wh_serve + wh_fwd
+                      + whd_fwd),
          "max_abs_err": fa_err,
          "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": f_bound_ms,
          "bound_by": f_bound_by, "library_ms": f_lib_ms},
@@ -3931,7 +4491,8 @@ def main():
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_bwd.cu",
          "replaces": "src/repro/models/attention.py:56",
-         "launches": fa_train_bwd + moe_bwd + ex["flash_attention_bwd"],
+         "launches": (fa_train_bwd + moe_bwd + ex["flash_attention_bwd"]
+                      + wh_bwd + whd_bwd),
          "max_abs_err": fab_err, "ms": fb_ms,
          "plain_ms": fb_plain_ms, "bound_ms": fb_bound_ms,
          "bound_by": fb_bound_by, "library_ms": fb_lib_ms},

@@ -70,21 +70,30 @@ def state_from_numpy(theta, lam, opt_state, step, device=None):
                       opt_state={**moments, "t": t}, step=int(step))
 
 
+def _paths(path, keys):
+    """The dotted paths of ``keys`` under ``path``."""
+    return [f"{path}.{k}".lstrip(".") for k in sorted(keys)]
+
+
 def lm_params_from_numpy(cfg: ArchConfig, tree, device=None) -> dict:
     """The reference's ``init_lm`` tree for ``cfg`` as numpy (for example
     ``jax.tree.map(np.asarray, params)``) -> the port's parameters on
     ``device`` (None: the CUDA card), dtype kept. The keys
-    are the same (``segments.seg0.s0.attn.wq.w``, ...); raises on a
-    missing or extra key or a shape other than the port's ``init_lm``
-    gives for ``cfg``."""
+    are the same (``segments.seg0.s0.attn.wq.w``, ...; an enc-dec model's
+    encoder under ``enc.segments`` and ``enc.ln_post``); raises on a
+    missing or extra key, naming its dotted path, or a shape other than
+    the port's ``init_lm`` gives for ``cfg``."""
     device = resolve_device(device)
 
     def convert(ref, want, path):
         if isinstance(want, dict):
             if not isinstance(ref, dict) or set(ref) != set(want):
                 got = sorted(ref) if isinstance(ref, dict) else type(ref)
+                have = set(ref) if isinstance(ref, dict) else set()
                 raise ValueError(f"{path or 'params'}: keys {got}, expected "
-                                 f"{sorted(want)}")
+                                 f"{sorted(want)} (missing "
+                                 f"{_paths(path, set(want) - have)}, "
+                                 f"unexpected {_paths(path, have - set(want))})")
             return {k: convert(ref[k], want[k], f"{path}.{k}".lstrip("."))
                     for k in want}
         a = np.asarray(ref)

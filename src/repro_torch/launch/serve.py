@@ -5,12 +5,15 @@ the KV / state cache (the port of ``repro.launch.serve``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
       --tokens 32 --device cpu
 
-The prefill runs every causal self-attention through the flash-attention
-kernel and every RWKV6 time-mix through the wkv kernel (on the card);
-decode is plain PyTorch. Prompts are drawn by a numpy generator seeded
-with ``--seed``, or passed in (``prompts=``), so the tests can feed both
-packages the same ids; parameters come from ``init_lm`` seeded with
-``--seed``, or are passed in (``params=``).
+The prefill runs every full-sequence attention (for whisper: the
+encoder's, the decoder's causal self-attention and its cross-attention)
+through the flash-attention kernel and every RWKV6 time-mix through the
+wkv kernel (on the card); decode is plain PyTorch. Prompts are drawn by a
+numpy generator seeded with ``--seed``, or passed in (``prompts=``), so
+the tests can feed both packages the same ids; an enc-dec model's frame
+embeddings likewise (the reference's 0.02 · N(0, 1) of shape
+(batch, 24, d_model), or ``frames=``); parameters come from ``init_lm``
+seeded with ``--seed``, or are passed in (``params=``).
 """
 from __future__ import annotations
 
@@ -46,10 +49,11 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def main(argv=None, parser=None, *, prompts=None, params=None):
+def main(argv=None, parser=None, *, prompts=None, params=None, frames=None):
     """Serve one batch; returns the generated ids (batch, tokens) as a
-    numpy array. ``prompts`` (batch, prompt_len) ints and ``params``
-    (``init_lm``'s tree) replace the seeded draws."""
+    numpy array. ``prompts`` (batch, prompt_len) ints, ``params``
+    (``init_lm``'s tree) and, for an enc-dec model, ``frames``
+    (batch, F, d_model) floats replace the seeded draws."""
     args = (parser or build_parser()).parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -67,12 +71,25 @@ def main(argv=None, parser=None, *, prompts=None, params=None):
         raise ValueError(f"prompts {tuple(tokens.shape)} != (batch, "
                          f"prompt_len) = {(args.batch, args.prompt_len)}")
 
+    batch = {"tokens": tokens}
+    if cfg.layout == "encdec":
+        if frames is None:
+            frames = 0.02 * np.random.default_rng(args.seed).standard_normal(
+                (args.batch, 24, cfg.d_model))
+        batch["frames"] = torch.as_tensor(np.asarray(frames),
+                                          dtype=torch.float32, device=device)
+        if (batch["frames"].dim() != 3 or batch["frames"].shape[0]
+                != args.batch or batch["frames"].shape[2] != cfg.d_model):
+            raise ValueError(f"frames {tuple(batch['frames'].shape)} != "
+                             f"(batch, F, d_model) = ({args.batch}, F, "
+                             f"{cfg.d_model})")
+
     prefill = make_prefill_step(cfg, cache_len)
     decode = make_decode_step(cfg, cache_len)
     with torch.no_grad():
         _sync(device)
         t0 = time.perf_counter()
-        tok, cache = prefill(params, {"tokens": tokens})
+        tok, cache = prefill(params, batch)
         _sync(device)
         print(f"prefill {args.batch}x{args.prompt_len}: "
               f"{time.perf_counter() - t0:.3f}s")

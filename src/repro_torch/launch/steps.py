@@ -37,7 +37,9 @@ def loss_and_grads(cfg: ArchConfig, params, batch, remat=True,
 
 def make_train_step(cfg: ArchConfig, lr=1e-4, remat=True, microbatches=1):
     """Adam train step with optional gradient accumulation over
-    ``microbatches`` equal slices of the batch (activation memory scales
+    ``microbatches`` equal slices of the batch, each of its entries
+    (tokens, labels, an enc-dec model's frames) split on its first axis
+    (activation memory scales
     with batch / microbatches). Returns ``(train_step, opt)``;
     ``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm", "moe_lb"})`` returns new trees and leaves its
@@ -76,11 +78,14 @@ def make_train_step(cfg: ArchConfig, lr=1e-4, remat=True, microbatches=1):
 
 
 def make_prefill_step(cfg: ArchConfig, cache_len):
-    """``prefill_step(params, batch) -> (next_tok (B, 1) int32, cache)``.
-    Only the last position's logits are computed: the reference computes
-    all of them and keeps the last, the same next token."""
+    """``prefill_step(params, batch) -> (next_tok (B, 1) int32, cache)``;
+    ``batch`` holds "tokens" (B, S) and, for the enc-dec model, "frames"
+    (B, F, d). Only the last position's logits are computed: the
+    reference computes all of them and keeps the last, the same next
+    token."""
     def prefill_step(params, batch):
         hidden, cache, _ = M.forward_hidden(cfg, params, batch["tokens"],
+                                            batch.get("frames"),
                                             want_cache=True,
                                             cache_len=cache_len)
         logits = M._logits(cfg, params, hidden[:, -1:])

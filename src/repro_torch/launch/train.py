@@ -13,7 +13,10 @@ and backward) on the card:
 The reference's flags, plus ``--device`` (default: the CUDA card),
 ``--seed`` (``init_lm``'s generator; the pipeline keeps the reference's
 seed 0) and ``--opts`` (``flags.parse_opts``, e.g. ``chunked_ce=512``).
-As in the reference the step runs without remat. ``--ckpt`` writes
+For an enc-dec model each step also draws its frame embeddings, the
+reference's 0.02 · N(0, 1) of shape (batch, 24, d_model), from a numpy
+generator seeded with (``--seed``, step), or takes them from
+``frames=``. As in the reference the step runs without remat. ``--ckpt`` writes
 {"params", "step"} in the reference's npz + json format
 (``checkpoint.io``). The run ends with the reference's own check: the
 mean loss of the last 5 steps is below that of the first 5.
@@ -24,6 +27,7 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import checkpoint as CKPT
@@ -55,21 +59,23 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None, *, params=None, state=None):
+def main(argv=None, *, params=None, state=None, frames=None):
     """Train; returns the per-step losses. ``params`` (``init_lm``'s tree)
-    replaces the seeded draw; a ``state`` dict receives the final
-    "params" and "opt_state". ``--opts`` holds for this run only: the
-    flags are restored on return."""
+    replaces the seeded draw, and ``frames`` (a function of the step t
+    returning (batch, F, d_model) floats) an enc-dec model's per-step
+    draws; a ``state`` dict receives the final "params" and "opt_state".
+    ``--opts`` holds for this run only: the flags are restored on
+    return."""
     args = build_parser().parse_args(argv)
     prev = flags.get()
     flags.parse_opts(args.opts)
     try:
-        return _train(args, params, state)
+        return _train(args, params, state, frames)
     finally:
         flags.set_flags(**dataclasses.asdict(prev))
 
 
-def _train(args, params, state):
+def _train(args, params, state, frames):
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if not args.full:
@@ -83,12 +89,20 @@ def _train(args, params, state):
     step_fn, opt = make_train_step(cfg, lr=args.lr, remat=False)
     opt_state = opt.init(params)
 
+    if cfg.layout == "encdec" and frames is None:
+        def frames(t):
+            rng = np.random.default_rng([args.seed, t])
+            return 0.02 * rng.standard_normal((args.batch, 24, cfg.d_model))
+
     pipe = iter(TokenPipeline(cfg.vocab, args.batch, args.seq, seed=0))
     losses = []
     t0 = time.time()
     for t in range(args.steps):
         batch = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
                  for k, v in next(pipe).items()}
+        if cfg.layout == "encdec":
+            batch["frames"] = torch.as_tensor(
+                np.array(frames(t), np.float32), device=device)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         losses.append(float(metrics["loss"]))
         if t % args.log_every == 0 or t == args.steps - 1:

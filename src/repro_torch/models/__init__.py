@@ -1,6 +1,8 @@
-"""The LLM substrate for serving: layers, attention (flash-attention
-kernel in the prefill), the RWKV6 mixer (wkv kernel in the prefill),
-segmented stacks and the model API."""
-from repro_torch.models import attention, layers, model, ssm, stack
+"""The LLM substrate for serving and training: layers, attention (the
+flash-attention kernel on every full-sequence attention), the RWKV6
+mixer (wkv kernel), MoE and Mamba, segmented stacks, the audio frontend
+stub of the enc-dec model and the model API."""
+from repro_torch.models import (attention, frontend, layers, model, moe, ssm,
+                                stack)
 
-__all__ = ["layers", "attention", "ssm", "stack", "model"]
+__all__ = ["layers", "attention", "moe", "ssm", "stack", "model", "frontend"]

@@ -1,28 +1,29 @@
-"""Grouped-query attention with QKV bias, qk-norm, sliding windows, RoPE
-and KV caches (full and ring-buffer): the port's copy of
-``repro.models.attention``.
+"""Grouped-query attention with QKV bias, qk-norm, sliding windows, RoPE,
+KV caches (full and ring-buffer) and cross-attention (enc-dec): the
+port's copy of ``repro.models.attention``.
 
 Shapes: x (B, S, d_model); q (B, S, H, dh); k/v (B, S, KV, dh).
 
-Causal self-attention over a whole sequence (the prefill, and every
-attention of a training step) runs through the hand-written
-flash-attention kernel (``kernels.flash_attention``), reading the
-projections through transposed views; when the projections require a
-gradient, its backward is the hand-written backward kernel. The kernel
-is blockwise by construction (it never holds the S × S scores), so the
-``blockwise`` flag does not change the kernel path. Decode (one query
-against the cache) stays the plain grouped ``sdpa``, as in the
+Every attention over a whole sequence (the prefill, every attention of a
+training step, the enc-dec model's encoder and its cross-attention to the
+encoder's frames) runs through the hand-written flash-attention kernel
+(``kernels.flash_attention``), causal or not as the layer is, reading
+the projections through transposed views; when the projections require a
+gradient, its backward is the hand-written backward kernel. RoPE is
+applied where ``use_rope`` says (the enc-dec layers use none). The kernel
+is blockwise by construction (it never holds the Sq × Skv scores), so
+the ``blockwise`` flag does not change the kernel path. Decode (one
+query against the cache) stays the plain grouped ``sdpa``, as in the
 reference: the kernel's causal mask has no query offset. ``plain=True``
 runs the full-sequence attention through ``sdpa`` too (the explicit
-reference run); with ``blockwise``, the plain path (``plain`` or a CPU
-tensor) takes ``blockwise_sdpa``, the reference's query-chunked path.
+reference run); with ``blockwise``, a causal call on the plain path
+(``plain`` or a CPU tensor) takes ``blockwise_sdpa``, the reference's
+query-chunked path (a non-causal one never does, as in the reference).
 
 Caches are updated in place (``fill_cache_from_prefill``,
 ``decode_attention``): the reference returns new arrays, the port writes
-the one slot a token adds instead of copying the cache.
-Every ported layer is causal self-attention with RoPE: the reference's
-non-causal, RoPE-free and cross-attention variants are the enc-dec path
-(ROADMAP queue 1 item 14).
+the one slot a token adds instead of copying the cache. A cross-attention
+cache (the encoder's K/V) is only read.
 """
 from __future__ import annotations
 
@@ -48,23 +49,27 @@ def init_attn(init: L.Init, d_model, a: AttnConfig):
     return p
 
 
-def _project_q(p, a: AttnConfig, x, positions):
+def _project_q(p, a: AttnConfig, x, positions, use_rope=True):
     B, S, _ = x.shape
     q = L.dense(p["wq"], x).reshape(B, S, a.n_heads, a.d_head)
     if a.qk_norm:
         q = L.rmsnorm(p["qn"], q)
-    cos, sin = L.rope_angles(positions, a.d_head, a.rope_theta)
-    return L.apply_rope(q, cos, sin)
+    if use_rope:
+        cos, sin = L.rope_angles(positions, a.d_head, a.rope_theta)
+        q = L.apply_rope(q, cos, sin)
+    return q
 
 
-def _project_kv(p, a: AttnConfig, x, positions):
+def _project_kv(p, a: AttnConfig, x, positions, use_rope=True):
     B, S, _ = x.shape
     k = L.dense(p["wk"], x).reshape(B, S, a.n_kv_heads, a.d_head)
     v = L.dense(p["wv"], x).reshape(B, S, a.n_kv_heads, a.d_head)
     if a.qk_norm:
         k = L.rmsnorm(p["kn"], k)
-    cos, sin = L.rope_angles(positions, a.d_head, a.rope_theta)
-    return L.apply_rope(k, cos, sin), v
+    if use_rope:
+        cos, sin = L.rope_angles(positions, a.d_head, a.rope_theta)
+        k = L.apply_rope(k, cos, sin)
+    return k, v
 
 
 def sdpa(q, k, v, mask, n_kv):
@@ -83,39 +88,48 @@ def sdpa(q, k, v, mask, n_kv):
     return out.reshape(B, Sq, H * dh)
 
 
-def causal_window_mask(s, window, device=None):
-    """(s, s) bool mask of a prefill: causal, optionally restricted to a
-    local window (query i sees keys j with i - window < j <= i)."""
+def causal_window_mask(s, window, device=None, skv=None):
+    """(s, skv) bool mask of a prefill (skv defaults to s): causal,
+    optionally restricted to a local window (query i sees keys j with
+    i - window < j <= i)."""
     qi = torch.arange(s, device=device)[:, None]
-    kj = torch.arange(s, device=device)[None, :]
+    kj = torch.arange(s if skv is None else skv, device=device)[None, :]
     m = kj <= qi
     if window and window > 0:
         m = m & (kj > qi - window)
     return m
 
 
-def full_attention(p, a: AttnConfig, x, positions, *, window=0, plain=False,
+def full_attention(p, a: AttnConfig, x, positions, *, causal=True, window=0,
+                   use_rope=True, kv_x=None, kv_positions=None, plain=False,
                    blockwise=False, q_chunk=512):
-    """Full-sequence causal self-attention (the prefill and training),
-    optionally within a local ``window``. Returns (y, (k, v)): k/v are the
-    cache material (RoPE applied). Runs through ``kernels.flash_attention``
+    """Full-sequence attention (the prefill and training; the enc-dec
+    model's encoder and cross-attention), causal or not, optionally within
+    a local ``window``, with RoPE where ``use_rope``. Cross-attention:
+    ``kv_x`` (the encoder's states, B × Skv × d) and ``kv_positions``
+    give the keys and values. Returns (y, (k, v)): k/v are the cache
+    material (RoPE applied). Runs through ``kernels.flash_attention``
     (blockwise by construction, whatever ``blockwise`` says), or with
-    ``plain`` through the grouped ``sdpa`` under the causal-window mask
-    (the reference's own path). ``blockwise`` on the plain path (``plain``
-    or a CPU tensor) takes ``blockwise_sdpa`` in query chunks of
-    ``q_chunk``."""
+    ``plain`` through the grouped ``sdpa`` under the reference's mask
+    (causal-window, or none when not causal). ``blockwise`` on a causal
+    call on the plain path (``plain`` or a CPU tensor) takes
+    ``blockwise_sdpa`` in query chunks of ``q_chunk``."""
     B, S, _ = x.shape
-    q = _project_q(p, a, x, positions)
-    k, v = _project_kv(p, a, x, positions)
-    if blockwise and (plain or x.device.type == "cpu"):
+    src = x if kv_x is None else kv_x
+    src_pos = positions if kv_positions is None else kv_positions
+    q = _project_q(p, a, x, positions, use_rope)
+    k, v = _project_kv(p, a, src, src_pos, use_rope)
+    if causal and blockwise and (plain or x.device.type == "cpu"):
         y = blockwise_sdpa(q, k, v, a.n_kv_heads, causal=True, window=window,
                            q_chunk=q_chunk)
     elif plain:
-        y = sdpa(q, k, v, causal_window_mask(S, window, x.device)[None],
-                 a.n_kv_heads)
+        mask = (causal_window_mask(S, window, x.device, src.shape[1])[None]
+                if causal else None)
+        y = sdpa(q, k, v, mask, a.n_kv_heads)
     else:
         y = FA.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal=True, window=window)
+                               v.transpose(1, 2), causal=causal,
+                               window=window)
         y = y.transpose(1, 2).reshape(B, S, a.n_heads * a.d_head)
     return L.dense(p["wo"], y), (k, v)
 
@@ -191,17 +205,21 @@ def _slot_positions(pos, W, ring, device=None):
 
 
 def decode_attention(p, a: AttnConfig, x1, pos, cache, *, ring=False,
-                     window=0):
+                     window=0, use_rope=True, cross=False):
     """One-token decode. x1 (B, 1, d); ``pos`` the token's position (an
-    int); ``cache`` {'k','v'} (B, W, KV, dh). The new k/v is written in
-    place at slot ``pos`` (``pos % W`` for a ring cache), and attention
-    runs over the valid slots through the plain ``sdpa``.
-    Returns (y, cache)."""
+    int); ``cache`` {'k','v'} (B, W, KV, dh). Self-attention writes the
+    new k/v in place at slot ``pos`` (``pos % W`` for a ring cache) and
+    attends over the valid slots; cross-attention (``cross``) reads the
+    encoder's K/V cache, every slot valid, and never writes it. Attention
+    runs through the plain ``sdpa``. Returns (y, cache)."""
     B = x1.shape[0]
     W = cache["k"].shape[1]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x1.device)
-    q = _project_q(p, a, x1, positions)
-    k1, v1 = _project_kv(p, a, x1, positions)
+    q = _project_q(p, a, x1, positions, use_rope)
+    if cross:
+        y = sdpa(q, cache["k"], cache["v"], None, a.n_kv_heads)
+        return L.dense(p["wo"], y), cache
+    k1, v1 = _project_kv(p, a, x1, positions, use_rope)
     slot = pos % W if ring else pos
     cache["k"][:, slot] = k1[:, 0]
     cache["v"][:, slot] = v1[:, 0]

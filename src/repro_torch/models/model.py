@@ -2,14 +2,15 @@
 / loss (the port's copy of ``repro.models.model``).
 
 Works for every ported architecture through the segments of
-``stack.py``. Parameters are a nested dict with the reference's keys
+``stack.py``; the enc-dec model (whisper) also runs an encoder
+(``encode``) over stubbed audio-frame embeddings, and its decoder reads
+the encoder's output through cross-attention. Parameters are a nested dict with the reference's keys
 (``segments.seg0.s0.attn.wq.w``, ...), segments stacked on a leading
 repeats axis, so ``checkpoint.convert.lm_params_from_numpy`` maps the
 reference's tree one to one. ``forward_hidden`` and ``forward`` return
 the reference's third value, the auxiliary losses {"lb", "z"} of the
 MoE FFN layers summed over the stack (zero without MoE), which
 ``lm_loss`` weighs in.
-``encode`` arrives with the enc-dec slice (item 14).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch import flags
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import frontend as F
 from repro_torch.models import layers as L
 from repro_torch.models import stack as ST
 from repro_torch.utils.device import resolve_device
@@ -43,6 +45,11 @@ def init_lm(cfg: ArchConfig, seed, dtype=torch.float32, device=None):
     }
     if not cfg.tie_embeddings:
         params["head"] = L.init_dense(init, cfg.d_model, cfg.vocab)
+    if cfg.layout == "encdec":
+        params["enc"] = {
+            "segments": {name: ST.init_segment_params(init, cfg, kinds, reps)
+                         for name, reps, kinds in ST.encoder_segments(cfg)},
+            "ln_post": L.init_layernorm(init, cfg.d_model)}
     return params
 
 
@@ -53,15 +60,38 @@ def _logits(cfg, params, x):
     return (x @ params["head"]["w"]).to(L.ACC)
 
 
-def forward_hidden(cfg: ArchConfig, params, tokens, *, want_cache=False,
-                   cache_len=0, remat=False, plain_kernels=False):
+def encode(cfg: ArchConfig, params, frames, remat=False, plain_kernels=False):
+    """The enc-dec model's encoder over stubbed frame embeddings frames
+    (B, F, d): sinusoidal positions, the encoder layers (non-causal
+    attention), then ``ln_post``. Returns (B, F, d)."""
+    x = F.add_positions(frames)
+    ctx = ST.Ctx(mode="full", remat=remat, plain_kernels=plain_kernels)
+    for name, reps, kinds in ST.encoder_segments(cfg):
+        x, _, _ = ST.apply_segment(cfg, kinds, params["enc"]["segments"][name],
+                                   x, None, ctx)
+    return L.layernorm(params["enc"]["ln_post"], x)
+
+
+def forward_hidden(cfg: ArchConfig, params, tokens, frames=None, *,
+                   want_cache=False, cache_len=0, remat=False,
+                   plain_kernels=False):
     """Full-sequence forward up to the final norm (pre-logits). tokens
-    (B, S) int. Returns (hidden, cache|None, aux). ``remat`` checkpoints
-    the layers (``stack.apply_segment``); ``plain_kernels`` runs the
-    kernels' plain versions (the explicit reference run)."""
+    (B, S) int; ``frames`` (B, F, d) the enc-dec model's frame embeddings
+    (required there, ignored elsewhere). Returns (hidden, cache|None,
+    aux). ``remat`` checkpoints the layers (``stack.apply_segment``), the
+    encoder's too; ``plain_kernels`` runs the kernels' plain versions (the
+    explicit reference run)."""
     x = L.embed(params["embed"], tokens)
+    enc = None
+    if cfg.layout == "encdec":
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                             "frames (B, F, d_model)")
+        enc = encode(cfg, params, frames, remat=remat,
+                     plain_kernels=plain_kernels)
+        x = F.add_positions(x)
     ctx = ST.Ctx(mode="full", want_cache=want_cache,
-                 cache_len=cache_len or tokens.shape[1],
+                 cache_len=cache_len or tokens.shape[1], enc=enc,
                  plain_kernels=plain_kernels, remat=remat)
     cache = {}
     aux_total = ST._zero_aux(x.device)
@@ -74,11 +104,11 @@ def forward_hidden(cfg: ArchConfig, params, tokens, *, want_cache=False,
     return x, (cache if want_cache else None), aux_total
 
 
-def forward(cfg: ArchConfig, params, tokens, *, want_cache=False,
-            cache_len=0, remat=False, plain_kernels=False):
+def forward(cfg: ArchConfig, params, tokens, frames=None, *,
+            want_cache=False, cache_len=0, remat=False, plain_kernels=False):
     """Full-sequence forward. Returns (logits (B, S, V) f32, cache|None,
     aux)."""
-    x, cache, aux = forward_hidden(cfg, params, tokens,
+    x, cache, aux = forward_hidden(cfg, params, tokens, frames,
                                    want_cache=want_cache,
                                    cache_len=cache_len, remat=remat,
                                    plain_kernels=plain_kernels)
@@ -109,19 +139,24 @@ def chunked_ce_from_hidden(cfg: ArchConfig, params, hidden, labels, chunk):
 
 
 def init_cache(cfg: ArchConfig, batch, cache_len, dtype=torch.float32,
-               device=None):
+               device=None, *, enc_len=0):
+    """Zero caches of the decoder's segments; an enc-dec model's cross
+    caches are ``enc_len`` long."""
     device = resolve_device(device)
     return {name: ST.init_segment_cache(cfg, kinds, reps, batch, cache_len,
-                                        dtype, device)
+                                        dtype, device, enc_len=enc_len)
             for name, reps, kinds in ST.build_segments(cfg)}
 
 
 def decode_step(cfg: ArchConfig, params, token, cache, pos, cache_len):
     """One-token decode. token (B, 1) int; ``pos`` the token's position (an
     int); ``cache_len`` the logical context capacity (ring caches are
-    smaller than it). ``cache`` is updated in place. Returns
-    (logits (B, 1, V) f32, cache)."""
+    smaller than it). ``cache`` is updated in place (an enc-dec model's
+    cross caches only read). Returns (logits (B, 1, V) f32, cache)."""
     x = L.embed(params["embed"], token)
+    if cfg.layout == "encdec":
+        posv = torch.full((token.shape[0], 1), int(pos), device=x.device)
+        x = x + L.sinusoidal_positions(posv, cfg.d_model).to(x.dtype)
     ctx = ST.Ctx(mode="decode", pos=int(pos), cache_len=cache_len)
     for name, reps, kinds in ST.build_segments(cfg):
         x, _, _ = ST.apply_segment(cfg, kinds, params["segments"][name], x,
@@ -141,19 +176,21 @@ def cross_entropy(logits, labels, mask=None):
 
 def lm_loss(cfg: ArchConfig, params, batch, remat=False,
             plain_kernels=False):
-    """Next-token loss of ``batch`` ({"tokens", "labels"}, (B, S) ints) plus
-    the weighted auxiliary losses; returns (loss, aux). Cross-entropy per
-    chunk when ``flags.chunked_ce`` is set."""
+    """Next-token loss of ``batch`` ({"tokens", "labels"}, (B, S) ints, and
+    the enc-dec model's "frames") plus the weighted auxiliary losses;
+    returns (loss, aux). Cross-entropy per chunk when
+    ``flags.chunked_ce`` is set."""
     ce_chunk = flags.get().chunked_ce
+    frames = batch.get("frames")
     if ce_chunk:
-        hidden, _, aux = forward_hidden(cfg, params, batch["tokens"],
+        hidden, _, aux = forward_hidden(cfg, params, batch["tokens"], frames,
                                         remat=remat,
                                         plain_kernels=plain_kernels)
         loss = chunked_ce_from_hidden(cfg, params, hidden, batch["labels"],
                                       ce_chunk)
     else:
-        logits, _, aux = forward(cfg, params, batch["tokens"], remat=remat,
-                                 plain_kernels=plain_kernels)
+        logits, _, aux = forward(cfg, params, batch["tokens"], frames,
+                                 remat=remat, plain_kernels=plain_kernels)
         loss = cross_entropy(logits, batch["labels"])
     loss = loss + MOE_LB_WEIGHT * aux["lb"] + MOE_Z_WEIGHT * aux["z"]
     return loss, aux

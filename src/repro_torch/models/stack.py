@@ -7,18 +7,22 @@ parameters are stacked on a leading repeats axis, as in the reference, so
 the two packages' parameter trees map one to one; the port runs a body
 per repeat in a Python loop where the reference runs ``lax.scan``.
 
-Sub-layer kinds ported here:
+Sub-layer kinds:
   ('attn', ffn, window)  window=0 => global attention
   ('mamba', ffn)
   ('rwkv',)
-ffn ∈ {'dense', 'moe'}. The enc-dec kinds ``('enc',)`` and ``('dec',)``
-raise ``NotImplementedError`` naming their ROADMAP item.
+  ('enc',)               whisper encoder layer (bidirectional, no RoPE)
+  ('dec',)               whisper decoder layer (causal self-attention,
+                         then cross-attention to the encoder's output)
+ffn ∈ {'dense', 'moe'}. An encoder runs its own segments
+(``encoder_segments``); the decoder's layers read the encoder's output
+from ``Ctx.enc``. Any other kind raises ``ValueError``.
 
 Training: with ``Ctx.remat`` each repeat's body runs under
 ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
 after the forward and recomputed in the backward, as the reference's
 ``jax.checkpoint`` does. So in a step with remat the forward kernels
-(flash attention, wkv) launch twice per layer (the forward, then the
+(flash attention, wkv) launch twice per call site (the forward, then the
 recompute) and their backward kernels once. ``flags.nested_remat_group``
 = g > 1 checkpoints groups of g checkpointed repeats, on the reference's
 condition (full mode, no cache, g divides the repeats and is smaller);
@@ -40,17 +44,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
-_UNPORTED = {
-    "enc": "enc-dec layers: ROADMAP queue 1 item 14",
-    "dec": "enc-dec layers: ROADMAP queue 1 item 14",
-}
+KINDS = ("attn", "mamba", "rwkv", "enc", "dec")
 
 
-def _ported(kind):
-    """Raise for a kind the port does not run yet."""
-    if kind[0] in _UNPORTED:
-        raise NotImplementedError(f"{kind}: {_UNPORTED[kind[0]]}")
-    if kind[0] not in ("attn", "mamba", "rwkv"):
+def _known(kind):
+    if kind[0] not in KINDS:
         raise ValueError(kind)
 
 
@@ -103,6 +101,21 @@ def build_segments(cfg: ArchConfig):
     return _group(kinds)
 
 
+def encoder_segments(cfg: ArchConfig):
+    return [("enc", cfg.n_encoder_layers, (("enc",),))]
+
+
+def attention_calls(cfg: ArchConfig):
+    """Full-sequence attentions in one forward (each a flash launch on the
+    card): one per attention and encoder layer, two per decoder layer
+    (self and cross)."""
+    per_kind = {"attn": 1, "enc": 1, "dec": 2}
+    segs = build_segments(cfg) + (encoder_segments(cfg)
+                                  if cfg.layout == "encdec" else [])
+    return sum(reps * per_kind.get(kind[0], 0)
+               for _, reps, body in segs for kind in body)
+
+
 # ------------------------------------------------------------------ context
 @dataclass
 class Ctx:
@@ -110,6 +123,7 @@ class Ctx:
     want_cache: bool = False
     cache_len: int = 0
     pos: Optional[int] = None     # decode position
+    enc: Optional[torch.Tensor] = None   # encoder output (cross-attention)
     # The explicit reference run: attention and the RWKV recurrence go
     # through the kernels' plain versions even on CUDA tensors. Only the
     # caller sets it (chip_smoke.py and the card tests); never implied.
@@ -138,8 +152,20 @@ def _init_ffn(init: L.Init, cfg: ArchConfig, ffn):
 
 
 def init_layer(init: L.Init, cfg: ArchConfig, kind):
-    _ported(kind)
+    _known(kind)
     d = cfg.d_model
+    if kind[0] == "enc":
+        return {"ln1": L.init_layernorm(init, d),
+                "attn": A.init_attn(init, d, cfg.attn),
+                "ln2": L.init_layernorm(init, d),
+                "ffn": L.init_mlp(init, d, cfg.d_ff, "gelu", bias=True)}
+    if kind[0] == "dec":
+        return {"ln1": L.init_layernorm(init, d),
+                "self": A.init_attn(init, d, cfg.attn),
+                "ln_x": L.init_layernorm(init, d),
+                "cross": A.init_attn(init, d, cfg.attn),
+                "ln2": L.init_layernorm(init, d),
+                "ffn": L.init_mlp(init, d, cfg.d_ff, "gelu", bias=True)}
     if kind[0] in ("attn", "mamba"):
         name, mixer = (("attn", A.init_attn(init, d, cfg.attn))
                        if kind[0] == "attn" else
@@ -159,8 +185,17 @@ def _cache_len(kind, cache_len):
 
 
 def init_layer_cache(cfg: ArchConfig, kind, batch, cache_len, dtype,
-                     device=None):
-    _ported(kind)
+                     device=None, *, enc_len=0):
+    """One layer's zero cache; a decoder layer's is {"self", "cross"}, the
+    cross cache ``enc_len`` long. An encoder layer keeps none."""
+    _known(kind)
+    if kind[0] == "enc":
+        raise ValueError(f"{kind}: an encoder layer keeps no cache")
+    if kind[0] == "dec":
+        return {"self": A.init_cache(batch, cache_len, cfg.attn, dtype,
+                                     device),
+                "cross": A.init_cache(batch, enc_len, cfg.attn, dtype,
+                                      device)}
     if kind[0] == "attn":
         return A.init_cache(batch, _cache_len(kind, cache_len), cfg.attn,
                             dtype, device)
@@ -182,13 +217,15 @@ def _apply_ffn(p, cfg: ArchConfig, ffn, x):
 
 def apply_layer_full(cfg: ArchConfig, kind, p, x, ctx: Ctx):
     """Full-sequence sub-layer. Returns (x, cache_entry, aux)."""
-    _ported(kind)
+    _known(kind)
     B, Sq, d = x.shape
     cache = {}
+    positions = torch.arange(Sq, device=x.device).expand(B, Sq)
+    if kind[0] in ("enc", "dec"):
+        return _apply_encdec_full(cfg, kind, p, x, positions, ctx)
     if kind[0] == "attn":
         _, ffn, w = kind
         f = flags.get()
-        positions = torch.arange(Sq, device=x.device).expand(B, Sq)
         h = L.apply_norm(cfg.norm, p["ln1"], x)
         y, (k, v) = A.full_attention(p["attn"], cfg.attn, h, positions,
                                      window=w, plain=ctx.plain_kernels,
@@ -225,9 +262,59 @@ def apply_layer_full(cfg: ArchConfig, kind, p, x, ctx: Ctx):
     return x + y2, cache, _zero_aux(x.device)
 
 
+def _apply_encdec_full(cfg: ArchConfig, kind, p, x, positions, ctx: Ctx):
+    """An encoder layer (non-causal self-attention) or a decoder layer
+    (causal self-attention, then cross-attention from its tokens to
+    ``ctx.enc``), neither with RoPE, each with a biased GELU MLP. A
+    decoder layer's prefill cache holds its self K/V in a ``cache_len``
+    cache and the encoder's projected K/V as its cross cache."""
+    B = x.shape[0]
+    a, plain = cfg.attn, ctx.plain_kernels
+    cache = {}
+    h = L.layernorm(p["ln1"], x)
+    if kind[0] == "enc":
+        y, _ = A.full_attention(p["attn"], a, h, positions, causal=False,
+                                use_rope=False, plain=plain)
+        x = x + y
+    else:
+        y, (k, v) = A.full_attention(p["self"], a, h, positions,
+                                     causal=True, use_rope=False,
+                                     plain=plain)
+        x = x + y
+        hx = L.layernorm(p["ln_x"], x)
+        n_frames = ctx.enc.shape[1]
+        enc_pos = torch.arange(n_frames, device=x.device).expand(B, n_frames)
+        yx, (ck, cv) = A.full_attention(p["cross"], a, hx, positions,
+                                        causal=False, use_rope=False,
+                                        kv_x=ctx.enc, kv_positions=enc_pos,
+                                        plain=plain)
+        x = x + yx
+        if ctx.want_cache:
+            cache = {"self": A.fill_cache_from_prefill(
+                A.init_cache(B, ctx.cache_len, a, x.dtype, x.device), k, v,
+                False), "cross": {"k": ck, "v": cv}}
+    h2 = L.layernorm(p["ln2"], x)
+    return x + L.mlp(p["ffn"], h2, "gelu"), cache, _zero_aux(x.device)
+
+
 def apply_layer_decode(cfg: ArchConfig, kind, p, x1, cache, ctx: Ctx):
     """Single-token sub-layer. Returns (x1, new_cache)."""
-    _ported(kind)
+    _known(kind)
+    if kind[0] == "enc":
+        raise ValueError(f"{kind}: an encoder layer has no decode step")
+    if kind[0] == "dec":
+        h = L.layernorm(p["ln1"], x1)
+        y, self_c = A.decode_attention(p["self"], cfg.attn, h, ctx.pos,
+                                       cache["self"], use_rope=False)
+        x1 = x1 + y
+        hx = L.layernorm(p["ln_x"], x1)
+        yx, cross_c = A.decode_attention(p["cross"], cfg.attn, hx, ctx.pos,
+                                         cache["cross"], use_rope=False,
+                                         cross=True)
+        x1 = x1 + yx
+        h2 = L.layernorm(p["ln2"], x1)
+        return (x1 + L.mlp(p["ffn"], h2, "gelu"),
+                {"self": self_c, "cross": cross_c})
     if kind[0] in ("attn", "mamba"):
         h = L.apply_norm(cfg.norm, p["ln1"], x1)
         if kind[0] == "attn":
@@ -278,13 +365,13 @@ def init_segment_params(init: L.Init, cfg, kinds, repeats):
 
 
 def init_segment_cache(cfg, kinds, repeats, batch, cache_len, dtype,
-                       device=None):
+                       device=None, *, enc_len=0):
     def stack(t):
         if isinstance(t, dict):
             return {k: stack(v) for k, v in t.items()}
         return t.expand((repeats,) + t.shape).clone()
     return {f"s{j}": stack(init_layer_cache(cfg, kind, batch, cache_len,
-                                            dtype, device))
+                                            dtype, device, enc_len=enc_len))
             for j, kind in enumerate(kinds)}
 
 

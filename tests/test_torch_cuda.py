@@ -9,7 +9,9 @@ graph filter, the halo-pallas resident block and one halo-pallas
 meta-step on simulated shards of the card, one
 FL baseline on the card against the CPU, a
 reduced-config LLM prefill and decode through the flash and wkv kernels
-against the same model run through the plain versions, the flash and wkv
+(whisper's encoder and cross-attention included) against the same model
+run through the plain versions, the flash kernels at whisper's
+non-causal calls (ragged Skv, Sq != Skv, dh = 64), the flash and wkv
 backward kernels against autograd through the plain versions (also at
 their tiling's edges, in three layouts, with bit-equal reruns), and a
 reduced-config LM train step through the kernels against the plain one.
@@ -742,29 +744,40 @@ def test_wkv_launch_shape(cuda):
     assert wkv_ops.launch_shape(2, 2, 50) == (8, 128)
 
 
+def _frames(cfg, B, device, F=24, seed=0):
+    """An enc-dec model's (B, F, d) frame embeddings (0.02 N(0, 1), the
+    reference drivers' draw), else None."""
+    if cfg.layout != "encdec":
+        return None
+    return torch.tensor((0.02 * np.random.default_rng(seed).standard_normal(
+        (B, F, cfg.d_model))).astype(np.float32), device=device)
+
+
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_reduced_prefill_and_decode_through_kernels(cuda, arch):
     """A reduced-config prefill launches the flash kernel once per
-    attention layer and the wkv kernel once per RWKV layer (a Mamba layer
-    neither), decode launches neither, and logits and caches match the same model run through the
-    plain versions (``plain_kernels=True``) at 1e-4, over a prefill and 4
-    teacher-forced decode steps."""
+    attention layer (whisper: once per encoder layer, twice per decoder
+    layer) and the wkv kernel once per RWKV layer (a Mamba layer
+    neither), decode launches neither, and logits and caches match the
+    same model run through the plain versions (``plain_kernels=True``) at
+    1e-4, over a prefill and 4 teacher-forced decode steps."""
     cfg = get_config(arch).reduced()
     params = M.init_lm(cfg, 0, device=cuda)
     ids = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab,
                                                          (2, 40)),
                        device=cuda)
+    frames = _frames(cfg, 2, cuda)
     P, cache_len = 36, 40
     before = (flash_attention.launches, wkv.launches)
-    logits, cache, _ = M.forward(cfg, params, ids[:, :P], want_cache=True,
-                              cache_len=cache_len)
+    logits, cache, _ = M.forward(cfg, params, ids[:, :P], frames,
+                                 want_cache=True, cache_len=cache_len)
     torch.cuda.synchronize()
-    kinds = _layer_kinds(cfg)
-    want = (kinds.count("attn"), kinds.count("rwkv"))
+    want = (ST.attention_calls(cfg), _layer_kinds(cfg).count("rwkv"))
     assert (flash_attention.launches - before[0],
             wkv.launches - before[1]) == want
-    plain, pcache, _ = M.forward(cfg, params, ids[:, :P], want_cache=True,
-                              cache_len=cache_len, plain_kernels=True)
+    plain, pcache, _ = M.forward(cfg, params, ids[:, :P], frames,
+                                 want_cache=True, cache_len=cache_len,
+                                 plain_kernels=True)
     torch.testing.assert_close(logits, plain, atol=1e-4, rtol=1e-4)
     for pos in range(P, cache_len):
         tok = ids[:, pos:pos + 1]
@@ -775,7 +788,10 @@ def test_reduced_prefill_and_decode_through_kernels(cuda, arch):
             wkv.launches - before[1]) == want
     prefill = make_prefill_step(cfg, cache_len)
     decode = make_decode_step(cfg, cache_len)
-    tok, cache = prefill(params, {"tokens": ids[:, :P]})
+    batch = {"tokens": ids[:, :P]}
+    if frames is not None:
+        batch["frames"] = frames
+    tok, cache = prefill(params, batch)
     tok, cache = decode(params, cache, tok, P)
     assert tok.shape == (2, 1) and 0 <= int(tok.min()) <= int(tok.max()) < cfg.vocab
 
@@ -934,9 +950,12 @@ def test_backward_kernels_refuse_what_they_do_not_take(cuda):
 def test_reduced_train_step_through_kernels_matches_plain(cuda, arch):
     """A reduced-config train step with remat through the kernels: 2L
     forward and L backward launches of the layer's kernel (L the layers
-    of its kind), the loss and
+    of its kind; for flash, its call sites: whisper's encoder layers and
+    its decoder layers twice), the loss and
     every gradient within 1e-4 of the plain versions' (each tensor's
-    largest entry), and the step's parameters finite."""
+    largest entry; a key bias's, zero analytically, within 1e-6 of the
+    step's largest entry of zero in both), and the step's parameters
+    finite."""
     from repro_torch import flags
     from repro_torch.launch.steps import loss_and_grads, make_train_step
     cfg = get_config(arch).reduced()
@@ -944,19 +963,33 @@ def test_reduced_train_step_through_kernels_matches_plain(cuda, arch):
     ids = np.random.default_rng(1).integers(0, cfg.vocab, (2, 65))
     batch = {"tokens": torch.tensor(ids[:, :-1], device=cuda),
              "labels": torch.tensor(ids[:, 1:], device=cuda)}
+    if cfg.layout == "encdec":
+        batch["frames"] = _frames(cfg, 2, cuda)
     flags.set_flags(chunked_ce=16)
     try:
         kernel = flash_attention if cfg.attn is not None else wkv
         before = (kernel.launches, kernel.bwd_launches)
         (lk, _), gk = loss_and_grads(cfg, params, batch, remat=True)
-        L = _layer_kinds(cfg).count("attn" if cfg.attn is not None
-                                    else "rwkv")
+        L = (ST.attention_calls(cfg) if cfg.attn is not None
+             else _layer_kinds(cfg).count("rwkv"))
         assert (kernel.launches - before[0],
                 kernel.bwd_launches - before[1]) == (2 * L, L)
         (lp, _), gp = loss_and_grads(cfg, params, batch, remat=True,
                                      plain_kernels=True)
         assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
-        _rel_grads_close(_leaf_list(gk), _leaf_list(gp))
+        # a key projection's bias (whisper) moves a whole logit row, which
+        # softmax ignores: its gradient is zero but for f32 rounding in
+        # both paths, so it is held to zero, within 1e-6 of the step's
+        # largest gradient entry; every other tensor against the plain one
+        names = _leaf_names(gp)
+        largest = max(g.abs().max().item() for g in _leaf_list(gp))
+        pairs = list(zip(names, _leaf_list(gk), _leaf_list(gp)))
+        for name, a, b in pairs:
+            if name.endswith(".wk.b"):
+                assert max(a.abs().max().item(),
+                           b.abs().max().item()) <= 1e-6 * largest, name
+        _rel_grads_close([a for n, a, _ in pairs if not n.endswith(".wk.b")],
+                         [b for n, _, b in pairs if not n.endswith(".wk.b")])
         step, opt = make_train_step(cfg, lr=1e-3, remat=True)
         new, _, m = step(params, opt.init(params), batch)
         assert all(torch.isfinite(t).all() for t in _leaf_list(new))
@@ -971,10 +1004,48 @@ def _layer_kinds(cfg):
             for k in body for _ in range(reps)]
 
 
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{prefix}.{k}".lstrip("."))]
+    return [prefix]
+
+
 def _leaf_list(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaf_list(v)]
     return [tree]
+
+
+# Whisper's calls at test size: the encoder's non-causal self-attention
+# and the cross-attention (Sq != Skv, both ways), dh = 64, MHA; Skv ragged
+# (off the forward's kv tiles of 32 / 64 and the backward's key blocks of
+# 128), in f32 and (forward) bf16. (B, H, KV, Sq, Skv)
+WHISPER_CALLS = [(2, 4, 4, 150, 150), (2, 4, 4, 45, 150), (1, 6, 6, 300, 97),
+                 (1, 4, 4, 448, 1500)]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Skv", WHISPER_CALLS)
+def test_flash_non_causal_whisper_calls_match_plain(cuda, B, H, KV, Sq, Skv):
+    """The forward (f32 within 1e-5, bf16 within ``bf16_error_bound``) and
+    the backward (dq, dk, dv within 1e-4 of each plain gradient's largest
+    entry, a rerun bit-equal), non-causal, at ragged Skv and Sq != Skv
+    with dh = 64, against the plain version."""
+    rng = np.random.default_rng(Sq + Skv)
+    q, k, v, do = (torch.tensor(rng.standard_normal((B, n, s, 64)).astype(
+        np.float32), device=cuda) for n, s in ((H, Sq), (KV, Skv),
+                                               (KV, Skv), (H, Sq)))
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.to(dtype) for t in (q, k, v)]
+        _assert_flash_matches(flash_attention(*args, causal=False), *args,
+                              False, 0)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*xs, causal=False), xs, do)
+    xr = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(attention_ref(*xr, causal=False), xr, do)
+    _rel_grads_close(got, ref)
+    again = torch.autograd.grad(flash_attention(*xs, causal=False), xs, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_flash_kernel_gives_fully_masked_rows_zero(cuda):

@@ -3,13 +3,14 @@ reduced configs of qwen3-4b (dense GQA, qk-norm, RoPE), rwkv6-1.6b
 (RWKV6 time-mix and channel-mix), gemma3-27b (a window-8 local layer
 with a ring cache, then a global layer), deepseek-moe-16b (a dense layer,
 then a MoE layer with a shared expert), llama4-scout-17b-a16e (a local
-and a global attention layer, MoE top-1 with a shared expert) and
+and a global attention layer, MoE top-1 with a shared expert),
 jamba-1.5-large-398b (8 layers: Mamba with dense and MoE FFNs, the
-attention layer at position 4).
+attention layer at position 4) and whisper-small (2 encoder and 2
+decoder layers, 24 frames; more in ``tests/test_torch_whisper.py``).
 
 Both packages run the same parameters: the reference's ``init_lm`` tree,
 converted with ``checkpoint.convert.lm_params_from_numpy``, and the same
-token ids from numpy. The reference runs its own model code (plain
+token ids (and, for whisper, frame embeddings) from numpy. The reference runs its own model code (plain
 ``sdpa``, its own RWKV scan); the port runs its kernels' wrappers, which
 take their plain versions on CPU tensors.
 
@@ -41,18 +42,33 @@ from repro_torch.models import stack as ST
 TOL = 1e-4
 ARCH_NAMES = sorted(ARCHS)
 PROMPT, NEW = 12, 4          # gemma3's window of 8 makes its cache a ring
+FRAMES = 24                  # whisper's frames (the reference drivers')
 
 
 @pytest.fixture(scope="module", params=ARCH_NAMES)
 def pair(request):
-    """(reference cfg, port cfg, reference params, port params, prompts)."""
+    """(reference cfg, port cfg, reference params, port params, prompts,
+    frames: an enc-dec model's (2, FRAMES, d) embeddings, else None)."""
     jcfg = jget_config(request.param).reduced()
     tcfg = get_config(request.param).reduced()
     jparams = JM.init_lm(jcfg, jax.random.PRNGKey(0))
     tparams = lm_params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams),
                                    device="cpu")
-    ids = np.random.default_rng(0).integers(0, tcfg.vocab, (2, PROMPT + NEW))
-    return jcfg, tcfg, jparams, tparams, ids
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, tcfg.vocab, (2, PROMPT + NEW))
+    frames = None
+    if tcfg.layout == "encdec":
+        frames = (0.02 * rng.standard_normal(
+            (2, FRAMES, tcfg.d_model))).astype(np.float32)
+    return jcfg, tcfg, jparams, tparams, ids, frames
+
+
+def _jf(frames):
+    return None if frames is None else jnp.asarray(frames)
+
+
+def _tf(frames):
+    return None if frames is None else torch.tensor(frames)
 
 
 def _leaves(tree, prefix=""):
@@ -82,19 +98,24 @@ def test_configs_match_reference():
 
 
 def test_unported_archs_name_their_roadmap_item():
-    """What stays unported names its ROADMAP item: whisper-small and the
-    enc-dec kinds item 14, the multi-card archs item 18."""
-    with pytest.raises(KeyError, match="item 14"):
-        get_config("whisper-small")
-    with pytest.raises(KeyError, match="item 18"):
-        get_config("qwen2-72b")
+    """What stays unported names its ROADMAP item: the multi-card archs
+    item 18. whisper-small and its enc-dec kinds are ported; a kind the
+    stack does not know raises ``ValueError``."""
+    assert get_config("whisper-small").layout == "encdec"
+    for name in ("qwen2-72b", "qwen1.5-32b", "chameleon-34b"):
+        with pytest.raises(KeyError, match="item 18"):
+            get_config(name)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ST._ported(("enc",))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ST.init_layer_cache(get_config("qwen3-4b").reduced(), ("dec",), 1,
-                            4, torch.float32)
+    cfg = get_config("whisper-small").reduced()
+    cache = ST.init_layer_cache(cfg, ("dec",), 1, 4, torch.float32,
+                                enc_len=6)
+    assert cache["cross"]["k"].shape == (1, 6, 4, 64)
+    with pytest.raises(ValueError):
+        ST.init_layer_cache(cfg, ("nope",), 1, 4, torch.float32)
+    with pytest.raises(ValueError):
+        ST.init_layer(L.Init(None, device=torch.device("meta")), cfg,
+                      ("nope",))
 
 
 @pytest.mark.parametrize("act", ["swiglu", "gelu"])
@@ -130,7 +151,7 @@ def test_layers_match_reference(act):
 def test_init_cache_matches_reference(pair):
     """``init_cache``: the same tree of zeros, window-sized for a local
     layer."""
-    jcfg, tcfg, _, _, _ = pair
+    jcfg, tcfg, _, _, _, _ = pair
     ref = _leaves(JM.init_cache(jcfg, 2, 20))
     got = _leaves(M.init_cache(tcfg, 2, 20, device="cpu"))
     assert {k: v.shape for k, v in got.items()} == {
@@ -142,7 +163,7 @@ def test_params_round_trip(pair):
     """Every reference leaf lands under the same dotted name with the same
     values; the port's own ``init_lm`` gives the same names and shapes; a
     missing key or a wrong shape is refused."""
-    jcfg, tcfg, jparams, tparams, _ = pair
+    jcfg, tcfg, jparams, tparams, _, _ = pair
     ref, got = _leaves(jparams), _leaves(tparams)
     assert sorted(ref) == sorted(got)
     assert any(k.startswith("segments.") and k.endswith(".w") for k in got)
@@ -163,9 +184,9 @@ def test_params_round_trip(pair):
 
 def test_forward_logits_match_reference(pair):
     """Logits and the auxiliary losses (nonzero with MoE layers)."""
-    jcfg, tcfg, jparams, tparams, ids = pair
-    jl, _, jaux = JM.forward(jcfg, jparams, jnp.asarray(ids))
-    tl, cache, aux = M.forward(tcfg, tparams, torch.tensor(ids))
+    jcfg, tcfg, jparams, tparams, ids, frames = pair
+    jl, _, jaux = JM.forward(jcfg, jparams, jnp.asarray(ids), _jf(frames))
+    tl, cache, aux = M.forward(tcfg, tparams, torch.tensor(ids), _tf(frames))
     assert cache is None and tl.dtype == torch.float32
     assert sorted(aux) == sorted(jaux) == ["lb", "z"]
     for k in aux:
@@ -179,23 +200,26 @@ def test_plain_kernels_switch_runs_the_reference_path(pair):
     """``plain_kernels=True`` swaps the kernels' wrappers for the model's
     own plain attention / recurrence; on the CPU both are plain, so the
     hidden states agree to f32 rounding."""
-    _, tcfg, _, tparams, ids = pair
-    h, _, _ = M.forward_hidden(tcfg, tparams, torch.tensor(ids))
-    hp, _, _ = M.forward_hidden(tcfg, tparams, torch.tensor(ids),
-                             plain_kernels=True)
+    _, tcfg, _, tparams, ids, frames = pair
+    h, _, _ = M.forward_hidden(tcfg, tparams, torch.tensor(ids), _tf(frames))
+    hp, _, _ = M.forward_hidden(tcfg, tparams, torch.tensor(ids), _tf(frames),
+                                plain_kernels=True)
     torch.testing.assert_close(h, hp, atol=TOL, rtol=TOL)
 
 
 def test_prefill_cache_and_teacher_forced_decode_match_reference(pair):
     """The cache after a prefill of PROMPT tokens, then NEW decode steps
     fed the same next tokens in both packages: logits and caches agree
-    at every step (gemma3's local layer runs a ring cache)."""
-    jcfg, tcfg, jparams, tparams, ids = pair
+    at every step (gemma3's local layer runs a ring cache; whisper's
+    decoder layers a self and a cross cache)."""
+    jcfg, tcfg, jparams, tparams, ids, frames = pair
     cache_len = PROMPT + NEW
     jl, jcache, _ = JM.forward(jcfg, jparams, jnp.asarray(ids[:, :PROMPT]),
-                               want_cache=True, cache_len=cache_len)
+                               _jf(frames), want_cache=True,
+                               cache_len=cache_len)
     tl, tcache, _ = M.forward(tcfg, tparams, torch.tensor(ids[:, :PROMPT]),
-                           want_cache=True, cache_len=cache_len)
+                              _tf(frames), want_cache=True,
+                              cache_len=cache_len)
     _close(tl, jl, "prefill logits")
     ref, got = _leaves(jcache), _leaves(tcache)
     assert sorted(ref) == sorted(got)
@@ -215,11 +239,12 @@ def test_prefill_cache_and_teacher_forced_decode_match_reference(pair):
 
 
 def test_prefill_calls_each_kernel_once_per_layer(pair, monkeypatch):
-    """Every causal self-attention of the prefill goes through the flash
-    wrapper and every RWKV time-mix through the wkv wrapper (counted by
-    wrapping them: on the CPU the kernels' counters stay 0); a Mamba layer
-    calls neither; decode calls neither."""
-    _, tcfg, _, tparams, ids = pair
+    """Every full-sequence attention of the prefill goes through the flash
+    wrapper (whisper: one per encoder layer and two per decoder layer,
+    self and cross) and every RWKV time-mix through the wkv wrapper
+    (counted by wrapping them: on the CPU the kernels' counters stay 0);
+    a Mamba layer calls neither; decode calls neither."""
+    _, tcfg, _, tparams, ids, frames = pair
     calls = {"flash": 0, "wkv": 0}
 
     def counted(fn, name):
@@ -233,10 +258,15 @@ def test_prefill_calls_each_kernel_once_per_layer(pair, monkeypatch):
     monkeypatch.setattr(WKV, "wkv", counted(WKV.wkv, "wkv"))
     kinds = [k[0] for _, reps, body in ST.build_segments(tcfg)
              for k in body for _ in range(reps)]
-    want = {"flash": kinds.count("attn"), "wkv": kinds.count("rwkv")}
+    want = {"flash": (kinds.count("attn") + tcfg.n_encoder_layers
+                      + 2 * kinds.count("dec")), "wkv": kinds.count("rwkv")}
+    assert want["flash"] == ST.attention_calls(tcfg)
     assert len(kinds) == tcfg.n_layers and sum(want.values()) > 0
     prefill = serve.make_prefill_step(tcfg, PROMPT + NEW)
-    tok, cache = prefill(tparams, {"tokens": torch.tensor(ids[:, :PROMPT])})
+    batch = {"tokens": torch.tensor(ids[:, :PROMPT])}
+    if frames is not None:
+        batch["frames"] = torch.tensor(frames)
+    tok, cache = prefill(tparams, batch)
     assert calls == want
     decode = serve.make_decode_step(tcfg, PROMPT + NEW)
     for i in range(NEW - 1):
@@ -246,19 +276,23 @@ def test_prefill_calls_each_kernel_once_per_layer(pair, monkeypatch):
 
 def test_serve_main_generates_the_reference_ids(pair):
     """``serve.main`` on the CPU with the reference's parameters and the
-    same prompts gives the reference's greedy ids (its prefill and decode
-    steps), with the shape and id range ``test_system.py`` asserts."""
-    jcfg, tcfg, jparams, tparams, ids = pair
+    same prompts (and frames) gives the reference's greedy ids (its
+    prefill and decode steps), with the shape and id range
+    ``test_system.py`` asserts."""
+    jcfg, tcfg, jparams, tparams, ids, frames = pair
     B, P, N = 2, PROMPT, NEW + 2
     gen = serve.main(["--arch", tcfg.name.removesuffix("-reduced"),
                       "--batch", str(B), "--prompt-len", str(P), "--tokens",
                       str(N), "--device", "cpu"],
-                     prompts=ids[:, :P], params=tparams)
+                     prompts=ids[:, :P], params=tparams, frames=frames)
     assert gen.shape == (B, N)
     assert (gen >= 0).all() and (gen < tcfg.vocab).all()
     prefill = jprefill_step(jcfg, P + N)
     decode = jdecode_step(jcfg, P + N)
-    tok, cache = prefill(jparams, {"tokens": jnp.asarray(ids[:, :P])})
+    jbatch = {"tokens": jnp.asarray(ids[:, :P])}
+    if frames is not None:
+        jbatch["frames"] = jnp.asarray(frames)
+    tok, cache = prefill(jparams, jbatch)
     out = [tok]
     for i in range(N - 1):
         tok, cache = decode(jparams, cache, tok, jnp.int32(P + i))

@@ -57,7 +57,7 @@ def test_moe_train_step_matches_reference(arch):
     tstep, _ = make_train_step(tcfg, lr=1e-3, remat=False)
     to = lm_opt_state_from_numpy(tcfg, jax.tree.map(np.asarray, jo),
                                  device="cpu")
-    batch = _batch(tcfg.vocab, 10, batch=4)
+    batch = _batch(tcfg, 10, batch=4)
     tp, to, tm = tstep(tparams, to, _t(batch))
     jp, jo, jm = jax.jit(jstep)(jparams, jo, _j(batch))
     assert float(jm["moe_lb"]) > 0
@@ -73,7 +73,7 @@ def test_moe_card_path_gradients_match_plain(arch, monkeypatch):
     loss and gradients (remat) equal the plain path's, and flash launches
     2L forward and L backward, L the attention layers."""
     _, tcfg, _, tparams = _pair(arch)
-    batch = _t(_batch(tcfg.vocab, 8))
+    batch = _t(_batch(tcfg, 8))
     (ref_loss, ref_aux), ref = loss_and_grads(tcfg, tparams, batch,
                                               remat=True)
     _stub_card_path(monkeypatch)

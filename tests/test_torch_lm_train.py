@@ -1,5 +1,6 @@
 """The port's LM training path against the reference, on the CPU, at the
-reduced configs of qwen3-4b, rwkv6-1.6b and gemma3-27b (the MoE and
+reduced configs of qwen3-4b, rwkv6-1.6b, gemma3-27b and whisper-small
+(its batches carry 24 frames; the MoE and
 hybrid archs: ``tests/test_torch_lm_moe_train.py``, with these helpers):
 ``lm_loss`` and its gradients (chunked cross-entropy, remat, nested remat),
 ``make_train_step`` (with gradient accumulation), ``blockwise_sdpa``,
@@ -96,9 +97,16 @@ def _pair(arch, n_layers=None):
     return jcfg, tcfg, jparams, tparams
 
 
-def _batch(vocab, seed, batch=B, seq=S):
-    ids = np.random.default_rng(seed).integers(0, vocab, (batch, seq + 1))
-    return {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+def _batch(cfg, seed, batch=B, seq=S):
+    """Token ids and labels of ``cfg``'s vocab, and for an enc-dec model
+    (batch, 24, d) frame embeddings, the reference drivers' frame count."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab, (batch, seq + 1))
+    out = {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+    if cfg.layout == "encdec":
+        out["frames"] = (0.02 * rng.standard_normal(
+            (batch, 24, cfg.d_model))).astype(np.float32)
+    return out
 
 
 def _j(batch):
@@ -163,7 +171,7 @@ def test_lm_loss_and_grads_match_reference(arch, case, monkeypatch):
     ce, remat, group = LOSS_CASES[case]
     jcfg, tcfg, jparams, tparams = _pair(arch, 8 if group > 1 else None)
     _set_flags(chunked_ce=ce, nested_remat_group=group)
-    batch = _batch(tcfg.vocab, 1)
+    batch = _batch(tcfg, 1)
     (jl, jaux), jg = jax.jit(jax.value_and_grad(
         lambda p: JM.lm_loss(jcfg, p, _j(batch), remat=remat),
         has_aux=True))(jparams)
@@ -200,7 +208,7 @@ def test_three_train_steps_match_reference(arch):
     jp, jo = jparams, jopt.init(jparams)
     tp_run, to_run = tparams, topt.init(tparams)
     for s in range(3):
-        batch = _batch(tcfg.vocab, 10 + s, batch=4)
+        batch = _batch(tcfg, 10 + s, batch=4)
         tp = lm_params_from_numpy(tcfg, jax.tree.map(np.asarray, jp),
                                   device="cpu")
         to = lm_opt_state_from_numpy(tcfg, jax.tree.map(np.asarray, jo),
@@ -222,7 +230,7 @@ def test_microbatched_step_matches_reference_and_single(mb):
     reference's step with the same ``mb``, and against the port's single
     batch at the reference's own tolerances (``test_perf_opts.py``)."""
     jcfg, tcfg, jparams, tparams = _pair("qwen3-4b")
-    batch = _batch(tcfg.vocab, 3, batch=4)
+    batch = _batch(tcfg, 3, batch=4)
     jstep, jopt = jmake_train_step(jcfg, lr=1e-3, remat=False,
                                    microbatches=mb)
     jp, jo, jm = jax.jit(jstep)(jparams, jopt.init(jparams), _j(batch))
@@ -343,7 +351,7 @@ def test_checkpoint_resume_training(tmp_path):
     resume test, which holds the losses at 1e-6)."""
     tcfg = get_config("qwen3-4b").reduced()
     params = M.init_lm(tcfg, 0, device="cpu")
-    batch = _t(_batch(tcfg.vocab, 5))
+    batch = _t(_batch(tcfg, 5))
     step, opt = make_train_step(tcfg, lr=1e-3, remat=False)
     opt_state = opt.init(params)
     params, opt_state, _ = step(params, opt_state, batch)
@@ -368,7 +376,7 @@ def test_reference_lm_checkpoint_restores_with_the_same_loss(arch, tmp_path):
     like = {"params": M.init_lm(tcfg, 0, device="meta"), "step": 0}
     got = CKPT.restore(path, like, device="cpu")
     assert got["step"] == 3
-    batch = _batch(tcfg.vocab, 6)
+    batch = _batch(tcfg, 6)
     jl, _ = JM.lm_loss(jcfg, jparams, _j(batch))
     with torch.no_grad():
         tl, _ = M.lm_loss(tcfg, got["params"], _t(batch))
@@ -431,11 +439,14 @@ def test_card_path_gradients_reach_every_projection(arch, remat,
     kernels got no gradient for wq, wk, wv or the RWKV time-mix
     projections (the residual stream still carried one: nothing raised).
     With the launches stubbed on CPU tensors, the card path's gradients
-    equal the plain path's for every parameter, and the kernels launch as
-    stated: per step, L forward launches (2L with remat) and L backward,
-    L the layers of the kernel's kind (a Mamba layer launches neither)."""
+    equal the plain path's for every parameter (whisper's encoder's
+    included, each nonzero, the key biases aside: cross-attention's dk
+    and dv reach the encoder), and the kernels launch as stated: per step, L forward
+    launches (2L with remat) and L backward, L the layers of the kernel's
+    kind (a Mamba layer launches neither; a whisper decoder layer launches
+    flash twice, self and cross)."""
     _, tcfg, _, tparams = _pair(arch)
-    batch = _t(_batch(tcfg.vocab, 8))
+    batch = _t(_batch(tcfg, 8))
     (ref_loss, _), ref = loss_and_grads(tcfg, tparams, batch, remat=remat)
     _stub_card_path(monkeypatch)
     kernel = FA.flash_attention if tcfg.attn is not None else WKV.wkv
@@ -445,12 +456,24 @@ def test_card_path_gradients_reach_every_projection(arch, remat,
     _close_tree(got, ref, "grad")
     proj = ("attn.wq.w", "attn.wk.w", "attn.wv.w") if tcfg.attn else (
         "tmix.wr.w", "tmix.wk.w", "tmix.wv.w", "tmix.wa.w", "tmix.u")
+    if tcfg.layout == "encdec":
+        proj += tuple(f"{a}.w{p}.w" for a in ("self", "cross")
+                      for p in "qkv")
     flat = _flat(got)
     for name in proj:
         hits = [k for k in flat if k.endswith(name)]
         assert hits and all(np.abs(flat[k]).max() > 0 for k in hits), name
+    # whisper's encoder: every gradient nonzero but the key biases', which
+    # are zero to f32 rounding (softmax ignores a shift of a logit row)
+    enc = [k for k in flat if k.startswith("enc.")]
+    largest = max(np.abs(v).max() for v in flat.values())
+    for k in enc:
+        m = np.abs(flat[k]).max()
+        assert (m <= 1e-6 * largest) if k.endswith(".wk.b") else m > 0, k
+    assert bool(enc) == (tcfg.layout == "encdec")
     kinds = [k[0] for _, reps, body in ST.build_segments(tcfg)
              for k in body for _ in range(reps)]
-    L = kinds.count("attn" if tcfg.attn is not None else "rwkv")
+    L = (ST.attention_calls(tcfg) if tcfg.attn is not None
+         else kinds.count("rwkv"))
     assert (kernel.launches - before[0], kernel.bwd_launches - before[1]) == (
         (2 if remat else 1) * L, L)
