@@ -42,7 +42,9 @@ order; any failure exits non-zero:
      whisper-small's two non-causal shapes (dh=64, MHA): the encoder's
      self-attention (B=4, H=12, S=1500) and the cross-attention (448
      decoder positions to 1500 frames), f32 within 1e-5, bf16 within
-     ``bf16_error_bound(..., causal=False)``, with the same times;
+     ``bf16_error_bound(..., causal=False)``, with the same times; and at
+     the dense multi-card archs' shapes (H=64/KV=8, H=KV=40; B=4, S=2048,
+     dh=128, causal), the same gates and times;
   5b. flash backward vs plain — dq, dk, dv of the backward kernel
      against autograd through the plain version at phase 5's shapes (f32,
      causal; the gemma3 shape windowed): each within 1e-4 of the plain
@@ -54,7 +56,10 @@ order; any failure exits non-zero:
      runs beside it), the plain backward's time and
      ``scaled_dot_product_attention``'s backward (memory-efficient
      backend, K/V expanded); then at phase 5's two whisper shapes, the
-     same gates and times;
+     same gates and times; then at the cross shape with one vector added
+     to every key (0, 10 and 30 times the keys' rms norm, which moves no
+     gradient analytically): dq, dk, dv within 1e-4 of an f64 autograd
+     step and the keys' summed dk within KEY_SUM_TOL;
   6. wkv vs plain — at the reference's sweep shapes and the rwkv6-1.6b
      prefill shape (B=4, H=32, T=2048, dk=64), y and the final state at
      20x the reference's tolerance; the launch's grid and block, µs per
@@ -258,7 +263,23 @@ order; any failure exits non-zero:
  19b. ``launch.train.main(["--arch", "whisper-small", "--full",
      "--steps", "20"])`` (its defaults: B=4, S=64, 24 frames per step, no
      remat), gated by its own "loss decreases"; 36 forward and 36
-     backward flash launches per step.
+     backward flash launches per step;
+ 20. the dense archs that need more than one card in full (qwen2-72b,
+     qwen1.5-32b, chameleon-34b) served at full width through
+     ``launch.serve.main``, each cut to 4 layers (phase 14's patch), as
+     phase 11: one flash launch per attention layer per prefill, the
+     parity pass against ``plain_kernels=True`` at phase 11's gates,
+     times, peak memory and a profiled prefill and decode (phase 5 times
+     the flash kernel at their two attention shapes: H=64/KV=8 and
+     H=KV=40);
+ 21. the dry run (``launch.dryrun``): every arch x shape on the 16x16
+     and 2x16x16 production meshes and SURF's DRYRUN step in its four
+     mixes and its deployed solve, described on the ``meta`` device in
+     worker processes; any 'error' fails, the status counts printed. Then
+     where a step fits one card: qwen3-4b's prefill (B=4, S=2048, bf16)
+     and DRYRUN's meta-step through the graph-filter kernel, each
+     description's argument bytes and peak against the card's allocator
+     (DRYRUN_ARG_TOL, DRYRUN_PEAK_TOL).
 """
 from __future__ import annotations
 
@@ -338,6 +359,11 @@ FLASH_SWEEP = [(1, 4, 4, 64, 32, 0), (2, 4, 2, 80, 32, 0),
                (1, 8, 2, 128, 64, 16), (1, 2, 1, 48, 16, 8)]
 FLASH_QWEN = (4, 32, 8, 2048, 128, 0)
 FLASH_GEMMA = (4, 32, 16, 2048, 128, 1024)
+# Phases 5 and 20: the multi-card dense archs' prefill attention (GQA with
+# 64 heads over 8 kv heads: qwen2-72b, chameleon-34b; MHA with 40 heads:
+# qwen1.5-32b), causal, at phase 11's batch and prompt.
+FLASH_DENSE = {"qwen2-72b/chameleon-34b": (4, 64, 8, 2048, 128, 0),
+               "qwen1.5-32b": (4, 40, 40, 2048, 128, 0)}
 WKV_SWEEP = [(1, 2, 32, 16), (2, 3, 50, 16), (1, 4, 64, 64), (2, 1, 17, 8)]
 WKV_RWKV = (4, 32, 2048, 64)
 LLM_BATCH, LLM_PROMPT, LLM_TOKENS = 4, 2048, 32
@@ -353,10 +379,11 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_OPTS, TRAIN_LR = 4, 2048, "chunked_ce=512", 3e-4
 RWKV_PARITY_SEQ = 512      # rwkv6's plain step: a Python loop over T
 RWKV_PARITY_LAYERS = 6     # rwkv6's well-conditioned depth cut (phase 13)
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-3
-# The key projection's bias (whisper's attentions: the one ported arch
-# with QKV bias) moves every logit of a query row by the same q·b, which
-# softmax ignores: its gradient is zero but for f32 rounding (the
-# reference's too). A gate relative to its own largest entry would compare
+# The key projection's bias (whisper's attentions, which apply no RoPE:
+# the one trained arch with QKV bias; qwen2-72b's and qwen1.5-32b's are
+# rotated per position, have a gradient, and are served only) moves every
+# logit of a query row by the same q·b, which softmax ignores: its
+# gradient is zero but for f32 rounding (the reference's too). A gate relative to its own largest entry would compare
 # two roundings, so these tensors are held to zero instead: every entry,
 # in both paths, within ZERO_GRAD_TOL of the step's largest gradient entry.
 ZERO_GRAD_TOL = 1e-6
@@ -372,6 +399,28 @@ DRIVER_STEPS = 20          # phase 13b
 # what fits 80 GB with its plain-path parity pass (None: full depth).
 SERVE_MOE = (("deepseek-moe-16b", None), ("llama4-scout-17b-a16e", 4),
              ("jamba-1.5-large-398b", 2))
+# Phase 20: the dense archs that need more than one card in full, served
+# at full width cut to 4 layers (qwen2-72b: 2 x 4.98 GB of embedding and
+# head plus 3.51 GB per f32 layer), with phase 11's parity pass.
+SERVE_DENSE = (("qwen2-72b", 4), ("qwen1.5-32b", 4), ("chameleon-34b", 4))
+# Phase 5b addition: the flash backward at whisper's cross shape with one
+# vector c added to every key (m times the keys' rms row norm), which
+# moves no gradient analytically; the kernel's dq and dk within
+# BWD_REL_TOL of an f64 autograd step at every m, and its sum over keys
+# of dk (a key bias's gradient, zero analytically) within KEY_SUM_TOL of
+# the f64 dk's largest entry.
+DELTA_MULTIPLES = (0.0, 10.0, 30.0)
+KEY_SUM_TOL = 1e-5
+# Phase 21: the dry run's card checks. qwen3-4b's prefill at phase 11's
+# B and S in bf16 (the dry run's parameter dtype) on a 1-device mesh: its
+# described argument bytes against the allocated bytes of its parameters
+# and batch (DRYRUN_ARG_TOL, relative), its described peak (arguments +
+# counted live bytes of the plain path) against the same step's
+# max_memory_allocated with plain_kernels=True (DRYRUN_PEAK_TOL); then
+# DRYRUN's meta-step (n = 256) through the graph-filter kernel, the same
+# two checks. DRYRUN_JOBS worker processes count the grid.
+DRYRUN_ARG_TOL, DRYRUN_PEAK_TOL = 0.01, 0.10
+DRYRUN_JOBS = 8
 # Phase 15: MoE training, deepseek-moe-16b cut to 1 dense + 3 MoE layers.
 TRAIN_MOE = ("deepseek-moe-16b", 4)
 # Phase 16: fig. 7's ablation at benchmarks/common.py's setup (BENCH,
@@ -2557,8 +2606,9 @@ def _bound_use(out, ref, bound):
 
 
 def check_flash(tag):
-    """Flash kernel vs plain at the sweep, qwen3-4b and gemma3 shapes, f32
-    and bf16; times at the two full-width shapes. Besides the reference's
+    """Flash kernel vs plain at the sweep, qwen3-4b, gemma3 and the dense
+    multi-card archs' shapes, f32 and bf16; times at the full-width
+    shapes. Besides the reference's
     tolerances, f32 is held within FLASH_F32_ERR_MAX and bf16 within
     ``ops.bf16_error_bound`` of plain, per element. Returns the largest f32
     |error| and the qwen3-4b f32 timing."""
@@ -2568,8 +2618,10 @@ def check_flash(tag):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(2)
     max_err, timing = 0.0, None
-    for B, H, KV, S, dh, win in FLASH_SWEEP + [FLASH_QWEN, FLASH_GEMMA]:
-        full = (B, H, KV, S, dh, win) in (FLASH_QWEN, FLASH_GEMMA)
+    for B, H, KV, S, dh, win in (FLASH_SWEEP + [FLASH_QWEN, FLASH_GEMMA]
+                                 + list(FLASH_DENSE.values())):
+        full = (B, H, KV, S, dh, win) in ([FLASH_QWEN, FLASH_GEMMA]
+                                          + list(FLASH_DENSE.values()))
         qkv32 = [torch.tensor(rng.standard_normal((B, n, S, dh)).astype(
             np.float32), device="cuda") for n in (H, KV, KV)]
         for dtype, tol in ((torch.float32, 10 * F32_TOL),
@@ -4020,6 +4072,65 @@ def check_flash_bwd_whisper(tag, device="cuda"):
     return max_err, timing
 
 
+def _attention64(q, k, v):
+    """Non-causal softmax(q kᵀ / sqrt(dh)) v in f64, head h reading kv
+    head h // G (``attention_ref`` computes in f32 whatever its inputs)."""
+    G = q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    return torch.softmax((q @ k.mT) * q.shape[-1] ** -0.5, dim=-1) @ v
+
+
+def flash_delta_check(tag, device="cuda"):
+    """Phase 5b addition: the backward kernel at whisper's cross shape with
+    one vector c added to every key (c = m · r · u: u a seeded unit
+    vector, r the keys' rms row norm, m in DELTA_MULTIPLES), which moves
+    no gradient analytically. Before the keys were centred, dq moved in
+    proportion to m (``scripts/flash_delta_probe.py``). Gates: dq, dk
+    and dv within BWD_REL_TOL of an f64 autograd step on the same f32
+    inputs, and Σ_j dk_j within KEY_SUM_TOL of the f64 dk's largest
+    entry, at every m; plain f32 autograd's distances printed beside."""
+    from repro_torch.kernels.flash_attention import attention_ref, ops
+    B, H, KV, Sq, Skv, dh = FLASH_WHISPER["cross"]
+    rng = np.random.default_rng(13)
+    q, k, v, do = (torch.tensor(rng.standard_normal((B, n, s_, dh)).astype(
+        np.float32), device=device) for n, s_ in ((H, Sq), (KV, Skv),
+                                                 (KV, Skv), (H, Sq)))
+    u = rng.standard_normal(dh)
+    u = torch.tensor(u / np.linalg.norm(u), dtype=torch.float32,
+                     device=device)
+    r = k.square().sum(-1).mean().sqrt()
+    rel = lambda g, g64: ((g.double() - g64).abs().max()
+                          / g64.abs().max()).item()
+    rows = {}
+    for m in DELTA_MULTIPLES:
+        kc = k + (m * r) * u
+        o, lse = ops._launch(q, kc, v, False, 0, want_lse=True)
+        got = ops._launch_bwd(q, kc, v, o, lse, do, False, 0)
+        xs = [t.clone().requires_grad_() for t in (q, kc, v)]
+        plain = torch.autograd.grad(attention_ref(*xs, causal=False), xs, do)
+        x64 = [t.double().requires_grad_() for t in (q, kc, v)]
+        g64 = torch.autograd.grad(_attention64(*x64), x64, do.double())
+        row = {"kernel": {n: rel(g, g_) for n, g, g_ in
+                          zip(("dq", "dk", "dv"), got, g64)},
+               "plain": {n: rel(g, g_) for n, g, g_ in
+                         zip(("dq", "dk", "dv"), plain, g64)},
+               "kernel_key_sum": (got[1].double().sum(2).abs().max()
+                                  / g64[1].abs().max()).item(),
+               "plain_key_sum": (plain[1].double().sum(2).abs().max()
+                                 / g64[1].abs().max()).item()}
+        rows[m] = row
+        if (max(row["kernel"].values()) > BWD_REL_TOL
+                or row["kernel_key_sum"] > KEY_SUM_TOL):
+            raise AssertionError(f"flash backward, keys + {m} rms x u: "
+                                 f"{json.dumps(row)}")
+        del o, lse, got, plain, g64, xs, x64
+        torch.cuda.empty_cache()
+    print(f"[{tag}] 5b flash_attention_bwd whisper cross, every key + m x "
+          f"its rms norm x u: distance from f64 (of its largest |entry|) "
+          f"{json.dumps(rows)}")
+    return rows
+
+
 def serve_whisper(tag, device="cuda", full=True):
     """Phase 18: whisper-small served at full width and depth through
     ``launch.serve.main`` (the main path: its launches are the JSON
@@ -4243,6 +4354,182 @@ def whisper_driver(tag, device="cuda"):
     return main["flash_attention"], main["flash_attention_bwd"]
 
 
+def dryrun_grid(tag, outdir=os.path.join("build", "dryrun_torch")):
+    """Phase 21's description: every arch x shape on both production
+    meshes, and SURF's DRYRUN step in its four mixes and its deployed
+    solve on both, counted on the ``meta`` device in DRYRUN_JOBS worker
+    processes (``launch.dryrun``; nothing allocated, no card touched).
+    Prints the status counts; any 'error' fails."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    surf = [(multi, mix, infer) for multi in (False, True)
+            for mix, infer in ((None, False), ("ring", False),
+                               ("halo", False), ("halo-sched", False),
+                               (None, True))]
+    with ProcessPoolExecutor(DRYRUN_JOBS,
+                             mp_context=mp.get_context("spawn")) as ex:
+        futs = [ex.submit(dryrun.run_meshes, a, s_, (False, True), outdir)
+                for a in ARCH_IDS for s_ in SHAPES]
+        futs += [ex.submit(dryrun.run_surf, multi, outdir, mix=mix,
+                           infer=infer) for multi, mix, infer in surf]
+        recs = [f.result() for f in futs]
+        recs = [r for rec in recs for r in (rec if isinstance(rec, list)
+                                             else [rec])]
+    status = {}
+    for rec in recs:
+        status[rec["status"]] = status.get(rec["status"], 0) + 1
+    errors = [(r["arch"], r["shape"], r["mesh"], r.get("error"))
+              for r in recs if r["status"] == "error"]
+    dominant = {}
+    for r in recs:
+        if r["status"] == "ok":
+            d = r["roofline"]["dominant"]
+            dominant[d] = dominant.get(d, 0) + 1
+    print(f"[{tag}] 21 dry run: {len(recs)} records in "
+          f"{time.perf_counter() - t0:.1f} s ({DRYRUN_JOBS} processes, "
+          f"meta device, meshes 16x16 and 2x16x16, simulated): status "
+          f"{json.dumps(status)}, dominant term {json.dumps(dominant)}")
+    if errors:
+        raise AssertionError(f"dry run errors: {errors}")
+    for r in recs:
+        if r["status"] == "ok" and r["mesh"] == "16x16" and (
+                r["arch"] in dict(SERVE_DENSE) or r["arch"].startswith(
+                    "surf")):
+            terms = {k: r["roofline"][k] for k in
+                     ("compute_s", "memory_s", "collective_s", "dominant")}
+            print(f"[{tag}] 21 {r['arch']} {r['shape']} 16x16: per device "
+                  f"{json.dumps(r['memory'])}; flops "
+                  f"{r['parsed']['flops']:.4e}, bytes "
+                  f"{r['parsed']['bytes']:.4e}, collectives "
+                  f"{json.dumps(r['parsed']['collectives'])}; roofline "
+                  f"{json.dumps(terms)}")
+    return status
+
+
+def _ratio_check(tag, what, described, measured, tol):
+    ratio = described / measured
+    print(f"[{tag}] 21 {what}: described {described:.6e} B, measured "
+          f"{measured:.6e} B, ratio {ratio:.4f} (tolerance +-{tol})")
+    if abs(ratio - 1) > tol:
+        raise AssertionError(f"dry run {what}: ratio {ratio:.4f} outside "
+                             f"1 +- {tol}")
+    return ratio
+
+
+def dryrun_card_checks(tag, device="cuda"):
+    """Phase 21's card checks: where a step fits one card, its
+    description on a 1-device mesh against the card's allocator.
+
+      * qwen3-4b's prefill (B=LLM_BATCH, S=LLM_PROMPT, bf16 parameters):
+        argument bytes against ``memory_allocated`` once its parameters
+        and batch are built, the described peak (arguments + the counted
+        live bytes of the plain path) against ``max_memory_allocated`` of
+        the same step with ``plain_kernels=True``;
+      * DRYRUN's meta-step (n = 256, dense mixing) through the
+        graph-filter kernel (L forward and L − 1 dW launches): its
+        arguments (state, batch, draws) and its described peak against
+        the measured ones.
+
+    Tolerances DRYRUN_ARG_TOL and DRYRUN_PEAK_TOL, relative. Returns the
+    graph filter's launches (forward, backward)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.surf_paper import DRYRUN
+    from repro_torch.core.tasks import resolve_task
+    from repro_torch.engine import init_state, make_meta_step
+    from repro_torch.launch import dryrun, surf_dryrun
+    from repro_torch.launch.hlo_cost import tree_bytes
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import PARAM_DTYPE
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+    from repro_torch.topology.families import build_topology
+
+    cfg = get_config("qwen3-4b")
+    shape = ShapeConfig("prefill_2k", LLM_PROMPT, LLM_BATCH, "prefill")
+    desc = dryrun.describe(cfg, shape, Mesh([["meta"]], ("data", "model")))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = M.init_lm(cfg, 0, PARAM_DTYPE, device=device)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LLM_BATCH, LLM_PROMPT)), dtype=torch.int32,
+        device=device)
+    torch.cuda.synchronize()
+    arg = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    step = make_prefill_step(cfg, LLM_PROMPT, plain_kernels=True)
+    zero_counts()
+    with torch.no_grad():
+        tok, cache = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if any(counts().values()):
+        raise AssertionError(f"plain_kernels launched {counts()}")
+    _ratio_check(tag, "qwen3-4b prefill B=4 S=2048 bf16 argument bytes",
+                 desc["memory"]["argument_bytes"], arg, DRYRUN_ARG_TOL)
+    _ratio_check(tag, "qwen3-4b prefill peak bytes (plain path)",
+                 desc["memory"]["per_device_total"], peak, DRYRUN_PEAK_TOL)
+    print(f"[{tag}] 21 qwen3-4b prefill described: flops "
+          f"{desc['parsed']['flops']:.4e} (matmul "
+          f"{desc['parsed']['matmul_flops']:.4e}), bytes "
+          f"{desc['parsed']['bytes']:.4e}, roofline "
+          f"{json.dumps(desc['roofline'])}")
+    del params, tokens, tok, cache, step
+    torch.cuda.empty_cache()
+
+    A, S = build_topology(DRYRUN.topology, DRYRUN.n_agents,
+                          degree=DRYRUN.degree, seed=0)
+    cost, inputs = surf_dryrun.count_meta_step(DRYRUN, S)
+    st = inputs["state"]
+    arg_desc = tree_bytes([st.theta, st.lam, st.opt_state, inputs["batch"],
+                           inputs["draws"]])
+    task = resolve_task(DRYRUN)
+    S_t = torch.tensor(np.asarray(S), dtype=torch.float32, device=device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = init_state(gen, DRYRUN)
+    n, L = DRYRUN.n_agents, DRYRUN.n_layers
+    m, t_, b = DRYRUN.train_per_agent, DRYRUN.test_per_agent, \
+        DRYRUN.batch_per_agent
+    F_, C = task.feat_dim, DRYRUN.n_classes
+    randn = lambda *shp: torch.randn(shp, generator=gen, device=device)
+    labels = lambda *shp: torch.randint(0, C, shp, generator=gen,
+                                        device=device)
+    batch = {"Xtr": randn(n, m, F_), "Ytr": labels(n, m),
+             "Xte": randn(n, t_, F_), "Yte": labels(n, t_)}
+    draws = (0.1 * randn(n, task.dim), randn(L, n, b, F_), labels(L, n, b))
+    torch.cuda.synchronize()
+    arg = torch.cuda.memory_allocated() - base
+    meta_step, _ = make_meta_step(DRYRUN, S_t)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    state2, metrics = meta_step(state, batch, draws=draws)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    c = counts()
+    if c["graph_filter"] != L or c["graph_filter_bwd"] != L - 1:
+        raise AssertionError(f"DRYRUN meta-step launches {c}")
+    if not all(torch.isfinite(v).all() for v in metrics.values()):
+        raise AssertionError(f"DRYRUN meta-step metrics {metrics}")
+    _ratio_check(tag, "DRYRUN meta-step argument bytes", arg_desc, arg,
+                 DRYRUN_ARG_TOL)
+    _ratio_check(tag, "DRYRUN meta-step peak bytes (graph-filter kernel)",
+                 arg_desc + cost.peak_live_bytes, peak, DRYRUN_PEAK_TOL)
+    print(f"[{tag}] 21 DRYRUN meta-step: graph_filter {c['graph_filter']}, "
+          f"backward {c['graph_filter_bwd']} launches; described flops "
+          f"{cost.flops:.4e} (matmul {cost.matmul_flops:.4e}), bytes "
+          f"{cost.bytes:.4e}")
+    del state, state2, batch, draws, metrics, S_t
+    torch.cuda.empty_cache()
+    return c["graph_filter"], c["graph_filter_bwd"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4288,6 +4575,7 @@ def main():
     # 5b.-6b. the backward kernels vs autograd through the plain versions
     fab_err, fab_timing = check_flash_bwd(tag)
     fab_err = max(fab_err, check_flash_bwd_whisper(tag)[0])
+    flash_delta_check(tag)
     wkvb_err, wkvb_timing = check_wkv_bwd(tag)
 
     # 7. serve, with the default mixer
@@ -4398,14 +4686,27 @@ def main():
     wh_fwd, wh_bwd, _ = train_llm(tag, WHISPER, phase="19")
     whd_fwd, whd_bwd = whisper_driver(tag)
 
+    # 20. the dense archs that need more than one card in full, served at
+    #     full width (depth cut to 4 layers)
+    dense_serve = {arch: serve_llm(tag, arch, "flash_attention",
+                                   n_layers=n_layers)[0]
+                   for arch, n_layers in SERVE_DENSE}
+
+    # 21. the dry run: the grid on the production meshes (meta device),
+    #     then its descriptions held against the card where a step fits
+    dryrun_grid(tag)
+    dry_fwd, dry_bwd = dryrun_card_checks(tag)
+
     # The graph filter's forward record's times are those of the largest
     # bucket's tick layer; its launches those of the serve runs (7-7d,
     # 7f), the launchers (7e), the training runs (9, 9b, 9e-9h, 9i's
-    # halo-pallas train_surf, 9k, 10b, 16), the async studies (9c, 9k)
-    # and the examples (17), and dW's those of the launchers, the training
-    # runs and the examples. Flash attention's and wkv's times are
+    # halo-pallas train_surf, 9k, 10b, 16), the async studies (9c, 9k),
+    # the examples (17) and the DRYRUN meta-step (21), and dW's those of
+    # the launchers, the training runs, the examples and 21. Flash
+    # attention's and wkv's times are
     # those of the qwen3-4b and rwkv6-1.6b prefill shapes in f32, their
-    # launches those of the serve runs (one prefill each; 11-12, 14, 18),
+    # launches those of the serve runs (one prefill each; 11-12, 14, 18,
+    # 20),
     # the training steps (13, 15, 19), the drivers (13b, 19b) and the
     # examples (17); their backward kernels' times are those of the same
     # shapes, their launches those of 13, 13b, 15, 17, 19 and 19b.
@@ -4446,7 +4747,9 @@ def main():
           f"serve (18) flash_attention {wh_serve}; whisper-small training "
           f"step (19) flash_attention {wh_fwd}, backward {wh_bwd}; "
           f"whisper-small training driver (19b) flash_attention {whd_fwd}, "
-          f"backward {whd_bwd}")
+          f"backward {whd_bwd}; dense multi-card archs serve (20) "
+          f"flash_attention {json.dumps(dense_serve)}; DRYRUN meta-step "
+          f"(21) forward {dry_fwd}, backward {dry_bwd}")
     print(tag)
     print(json.dumps({"kernels": [
         {"name": "graph_filter", "route": "cuda", "source": src,
@@ -4456,7 +4759,7 @@ def main():
                       + sched_fwd + async_eval_launches
                       + seeds_rec["launches_forward"] + rob_fwd + ckpt_fwd
                       + sparse_fwd + qs_fwd + sharded_launches + halo_fwd
-                      + qsh_fwd + fig7_fwd + ex["graph_filter"]),
+                      + qsh_fwd + fig7_fwd + ex["graph_filter"] + dry_fwd),
          "max_abs_err": max_err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
          "bound_by": bound_by, "library_ms": None},
@@ -4465,7 +4768,7 @@ def main():
          "launches": (train_bwd + launch_bwd + sched_bwd
                       + seeds_rec["launches_backward"] + rob_bwd + ckpt_bwd
                       + sparse_bwd + qs_bwd + halo_bwd + qsh_bwd + fig7_bwd
-                      + ex["graph_filter_bwd"]),
+                      + ex["graph_filter_bwd"] + dry_bwd),
          "max_abs_err": bwd_err,
          "ms": b_ms,
          "plain_ms": b_plain_ms, "bound_ms": b_bound_ms,
@@ -4476,7 +4779,7 @@ def main():
          "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
          "launches": (fa_launches + fa_train_fwd + sum(moe_serve.values())
                       + moe_fwd + ex["flash_attention"] + wh_serve + wh_fwd
-                      + whd_fwd),
+                      + whd_fwd + sum(dense_serve.values())),
          "max_abs_err": fa_err,
          "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": f_bound_ms,
          "bound_by": f_bound_by, "library_ms": f_lib_ms},

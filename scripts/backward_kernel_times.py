@@ -3,10 +3,11 @@
     python3 scripts/backward_kernel_times.py [--reps N] [--out FILE]
 
 Each backward launch is several CUDA kernels: flash attention's is
-``delta_kernel``, ``dkdv_kernel`` and ``dq_kernel``; wkv's is
-``wkv_bwd_kernel`` and ``wkv_reduce_kernel``. For each case it prints
-one JSON line (and appends it to ``--out`` when given): the CUDA-event
-time per launch over ``--reps`` back-to-back launches (``event_ms``),
+``kmean_kernel``, ``centre_kernel``, ``delta_kernel``, ``dq_kernel`` and
+``dkdv_kernel``; wkv's is ``wkv_bwd_kernel`` and ``wkv_reduce_kernel``.
+For each case it prints one JSON line (and appends it to ``--out`` when
+given): the CUDA-event time per launch over ``--reps`` back-to-back
+launches (``event_ms``),
 each part's device time per launch from ``torch.profiler`` over the same
 number of launches (``parts_ms``), and the card's name and power limit.
 
@@ -32,7 +33,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 FLASH = {"flash qwen3-4b": (4, 32, 8, 2048, 128, 0),
          "flash gemma3 window 1024": (4, 32, 16, 2048, 128, 1024)}
 WKV = {"wkv rwkv6-1.6b": (4, 32, 2048, 64)}
-PARTS = ("delta_kernel", "dkdv_kernel", "dq_kernel", "wkv_bwd_kernel",
+PARTS = ("delta_kernel", "kmean_kernel", "centre_kernel", "dkdv_kernel",
+         "dq_kernel",
+         "wkv_bwd_kernel",
          "wkv_reduce_kernel")
 
 

@@ -1,5 +1,5 @@
-"""Paper-faithful SURF configuration (§6 of the paper) and the scaled
-variants the tests use.
+"""Paper-faithful SURF configuration (§6 of the paper) plus the scaled
+variants used by the tests, the benchmarks and the production-mesh dry run.
 """
 from repro_torch.configs.base import SparseRecoveryTaskConfig, SURFConfig
 
@@ -26,6 +26,12 @@ BENCH = SURFConfig(n_agents=100, n_layers=10, filter_taps=2, feature_dim=64,
 SMOKE = SURFConfig(n_agents=8, n_layers=4, filter_taps=2, feature_dim=8,
                    n_classes=4, batch_per_agent=4, train_per_agent=8,
                    test_per_agent=4, eps=0.05, topology="regular", degree=3)
+
+# Production-mesh dry-run scale: power-of-two agents so the agent axis
+# shards over ('pod','data'); paper-scale feature dim.
+DRYRUN = SURFConfig(n_agents=256, n_layers=10, filter_taps=2,
+                    feature_dim=512, n_classes=10, batch_per_agent=10,
+                    topology="ring", degree=2)
 
 # Sparse-recovery smoke scale: the federated-LASSO task (core.tasks)
 # through the SAME engine — (feature_dim, n_classes) are ignored once

@@ -17,12 +17,14 @@ What the port does with each flag, on one card:
     (``models.model.chunked_ce_from_hidden``).
   * ``nested_remat_group``: nested remat of groups of layers
     (``models.stack.apply_segment``).
-  * ``microbatch_target``: read by ``auto_microbatches``, which arrives
-    with the dry-run slice (ROADMAP queue 1).
-  * the sharding hints ``embed_d_sharded``, ``serve_weight_stationary``,
-    ``ssm_shard_hints``, ``megatron_pairs`` and ``seq_parallel`` are
-    accepted and have no effect: on one card there is no mesh to shard
-    over, as the reference's hints are no-ops without one.
+  * ``microbatch_target``: read by ``launch.steps.auto_microbatches``.
+  * ``embed_d_sharded`` and ``megatron_pairs`` choose the partition specs
+    of ``sharding.rules``, and ``serve_weight_stationary`` the decode
+    step's weight placement in ``launch.steps.jitted_step``: the dry run
+    (``launch.dryrun``) describes them on the production meshes. On one
+    card they, ``ssm_shard_hints`` and ``seq_parallel`` change nothing:
+    there is no mesh to shard over, as the reference's hints are no-ops
+    without one.
 """
 from __future__ import annotations
 

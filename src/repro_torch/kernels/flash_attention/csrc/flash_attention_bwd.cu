@@ -20,7 +20,8 @@
 // of s * scale * log2(e), l the sum of exp2(s * scale * log2(e) - m); so
 // p = exp2(s * scale * log2(e) - lse). do (B, H, Sq, dh). Any strides over
 // (batch, head, sequence), unit stride over dh. Outputs dq (B, H, Sq, dh),
-// dk and dv (B, KV, Skv, dh), contiguous; `delta` (B, H, Sq) f32 scratch.
+// dk and dv (B, KV, Skv, dh), contiguous; f32 scratch for the centred keys,
+// delta, the shifted lse and the key means.
 //
 // Arithmetic: split TF32 ("3xTF32"), as the graph filter's: each f32
 // operand x is x_hi + x_lo with x_hi = tf32(x) and x_lo = tf32(x - x_hi),
@@ -76,6 +77,24 @@
 //     tiles are taken last to first (the heaviest causal tiles first).
 //   * delta_i = sum_d do_i o_i (the row term of dS = P (dP - delta)) is
 //     computed once per row by a first small kernel into `delta`.
+//   * the dk/dv and dq kernels read the keys centred on their mean over the
+//     kv head (`kmean`, then `centre` writes kc = k - kmean), and P is
+//     rebuilt from the log-sum-exp shifted to match, lse - q_i . kmean
+//     scale_log2 (the delta kernel computes it beside delta): softmax
+//     ignores a shift of a score row, so dq, dk and dv are the same
+//     analytically, and dq = sum_j dS_ij (k_j - kmean) because
+//     sum_j dS_ij = 0. In f32 the row sum is not 0: delta comes from the
+//     forward's o, P from this kernel's own scores, and their rounding
+//     gap eps_i adds -eps_i sum_j P_ij k_j to dq, a multiple of whatever
+//     component all keys share; the scores' rounding grows with it too.
+//     Keys projected from one encoder output carry a large one (whisper's
+//     cross-attention), and the centring removes it.
+//   * the same gap reaches dk: sum_j dk_j = sum_i q_i sum_j dS_ij is 0
+//     analytically for any mask (each row's dS sums to 0 over the keys it
+//     sees), but sum_i q_i eps_i in f32, and a weight gradient
+//     sum_j x_j dk_j^T carries the inputs' common component times it. So
+//     dk is projected onto that identity last: `kmean` and `centre` again,
+//     on dk in place (dk_j - mean_j dk_j).
 //   * rows are padded by 4 floats, so every fragment read (rows g, columns
 //     t; or rows 2t, columns g) is free of bank conflicts. Ragged Sq, Skv
 //     and dh are zero-filled in shared memory (cp.async's src-size 0) and
@@ -102,6 +121,9 @@ constexpr int Q_NT = 32 * Q_WARPS;
 constexpr int Q_BQ = 16 * Q_WARPS;      // query rows per dq block
 constexpr int Q_BKV = 32;               // keys per staged kv tile
 constexpr int DELTA_NT = 256;
+constexpr int KMEAN_NT = 1024;
+constexpr int CENTRE_NT = 256;
+constexpr int CENTRE_ROWS = 16;          // key rows per centring block
 
 struct Strides {
   long long b, h, s;
@@ -248,23 +270,87 @@ __device__ __forceinline__ void store_pair(float* row, int d, int dh,
   }
 }
 
-// delta[b, h, i] = sum_d do[b, h, i, d] o[b, h, i, d]: one warp per row.
+// delta[b, h, i] = sum_d do[b, h, i, d] o[b, h, i, d], and the
+// log-sum-exp shifted to the centred keys, lsec[b, h, i] = lse[b, h, i] -
+// q[b, h, i] . kmean[b, h / G] scale_log2, which both the dq and the dk/dv
+// kernel read: one warp per row.
 __global__ void __launch_bounds__(DELTA_NT)
 delta_kernel(const float* __restrict__ o, const float* __restrict__ dO,
-             float* __restrict__ delta, int H, int Sq, int dh, Strides os,
-             Strides gs) {
+             const float* __restrict__ q, const float* __restrict__ lse,
+             const float* __restrict__ kmean, float* __restrict__ delta,
+             float* __restrict__ lsec, int H, int KV, int Sq, int dh,
+             Strides os, Strides gs, Strides qs, float scale_log2) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.y * (DELTA_NT / 32) + warp;
   if (i >= Sq) return;
   const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
   const float* orow = o + b * os.b + h * os.h + i * os.s;
   const float* grow = dO + b * gs.b + h * gs.h + i * gs.s;
-  float acc = 0.f;
-  for (int d = lane; d < dh; d += 32) acc = fmaf(orow[d], grow[d], acc);
+  const float* qrow = q + b * qs.b + h * qs.h + i * qs.s;
+  const float* km = kmean + ((long long)b * KV + h / (H / KV)) * dh;
+  float acc = 0.f, c = 0.f;
+  for (int d = lane; d < dh; d += 32) {
+    acc = fmaf(orow[d], grow[d], acc);
+    c = fmaf(qrow[d], km[d], c);
+  }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = 16; off > 0; off >>= 1) {
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[(long long)blockIdx.x * Sq + i] = acc;
+    c += __shfl_xor_sync(0xffffffffu, c, off);
+  }
+  if (lane == 0) {
+    const long long r = (long long)blockIdx.x * Sq + i;
+    delta[r] = acc;
+    lsec[r] = lse[r] - c * scale_log2;
+  }
+}
+
+// kmean[b, kvh, d] = sum_j k[b, kvh, j, d] / Skv: one block per (batch
+// item, kv head), 32 warps each summing a contiguous 32nd of the keys in
+// order for 32 columns at a time, then the partials added in order (no
+// atomics: a rerun is bit-equal).
+__global__ void __launch_bounds__(KMEAN_NT)
+kmean_kernel(const float* __restrict__ k, float* __restrict__ kmean, int KV,
+             int Skv, int dh, Strides ks) {
+  __shared__ float part[KMEAN_NT / 32][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x / KV, kvh = blockIdx.x - b * KV;
+  const float* kp = k + b * ks.b + kvh * ks.h;
+  const int per = (Skv + KMEAN_NT / 32 - 1) / (KMEAN_NT / 32);
+  const int j0 = warp * per, j1 = min(j0 + per, Skv);
+  for (int d0 = 0; d0 < dh; d0 += 32) {
+    const int d = d0 + lane;
+    float acc = 0.f;
+    if (d < dh)
+      for (int j = j0; j < j1; ++j) acc += kp[j * ks.s + d];
+    part[warp][lane] = acc;
+    __syncthreads();
+    if (warp == 0 && d < dh) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < KMEAN_NT / 32; ++w) sum += part[w][lane];
+      kmean[(long long)blockIdx.x * dh + d] = sum / (float)Skv;
+    }
+    __syncthreads();
+  }
+}
+
+// kc = k - kmean, contiguous (B, KV, Skv, dh): the keys both products
+// kernels read, and dk projected in place (kc == k: each thread reads the
+// element it writes, so the pointers may alias). One block per (batch
+// item x kv head, CENTRE_ROWS keys).
+__global__ void __launch_bounds__(CENTRE_NT)
+centre_kernel(const float* k, const float* __restrict__ kmean, float* kc,
+              int KV, int Skv, int dh, Strides ks) {
+  const int b = blockIdx.x / KV, kvh = blockIdx.x - b * KV;
+  const float* kp = k + b * ks.b + kvh * ks.h;
+  const float* km = kmean + (long long)blockIdx.x * dh;
+  float* out = kc + (long long)blockIdx.x * Skv * dh;
+  const int j0 = blockIdx.y * CENTRE_ROWS;
+  for (int e = threadIdx.x; e < CENTRE_ROWS * dh; e += CENTRE_NT) {
+    const int j = j0 + e / dh, d = e - (e / dh) * dh;
+    if (j < Skv) out[(long long)j * dh + d] = kp[j * ks.s + d] - km[d];
+  }
 }
 
 // dk and dv of one tile of KV_BKV keys of one (batch item, kv head).
@@ -595,7 +681,7 @@ constexpr size_t dq_smem() {
 template <int DHP, bool VEC>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* o, const float* dO, const float* lse,
-                   float* dq, float* dk, float* dv, float* delta, int B,
+                   float* dq, float* dk, float* dv, float* scratch, int B,
                    int H, int KV, int Sq, int Skv, int dh, const Strides* st,
                    int causal, int window, float scale_log2, float scale,
                    cudaStream_t stream) {
@@ -610,21 +696,45 @@ cudaError_t launch(const float* q, const float* k, const float* v,
                              (int)q_smem);
   if (err != cudaSuccess) return err;
   // st: q, k, v, o, do
+  // scratch: kc (B KV Skv dh), delta and lsec (B H Sq each), kmean
+  float* kc = scratch;
+  float* delta = kc + (long long)B * KV * Skv * dh;
+  float* lsec = delta + (long long)B * H * Sq;
+  float* kmean = lsec + (long long)B * H * Sq;
+  const Strides cs{(long long)KV * Skv * dh, (long long)Skv * dh, dh};
+  const dim3 centre_grid(B * KV, (Skv + CENTRE_ROWS - 1) / CENTRE_ROWS);
+  kmean_kernel<<<B * KV, KMEAN_NT, 0, stream>>>(k, kmean, KV, Skv, dh,
+                                                 st[1]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  centre_kernel<<<centre_grid, CENTRE_NT, 0, stream>>>(k, kmean, kc, KV, Skv,
+                                                       dh, st[1]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   delta_kernel<<<dim3(B * H, (Sq + DELTA_NT / 32 - 1) / (DELTA_NT / 32)),
-                 DELTA_NT, 0, stream>>>(o, dO, delta, H, Sq, dh, st[3],
-                                        st[4]);
+                 DELTA_NT, 0, stream>>>(o, dO, q, lse, kmean, delta, lsec, H,
+                                        KV, Sq, dh, st[3], st[4], st[0],
+                                        scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dkdv_kernel<DHP, VEC><<<dim3(B * KV, (Skv + KV_BKV - 1) / KV_BKV), KV_NT,
                           kv_smem, stream>>>(
-      q, k, v, dO, lse, delta, dk, dv, H, KV, Sq, Skv, dh, st[0], st[1],
+      q, kc, v, dO, lsec, delta, dk, dv, H, KV, Sq, Skv, dh, st[0], cs,
       st[2], st[4], causal, window, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dq_kernel<DHP, VEC><<<dim3(B * H, (Sq + Q_BQ - 1) / Q_BQ), Q_NT, q_smem,
-                        stream>>>(q, k, v, dO, lse, delta, dq, H, KV, Sq,
-                                  Skv, dh, st[0], st[1], st[2], st[4],
+                        stream>>>(q, kc, v, dO, lsec, delta, dq, H, KV, Sq,
+                                  Skv, dh, st[0], cs, st[2], st[4],
                                   causal, window, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // dk_j - mean_j dk_j, in place (kmean's buffer is free again)
+  kmean_kernel<<<B * KV, KMEAN_NT, 0, stream>>>(dk, kmean, KV, Skv, dh, cs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  centre_kernel<<<centre_grid, CENTRE_NT, 0, stream>>>(dk, kmean, dk, KV,
+                                                       Skv, dh, cs);
   return cudaGetLastError();
 }
 
@@ -632,23 +742,26 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
 extern "C" {
 
-// Launches the three kernels (delta, dk/dv, dq) on `stream` and returns
-// cudaGetLastError() (0 on success); it does not synchronise and
-// allocates nothing. `strides` holds 15 element strides: (batch, head,
-// sequence) of q, k, v, o and do. dq, dk, dv are written contiguous;
-// `delta` is (B, H, Sq) f32 scratch. `scale_log2` is dh^-0.5 log2(e) (the
+// Launches the seven kernels (kmean and centre of k, delta, dk/dv, dq,
+// kmean and centre of dk) on `stream` and returns cudaGetLastError() (0
+// on success); it does not synchronise and allocates nothing. `strides` holds 15 element strides: (batch,
+// head, sequence) of q, k, v, o and do. dq, dk, dv are written
+// contiguous; `scratch` is f32 scratch of B KV Skv dh + 2 B H Sq + B KV dh
+// floats, 16-byte aligned. `scale_log2` is dh^-0.5 log2(e) (the
 // forward's), `scale` dh^-0.5. Tiles load with 16-byte cp.async when every
-// row of q, k, v and do starts 16-byte aligned, else element by element.
+// row of q, v and do (and the centred keys) starts 16-byte aligned, else
+// element by element.
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             const void* o, const void* dO, const void* lse,
-                            void* dq, void* dk, void* dv, void* delta, int B,
+                            void* dq, void* dk, void* dv, void* scratch, int B,
                             int H, int KV, int Sq, int Skv, int dh,
                             const long long* strides, int causal, int window,
                             float scale_log2, float scale, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Skv < 1 ||
       dh < 1 || dh > 128 || window < 0 || (long long)B * H > 2147483647LL ||
       (Sq + Q_BQ - 1) / Q_BQ > 65535 || (Skv + KV_BKV - 1) / KV_BKV > 65535 ||
-      (Sq + DELTA_NT / 32 - 1) / (DELTA_NT / 32) > 65535) {
+      (Sq + DELTA_NT / 32 - 1) / (DELTA_NT / 32) > 65535 ||
+      (Skv + CENTRE_ROWS - 1) / CENTRE_ROWS > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   Strides st[5];
@@ -656,10 +769,10 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
     st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
   }
   bool vec = dh % 4 == 0;
-  for (int t = 0; t < 15; ++t) {
-    if (t / 3 != 3) vec = vec && strides[t] % 4 == 0;   // o: delta only
+  for (int t = 0; t < 15; ++t) {   // k: kmean and centre; o: delta only
+    if (t / 3 != 1 && t / 3 != 3) vec = vec && strides[t] % 4 == 0;
   }
-  const void* ptrs[4] = {q, k, v, dO};
+  const void* ptrs[4] = {q, v, dO, scratch};
   for (const void* p : ptrs)
     vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
   const float* qq = static_cast<const float*>(q);
@@ -671,7 +784,7 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
   float* dqq = static_cast<float*>(dq);
   float* dkk = static_cast<float*>(dk);
   float* dvv = static_cast<float*>(dv);
-  float* dd = static_cast<float*>(delta);
+  float* dd = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_BWD_LAUNCH(DHP, VEC)                                            \
   launch<DHP, VEC>(qq, kk, vv, oo, gg, ll, dqq, dkk, dvv, dd, B, H, KV, Sq,   \

@@ -17,7 +17,8 @@ tensor cores (see the kernel's header):
     the hand-written backward kernel (``csrc/flash_attention_bwd.cu``:
     dq, dk, dv on the tensor cores in split TF32, dk and dv per tile of
     128 keys summed over the G query heads of a kv head, dq per tile of
-    64 query rows, no atomics). The backward takes f32 only (the reference
+    64 query rows, every product on keys centred on their mean, dk's
+    mean over the keys taken out, no atomics). The backward takes f32 only (the reference
     trains in f32): bf16 inputs that require a gradient raise. On the CPU
     autograd differentiates the plain version.
 
@@ -61,7 +62,7 @@ _SIG = [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _ptr,
 LIB = Library(CSRC, {"flash_attention_f32": _SIG,
                      "flash_attention_bf16": _SIG},
               "flash_attention_error_string")
-# q, k, v, o, do, lse, dq, dk, dv, delta, B, H, KV, Sq, Skv, dh, strides,
+# q, k, v, o, do, lse, dq, dk, dv, scratch, B, H, KV, Sq, Skv, dh, strides,
 # causal, window, scale_log2, scale, stream
 BWD_LIB = Library(CSRC_BWD, {"flash_attention_bwd_f32": [_ptr] * 10
                              + [_i32] * 6 + [_ptr, _i32, _i32, _f32, _f32,
@@ -132,22 +133,27 @@ def _launch(q, k, v, causal, window, want_lse=False):
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal, window):
-    """One launch of the backward kernel (three CUDA kernels: delta, dk/dv,
-    dq) on f32 CUDA tensors. Returns contiguous (dq, dk, dv)."""
+    """One launch of the backward kernel (seven CUDA kernels: the key
+    means, the centred keys, delta and the shifted log-sum-exp, dk/dv, dq,
+    then dk's mean over the keys taken out) on f32 CUDA tensors. Returns
+    contiguous (dq, dk, dv)."""
     B, H, Sq, dh = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     q, k, v, o, do = _unit_dh(q, k, v, o, do)
     dq = torch.empty((B, H, Sq, dh), dtype=torch.float32, device=q.device)
     dk = torch.empty((B, KV, Skv, dh), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # scratch: the centred keys (B, KV, Skv, dh), delta and the shifted
+    # log-sum-exp (B, H, Sq each), the key means (B, KV, dh)
+    scratch = torch.empty(B * KV * (Skv + 1) * dh + 2 * B * H * Sq,
+                          dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
     fn = BWD_LIB.load().flash_attention_bwd_f32
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), delta.data_ptr(), B, H, KV, Sq, Skv, dh,
+                 dv.data_ptr(), scratch.data_ptr(), B, H, KV, Sq, Skv, dh,
                  (ctypes.c_longlong * 15)(*strides), int(causal),
                  int(window), dh ** -0.5 * LOG2E, dh ** -0.5, stream)
     BWD_LIB.check(err, "flash_attention backward")

@@ -4,7 +4,9 @@ its gradient.
 ``graph_filter(S, W, h)`` keeps the reference's argument order
 (``repro.kernels.graph_filter.ops.graph_filter``):
 
-  * a CPU tensor takes the plain version (``ref.graph_filter_ref``);
+  * a CPU tensor takes the plain version (``ref.graph_filter_ref``), and so
+    does a ``meta`` one (shapes only: the dry run's description of a
+    step);
   * a CUDA tensor launches the hand-written kernel
     (``csrc/graph_filter.cu``, built by ``kernels._nvcc`` at first use)
     or raises. No CUDA input is ever routed to the plain version. Any
@@ -82,7 +84,7 @@ def _check(S, W, h):
                          f"{W.device}, {h.device}")
     if W.dtype not in W_DTYPES:
         raise TypeError(f"W must be float32 or bfloat16, got {W.dtype}")
-    if W.device.type not in ("cpu", "cuda"):
+    if W.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {W.device}")
 
 
@@ -153,7 +155,7 @@ def bf16_error_bound(y_ref):
 
 def _filter(S, W, h):
     """The forward on either device."""
-    if W.device.type == "cpu":
+    if W.device.type in ("cpu", "meta"):
         return graph_filter_ref(S, W, h)
     Y = _launch(S, W, h)
     graph_filter.launches += 1
@@ -165,7 +167,7 @@ def graph_filter_bwd(S, G, h):
     untransposed: the plain filter on Sᵀ for CPU tensors, one launch of
     the kernel's transposed-S entry for CUDA tensors (counted in
     ``graph_filter.bwd_launches``)."""
-    if G.device.type == "cpu":
+    if G.device.type in ("cpu", "meta"):
         return graph_filter_ref(S.mT, G, h)
     dW = _launch(S, G, h, transpose_s=True)
     graph_filter.bwd_launches += 1

@@ -14,7 +14,9 @@ SURF engines consume: ``('seed', 'agent')``, the seed axis of the
 seed-batched trainer and the agent axis the halo/ring mixers exchange
 over (``sharding.surf_rules.axis_for_role`` maps role → axis name; the
 legacy 1-D ``make_agent_mesh`` and its ``'data'`` axis are the
-degenerate agent-only case).
+degenerate agent-only case). ``make_production_mesh`` describes the
+reference's 256- and 512-chip meshes on the ``meta`` device for the dry
+run, which never runs on them.
 
 ``devices=None`` means the visible CUDA cards, and a mesh needing more
 raises. A mesh is SIMULATED only when asked for: an explicit
@@ -101,6 +103,20 @@ def _grid(need, shape, devices, what):
                          f"{len(devices)}")
     return np.array([torch.device(d) for d in devices[:need]],
                     dtype=object).reshape(shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production meshes, described and never run: a
+    single pod (16, 16) as ('data', 'model') = 256 chips, or two pods
+    (2, 16, 16) as ('pod', 'data', 'model') = 512. Every entry is the
+    ``meta`` device, so the mesh is ``simulated`` and a step placed on it
+    allocates nothing: ``launch.dryrun`` reads its axis sizes through the
+    partition rules (``sharding.rules``) to describe the per-device
+    arguments, costs and collectives of one step."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    return Mesh(_grid(n, shape, ["meta"] * n, "make_production_mesh"), axes)
 
 
 def make_cpu_mesh():

@@ -88,7 +88,9 @@ def dispatch_maps(idx, n_tokens, m: MoEConfig):
     flat_t = torch.arange(T, device=dev).repeat_interleave(k)
     se, order = torch.sort(flat_e, stable=True)
     st = flat_t[order]
-    counts = torch.bincount(se, minlength=E)
+    # tokens per expert (bincount, as an integer sum that ``meta`` takes)
+    counts = torch.zeros(E, dtype=se.dtype, device=dev).index_add_(
+        0, se, torch.ones_like(se))
     seg_start = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * k, device=dev) - seg_start[se]
     keep = pos_in_e < C

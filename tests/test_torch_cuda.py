@@ -836,6 +836,51 @@ def test_flash_backward_kernel_matches_plain_version(cuda, B, H, KV, Sq, Skv,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("causal,win", [(False, 0), (True, 0), (True, 40)])
+def test_flash_backward_ignores_a_common_key_component(cuda, causal, win):
+    """Every key plus one vector c (30 times the keys' rms row norm) moves
+    no gradient analytically: the kernel's dq, dk and dv stay within 1e-4
+    of an f64 autograd step on the same f32 inputs, and its dk summed
+    over the keys (a key bias's gradient, zero analytically) within 1e-5
+    of the f64 dk's largest entry."""
+    B, H, KV, Sq, Skv, dh = 2, 4, 2, 96, 160, 64
+    rng = np.random.default_rng(7)
+    q, k, v, do = (torch.tensor(rng.standard_normal((B, n, s, dh)).astype(
+        np.float32), device=cuda) for n, s in ((H, Sq), (KV, Skv),
+                                               (KV, Skv), (H, Sq)))
+    u = rng.standard_normal(dh)
+    c = torch.tensor(30 * u / np.linalg.norm(u), dtype=torch.float32,
+                     device=cuda) * k.square().sum(-1).mean().sqrt()
+    if causal:
+        q, do = q[:, :, :Skv // 2], do[:, :, :Skv // 2]
+        k, v = k[:, :, :Skv // 2], v[:, :, :Skv // 2]
+    xs = [t.clone().requires_grad_() for t in (q, k + c, v)]
+    got = torch.autograd.grad(flash_attention(*xs, causal=causal,
+                                              window=win), xs, do)
+    x64 = [t.detach().double().requires_grad_() for t in xs]
+    ref = torch.autograd.grad(_attention_f64(*x64, causal, win), x64,
+                              do.double())
+    for g, r in zip(got, ref):
+        assert ((g.double() - r).abs().max() / r.abs().max()).item() < 1e-4
+    key_sum = (got[1].double().sum(2).abs().max() / ref[1].abs().max())
+    assert key_sum.item() < 1e-5
+
+
+def _attention_f64(q, k, v, causal, window):
+    """softmax(q kᵀ / sqrt(dh) + mask) v in f64, GQA by repeating k, v."""
+    G = q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    s = (q @ k.mT) * q.shape[-1] ** -0.5
+    i = torch.arange(q.shape[2], device=q.device)[:, None]
+    j = torch.arange(k.shape[2], device=q.device)[None, :]
+    live = torch.ones_like(s, dtype=torch.bool)
+    if causal:
+        live = live & (j <= i)
+    if window:
+        live = live & (j > i - window)
+    return torch.softmax(s.masked_fill(~live, float("-inf")), -1) @ v
+
+
 @pytest.mark.parametrize("B,H,T,dk", WKV_SHAPES + WKV_EDGES)
 def test_wkv_backward_kernel_matches_plain_version(cuda, B, H, T, dk):
     args = _wkv_inputs(B, H, T, dk, torch.float32, cuda, seed=T + dk)
@@ -953,9 +998,9 @@ def test_reduced_train_step_through_kernels_matches_plain(cuda, arch):
     of its kind; for flash, its call sites: whisper's encoder layers and
     its decoder layers twice), the loss and
     every gradient within 1e-4 of the plain versions' (each tensor's
-    largest entry; a key bias's, zero analytically, within 1e-6 of the
-    step's largest entry of zero in both), and the step's parameters
-    finite."""
+    largest entry; a key bias's without RoPE, zero analytically, within
+    1e-6 of the step's largest entry of zero in both), and the step's
+    parameters finite."""
     from repro_torch import flags
     from repro_torch.launch.steps import loss_and_grads, make_train_step
     cfg = get_config(arch).reduced()
@@ -977,19 +1022,23 @@ def test_reduced_train_step_through_kernels_matches_plain(cuda, arch):
         (lp, _), gp = loss_and_grads(cfg, params, batch, remat=True,
                                      plain_kernels=True)
         assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
-        # a key projection's bias (whisper) moves a whole logit row, which
-        # softmax ignores: its gradient is zero but for f32 rounding in
-        # both paths, so it is held to zero, within 1e-6 of the step's
-        # largest gradient entry; every other tensor against the plain one
+        # a key projection's bias without RoPE (whisper's layers) moves a
+        # whole logit row, which softmax ignores: its gradient is zero but
+        # for f32 rounding in both paths, so it is held to zero, within
+        # 1e-6 of the step's largest gradient entry. With RoPE (qwen2-72b,
+        # qwen1.5-32b) each position rotates the bias differently, and its
+        # gradient is held against the plain one as every other tensor's.
         names = _leaf_names(gp)
         largest = max(g.abs().max().item() for g in _leaf_list(gp))
         pairs = list(zip(names, _leaf_list(gk), _leaf_list(gp)))
-        for name, a, b in pairs:
-            if name.endswith(".wk.b"):
+        zero = [cfg.layout == "encdec" and n.endswith(".wk.b")
+                for n, _, _ in pairs]
+        for (name, a, b), z in zip(pairs, zero):
+            if z:
                 assert max(a.abs().max().item(),
                            b.abs().max().item()) <= 1e-6 * largest, name
-        _rel_grads_close([a for n, a, _ in pairs if not n.endswith(".wk.b")],
-                         [b for n, _, b in pairs if not n.endswith(".wk.b")])
+        _rel_grads_close([a for (_, a, _), z in zip(pairs, zero) if not z],
+                         [b for (_, _, b), z in zip(pairs, zero) if not z])
         step, opt = make_train_step(cfg, lr=1e-3, remat=True)
         new, _, m = step(params, opt.init(params), batch)
         assert all(torch.isfinite(t).all() for t in _leaf_list(new))

@@ -331,18 +331,22 @@ KV_BKV, KV_BQ, Q_BQ, Q_BKV = 128, 32, 64, 32
 
 
 def _bwd_emulation(q, k, v, do, causal, window, skip_first=False,
-                   one_pass=False):
+                   one_pass=False, centred=True, project=True):
     """The backward kernel's algorithm and arithmetic in plain torch on the
-    CPU. P rebuilt from the forward's row log-sum-exp (log2 units), delta
-    = rowsum(do ∘ o). The dk/dv kernel per block of 128 keys: over the G
-    query heads of its kv head and the query tiles of 32 rows that can see
-    the block (its range arithmetic), the transposed scores Sᵀ = K Qᵀ and
-    dPᵀ = V dOᵀ with keys as rows, then Pᵀ dO and dSᵀ Q, each tile's
-    product added to the running dk, dv in f32. The dq kernel per query
-    tile of 64 rows over the kv tiles of 32 keys it sees. Every product in
-    split TF32 with lo rounded (``one_pass``: one-pass TF32, a faulty
-    kernel). ``skip_first`` drops each key block's first query tile (a
-    faulty range)."""
+    CPU. Every product reads the keys centred on their mean over the kv
+    head, and P is rebuilt from the forward's row log-sum-exp (log2
+    units) shifted by q · k̄; delta = rowsum(do ∘ o). The dk/dv kernel per
+    block of 128 keys: over the G query heads of its kv head and the query
+    tiles of 32 rows that can see the block (its range arithmetic), the
+    transposed scores Sᵀ = K Qᵀ and dPᵀ = V dOᵀ with keys as rows, then
+    Pᵀ dO and dSᵀ Q, each tile's product added to the running dk, dv in
+    f32. The dq kernel per query tile of 64 rows over the kv tiles of 32
+    keys it sees. Last, dk's mean over the keys is taken out.
+    ``centred=False``: the keys as given; ``project=False``: dk as summed;
+    both False: the kernel before either. Every product in split TF32
+    with lo rounded (``one_pass``: one-pass TF32, a faulty kernel).
+    ``skip_first`` drops each key block's first query tile (a faulty
+    range)."""
     B, H, Sq, dh = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     G = H // KV
@@ -359,6 +363,11 @@ def _bwd_emulation(q, k, v, do, causal, window, skip_first=False,
     lse = torch.logsumexp(torch.where(live, s2, -1e30) / LOG2E, -1) * LOG2E
     o = attention_ref(q, k, v, causal=causal, window=window)
     delta = (do * o).sum(-1)
+    if centred:                  # the forward's o and lse, centred keys
+        kbar = k.mean(2, keepdim=True)
+        lse = lse - sl2 * (q * kbar.repeat_interleave(G, dim=1)).sum(-1)
+        k = k - kbar
+        kh = k.repeat_interleave(G, dim=1)
 
     def probs(s, dp, heads, rows, cols, keys_as_rows):
         """P and dS of a tile from its scores and dP (keys as rows: the
@@ -370,8 +379,20 @@ def _bwd_emulation(q, k, v, do, causal, window, skip_first=False,
         p = torch.where(m, torch.exp2(s * sl2 - l), 0.0)
         return p, p * (dp - dl)
 
-    n_q = -(-Sq // KV_BQ)
     dk, dv, dq = torch.zeros_like(k), torch.zeros_like(v), torch.zeros_like(q)
+    for q_lo in range(0, Sq, Q_BQ):
+        q_hi = min(q_lo + Q_BQ, Sq) - 1
+        rows = slice(q_lo, q_hi + 1)
+        n_kv = -(-Skv // Q_BKV)
+        j_end = min(n_kv, q_hi // Q_BKV + 1) if causal else n_kv
+        j_begin = max(0, q_lo - window + 1) // Q_BKV if window else 0
+        for jt in range(j_begin, j_end):
+            cols = slice(jt * Q_BKV, min(jt * Q_BKV + Q_BKV, Skv))
+            dp = mm(do[:, :, rows], vh[:, :, cols].mT)
+            s = mm(q[:, :, rows], kh[:, :, cols].mT)
+            p, ds = probs(s, dp, slice(None), rows, cols, False)
+            dq[:, :, rows] += mm(ds, kh[:, :, cols])
+    n_q = -(-Sq // KV_BQ)
     for k_lo in range(0, Skv, KV_BKV):
         k_hi = min(k_lo + KV_BKV, Skv) - 1
         cols = slice(k_lo, k_hi + 1)
@@ -388,20 +409,11 @@ def _bwd_emulation(q, k, v, do, causal, window, skip_first=False,
                 pt, dst = probs(st, dpt, heads, rows, cols, True)
                 dv[:, :, cols] += mm(pt, dot)
                 dk[:, :, cols] += mm(dst, qt)
-    for q_lo in range(0, Sq, Q_BQ):
-        q_hi = min(q_lo + Q_BQ, Sq) - 1
-        rows = slice(q_lo, q_hi + 1)
-        n_kv = -(-Skv // Q_BKV)
-        j_end = min(n_kv, q_hi // Q_BKV + 1) if causal else n_kv
-        j_begin = max(0, q_lo - window + 1) // Q_BKV if window else 0
-        for jt in range(j_begin, j_end):
-            cols = slice(jt * Q_BKV, min(jt * Q_BKV + Q_BKV, Skv))
-            dp = mm(do[:, :, rows], vh[:, :, cols].mT)
-            s = mm(q[:, :, rows], kh[:, :, cols].mT)
-            dq[:, :, rows] += mm(probs(s, dp, slice(None), rows, cols,
-                                       False)[1], kh[:, :, cols])
     scale = dh ** -0.5
-    return dq * scale, dk * scale, dv
+    dk = dk * scale
+    if project:
+        dk = dk - dk.mean(2, keepdim=True)
+    return dq * scale, dk, dv
 
 
 @pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal",
@@ -437,6 +449,48 @@ def test_backward_algorithm_check_catches_one_pass_tf32():
     got = _bwd_emulation(*args, torch.tensor(do), True, 0, one_pass=True)
     with pytest.raises(AssertionError):
         _close_grads(got, ref)
+
+
+# Σ_j dk_j (a key bias's gradient) is 0 analytically; f32 leaves noise.
+# The reference reads 9.0e-7 of the largest |dk| on the test's inputs.
+KEY_BIAS_TOL = 4e-6
+
+
+@pytest.mark.parametrize("fixed", [False, True])
+def test_backward_algorithm_ignores_a_common_key_component(fixed):
+    """A vector c added to every key moves no gradient analytically
+    (softmax ignores a shift of a score row). The kernel takes delta =
+    rowsum(dO ∘ O) from the forward's O and P from its own split-TF32
+    scores; their rounding gap ε_i adds −ε_i Σ_j P_ij k_j to dq (a multiple
+    of c) and makes Σ_j dk_j = Σ_i q_i Σ_j dS_ij nonzero, which a weight
+    gradient multiplies by its inputs' common component. At ‖c‖ = 30 rms
+    key norms (whisper's cross-attention keys, all projected from one
+    encoder output, share a large component) the kernel before the fix
+    (dS K; dk as summed) misses the gate on dq and leaves Σ_j dk_j at
+    1.6e-5 of the largest |dk|; the kernel's dS (K − k̄) and dk less its
+    mean over the keys hold both (``scripts/flash_delta_probe.py`` reads
+    both on the card)."""
+    jargs, args, do = _grad_inputs(1, 2, 2, 64, 150, 64, seed=3)
+    q, k, v = args
+    u = np.random.default_rng(0).standard_normal(64)
+    c = 30 * k.square().sum(-1).mean().sqrt() * torch.tensor(
+        u / np.linalg.norm(u), dtype=torch.float32)
+    ref = _reference_grads(jargs, do, False, 0)
+    got = _bwd_emulation(q, k + c, v, torch.tensor(do), False, 0,
+                         centred=fixed, project=fixed)
+    for name, g, gr in zip(("dk", "dv"), got[1:], ref[1:]):
+        np.testing.assert_allclose(_np(g), gr, rtol=GRAD_TOL, err_msg=name,
+                                   atol=GRAD_TOL * np.abs(gr).max())
+    bias = (got[1].sum(2).abs().max() / got[1].abs().max()).item()
+    ref_bias = np.abs(ref[1].sum(2)).max() / np.abs(ref[1]).max()
+    assert ref_bias < KEY_BIAS_TOL
+    if fixed:
+        _close_grads(got, ref)
+        assert bias < KEY_BIAS_TOL
+    else:
+        with pytest.raises(AssertionError, match="dq"):
+            _close_grads(got, ref)
+        assert bias > KEY_BIAS_TOL
 
 
 def test_cuda_style_call_keeps_the_gradient(monkeypatch):

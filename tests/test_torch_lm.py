@@ -5,8 +5,10 @@ with a ring cache, then a global layer), deepseek-moe-16b (a dense layer,
 then a MoE layer with a shared expert), llama4-scout-17b-a16e (a local
 and a global attention layer, MoE top-1 with a shared expert),
 jamba-1.5-large-398b (8 layers: Mamba with dense and MoE FFNs, the
-attention layer at position 4) and whisper-small (2 encoder and 2
-decoder layers, 24 frames; more in ``tests/test_torch_whisper.py``).
+attention layer at position 4), whisper-small (2 encoder and 2
+decoder layers, 24 frames; more in ``tests/test_torch_whisper.py``) and
+the multi-card dense archs qwen2-72b (GQA, QKV bias), qwen1.5-32b (MHA,
+QKV bias) and chameleon-34b (GQA, qk-norm).
 
 Both packages run the same parameters: the reference's ``init_lm`` tree,
 converted with ``checkpoint.convert.lm_params_from_numpy``, and the same
@@ -98,13 +100,14 @@ def test_configs_match_reference():
 
 
 def test_unported_archs_name_their_roadmap_item():
-    """What stays unported names its ROADMAP item: the multi-card archs
-    item 18. whisper-small and its enc-dec kinds are ported; a kind the
-    stack does not know raises ``ValueError``."""
+    """Every arch of the reference is ported: the multi-card dense archs
+    (queue 1 item 5) resolve to the reference's configs, and only an
+    unknown name raises. whisper-small and its enc-dec kinds are ported;
+    a kind the stack does not know raises ``ValueError``."""
     assert get_config("whisper-small").layout == "encdec"
+    assert ARCH_NAMES == sorted(jget_config(n).name for n in ARCH_NAMES)
     for name in ("qwen2-72b", "qwen1.5-32b", "chameleon-34b"):
-        with pytest.raises(KeyError, match="item 18"):
-            get_config(name)
+        assert repr(get_config(name)) == repr(jget_config(name))
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
     cfg = get_config("whisper-small").reduced()
