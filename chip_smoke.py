@@ -31,8 +31,9 @@ order; any failure exits non-zero:
      d = 16), the quickstart's (n = 20, d = 330) and
      ``make_problem(PAPER, i)``'s for the training seeds i = 0-3;
   5. flash attention vs plain — at the reference's sweep shapes, the
-     qwen3-4b prefill shape (B=4, H=32, KV=8, S=2048, dh=128) and a
-     gemma3 window-1024 shape (H=32, KV=16), f32 and bf16, at 10x the
+     qwen3-4b prefill shape (B=4, H=32, KV=8, S=2048, dh=128) and
+     gemma3-27b's two (H=32, KV=16: its local layers' window of 1024 and
+     its global layers' causal call), f32 and bf16, at 10x the
      reference's kernel tolerance, and within 1e-5 in f32 at the qwen3-4b
      shape (the split-TF32 products keep f32 accuracy); µs per launch
      (CUDA events, median), the plain version's time,
@@ -280,6 +281,39 @@ order; any failure exits non-zero:
      and DRYRUN's meta-step through the graph-filter kernel, each
      description's argument bytes and peak against the card's allocator
      (DRYRUN_ARG_TOL, DRYRUN_PEAK_TOL).
+ 22. gemma3-27b at full width (5 local layers of window 1024 to each
+     global one; a ring cache of 1024 slots per local layer):
+     22a. one period (6 layers, 5.30 B parameters) in f32 through
+     ``launch.serve.main``, as phase 20: 6 flash launches per prefill (5
+     windowed, 1 causal, counted by window), phase 11's parity pass, and
+     after the teacher-forced decode every layer's cache, rings and full
+     caches, kernel path against plain path within LLM_REL_TOL;
+     22b'. a 6-layer cut in bf16 (``launch.specs.PARAM_DTYPE``): the
+     kernel path's and the plain path's last-position logits and hidden
+     states, each as a distance from an f32 plain forward of the same
+     bf16-valued weights (max |d| / max |f32|); the kernel path's at most
+     BF16_E2E_FACTOR times the plain path's;
+     22b. the whole model (62 layers: 52 local, 10 global; 28.42 B
+     parameters, 56.8 GB) in bf16, served through
+     ``launch.steps.make_prefill_step`` / ``make_decode_step`` (what
+     ``launch.serve`` runs) with bf16 caches as
+     ``launch.specs.cache_spec_tree`` describes them: B=4 x 2048 ids, 32
+     new tokens, 62 flash launches per prefill and none in decode; every
+     flash call of that prefill held, where it is made, against
+     ``attention_ref`` on its own inputs within ``ops.bf16_error_bound``
+     (``FlashWindows``); prefill ms, decode ms per token, peak memory and
+     a profiled prefill and decode; the greedy ids of the plain bf16 path
+     beside the kernel path's (printed: the count shared and the plain
+     path's top-2 margin at the first id that differs), and 22b''s
+     distances at full depth (printed, not gated);
+     22c. the loss and gradients of 2 local layers (window 1024 < S) in
+     f32, B=4, S=2048, remat, ``chunked_ce=512``: the windowed flash
+     forward and backward kernels (4 forward launches with remat's
+     recompute, 2 backward) against ``plain_kernels=True`` at phase 13's
+     gates; its time and peak memory. No Adam update: f32 Adam state
+     does not fit one card at any depth (the untied embedding and head
+     alone are 2.82 B parameters: parameters, gradients and two moments
+     take about 58 GB at 2 layers, before the step's new copy).
 """
 from __future__ import annotations
 
@@ -359,6 +393,7 @@ FLASH_SWEEP = [(1, 4, 4, 64, 32, 0), (2, 4, 2, 80, 32, 0),
                (1, 8, 2, 128, 64, 16), (1, 2, 1, 48, 16, 8)]
 FLASH_QWEN = (4, 32, 8, 2048, 128, 0)
 FLASH_GEMMA = (4, 32, 16, 2048, 128, 1024)
+FLASH_GEMMA_GLOBAL = (4, 32, 16, 2048, 128, 0)
 # Phases 5 and 20: the multi-card dense archs' prefill attention (GQA with
 # 64 heads over 8 kv heads: qwen2-72b, chameleon-34b; MHA with 40 heads:
 # qwen1.5-32b), causal, at phase 11's batch and prompt.
@@ -421,6 +456,16 @@ KEY_SUM_TOL = 1e-5
 # two checks. DRYRUN_JOBS worker processes count the grid.
 DRYRUN_ARG_TOL, DRYRUN_PEAK_TOL = 0.01, 0.10
 DRYRUN_JOBS = 8
+# Phase 22: gemma3-27b. 22a serves one 5-local + 1-global period in f32
+# (21.2 GB of parameters); 22b' cuts the bf16 model to the same 6 layers
+# (an f32 forward of its weights fits beside it); 22c takes the loss and
+# gradients of 2 local layers in f32. In 22b' the bf16 kernel path may
+# be at most BF16_E2E_FACTOR times as far from the f32 forward as the
+# bf16 plain path (the rule ROADMAP queue 3 item 2 holds rwkv6 to
+# against f64).
+GEMMA = "gemma3-27b"
+GEMMA_PERIOD_LAYERS, GEMMA_CUT_LAYERS, GEMMA_TRAIN_LAYERS = 6, 6, 2
+BF16_E2E_FACTOR = 2.0
 # Phase 15: MoE training, deepseek-moe-16b cut to 1 dense + 3 MoE layers.
 TRAIN_MOE = ("deepseek-moe-16b", 4)
 # Phase 16: fig. 7's ablation at benchmarks/common.py's setup (BENCH,
@@ -2606,8 +2651,8 @@ def _bound_use(out, ref, bound):
 
 
 def check_flash(tag):
-    """Flash kernel vs plain at the sweep, qwen3-4b, gemma3 and the dense
-    multi-card archs' shapes, f32 and bf16; times at the full-width
+    """Flash kernel vs plain at the sweep, qwen3-4b, gemma3 (local and
+    global) and the dense multi-card archs' shapes, f32 and bf16; times at the full-width
     shapes. Besides the reference's
     tolerances, f32 is held within FLASH_F32_ERR_MAX and bf16 within
     ``ops.bf16_error_bound`` of plain, per element. Returns the largest f32
@@ -2618,9 +2663,10 @@ def check_flash(tag):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(2)
     max_err, timing = 0.0, None
-    for B, H, KV, S, dh, win in (FLASH_SWEEP + [FLASH_QWEN, FLASH_GEMMA]
+    gemma = [FLASH_GEMMA, FLASH_GEMMA_GLOBAL]
+    for B, H, KV, S, dh, win in (FLASH_SWEEP + [FLASH_QWEN] + gemma
                                  + list(FLASH_DENSE.values())):
-        full = (B, H, KV, S, dh, win) in ([FLASH_QWEN, FLASH_GEMMA]
+        full = (B, H, KV, S, dh, win) in ([FLASH_QWEN] + gemma
                                           + list(FLASH_DENSE.values()))
         qkv32 = [torch.tensor(rng.standard_normal((B, n, S, dh)).astype(
             np.float32), device="cuda") for n in (H, KV, KV)]
@@ -3403,7 +3449,8 @@ def layer_kinds(cfg):
             for k in body for _ in range(reps)]
 
 
-def serve_llm(tag, arch, kernel, device="cuda", full=True, n_layers=None):
+def serve_llm(tag, arch, kernel, device="cuda", full=True, n_layers=None,
+              check_caches=False):
     """One full-width LLM served through ``launch.serve.main`` (the main
     path: its launches are the JSON record's), then its steps timed and
     held against the plain versions (phases 11-12, 14). ``kernel``
@@ -3411,9 +3458,10 @@ def serve_llm(tag, arch, kernel, device="cuda", full=True, n_layers=None):
     layers; wkv: RWKV layers). ``n_layers`` cuts the depth (phase 14:
     what fits 80 GB): ``serve.main`` then reads the cut config, through
     this script's patch of its ``get_config`` (the package has no depth
-    option). Returns the main path's launch count of ``kernel`` and the
-    step times. ``full=False`` serves the reduced config (a CPU
-    rehearsal)."""
+    option). ``check_caches`` also holds every layer's cache after the
+    parity's decode (phase 22a: the ring caches). Returns the main path's
+    launch count of ``kernel`` and the step times. ``full=False`` serves
+    the reduced config (a CPU rehearsal)."""
     from unittest import mock
 
     from repro_torch.configs import get_config
@@ -3453,6 +3501,26 @@ def serve_llm(tag, arch, kernel, device="cuda", full=True, n_layers=None):
     prefill = make_prefill_step(cfg, P + N)
     decode = make_decode_step(cfg, P + N)
     tokens = torch.as_tensor(prompts, device=device)
+    timing = time_serve_steps(params, prefill, decode, tokens, kernel, L)
+    print(f"[{tag}] {arch} ({cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters) B={B} prompt={P} new={N}: "
+          f"{kernel} {L} launches per prefill, 0 added by {N - 1} decode "
+          f"steps; {json.dumps(timing)}")
+    llm_parity(tag, arch, cfg, params, tokens, P, N, check_caches)
+    profile_llm(tag, arch, params, prefill, decode, tokens, P, device)
+    if "mamba" in layer_kinds(cfg):
+        mamba_scan(tag, arch, cfg, params, device)
+    del params
+    torch.cuda.empty_cache()
+    return main_counts[kernel], timing
+
+
+def time_serve_steps(params, prefill, decode, tokens, kernel, L):
+    """The serve steps timed (CUDA events): 3 prefills of ``tokens``
+    (B, LLM_PROMPT), each launching ``kernel`` L times, then LLM_TOKENS − 1
+    greedy decode steps, which launch none; the peak memory since the
+    first prefill. Returns the timing record."""
+    B, P, N = tokens.shape[0], tokens.shape[1], LLM_TOKENS
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     prefill_ms = []
@@ -3480,25 +3548,13 @@ def serve_llm(tag, arch, kernel, device="cuda", full=True, n_layers=None):
     if counts()[kernel] != L:
         raise AssertionError(f"decode launched {kernel}")
     decode_ms = ev[0].elapsed_time(ev[1])
-    timing = {"prefill_ms": float(np.median(prefill_ms)),
-              "prefill_ms_runs": prefill_ms,
-              "prefill_tok_per_s": B * P / (np.median(prefill_ms) / 1e3),
-              "decode_ms_per_token": decode_ms / (N - 1),
-              "decode_tok_per_s": B * (N - 1) / (decode_ms / 1e3),
-              "decode_wall_ms_per_token": 1e3 * wall / (N - 1),
-              "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-    print(f"[{tag}] {arch} ({cfg.n_layers} layers, "
-          f"{n_params / 1e9:.3f} B parameters) B={B} prompt={P} new={N}: "
-          f"{kernel} {L} launches per prefill, 0 added by {N - 1} decode "
-          f"steps; {json.dumps(timing)}")
-    del cache
-    llm_parity(tag, arch, cfg, params, tokens, P, N)
-    profile_llm(tag, arch, params, prefill, decode, tokens, P, device)
-    if "mamba" in layer_kinds(cfg):
-        mamba_scan(tag, arch, cfg, params, device)
-    del params
-    torch.cuda.empty_cache()
-    return main_counts[kernel], timing
+    return {"prefill_ms": float(np.median(prefill_ms)),
+            "prefill_ms_runs": prefill_ms,
+            "prefill_tok_per_s": B * P / (np.median(prefill_ms) / 1e3),
+            "decode_ms_per_token": decode_ms / (N - 1),
+            "decode_tok_per_s": B * (N - 1) / (decode_ms / 1e3),
+            "decode_wall_ms_per_token": 1e3 * wall / (N - 1),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
 
 
 def mamba_scan(tag, arch, cfg, params, device="cuda"):
@@ -3577,7 +3633,7 @@ def _wkv_f64(r, k, v, w, u):
     return torch.stack(ys, dim=2).float(), S.float()
 
 
-def llm_parity(tag, arch, cfg, params, tokens, P, N):
+def llm_parity(tag, arch, cfg, params, tokens, P, N, check_caches=False):
     """The prefill through the kernels against the same prefill through
     the plain versions (``plain_kernels=True``, which must launch
     nothing), then N − 1 decode steps teacher-forced on the kernel path's
@@ -3593,7 +3649,9 @@ def llm_parity(tag, arch, cfg, params, tokens, P, N):
         path is 100x further from f64 there than at the median position,
         on the CPU at reduced width), so two f32 evaluations differ there
         by more than LLM_REL_TOL; the kernel path must be no further from
-        the plain one than that."""
+        the plain one than that;
+      * with ``check_caches``, every layer's cache after the last decode
+        step, its K and V each: LLM_REL_TOL (``_cache_parity``)."""
     from unittest import mock
 
     from repro_torch.models import model as M
@@ -3644,6 +3702,13 @@ def llm_parity(tag, arch, cfg, params, tokens, P, N):
             finite = finite and bool(torch.isfinite(lk).all())
             tok = torch.argmax(lk, dim=-1)
     errs["decode_logits_max"] = max(dec)
+    cache_ok = True
+    if check_caches:
+        caches = _cache_parity(cfg, ck, cp, P + N - 2, P + N)
+        cache_ok = max(caches["ring_max"], caches["full_max"]) <= LLM_REL_TOL
+        print(f"[{tag}] {arch} caches after {N - 1} decode steps, kernel "
+              f"path vs plain path (tol {LLM_REL_TOL}): "
+              f"{json.dumps(caches)}")
     if cfg.moe is not None:
         decode_routes = routes.done()
         decode_routes["token_layer_choices"] -= prefill_routes[
@@ -3657,11 +3722,43 @@ def llm_parity(tag, arch, cfg, params, tokens, P, N):
           f"logits tol {LLM_REL_TOL}, hidden tol {hidden_tol:.3e}): "
           f"{json.dumps(errs)}; {json.dumps(scales)}; per decode step "
           f"{[f'{e:.2e}' for e in dec]}")
-    if not (finite and errs["hidden"] <= hidden_tol
+    if not (finite and cache_ok and errs["hidden"] <= hidden_tol
             and max(errs["prefill_logits"], errs["decode_logits_max"])
             <= LLM_REL_TOL):
         raise AssertionError(f"{arch}: kernel path != plain path {errs} "
                              f"(finite {finite})")
+
+
+def _cache_parity(cfg, ck, cp, pos, cache_len):
+    """Every attention layer's cache after decoding position ``pos``,
+    kernel path ``ck`` against plain path ``cp``: max |d| / max |plain|
+    of K and of V, the worst over the ring caches (a local layer whose
+    window is shorter than ``cache_len``) and over the full ones apart.
+    A ring's slot s holds position pos − ((pos − s) mod W) in both paths
+    (``models.attention._slot_positions``); its first and last position
+    are printed. A slot holding another position in one path would miss
+    the gate by far (RoPE turns each key with its position)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import stack as ST
+    out = {"ring_max": 0.0, "full_max": 0.0, "ring_layers": 0,
+           "full_layers": 0}
+    for name, reps, kinds in ST.build_segments(cfg):
+        for j, kind in enumerate(kinds):
+            if kind[0] != "attn":
+                continue
+            a, b = ck[name][f"s{j}"], cp[name][f"s{j}"]
+            W = a["k"].shape[2]
+            ring = bool(kind[2]) and W < cache_len
+            key = "ring" if ring else "full"
+            err = max(_rel_err(a[t][r], b[t][r]) for t in ("k", "v")
+                      for r in range(reps))
+            out[f"{key}_max"] = max(out[f"{key}_max"], err)
+            out[f"{key}_layers"] += reps
+            if ring:
+                spos = A._slot_positions(pos, W, True)
+                out["ring_slots"] = W
+                out["ring_positions"] = [int(spos.min()), int(spos.max())]
+    return out
 
 
 def _kind(name):
@@ -3678,7 +3775,7 @@ def _kind(name):
         return "wkv"
     if name.startswith(("memcpy", "memset")):
         return "copy"
-    if any(s in name for s in ("gemm", "gemv", "cutlass", "xmma")):
+    if any(s in name for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "gemm"
     if "reduce" in name:
         return "reduce"
@@ -4530,6 +4627,351 @@ def dryrun_card_checks(tag, device="cuda"):
     return c["graph_filter"], c["graph_filter_bwd"]
 
 
+class FlashWindows:
+    """Counts each flash-attention call of the model by its window (0: a
+    causal call over the whole prefix, a global layer's), phase 22. With
+    ``gate`` each call is also held, where it is made, against
+    ``attention_ref`` on its own inputs within ``ops.bf16_error_bound``
+    per element (22b: the bf16 calls); nothing of a call is kept but the
+    largest fraction of the bound used, per window (``use``). The calls
+    go through the wrapper, whose counter counts them, and the kernel's
+    output is what the model receives."""
+
+    def __init__(self, gate=False):
+        self.gate, self.counts, self.use = gate, {}, {}
+
+    def active(self):
+        from unittest import mock
+
+        from repro_torch.kernels.flash_attention import attention_ref, ops
+        from repro_torch.models import attention as A
+
+        def call(q, k, v, causal=True, window=0):
+            o = ops.flash_attention(q, k, v, causal=causal, window=window)
+            self.counts[window] = self.counts.get(window, 0) + 1
+            if self.gate:
+                o_ref = attention_ref(q, k, v, causal=causal, window=window)
+                use = _bound_use(o, o_ref, ops.bf16_error_bound(
+                    q, k, v, o_ref, causal=causal, window=window))
+                self.use[window] = max(self.use.get(window, 0.0), use)
+                if not use <= 1:
+                    raise AssertionError(
+                        f"flash call {self.counts[window]} of window "
+                        f"{window} {tuple(q.shape)} {q.dtype}: |kernel - "
+                        f"plain| is {use:.3f} of bf16_error_bound")
+            return o
+
+        return mock.patch.object(A, "FA",
+                                 SimpleNamespace(flash_attention=call))
+
+
+def _attn_windows(cfg):
+    """{window: attention layers}: one flash call each per prefill."""
+    from repro_torch.models import stack as ST
+    out = {}
+    for _, reps, body in ST.build_segments(cfg):
+        for kind in body:
+            if kind[0] == "attn":
+                out[kind[2]] = out.get(kind[2], 0) + reps
+    return out
+
+
+def serve_gemma(tag, device="cuda", full=True):
+    """Phase 22a: gemma3-27b cut to one period (GEMMA_PERIOD_LAYERS: 5
+    local layers, then the global one) served in f32 through
+    ``launch.serve.main`` by ``serve_llm`` (phase 20's run), every flash
+    call counted by window (``FlashWindows``): each prefill 5 windowed
+    and 1 causal. The parity pass also holds every cache after the
+    teacher-forced decode (the 5 rings of 1024 slots, the global layer's
+    2080 slots). Returns the main path's flash launches."""
+    from repro_torch.configs import get_config
+    cfg = get_config(GEMMA) if full else get_config(GEMMA).reduced()
+    n_layers = GEMMA_PERIOD_LAYERS if full else None
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    per_prefill = _attn_windows(cfg)
+    windows = FlashWindows()
+    with windows.active():
+        launches, timing = serve_llm(tag, GEMMA, "flash_attention",
+                                     device=device, full=full,
+                                     n_layers=n_layers, check_caches=True)
+    runs = sum(windows.counts.values()) // sum(per_prefill.values())
+    want = {w: runs * n for w, n in per_prefill.items()}
+    print(f"[{tag}] 22a {GEMMA} ({cfg.n_layers} layers) flash calls by "
+          f"window over the phase's {runs} forwards: "
+          f"{json.dumps(windows.counts)} (per prefill "
+          f"{json.dumps(per_prefill)}); {json.dumps(timing)}")
+    if windows.counts != want or launches != sum(per_prefill.values()):
+        raise AssertionError(f"22a: flash calls by window "
+                             f"{windows.counts}, expected {want}; main "
+                             f"path launches {launches}")
+    return launches
+
+
+def _forward_f32(cfg, params, tokens):
+    """The plain forward in f32 of bf16 parameters: each layer's
+    parameters converted to f32 just before the layer runs (the whole
+    model in f32, 113.7 GB at full depth, does not fit one card), the
+    embedding rows and the last position's logits from f32 copies too
+    (the head converted in slices of 32768 entries). Returns (hidden
+    (B, S, d) f32, last-position logits (B, 1, V) f32)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import stack as ST
+    from repro_torch.utils.tree import _map
+    f32 = lambda tree: _map(lambda t: t.float(), tree)
+    x = L.embed(params["embed"], tokens).float()
+    ctx = ST.Ctx(mode="full", plain_kernels=True)
+    for name, reps, kinds in ST.build_segments(cfg):
+        for r in range(reps):
+            p = f32(ST._index(params["segments"][name], r))
+            for j, kind in enumerate(kinds):
+                x, _, _ = ST.apply_layer_full(cfg, kind, p[f"s{j}"], x, ctx)
+            del p
+    x = L.apply_norm(cfg.norm, f32(params["final_norm"]), x)
+    w = (params["embed"]["table"].mT if cfg.tie_embeddings
+         else params["head"]["w"])
+    last = x[:, -1:]
+    logits = torch.cat([last @ w[:, i:i + 32768].float()
+                        for i in range(0, w.shape[1], 32768)], dim=-1)
+    return x, logits
+
+
+def _bf16_distances(cfg, params, tokens, hk, hp):
+    """The bf16 kernel path's (``hk``) and plain path's (``hp``) final
+    hidden states and last-position logits, each as max |d| / max |f32|
+    from ``_forward_f32`` of the same parameters."""
+    from repro_torch.models import model as M
+    h32, l32 = _forward_f32(cfg, params, tokens)
+    lk = M._logits(cfg, params, hk[:, -1:])
+    lp = M._logits(cfg, params, hp[:, -1:])
+    out = {"kernel_hidden": _rel_err(hk, h32), "plain_hidden":
+           _rel_err(hp, h32), "kernel_logits": _rel_err(lk, l32),
+           "plain_logits": _rel_err(lp, l32),
+           "kernel_vs_plain_hidden": _rel_err(hk, hp),
+           "kernel_vs_plain_logits": _rel_err(lk, lp),
+           "max_abs_hidden_f32": h32.abs().max().item(),
+           "max_abs_logit_f32": l32.abs().max().item()}
+    del h32, l32
+    return out
+
+
+def bf16_cut(tag, device="cuda", full=True):
+    """Phase 22b': gemma3-27b cut to GEMMA_CUT_LAYERS in bf16
+    (``launch.specs.PARAM_DTYPE``; the full depth's gate): the kernel
+    path's and the plain path's distances from the f32 forward of the
+    same bf16-valued weights, the kernel path's at most BF16_E2E_FACTOR
+    times the plain path's, on the hidden states and on the logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as SP
+    from repro_torch.models import model as M
+    cfg = get_config(GEMMA) if full else get_config(GEMMA).reduced()
+    if full:
+        cfg = dataclasses.replace(cfg, n_layers=GEMMA_CUT_LAYERS)
+    torch.cuda.empty_cache()
+    params = M.init_lm(cfg, 0, SP.PARAM_DTYPE, device=device)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LLM_BATCH, LLM_PROMPT)), device=device)
+    with torch.no_grad():
+        hk, _, _ = M.forward_hidden(cfg, params, tokens)
+        hp, _, _ = M.forward_hidden(cfg, params, tokens, plain_kernels=True)
+        d = _bf16_distances(cfg, params, tokens, hk, hp)
+    ok = all(d[f"kernel_{w}"] <= BF16_E2E_FACTOR * d[f"plain_{w}"]
+             for w in ("hidden", "logits"))
+    print(f"[{tag}] 22b' {GEMMA} ({cfg.n_layers} layers, bf16) distance "
+          f"from the f32 forward of the same weights (max |d| / max |f32|;"
+          f" the kernel path's at most {BF16_E2E_FACTOR}x the plain "
+          f"path's): {json.dumps(d)}")
+    del params, hk, hp
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"22b': the bf16 kernel path is more than "
+                             f"{BF16_E2E_FACTOR}x as far from f32 as the "
+                             f"plain path: {d}")
+
+
+def serve_bf16(tag, device="cuda", full=True):
+    """Phase 22b: gemma3-27b at full width and depth in bf16, served
+    through the steps ``launch.serve`` runs (``launch.steps``; the serve
+    entry point, as the reference's, takes no dtype). The main path,
+    counted from zero: a prefill of LLM_BATCH x LLM_PROMPT seeded ids,
+    every flash call gated where it is made (``FlashWindows(gate=True)``),
+    then LLM_TOKENS - 1 greedy decode steps: one launch per attention
+    layer per prefill, none in decode, and caches of
+    ``launch.specs.cache_spec_tree``'s shapes and dtype. Then the times
+    (CUDA events, median of 3 prefills; the decode steps), the peak
+    memory, a profiled prefill and decode (busy share), the plain bf16
+    path's own greedy ids beside the kernel path's, and the distances of
+    both paths from the f32 forward (printed). Returns the main path's
+    flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    cfg = get_config(GEMMA) if full else get_config(GEMMA).reduced()
+    B, P, N = LLM_BATCH, LLM_PROMPT, LLM_TOKENS
+    L = layer_kinds(cfg).count("attn")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = M.init_lm(cfg, 0, SP.PARAM_DTYPE, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _named(params))
+    print(f"[{tag}] 22b {GEMMA}: init_lm {n_params / 1e9:.3f} B parameters, "
+          f"{SP.PARAM_DTYPE}, {cfg.n_layers} layers "
+          f"{json.dumps(_attn_windows(cfg))} by window, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, P)), device=device)
+    prefill = steps.make_prefill_step(cfg, P + N)
+    decode = steps.make_decode_step(cfg, P + N)
+
+    gate = FlashWindows(gate=True)
+    zero_counts()
+    with torch.no_grad(), gate.active():
+        tok, cache = prefill(params, {"tokens": tokens})
+        after_prefill = counts()
+        ids = [tok]
+        for i in range(N - 1):
+            tok, cache = decode(params, cache, tok, P + i)
+            ids.append(tok)
+    main = counts()
+    want = dict.fromkeys(main, 0)
+    want["flash_attention"] = L
+    spec = {n: (tuple(t.shape), t.dtype) for n, t in
+            _named(SP.cache_spec_tree(cfg, B, P + N))}
+    got = {n: (tuple(t.shape), t.dtype) for n, t in _named(cache)}
+    gen_k = torch.cat(ids, dim=1)
+    print(f"[{tag}] 22b main path: launches {json.dumps(main)} (after the "
+          f"prefill {json.dumps(after_prefill)}); flash calls by window "
+          f"{json.dumps(gate.counts)}, largest share of bf16_error_bound "
+          f"used by window {json.dumps(gate.use)}; caches "
+          f"{len(got)} tensors, {SP.PARAM_DTYPE}; ids {tuple(gen_k.shape)}")
+    if (main != want or after_prefill != want or got != spec
+            or gate.counts != _attn_windows(cfg)):
+        raise AssertionError(f"22b: launches {main} / {after_prefill}, "
+                             f"expected {want}; calls {gate.counts}; "
+                             f"caches equal to the spec: {got == spec}")
+    del cache
+
+    timing = time_serve_steps(params, prefill, decode, tokens,
+                              "flash_attention", L)
+    print(f"[{tag}] 22b {GEMMA} ({cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters, bf16) B={B} prompt={P} "
+          f"new={N}: {json.dumps(timing)}")
+    profile_llm(tag, f"{GEMMA} bf16", params, prefill, decode, tokens, P,
+                device)
+
+    with torch.no_grad():
+        hp, cp, _ = M.forward_hidden(cfg, params, tokens, want_cache=True,
+                                     cache_len=P + N, plain_kernels=True)
+        lp = M._logits(cfg, params, hp[:, -1:])
+        top2 = [torch.topk(lp[:, 0], 2).values]
+        tok = torch.argmax(lp, dim=-1).to(torch.int32)
+        plain_ids = [tok]
+        for i in range(N - 1):
+            lp, cp = M.decode_step(cfg, params, tok, cp, P + i, P + N)
+            top2.append(torch.topk(lp[:, 0], 2).values)
+            tok = torch.argmax(lp, dim=-1).to(torch.int32)
+            plain_ids.append(tok)
+        del cp, lp
+        gen_p = torch.cat(plain_ids, dim=1)
+        differ = (gen_k != gen_p).nonzero().tolist()
+        greedy = {"ids_shared": int((gen_k == gen_p).sum()),
+                  "ids": gen_k.numel()}
+        if differ:
+            b, t = min(differ, key=lambda bt: (bt[1], bt[0]))
+            greedy.update(first_differing_step=t, row=b,
+                          plain_top2_margin=(top2[t][b, 0]
+                                             - top2[t][b, 1]).item())
+        print(f"[{tag}] 22b greedy ids, kernel path vs plain path (bf16, "
+              f"each its own tokens; not gated): {json.dumps(greedy)}")
+        hk, _, _ = M.forward_hidden(cfg, params, tokens)
+        d = _bf16_distances(cfg, params, tokens, hk, hp)
+    print(f"[{tag}] 22b {GEMMA} ({cfg.n_layers} layers, bf16) distance from "
+          f"the f32 forward of the same weights (max |d| / max |f32|; not "
+          f"gated): {json.dumps(d)}")
+    del params, hk, hp
+    torch.cuda.empty_cache()
+    return main["flash_attention"]
+
+
+def train_gemma(tag, device="cuda", full=True):
+    """Phase 22c: the loss and gradients of gemma3-27b cut to
+    GEMMA_TRAIN_LAYERS (both local: window 1024 < S) at full width in
+    f32, B=TRAIN_BATCH, S=TRAIN_SEQ, remat, ``--opts TRAIN_OPTS``, on the
+    token pipeline's first batch: ``steps.loss_and_grads``, the windowed
+    flash forward and backward kernels on the path (the only model run on
+    the card whose backward meets a window). Counted from zero: 2L
+    forward launches (remat's recompute) and L backward ones, each call
+    of window 1024; ms (CUDA events, median of 3) and the peak memory;
+    then phase 13's parity against ``plain_kernels=True``. No Adam step:
+    f32 Adam state does not fit one card at any depth (the untied
+    embedding and head alone are 2 x 262144 x 5376 = 2.82 B parameters;
+    parameters, gradients and two moments take about 58 GB at 2 layers,
+    before the step's new parameters and moments). Returns the main
+    path's forward and backward launches."""
+    from repro_torch import flags
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import model as M
+    cfg = get_config(GEMMA) if full else get_config(GEMMA).reduced()
+    if full:
+        cfg = dataclasses.replace(cfg, n_layers=GEMMA_TRAIN_LAYERS)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    L = layer_kinds(cfg).count("attn")
+    prev = flags.get()
+    flags.parse_opts(TRAIN_OPTS)
+    try:
+        torch.cuda.empty_cache()
+        batch = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
+                 for k, v in next(TokenPipeline(cfg.vocab, B, S,
+                                                seed=0)).items()}
+        params = M.init_lm(cfg, 0, device=device)
+        n_params = sum(t.numel() for _, t in _named(params))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        windows, times = FlashWindows(), []
+        for i in range(3):
+            zero_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            with windows.active():
+                ev[0].record()
+                (loss, _), grads = loss_and_grads(cfg, params, batch,
+                                                  remat=True)
+                ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+            if i == 0:
+                main = counts()
+                first = dict(windows.counts)
+            del grads
+        peak = torch.cuda.max_memory_allocated()
+        want = dict.fromkeys(main, 0)
+        want["flash_attention"], want["flash_attention_bwd"] = 2 * L, L
+        record = {"parameters": n_params, "loss": loss.item(),
+                  "ms": float(np.median(times)), "ms_runs": times,
+                  "tokens_per_s": B * S / (np.median(times) / 1e3),
+                  "peak_memory_bytes": peak,
+                  "launches": {k: v for k, v in main.items() if v},
+                  "forward_calls_by_window": first}
+        print(f"[{tag}] 22c {GEMMA} ({cfg.n_layers} layers, f32) loss and "
+              f"gradients B={B} S={S} remat {TRAIN_OPTS}: "
+              f"{json.dumps(record)}")
+        want_w = {w: 2 * n for w, n in _attn_windows(cfg).items()}
+        if (main != want or first != want_w
+                or not math.isfinite(loss.item())):
+            raise AssertionError(f"22c: launches {main}, expected {want}; "
+                                 f"forward calls by window {first}, "
+                                 f"expected {want_w}")
+        _train_parity(tag, GEMMA, cfg, params, batch, derived=False,
+                      phase="22c")
+    finally:
+        flags.set_flags(**dataclasses.asdict(prev))
+    del params
+    torch.cuda.empty_cache()
+    return main["flash_attention"], main["flash_attention_bwd"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4539,6 +4981,7 @@ def main():
     from repro_torch.utils.device import resolve_device
 
     # 1. environment
+    t_start = time.perf_counter()
     resolve_device()
     tag = card()
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}); card "
@@ -4697,6 +5140,18 @@ def main():
     dryrun_grid(tag)
     dry_fwd, dry_bwd = dryrun_card_checks(tag)
 
+    # 22. gemma3-27b at full width: one period in f32 (22a), a 6-layer
+    #     cut in bf16 against f32 (22b'), the whole model in bf16 (22b),
+    #     the windowed backward (22c; counts zeroed inside, just before
+    #     each main path)
+    t22 = time.perf_counter()
+    gemma_serve = serve_gemma(tag)
+    bf16_cut(tag)
+    gemma_bf16 = serve_bf16(tag)
+    gemma_fwd, gemma_bwd = train_gemma(tag)
+    print(f"[{tag}] phases 1-21 took {t22 - t_start:.1f} s, 22 "
+          f"{time.perf_counter() - t22:.1f} s")
+
     # The graph filter's forward record's times are those of the largest
     # bucket's tick layer; its launches those of the serve runs (7-7d,
     # 7f), the launchers (7e), the training runs (9, 9b, 9e-9h, 9i's
@@ -4706,10 +5161,10 @@ def main():
     # attention's and wkv's times are
     # those of the qwen3-4b and rwkv6-1.6b prefill shapes in f32, their
     # launches those of the serve runs (one prefill each; 11-12, 14, 18,
-    # 20),
-    # the training steps (13, 15, 19), the drivers (13b, 19b) and the
+    # 20, 22a, 22b),
+    # the training steps (13, 15, 19, 22c), the drivers (13b, 19b) and the
     # examples (17); their backward kernels' times are those of the same
-    # shapes, their launches those of 13, 13b, 15, 17, 19 and 19b.
+    # shapes, their launches those of 13, 13b, 15, 17, 19, 19b and 22c.
     src = "src/repro_torch/kernels/graph_filter/csrc/graph_filter.cu"
     ms, plain_ms, bound_ms, bound_by = timing[paper[0]]
     b_ms, b_plain_ms, b_bound_ms, b_bound_by = bwd_timing
@@ -4749,7 +5204,11 @@ def main():
           f"whisper-small training driver (19b) flash_attention {whd_fwd}, "
           f"backward {whd_bwd}; dense multi-card archs serve (20) "
           f"flash_attention {json.dumps(dense_serve)}; DRYRUN meta-step "
-          f"(21) forward {dry_fwd}, backward {dry_bwd}")
+          f"(21) forward {dry_fwd}, backward {dry_bwd}; gemma3-27b serve "
+          f"f32 (22a) flash_attention {gemma_serve}; gemma3-27b serve bf16 "
+          f"(22b) flash_attention {gemma_bf16}; gemma3-27b loss and "
+          f"gradients (22c) flash_attention {gemma_fwd}, backward "
+          f"{gemma_bwd}")
     print(tag)
     print(json.dumps({"kernels": [
         {"name": "graph_filter", "route": "cuda", "source": src,
@@ -4779,7 +5238,8 @@ def main():
          "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
          "launches": (fa_launches + fa_train_fwd + sum(moe_serve.values())
                       + moe_fwd + ex["flash_attention"] + wh_serve + wh_fwd
-                      + whd_fwd + sum(dense_serve.values())),
+                      + whd_fwd + sum(dense_serve.values()) + gemma_serve
+                      + gemma_bf16 + gemma_fwd),
          "max_abs_err": fa_err,
          "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": f_bound_ms,
          "bound_by": f_bound_by, "library_ms": f_lib_ms},
@@ -4795,7 +5255,7 @@ def main():
                    "flash_attention_bwd.cu",
          "replaces": "src/repro/models/attention.py:56",
          "launches": (fa_train_bwd + moe_bwd + ex["flash_attention_bwd"]
-                      + wh_bwd + whd_bwd),
+                      + wh_bwd + whd_bwd + gemma_bwd),
          "max_abs_err": fab_err, "ms": fb_ms,
          "plain_ms": fb_plain_ms, "bound_ms": fb_bound_ms,
          "bound_by": fb_bound_by, "library_ms": fb_lib_ms},

@@ -2,9 +2,9 @@
 1024) : 1 global attention pattern, GQA kv=16, 128k context, huge vocab.
 
 Layout 'gemma3': 10 superblocks of (5 local + 1 global) + 2 trailing local
-layers = 62 layers exactly. In the port it serves at reduced width (the
-CPU tests' sliding windows and ring caches); full width in bf16 is later
-work (ROADMAP queue 1 item 11).
+layers = 62 layers exactly. At full width it fits one 80 GB card in bf16
+(56.8 GB of parameters; 113.7 GB in f32), the reference's production
+parameter dtype (``launch.specs.PARAM_DTYPE``).
 """
 from repro_torch.configs.base import ArchConfig, AttnConfig
 

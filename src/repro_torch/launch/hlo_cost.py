@@ -51,8 +51,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 aten = torch.ops.aten
 
-MATMUL = {aten.mm.default, aten.addmm.default, aten.bmm.default,
-          aten.baddbmm.default}
+MATMUL = {aten.mm.default, aten.mm.dtype, aten.addmm.default,
+          aten.bmm.default, aten.baddbmm.default}
 CONV = {aten.convolution.default}
 # Ops that allocate or describe without computing: no FLOPs, no bytes.
 NO_COST = {aten.empty.memory_format, aten.empty_strided.default,
@@ -88,7 +88,7 @@ def _storage_key(t):
 
 
 def _matmul_flops(func, args, out):
-    if func in (aten.mm.default, aten.bmm.default):
+    if func in (aten.mm.default, aten.mm.dtype, aten.bmm.default):
         a = args[0]
     else:                               # addmm / baddbmm: (bias, a, b)
         a = args[1]

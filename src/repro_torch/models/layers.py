@@ -94,13 +94,32 @@ def init_dense(init: Init, d_in, d_out, bias=False, scale=None):
     return p
 
 
+def matmul_acc(x, w):
+    """``x @ w`` (x (..., k), w (k, n)) with an f32 result from operands
+    of any dtype: the reference's ``preferred_element_type=ACC``. f32
+    operands take the plain product. Otherwise a CUDA or ``meta`` product
+    outside autograd is ``torch.mm(..., out_dtype=f32)`` (bf16 operands,
+    f32 accumulation and output, no f32 copy of w); the CPU, which has
+    no such product, and autograd, which has no derivative for it,
+    multiply f32 copies (exact: a product of two bf16 values is an f32
+    value)."""
+    if x.dtype == ACC and w.dtype == ACC:
+        return x @ w
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if x.device.type == "cpu" or grad:
+        return x.to(ACC) @ w.to(ACC)
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=ACC)
+    return y.reshape(x.shape[:-1] + w.shape[-1:])
+
+
 def dense(p, x):
-    """``x @ w`` (+ b in f32), in x's dtype. A plain product: the reference
-    leaves it to XLA, the port to cuBLAS (TF32 off)."""
-    y = x @ p["w"]
+    """``x @ w`` (+ b), in x's dtype. A plain product: the reference
+    leaves it to XLA, the port to cuBLAS (TF32 off). With a bias, as in
+    the reference, the bias is added to the f32 product and the sum
+    rounded once to x's dtype."""
     if "b" in p:
-        y = (y.to(ACC) + p["b"].to(ACC)).to(x.dtype)
-    return y
+        return (matmul_acc(x, p["w"]) + p["b"].to(ACC)).to(x.dtype)
+    return x @ p["w"]
 
 
 # ---------------------------------------------------------------- embeddings
@@ -117,8 +136,9 @@ def embed(p, ids):
 
 
 def unembed(p, x):
-    """Tied unembedding: (..., d) @ (vocab, d)^T, f32 logits."""
-    return (x @ p["table"].mT).to(ACC)
+    """Tied unembedding: (..., d) @ (vocab, d)^T, f32 logits accumulated
+    in f32 from operands of any dtype (``matmul_acc``)."""
+    return matmul_acc(x, p["table"].mT)
 
 
 def sinusoidal_positions(positions, d, base=10000.0):

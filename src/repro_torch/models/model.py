@@ -54,10 +54,11 @@ def init_lm(cfg: ArchConfig, seed, dtype=torch.float32, device=None):
 
 
 def _logits(cfg, params, x):
-    """f32 logits of hidden states x (..., d)."""
+    """f32 logits of hidden states x (..., d), accumulated in f32 whatever
+    the parameters' dtype (``layers.matmul_acc``)."""
     if cfg.tie_embeddings:
         return L.unembed(params["embed"], x)
-    return (x @ params["head"]["w"]).to(L.ACC)
+    return L.matmul_acc(x, params["head"]["w"])
 
 
 def encode(cfg: ArchConfig, params, frames, remat=False, plain_kernels=False):

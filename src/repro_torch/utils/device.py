@@ -31,7 +31,14 @@ def resolve_device(device=None) -> torch.device:
 def to_tensor(x, device, dtype=None) -> torch.Tensor:
     """``x`` (tensor, numpy array or anything ``np.array`` takes) as a
     tensor on ``device``. Non-tensor input is copied first, so read-only
-    arrays (such as views of another framework's buffers) are safe."""
+    arrays (such as views of another framework's buffers) are safe. A
+    numpy ``bfloat16`` array (the ``ml_dtypes`` type another framework's
+    bf16 arrays convert to, which torch cannot read) is carried across
+    as its 16-bit patterns and stays bf16."""
     if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.array(x))
+        a = np.array(x)
+        if a.dtype.name == "bfloat16":
+            x = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            x = torch.from_numpy(a)
     return x.to(device, dtype)

@@ -14,7 +14,10 @@ run through the plain versions, the flash kernels at whisper's
 non-causal calls (ragged Skv, Sq != Skv, dh = 64), the flash and wkv
 backward kernels against autograd through the plain versions (also at
 their tiling's edges, in three layouts, with bit-equal reruns), and a
-reduced-config LM train step through the kernels against the plain one.
+reduced-config LM train step through the kernels against the plain one,
+and gemma3-27b's bf16 and windowed pieces (the f32-accumulated bf16 head,
+a windowed bf16 flash call made by ``full_attention`` at the gemma3
+shape, the ring cache across its window against the plain path).
 
 They are marked ``cuda`` and skip without a card. They import no jax, so
 they run on a card machine without it:
@@ -39,6 +42,7 @@ through the kernels against the plain versions
 the backward kernels and the train step's gradients (f32 sums in
 another order, ``chip_smoke.py`` phases 5b-6b)."""
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -61,8 +65,11 @@ from repro_torch.kernels.graph_filter import (bf16_error_bound,
 from repro_torch.kernels.ssm_scan import ops as wkv_ops
 from repro_torch.kernels.ssm_scan import wkv, wkv_ref
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import stack as ST
+from repro_torch.utils.device import resolve_device
 from repro_torch.serve import BucketSpec, FederationServer
 
 pytestmark = pytest.mark.cuda
@@ -1189,3 +1196,114 @@ def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ---------------------------------------------- gemma3-27b's bf16 pieces
+@pytest.mark.parametrize("tied", [False, True])
+def test_bf16_logits_accumulate_in_f32_on_card(cuda, tied):
+    """The untied head's and the tied unembedding's logits from bf16
+    operands on the card (``layers.matmul_acc``: ``torch.mm(...,
+    out_dtype=f32)``, no f32 copy of the head): f32, within f32
+    summation order of the product of f32 copies (exact products), where
+    the bf16-rounded product is off by a bf16 ulp."""
+    resolve_device(cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(4, 3, 512, generator=g, device=cuda).bfloat16()
+    w = (0.05 * torch.randn(512, 4096, generator=g,
+                            device=cuda)).bfloat16()
+    cfg = dataclasses.replace(get_config("gemma3-27b").reduced(),
+                              tie_embeddings=tied)
+    params = ({"embed": {"table": w.mT.contiguous()}} if tied
+              else {"head": {"w": w}})
+    got = M._logits(cfg, params, x)
+    ref = x.float() @ w.float()
+    assert got.dtype == torch.float32 and got.shape == (4, 3, 4096)
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err
+    assert (x @ w).float().sub(ref).abs().max().item() > 10 * err
+
+
+def test_windowed_bf16_flash_call_inside_full_attention(cuda, monkeypatch):
+    """gemma3-27b's local-layer attention at full width (d_model 5376,
+    H=32, KV=16, dh=128, window 1024) on 2048 positions in bf16
+    (B=1): ``full_attention`` makes one windowed flash launch on the
+    bf16 projections, within ``bf16_error_bound`` of ``attention_ref``
+    on those inputs per element."""
+    cfg = get_config("gemma3-27b")
+    a = cfg.attn
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    init = L.Init(gen, torch.bfloat16, torch.device(cuda))
+    p = A.init_attn(init, cfg.d_model, a)
+    x = torch.randn(1, 2048, cfg.d_model, generator=gen,
+                    device=cuda).bfloat16()
+    positions = torch.arange(2048, device=cuda)[None]
+    seen = {}
+
+    def call(q, k, v, causal=True, window=0):
+        o = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+        seen.update(q=q, k=k, v=v, o=o, causal=causal, window=window)
+        return o
+
+    monkeypatch.setattr(A, "FA", SimpleNamespace(flash_attention=call))
+    before = flash_attention.launches
+    with torch.no_grad():
+        y, _ = A.full_attention(p, a, x, positions, window=a.window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == 1
+    assert (seen["window"], seen["causal"]) == (1024, True)
+    q, k, v, o = (seen[n] for n in "qkvo")
+    assert q.dtype == torch.bfloat16 and q.shape == (1, 32, 2048, 128)
+    o_ref = attention_ref(q, k, v, causal=True, window=1024)
+    bound = flash_ops.bf16_error_bound(q, k, v, o_ref, causal=True,
+                                       window=1024)
+    assert ((o.float() - o_ref.float()).abs() <= bound).all()
+    assert y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+
+
+def test_ring_cache_across_the_window_matches_plain(cuda):
+    """gemma3-27b's reduced config in f32 (a local layer of window 8, then
+    a global one): after a prefill of 12 ids (the local cache a ring of 8
+    slots) and after each of 4 decode steps that wrap it, the kernel
+    path's caches equal the plain path's (``plain_kernels=True``) at
+    1e-4, and each ring slot of the first layer holds the key of the
+    position ``models.attention._slot_positions`` gives (that layer's key
+    of a position depends on its token only)."""
+    cfg = get_config("gemma3-27b").reduced()
+    params = M.init_lm(cfg, 0, device=cuda)
+    ids = torch.tensor(np.random.default_rng(1).integers(0, cfg.vocab,
+                                                         (2, 16)),
+                       device=cuda)
+    P, cache_len = 12, 16
+    (name, _, kinds), = ST.build_segments(cfg)[:1]
+    assert kinds[0][0] == "attn" and kinds[0][2] == 8
+    with torch.no_grad():
+        _, ck, _ = M.forward(cfg, params, ids[:, :P], want_cache=True,
+                             cache_len=cache_len)
+        _, cp, _ = M.forward(cfg, params, ids[:, :P], want_cache=True,
+                             cache_len=cache_len, plain_kernels=True)
+        p0 = ST._index(params["segments"][name], 0)["s0"]
+        h = L.rmsnorm(p0["ln1"], L.embed(params["embed"], ids))
+        keys, _ = A._project_kv(p0["attn"], cfg.attn, h,
+                                torch.arange(16, device=cuda)[None])
+        for pos in range(P - 1, cache_len):
+            if pos >= P:
+                tok = ids[:, pos:pos + 1]
+                M.decode_step(cfg, params, tok, ck, pos, cache_len)
+                M.decode_step(cfg, params, tok, cp, pos, cache_len)
+            for (n, a), (_, b) in zip(_leaves(ck), _leaves(cp)):
+                torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4,
+                                           msg=f"{n} at {pos}")
+            ring = ck[name]["s0"]["k"][0]
+            assert ring.shape[1] == 8
+            spos = A._slot_positions(pos, 8, True, cuda)
+            assert int(spos.min()) == pos - 7 and int(spos.max()) == pos
+            torch.testing.assert_close(ring, keys[:, spos], atol=1e-5,
+                                       rtol=1e-5)
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}.{k}".lstrip("."))
+    else:
+        yield prefix, tree
