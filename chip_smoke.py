@@ -193,8 +193,9 @@ order; any failure exits non-zero:
      steps' device time by kernel and the device-busy share;
  12. rwkv6-1.6b serve at full width, f32 — the same, with 24 wkv
      launches per prefill;
- 13. LM training at full width, f32 — qwen3-4b cut to 8 of its 36 layers
-     (f32 Adam state of the whole model, 70.6 GB, does not fit one card)
+ 13. LM training at full width, f32 — qwen3-4b cut to 4 of its 36 layers
+     (f32 Adam state of the whole model, 70.6 GB, does not fit one card;
+     23 trains it whole in bf16)
      and rwkv6-1.6b at full depth, B=4, S=2048, remat, ``chunked_ce=512``:
      the loss within 1e-5 relative, the gradient norm and every gradient
      tensor within 1e-3 of its largest entry, kernels against
@@ -228,8 +229,8 @@ order; any failure exits non-zero:
      lb and z printed (they enter the loss), and a rerun of the kernel
      step's loss and gradients bit-equal;
  16. fig. 7's ablation timed — ``train_surf`` at BENCH for the four
-     (constrained, init) runs over seeds 0-3 in lockstep, 350 steps each
-     (the benchmark's 700 halved),
+     (constrained, init) runs over seeds 0-3 in lockstep, 150 steps each
+     (of the benchmark's 700: a timing window),
      through the graph-filter kernel (L and L − 1 launches per seed and
      step), then the per-layer evaluation on the test pool: ms per
      lockstep step, launches, per-layer accuracies and the benchmark's
@@ -314,6 +315,35 @@ order; any failure exits non-zero:
      does not fit one card at any depth (the untied embedding and head
      alone are 2.82 B parameters: parameters, gradients and two moments
      take about 58 GB at 2 layers, before the step's new copy).
+ 23. LM training in the reference's production dtype (bf16 parameters,
+     ``launch.specs.PARAM_DTYPE``; Adam's moments f32) with the donated
+     step (``make_train_step(donate=True)``, the reference's
+     ``donate_argnums=(0, 1)``), B=4, S=2048, remat, ``chunked_ce=512``,
+     lr 3e-4:
+     23a. qwen3-4b at full width and depth (36 layers, 4.41 B
+     parameters): one step's loss and gradients through the kernels with
+     every flash backward call held, where it is made, within
+     ``ops.bf16_grad_error_bound`` of the plain backward on its own
+     inputs (``FlashBwdGate``), the plain bf16 step's beside it; then 10
+     donated steps counted from zero (72 flash forward and 36 backward
+     launches each, the bf16 entries), the reference driver's loss check
+     (the mean of the last 5 below that of the first 5), ms per step,
+     tokens/s, peak memory (under 80 GB) and a profiled step;
+     23a'. the same cut to 4 layers: the kernel step's gradients at most
+     BF16_E2E_FACTOR times as far from the f32 step of the same weights
+     as the plain step's, and two donated steps bit-equal to two
+     undonated ones;
+     23b. rwkv6-1.6b at full width and depth in bf16: gradients of 6
+     layers held as 23a''s against f32, the loss at full depth likewise
+     (both at S = 512), and 10 donated steps
+     with the loss check (its model widens r, k, v, w to f32 before the
+     scan, as the reference does: the wkv kernels' f32 entries run).
+ Phases 5b and 6b also hold the backward kernels' bf16 entries against
+ autograd through the plain versions within each wrapper's
+ ``bf16_grad_error_bound`` (flash at the sweep, qwen3-4b, gemma3's
+ window and global and whisper's shapes; wkv at the sweep and rwkv6
+ shapes) and wkv's final-state gradient (f32 and bf16), with their
+ times beside SDPA's bf16 backward. Each phase prints its seconds.
 """
 from __future__ import annotations
 
@@ -407,9 +437,11 @@ LLM_REL_TOL = 1e-3   # kernel vs plain model: of the largest |entry|
 # plain version, of each gradient's largest |entry| (f32 sums over up to
 # 2048 keys or steps in another order; one-pass TF32 would miss it).
 BWD_REL_TOL = 1e-4
-# Phase 13: LM training at full width (qwen3-4b cut to 8 of its 36 layers:
-# with f32 Adam the full model's 70.6 GB of state does not fit one card).
-TRAIN_LLMS = (("qwen3-4b", 8), ("rwkv6-1.6b", None))
+# Phase 13: LM training at full width in f32 (qwen3-4b cut to 4 of its 36
+# layers: with f32 Adam the full model's 70.6 GB of state does not fit one
+# card; 8 before the script's time limit needed room for phase 23, which
+# trains it at full depth in bf16 and compares 4 layers against f32).
+TRAIN_LLMS = (("qwen3-4b", 4), ("rwkv6-1.6b", None))
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_OPTS, TRAIN_LR = 4, 2048, "chunked_ce=512", 3e-4
 RWKV_PARITY_SEQ = 512      # rwkv6's plain step: a Python loop over T
 RWKV_PARITY_LAYERS = 6     # rwkv6's well-conditioned depth cut (phase 13)
@@ -422,6 +454,14 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-3
 # two roundings, so these tensors are held to zero instead: every entry,
 # in both paths, within ZERO_GRAD_TOL of the step's largest gradient entry.
 ZERO_GRAD_TOL = 1e-6
+# Phase 23: LM training in the reference's production dtype (bf16
+# parameters, launch.specs.PARAM_DTYPE; Adam's moments f32) with the
+# donated step: 23a qwen3-4b at full depth, 23a' cut to BF16_TRAIN_CUT
+# layers (an f32 step of the same weights fits beside it), 23b rwkv6-1.6b
+# at full depth; BF16_TRAIN_STEPS steps each.
+BF16_TRAIN_ARCH = "qwen3-4b"
+BF16_TRAIN_CUT = 4
+BF16_TRAIN_STEPS = 10
 
 
 def _key_bias(name):
@@ -470,9 +510,10 @@ BF16_E2E_FACTOR = 2.0
 TRAIN_MOE = ("deepseek-moe-16b", 4)
 # Phase 16: fig. 7's ablation at benchmarks/common.py's setup (BENCH,
 # 60 training datasets, 10 test datasets, SEEDS), its META_STEPS = 700
-# cut to 350: a timing window that keeps the whole script near 10
-# minutes on one H100 (the four runs take about 200 s at 700).
-FIG7_TRAIN_Q, FIG7_TEST_Q, FIG7_STEPS = 60, 10, 350
+# cut to 150: a timing window that keeps the whole script within 900 s
+# on one H100 (the four runs take about 200 s at 700,
+# about 90 s at 350).
+FIG7_TRAIN_Q, FIG7_TEST_Q, FIG7_STEPS = 60, 10, 150
 # Phases 5, 5b, 18, 19: whisper-small. The flash calls new to the main
 # path (B, H, KV, Sq, Skv, dh), non-causal: the encoder's self-attention
 # over 1500 frames and the cross-attention from the decoder's 448
@@ -2841,11 +2882,12 @@ def flash_bwd_bound_ms(B, H, KV, S, dh, window, skv=None, causal=True):
     return ms, by, bound(nbytes, flops)[0]
 
 
-def wkv_bwd_bound_ms(B, H, T, dk):
-    """r, k, v, w, dy read and dr, dk, dv, dw written once (f32), u read
-    and du written; about 14 dk² operations per (b, h, t) in f32 FFMA: the
-    G update, the four gradient products and S_{t-1}'s update."""
-    nbytes = 4 * (9 * B * H * T * dk + 2 * H * dk)
+def wkv_bwd_bound_ms(B, H, T, dk, elem=4):
+    """r, k, v, w, dy read and dr, dk, dv, dw written once (``elem`` bytes
+    each: f32 or bf16), u read and du written (f32); about 14 dk²
+    operations per (b, h, t) in f32 FFMA (both entries compute in f32):
+    the G update, the four gradient products and S_{t-1}'s update."""
+    nbytes = elem * 9 * B * H * T * dk + 4 * 2 * H * dk
     return bound(nbytes, 14 * B * H * T * dk * dk)
 
 
@@ -3767,7 +3809,9 @@ def _kind(name):
         return "graph_filter"
     if "flash_attention_kernel" in name:
         return "flash_attention"
-    if any(s in name for s in ("dkdv_kernel", "dq_kernel", "delta_kernel")):
+    if any(s in name for s in ("dkdv_kernel", "dq_kernel", "delta_kernel",
+                               "dkdv_bf16_kernel", "dq_bf16_kernel",
+                               "kmean_kernel", "centre_kernel")):
         return "flash_attention_bwd"
     if "wkv_bwd_kernel" in name or "wkv_reduce_kernel" in name:
         return "wkv_bwd"
@@ -4972,6 +5016,576 @@ def train_gemma(tag, device="cuda", full=True):
     return main["flash_attention"], main["flash_attention_bwd"]
 
 
+def flash_bwd_bf16_bound_ms(B, H, KV, S, dh, window, skv=None,
+                            causal=True):
+    """The bf16 gradient: q, k, v, o, do (bf16) and the row lse (f32) read
+    once, dq, dk, dv (bf16) written once; 10 dh operations per live (query,
+    key) pair (``flash_bwd_bound_ms``'s five products), one bf16 product
+    each on the tensor cores at 989 TFLOP/s. Returns (ms, what bounds
+    it)."""
+    skv = S if skv is None else skv
+    flops = 10 * B * H * dh * _live_pairs(S, skv, window, causal)
+    nbytes = 2 * (4 * B * H * S * dh + 4 * B * KV * skv * dh) + 4 * B * H * S
+    return bound(nbytes, flops, PEAK_BF16_TC_FLOP_PER_S)
+
+
+def _flash_bwd_bf16_case(rng, shape, device="cuda"):
+    """bf16 q, k, v, do of ``shape`` (B, H, KV, Sq, Skv, dh, causal,
+    window), the kernel's forward (o, lse) and backward, a rerun, and
+    autograd through ``attention_ref`` on the same bf16 inputs. Returns
+    (inputs, o, lse, kernel grads, the rerun bit-equal, plain leaves,
+    plain output, plain grads)."""
+    from repro_torch.kernels.flash_attention import attention_ref, ops
+    B, H, KV, Sq, Skv, dh, causal, win = shape
+    q, k, v, do = (torch.tensor(rng.standard_normal((B, n, s, dh)).astype(
+        np.float32), device=device).to(torch.bfloat16)
+        for n, s in ((H, Sq), (KV, Skv), (KV, Skv), (H, Sq)))
+    o, lse = ops._launch(q, k, v, causal, win, want_lse=True)
+    grads = ops._launch_bwd(q, k, v, o, lse, do, causal, win)
+    again = ops._launch_bwd(q, k, v, o, lse, do, causal, win)
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_ref = attention_ref(*xs, causal=causal, window=win)
+    ref = torch.autograd.grad(o_ref, xs, do, retain_graph=True)
+    return (q, k, v, do), o, lse, grads, bit_equal, xs, o_ref, ref
+
+
+def check_flash_bwd_bf16(tag):
+    """Phases 5b (bf16): the flash backward kernel's bf16 entry against
+    autograd through ``attention_ref`` on the same bf16 inputs (f32
+    arithmetic, each gradient rounded to bf16 once) at the sweep shapes,
+    qwen3-4b, gemma3's window-1024 and global shapes, and whisper's
+    encoder and cross shapes (non-causal, Sq ≠ Skv, dh = 64): every
+    element of dq, dk and dv within ``ops.bf16_grad_error_bound`` (the
+    largest fraction used at most 1), a rerun bit-equal. At the full-width
+    shapes: µs per launch (CUDA events, median), the bound, the plain
+    backward's time and ``scaled_dot_product_attention``'s bf16 backward
+    (memory-efficient, K/V expanded to H heads; a boolean mask for the
+    window). Returns (the largest |kernel − plain|, the largest fraction
+    of the bound, the qwen3-4b timing, {shape: record})."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention import ops
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(26)
+    timed = {"qwen3-4b": FLASH_QWEN, "gemma3 window": FLASH_GEMMA,
+             "gemma3 global": FLASH_GEMMA_GLOBAL}
+    shapes = [(B, H, KV, S, S, dh, True, w) for B, H, KV, S, dh, w
+              in FLASH_SWEEP + list(timed.values())]
+    shapes += [(B, H, KV, Sq, Skv, dh, False, 0)
+               for B, H, KV, Sq, Skv, dh in FLASH_WHISPER.values()]
+    names = {(B, H, KV, S, S, dh, True, w): n
+             for n, (B, H, KV, S, dh, w) in timed.items()}
+    names.update({(B, H, KV, Sq, Skv, dh, False, 0): f"whisper {n}"
+                  for n, (B, H, KV, Sq, Skv, dh) in FLASH_WHISPER.items()})
+    max_err, max_use, timing, records = 0.0, 0.0, None, {}
+    for shape in shapes:
+        B, H, KV, Sq, Skv, dh, causal, win = shape
+        (q, k, v, do), o, lse, grads, bit_equal, xs, o_ref, ref = (
+            _flash_bwd_bf16_case(rng, shape))
+        bounds = ops.bf16_grad_error_bound(q, k, v, do, ref, causal=causal,
+                                           window=win)
+        use = {n: _bound_use(g, r, b) for n, g, r, b in
+               zip(("dq", "dk", "dv"), grads, ref, bounds)}
+        errs = {n: (g.float() - r.float()).abs().max().item()
+                for n, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+        del bounds
+        print(f"flash backward bf16 vs plain {shape}: max |err| "
+              f"{json.dumps(errs)}, of bf16_grad_error_bound "
+              f"{json.dumps(use)}; rerun bit-equal {bit_equal}")
+        if max(use.values()) > 1 or not bit_equal:
+            raise AssertionError(f"flash backward bf16 at {shape}: {use} of "
+                                 "the bound, or rerun not bit-equal")
+        max_err = max(max_err, *errs.values())
+        max_use = max(max_use, *use.values())
+        if shape in names:
+            ms = median_ms(lambda: ops._launch_bwd(q, k, v, o, lse, do,
+                                                   causal, win),
+                           reps=5, inner=3, warm=1)
+            plain_ms = median_ms(lambda: torch.autograd.grad(
+                o_ref, xs, do, retain_graph=True), reps=3, inner=1, warm=1)
+            del o_ref, xs, ref
+            torch.cuda.empty_cache()
+            mask = None
+            if win:
+                i = torch.arange(Sq, device="cuda")
+                mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - win)
+            ke, ve = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
+            xe = [t.clone().requires_grad_() for t in (q, ke, ve)]
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                oe = sdpa(*xe, attn_mask=mask, is_causal=causal and not win)
+                lib_ms = median_ms(lambda: torch.autograd.grad(
+                    oe, xe, do, retain_graph=True), reps=5, inner=3, warm=1)
+            del ke, ve, xe, oe
+            bound_ms, bound_by = flash_bwd_bf16_bound_ms(
+                B, H, KV, Sq, dh, win, skv=Skv, causal=causal)
+            rec = {"us": 1e3 * ms, "plain_us": 1e3 * plain_ms,
+                   "sdpa_mem_efficient_us": 1e3 * lib_ms,
+                   "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
+                   "of_bound": use}
+            records[names[shape]] = rec
+            if names[shape] == "qwen3-4b":
+                timing = (ms, plain_ms, bound_ms, bound_by, lib_ms)
+            print(f"[{tag}] 5b flash_attention_bwd bf16 {names[shape]} "
+                  f"B={B} H={H} KV={KV} Sq={Sq} Skv={Skv} dh={dh} causal="
+                  f"{causal} window={win}: kernel {ms * 1e3:.1f} us, bound "
+                  f"{bound_ms * 1e3:.1f} us ({bound_by}, bf16 on the tensor "
+                  f"cores; the kernel's 7 products {bound_ms * 1.4e3:.1f} us)"
+                  f", plain PyTorch backward {plain_ms * 1e3:.1f} us, "
+                  f"scaled_dot_product_attention bf16 backward (memory-"
+                  f"efficient, K/V expanded) {lib_ms * 1e3:.1f} us")
+        del q, k, v, do, o, lse, grads
+        torch.cuda.empty_cache()
+    return max_err, max_use, timing, records
+
+
+def _wkv_case(rng, B, H, T, dk, dtype, tiny_w=False):
+    """Seeded r, k, v, w (decays in (0.5, 1); the first three of every
+    row 1e-7 with ``tiny_w``), u, dy and a nonzero dS, on the card."""
+    def mk():
+        return 0.5 * rng.standard_normal((B, H, T, dk)).astype(np.float32)
+    r, k, v = mk(), mk(), mk()
+    w = (0.5 + 0.5 / (1 + np.exp(-mk()))).astype(np.float32)
+    if tiny_w:
+        w[..., :3, :] = 1e-7
+    u = (0.1 * rng.standard_normal((H, dk))).astype(np.float32)
+    args = [torch.tensor(a, device="cuda") for a in (r, k, v, w)]
+    args = [a.to(dtype) for a in args] + [torch.tensor(u, device="cuda")]
+    dy = torch.tensor(mk(), device="cuda").to(dtype)
+    dS = torch.tensor(rng.standard_normal((B, H, dk, dk)).astype(np.float32),
+                      device="cuda")
+    return args, dy, dS
+
+
+def check_wkv_bwd_bf16(tag):
+    """Phase 6b (bf16 and dS): the wkv backward kernel's bf16 entry against
+    autograd through ``wkv_ref`` on the same bf16 inputs at the sweep
+    shapes (the first three decays near 0 at one of them) and at the
+    rwkv6-1.6b shape: dr, dk, dv, dw within ``ops.bf16_grad_error_bound``
+    per element, du (f32) within BWD_REL_TOL of its largest entry, a rerun
+    bit-equal. Then a nonzero cotangent on the final state S (the
+    reference's scan is differentiated through it) at every sweep shape in
+    f32 (each gradient within BWD_REL_TOL) and in bf16 (the bound). µs
+    per launch of the bf16 entry, the
+    bound and the plain backward's time at the rwkv6-1.6b shape. Returns
+    (the largest |kernel − plain| of the bf16 runs, the largest fraction
+    of the bound, the timing)."""
+    from repro_torch.kernels.ssm_scan import ops, wkv_ref
+    rng = np.random.default_rng(66)
+    names = ("dr", "dk", "dv", "dw", "du")
+    max_err, max_use, timing = 0.0, 0.0, None
+    cases = [(s, torch.bfloat16, False) for s in WKV_SWEEP + [WKV_RWKV]]
+    cases += [(s, dt, True) for s in WKV_SWEEP
+              for dt in (torch.float32, torch.bfloat16)]
+    for (B, H, T, dk), dtype, with_dS in cases:
+        args, dy, dS = _wkv_case(rng, B, H, T, dk, dtype,
+                                 tiny_w=(B, H, T, dk) == WKV_SWEEP[1])
+        dS = dS if with_dS else None
+        grads = ops._launch_bwd(*args, dy, dS)
+        again = ops._launch_bwd(*args, dy, dS)
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+        del again
+        xs = [a.clone().requires_grad_() for a in args]
+        y_ref, S_ref = wkv_ref(*xs)
+        outs, cots = ([y_ref, S_ref], [dy, dS]) if with_dS else ([y_ref],
+                                                                 [dy])
+        ref = torch.autograd.grad(outs, xs, cots, retain_graph=True)
+        errs = {n: (g.float() - q.float()).abs().max().item()
+                for n, g, q in zip(names, grads, ref)}
+        rel = {n: errs[n] / q.float().abs().max().item()
+               for n, q in zip(names, ref)}
+        if dtype == torch.float32:
+            use = {n: rel[n] / BWD_REL_TOL for n in names}
+        else:
+            bounds = ops.bf16_grad_error_bound(ref[:4])
+            use = {n: _bound_use(g, q, b) for n, g, q, b in
+                   zip(names, grads, ref, bounds)}
+            use["du"] = rel["du"] / BWD_REL_TOL
+            max_err = max(max_err, *errs.values())
+            max_use = max(max_use, *use.values())
+        gate = ("of BWD_REL_TOL" if dtype == torch.float32 else
+                "of bf16_grad_error_bound (du: of BWD_REL_TOL)")
+        print(f"wkv backward {str(dtype)[6:]} vs plain B={B} H={H} T={T} "
+              f"dk={dk}{' with dS' if with_dS else ''}: max |err| "
+              f"{json.dumps(errs)}, {gate} {json.dumps(use)}; rerun "
+              f"bit-equal {bit_equal}")
+        if max(use.values()) > 1 or not bit_equal:
+            raise AssertionError(f"wkv backward {dtype} at {(B, H, T, dk)} "
+                                 f"dS {with_dS}: {use} or rerun not "
+                                 "bit-equal")
+        if (B, H, T, dk) == WKV_RWKV and not with_dS:
+            ms = median_ms(lambda: ops._launch_bwd(*args, dy), reps=7,
+                           inner=5, warm=2)
+            plain_ms = median_ms(lambda: torch.autograd.grad(
+                y_ref, xs, dy, retain_graph=True), reps=2, inner=1, warm=1)
+            bound_ms, bound_by = wkv_bwd_bound_ms(B, H, T, dk, elem=2)
+            timing = (ms, plain_ms, bound_ms, bound_by)
+            print(f"[{tag}] wkv_bwd bf16 B={B} H={H} T={T} dk={dk}: kernel "
+                  f"{ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+                  f"({bound_by}), plain PyTorch backward "
+                  f"{plain_ms * 1e3:.1f} us (no single PyTorch call "
+                  "computes this recurrence)")
+        del xs, y_ref, S_ref, ref, grads, args, dy, dS
+        torch.cuda.empty_cache()
+    return max_err, max_use, timing
+
+
+class FlashBwdGate:
+    """Holds each flash backward launch of the model, where it is made,
+    against autograd through ``attention_ref`` on the same inputs and
+    cotangent within ``ops.bf16_grad_error_bound`` per element (23a: the
+    bf16 calls); nothing of a call is kept but the largest fraction of
+    the bound used (``use``). The kernel's gradients are what the model
+    receives."""
+
+    def __init__(self):
+        self.calls, self.use = 0, 0.0
+
+    def active(self):
+        from unittest import mock
+
+        from repro_torch.kernels.flash_attention import attention_ref, ops
+        launch = ops._launch_bwd
+
+        def gated(q, k, v, o, lse, do, causal, window):
+            grads = launch(q, k, v, o, lse, do, causal, window)
+            with torch.enable_grad():
+                xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                ref = torch.autograd.grad(attention_ref(
+                    *xs, causal=causal, window=window), xs, do)
+            del xs
+            bounds = ops.bf16_grad_error_bound(q, k, v, do, ref,
+                                               causal=causal, window=window)
+            use = max(_bound_use(g, r, b)
+                      for g, r, b in zip(grads, ref, bounds))
+            del ref, bounds
+            self.calls += 1
+            self.use = max(self.use, use)
+            if not use <= 1:
+                raise AssertionError(
+                    f"flash backward call {self.calls} {tuple(q.shape)} "
+                    f"{q.dtype}: |kernel - plain| is {use:.3f} of "
+                    "bf16_grad_error_bound")
+            return grads
+
+        return mock.patch.object(ops, "_launch_bwd", gated)
+
+
+def _tree_dist(a, ref):
+    """Two distances of gradient tree ``a`` from ``ref`` over all their
+    tensors: ‖a − ref‖₂ / ‖ref‖₂ and max |a − ref| / max |ref|."""
+    sq = nsq = 0.0
+    big = dmax = 0.0
+    for (_, x), (_, r) in zip(_named(a), _named(ref)):
+        d = x.float() - r.float()
+        sq += d.square().sum().item()
+        nsq += r.float().square().sum().item()
+        dmax = max(dmax, d.abs().max().item())
+        big = max(big, r.float().abs().max().item())
+    return {"norm_rel": math.sqrt(sq / nsq), "max_rel": dmax / big}
+
+
+def _bf16_grad_distances(cfg, params, batch):
+    """The gradients of the kernel step and of the plain step
+    (``plain_kernels=True``) from bf16 ``params``, each as a distance from
+    the f32 plain step of the same weights widened (``_tree_dist``), and
+    their distance from each other; the kernel step's at most
+    BF16_E2E_FACTOR times the plain step's on both measures passes.
+    Returns (the distances, whether they pass)."""
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.utils.tree import _map
+    (_, _), gk = loss_and_grads(cfg, params, batch, remat=True)
+    (_, _), gp = loss_and_grads(cfg, params, batch, remat=True,
+                                plain_kernels=True)
+    (_, _), g32 = loss_and_grads(cfg, _map(lambda t: t.float(), params),
+                                 batch, remat=True, plain_kernels=True)
+    d = {"kernel": _tree_dist(gk, g32), "plain": _tree_dist(gp, g32),
+         "kernel_vs_plain": _tree_dist(gk, gp)}
+    del gk, gp, g32
+    return d, all(d["kernel"][m] <= BF16_E2E_FACTOR * d["plain"][m]
+                  for m in ("norm_rel", "max_rel"))
+
+
+def train_bf16(tag, arch=BF16_TRAIN_ARCH, device="cuda", full=True):
+    """Phase 23a: qwen3-4b at full width and depth in bf16
+    (``launch.specs.PARAM_DTYPE``; Adam's moments f32), B=TRAIN_BATCH,
+    S=TRAIN_SEQ, remat, ``--opts TRAIN_OPTS``, lr TRAIN_LR.
+
+      * gradients, before the optimizer state exists: one
+        ``loss_and_grads`` through the kernels with every flash backward
+        call held where it is made within ``ops.bf16_grad_error_bound``
+        of the plain backward on its own inputs (``FlashBwdGate``); the
+        plain bf16 step's (``plain_kernels=True``) loss and gradients
+        beside it, their distances printed (23a' holds the whole step
+        against f32);
+      * the main path, counted from zero: BF16_TRAIN_STEPS steps of
+        ``make_train_step(donate=True)``, 2L forward and L backward flash
+        launches each, held to the reference driver's check (the mean
+        loss of the last 5 steps below that of the first 5); ms per step
+        (CUDA events, median of the steps after the first), tokens/s,
+        peak memory (under 80 GB), one profiled step's device time by
+        kernel kind and busy share.
+
+    Returns (forward, backward launches of the main path, the record)."""
+    from repro_torch import flags
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import model as M
+    cfg = get_config(arch) if full else get_config(arch).reduced()
+    L = cfg.n_layers
+    B, S = (TRAIN_BATCH, TRAIN_SEQ) if full else (2, 64)
+    prev = flags.get()
+    flags.parse_opts(TRAIN_OPTS)
+    try:
+        torch.cuda.empty_cache()
+        batch = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
+                 for k, v in next(TokenPipeline(cfg.vocab, B, S,
+                                                seed=0)).items()}
+        params = M.init_lm(cfg, 0, SP.PARAM_DTYPE, device=device)
+        n_params = sum(t.numel() for _, t in _named(params))
+        gate = FlashBwdGate()
+        zero_counts()
+        with gate.active():
+            (lk, _), gk = loss_and_grads(cfg, params, batch, remat=True)
+        gated = counts()
+        (lp, _), gp = loss_and_grads(cfg, params, batch, remat=True,
+                                     plain_kernels=True)
+        par = {"loss_kernel": lk.item(), "loss_plain": lp.item(),
+               "kernel_vs_plain": _tree_dist(gk, gp),
+               "flash_bwd_calls_gated": gate.calls,
+               "largest_use_of_bf16_grad_error_bound": gate.use}
+        del gk, gp
+        print(f"[{tag}] 23a {arch} ({L} layers, bf16) loss and gradients, "
+              f"kernels vs plain at B={B} S={S}: {json.dumps(par)}; "
+              f"launches {json.dumps({k: v for k, v in gated.items() if v})}")
+        if gate.calls != L or not math.isfinite(lk.item()):
+            raise AssertionError(f"23a: {gate.calls} gated backward calls, "
+                                 f"expected {L}; loss {lk.item()}")
+
+        step, opt = make_train_step(cfg, lr=TRAIN_LR, remat=True,
+                                    donate=True)
+        opt_state = opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        losses, times = [], []
+        for _ in range(BF16_TRAIN_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = step(params, opt_state, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            if out[0] is not params or out[1] is not opt_state:
+                raise AssertionError("23a: the donated step returned new "
+                                     "trees")
+            times.append(ev[0].elapsed_time(ev[1]))
+            losses.append(out[2]["loss"].item())
+        main = counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = dict.fromkeys(main, 0)
+        want["flash_attention"] = 2 * L * BF16_TRAIN_STEPS
+        want["flash_attention_bwd"] = L * BF16_TRAIN_STEPS
+        head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+        ms = float(np.median(times[1:]))
+        record = {"parameters": n_params, "ms_per_step": ms,
+                  "ms_per_step_runs": times, "tokens_per_s": B * S / (ms / 1e3),
+                  "peak_memory_bytes": peak, "losses": losses,
+                  "loss_5_step_means": [head, tail],
+                  "grad_norm": out[2]["grad_norm"].item(),
+                  "launches": {k: v for k, v in main.items() if v}}
+        print(f"[{tag}] 23a {arch} train steps ({L} layers, bf16, donated) "
+              f"B={B} S={S} remat {TRAIN_OPTS}: {json.dumps(record)}")
+        if main != want or not tail < head or not all(
+                math.isfinite(x) for x in losses) or peak >= 80e9:
+            raise AssertionError(f"23a: launches {main} (expected {want}), "
+                                 f"5-step means {head} -> {tail}, peak "
+                                 f"{peak}")
+        prof = _profiled(lambda: step(params, opt_state, batch), device)
+        print(f"[{tag}] 23a {arch} profiled train step: {json.dumps(prof)}")
+    finally:
+        flags.set_flags(**dataclasses.asdict(prev))
+    del params, opt_state, out
+    torch.cuda.empty_cache()
+    return main["flash_attention"], main["flash_attention_bwd"], record
+
+
+def bf16_train_cut(tag, arch=BF16_TRAIN_ARCH, device="cuda", full=True):
+    """Phase 23a': qwen3-4b cut to BF16_TRAIN_CUT layers in bf16, phase
+    23a's batch and flags: the gradients of the kernel step and of the
+    plain step, each as a distance from the f32 plain step of the same
+    bf16-valued weights widened (``_bf16_grad_distances``: over all
+    tensors, the norm and the largest entry); the kernel step's at most
+    BF16_E2E_FACTOR times the plain step's, on both. Then two
+    steps of ``make_train_step(donate=True)`` and of the undonated step
+    from the same parameters and Adam state: parameters and moments
+    bit-equal."""
+    from repro_torch import flags
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.utils.tree import _leaves, _map
+    cfg = get_config(arch) if full else get_config(arch).reduced()
+    cfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, BF16_TRAIN_CUT))
+    B, S = (TRAIN_BATCH, TRAIN_SEQ) if full else (2, 64)
+    prev = flags.get()
+    flags.parse_opts(TRAIN_OPTS)
+    try:
+        torch.cuda.empty_cache()
+        batch = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
+                 for k, v in next(TokenPipeline(cfg.vocab, B, S,
+                                                seed=0)).items()}
+        params = M.init_lm(cfg, 0, SP.PARAM_DTYPE, device=device)
+        d, ok = _bf16_grad_distances(cfg, params, batch)
+        step_d, opt = make_train_step(cfg, lr=TRAIN_LR, remat=True,
+                                      donate=True)
+        step_u, _ = make_train_step(cfg, lr=TRAIN_LR, remat=True)
+        pd, od = _map(torch.clone, params), opt.init(params)
+        pu, ou = params, opt.init(params)
+        for _ in range(2):
+            step_d(pd, od, batch)
+            pu, ou, _ = step_u(pu, ou, batch)
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(_leaves((pd, od)), _leaves((pu, ou))))
+        print(f"[{tag}] 23a' {arch} ({cfg.n_layers} layers, bf16) gradient "
+              f"distance from the f32 step of the same weights (the "
+              f"kernel step's at most {BF16_E2E_FACTOR}x the plain "
+              f"step's): {json.dumps(d)}; two donated steps bit-equal to "
+              f"two undonated ones (parameters, m, v, t): {equal}")
+        del pd, od, pu, ou, params
+        torch.cuda.empty_cache()
+    finally:
+        flags.set_flags(**dataclasses.asdict(prev))
+    if not ok or not equal:
+        raise AssertionError(f"23a': kernel step {d['kernel']} against "
+                             f"plain {d['plain']} (factor "
+                             f"{BF16_E2E_FACTOR}); donated bit-equal "
+                             f"{equal}")
+    return d
+
+
+def train_rwkv_bf16(tag, arch="rwkv6-1.6b", device="cuda", full=True):
+    """Phase 23b: rwkv6-1.6b at full width and depth in bf16 (Adam's
+    moments f32; 17.8 GB of state), phase 13's batch and flags. The model
+    widens r, k, v and w to f32 before the scan, as the reference does,
+    so the wkv kernels run their f32 entries. With the plain versions at S
+    = RWKV_PARITY_SEQ (the recurrence is a Python loop over T): at
+    RWKV_PARITY_LAYERS the gradients held by their distance from the f32
+    step of the same weights (``_bf16_grad_distances``, as 23a'; per
+    tensor, bf16's roundings put two f32-equivalent evaluations 0.1-0.2
+    of a tensor's largest entry apart at this depth, past phase 13's
+    per-tensor gates), and at full depth the loss (forward only): the
+    kernel path's at most BF16_E2E_FACTOR times as far from the f32
+    plain loss of the same weights as the plain path's; then
+    the main path, counted from zero: BF16_TRAIN_STEPS donated steps, L
+    forward-and-recompute pairs and L backward wkv launches each, held to
+    the reference driver's loss check; ms per step, tokens/s, peak.
+    Returns (forward, backward launches of the main path, the record)."""
+    from repro_torch import flags
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.utils.tree import _map
+    cfg = get_config(arch) if full else get_config(arch).reduced()
+    L = cfg.n_layers
+    B, S = (TRAIN_BATCH, TRAIN_SEQ) if full else (2, 64)
+    seq = RWKV_PARITY_SEQ if full else S
+    prev = flags.get()
+    flags.parse_opts(TRAIN_OPTS)
+    try:
+        torch.cuda.empty_cache()
+        batch = {k: torch.as_tensor(v, dtype=torch.int64, device=device)
+                 for k, v in next(TokenPipeline(cfg.vocab, B, S,
+                                                seed=0)).items()}
+        pb = {k: v[:, :seq] for k, v in batch.items()}
+        cut = dataclasses.replace(cfg, n_layers=min(L, RWKV_PARITY_LAYERS))
+        d, ok = _bf16_grad_distances(cut, M.init_lm(
+            cut, 0, SP.PARAM_DTYPE, device=device), pb)
+        print(f"[{tag}] 23b {arch} ({cut.n_layers} layers, bf16) gradient "
+              f"distance from the f32 step of the same weights at S={seq} "
+              f"(the kernel step's at most {BF16_E2E_FACTOR}x the plain "
+              f"step's): {json.dumps(d)}")
+        if not ok:
+            raise AssertionError(f"23b: kernel step {d['kernel']} against "
+                                 f"plain {d['plain']}")
+        torch.cuda.empty_cache()
+        params = M.init_lm(cfg, 0, SP.PARAM_DTYPE, device=device)
+        with torch.no_grad():
+            lk, lp = (M.lm_loss(cfg, params, pb, plain_kernels=plain)[0]
+                      .item() for plain in (False, True))
+            l32 = M.lm_loss(cfg, _map(lambda t: t.float(), params), pb,
+                            plain_kernels=True)[0].item()
+        loss = {"kernel": lk, "plain": lp, "f32": l32,
+                "kernel_from_f32": abs(lk - l32), "plain_from_f32":
+                abs(lp - l32)}
+        print(f"[{tag}] 23b {arch} ({L} layers, bf16) loss at S={seq}, "
+              f"kernel and plain paths against the f32 plain path of the "
+              f"same weights (the kernel's distance at most "
+              f"{BF16_E2E_FACTOR}x the plain's): {json.dumps(loss)}")
+        if not (math.isfinite(lk) and loss["kernel_from_f32"]
+                <= BF16_E2E_FACTOR * loss["plain_from_f32"]):
+            raise AssertionError(f"23b: full-depth loss {loss}")
+        step, opt = make_train_step(cfg, lr=TRAIN_LR, remat=True,
+                                    donate=True)
+        opt_state = opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        losses, times = [], []
+        for _ in range(BF16_TRAIN_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            _, _, m = step(params, opt_state, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+            losses.append(m["loss"].item())
+        main = counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = dict.fromkeys(main, 0)
+        want["wkv"] = 2 * L * BF16_TRAIN_STEPS
+        want["wkv_bwd"] = L * BF16_TRAIN_STEPS
+        head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+        ms = float(np.median(times[1:]))
+        record = {"ms_per_step": ms, "ms_per_step_runs": times,
+                  "tokens_per_s": B * S / (ms / 1e3),
+                  "peak_memory_bytes": peak, "losses": losses,
+                  "loss_5_step_means": [head, tail],
+                  "launches": {k: v for k, v in main.items() if v}}
+        print(f"[{tag}] 23b {arch} train steps ({L} layers, bf16, donated) "
+              f"B={B} S={S} remat {TRAIN_OPTS}: {json.dumps(record)}")
+        if main != want or not tail < head or not all(
+                math.isfinite(x) for x in losses):
+            raise AssertionError(f"23b: launches {main} (expected {want}), "
+                                 f"5-step means {head} -> {tail}")
+    finally:
+        flags.set_flags(**dataclasses.asdict(prev))
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return main["wkv"], main["wkv_bwd"], record
+
+
+class PhaseClock:
+    """Prints each phase's elapsed seconds and the running total."""
+
+    def __init__(self, tag):
+        self.tag = tag
+        self.t0 = self.last = time.perf_counter()
+
+    def __call__(self, phase):
+        now = time.perf_counter()
+        print(f"[{self.tag}] phase {phase}: {now - self.last:.1f} s "
+              f"(total {now - self.t0:.1f} s)", flush=True)
+        self.last = now
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4981,9 +5595,9 @@ def main():
     from repro_torch.utils.device import resolve_device
 
     # 1. environment
-    t_start = time.perf_counter()
     resolve_device()
     tag = card()
+    clock = PhaseClock(tag)
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}); card "
           f"{tag}; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}; bf16 reduced-precision "
@@ -4995,6 +5609,7 @@ def main():
 
     # 2. build, all five libraries at once
     build_all(tag)
+    clock("1-2")
 
     # 3. kernel vs plain, at every shape the serve and training runs launch
     spec = BucketSpec()
@@ -5009,21 +5624,28 @@ def main():
     # 3/4 additions: the S of the sparse, quickstart and seed-batched paths
     slice_err = check_slice_shapes(tag)
     max_err, bwd_err = max(max_err, slice_err[0]), max(bwd_err, slice_err[1])
+    clock("3-4")
 
     # 5.-6. flash attention and wkv vs plain, up to the full-width shapes
     fa_err, fa_timing = check_flash(tag)
     fa_err = max(fa_err, check_flash_whisper(tag)[0])
     wkv_err, wkv_timing = check_wkv(tag)
+    clock("5-6")
 
-    # 5b.-6b. the backward kernels vs autograd through the plain versions
+    # 5b.-6b. the backward kernels vs autograd through the plain versions,
+    #     f32, then the bf16 entries (and wkv's final-state gradient)
     fab_err, fab_timing = check_flash_bwd(tag)
     fab_err = max(fab_err, check_flash_bwd_whisper(tag)[0])
     flash_delta_check(tag)
     wkvb_err, wkvb_timing = check_wkv_bwd(tag)
+    fab16_err, fab16_use, fab16_timing, _ = check_flash_bwd_bf16(tag)
+    wkvb16_err, wkvb16_use, wkvb16_timing = check_wkv_bwd_bf16(tag)
+    clock("5b-6b")
 
     # 7. serve, with the default mixer
     zero_counts()
     serve_launches, fixed = serve(tag, PAPER, spec, buckets)
+    clock("7")
 
     # 7b. serve federations past the kernel's resident limit
     zero_counts()
@@ -5045,6 +5667,7 @@ def main():
     # 7e. the SURF launchers at their defaults
     zero_counts()
     launch_fwd, launch_bwd = launchers(tag)
+    clock("7b-7f")
 
     # 8.-9. meta-step parity and the training run at PAPER width
     mds, pool = paper_pool(PAPER)
@@ -5055,6 +5678,7 @@ def main():
     static, train_fwd, train_bwd = train_paper(tag, PAPER, mds, pool)
     if counts()["flash_attention"] or counts()["wkv"]:
         raise AssertionError(f"SURF paths launched an LLM kernel {counts()}")
+    clock("8-9")
 
     # 9b. scheduled training at PAPER width (counts zeroed inside, just
     #     before train_surf)
@@ -5083,6 +5707,7 @@ def main():
     if counts()["flash_attention"] or counts()["wkv"]:
         raise AssertionError(f"9i-9k launched an LLM kernel {counts()}")
     del pool, mds
+    clock("9b-9k")
 
     # 9c. the async study at PAPER width (counts zeroed per n_async)
     async_eval_launches, _ = async_eval(tag, PAPER)
@@ -5099,10 +5724,12 @@ def main():
     qs_fwd, qs_bwd = quickstart_seeds(tag)
     if counts()["flash_attention"] or counts()["wkv"]:
         raise AssertionError(f"9e-10b launched an LLM kernel {counts()}")
+    clock("9c-10b")
 
     # 11.-12. the LLM serving path at full width
     fa_launches, _ = serve_llm(tag, "qwen3-4b", "flash_attention")
     wkv_launches, _ = serve_llm(tag, "rwkv6-1.6b", "wkv")
+    clock("11-12")
 
     # 13. LM training at full width (counts zeroed inside, just before each
     #     main-path step); 13b. the training driver with a checkpoint
@@ -5111,6 +5738,7 @@ def main():
     drv_fwd, drv_bwd = train_driver(tag)
     fa_train_fwd, fa_train_bwd, _ = trained["qwen3-4b"]
     wkv_train_fwd, wkv_train_bwd, _ = trained["rwkv6-1.6b"]
+    clock("13-13b")
 
     # 14. MoE and hybrid serving at full width (depth cut to fit 80 GB)
     moe_serve = {arch: serve_llm(tag, arch, "flash_attention",
@@ -5118,9 +5746,12 @@ def main():
                  for arch, n_layers in SERVE_MOE}
     # 15. MoE training at full width (counts zeroed inside)
     moe_fwd, moe_bwd, _ = train_llm(tag, *TRAIN_MOE, phase="15")
+    clock("14-15")
     # 16. fig. 7's ablation, timed; 17. the port's examples
     fig7_fwd, fig7_bwd = fig7_ablation(tag)
+    clock("16")
     ex = examples_phase(tag)
+    clock("17")
 
     # 18. whisper-small serving at full width and depth; 19. its training
     #     step (counts zeroed inside, just before the main-path step);
@@ -5128,29 +5759,39 @@ def main():
     wh_serve, _ = serve_whisper(tag)
     wh_fwd, wh_bwd, _ = train_llm(tag, WHISPER, phase="19")
     whd_fwd, whd_bwd = whisper_driver(tag)
+    clock("18-19b")
 
     # 20. the dense archs that need more than one card in full, served at
     #     full width (depth cut to 4 layers)
     dense_serve = {arch: serve_llm(tag, arch, "flash_attention",
                                    n_layers=n_layers)[0]
                    for arch, n_layers in SERVE_DENSE}
+    clock("20")
 
     # 21. the dry run: the grid on the production meshes (meta device),
     #     then its descriptions held against the card where a step fits
     dryrun_grid(tag)
     dry_fwd, dry_bwd = dryrun_card_checks(tag)
+    clock("21")
 
     # 22. gemma3-27b at full width: one period in f32 (22a), a 6-layer
     #     cut in bf16 against f32 (22b'), the whole model in bf16 (22b),
     #     the windowed backward (22c; counts zeroed inside, just before
     #     each main path)
-    t22 = time.perf_counter()
     gemma_serve = serve_gemma(tag)
     bf16_cut(tag)
     gemma_bf16 = serve_bf16(tag)
     gemma_fwd, gemma_bwd = train_gemma(tag)
-    print(f"[{tag}] phases 1-21 took {t22 - t_start:.1f} s, 22 "
-          f"{time.perf_counter() - t22:.1f} s")
+    clock("22")
+
+    # 23. LM training in bf16 with the donated step: qwen3-4b at full
+    #     depth (23a; counts zeroed inside, just before the main path), cut
+    #     to 4 layers against f32 and the undonated step (23a'), rwkv6-1.6b
+    #     at full depth (23b)
+    b16_fwd, b16_bwd, _ = train_bf16(tag)
+    bf16_train_cut(tag)
+    rwkv16_fwd, rwkv16_bwd, _ = train_rwkv_bf16(tag)
+    clock("23")
 
     # The graph filter's forward record's times are those of the largest
     # bucket's tick layer; its launches those of the serve runs (7-7d,
@@ -5162,15 +5803,21 @@ def main():
     # those of the qwen3-4b and rwkv6-1.6b prefill shapes in f32, their
     # launches those of the serve runs (one prefill each; 11-12, 14, 18,
     # 20, 22a, 22b),
-    # the training steps (13, 15, 19, 22c), the drivers (13b, 19b) and the
-    # examples (17); their backward kernels' times are those of the same
-    # shapes, their launches those of 13, 13b, 15, 17, 19, 19b and 22c.
+    # the training steps (13, 15, 19, 22c, 23a, 23b), the drivers (13b,
+    # 19b) and the examples (17); their backward kernels' times are those
+    # of the same shapes in f32, their launches those of 13, 13b, 15, 17,
+    # 19, 19b, 22c and 23b (wkv: rwkv6 widens r, k, v, w to f32 before the
+    # scan, as the reference does, so its bf16 training runs the f32
+    # entries). The bf16 flash backward's record holds its times at the
+    # qwen3-4b shape and 23a's launches; the bf16 wkv backward entry is on
+    # no main path (its times are printed by 6b).
     src = "src/repro_torch/kernels/graph_filter/csrc/graph_filter.cu"
     ms, plain_ms, bound_ms, bound_by = timing[paper[0]]
     b_ms, b_plain_ms, b_bound_ms, b_bound_by = bwd_timing
     f_ms, f_plain_ms, f_bound_ms, f_bound_by, f_lib_ms = fa_timing
     w_ms, w_plain_ms, w_bound_ms, w_bound_by = wkv_timing
     fb_ms, fb_plain_ms, fb_bound_ms, fb_bound_by, fb_lib_ms = fab_timing
+    fb16 = fab16_timing
     wb_ms, wb_plain_ms, wb_bound_ms, wb_bound_by = wkvb_timing
     print(f"launches: serve run forward {serve_launches}; serve past the "
           f"resident limit forward {large_launches}; adaptive serve "
@@ -5208,7 +5855,14 @@ def main():
           f"f32 (22a) flash_attention {gemma_serve}; gemma3-27b serve bf16 "
           f"(22b) flash_attention {gemma_bf16}; gemma3-27b loss and "
           f"gradients (22c) flash_attention {gemma_fwd}, backward "
-          f"{gemma_bwd}")
+          f"{gemma_bwd}; qwen3-4b bf16 training (23a) flash_attention "
+          f"{b16_fwd}, backward (bf16 entry) {b16_bwd}; rwkv6-1.6b bf16 "
+          f"training (23b) wkv {rwkv16_fwd}, backward {rwkv16_bwd}; bf16 "
+          f"backward entries against their bounds: flash "
+          f"{fab16_use:.3f}, wkv {wkvb16_use:.3f} (wkv bf16 entry at the "
+          f"rwkv6-1.6b shape {wkvb16_timing[0] * 1e3:.1f} us, bound "
+          f"{wkvb16_timing[2] * 1e3:.1f} us, plain "
+          f"{wkvb16_timing[1] * 1e3:.1f} us; max |err| {wkvb16_err:.3e})")
     print(tag)
     print(json.dumps({"kernels": [
         {"name": "graph_filter", "route": "cuda", "source": src,
@@ -5239,14 +5893,15 @@ def main():
          "launches": (fa_launches + fa_train_fwd + sum(moe_serve.values())
                       + moe_fwd + ex["flash_attention"] + wh_serve + wh_fwd
                       + whd_fwd + sum(dense_serve.values()) + gemma_serve
-                      + gemma_bf16 + gemma_fwd),
+                      + gemma_bf16 + gemma_fwd + b16_fwd),
          "max_abs_err": fa_err,
          "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": f_bound_ms,
          "bound_by": f_bound_by, "library_ms": f_lib_ms},
         {"name": "wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/ssm_scan/csrc/wkv.cu",
          "replaces": "src/repro/kernels/ssm_scan/kernel.py:24",
-         "launches": wkv_launches + wkv_train_fwd + drv_fwd + ex["wkv"],
+         "launches": (wkv_launches + wkv_train_fwd + drv_fwd + ex["wkv"]
+                      + rwkv16_fwd),
          "max_abs_err": wkv_err, "ms": w_ms,
          "plain_ms": w_plain_ms, "bound_ms": w_bound_ms,
          "bound_by": w_bound_by, "library_ms": None},
@@ -5259,10 +5914,18 @@ def main():
          "max_abs_err": fab_err, "ms": fb_ms,
          "plain_ms": fb_plain_ms, "bound_ms": fb_bound_ms,
          "bound_by": fb_bound_by, "library_ms": fb_lib_ms},
+        {"name": "flash_attention_bwd_bf16", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_bwd.cu",
+         "replaces": "src/repro/models/attention.py:56",
+         "launches": b16_bwd, "max_abs_err": fab16_err, "ms": fb16[0],
+         "plain_ms": fb16[1], "bound_ms": fb16[2], "bound_by": fb16[3],
+         "library_ms": fb16[4]},
         {"name": "wkv_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/ssm_scan/csrc/wkv_bwd.cu",
          "replaces": "src/repro/models/ssm.py:42",
-         "launches": wkv_train_bwd + drv_bwd, "max_abs_err": wkvb_err,
+         "launches": wkv_train_bwd + drv_bwd + rwkv16_bwd,
+         "max_abs_err": wkvb_err,
          "ms": wb_ms, "plain_ms": wb_plain_ms, "bound_ms": wb_bound_ms,
          "bound_by": wb_bound_by, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {

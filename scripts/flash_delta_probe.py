@@ -2,6 +2,7 @@
 constant vector, on one CUDA card.
 
     python3 scripts/flash_delta_probe.py [--root CHECKOUT] [--out FILE]
+    python3 scripts/flash_delta_probe.py --dtype bf16 [--out FILE]
     python3 scripts/flash_delta_probe.py --device cpu --small   # seconds
 
 softmax(q (k + c)ᵀ) = softmax(q kᵀ): a constant vector c added to every
@@ -24,6 +25,14 @@ items, heads and columns, over max |dk64|). ``--root`` runs another checkout's
 kernel (``git archive`` of a parent unpacked under build/), so two
 versions compare in one call; ``--device cpu`` runs the plain version in
 both roles (a check of the script, not of a kernel).
+
+``--dtype bf16`` draws the same inputs rounded to bf16 (the shifted keys
+rounded after the shift) and runs the kernel's bf16 entry; the f64 step
+and plain autograd take the same bf16 values. Beside them it prints two
+plain-torch emulations of the bf16 entry's arithmetic (P and dS rounded
+to bf16 as operands, f32 sums, each gradient rounded once): its design
+(dq's product on the centred keys, dk less its mean over the keys) and
+the same without either, which shows what the two corrections are for.
 """
 from __future__ import annotations
 
@@ -65,6 +74,30 @@ def _key_sum(dk, dk64):
     return (dk.double().sum(2).abs().max() / dk64.abs().max()).item()
 
 
+def _emulated_bf16(q, k, v, do, corrected):
+    """The bf16 backward entry's arithmetic in plain torch (non-causal),
+    from bf16 q, k, v, do: the forward's o (P rounded to bf16 before P·V,
+    o rounded once), delta = do·o, P and dP in f32, then P and dS rounded
+    to bf16 as operands; dq on bf16(k − k̄) and dk less its key mean when
+    ``corrected``, else dq on k and dk as summed. (dq, dk, dv) in f32."""
+    B, H, Sq, dh = q.shape
+    G = H // k.shape[1]
+    bf = lambda t: t.to(torch.bfloat16).float()
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    ke, ve = (t.repeat_interleave(G, dim=1) for t in (kf, vf))
+    p = torch.softmax((qf @ ke.mT) * dh ** -0.5, dim=-1)
+    o = bf(bf(p) @ ve)
+    ds = p * (dof @ ve.mT - (dof * o).sum(-1, keepdim=True))
+    kk = bf(kf - kf.mean(2, keepdim=True)) if corrected else kf
+    dq = bf(ds) @ kk.repeat_interleave(G, dim=1) * dh ** -0.5
+    fold = lambda t: t.reshape(B, -1, G, *t.shape[2:]).sum(2)
+    dk = fold(bf(ds).mT @ qf) * dh ** -0.5
+    if corrected:
+        dk = dk - dk.mean(2, keepdim=True)
+    dv = fold(bf(p).mT @ dof)
+    return [bf(t) for t in (dq, dk, dv)]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -72,6 +105,7 @@ def main(argv=None):
     ap.add_argument("--small", action="store_true",
                     help=f"shape {SMALL} instead of {SHAPE}")
     ap.add_argument("--out", default="")
+    ap.add_argument("--dtype", default="f32", choices=("f32", "bf16"))
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve() / "src"))
     from repro_torch.kernels.flash_attention import attention_ref, ops
@@ -86,9 +120,14 @@ def main(argv=None):
     u = torch.tensor(u / np.linalg.norm(u), dtype=torch.float32, device=dev)
     r = k.square().sum(-1).mean().sqrt()
     tag = card() if dev.type == "cuda" else "cpu"
+    bf16 = args.dtype == "bf16"
+    if bf16:
+        q, v, do = (t.to(torch.bfloat16) for t in (q, v, do))
     dq0 = None
     for m in MULTIPLES:
         kc = k + (m * r) * u
+        if bf16:
+            kc = kc.to(torch.bfloat16)
         if dev.type == "cuda":
             o, lse = ops._launch(q, kc, v, False, 0, want_lse=True)
             got = ops._launch_bwd(q, kc, v, o, lse, do, False, 0)
@@ -104,6 +143,7 @@ def main(argv=None):
             dq0 = got[0].double()
         rec = {"card": tag, "root": args.root, "shape": [B, H, KV, Sq, Skv,
                                                          dh],
+               "dtype": args.dtype,
                "c_over_key_rms": m, "c_norm": (m * r).item(),
                "kernel_vs_f64": {n: _rel(g, r64) for n, g, r64 in
                                  zip(("dq", "dk", "dv"), got, g64)},
@@ -113,6 +153,13 @@ def main(argv=None):
                "dk_key_sum": {"kernel": _key_sum(got[1], g64[1]),
                               "plain": _key_sum(plain[1], g64[1]),
                               "f64": _key_sum(g64[1], g64[1])}}
+        if bf16:
+            for name, corrected in (("emulated_design", True),
+                                    ("emulated_uncorrected", False)):
+                em = _emulated_bf16(q, kc, v, do, corrected)
+                rec[f"{name}_vs_f64"] = {n: _rel(g, r64) for n, g, r64 in
+                                         zip(("dq", "dk", "dv"), em, g64)}
+                rec["dk_key_sum"][name] = _key_sum(em[1], g64[1])
         line = json.dumps(rec)
         print(line, flush=True)
         if args.out:

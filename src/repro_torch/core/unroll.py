@@ -12,6 +12,9 @@ Layer functions take any leading batch axes in front of the agent axis
 (the serve path stacks requests there). Random draws come from an
 explicit ``torch.Generator``; they cannot match JAX's threefry stream, so
 ``featurize_cohort`` also takes injected draws.
+
+JAX-only: ``batch_vector`` (the reference's legacy flattening, kept
+there for compatibility; the layers use the task's ``batch_vector``).
 """
 from __future__ import annotations
 

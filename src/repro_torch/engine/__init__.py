@@ -10,6 +10,11 @@
   * ``engine.snapshots`` — in-loop evaluation at an ``eval_every``
                            cadence;
   * ``engine.resume``    — restore from a checkpoint and train on.
+
+JAX-only (see each module): ``make_train_scan``, ``make_seed_train_scan``
+and ``TRACE_COUNTS`` (compiled engines and their trace counts: the
+drivers run eagerly), ``seed_keys`` and ``snapshot_key`` (jax.random key
+roots: the ``core.unroll`` generators replace them).
 """
 from repro_torch.engine import resume, seeds, snapshots  # noqa: F401
 from repro_torch.engine.core import (TrainState,  # noqa: F401

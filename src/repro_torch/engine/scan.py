@@ -42,6 +42,10 @@ snapshots); ``q_sharded=True`` Q-shards the TRAINING pool too (each
 device holds Q/P datasets) and selects meta-step t's dataset by copying
 it from its owner (``surf_rules.make_q_select``), bit-equal to the
 replicated index. Placements come from ``surf_rules.train_scan_shardings``.
+
+JAX-only: ``make_train_scan`` (the reference's builder of one compiled,
+cached scan; the drivers above run the loop itself, so there is nothing
+to build).
 """
 from __future__ import annotations
 

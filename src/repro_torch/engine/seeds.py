@@ -37,6 +37,11 @@ row i equals lane i's sequential run on the same mesh
 (``train_scan(..., mix_fn=mix_fn.lane(i))``) bit for bit. The shared
 snapshot pool is Q-sharded over 'agent'; ``q_sharded=True`` Q-shards
 the training pool the same way (default or ``takes_S`` mixing only).
+
+JAX-only: ``make_seed_train_scan`` (the reference's builder of the one
+compiled, vmapped seed scan; ``train_scan_seeds`` runs the lockstep loops
+directly) and ``seed_keys`` (the stack of ``PRNGKey(seed)`` roots; each
+seed here draws from ``core.unroll.step_generator(seed, t)``).
 """
 from __future__ import annotations
 

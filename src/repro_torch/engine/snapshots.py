@@ -21,6 +21,10 @@ The reference emits a NaN row every step inside its compiled scan and
 decimates on the host (``nan_snapshot``, ``decimate_snapshots``, ported
 as its public API); the drivers here keep the on-cadence rows only and
 return them in the decimated list's format.
+
+JAX-only: ``snapshot_key`` and ``SNAP_FOLD`` (the reference folds the
+snapshot's key from the run's key with that constant;
+``core.unroll.snapshot_generator(seed, t, q)`` replaces both).
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 // Backward pass of blocked online-softmax attention (FlashAttention) for
-// Hopper (sm_90a), f32, with every product on the tensor cores
-// (mma.sync m16n8k8 in split TF32).
+// Hopper (sm_90a), with every product on the tensor cores: f32 inputs in
+// split TF32 (mma.sync m16n8k8), bf16 inputs in bf16 (mma.sync m16n8k16,
+// `flash_attention_bwd_bf16`, at the end of this header).
 //
 // Computes dq, dk and dv of  o = softmax(q k^T / sqrt(dh) + mask) v  for
 // q (B, H, Sq, dh), k/v (B, KV, Skv, dh), with the forward kernel's masks
@@ -105,7 +106,39 @@
 //     32 query rows) x 132 floats + 2 x 2 x 32 row scalars = 203,264 B
 //     (one block of 8 warps per SM); dq (2 x 64 + 2 x 32 rows) x 132
 //     floats = 101,376 B (two blocks of 4 warps per SM).
+//
+// bf16 (`flash_attention_bwd_bf16`): q, k, v, o, do bf16, lse f32; dq, dk,
+// dv bf16. The same kernels' structure, with one m16n8k16 bf16 product
+// (f32 accumulators) where the f32 entry runs three TF32 ones, the
+// operands' fragments by ldmatrix as in the forward's bf16 instance:
+//   * S = q k^T and dP = do v^T from the bf16 inputs as they are (exact
+//     products, f32 sums), P from the forward's lse unshifted: the
+//     forward computed that lse from the same keys, so the keys are not
+//     centred for the scores (a centred key rounded to bf16 would move
+//     every score by up to 2^-9 of |q| |k - kmean|).
+//   * P and dS are rounded to bf16 only as the A operands of P^T do, dS^T q
+//     and dS k (each at most 2^-8 of its entry); dq, dk and dv sum in f32
+//     registers, each query or kv tile's part in fresh accumulators, and
+//     are rounded to bf16 once.
+//   * dq = dS (k - kmean) scale: dS is rounded to bf16 here, so its rows no
+//     longer sum to 0, and against the raw keys the gap would carry every
+//     component that the keys share (2^-8 of |dS| times it; 30 times the
+//     keys' own size at chip_smoke.py's key shift). So dq's product reads
+//     the centred keys kc = bf16(k - kmean), a third tile beside K and V
+//     (its rounding is at most 2^-8 of |k - kmean|).
+//   * dk is summed in f32 into scratch, then its mean over the keys is
+//     taken out (the same identity as the f32 entry's; the bf16 dS makes
+//     sum_j dk_j nonzero by far more than f32 did) and it is rounded to
+//     bf16 by the second `centre` pass.
+//   * bound at the qwen3-4b shape: the same 344 GFLOP at 989 TFLOP/s,
+//     0.348 ms, against 0.3 GB of bf16 inputs and outputs (0.09 ms):
+//     operations; the design's seven products per live pair, 0.487 ms.
+//   * shared memory at dh = 128 (rows of 136 bf16): dkdv (2 x 128 + 2 x 2
+//     x 32) rows = 104,448 B + 256 B of row scalars (one block of 8 warps
+//     per SM: dk and dv take 128 registers a thread); dq (2 x 64 query +
+//     3 x 64 key rows) = 87,040 B (two blocks of 4 warps per SM).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -128,6 +161,15 @@ constexpr int CENTRE_ROWS = 16;          // key rows per centring block
 struct Strides {
   long long b, h, s;
 };
+
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void stf(float* p, float x) { *p = x; }
+__device__ __forceinline__ void stf(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -270,13 +312,14 @@ __device__ __forceinline__ void store_pair(float* row, int d, int dh,
   }
 }
 
-// delta[b, h, i] = sum_d do[b, h, i, d] o[b, h, i, d], and the
-// log-sum-exp shifted to the centred keys, lsec[b, h, i] = lse[b, h, i] -
-// q[b, h, i] . kmean[b, h / G] scale_log2, which both the dq and the dk/dv
-// kernel read: one warp per row.
+// delta[b, h, i] = sum_d do[b, h, i, d] o[b, h, i, d], and (when `lsec`
+// is not null: the f32 entry) the log-sum-exp shifted to the centred keys,
+// lsec[b, h, i] = lse[b, h, i] - q[b, h, i] . kmean[b, h / G] scale_log2,
+// which both the dq and the dk/dv kernel read: one warp per row.
+template <typename T>
 __global__ void __launch_bounds__(DELTA_NT)
-delta_kernel(const float* __restrict__ o, const float* __restrict__ dO,
-             const float* __restrict__ q, const float* __restrict__ lse,
+delta_kernel(const T* __restrict__ o, const T* __restrict__ dO,
+             const T* __restrict__ q, const float* __restrict__ lse,
              const float* __restrict__ kmean, float* __restrict__ delta,
              float* __restrict__ lsec, int H, int KV, int Sq, int dh,
              Strides os, Strides gs, Strides qs, float scale_log2) {
@@ -284,14 +327,14 @@ delta_kernel(const float* __restrict__ o, const float* __restrict__ dO,
   const int i = blockIdx.y * (DELTA_NT / 32) + warp;
   if (i >= Sq) return;
   const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
-  const float* orow = o + b * os.b + h * os.h + i * os.s;
-  const float* grow = dO + b * gs.b + h * gs.h + i * gs.s;
-  const float* qrow = q + b * qs.b + h * qs.h + i * qs.s;
+  const T* orow = o + b * os.b + h * os.h + i * os.s;
+  const T* grow = dO + b * gs.b + h * gs.h + i * gs.s;
+  const T* qrow = q + b * qs.b + h * qs.h + i * qs.s;
   const float* km = kmean + ((long long)b * KV + h / (H / KV)) * dh;
   float acc = 0.f, c = 0.f;
   for (int d = lane; d < dh; d += 32) {
-    acc = fmaf(orow[d], grow[d], acc);
-    c = fmaf(qrow[d], km[d], c);
+    acc = fmaf(ldf(orow + d), ldf(grow + d), acc);
+    if (lsec != nullptr) c = fmaf(ldf(qrow + d), km[d], c);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -301,7 +344,7 @@ delta_kernel(const float* __restrict__ o, const float* __restrict__ dO,
   if (lane == 0) {
     const long long r = (long long)blockIdx.x * Sq + i;
     delta[r] = acc;
-    lsec[r] = lse[r] - c * scale_log2;
+    if (lsec != nullptr) lsec[r] = lse[r] - c * scale_log2;
   }
 }
 
@@ -309,20 +352,21 @@ delta_kernel(const float* __restrict__ o, const float* __restrict__ dO,
 // item, kv head), 32 warps each summing a contiguous 32nd of the keys in
 // order for 32 columns at a time, then the partials added in order (no
 // atomics: a rerun is bit-equal).
+template <typename T>
 __global__ void __launch_bounds__(KMEAN_NT)
-kmean_kernel(const float* __restrict__ k, float* __restrict__ kmean, int KV,
+kmean_kernel(const T* __restrict__ k, float* __restrict__ kmean, int KV,
              int Skv, int dh, Strides ks) {
   __shared__ float part[KMEAN_NT / 32][32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x / KV, kvh = blockIdx.x - b * KV;
-  const float* kp = k + b * ks.b + kvh * ks.h;
+  const T* kp = k + b * ks.b + kvh * ks.h;
   const int per = (Skv + KMEAN_NT / 32 - 1) / (KMEAN_NT / 32);
   const int j0 = warp * per, j1 = min(j0 + per, Skv);
   for (int d0 = 0; d0 < dh; d0 += 32) {
     const int d = d0 + lane;
     float acc = 0.f;
     if (d < dh)
-      for (int j = j0; j < j1; ++j) acc += kp[j * ks.s + d];
+      for (int j = j0; j < j1; ++j) acc += ldf(kp + j * ks.s + d);
     part[warp][lane] = acc;
     __syncthreads();
     if (warp == 0 && d < dh) {
@@ -335,21 +379,24 @@ kmean_kernel(const float* __restrict__ k, float* __restrict__ kmean, int KV,
   }
 }
 
-// kc = k - kmean, contiguous (B, KV, Skv, dh): the keys both products
-// kernels read, and dk projected in place (kc == k: each thread reads the
-// element it writes, so the pointers may alias). One block per (batch
-// item x kv head, CENTRE_ROWS keys).
+// kc = k - kmean, contiguous (B, KV, Skv, dh): the keys the products
+// kernels read (f32; in bf16 dq's product only), and dk projected (in
+// place in f32: kc == k, each thread reads the element it writes, so the
+// pointers may alias; in bf16 from the f32 sums into the bf16 output). One
+// block per (batch item x kv head, CENTRE_ROWS keys).
+template <typename Tin, typename Tout>
 __global__ void __launch_bounds__(CENTRE_NT)
-centre_kernel(const float* k, const float* __restrict__ kmean, float* kc,
+centre_kernel(const Tin* k, const float* __restrict__ kmean, Tout* kc,
               int KV, int Skv, int dh, Strides ks) {
   const int b = blockIdx.x / KV, kvh = blockIdx.x - b * KV;
-  const float* kp = k + b * ks.b + kvh * ks.h;
+  const Tin* kp = k + b * ks.b + kvh * ks.h;
   const float* km = kmean + (long long)blockIdx.x * dh;
-  float* out = kc + (long long)blockIdx.x * Skv * dh;
+  Tout* out = kc + (long long)blockIdx.x * Skv * dh;
   const int j0 = blockIdx.y * CENTRE_ROWS;
   for (int e = threadIdx.x; e < CENTRE_ROWS * dh; e += CENTRE_NT) {
     const int j = j0 + e / dh, d = e - (e / dh) * dh;
-    if (j < Skv) out[(long long)j * dh + d] = kp[j * ks.s + d] - km[d];
+    if (j < Skv)
+      stf(out + (long long)j * dh + d, ldf(kp + j * ks.s + d) - km[d]);
   }
 }
 
@@ -703,18 +750,18 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   float* kmean = lsec + (long long)B * H * Sq;
   const Strides cs{(long long)KV * Skv * dh, (long long)Skv * dh, dh};
   const dim3 centre_grid(B * KV, (Skv + CENTRE_ROWS - 1) / CENTRE_ROWS);
-  kmean_kernel<<<B * KV, KMEAN_NT, 0, stream>>>(k, kmean, KV, Skv, dh,
-                                                 st[1]);
+  kmean_kernel<float><<<B * KV, KMEAN_NT, 0, stream>>>(k, kmean, KV, Skv,
+                                                        dh, st[1]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  centre_kernel<<<centre_grid, CENTRE_NT, 0, stream>>>(k, kmean, kc, KV, Skv,
-                                                       dh, st[1]);
+  centre_kernel<float, float><<<centre_grid, CENTRE_NT, 0, stream>>>(
+      k, kmean, kc, KV, Skv, dh, st[1]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  delta_kernel<<<dim3(B * H, (Sq + DELTA_NT / 32 - 1) / (DELTA_NT / 32)),
-                 DELTA_NT, 0, stream>>>(o, dO, q, lse, kmean, delta, lsec, H,
-                                        KV, Sq, dh, st[3], st[4], st[0],
-                                        scale_log2);
+  delta_kernel<float>
+      <<<dim3(B * H, (Sq + DELTA_NT / 32 - 1) / (DELTA_NT / 32)), DELTA_NT, 0,
+          stream>>>(o, dO, q, lse, kmean, delta, lsec, H, KV, Sq, dh, st[3],
+                    st[4], st[0], scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dkdv_kernel<DHP, VEC><<<dim3(B * KV, (Skv + KV_BKV - 1) / KV_BKV), KV_NT,
@@ -730,11 +777,534 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // dk_j - mean_j dk_j, in place (kmean's buffer is free again)
-  kmean_kernel<<<B * KV, KMEAN_NT, 0, stream>>>(dk, kmean, KV, Skv, dh, cs);
+  kmean_kernel<float><<<B * KV, KMEAN_NT, 0, stream>>>(dk, kmean, KV, Skv,
+                                                        dh, cs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  centre_kernel<<<centre_grid, CENTRE_NT, 0, stream>>>(dk, kmean, dk, KV,
-                                                       Skv, dh, cs);
+  centre_kernel<float, float><<<centre_grid, CENTRE_NT, 0, stream>>>(
+      dk, kmean, dk, KV, Skv, dh, cs);
+  return cudaGetLastError();
+}
+
+// ---- bf16: one m16n8k16 product per step, fragments by ldmatrix ----
+
+constexpr int PADB = 8;                 // bf16 elements of padding per row
+constexpr int QB_BKV = 64;              // keys per staged kv tile in dq
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a b, one m16n8k16 bf16 product with f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ROWS rows of DHP bf16 from global row r0 on (rows >= n_rows and columns
+// >= dh zero-filled) into shared rows of DHP + PADB elements.
+template <int DHP, int ROWS, int NT, bool VEC>
+__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               long long stride, int r0,
+                                               int n_rows, int dh, int tid) {
+  constexpr int LD = DHP + PADB;
+  if constexpr (VEC) {
+    constexpr int CPR = DHP / 8;          // 16-byte chunks per row
+    for (int c = tid; c < ROWS * CPR; c += NT) {
+      const int r = c / CPR;
+      const int d = (c - r * CPR) * 8;
+      const int gr = r0 + r;
+      const bool ok = gr < n_rows && d < dh;
+      cp_async16(dst + r * LD + d, ok ? src + gr * stride + d : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < ROWS * DHP; e += NT) {
+      const int r = e / DHP;
+      const int d = e - r * DHP;
+      const int gr = r0 + r;
+      dst[r * LD + d] = (gr < n_rows && d < dh) ? src[gr * stride + d]
+                                                : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// c[NS][4] += A B^T: A 16 rows x DHP (this warp's rows of a row-major
+// shared tile), B NS * 8 rows x DHP (row-major: the n index is B's row),
+// as the forward's Q K^T.
+template <int DHP, int NS, int LD>
+__device__ __forceinline__ void rows_by_rows(float (*c)[4],
+                                             const __nv_bfloat16* a_rows,
+                                             const __nv_bfloat16* b_rows,
+                                             int lane) {
+#pragma unroll
+  for (int kk = 0; kk < DHP / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, a_rows + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < NS / 2; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, b_rows + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                         kk * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(c[2 * np], a, b[0], b[1]);
+      mma_bf16(c[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc[NO][4] += C B: C (16 x NS * 8, accumulator layout, rounded to bf16
+// as the A operand: the accumulators of two n8 tiles are the A fragment of
+// one k16 step), B NS * 8 rows x DHP (row-major: the k index is B's row),
+// as the forward's P V. Each output column pair's product runs in fresh
+// accumulators that are then added to acc in f32 (round to nearest).
+template <int DHP, int NS, int LD>
+__device__ __forceinline__ void acc_by_rows(float (*acc)[4],
+                                            const float (*c)[4],
+                                            const __nv_bfloat16* b_rows,
+                                            int lane) {
+  uint32_t a[NS / 2][4];
+#pragma unroll
+  for (int kk = 0; kk < NS / 2; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+#pragma unroll
+  for (int np = 0; np < DHP / 16; ++np) {
+    float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, b_rows + (kk * 16 + (lane & 7) +
+                                     ((lane >> 3) & 1) * 8) * LD +
+                               np * 16 + (lane >> 4) * 8);
+      mma_bf16(p0, a[kk], b[0], b[1]);
+      mma_bf16(p1, a[kk], b[2], b[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[2 * np][e] += p0[e];
+      acc[2 * np + 1][e] += p1[e];
+    }
+  }
+}
+
+// Two outputs of a contiguous bf16 row (dh columns) from column d on.
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int d, int dh,
+                                           float x, float y) {
+  if ((dh & 1) == 0) {
+    if (d < dh)
+      *reinterpret_cast<__nv_bfloat162*>(row + d) =
+          __floats2bfloat162_rn(x, y);
+  } else {
+    if (d < dh) row[d] = __float2bfloat16(x);
+    if (d + 1 < dh) row[d + 1] = __float2bfloat16(y);
+  }
+}
+
+// dk (f32, into scratch) and dv (bf16) of one tile of KV_BKV keys of one
+// (batch item, kv head): the f32 dkdv kernel's loop with bf16 products.
+template <int DHP, bool VEC>
+__global__ void __launch_bounds__(KV_NT, 1)
+dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 const __nv_bfloat16* __restrict__ dO,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, int H, int KV, int Sq,
+                 int Skv, int dh, Strides qs, Strides ks, Strides vs,
+                 Strides gs, int causal, int window, float scale_log2,
+                 float scale) {
+  constexpr int LD = DHP + PADB;
+  constexpr int NS = KV_BQ / 8;         // n8 score tiles per warp
+  constexpr int NO = DHP / 8;           // n8 output tiles per warp
+  constexpr int TILE = KV_BQ * LD;      // one staged Q or dO tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* const sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* const sV = sK + KV_BKV * LD;
+  __nv_bfloat16* const sQ = sV + KV_BKV * LD;             // 2 stages
+  __nv_bfloat16* const sdO = sQ + 2 * TILE;               // 2 stages
+  float* const sL = reinterpret_cast<float*>(sdO + 2 * TILE);   // 2 x KV_BQ
+  float* const sD = sL + 2 * KV_BQ;                              // 2 x KV_BQ
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int G = H / KV;
+  const int b = blockIdx.x / KV;
+  const int kvh = blockIdx.x - b * KV;
+  const int k_lo = blockIdx.y * KV_BKV;
+  const int k_hi = min(k_lo + KV_BKV, Skv) - 1;
+  const int kw_lo = k_lo + 16 * warp;     // this warp's 16 keys
+  const int kw_hi = min(kw_lo + 15, Skv - 1);
+
+  const int n_q = (Sq + KV_BQ - 1) / KV_BQ;
+  const int i_begin = causal ? k_lo / KV_BQ : 0;
+  const int i_end =
+      window > 0 ? min(n_q, (k_hi + window - 1) / KV_BQ + 1) : n_q;
+  const int per_head = max(i_end - i_begin, 0);
+  const int n_tiles = G * per_head;
+
+  auto load_tile = [&](int n) {
+    const int st = n & 1;
+    const int h = kvh * G + n / per_head;
+    const int q_lo = (i_begin + n % per_head) * KV_BQ;
+    load_rows_bf16<DHP, KV_BQ, KV_NT, VEC>(
+        sQ + st * TILE, q + b * qs.b + h * qs.h, qs.s, q_lo, Sq, dh, tid);
+    load_rows_bf16<DHP, KV_BQ, KV_NT, VEC>(
+        sdO + st * TILE, dO + b * gs.b + h * gs.h, gs.s, q_lo, Sq, dh, tid);
+    const long long row0 = ((long long)b * H + h) * Sq + q_lo;
+    if (tid < 2 * KV_BQ) {
+      const int r = tid & (KV_BQ - 1);
+      const bool ok = q_lo + r < Sq;
+      const float* src = (tid < KV_BQ ? lse : delta) + (ok ? row0 + r : 0);
+      float* dst = (tid < KV_BQ ? sL : sD) + st * KV_BQ + r;
+      if (VEC) {
+        cp_async4(dst, src, ok ? 4 : 0);
+      } else {
+        *dst = ok ? *src : 0.f;
+      }
+    }
+  };
+
+  load_rows_bf16<DHP, KV_BKV, KV_NT, VEC>(sK, k + b * ks.b + kvh * ks.h, ks.s,
+                                          k_lo, Skv, dh, tid);
+  load_rows_bf16<DHP, KV_BKV, KV_NT, VEC>(sV, v + b * vs.b + kvh * vs.h, vs.s,
+                                          k_lo, Skv, dh, tid);
+  if (n_tiles > 0) load_tile(0);
+  cp_async_commit();
+
+  float adk[NO][4], adv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+  const __nv_bfloat16* wK = sK + 16 * warp * LD;
+  const __nv_bfloat16* wV = sV + 16 * warp * LD;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    cp_async_wait<0>();                  // tile n (and K, V) have landed,
+    __syncthreads();                     // and every warp is done with n-1
+    if (n + 1 < n_tiles) load_tile(n + 1);
+    cp_async_commit();
+
+    const int st = n & 1;
+    const int q_lo = (i_begin + n % per_head) * KV_BQ;
+    const int q_hi = min(q_lo + KV_BQ, Sq) - 1;
+    const bool dead = kw_lo >= Skv || (causal && kw_lo > q_hi) ||
+                      (window > 0 && q_lo - kw_hi >= window);
+    if (dead) continue;                  // warp-uniform
+    const bool edge = (causal && kw_hi > q_lo) ||
+                      (window > 0 && q_hi - kw_lo >= window) ||
+                      kw_lo + 16 > Skv || q_lo + KV_BQ > Sq;
+    const __nv_bfloat16* tQ = sQ + st * TILE;
+    const __nv_bfloat16* tdO = sdO + st * TILE;
+    const float* tL = sL + st * KV_BQ;
+    const float* tD = sD + st * KV_BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 32 queries.
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int m = 0; m < NS; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[m][e] = dp[m][e] = 0.f;
+    rows_by_rows<DHP, NS, LD>(s, wK, tQ, lane);
+    rows_by_rows<DHP, NS, LD>(dp, wV, tdO, lane);
+
+    // P^T and dS^T = P^T (dP^T - delta), in place; key g (+ 8), query
+    // m 8 + 2t (+ 1).
+#pragma unroll
+    for (int m = 0; m < NS; ++m) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = m * 8 + 2 * t + (e & 1);
+        bool live = true;
+        if (edge) {
+          const int qi = q_lo + col;
+          const int kj = kw_lo + g + (e >> 1) * 8;
+          live = qi < Sq && kj < Skv && (!causal || kj <= qi) &&
+                 (window <= 0 || kj > qi - window);
+        }
+        const float p = live ? exp2f(s[m][e] * scale_log2 - tL[col]) : 0.f;
+        s[m][e] = p;
+        dp[m][e] = p * (dp[m][e] - tD[col]);
+      }
+    }
+
+    // dv += P^T dO, dk += dS^T Q over this tile's 32 query rows
+    acc_by_rows<DHP, NS, LD>(adv, s, tdO, lane);
+    acc_by_rows<DHP, NS, LD>(adk, dp, tQ, lane);
+  }
+
+  float* dkp = dk + ((long long)b * KV + kvh) * Skv * dh;
+  __nv_bfloat16* dvp = dv + ((long long)b * KV + kvh) * Skv * dh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = kw_lo + g + 8 * r;
+    if (kj >= Skv) continue;
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt) {
+      const int d = nt * 8 + 2 * t;
+      store_pair(dkp + (long long)kj * dh, d, dh, adk[nt][2 * r] * scale,
+                 adk[nt][2 * r + 1] * scale);
+      store_pair(dvp + (long long)kj * dh, d, dh, adv[nt][2 * r],
+                 adv[nt][2 * r + 1]);
+    }
+  }
+}
+
+// dq (bf16) of one query tile of Q_BQ rows of one (batch item, head): the
+// f32 dq kernel's loop over kv tiles of QB_BKV keys, with bf16 products;
+// the scores from the keys k, dq's product from the centred keys kc.
+template <int DHP, bool VEC>
+__global__ void __launch_bounds__(Q_NT, 2)
+dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ kc,
+               const __nv_bfloat16* __restrict__ v,
+               const __nv_bfloat16* __restrict__ dO,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dq, int H, int KV, int Sq,
+               int Skv, int dh, Strides qs, Strides ks, Strides cs,
+               Strides vs, Strides gs, int causal, int window,
+               float scale_log2, float scale) {
+  constexpr int LD = DHP + PADB;
+  constexpr int NS = QB_BKV / 8;         // n8 score tiles per warp
+  constexpr int NO = DHP / 8;            // n8 output tiles per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* const sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* const sdO = sQ + Q_BQ * LD;
+  __nv_bfloat16* const sK = sdO + Q_BQ * LD;              // QB_BKV rows
+  __nv_bfloat16* const sV = sK + QB_BKV * LD;             // QB_BKV rows
+  __nv_bfloat16* const sC = sV + QB_BKV * LD;             // QB_BKV rows
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int G = H / KV;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * Q_BQ;   // heaviest first
+  const int q_hi = min(q_lo + Q_BQ, Sq) - 1;
+  const int qw_lo = q_lo + 16 * warp;    // this warp's 16 rows
+  const int qw_hi = min(qw_lo + 15, Sq - 1);
+  const long long row0 = ((long long)b * H + h) * Sq;
+  const __nv_bfloat16* kp = k + b * ks.b + (h / G) * ks.h;
+  const __nv_bfloat16* cp = kc + b * cs.b + (h / G) * cs.h;
+  const __nv_bfloat16* vp = v + b * vs.b + (h / G) * vs.h;
+
+  const int n_kv = (Skv + QB_BKV - 1) / QB_BKV;
+  const int j_end = causal ? min(n_kv, q_hi / QB_BKV + 1) : n_kv;
+  const int j_begin = window > 0 ? max(0, q_lo - window + 1) / QB_BKV : 0;
+
+  // Copy groups, in order: {Q, dO, V(j_begin)}, {K(j_begin)},
+  // {KC(j_begin)}, then per tile {V(j+1)} after dO V(j)^T is read, {K(j+1)}
+  // after Q K(j)^T and {KC(j+1)} after dS KC(j).
+  load_rows_bf16<DHP, Q_BQ, Q_NT, VEC>(sQ, q + b * qs.b + h * qs.h, qs.s,
+                                       q_lo, Sq, dh, tid);
+  load_rows_bf16<DHP, Q_BQ, Q_NT, VEC>(sdO, dO + b * gs.b + h * gs.h, gs.s,
+                                       q_lo, Sq, dh, tid);
+  if (j_begin < j_end)
+    load_rows_bf16<DHP, QB_BKV, Q_NT, VEC>(sV, vp, vs.s, j_begin * QB_BKV,
+                                           Skv, dh, tid);
+  cp_async_commit();
+  if (j_begin < j_end)
+    load_rows_bf16<DHP, QB_BKV, Q_NT, VEC>(sK, kp, ks.s, j_begin * QB_BKV,
+                                           Skv, dh, tid);
+  cp_async_commit();
+  if (j_begin < j_end)
+    load_rows_bf16<DHP, QB_BKV, Q_NT, VEC>(sC, cp, cs.s, j_begin * QB_BKV,
+                                           Skv, dh, tid);
+  cp_async_commit();
+
+  float lrow[2], drow[2];                // rows g and g + 8 of this warp
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qw_lo + g + 8 * r;
+    lrow[r] = qi < Sq ? lse[row0 + qi] : 0.f;
+    drow[r] = qi < Sq ? delta[row0 + qi] : 0.f;
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const __nv_bfloat16* wQ = sQ + 16 * warp * LD;
+  const __nv_bfloat16* wdO = sdO + 16 * warp * LD;
+
+  for (int jt = j_begin; jt < j_end; ++jt) {
+    const bool more = jt + 1 < j_end;
+    const int k_lo = jt * QB_BKV;
+    const int k_hi = min(k_lo + QB_BKV, Skv) - 1;
+    const bool dead = qw_lo >= Sq || (causal && k_lo > qw_hi) ||
+                      (window > 0 && qw_lo - k_hi >= window);
+    const bool edge = (causal && k_hi > qw_lo) ||
+                      (window > 0 && qw_hi - k_lo >= window) ||
+                      k_lo + QB_BKV > Skv;
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int m = 0; m < NS; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[m][e] = dp[m][e] = 0.f;
+
+    cp_async_wait<2>();                  // V(jt) (and Q, dO) have landed
+    __syncthreads();
+    if (!dead) rows_by_rows<DHP, NS, LD>(dp, wdO, sV, lane);   // dO V^T
+    __syncthreads();                     // every warp has read V(jt)
+    if (more)
+      load_rows_bf16<DHP, QB_BKV, Q_NT, VEC>(sV, vp, vs.s, (jt + 1) * QB_BKV,
+                                             Skv, dh, tid);
+    cp_async_commit();
+
+    cp_async_wait<2>();                  // K(jt) has landed
+    __syncthreads();
+    if (!dead) {
+      rows_by_rows<DHP, NS, LD>(s, wQ, sK, lane);              // Q K^T
+      // dS = P (dP - delta) in place of dP; row g (+ 8), key m 8 + 2t (+ 1)
+#pragma unroll
+      for (int m = 0; m < NS; ++m) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool live = true;
+          if (edge) {
+            const int qi = qw_lo + g + (e >> 1) * 8;
+            const int kj = k_lo + m * 8 + 2 * t + (e & 1);
+            live = kj < Skv && (!causal || kj <= qi) &&
+                   (window <= 0 || kj > qi - window);
+          }
+          const float p =
+              live ? exp2f(s[m][e] * scale_log2 - lrow[e >> 1]) : 0.f;
+          dp[m][e] = p * (dp[m][e] - drow[e >> 1]);
+        }
+      }
+    }
+    __syncthreads();                     // every warp has read K(jt)
+    if (more)
+      load_rows_bf16<DHP, QB_BKV, Q_NT, VEC>(sK, kp, ks.s, (jt + 1) * QB_BKV,
+                                             Skv, dh, tid);
+    cp_async_commit();
+
+    cp_async_wait<2>();                  // KC(jt) has landed
+    __syncthreads();
+    if (!dead) acc_by_rows<DHP, NS, LD>(acc, dp, sC, lane);   // dq += dS KC
+    __syncthreads();                     // every warp has read KC(jt)
+    if (more)
+      load_rows_bf16<DHP, QB_BKV, Q_NT, VEC>(sC, cp, cs.s, (jt + 1) * QB_BKV,
+                                             Skv, dh, tid);
+    cp_async_commit();
+  }
+
+  __nv_bfloat16* dqp = dq + row0 * dh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qw_lo + g + 8 * r;
+    if (qi >= Sq) continue;
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt)
+      store_pair(dqp + (long long)qi * dh, nt * 8 + 2 * t, dh,
+                 acc[nt][2 * r] * scale, acc[nt][2 * r + 1] * scale);
+  }
+}
+
+template <int DHP>
+constexpr size_t dkdv_bf16_smem() {
+  return sizeof(__nv_bfloat16) * (2 * KV_BKV + 4 * KV_BQ) *
+             (size_t)(DHP + PADB) +
+         sizeof(float) * 4 * KV_BQ;
+}
+
+template <int DHP>
+constexpr size_t dq_bf16_smem() {
+  return sizeof(__nv_bfloat16) * (2 * Q_BQ + 3 * QB_BKV) *
+         (size_t)(DHP + PADB);
+}
+
+template <int DHP, bool VEC>
+cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                        const __nv_bfloat16* v, const __nv_bfloat16* o,
+                        const __nv_bfloat16* dO, const float* lse,
+                        __nv_bfloat16* dq, __nv_bfloat16* dk,
+                        __nv_bfloat16* dv, float* scratch, int B, int H,
+                        int KV, int Sq, int Skv, int dh, const Strides* st,
+                        int causal, int window, float scale_log2,
+                        float scale, cudaStream_t stream) {
+  constexpr size_t kv_smem = dkdv_bf16_smem<DHP>();
+  constexpr size_t q_smem = dq_bf16_smem<DHP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv_bf16_kernel<DHP, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kv_smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dq_bf16_kernel<DHP, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)q_smem);
+  if (err != cudaSuccess) return err;
+  // st: q, k, v, o, do
+  // scratch: kc (B KV Skv dh bf16, padded to 16 bytes), dk's f32 sums
+  // (B KV Skv dh), delta (B H Sq), kmean (B KV dh)
+  const long long n = (long long)B * KV * Skv * dh;
+  __nv_bfloat16* kc = reinterpret_cast<__nv_bfloat16*>(scratch);
+  float* dk32 = scratch + (n + 7) / 8 * 4;
+  float* delta = dk32 + n;
+  float* kmean = delta + (long long)B * H * Sq;
+  const Strides cs{(long long)KV * Skv * dh, (long long)Skv * dh, dh};
+  const dim3 centre_grid(B * KV, (Skv + CENTRE_ROWS - 1) / CENTRE_ROWS);
+  kmean_kernel<__nv_bfloat16><<<B * KV, KMEAN_NT, 0, stream>>>(
+      k, kmean, KV, Skv, dh, st[1]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  centre_kernel<__nv_bfloat16, __nv_bfloat16>
+      <<<centre_grid, CENTRE_NT, 0, stream>>>(k, kmean, kc, KV, Skv, dh,
+                                              st[1]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  delta_kernel<__nv_bfloat16>
+      <<<dim3(B * H, (Sq + DELTA_NT / 32 - 1) / (DELTA_NT / 32)), DELTA_NT, 0,
+         stream>>>(o, dO, q, lse, kmean, delta, nullptr, H, KV, Sq, dh,
+                   st[3], st[4], st[0], scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkdv_bf16_kernel<DHP, VEC>
+      <<<dim3(B * KV, (Skv + KV_BKV - 1) / KV_BKV), KV_NT, kv_smem, stream>>>(
+          q, k, v, dO, lse, delta, dk32, dv, H, KV, Sq, Skv, dh, st[0],
+          st[1], st[2], st[4], causal, window, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dq_bf16_kernel<DHP, VEC>
+      <<<dim3(B * H, (Sq + Q_BQ - 1) / Q_BQ), Q_NT, q_smem, stream>>>(
+          q, k, kc, v, dO, lse, delta, dq, H, KV, Sq, Skv, dh, st[0], st[1],
+          cs, st[2], st[4], causal, window, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // dk = bf16(dk32_j - mean_j dk32_j) (kmean's buffer is free again)
+  kmean_kernel<float><<<B * KV, KMEAN_NT, 0, stream>>>(dk32, kmean, KV, Skv,
+                                                        dh, cs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  centre_kernel<float, __nv_bfloat16><<<centre_grid, CENTRE_NT, 0, stream>>>(
+      dk32, kmean, dk, KV, Skv, dh, cs);
   return cudaGetLastError();
 }
 
@@ -789,6 +1359,60 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
 #define FLASH_BWD_LAUNCH(DHP, VEC)                                            \
   launch<DHP, VEC>(qq, kk, vv, oo, gg, ll, dqq, dkk, dvv, dd, B, H, KV, Sq,   \
                    Skv, dh, st, causal, window, scale_log2, scale, s)
+  if (dh <= 64)
+    return (int)(vec ? FLASH_BWD_LAUNCH(64, true)
+                     : FLASH_BWD_LAUNCH(64, false));
+  return (int)(vec ? FLASH_BWD_LAUNCH(128, true)
+                   : FLASH_BWD_LAUNCH(128, false));
+#undef FLASH_BWD_LAUNCH
+}
+
+// The same contract with bf16 q, k, v, o, do (lse f32) and bf16 dq, dk,
+// dv: `scratch` is f32 scratch of 4 ceil(B KV Skv dh / 8) + B KV Skv dh +
+// B H Sq + B KV dh floats, 16-byte aligned (the centred keys in bf16, dk's
+// f32 sums, delta, the key means). Tiles load with 16-byte cp.async when
+// every row of q, k, v and do starts 16-byte aligned and dh is a multiple
+// of 8, else element by element.
+int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                             const void* o, const void* dO, const void* lse,
+                             void* dq, void* dk, void* dv, void* scratch,
+                             int B, int H, int KV, int Sq, int Skv, int dh,
+                             const long long* strides, int causal,
+                             int window, float scale_log2, float scale,
+                             void* stream) {
+  if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Skv < 1 ||
+      dh < 1 || dh > 128 || window < 0 || (long long)B * H > 2147483647LL ||
+      (Sq + Q_BQ - 1) / Q_BQ > 65535 || (Skv + KV_BKV - 1) / KV_BKV > 65535 ||
+      (Sq + DELTA_NT / 32 - 1) / (DELTA_NT / 32) > 65535 ||
+      (Skv + CENTRE_ROWS - 1) / CENTRE_ROWS > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Strides st[5];
+  for (int t = 0; t < 5; ++t) {
+    st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
+  }
+  bool vec = dh % 8 == 0;
+  for (int t = 0; t < 15; ++t) {   // o: delta only
+    if (t / 3 != 3) vec = vec && strides[t] % 8 == 0;
+  }
+  const void* ptrs[5] = {q, k, v, dO, scratch};
+  for (const void* p : ptrs)
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  using bf = __nv_bfloat16;
+  const bf* qq = static_cast<const bf*>(q);
+  const bf* kk = static_cast<const bf*>(k);
+  const bf* vv = static_cast<const bf*>(v);
+  const bf* oo = static_cast<const bf*>(o);
+  const bf* gg = static_cast<const bf*>(dO);
+  const float* ll = static_cast<const float*>(lse);
+  bf* dqq = static_cast<bf*>(dq);
+  bf* dkk = static_cast<bf*>(dk);
+  bf* dvv = static_cast<bf*>(dv);
+  float* dd = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FLASH_BWD_LAUNCH(DHP, VEC)                                            \
+  launch_bf16<DHP, VEC>(qq, kk, vv, oo, gg, ll, dqq, dkk, dvv, dd, B, H, KV,  \
+                        Sq, Skv, dh, st, causal, window, scale_log2, scale, s)
   if (dh <= 64)
     return (int)(vec ? FLASH_BWD_LAUNCH(64, true)
                      : FLASH_BWD_LAUNCH(64, false));

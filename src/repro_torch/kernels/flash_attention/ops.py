@@ -1,6 +1,6 @@
 """Public wrapper of the flash-attention kernels: blocked online-softmax
-attention with causal and sliding-window masks and GQA, forward and (for
-f32 training) backward.
+attention with causal and sliding-window masks and GQA, forward and
+backward.
 
 ``flash_attention(q, k, v, causal=True, window=0)`` keeps the
 reference's layout and semantics
@@ -15,12 +15,13 @@ tensor cores (see the kernel's header):
     through ``FlashAttention``, a ``torch.autograd.Function``: its forward
     launch also writes each row's log-sum-exp, and its backward launches
     the hand-written backward kernel (``csrc/flash_attention_bwd.cu``:
-    dq, dk, dv on the tensor cores in split TF32, dk and dv per tile of
-    128 keys summed over the G query heads of a kv head, dq per tile of
-    64 query rows, every product on keys centred on their mean, dk's
-    mean over the keys taken out, no atomics). The backward takes f32 only (the reference
-    trains in f32): bf16 inputs that require a gradient raise. On the CPU
-    autograd differentiates the plain version.
+    dq, dk, dv on the tensor cores, dk and dv per tile of 128 keys summed
+    over the G query heads of a kv head, dq per tile of 64 query rows,
+    dk's mean over the keys taken out, no atomics; f32 in split TF32 with
+    every product on keys centred on their mean, bf16 in bf16 products
+    with P and dS rounded to bf16 as operands and dq's product on the
+    centred keys, within ``bf16_grad_error_bound`` of the plain version).
+    On the CPU autograd differentiates the plain version.
 
 The reference's tiling knobs (``block_q``, ``block_kv``) and its
 ``interpret`` switch do not exist here, nor do its padding of dh to 128
@@ -64,15 +65,19 @@ LIB = Library(CSRC, {"flash_attention_f32": _SIG,
               "flash_attention_error_string")
 # q, k, v, o, do, lse, dq, dk, dv, scratch, B, H, KV, Sq, Skv, dh, strides,
 # causal, window, scale_log2, scale, stream
-BWD_LIB = Library(CSRC_BWD, {"flash_attention_bwd_f32": [_ptr] * 10
-                             + [_i32] * 6 + [_ptr, _i32, _i32, _f32, _f32,
-                                             _ptr]},
+_BWD_SIG = [_ptr] * 10 + [_i32] * 6 + [_ptr, _i32, _i32, _f32, _f32, _ptr]
+BWD_LIB = Library(CSRC_BWD, {"flash_attention_bwd_f32": _BWD_SIG,
+                             "flash_attention_bwd_bf16": _BWD_SIG},
                   "flash_attention_bwd_error_string")
 
 # Largest head dim the kernel takes (its 128-wide instance).
 MAX_DH = 128
 DTYPES = (torch.float32, torch.bfloat16)
 LOG2E = 1.4426950408889634
+# The f32 backward kernel's distance from autograd through the plain
+# version, of each gradient's largest entry (chip_smoke.py 5b's gate: f32
+# sums over up to 2048 keys in another order).
+F32_GRAD_REL = 1e-4
 
 
 def _check(q, k, v, window):
@@ -134,21 +139,30 @@ def _launch(q, k, v, causal, window, want_lse=False):
 
 def _launch_bwd(q, k, v, o, lse, do, causal, window):
     """One launch of the backward kernel (seven CUDA kernels: the key
-    means, the centred keys, delta and the shifted log-sum-exp, dk/dv, dq,
-    then dk's mean over the keys taken out) on f32 CUDA tensors. Returns
-    contiguous (dq, dk, dv)."""
+    means, the centred keys, delta (f32: and the shifted log-sum-exp),
+    dk/dv, dq, then dk's mean over the keys taken out) on CUDA tensors,
+    q, k, v, o and do of one dtype (f32 or bf16), lse f32. Returns
+    contiguous (dq, dk, dv) in that dtype."""
     B, H, Sq, dh = q.shape
     KV, Skv = k.shape[1], k.shape[2]
-    q, k, v, o, do = _unit_dh(q, k, v, o, do)
-    dq = torch.empty((B, H, Sq, dh), dtype=torch.float32, device=q.device)
-    dk = torch.empty((B, KV, Skv, dh), dtype=torch.float32, device=q.device)
+    q, k, v, o, do = _unit_dh(q, k, v, o, do.to(q.dtype))
+    dq = torch.empty((B, H, Sq, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, KV, Skv, dh), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    # scratch: the centred keys (B, KV, Skv, dh), delta and the shifted
-    # log-sum-exp (B, H, Sq each), the key means (B, KV, dh)
-    scratch = torch.empty(B * KV * (Skv + 1) * dh + 2 * B * H * Sq,
-                          dtype=torch.float32, device=q.device)
+    n = B * KV * Skv * dh
+    if q.dtype == torch.float32:
+        # the centred keys (B, KV, Skv, dh), delta and the shifted
+        # log-sum-exp (B, H, Sq each), the key means (B, KV, dh)
+        size = n + B * KV * dh + 2 * B * H * Sq
+    else:
+        # the centred keys in bf16 (in floats, padded to 16 bytes), dk's
+        # f32 sums, delta, the key means
+        size = 4 * -(-n // 8) + n + B * H * Sq + B * KV * dh
+    scratch = torch.empty(size, dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
-    fn = BWD_LIB.load().flash_attention_bwd_f32
+    lib = BWD_LIB.load()
+    fn = (lib.flash_attention_bwd_f32 if q.dtype == torch.float32
+          else lib.flash_attention_bwd_bf16)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -199,6 +213,68 @@ def bf16_error_bound(q, k, v, o_ref, causal=True, window=0):
     return 2.0 ** -8 * a + 1.02 * 2.0 ** -7 * o_ref.float().abs()
 
 
+def _probs(q, k, causal, window):
+    """softmax(q kᵀ / sqrt(dh) + mask) in f32, (B, KV, G, Sq, Skv), as
+    ``attention_ref`` computes it."""
+    B, H, Sq, dh = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, KV, H // KV, Sq, dh)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * dh ** -0.5
+    qi = torch.arange(Sq, device=q.device)[:, None]
+    kj = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window:
+        mask &= kj > qi - window
+    return torch.softmax(torch.where(mask, logits, -1e30), dim=-1)
+
+
+def bf16_grad_error_bound(q, k, v, do, grads_ref, causal=True, window=0):
+    """Per-element bounds on |kernel − plain| of (dq, dk, dv) for bf16
+    inputs, ``grads_ref`` being the plain version's gradients (autograd
+    through ``attention_ref`` on the same q, k, v and cotangent ``do``,
+    in f32 and rounded to bf16 once). Written from the kernel's roundings,
+    with u = 2⁻⁸ (a bf16 rounding moves x by at most u|x|), P and dP
+    exact in f32 but for the sums' order:
+
+      * P and dS are rounded to bf16 as operands: u P_ij and u |dS_ij|;
+      * delta = do·o reads the forward kernel's bf16 o, at most
+        Δo = u softmax|v| + u |o| from the f32 o (``bf16_error_bound``'s
+        two terms), so dS_ij moves by P_ij Δδ_i, Δδ_i = Σ_d |do_id| Δo_id;
+      * dv_j = Σ_i P_ij do_i: u Σ_i P_ij |do_i|;
+      * dq_i = scale Σ_j dS_ij (k_j − k̄) on the centred keys, rounded to
+        bf16 (u |k_j − k̄|): scale Σ_j (2u |dS_ij| + P_ij Δδ_i) |k_j − k̄|;
+      * dk_j = scale Σ_i dS_ij q_i over the G heads: E_j = scale Σ_i
+        (u |dS_ij| + P_ij Δδ_i) |q_i|, and taking out dk's mean over the
+        keys (zero analytically) moves it by at most the mean of E;
+      * each gradient rounded to bf16 once in both versions: 1.02 · 2⁻⁷
+        of |g_ref|, and the f32 sums' order, ``F32_GRAD_REL`` of the
+        gradient's largest entry (the f32 kernel's gate).
+
+    Never fitted to a run: a kernel above 1.0 is a kernel or a δ that is
+    wrong."""
+    u, scale = 2.0 ** -8, q.shape[-1] ** -0.5
+    p = _probs(q, k, causal, window)
+    vf, kf = v.float(), k.float()
+    o = torch.einsum("bkgqs,bksd->bkgqd", p, vf)
+    a = torch.einsum("bkgqs,bksd->bkgqd", p, vf.abs())
+    dof = do.float().reshape(o.shape)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
+    ds = p * (dp - (dof * o).sum(-1, keepdim=True))
+    ddelta = (dof.abs() * (u * a + u * o.abs())).sum(-1, keepdim=True)
+    pd = p * ddelta
+    kc = (kf - kf.mean(2, keepdim=True)).abs()
+    qa = q.float().abs().reshape(o.shape)
+    dv = u * torch.einsum("bkgqs,bkgqd->bksd", p, dof.abs())
+    dq = scale * torch.einsum("bkgqs,bksd->bkgqd", 2 * u * ds.abs() + pd, kc)
+    e = scale * torch.einsum("bkgqs,bkgqd->bksd", u * ds.abs() + pd, qa)
+    dk = e + e.mean(2, keepdim=True)
+    return [x.reshape(g.shape) + 1.02 * 2.0 ** -7 * g.float().abs()
+            + F32_GRAD_REL * g.float().abs().max()
+            for x, g in zip((dq, dk, dv), grads_ref)]
+
+
 def flash_attention(q, k, v, causal=True, window=0):
     """q (B,H,Sq,dh); k/v (B,KV,Skv,dh), all three of one dtype, f32 or
     bf16 (the reference casts each input to f32 and so also takes mixed
@@ -206,8 +282,8 @@ def flash_attention(q, k, v, causal=True, window=0):
     in q's dtype: softmax(q kᵀ / sqrt(dh) + mask) v with head h reading kv
     head h // (H // KV), f32 accumulation. On CUDA, dh ≤ ``MAX_DH``, f32
     products in split TF32 and, for bf16 inputs, P rounded to bf16; when
-    an input requires a gradient, the call is ``FlashAttention`` (f32
-    only), whose backward is the backward kernel."""
+    an input requires a gradient, the call is ``FlashAttention``, whose
+    backward is the backward kernel."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
@@ -219,10 +295,6 @@ def _on_card(q, k, v, causal, window):
     input requires a gradient, else one forward launch."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q.dtype != torch.float32:
-            raise TypeError(f"the flash-attention backward kernel takes "
-                            f"float32; got {q.dtype} inputs that require a "
-                            "gradient")
         return FlashAttention.apply(q, k, v, causal, window)
     o = _launch(q, k, v, causal, window)
     flash_attention.launches += 1

@@ -36,6 +36,15 @@ goes through the task's loss, never twice through the filter.
 The reference's (8, 128) padding, ``pick_block_d`` and
 ``pallas_profitable`` are TPU tiling rules and have no counterpart: the
 kernel masks ragged n and d itself.
+
+JAX-only: ``IMPLS`` and ``resolve_interpret`` (the reference's choice
+between its Pallas kernel, interpret mode and plain jnp: here the device
+chooses, CUDA tensors the kernel and CPU tensors the plain version),
+``graph_filter_hsw`` (the deprecated (h, S, W) argument order:
+``graph_filter(S, W, h)``) and ``make_pallas_mix`` (the S-as-argument
+mixer through the Pallas kernel: the engines' default mixer, ``mix=None``,
+launches this kernel on CUDA tensors; ``ref.make_plain_mix`` is the
+plain one).
 """
 from __future__ import annotations
 

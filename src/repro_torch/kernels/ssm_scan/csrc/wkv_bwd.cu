@@ -1,18 +1,19 @@
-// Backward pass of the RWKV6 wkv recurrence for Hopper (sm_90a), f32:
+// Backward pass of the RWKV6 wkv recurrence for Hopper (sm_90a), f32 or
+// bf16 inputs, f32 arithmetic:
 //
 //   y_t = r_t . (S_{t-1} + (u * k_t) v_t^T),   S_t = diag(w_t) S_{t-1} + k_t v_t^T
 //
-// from S_0 = 0 per (batch item, head). Given dy, it returns dr, dk, dv, dw
-// (B, H, T, dk) and du (H, dk). The final state S_T is treated as having
-// no gradient (it is unused in training; the wrapper raises on a nonzero
-// one). It runs in reverse time carrying G_t = dL/dS_t:
+// from S_0 = 0 per (batch item, head). Given dy and the final state's
+// gradient dS (B, H, dk, dk) f32, or none (zero), it returns dr, dk, dv,
+// dw (B, H, T, dk, in the inputs' dtype) and du (H, dk, f32). It runs in
+// reverse time carrying G_t = dL/dS_t:
 //
 //   dr_t[i] = sum_j S_{t-1}[i][j] dy_t[j] + u_i k_t[i] (v_t . dy_t)
 //   dk_t[i] = sum_j G_t[i][j] v_t[j]     + u_i r_t[i] (v_t . dy_t)
 //   dv_t[j] = sum_i G_t[i][j] k_t[i]     + (sum_i r_t[i] u_i k_t[i]) dy_t[j]
 //   dw_t[i] = sum_j G_t[i][j] S_{t-1}[i][j]
 //   du[i]   = sum_{b, t} r_t[i] k_t[i] (v_t . dy_t)
-//   G_{t-1} = diag(w_t) G_t + r_t dy_t^T,   G_T = 0.
+//   G_{t-1} = diag(w_t) G_t + r_t dy_t^T,   G_T = dS (0 without one).
 //
 // Replaces: the gradient of the reference's RWKV6 time scan, which XLA
 // differentiates (src/repro/models/ssm.py:42, chunked_time_scan, through
@@ -75,12 +76,22 @@
 //   * the state buffer's 16-byte chunks are swizzled by the row (chunk q
 //     of row i at q ^ (i % 4)), so a warp's row-wise and column-wise reads
 //     are free of bank conflicts.
+//   * G_T = dS: each thread starts its 16 entries of G from dS's row i and
+//     its own columns (so the two column groups split dS as they split the
+//     state); a null dS starts them at zero.
+//   * bf16 (`wkv_bwd_bf16`): r, k, v, w and dy are widened to f32 as they
+//     are staged (16-byte loads through registers: cp.async cannot
+//     convert, and two bf16 staging buffers would not leave room for two
+//     blocks per SM), so the recurrence and every sum are the f32 entry's;
+//     dv, and dr, dk, dw in `wkv_reduce`, are rounded to bf16 once as they
+//     are stored. The partials and du stay f32.
 //   * shared memory: 2 stages x 5 x 16 x 64 staged inputs, 8 x 64 x 32
 //     states and 32 scalars: 106,624 B (two blocks per SM). Scratch:
 //     ckpt, ceil(T / 16) states of 64 x 64 f32 per (batch item, head),
 //     268 MB at the rwkv6-1.6b shape; the partials, 3 x groups x B H T dk
 //     f32, 403 MB there.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -116,8 +127,59 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(x.x, x.y);
+  q[1] = __floats2bfloat162_rn(x.z, x.w);
+}
+
 // CT steps from t0 on of dk channels (valid: t < T_len, channel < dk) into
-// dst[CT][DKP]; the rest zero-filled.
+// dst[CT][DKP] f32; the rest zero-filled. bf16 rows are widened through
+// registers (8 values per 16-byte load).
+template <bool VEC>
+__device__ __forceinline__ void load_chunk(float* dst,
+                                           const __nv_bfloat16* src,
+                                           long long stride, int t0,
+                                           int T_len, int dk, int tid) {
+  if constexpr (VEC) {
+    constexpr int CPR = DKP / 8;
+    for (int c = tid; c < CT * CPR; c += NTH) {
+      const int r = c / CPR;
+      const int d = (c - r * CPR) * 8;
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (t0 + r < T_len && d < dk) {
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(src + (t0 + r) * stride + d);
+        const __nv_bfloat162* b =
+            reinterpret_cast<const __nv_bfloat162*>(&raw);
+        const float2 a0 = __bfloat1622float2(b[0]);
+        const float2 a1 = __bfloat1622float2(b[1]);
+        const float2 a2 = __bfloat1622float2(b[2]);
+        const float2 a3 = __bfloat1622float2(b[3]);
+        lo = make_float4(a0.x, a0.y, a1.x, a1.y);
+        hi = make_float4(a2.x, a2.y, a3.x, a3.y);
+      }
+      *reinterpret_cast<float4*>(dst + r * DKP + d) = lo;
+      *reinterpret_cast<float4*>(dst + r * DKP + d + 4) = hi;
+    }
+  } else {
+    for (int e = tid; e < CT * DKP; e += NTH) {
+      const int r = e / DKP;
+      const int d = e - r * DKP;
+      dst[e] = (t0 + r < T_len && d < dk)
+                   ? __bfloat162float(src[(t0 + r) * stride + d])
+                   : 0.f;
+    }
+  }
+}
+
 template <bool VEC>
 __device__ __forceinline__ void load_chunk(float* dst, const float* src,
                                            long long stride, int t0,
@@ -187,12 +249,13 @@ __device__ __forceinline__ void advance(float* S, const float* sk,
   for (int m = 0; m < HC; ++m) S[m] = fmaf(w_i, S[m], k_i * v[m]);
 }
 
-template <bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(NTH, 2)
-wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ w,
-               const float* __restrict__ u, const float* __restrict__ dy,
-               float* __restrict__ dv, float* __restrict__ part,
+wkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ w,
+               const float* __restrict__ u, const T* __restrict__ dy,
+               const float* __restrict__ dS, T* __restrict__ dv,
+               float* __restrict__ part,
                float* __restrict__ du_part, float* __restrict__ ckpt, int H,
                int T_len, int dkn, int n_cb, int n_ch, Strides rs,
                Strides ks, Strides vs, Strides ws, Strides gs) {
@@ -213,11 +276,11 @@ wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const int b = bh / H;
   const int h = bh - b * H;
   const int col0 = cb * JC + hf * HC;    // this thread's first value column
-  const float* rp = r + b * rs.b + h * rs.h;
-  const float* kp = k + b * ks.b + h * ks.h;
-  const float* vp = v + b * vs.b + h * vs.h;
-  const float* wp = w + b * ws.b + h * ws.h;
-  const float* gp = dy + b * gs.b + h * gs.h;
+  const T* rp = r + b * rs.b + h * rs.h;
+  const T* kp = k + b * ks.b + h * ks.h;
+  const T* vp = v + b * vs.b + h * vs.h;
+  const T* wp = w + b * ws.b + h * ws.h;
+  const T* gp = dy + b * gs.b + h * gs.h;
   // this thread's 16 entries of the chunk-start states
   float* const ck = ckpt + (((long long)bh * n_ch) * n_cb + cb) * NTH * HC +
                     tid * HC;
@@ -279,9 +342,16 @@ wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
   for (int q = 0; q < 4; ++q)
     dv_off[q] = (((dv_cc >> 2) ^ q) << 2) | (dv_cc & 3);
+  // G_T = dS: row i, this thread's columns (zero past dk, or without dS)
   float G[HC], du_acc = 0.f;
 #pragma unroll
   for (int m = 0; m < HC; ++m) G[m] = 0.f;
+  if (dS != nullptr && i < dkn) {
+    const float* g0 = dS + ((long long)bh * dkn + i) * dkn;
+#pragma unroll
+    for (int m = 0; m < HC; ++m)
+      if (col0 + m < dkn) G[m] = g0[col0 + m];
+  }
   auto load_bw = [&](int c) {
     float* st = stages + (c & 1) * STAGE;
     const int t0 = c * CT;
@@ -419,8 +489,9 @@ wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
           const int tt = h0 + s;
           const int j = cb * JC + dv_cc;
           if (j < dkn)
-            dv[out0 + (long long)(t0 + tt) * dkn + j] =
-                fmaf(sruk[tt], sg[tt * DKP + j], (a[0] + a[1]) + (a[2] + a[3]));
+            store1(dv + out0 + (long long)(t0 + tt) * dkn + j,
+                   fmaf(sruk[tt], sg[tt * DKP + j],
+                        (a[0] + a[1]) + (a[2] + a[3])));
         }
       }
       __syncthreads();                   // before the slots are rebuilt
@@ -432,9 +503,10 @@ wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
 // dr, dk, dw (blockIdx.y = 0, 1, 2) = the column groups' partials summed
 // in group order; du[h][i] = sum_b du_part[b][h][i] in batch order
 // (blockIdx.y = 3).
+template <typename T>
 __global__ void __launch_bounds__(RED_NT)
-wkv_reduce_kernel(const float* __restrict__ part, float* __restrict__ dr,
-                  float* __restrict__ dk, float* __restrict__ dw,
+wkv_reduce_kernel(const float* __restrict__ part, T* __restrict__ dr,
+                  T* __restrict__ dk, T* __restrict__ dw,
                   const float* __restrict__ du_part, float* __restrict__ du,
                   long long N, int n_cb, int B, int Hdk) {
   const long long first = blockIdx.x * (long long)RED_NT + threadIdx.x;
@@ -448,7 +520,7 @@ wkv_reduce_kernel(const float* __restrict__ part, float* __restrict__ dr,
     }
     return;
   }
-  float* const out = a == 0 ? dr : a == 1 ? dk : dw;
+  T* const out = a == 0 ? dr : a == 1 ? dk : dw;
   const float* const p = part + a * N;
   const long long group = 3 * N;         // from one group's partial to the next
   if ((N & 3) == 0) {                    // float4s
@@ -462,13 +534,13 @@ wkv_reduce_kernel(const float* __restrict__ part, float* __restrict__ dr,
         s.z += q.z;
         s.w += q.w;
       }
-      reinterpret_cast<float4*>(out)[x] = s;
+      store4(out + 4 * x, s);
     }
   } else {
     for (long long x = first; x < N; x += stride) {
       float s = p[x];
       for (int c = 1; c < n_cb; ++c) s += p[x + c * group];
-      out[x] = s;
+      store1(out + x, s);
     }
   }
 }
@@ -477,53 +549,52 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * STAGE + SC * DKP * JC + 2 * CT);
 }
 
-template <bool VEC>
-cudaError_t launch(const float* r, const float* k, const float* v,
-                   const float* w, const float* u, const float* dy, float* dr,
-                   float* dk, float* dv, float* dw, float* du, float* du_part,
-                   float* ckpt, float* part, int B, int H, int T, int dkn,
-                   const Strides* st, cudaStream_t cs) {
-  const int n_ch = (T + CT - 1) / CT;
+template <typename T, bool VEC>
+cudaError_t launch(const T* r, const T* k, const T* v, const T* w,
+                   const float* u, const T* dy, const float* dS, T* dr,
+                   T* dk, T* dv, T* dw, float* du, float* du_part,
+                   float* ckpt, float* part, int B, int H, int T_len,
+                   int dkn, const Strides* st, cudaStream_t cs) {
+  const int n_ch = (T_len + CT - 1) / CT;
   const int n_cb = (dkn + JC - 1) / JC;
   constexpr size_t smem = smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
-      wkv_bwd_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wkv_bwd_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  wkv_bwd_kernel<VEC><<<B * H * n_cb, NTH, smem, cs>>>(
-      r, k, v, w, u, dy, dv, part, du_part, ckpt, H, T, dkn, n_cb, n_ch,
-      st[0], st[1], st[2], st[3], st[4]);
+  wkv_bwd_kernel<T, VEC><<<B * H * n_cb, NTH, smem, cs>>>(
+      r, k, v, w, u, dy, dS, dv, part, du_part, ckpt, H, T_len, dkn, n_cb,
+      n_ch, st[0], st[1], st[2], st[3], st[4]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long N = (long long)B * H * T * dkn;
+  const long long N = (long long)B * H * T_len * dkn;
   const long long per = (N & 3) == 0 ? N / 4 : N;   // items per array
   const long long blocks = (per + RED_NT - 1) / RED_NT;
-  wkv_reduce_kernel<<<dim3((unsigned)(blocks < 2048 ? blocks : 2048), 4),
-                      RED_NT, 0, cs>>>(part, dr, dk, dw, du_part, du, N,
-                                       n_cb, B, H * dkn);
+  wkv_reduce_kernel<T><<<dim3((unsigned)(blocks < 2048 ? blocks : 2048), 4),
+                         RED_NT, 0, cs>>>(part, dr, dk, dw, du_part, du, N,
+                                          n_cb, B, H * dkn);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches the two kernels on `stream` and returns cudaGetLastError() (0
-// on success); it does not synchronise and allocates nothing. `strides`
-// holds 15 element strides: (batch, head, time) of r, k, v, w and dy (unit
-// stride over dk). u (H, dk) f32 contiguous; dr, dk, dv, dw (B, H, T, dk)
-// and du (H, dk) are written contiguous. Scratch from the wrapper:
-// `du_part` (B, H, dk) f32; `ckpt`, B H ceil(T / 16) 4096 f32 (one
-// 64 x 64 state per chunk of 16 steps per (batch item, head)); `part`,
-// 3 ceil(dk / 32) B H T dk f32 (the column groups' partials of dr, dk,
-// dw). Chunks load with 16-byte cp.async when every row of r, k, v, w and
-// dy starts 16-byte aligned, else element by element.
-int wkv_bwd_f32(const void* r, const void* k, const void* v, const void* w,
-                const void* u, const void* dy, void* dr, void* dk, void* dv,
-                void* dw, void* du, void* du_part, void* ckpt, void* part,
-                int B, int H, int T, int dkn, const long long* strides,
-                void* stream) {
-  if (B < 1 || H < 1 || T < 1 || dkn < 1 || dkn > DKP ||
+// Each entry launches the two kernels on `stream` and returns
+// cudaGetLastError() (0 on success); it does not synchronise and allocates
+// nothing. `strides` holds 15 element strides: (batch, head, time) of r,
+// k, v, w and dy (unit stride over dk). u (H, dk) f32 contiguous; dS (B, H,
+// dk, dk) f32 contiguous, the final state's gradient, or null for none;
+// dr, dk, dv, dw (B, H, T, dk, the inputs' dtype) and du (H, dk, f32) are
+// written contiguous. Scratch from the wrapper: `du_part` (B, H, dk) f32;
+// `ckpt`, B H ceil(T / 16) 4096 f32 (one 64 x 64 state per chunk of 16
+// steps per (batch item, head)); `part`, 3 ceil(dk / 32) B H T dk f32 (the
+// column groups' partials of dr, dk, dw). Chunks load 16 bytes at a time
+// when every row of r, k, v, w and dy starts 16-byte aligned, else element
+// by element.
+template <typename T>
+int dispatch(const void* r, const void* k, const void* v, const void* w,
+             const void* u, const void* dy, const void* dS, void* dr,
+             void* dk, void* dv, void* dw, void* du, void* du_part,
+             void* ckpt, void* part, int B, int H, int T_len, int dkn,
+             const long long* strides, void* stream) {
+  if (B < 1 || H < 1 || T_len < 1 || dkn < 1 || dkn > DKP ||
       (long long)B * H * ((dkn + JC - 1) / JC) > 2147483647LL) {
     return (int)cudaErrorInvalidValue;
   }
@@ -531,22 +602,47 @@ int wkv_bwd_f32(const void* r, const void* k, const void* v, const void* w,
   for (int t = 0; t < 5; ++t) {
     st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
   }
-  bool vec = dkn % 4 == 0;
-  for (int t = 0; t < 15; ++t) vec = vec && strides[t] % 4 == 0;
+  constexpr int EPC = 16 / sizeof(T);   // elements per 16-byte chunk
+  bool vec = dkn % EPC == 0;
+  for (int t = 0; t < 15; ++t) vec = vec && strides[t] % EPC == 0;
   const void* ptrs[5] = {r, k, v, w, dy};
   for (const void* p : ptrs)
     vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
 #define WKV_BWD_LAUNCH(VEC)                                                   \
-  launch<VEC>(static_cast<const float*>(r), static_cast<const float*>(k),     \
-              static_cast<const float*>(v), static_cast<const float*>(w),     \
-              static_cast<const float*>(u), static_cast<const float*>(dy),    \
-              static_cast<float*>(dr), static_cast<float*>(dk),               \
-              static_cast<float*>(dv), static_cast<float*>(dw),               \
-              static_cast<float*>(du), static_cast<float*>(du_part),          \
-              static_cast<float*>(ckpt), static_cast<float*>(part), B, H, T,  \
-              dkn, st, static_cast<cudaStream_t>(stream))
+  launch<T, VEC>(static_cast<const T*>(r), static_cast<const T*>(k),          \
+                 static_cast<const T*>(v), static_cast<const T*>(w),          \
+                 static_cast<const float*>(u), static_cast<const T*>(dy),     \
+                 static_cast<const float*>(dS), static_cast<T*>(dr),          \
+                 static_cast<T*>(dk), static_cast<T*>(dv),                    \
+                 static_cast<T*>(dw), static_cast<float*>(du),                \
+                 static_cast<float*>(du_part), static_cast<float*>(ckpt),     \
+                 static_cast<float*>(part), B, H, T_len, dkn, st,             \
+                 static_cast<cudaStream_t>(stream))
   return (int)(vec ? WKV_BWD_LAUNCH(true) : WKV_BWD_LAUNCH(false));
 #undef WKV_BWD_LAUNCH
+}
+
+}  // namespace
+
+extern "C" {
+
+int wkv_bwd_f32(const void* r, const void* k, const void* v, const void* w,
+                const void* u, const void* dy, const void* dS, void* dr,
+                void* dk, void* dv, void* dw, void* du, void* du_part,
+                void* ckpt, void* part, int B, int H, int T, int dkn,
+                const long long* strides, void* stream) {
+  return dispatch<float>(r, k, v, w, u, dy, dS, dr, dk, dv, dw, du, du_part,
+                         ckpt, part, B, H, T, dkn, strides, stream);
+}
+
+int wkv_bwd_bf16(const void* r, const void* k, const void* v, const void* w,
+                 const void* u, const void* dy, const void* dS, void* dr,
+                 void* dk, void* dv, void* dw, void* du, void* du_part,
+                 void* ckpt, void* part, int B, int H, int T, int dkn,
+                 const long long* strides, void* stream) {
+  return dispatch<__nv_bfloat16>(r, k, v, w, u, dy, dS, dr, dk, dv, dw, du,
+                                 du_part, ckpt, part, B, H, T, dkn, strides,
+                                 stream);
 }
 
 const char* wkv_bwd_error_string(int err) {

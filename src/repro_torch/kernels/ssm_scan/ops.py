@@ -14,11 +14,12 @@ returning y and the final f32 state, which a decode resumes from.
     and du in reverse time over blocks of 32 value columns, dr, dk and dw
     summed over the column groups in order by a second kernel; each
     chunk's S_{t-1} rebuilt into shared memory from states stored every
-    16 steps, never by dividing by w). The final state S is treated as
-    having no gradient (training leaves it unused); a nonzero one raises
-    rather than being dropped. The backward takes f32 only (the reference
-    trains in f32): bf16 inputs that require a gradient raise. On the CPU
-    autograd differentiates the plain version.
+    16 steps, never by dividing by w). The final state's gradient dS seeds
+    the reverse pass (as the reference differentiates its scan through S).
+    f32 and bf16 inputs (bf16 widened to f32 as they are loaded, the
+    gradients rounded to bf16 once, within ``bf16_grad_error_bound`` of
+    the plain version). On the CPU autograd differentiates the plain
+    version.
 
 The reference's ``chunk`` and ``interpret`` arguments do not exist here,
 nor does its padding of time to a chunk multiple with w=1, k=0 no-op
@@ -53,10 +54,11 @@ _SIG = [_ptr] * 7 + [_i32] * 4 + [_ptr, _i32, _ptr]
 LIB = Library(CSRC, {"wkv_f32": _SIG, "wkv_bf16": _SIG,
                      "wkv_launch_shape": [_i32] * 3 + [_ptr]},
               "wkv_error_string")
-# r, k, v, w, u, dy, dr, dk, dv, dw, du, du_part, ckpt, part, B, H, T,
-# dk, strides, stream
-BWD_LIB = Library(CSRC_BWD, {"wkv_bwd_f32": [_ptr] * 14 + [_i32] * 4
-                             + [_ptr, _ptr]},
+# r, k, v, w, u, dy, dS (or None), dr, dk, dv, dw, du, du_part, ckpt, part,
+# B, H, T, dk, strides, stream
+_BWD_SIG = [_ptr] * 15 + [_i32] * 4 + [_ptr, _ptr]
+BWD_LIB = Library(CSRC_BWD, {"wkv_bwd_f32": _BWD_SIG,
+                             "wkv_bwd_bf16": _BWD_SIG},
                   "wkv_bwd_error_string")
 # Steps between the states the backward kernel stores (its chunk; it
 # rebuilds them half a chunk at a time), and the value columns of one of
@@ -68,6 +70,10 @@ BWD_COLUMNS = 32
 # 16 lanes of 4 rows each.
 MAX_DK = 64
 DTYPES = (torch.float32, torch.bfloat16)
+# The f32 backward kernel's distance from autograd through the plain
+# version, of each gradient's largest entry (chip_smoke.py 6b's gate: f32
+# sums over up to 2048 steps in another order).
+F32_GRAD_REL = 1e-4
 
 
 def _check(r, k, v, w, u):
@@ -113,14 +119,18 @@ def _launch(r, k, v, w, u):
     return y, S
 
 
-def _launch_bwd(r, k, v, w, u, dy):
-    """One launch of the backward kernel on f32 CUDA tensors. Returns
-    contiguous (dr, dk, dv, dw) and du (H, dk) f32."""
+def _launch_bwd(r, k, v, w, u, dy, dS=None):
+    """One launch of the backward kernel on CUDA tensors (r, k, v, w and
+    dy of one dtype, f32 or bf16; ``dS`` the final state's gradient, or
+    None for none). Returns contiguous (dr, dk, dv, dw) in the inputs'
+    dtype and du (H, dk) f32."""
     B, H, T, dk = r.shape
     r, k, v, w, dy = (a if a.stride(3) == 1 else a.contiguous()
-                      for a in (r, k, v, w, dy))
+                      for a in (r, k, v, w, dy.to(r.dtype)))
     u = u.to(torch.float32).contiguous()
-    grads = [torch.empty((B, H, T, dk), dtype=torch.float32, device=r.device)
+    if dS is not None:
+        dS = dS.to(torch.float32).contiguous()
+    grads = [torch.empty((B, H, T, dk), dtype=r.dtype, device=r.device)
              for _ in range(4)]
     du = torch.empty((H, dk), dtype=torch.float32, device=r.device)
     du_part = torch.empty((B, H, dk), dtype=torch.float32, device=r.device)
@@ -130,11 +140,13 @@ def _launch_bwd(r, k, v, w, u, dy):
     part = torch.empty(3 * -(-dk // BWD_COLUMNS) * B * H * T * dk,
                        dtype=torch.float32, device=r.device)
     strides = [s for a in (r, k, v, w, dy) for s in a.stride()[:3]]
-    fn = BWD_LIB.load().wkv_bwd_f32
+    lib = BWD_LIB.load()
+    fn = lib.wkv_bwd_f32 if r.dtype == torch.float32 else lib.wkv_bwd_bf16
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), dy.data_ptr(),
+                 None if dS is None else dS.data_ptr(),
                  *(g.data_ptr() for g in grads), du.data_ptr(),
                  du_part.data_ptr(), ckpt.data_ptr(), part.data_ptr(), B,
                  H, T, dk,
@@ -158,14 +170,12 @@ class WKV(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dS):
-        if dS is not None and bool(dS.any()):
-            raise NotImplementedError(
-                "wkv: the backward kernel treats the final state as having "
-                "no gradient (training leaves it unused); got a nonzero one")
         r, k, v, w, u = ctx.saved_tensors
-        if dy is None:
+        if dy is None and dS is None:
             return None, None, None, None, None
-        dr, dk, dv, dw, du = _launch_bwd(r, k, v, w, u, dy)
+        if dy is None:
+            dy = torch.zeros_like(r)
+        dr, dk, dv, dw, du = _launch_bwd(r, k, v, w, u, dy, dS)
         wkv.bwd_launches += 1
         return dr, dk, dv, dw, du.to(u.dtype)
 
@@ -188,13 +198,27 @@ def bf16_error_bound(y_ref):
     return 5e-5 + 1.02 * 2.0 ** -7 * y_ref.float().abs()
 
 
+def bf16_grad_error_bound(grads_ref):
+    """Per-element bounds on |kernel − plain| of (dr, dk, dv, dw) for bf16
+    inputs, ``grads_ref`` being the plain version's gradients (autograd
+    through ``wkv_ref``) on the same inputs and cotangents. Both widen the
+    inputs to f32 and run the same f32 recurrence, then round each
+    gradient to bf16 once: they differ by the f32 sums' order, at most
+    ``F32_GRAD_REL`` of the gradient's largest entry (the f32 kernel's
+    gate, chip_smoke.py 6b), and by the two roundings, together at most
+    2⁻⁷ of |g| (with 2% to spare). du is f32 for both dtypes and is held
+    at the f32 gate."""
+    return [F32_GRAD_REL * g.float().abs().max() + 1.02 * 2.0 ** -7
+            * g.float().abs() for g in grads_ref]
+
+
 def wkv(r, k, v, w, u):
     """r/k/v/w (B,H,T,dk), all four of one dtype, f32 or bf16 (the
     reference casts each input to f32 and so also takes mixed dtypes; this
     wrapper refuses them on both devices); u (H,dk). Returns (y (B,H,T,dk) in
     r's dtype, S (B,H,dk,dk) f32). On CUDA, dk ≤ ``MAX_DK``; when an input
-    requires a gradient, the call is ``WKV`` (f32 only), whose backward is
-    the backward kernel."""
+    requires a gradient, the call is ``WKV``, whose backward is the
+    backward kernel."""
     _check(r, k, v, w, u)
     if r.device.type == "cpu":
         return wkv_ref(r, k, v, w, u)
@@ -206,9 +230,6 @@ def _on_card(r, k, v, w, u):
     gradient, else one forward launch."""
     if torch.is_grad_enabled() and any(a.requires_grad
                                        for a in (r, k, v, w, u)):
-        if r.dtype != torch.float32:
-            raise TypeError(f"the wkv backward kernel takes float32; got "
-                            f"{r.dtype} inputs that require a gradient")
         return WKV.apply(r, k, v, w, u)
     out = _launch(r, k, v, w, u)
     wkv.launches += 1

@@ -38,6 +38,11 @@ them from the caller (``launch.dryrun`` derives them from the partition
 specs), with the ring multipliers of the reference: all-gather ≈
 result·(n−1)/n, reduce-scatter ≈ operand·(n−1)/n, all-reduce ≈
 2·operand·(n−1)/n.
+
+JAX-only, the reference's HLO text parser and its tables:
+``parse_module``, ``analyze``, ``Computation``, ``Op``, ``COLLECTIVES``,
+``ELEMENTWISE``, ``ZERO_COST`` and ``DTYPE_BYTES`` (the dispatch-mode
+count above replaces them).
 """
 from __future__ import annotations
 

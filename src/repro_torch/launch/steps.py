@@ -17,7 +17,8 @@ from repro_torch import flags
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.launch import specs as SP
 from repro_torch.models import model as M
-from repro_torch.optim import adam, apply_updates, clip_by_global_norm
+from repro_torch.optim import (adam, apply_updates, clip_by_global_norm,
+                               donated_adam_step_)
 from repro_torch.utils.tree import _leaves, _map
 
 
@@ -42,47 +43,69 @@ def loss_and_grads(cfg: ArchConfig, params, batch, remat=True,
 
 
 def make_train_step(cfg: ArchConfig, lr=1e-4, remat=True, microbatches=1,
-                    plain_kernels=False):
+                    plain_kernels=False, donate=False):
     """Adam train step with optional gradient accumulation over
     ``microbatches`` equal slices of the batch, each of its entries
     (tokens, labels, an enc-dec model's frames) split on its first axis
     (activation memory scales
     with batch / microbatches). Returns ``(train_step, opt)``;
     ``train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "grad_norm", "moe_lb"})`` returns new trees and leaves its
-    inputs as they are. As in the reference, accumulated gradients are
-    summed in f32 and divided by ``microbatches``, the loss is the mean of
-    the microbatches' losses and the aux values their mean; then the
-    global-norm clip at 1.0 and Adam. ``plain_kernels`` differentiates the
-    kernels' plain versions (``loss_and_grads``)."""
+    {"loss", "grad_norm", "moe_lb"})``. As in the reference, accumulated
+    gradients are summed in f32 and divided by ``microbatches``, the loss
+    is the mean of the microbatches' losses and the aux values their
+    mean; then the global-norm clip at 1.0 and Adam. ``plain_kernels``
+    differentiates the kernels' plain versions (``loss_and_grads``).
+
+    ``donate`` is the port's counterpart of the reference's
+    ``donate_argnums=(0, 1)``: the step updates ``params`` and
+    ``opt_state`` in place and returns the same tree objects, the
+    accumulation adds into one f32 tree, and the clip and Adam run leaf by
+    leaf (``optim.donated_adam_step_``), each leaf's gradient freed once
+    its parameter is updated; the results are bit-equal to the undonated
+    step's. With ``donate=False`` the step returns new trees and leaves
+    its inputs as they are."""
     opt = adam(lr)
     kw = {"plain_kernels": True} if plain_kernels else {}
 
-    def train_step(params, opt_state, batch):
+    def grads_of(params, batch):
         if microbatches == 1:
-            (loss, aux), grads = loss_and_grads(cfg, params, batch, remat,
-                                                **kw)
-        else:
-            mb = {k: a.reshape((microbatches, a.shape[0] // microbatches)
-                               + tuple(a.shape[1:]))
-                  for k, a in batch.items()}
-            grads = _map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
-            loss, auxs = 0.0, []
-            for i in range(microbatches):
-                (l_i, aux_i), g = loss_and_grads(
-                    cfg, params, {k: a[i] for k, a in mb.items()}, remat,
-                    **kw)
+            return loss_and_grads(cfg, params, batch, remat, **kw)
+        mb = {k: a.reshape((microbatches, a.shape[0] // microbatches)
+                           + tuple(a.shape[1:]))
+              for k, a in batch.items()}
+        grads = _map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+        loss, auxs = 0.0, []
+        for i in range(microbatches):
+            (l_i, aux_i), g = loss_and_grads(
+                cfg, params, {k: a[i] for k, a in mb.items()}, remat, **kw)
+            if donate:
+                for a, b in zip(_leaves(grads), _leaves(g)):
+                    a.add_(b.to(a.dtype))
+                del a, b
+            else:
                 grads = _map(lambda a, b: a + b.to(a.dtype), grads, g)
-                loss = loss + l_i
-                auxs.append(aux_i)
+            del g
+            loss = loss + l_i
+            auxs.append(aux_i)
+        if donate:
+            for g in _leaves(grads):
+                g.div_(microbatches)
+        else:
             grads = _map(lambda g: g / microbatches, grads)
-            loss = loss / microbatches
-            aux = {k: torch.mean(torch.stack([a[k] for a in auxs]))
-                   for k in auxs[0]}
-        grads, gn = clip_by_global_norm(grads, 1.0)
-        upd, opt_state = opt.update(grads, opt_state)
-        params = apply_updates(params, upd)
+        aux = {k: torch.mean(torch.stack([a[k] for a in auxs]))
+               for k in auxs[0]}
+        return (loss / microbatches, aux), grads
+
+    def train_step(params, opt_state, batch):
+        (loss, aux), grads = grads_of(params, batch)
+        if donate:
+            params, opt_state, gn = donated_adam_step_(grads, opt_state,
+                                                       params, lr)
+        else:
+            grads, gn = clip_by_global_norm(grads, 1.0)
+            upd, opt_state = opt.update(grads, opt_state)
+            params = apply_updates(params, upd)
         return params, opt_state, {"loss": loss, "grad_norm": gn,
                                    "moe_lb": aux["lb"]}
     return train_step, opt

@@ -16,7 +16,9 @@ seed 0) and ``--opts`` (``flags.parse_opts``, e.g. ``chunked_ce=512``).
 For an enc-dec model each step also draws its frame embeddings, the
 reference's 0.02 · N(0, 1) of shape (batch, 24, d_model), from a numpy
 generator seeded with (``--seed``, step), or takes them from
-``frames=``. As in the reference the step runs without remat. ``--ckpt`` writes
+``frames=``. As in the reference the step runs without remat and is
+donated (``make_train_step(donate=True)``: parameters and Adam state
+updated in place; a caller's ``params`` are copied first). ``--ckpt`` writes
 {"params", "step"} in the reference's npz + json format
 (``checkpoint.io``). The run ends with the reference's own check: the
 mean loss of the last 5 steps is below that of the first 5.
@@ -37,7 +39,7 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model as M
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import tree_size
+from repro_torch.utils.tree import _map, tree_size
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -85,8 +87,13 @@ def _train(args, params, state, frames):
 
     if params is None:
         params = M.init_lm(cfg, args.seed, device=device)
+    else:       # the step donates its trees: leave the caller's as they are
+        params = _map(torch.clone, params)
     print(f"params: {tree_size(params)/1e6:.2f}M")
-    step_fn, opt = make_train_step(cfg, lr=args.lr, remat=False)
+    # donated, as the reference's driver jits its step with
+    # donate_argnums=(0, 1)
+    step_fn, opt = make_train_step(cfg, lr=args.lr, remat=False,
+                                   donate=True)
     opt_state = opt.init(params)
 
     if cfg.layout == "encdec" and frames is None:

@@ -13,6 +13,13 @@ function returns new tensors and leaves its inputs as they are, as the
 reference does; updates are elementwise passes over each tensor, in the
 reference's order of operations. Leaves are visited in the trees' own
 order (``utils.tree``); the global norm sums them in that order.
+
+``donated_adam_step_`` is the port's counterpart of the reference's
+donated buffers (``jax.jit(..., donate_argnums=(0, 1))``): the clip,
+Adam and ``apply_updates`` in place on the trees it is given, one leaf at
+a time, so that only one leaf's f32 temporaries are alive at once, with
+the same operations in the same order as the three functions, so its
+results are bit-equal to theirs.
 """
 from __future__ import annotations
 
@@ -38,13 +45,74 @@ def apply_updates(params, updates):
     return _map(lambda p, u: p + u.to(p.dtype), params, updates)
 
 
-def clip_by_global_norm(grads, max_norm):
-    """Scale ``grads`` to a global L2 norm of at most ``max_norm``;
-    returns (clipped grads, the norm before clipping)."""
+def _clip_scale(grads, max_norm):
+    """(the global L2 norm of ``grads`` in f32, the clip factor)."""
     gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                         for g in _leaves(grads)))
-    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
-    return _map(lambda g: g * scale, grads), gn
+    return gn, torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+
+
+def _clipped(g, scale):
+    """g · scale in the promoted dtype, as the reference's ``g * scale``
+    (a bf16 gradient times the f32 factor is f32 there)."""
+    return g.to(torch.promote_types(g.dtype, scale.dtype)) * scale
+
+
+def clip_by_global_norm(grads, max_norm):
+    """Scale ``grads`` to a global L2 norm of at most ``max_norm``;
+    returns (clipped grads, in f32 for bf16 ones, the norm before
+    clipping)."""
+    gn, scale = _clip_scale(grads, max_norm)
+    return _map(lambda g: _clipped(g, scale), grads), gn
+
+
+def _adam_leaf_(p, g, m, v, scale, lr, b1, b2, eps, bc1, bc2):
+    """One leaf of the clip, Adam and ``apply_updates``, in place on m, v
+    and p, in ``clip_by_global_norm``'s, ``adam``'s and
+    ``apply_updates``'s order of operations (so bit-equal to them); its
+    f32 temporaries are freed on return."""
+    g = _clipped(g, scale).to(torch.float32)
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * torch.square(g))
+    del g
+    upd = m / bc1
+    upd.mul_(-lr)
+    den = v / bc2
+    den.sqrt_().add_(eps)
+    upd.div_(den)
+    del den
+    p.add_(upd.to(p.dtype))
+
+
+def donated_adam_step_(grads, state, params, lr, max_norm=1.0, b1=0.9,
+                       b2=0.999, eps=1e-8):
+    """``clip_by_global_norm``, ``adam(lr, b1, b2, eps).update`` and
+    ``apply_updates`` on donated trees: ``state`` (m, v, t) and ``params``
+    are updated in place, one leaf at a time, and each leaf's gradient is
+    freed (its slot in ``grads``, a tree of dicts and lists as
+    ``loss_and_grads`` returns, set to None) once its parameter is
+    updated. Bit-equal to the three functions. Returns (params, state,
+    the norm before clipping)."""
+    gn, scale = _clip_scale(grads, max_norm)
+    state["t"].add_(1)
+    tf = state["t"].to(torch.float32)
+    bc1, bc2 = 1 - torch.pow(b1, tf), 1 - torch.pow(b2, tf)
+    for p, (box, key), m, v in zip(_leaves(params), _slots(grads),
+                                   _leaves(state["m"]), _leaves(state["v"])):
+        _adam_leaf_(p, box[key], m, v, scale, lr, b1, b2, eps, bc1, bc2)
+        box[key] = None
+    return params, state, gn
+
+
+def _slots(tree):
+    """(container, key) of every leaf of a tree of dicts and lists, in
+    ``_leaves``'s order."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, x in items:
+        if isinstance(x, (dict, list)):
+            yield from _slots(x)
+        else:
+            yield tree, key
 
 
 def sgd(lr):

@@ -1,7 +1,11 @@
 """Placement rules of the port: ``surf_rules`` (which device of a
 ``launch.mesh.Mesh`` holds which agent block, seed lane or Q slice) and
 ``rules`` (the LLM's partition specs on the production meshes, which the
-dry run reads)."""
+dry run reads).
+
+JAX-only: ``stacked_agent_sharding`` and ``train_state_shardings`` (see
+``surf_rules``).
+"""
 from repro_torch.sharding.rules import (PartitionSpec,  # noqa: F401
                                         batch_shardings, batch_spec,
                                         cache_shardings, cache_spec,

@@ -24,6 +24,16 @@ policy), except where a caller checks divisibility first
 
 ``mesh_fingerprint`` is the hashable mesh identity the engines' cache
 keys carry.
+
+JAX-only, the reference's ``NamedSharding`` trees for ``jax.jit``'s
+in/out shardings, which have no partitioner to go to here:
+``stacked_agent_sharding`` (the pool's agent axis: ``agent_sharding``
+places the row blocks), ``stacked_shardings_tree`` and
+``stacked_sharded_flags`` (per-leaf shardings and their cache-key
+summary: the halo engines place the pool themselves), ``stacked_q_tree``
+(per-leaf Q shardings: ``stacked_q_sharding`` and ``ShardedPool``),
+``schedule_sharding`` and ``train_state_shardings`` (replicated: the
+engines keep the schedule and the state on the mesh's home device).
 """
 from __future__ import annotations
 

@@ -17,7 +17,11 @@ their tiling's edges, in three layouts, with bit-equal reruns), and a
 reduced-config LM train step through the kernels against the plain one,
 and gemma3-27b's bf16 and windowed pieces (the f32-accumulated bf16 head,
 a windowed bf16 flash call made by ``full_attention`` at the gemma3
-shape, the ring cache across its window against the plain path).
+shape, the ring cache across its window against the plain path), and
+the backward kernels' bf16 entries (within each wrapper's
+``bf16_grad_error_bound`` per element, at the backward shapes and
+tiling edges, in three layouts) and wkv's final-state gradient (f32 and
+bf16).
 
 They are marked ``cuda`` and skip without a card. They import no jax, so
 they run on a card machine without it:
@@ -986,16 +990,112 @@ def test_wkv_backward_kernel_tiling_edges(cuda, B, H, T, dk, layout):
 
 
 def test_backward_kernels_refuse_what_they_do_not_take(cuda):
+    """bf16 inputs that need a gradient run the backward kernels' bf16
+    entries (gradients in bf16, one backward launch); mixed dtypes are
+    still refused; a nonzero gradient of wkv's final state reaches the
+    kernel."""
     q, k, v = _flash_inputs(1, 2, 1, 40, 32, torch.bfloat16, cuda)
-    with pytest.raises(TypeError, match="float32"):
-        flash_attention(q.requires_grad_(), k, v)
+    xs = [t.requires_grad_() for t in (q, k, v)]
+    before = flash_attention.bwd_launches
+    got = torch.autograd.grad(flash_attention(*xs).float().sum(), xs)
+    assert flash_attention.bwd_launches == before + 1
+    assert all(g.dtype == torch.bfloat16 and g.isfinite().all() for g in got)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention(xs[0], k.detach().float(), v)
     args = _wkv_inputs(1, 2, 20, 16, torch.bfloat16, cuda)
-    with pytest.raises(TypeError, match="float32"):
-        wkv(args[0].requires_grad_(), *args[1:])
-    args = [a.float().requires_grad_() for a in args]
-    y, S = wkv(*args)
-    with pytest.raises(NotImplementedError, match="final state"):
-        (y.sum() + S.sum()).backward()
+    xs = [a.requires_grad_() for a in args]
+    before = wkv.bwd_launches
+    y, S = wkv(*xs)
+    got = torch.autograd.grad(y.float().sum() + S.sum(), xs)
+    assert wkv.bwd_launches == before + 1 and got[0].dtype == torch.bfloat16
+    with pytest.raises(TypeError, match="one dtype"):
+        wkv(args[0], args[1].detach().float(), *args[2:])
+
+
+def _within_bounds(got, ref, bounds):
+    for g, r, b in zip(got, ref, bounds):
+        assert g.dtype == r.dtype
+        assert ((g.float() - r.float()).abs() <= b).all(), (
+            ((g.float() - r.float()).abs() / b).max().item())
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal,layout",
+                         [s + ("contiguous",) for s in FLASH_BWD_SHAPES]
+                         + [s + (lay,) for s in FLASH_BWD_EDGES
+                            for lay in ("transposed", "unaligned")])
+def test_flash_backward_bf16_within_its_bound(cuda, B, H, KV, Sq, Skv, dh,
+                                              win, causal, layout):
+    """The bf16 entry of the flash backward kernel (through
+    ``FlashAttention``) against autograd through ``attention_ref`` on the
+    same bf16 inputs, every element of dq, dk, dv within
+    ``ops.bf16_grad_error_bound``; a rerun bit-equal."""
+    rng = np.random.default_rng(Sq + dh + 1)
+    q, k, v, do = (torch.tensor(rng.standard_normal((B, n, s, dh)).astype(
+        np.float32), device=cuda).to(torch.bfloat16)
+        for n, s in ((H, Sq), (KV, Skv), (KV, Skv), (H, Sq)))
+    *qkv, do = _bwd_layout([q, k, v, do], layout)
+    xs = [t.detach().requires_grad_() for t in qkv]
+    got = torch.autograd.grad(flash_attention(*xs, causal=causal,
+                                              window=win), xs, do)
+    xr = [t.detach().clone().requires_grad_() for t in qkv]
+    ref = torch.autograd.grad(attention_ref(*xr, causal=causal, window=win),
+                              xr, do)
+    _within_bounds(got, ref, flash_ops.bf16_grad_error_bound(
+        *qkv, do, ref, causal=causal, window=win))
+    again = torch.autograd.grad(flash_attention(*xs, causal=causal,
+                                                window=win), xs, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _wkv_bwd_case(B, H, T, dk, dtype, device, layout="contiguous"):
+    args = _wkv_inputs(B, H, T, dk, dtype, device, seed=T + dk + 1)
+    rng = np.random.default_rng(T)
+    dy = torch.tensor(rng.standard_normal((B, H, T, dk)).astype(np.float32),
+                      device=device).to(dtype)
+    dS = torch.tensor(rng.standard_normal((B, H, dk, dk)).astype(np.float32),
+                      device=device)
+    *rkvw, dy = _bwd_layout(args[:4] + [dy], layout)
+    return rkvw + [args[4]], dy, dS
+
+
+@pytest.mark.parametrize("B,H,T,dk", WKV_BWD_EDGES)
+@pytest.mark.parametrize("layout", ["contiguous", "transposed", "unaligned"])
+def test_wkv_backward_bf16_within_its_bound(cuda, B, H, T, dk, layout):
+    """The bf16 entry of the wkv backward kernel against autograd through
+    ``wkv_ref`` on the same bf16 inputs: dr, dk, dv, dw within
+    ``ops.bf16_grad_error_bound``, du (f32) within 1e-4 of its largest
+    entry; a rerun bit-equal."""
+    args, dy, _ = _wkv_bwd_case(B, H, T, dk, torch.bfloat16, cuda, layout)
+    xs = [a.detach().requires_grad_() for a in args]
+    got = torch.autograd.grad(wkv(*xs)[0], xs, dy)
+    xr = [a.detach().clone().requires_grad_() for a in args]
+    ref = torch.autograd.grad(wkv_ref(*xr)[0], xr, dy)
+    _within_bounds(got[:4], ref[:4], wkv_ops.bf16_grad_error_bound(ref[:4]))
+    _rel_grads_close(got[4:], ref[4:])
+    again = torch.autograd.grad(wkv(*xs)[0], xs, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,H,T,dk", WKV_BWD_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_backward_takes_the_final_state_gradient(cuda, B, H, T, dk,
+                                                     dtype):
+    """Cotangents on y and on the final state S (the reference
+    differentiates its scan through S): the kernel's gradients against
+    autograd through ``wkv_ref`` with the same two cotangents, within
+    1e-4 of each gradient's largest entry in f32, within
+    ``ops.bf16_grad_error_bound`` in bf16 (du at 1e-4)."""
+    args, dy, dS = _wkv_bwd_case(B, H, T, dk, dtype, cuda)
+    xs = [a.detach().requires_grad_() for a in args]
+    got = torch.autograd.grad(wkv(*xs), xs, (dy, dS))
+    xr = [a.detach().clone().requires_grad_() for a in args]
+    ref = torch.autograd.grad(wkv_ref(*xr), xr, (dy, dS))
+    if dtype == torch.float32:
+        _rel_grads_close(got, ref)
+    else:
+        _within_bounds(got[:4], ref[:4],
+                       wkv_ops.bf16_grad_error_bound(ref[:4]))
+        _rel_grads_close(got[4:], ref[4:])
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))

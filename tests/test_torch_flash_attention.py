@@ -500,7 +500,8 @@ def test_cuda_style_call_keeps_the_gradient(monkeypatch):
     both launches stubbed by plain computations on CPU tensors (outputs
     detached, as a launch's are), q, k and v get the reference's gradients
     and the counters count one launch each way. Without grad it is one
-    forward launch; bf16 inputs that require a gradient raise."""
+    forward launch. bf16 inputs that require a gradient take the same
+    route (the backward kernel's bf16 entry); mixed dtypes raise."""
     jargs, args, do = _grad_inputs(2, 4, 2, 40, 40, 16, seed=3)
 
     def launch(q, k, v, causal, window, want_lse=False):
@@ -525,9 +526,21 @@ def test_cuda_style_call_keeps_the_gradient(monkeypatch):
     with torch.no_grad():
         o = ops._on_card(*args, True, 8)
     assert o.grad_fn is None and flash_attention.launches == before[0] + 2
-    with pytest.raises(TypeError, match="float32"):
-        ops._on_card(*(a.detach().bfloat16().requires_grad_() for a in args),
-                     True, 0)
+    seen = []
+
+    def record(*a):
+        seen.append(a)
+        return tuple(torch.zeros_like(t) for t in a[:3])
+
+    monkeypatch.setattr(ops, "_launch_bwd", record)
+    xb = [a.detach().bfloat16().requires_grad_() for a in args]
+    o = ops._on_card(*xb, True, 0)
+    assert o.dtype == torch.bfloat16 and o.grad_fn is not None
+    o.float().sum().backward()
+    assert len(seen) == 1 and seen[0][0].dtype == torch.bfloat16
+    assert all(a.grad.dtype == torch.bfloat16 for a in xb)
+    with pytest.raises(TypeError, match="one dtype"):
+        ops.flash_attention(xb[0], xb[1].float(), xb[2])
 
 
 def test_fully_masked_rows_keep_each_reference_functions_semantics():
@@ -556,3 +569,53 @@ def test_fully_masked_rows_keep_each_reference_functions_semantics():
                                atol=5e-6)
     np.testing.assert_allclose(o_kernel[:, :, ~dead], o_ref[:, :, ~dead],
                                atol=10 * TOL["float32"])
+
+
+def _bf16_backward_emulation(q, k, v, do, centred):
+    """The bf16 backward kernel's arithmetic in plain torch (non-causal;
+    ``scripts/flash_delta_probe.py --dtype bf16`` runs the same beside the
+    kernel): the forward's o with P rounded to bf16 before P·V, delta =
+    do·o, P and dP in f32, P and dS rounded to bf16 as operands, f32 sums,
+    each gradient rounded to bf16 once; with ``centred`` dq's product on
+    bf16(k − k̄) and dk less its mean over the keys, as the kernel does."""
+    B, H, Sq, dh = q.shape
+    G = H // k.shape[1]
+    bf = lambda t: t.to(torch.bfloat16).float()
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    ke, ve = (t.repeat_interleave(G, dim=1) for t in (kf, vf))
+    p = torch.softmax((qf @ ke.mT) * dh ** -0.5, dim=-1)
+    o = bf(bf(p) @ ve)
+    ds = p * (dof @ ve.mT - (dof * o).sum(-1, keepdim=True))
+    kk = bf(kf - kf.mean(2, keepdim=True)) if centred else kf
+    dq = bf(ds) @ kk.repeat_interleave(G, dim=1) * dh ** -0.5
+    fold = lambda t: t.reshape(B, -1, G, *t.shape[2:]).sum(2)
+    dk = fold(bf(ds).mT @ qf) * dh ** -0.5
+    if centred:
+        dk = dk - dk.mean(2, keepdim=True)
+    dv = fold(bf(p).mT @ dof)
+    return [t.to(torch.bfloat16) for t in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("shift", [0.0, 30.0])
+def test_bf16_backward_arithmetic_within_its_derived_bound(shift):
+    """``ops.bf16_grad_error_bound`` holds the bf16 backward kernel's
+    arithmetic (emulated) against autograd through the plain version on
+    the same bf16 inputs, also with a vector of ``shift`` times the keys'
+    rms row norm added to every key (which moves no gradient
+    analytically). Without the centred keys dq's product carries that
+    vector times dS's bf16 rounding and leaves the bound: the reason the
+    kernel centres them."""
+    _, (q, k, v), do = _grad_inputs(1, 4, 2, 40, 90, 16, seed=21)
+    u = torch.tensor(np.random.default_rng(22).standard_normal(16),
+                     dtype=torch.float32)
+    k = k + shift * k.square().sum(-1).mean().sqrt() * u / u.norm()
+    q, k, v, do = (torch.as_tensor(t).to(torch.bfloat16)
+                   for t in (q, k, v, do))
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(attention_ref(*xs, causal=False), xs, do)
+    bounds = ops.bf16_grad_error_bound(q, k, v, do, ref, causal=False)
+    use = lambda got: [((g.float() - r.float()).abs() / b).max().item()
+                       for g, r, b in zip(got, ref, bounds)]
+    assert max(use(_bf16_backward_emulation(q, k, v, do, True))) <= 1
+    if shift:
+        assert use(_bf16_backward_emulation(q, k, v, do, False))[0] > 1

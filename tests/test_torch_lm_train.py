@@ -421,7 +421,7 @@ def _stub_card_path(monkeypatch):
     def wkv_launch(*args):
         return tuple(t.detach() for t in WKV.wkv_ref(*args))
 
-    def wkv_launch_bwd(r, k, v, w, u, dy):
+    def wkv_launch_bwd(r, k, v, w, u, dy, dS=None):
         with torch.enable_grad():
             xs = [t.detach().requires_grad_() for t in (r, k, v, w, u)]
             return torch.autograd.grad(WKV.wkv_ref(*xs)[0], xs, dy)

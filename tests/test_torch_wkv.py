@@ -321,14 +321,16 @@ def test_cuda_style_call_keeps_the_gradient(monkeypatch):
     plain computations on CPU tensors (the stubs' outputs detached, as a
     launch's are), r, k, v, w and u get the reference's gradients and the
     counters count one launch each way. Without grad it is one forward
-    launch."""
+    launch. A nonzero gradient of the final state S is passed to the
+    backward launch; bf16 inputs that require a gradient take the same
+    route."""
     jargs, args, dy = _grad_inputs(2, 2, 20, 16, seed=3)
 
     def launch(r, k, v, w, u):
         y, S = wkv_ref(r, k, v, w, u)
         return y.detach(), S.detach()
 
-    def launch_bwd(r, k, v, w, u, dy):
+    def launch_bwd(r, k, v, w, u, dy, dS=None):
         return tuple(g.detach() for g in _bwd_emulation(r, k, v, w, u, dy))
 
     monkeypatch.setattr(ops, "_launch", launch)
@@ -344,10 +346,22 @@ def test_cuda_style_call_keeps_the_gradient(monkeypatch):
     with torch.no_grad():
         y, _ = ops._on_card(*args)
     assert y.grad_fn is None and wkv.launches == before[0] + 2
-    # a nonzero final-state gradient raises rather than being dropped
+    # a nonzero final-state gradient reaches the backward launch, and bf16
+    # inputs that require a gradient go through ``WKV`` as f32 ones do
+    seen = []
+
+    def record(*a):
+        seen.append(a)
+        return tuple(torch.zeros_like(t) for t in a[:5])
+
+    monkeypatch.setattr(ops, "_launch_bwd", record)
     y, S = ops._on_card(*args)
-    with pytest.raises(NotImplementedError, match="final state"):
-        (y.sum() + S.sum()).backward()
-    with pytest.raises(TypeError, match="float32"):
-        ops._on_card(*(a.detach().bfloat16().requires_grad_()
-                       for a in args[:4]), args[4])
+    (y.sum() + S.sum()).backward()
+    assert len(seen) == 1 and torch.equal(seen[0][6], torch.ones_like(S))
+    xb = [a.detach().bfloat16().requires_grad_() for a in args[:4]]
+    y, _ = ops._on_card(*xb, args[4])
+    assert y.dtype == torch.bfloat16 and y.grad_fn is not None
+    y.float().sum().backward()
+    assert seen[1][6] is None and seen[1][0].dtype == torch.bfloat16
+    assert all(a.grad is not None and a.grad.dtype == torch.bfloat16
+               for a in xb)
