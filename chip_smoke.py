@@ -493,8 +493,12 @@ KEY_SUM_TOL = 1e-5
 # counted live bytes of the plain path) against the same step's
 # max_memory_allocated with plain_kernels=True (DRYRUN_PEAK_TOL); then
 # DRYRUN's meta-step (n = 256) through the graph-filter kernel, the same
-# two checks. DRYRUN_JOBS worker processes count the grid.
+# two checks; and qwen3-4b's donated bf16 train step (the dry run's, as
+# the reference donates its parameters and Adam state) cut to
+# DRYRUN_TRAIN_LAYERS layers at phase 13's B and S, the same two checks.
+# DRYRUN_JOBS worker processes count the grid.
 DRYRUN_ARG_TOL, DRYRUN_PEAK_TOL = 0.01, 0.10
+DRYRUN_TRAIN_LAYERS = 4
 DRYRUN_JOBS = 8
 # Phase 22: gemma3-27b. 22a serves one 5-local + 1-global period in f32
 # (21.2 GB of parameters); 22b' cuts the bf16 model to the same 6 layers
@@ -2630,6 +2634,31 @@ def build_all(tag):
     for name, info in infos.items():
         print(f"[{tag}] {info['path'].name}: {info['seconds']:.1f} s")
         print(info["log"])
+    check_hgmma(tag, infos["flash_attention_bwd"]["path"])
+
+
+def check_hgmma(tag, path):
+    """The bf16 flash backward's kernels (``dkdv_wgmma_kernel``,
+    ``dq_wgmma_kernel``, each instance) hold Hopper's warpgroup products:
+    the ``HGMMA`` instructions of their SASS, read with the toolkit's
+    ``cuobjdump -sass``. Fails if a kernel has none or is missing."""
+    from repro_torch.kernels._nvcc import nvcc_path
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    found, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "wgmma_kernel" in fn:
+                found[fn] = 0
+        elif fn in found and "HGMMA" in line:
+            found[fn] += 1
+    print(f"[{tag}] 2 HGMMA instructions per bf16 flash backward kernel "
+          f"(cuobjdump -sass): {json.dumps(found)}")
+    if len(found) != 4 or not all(found.values()):
+        raise AssertionError(f"the bf16 flash backward's kernels lack "
+                             f"HGMMA: {found}")
 
 
 def counts():
@@ -3810,8 +3839,10 @@ def _kind(name):
     if "flash_attention_kernel" in name:
         return "flash_attention"
     if any(s in name for s in ("dkdv_kernel", "dq_kernel", "delta_kernel",
-                               "dkdv_bf16_kernel", "dq_bf16_kernel",
-                               "kmean_kernel", "centre_kernel")):
+                               "dkdv_wgmma_kernel", "dq_wgmma_kernel",
+                               "delta_tiles_kernel", "kmean_kernel",
+                               "kmean_part_kernel", "kmean_sum_kernel",
+                               "centre_kernel", "centre8_kernel")):
         return "flash_attention_bwd"
     if "wkv_bwd_kernel" in name or "wkv_reduce_kernel" in name:
         return "wkv_bwd"
@@ -4570,6 +4601,8 @@ def dryrun_card_checks(tag, device="cuda"):
         and batch are built, the described peak (arguments + the counted
         live bytes of the plain path) against ``max_memory_allocated`` of
         the same step with ``plain_kernels=True``;
+      * qwen3-4b's donated bf16 train step cut to DRYRUN_TRAIN_LAYERS
+        layers (``dryrun_train_check``);
       * DRYRUN's meta-step (n = 256, dense mixing) through the
         graph-filter kernel (L forward and L − 1 dW launches): its
         arguments (state, batch, draws) and its described peak against
@@ -4622,6 +4655,7 @@ def dryrun_card_checks(tag, device="cuda"):
           f"{json.dumps(desc['roofline'])}")
     del params, tokens, tok, cache, step
     torch.cuda.empty_cache()
+    dryrun_train_check(tag, cfg, device)
 
     A, S = build_topology(DRYRUN.topology, DRYRUN.n_agents,
                           degree=DRYRUN.degree, seed=0)
@@ -4669,6 +4703,61 @@ def dryrun_card_checks(tag, device="cuda"):
     del state, state2, batch, draws, metrics, S_t
     torch.cuda.empty_cache()
     return c["graph_filter"], c["graph_filter_bwd"]
+
+
+def dryrun_train_check(tag, cfg, device="cuda"):
+    """Phase 21's train check: qwen3-4b's donated bf16 train step
+    (``steps.jitted_step``'s, the reference's ``donate_argnums=(0, 1)``),
+    cut to DRYRUN_TRAIN_LAYERS layers, at B=TRAIN_BATCH, S=TRAIN_SEQ on a
+    1-device mesh: its described argument bytes against the allocated
+    bytes of its parameters, Adam state and batch (DRYRUN_ARG_TOL), its
+    per-device total (argument + temp + output − alias: the donated trees
+    counted once) against ``max_memory_allocated`` of one step of
+    ``make_train_step(donate=True, plain_kernels=True)`` from them
+    (DRYRUN_PEAK_TOL)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import PARAM_DTYPE
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(cfg, n_layers=DRYRUN_TRAIN_LAYERS)
+    shape = ShapeConfig("train_2k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    desc = dryrun.describe(cfg, shape, Mesh([["meta"]], ("data", "model")))
+    mem = desc["memory"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = M.init_lm(cfg, 0, PARAM_DTYPE, device=device)
+    step, opt = make_train_step(cfg, microbatches=desc["microbatches"],
+                                plain_kernels=True, donate=True)
+    opt_state = opt.init(params)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (TRAIN_BATCH,
+                                                            TRAIN_SEQ)),
+                                dtype=torch.int32, device=device)
+             for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    arg = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if any(counts().values()) or out[0] is not params:
+        raise AssertionError(f"21 train step: launches {counts()}, donated "
+                             f"{out[0] is params}")
+    if not math.isfinite(out[2]["loss"].item()):
+        raise AssertionError(f"21 train step loss {out[2]['loss']}")
+    _ratio_check(tag, f"qwen3-4b train step ({DRYRUN_TRAIN_LAYERS} layers, "
+                 f"B={TRAIN_BATCH} S={TRAIN_SEQ}, bf16, donated) argument "
+                 "bytes", mem["argument_bytes"], arg, DRYRUN_ARG_TOL)
+    _ratio_check(tag, "qwen3-4b donated train step peak bytes (plain path)",
+                 mem["per_device_total"], peak, DRYRUN_PEAK_TOL)
+    print(f"[{tag}] 21 qwen3-4b donated train step described: "
+          f"{json.dumps(mem)}; microbatches {desc['microbatches']}")
+    del params, opt_state, batch, out, step
+    torch.cuda.empty_cache()
 
 
 class FlashWindows:
@@ -5406,6 +5495,12 @@ def train_bf16(tag, arch=BF16_TRAIN_ARCH, device="cuda", full=True):
                                  f"{peak}")
         prof = _profiled(lambda: step(params, opt_state, batch), device)
         print(f"[{tag}] 23a {arch} profiled train step: {json.dumps(prof)}")
+        dev = prof["device_ms"]
+        record["flash_bwd_device_ms_per_step"] = (
+            dev.get("flash_attention_bwd", 0.0) if isinstance(dev, dict)
+            else dev)
+        print(f"[{tag}] 23a {arch} flash backward device time per step: "
+              f"{record['flash_bwd_device_ms_per_step']} ms ({L} calls)")
     finally:
         flags.set_flags(**dataclasses.asdict(prev))
     del params, opt_state, out

@@ -1,21 +1,37 @@
 """Device time of the port's backward kernels by part, on one CUDA card.
 
-    python3 scripts/backward_kernel_times.py [--reps N] [--out FILE]
+    python3 scripts/backward_kernel_times.py [--dtype f32|bf16] [--root DIR]
+                                             [--label NAME] [--reps N]
+                                             [--out FILE]
 
-Each backward launch is several CUDA kernels: flash attention's is
-``kmean_kernel``, ``centre_kernel``, ``delta_kernel``, ``dq_kernel`` and
-``dkdv_kernel``; wkv's is ``wkv_bwd_kernel`` and ``wkv_reduce_kernel``.
+Each backward launch is several CUDA kernels: flash attention's f32 entry
+is ``kmean_kernel``, ``centre_kernel``, ``delta_kernel``, ``dkdv_kernel``
+and ``dq_kernel``; its bf16 entry ``kmean_part_kernel``,
+``kmean_sum_kernel``, ``centre8_kernel``, ``delta_tiles_kernel``,
+``dkdv_wgmma_kernel`` and ``dq_wgmma_kernel`` (before the wgmma design:
+``kmean_kernel``, ``centre_kernel``, ``delta_kernel``, ``dkdv_bf16_kernel``,
+``dq_bf16_kernel``); wkv's is ``wkv_bwd_kernel`` and
+``wkv_reduce_kernel``.
 For each case it prints one JSON line (and appends it to ``--out`` when
 given): the CUDA-event time per launch over ``--reps`` back-to-back
-launches (``event_ms``),
-each part's device time per launch from ``torch.profiler`` over the same
-number of launches (``parts_ms``), and the card's name and power limit.
+launches (``event_ms``), each part's device time per launch from
+``torch.profiler`` over the same number of launches (``parts_ms``), and
+the card's name and power limit. With ``--dtype bf16`` each flash case
+also times ``scaled_dot_product_attention``'s bf16 backward
+(memory-efficient, K/V expanded to H heads, a boolean mask for a window:
+``sdpa_ms``), the yardstick ``chip_smoke.py`` 5b uses.
+
+``--root`` is the checkout whose ``src/repro_torch`` is timed (default:
+this one), so two versions can be timed in turns inside one run on one
+card (``scripts/graph_filter_times.py`` does the same).
 
 Cases: flash attention at the qwen3-4b training shape (B=4, H=32, KV=8,
-S=2048, dh=128, causal) and the gemma3 window-1024 shape (KV=16); wkv at
-the rwkv6-1.6b training shape (B=4, H=32, T=2048, dk=64); f32 inputs
-drawn with numpy from a fixed seed, as ``chip_smoke.py`` 5b and 6b draw
-them.
+S=2048, dh=128, causal), the gemma3 window-1024 shape (KV=16) and, in
+bf16, gemma3's global shape (KV=16, no window) and whisper-small's encoder
+(B=4, H=KV=12, S=1500, dh=64, non-causal) and cross-attention (Sq=448,
+Skv=1500); wkv (f32 only) at the
+rwkv6-1.6b training shape (B=4, H=32, T=2048, dk=64); inputs drawn with
+numpy from a fixed seed, as ``chip_smoke.py`` 5b and 6b draw them.
 """
 from __future__ import annotations
 
@@ -28,15 +44,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
-
-FLASH = {"flash qwen3-4b": (4, 32, 8, 2048, 128, 0),
-         "flash gemma3 window 1024": (4, 32, 16, 2048, 128, 1024)}
+# (B, H, KV, Sq, Skv, dh, window, causal)
+FLASH = {"flash qwen3-4b": (4, 32, 8, 2048, 2048, 128, 0, True),
+         "flash gemma3 window 1024": (4, 32, 16, 2048, 2048, 128, 1024,
+                                      True)}
+FLASH_BF16 = {"flash gemma3 global": (4, 32, 16, 2048, 2048, 128, 0, True),
+              "flash whisper encoder": (4, 12, 12, 1500, 1500, 64, 0,
+                                        False),
+              "flash whisper cross": (4, 12, 12, 448, 1500, 64, 0, False)}
 WKV = {"wkv rwkv6-1.6b": (4, 32, 2048, 64)}
-PARTS = ("delta_kernel", "kmean_kernel", "centre_kernel", "dkdv_kernel",
-         "dq_kernel",
-         "wkv_bwd_kernel",
-         "wkv_reduce_kernel")
+PARTS = ("delta_kernel", "delta_tiles_kernel", "kmean_kernel",
+         "kmean_part_kernel", "kmean_sum_kernel", "centre_kernel",
+         "centre8_kernel", "dkdv_kernel", "dq_kernel", "dkdv_bf16_kernel",
+         "dq_bf16_kernel", "dkdv_wgmma_kernel", "dq_wgmma_kernel",
+         "wkv_bwd_kernel", "wkv_reduce_kernel")
 
 
 def card() -> str:
@@ -65,37 +86,76 @@ def measure(fn, reps):
         torch.cuda.synchronize()
     parts = {}
     for e in prof.key_averages():
-        for part in PARTS:
-            if part in e.key and e.device_time_total > 0:
-                parts[part] = parts.get(part, 0.0) + e.device_time_total
+        part = _part(e.key)
+        if part is not None and e.device_time_total > 0:
+            parts[part] = parts.get(part, 0.0) + e.device_time_total
     return event_ms, {k: v / 1e3 / reps for k, v in parts.items()}
+
+
+def _part(key):
+    """The PARTS entry a profiler key names (the longest that matches)."""
+    found = [p for p in PARTS if p + "<" in key or key.endswith(p)
+             or p + "(" in key]
+    return max(found, key=len) if found else None
+
+
+def sdpa_backward_ms(q, k, v, do, causal, window, reps):
+    """``scaled_dot_product_attention``'s bf16 backward, memory-efficient,
+    K/V expanded to H heads (a boolean mask for a window)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    H, KV, Sq = q.shape[1], k.shape[1], q.shape[2]
+    mask = None
+    if window:
+        i = torch.arange(Sq, device="cuda")
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+    ke, ve = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
+    xe = [t.clone().requires_grad_() for t in (q, ke, ve)]
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        oe = torch.nn.functional.scaled_dot_product_attention(
+            *xe, attn_mask=mask, is_causal=causal and not window)
+        ms, _ = measure(lambda: torch.autograd.grad(oe, xe, do,
+                                                    retain_graph=True), reps)
+    return ms
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--label", default="this tree")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("backward_kernel_times: no CUDA device", file=sys.stderr)
         return 1
+    sys.path.insert(0, str(Path(args.root).resolve() / "src"))
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ssm_scan import ops as wk
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     tag = card()
     rng = np.random.default_rng(5)
     rows = []
-    for name, (B, H, KV, S, dh, win) in FLASH.items():
-        q, k, v, do = (torch.tensor(rng.standard_normal((B, n, S, dh))
+    cases = dict(FLASH, **(FLASH_BF16 if args.dtype == "bf16" else {}))
+    for name, (B, H, KV, Sq, Skv, dh, win, causal) in cases.items():
+        q, k, v, do = (torch.tensor(rng.standard_normal((B, n, s, dh))
                                     .astype(np.float32), device="cuda")
-                       for n in (H, KV, KV, H))
-        o, lse = fa._launch(q, k, v, True, win, want_lse=True)
-        ms, parts = measure(lambda: fa._launch_bwd(q, k, v, o, lse, do, True,
-                                                   win), args.reps)
-        rows.append({"case": name, "shape": [B, H, KV, S, dh, win],
-                     "event_ms": ms, "parts_ms": parts, "card": tag})
+                       .to(dtype)
+                       for n, s in ((H, Sq), (KV, Skv), (KV, Skv), (H, Sq)))
+        o, lse = fa._launch(q, k, v, causal, win, want_lse=True)
+        ms, parts = measure(lambda: fa._launch_bwd(q, k, v, o, lse, do,
+                                                   causal, win), args.reps)
+        row = {"case": name, "dtype": args.dtype, "label": args.label,
+               "root": args.root, "shape": [B, H, KV, Sq, Skv, dh, win,
+                                            causal],
+               "event_ms": ms, "parts_ms": parts, "card": tag}
+        if args.dtype == "bf16":
+            row["sdpa_ms"] = sdpa_backward_ms(q, k, v, do, causal, win,
+                                              args.reps)
+        rows.append(row)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
-    for name, (B, H, T, dk) in WKV.items():
+    for name, (B, H, T, dk) in (WKV.items() if args.dtype == "f32" else ()):
         def mk():
             return 0.5 * rng.standard_normal((B, H, T, dk)).astype(np.float32)
         r, k, v = mk(), mk(), mk()
@@ -104,8 +164,9 @@ def main(argv=None) -> int:
         xs = [torch.tensor(a, device="cuda") for a in (r, k, v, w, u)]
         dy = torch.tensor(mk(), device="cuda")
         ms, parts = measure(lambda: wk._launch_bwd(*xs, dy), args.reps)
-        rows.append({"case": name, "shape": [B, H, T, dk], "event_ms": ms,
-                     "parts_ms": parts, "card": tag})
+        rows.append({"case": name, "dtype": args.dtype, "label": args.label,
+                     "root": args.root, "shape": [B, H, T, dk],
+                     "event_ms": ms, "parts_ms": parts, "card": tag})
     for row in rows:
         line = json.dumps(row)
         print(line)

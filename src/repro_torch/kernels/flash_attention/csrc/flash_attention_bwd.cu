@@ -1,6 +1,6 @@
 // Backward pass of blocked online-softmax attention (FlashAttention) for
 // Hopper (sm_90a), with every product on the tensor cores: f32 inputs in
-// split TF32 (mma.sync m16n8k8), bf16 inputs in bf16 (mma.sync m16n8k16,
+// split TF32 (mma.sync m16n8k8), bf16 inputs in bf16 (wgmma on TMA tiles,
 // `flash_attention_bwd_bf16`, at the end of this header).
 //
 // Computes dq, dk and dv of  o = softmax(q k^T / sqrt(dh) + mask) v  for
@@ -108,18 +108,46 @@
 //     floats = 101,376 B (two blocks of 4 warps per SM).
 //
 // bf16 (`flash_attention_bwd_bf16`): q, k, v, o, do bf16, lse f32; dq, dk,
-// dv bf16. The same kernels' structure, with one m16n8k16 bf16 product
-// (f32 accumulators) where the f32 entry runs three TF32 ones, the
-// operands' fragments by ldmatrix as in the forward's bf16 instance:
-//   * S = q k^T and dP = do v^T from the bf16 inputs as they are (exact
-//     products, f32 sums), P from the forward's lse unshifted: the
-//     forward computed that lse from the same keys, so the keys are not
-//     centred for the scores (a centred key rounded to bf16 would move
-//     every score by up to 2^-9 of |q| |k - kmean|).
+// dv bf16. Written for Hopper: every product is a warpgroup `wgmma` (bf16,
+// f32 accumulators) on tiles that TMA brings into shared memory.
+//   * what bounds it: at the qwen3-4b shape the same 344 GFLOP at 989
+//     TFLOP/s, 0.348 ms, against 0.3 GB of bf16 inputs and outputs (0.09
+//     ms): operations; the design's seven products per live pair, 0.487
+//     ms. So the products must run on wgmma, the only way to the tensor
+//     cores' full bf16 rate, fed without the compute threads' help.
+//   * blocks of three warpgroups: two consumers and a producer, whose
+//     first thread issues every copy (TMA boxes of 64 rows x 64 columns
+//     with the 128-byte swizzle that the wgmma descriptors name; a row of
+//     dh = 128 is two column halves) and waits on `mbarrier`s for a stage
+//     to come free; `setmaxnreg` gives the producer 24 registers and each
+//     consumer thread 240. Rows and columns past the tensors land as
+//     zeros (TMA's fill); masks apply per element on edge tiles only.
+//   * `dkdv_wgmma_kernel`: a block per (batch item x kv head, 128 keys),
+//     K and V loaded once, the query tiles of 64 rows of the G heads in a
+//     ring of BW_STAGES stages (Q, dO, and lse and delta by one bulk
+//     copy). Consumer c owns 64 keys: S^T = K Q^T and dP^T = V dO^T
+//     (m64n64k16, both operands in shared memory), P^T while dP^T runs,
+//     then dv += P^T dO with A from registers (m64nDHPk16; dO read
+//     transposed from its tile), dS^T = P^T (dP^T - delta) while that
+//     runs, then dk += dS^T Q. dk and dv stay in f32 accumulators.
+//   * `dq_wgmma_kernel`: a block per (batch item x head, 128 query rows),
+//     Q and dO loaded once, key tiles of 64 (K, V and the centred keys
+//     KC) in the ring. Consumer c owns 64 rows: S = Q K^T, dP = dO V^T,
+//     P while dP runs, dS = P (dP - delta), dq += dS KC (A from
+//     registers, KC read transposed), left running while the next tile's
+//     S and dP are issued. It rebuilds S and dP (7 products per live pair
+//     in all, not 5): a dq that reused the dk/dv kernel's dS would need
+//     float atomics or a partial per key tile.
+//   * S and dP come from the bf16 inputs as they are (exact products, f32
+//     sums), P from the forward's lse unshifted: the forward computed that
+//     lse from the same keys, so the keys are not centred for the scores
+//     (a centred key rounded to bf16 would move every score by up to 2^-9
+//     of |q| |k - kmean|).
 //   * P and dS are rounded to bf16 only as the A operands of P^T do, dS^T q
-//     and dS k (each at most 2^-8 of its entry); dq, dk and dv sum in f32
-//     registers, each query or kv tile's part in fresh accumulators, and
-//     are rounded to bf16 once.
+//     and dS kc (each at most 2^-8 of its entry); dq, dk and dv sum in
+//     wgmma's chained f32 accumulators (their truncation, about 2^-23 of
+//     each add, is far below the bf16 roundings the bound allows) and are
+//     rounded to bf16 once.
 //   * dq = dS (k - kmean) scale: dS is rounded to bf16 here, so its rows no
 //     longer sum to 0, and against the raw keys the gap would carry every
 //     component that the keys share (2^-8 of |dS| times it; 30 times the
@@ -129,15 +157,16 @@
 //   * dk is summed in f32 into scratch, then its mean over the keys is
 //     taken out (the same identity as the f32 entry's; the bf16 dS makes
 //     sum_j dk_j nonzero by far more than f32 did) and it is rounded to
-//     bf16 by the second `centre` pass.
-//   * bound at the qwen3-4b shape: the same 344 GFLOP at 989 TFLOP/s,
-//     0.348 ms, against 0.3 GB of bf16 inputs and outputs (0.09 ms):
-//     operations; the design's seven products per live pair, 0.487 ms.
-//   * shared memory at dh = 128 (rows of 136 bf16): dkdv (2 x 128 + 2 x 2
-//     x 32) rows = 104,448 B + 256 B of row scalars (one block of 8 warps
-//     per SM: dk and dv take 128 registers a thread); dq (2 x 64 query +
-//     3 x 64 key rows) = 87,040 B (two blocks of 4 warps per SM).
+//     bf16 by the second centring pass. The key means are summed in two
+//     deterministic passes over chunks of 64 keys (one block per (batch
+//     item, kv head) would fill 32 of 132 SMs at the qwen3-4b shape).
+//   * the wrapper makes q, k, v and do legal for TMA (rows on 16 bytes, dh
+//     a multiple of 8) by padding or a copy; this entry refuses others.
+//   * shared memory at dh = 128: dkdv 2 x 32 KB (K, V) + 2 stages x 32 KB
+//     (Q, dO) + 1 KB of lse/delta = 129 KB; dq 2 x 32 KB (Q, dO) + 2
+//     stages x 48 KB (K, V, KC) = 160 KB (one block of 384 threads per SM).
 
+#include <cuda.h>          // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -167,9 +196,6 @@ __device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ void stf(float* p, float x) { *p = x; }
-__device__ __forceinline__ void stf(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -379,11 +405,11 @@ kmean_kernel(const T* __restrict__ k, float* __restrict__ kmean, int KV,
   }
 }
 
-// kc = k - kmean, contiguous (B, KV, Skv, dh): the keys the products
-// kernels read (f32; in bf16 dq's product only), and dk projected (in
-// place in f32: kc == k, each thread reads the element it writes, so the
-// pointers may alias; in bf16 from the f32 sums into the bf16 output). One
-// block per (batch item x kv head, CENTRE_ROWS keys).
+// kc = k - kmean, contiguous (B, KV, Skv, dh): the keys the f32 entry's
+// products kernels read, and dk projected (in place: kc == k, each thread
+// reads the element it writes, so the pointers may alias; the bf16 entry
+// has its own passes, `centre8_kernel`). One block per (batch item x kv
+// head, CENTRE_ROWS keys).
 template <typename Tin, typename Tout>
 __global__ void __launch_bounds__(CENTRE_NT)
 centre_kernel(const Tin* k, const float* __restrict__ kmean, Tout* kc,
@@ -786,128 +812,22 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-// ---- bf16: one m16n8k16 product per step, fragments by ldmatrix ----
+// ---- bf16: wgmma on tiles brought by TMA, a producer warp per block ----
 
-constexpr int PADB = 8;                 // bf16 elements of padding per row
-constexpr int QB_BKV = 64;              // keys per staged kv tile in dq
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a b, one m16n8k16 bf16 product with f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int BW_NT = 384;           // consumer warpgroups 0, 1; producer 2
+constexpr int BW_KEYS = 128;         // keys per dk/dv block (64 per consumer)
+constexpr int BW_QT = 64;            // query rows per staged tile (dk/dv)
+constexpr int BW_QROWS = 128;        // query rows per dq block (64 each)
+constexpr int BW_KT = 64;            // keys per staged tile (dq)
+constexpr int BW_STAGES = 2;         // depth of the staged-tile rings
+constexpr int BOX = 64;              // TMA box: 64 rows x 64 columns
+constexpr int BOX_BYTES = BOX * BOX * 2;
+constexpr int LSED_TILE = 2 * BW_QT;     // floats: a tile's lse, then delta
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ROWS rows of DHP bf16 from global row r0 on (rows >= n_rows and columns
-// >= dh zero-filled) into shared rows of DHP + PADB elements.
-template <int DHP, int ROWS, int NT, bool VEC>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long stride, int r0,
-                                               int n_rows, int dh, int tid) {
-  constexpr int LD = DHP + PADB;
-  if constexpr (VEC) {
-    constexpr int CPR = DHP / 8;          // 16-byte chunks per row
-    for (int c = tid; c < ROWS * CPR; c += NT) {
-      const int r = c / CPR;
-      const int d = (c - r * CPR) * 8;
-      const int gr = r0 + r;
-      const bool ok = gr < n_rows && d < dh;
-      cp_async16(dst + r * LD + d, ok ? src + gr * stride + d : src,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int e = tid; e < ROWS * DHP; e += NT) {
-      const int r = e / DHP;
-      const int d = e - r * DHP;
-      const int gr = r0 + r;
-      dst[r * LD + d] = (gr < n_rows && d < dh) ? src[gr * stride + d]
-                                                : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// c[NS][4] += A B^T: A 16 rows x DHP (this warp's rows of a row-major
-// shared tile), B NS * 8 rows x DHP (row-major: the n index is B's row),
-// as the forward's Q K^T.
-template <int DHP, int NS, int LD>
-__device__ __forceinline__ void rows_by_rows(float (*c)[4],
-                                             const __nv_bfloat16* a_rows,
-                                             const __nv_bfloat16* b_rows,
-                                             int lane) {
-#pragma unroll
-  for (int kk = 0; kk < DHP / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, a_rows + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int np = 0; np < NS / 2; ++np) {
-      uint32_t b[4];
-      ldmatrix_x4(b, b_rows + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                         kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(c[2 * np], a, b[0], b[1]);
-      mma_bf16(c[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[NO][4] += C B: C (16 x NS * 8, accumulator layout, rounded to bf16
-// as the A operand: the accumulators of two n8 tiles are the A fragment of
-// one k16 step), B NS * 8 rows x DHP (row-major: the k index is B's row),
-// as the forward's P V. Each output column pair's product runs in fresh
-// accumulators that are then added to acc in f32 (round to nearest).
-template <int DHP, int NS, int LD>
-__device__ __forceinline__ void acc_by_rows(float (*acc)[4],
-                                            const float (*c)[4],
-                                            const __nv_bfloat16* b_rows,
-                                            int lane) {
-  uint32_t a[NS / 2][4];
-#pragma unroll
-  for (int kk = 0; kk < NS / 2; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-#pragma unroll
-  for (int np = 0; np < DHP / 16; ++np) {
-    float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kk = 0; kk < NS / 2; ++kk) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, b_rows + (kk * 16 + (lane & 7) +
-                                     ((lane >> 3) & 1) * 8) * LD +
-                               np * 16 + (lane >> 4) * 8);
-      mma_bf16(p0, a[kk], b[0], b[1]);
-      mma_bf16(p1, a[kk], b[2], b[3]);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc[2 * np][e] += p0[e];
-      acc[2 * np + 1][e] += p1[e];
-    }
-  }
 }
 
 // Two outputs of a contiguous bf16 row (dh columns) from column d on.
@@ -923,326 +843,831 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* row, int d, int dh,
   }
 }
 
-// dk (f32, into scratch) and dv (bf16) of one tile of KV_BKV keys of one
-// (batch item, kv head): the f32 dkdv kernel's loop with bf16 products.
-template <int DHP, bool VEC>
-__global__ void __launch_bounds__(KV_NT, 1)
-dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const __nv_bfloat16* __restrict__ dO,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dk,
-                 __nv_bfloat16* __restrict__ dv, int H, int KV, int Sq,
-                 int Skv, int dh, Strides qs, Strides ks, Strides vs,
-                 Strides gs, int causal, int window, float scale_log2,
-                 float scale) {
-  constexpr int LD = DHP + PADB;
-  constexpr int NS = KV_BQ / 8;         // n8 score tiles per warp
-  constexpr int NO = DHP / 8;           // n8 output tiles per warp
-  constexpr int TILE = KV_BQ * LD;      // one staged Q or dO tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* const sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* const sV = sK + KV_BKV * LD;
-  __nv_bfloat16* const sQ = sV + KV_BKV * LD;             // 2 stages
-  __nv_bfloat16* const sdO = sQ + 2 * TILE;               // 2 stages
-  float* const sL = reinterpret_cast<float*>(sdO + 2 * TILE);   // 2 x KV_BQ
-  float* const sD = sL + 2 * KV_BQ;                              // 2 x KV_BQ
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+// One arrival that also expects `bytes` of copies to complete on `bar`.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// Returns once the phase of parity `parity` of `bar` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA box (64 rows x 64 columns) of a 4-d map (dh, rows, head,
+// batch) into shared memory at dst, completing on bar.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        int col, int row, int h, int b,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(h),
+      "r"(b), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes (16-byte aligned, a multiple of 16) into
+// shared memory, completing on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A tile of R rows (R a multiple of 64) x DHP columns, rows r0 .. of head
+// h of batch item b: DHP / 64 column halves, each R rows of 128 bytes
+// swizzled by TMA (SWIZZLE_128B), loaded as R / 64 boxes per half.
+template <int DHP, int R>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map, int r0,
+                                         int h, int b, uint64_t* bar) {
+#pragma unroll
+  for (int half = 0; half < DHP / 64; ++half)
+#pragma unroll
+    for (int r = 0; r < R / 64; ++r)
+      tma_box(dst + half * R * 128 + r * BOX_BYTES, map, 64 * half,
+              r0 + 64 * r, h, b, bar);
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand at shared address a
+// (leading and stride byte offsets in bytes; layout type B128).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t a, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// K-major operand (dh is the product's k): rows row0 .. row0 + 63 of a
+// tile of R rows, k-step kk (16 columns: 32 bytes into a 128-byte row,
+// the half kk / 4); groups of 8 rows 1024 bytes apart.
+template <int R>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0, int kk) {
+  return sw128_desc(tile + (kk >> 2) * R * 128 + row0 * 128 + (kk & 3) * 32,
+                    16, 1024);
+}
+// MN-major B operand (the tile's rows are the product's k, dh its n):
+// k-step kk (rows 16 kk .. 16 kk + 15); the two column halves R * 128
+// bytes apart, groups of 8 rows 1024 bytes apart.
+template <int R>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, R * 128, 1024);
+}
+
+// d (64 x N, f32) = a b (scale_d = 0) or d + a b (scale_d = 1) for the
+// warpgroup, one k-step of 16: a (64 x 16) and b (N x 16) bf16, both
+// K-major in shared memory, by descriptor. d[nt] is the warp's 16 x 8
+// accumulator tile nt: rows 16 (warp % 4) + {g, g + 8}, columns 8 nt +
+// {2t, 2t + 1}.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (*d)[4], uint64_t da,
+                                         uint64_t db, int scale_d);
+// d (64 x N, f32) = d + a b (scale_d = 1): a (64 x 16, bf16) from
+// registers (each warp its 16 rows, the m16n8k16 A fragment), b (16 x N)
+// MN-major in shared memory (the instruction reads it transposed).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (*d)[4], const uint32_t* a,
+                                            uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (*d)[4], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<64>(float (*d)[4],
+                                                const uint32_t* a,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<128>(float (*d)[4],
+                                                const uint32_t* a,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads across wgmma's wait.
+template <int NT>
+__device__ __forceinline__ void pin(float (*x)[4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(x[nt][e])::"memory");
+}
+template <int NT>
+__device__ __forceinline__ void zero(float (*x)[4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[nt][e] = 0.f;
+}
+
+// The A fragments (bf16) of four k-steps of 16 taken from a 64-wide
+// accumulator (8 n8 tiles): step kk is tiles 2 kk and 2 kk + 1.
+__device__ __forceinline__ void to_a(uint32_t (*a)[4], const float (*c)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// delta = rowsum(do o) and a copy of the forward's lse, laid out per query
+// tile of 64 rows: lsed (B H, ceil(Sq / 64), {lse, delta}, 64) floats, rows
+// from Sq on zero, so one 512-byte bulk copy brings a tile's pair. Each
+// warp takes DELTA_ROWS rows, their loads issued together (VEC: 4 columns
+// per lane by 8-byte loads, o's rows on 8 bytes; do's are on 16 for TMA);
+// grid (B H, ceil(Sq / 64) 64 / (8 DELTA_ROWS)).
+constexpr int DELTA_ROWS = 4;
+template <bool VEC>
+__global__ void __launch_bounds__(DELTA_NT)
+delta_tiles_kernel(const __nv_bfloat16* __restrict__ o,
+                   const __nv_bfloat16* __restrict__ dO,
+                   const float* __restrict__ lse, float* __restrict__ lsed,
+                   int H, int Sq, int dh, Strides os, Strides gs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i0 = (blockIdx.y * (DELTA_NT / 32) + warp) * DELTA_ROWS;
+  const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
+  const __nv_bfloat16* obase = o + b * os.b + h * os.h;
+  const __nv_bfloat16* gbase = dO + b * gs.b + h * gs.h;
+  float acc[DELTA_ROWS];
+#pragma unroll
+  for (int r = 0; r < DELTA_ROWS; ++r) {
+    acc[r] = 0.f;
+    const int i = i0 + r;
+    if (i >= Sq) continue;               // warp-uniform
+    const __nv_bfloat16* orow = obase + (long long)i * os.s;
+    const __nv_bfloat16* grow = gbase + (long long)i * gs.s;
+    if constexpr (VEC) {
+      const int d = 4 * lane;            // one pass: dh <= 128
+      if (d < dh) {
+        const uint2 a = *reinterpret_cast<const uint2*>(orow + d);
+        const uint2 c = *reinterpret_cast<const uint2*>(grow + d);
+        const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* pc = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float2 x = __bfloat1622float2(pa[u]);
+          const float2 y = __bfloat1622float2(pc[u]);
+          acc[r] = fmaf(x.y, y.y, fmaf(x.x, y.x, acc[r]));
+        }
+      }
+    } else {
+      for (int d = lane; d < dh; d += 32)
+        acc[r] = fmaf(ldf(orow + d), ldf(grow + d), acc[r]);
+    }
+  }
+  const int n_q = (Sq + BW_QT - 1) / BW_QT;
+#pragma unroll
+  for (int r = 0; r < DELTA_ROWS; ++r) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+    const int i = i0 + r;
+    if (lane == 0) {
+      float* dst = lsed + ((long long)blockIdx.x * n_q + i / BW_QT) *
+                              LSED_TILE + (i % BW_QT);
+      dst[0] = i < Sq ? lse[(long long)blockIdx.x * Sq + i] : 0.f;
+      dst[BW_QT] = acc[r];
+    }
+  }
+}
+
+// The bf16 entry's key means (of k, then of dk's f32 sums) in two
+// deterministic passes that fill the card: partial column sums over chunks
+// of KMEAN_ROWS keys, part (B KV, ceil(Skv / KMEAN_ROWS), dh), one thread
+// per column summing its chunk's rows in order; then kmean_sum_kernel adds
+// a (batch item, kv head)'s partials in order. Grid (B KV, chunks).
+constexpr int KMEAN_ROWS = 64;
+template <typename T>
+__global__ void __launch_bounds__(128)
+kmean_part_kernel(const T* __restrict__ x, float* __restrict__ part, int KV,
+                  int Skv, int dh, Strides xs) {
+  const int d = threadIdx.x;
+  if (d >= dh) return;
+  const int b = blockIdx.x / KV, kvh = blockIdx.x - b * KV;
+  const int j0 = blockIdx.y * KMEAN_ROWS;
+  const int j1 = min(j0 + KMEAN_ROWS, Skv);
+  const T* xp = x + b * xs.b + kvh * xs.h + d;
+  float acc = 0.f;
+#pragma unroll 8
+  for (int j = j0; j < j1; ++j) acc += ldf(xp + (long long)j * xs.s);
+  part[((long long)blockIdx.x * gridDim.y + blockIdx.y) * dh + d] = acc;
+}
+
+__global__ void __launch_bounds__(128)
+kmean_sum_kernel(const float* __restrict__ part, float* __restrict__ kmean,
+                 int chunks, int Skv, int dh) {
+  const int d = threadIdx.x;
+  if (d >= dh) return;
+  float acc = 0.f;
+  for (int c = 0; c < chunks; ++c)
+    acc += part[((long long)blockIdx.x * chunks + c) * dh + d];
+  kmean[(long long)blockIdx.x * dh + d] = acc / (float)Skv;
+}
+
+// out = bf16(x - kmean), contiguous (B, KV, Skv, dh), 8 columns per thread
+// by 16-byte stores: the centred keys from k (bf16), and dk from its f32
+// sums. Rows of x on 16 bytes, dh a multiple of 8 (the bf16 entry's
+// operands). One block per (batch item x kv head, CENTRE_ROWS keys).
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float2 f = __bfloat1622float2(h[u]);
+    v[2 * u] = f.x;
+    v[2 * u + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 c = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = c.x, v[5] = c.y, v[6] = c.z, v[7] = c.w;
+}
+template <typename T>
+__global__ void __launch_bounds__(CENTRE_NT)
+centre8_kernel(const T* __restrict__ x, const float* __restrict__ kmean,
+               __nv_bfloat16* __restrict__ out, int KV, int Skv, int dh,
+               Strides xs) {
+  const int b = blockIdx.x / KV, kvh = blockIdx.x - b * KV;
+  const T* xp = x + b * xs.b + kvh * xs.h;
+  const float* km = kmean + (long long)blockIdx.x * dh;
+  __nv_bfloat16* op = out + (long long)blockIdx.x * Skv * dh;
+  const int per = dh / 8;
+  const int j0 = blockIdx.y * CENTRE_ROWS;
+  for (int e = threadIdx.x; e < CENTRE_ROWS * per; e += CENTRE_NT) {
+    const int j = j0 + e / per, d = (e - (e / per) * per) * 8;
+    if (j >= Skv) break;
+    float v[8];
+    load8(xp + (long long)j * xs.s + d, v);
+    uint4 r;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&r);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      w[u] = pack_bf16(v[2 * u] - km[d + 2 * u], v[2 * u + 1] - km[d + 2 * u + 1]);
+    *reinterpret_cast<uint4*>(op + (long long)j * dh + d) = r;
+  }
+}
+
+// Shared memory of the dk/dv kernel (byte offsets from a 1024-byte
+// aligned base): K and V (128 keys each), the rings of Q and dO tiles
+// (64 rows each) and of lse/delta pairs, then the barriers.
+template <int DHP>
+struct DkdvSmem {
+  static constexpr int TK = BW_KEYS * DHP * 2;
+  static constexpr int TQ = BW_QT * DHP * 2;
+  static constexpr int K = 0, V = TK, Q = 2 * TK;
+  static constexpr int DO = Q + BW_STAGES * TQ;
+  static constexpr int LD = DO + BW_STAGES * TQ;
+  static constexpr int BAR = LD + BW_STAGES * LSED_TILE * 4;
+  static constexpr int BYTES = BAR + 8 * (2 * BW_STAGES + 1) + 1024;
+};
+
+// dk (f32, into scratch, times scale) and dv (bf16) of one tile of 128
+// keys of one (batch item, kv head). Warpgroup 2's first thread (the
+// producer) loads K and V once, then keeps the query tiles of the G heads
+// in flight (Q, dO, lse/delta into a ring of BW_STAGES stages: full[s]
+// completes when a stage's bytes land, empty[s] when both consumers'
+// eight warps are done with it). Consumer warpgroup c owns keys
+// 64 c .. 64 c + 63 of the tile: per query tile S^T = K Q^T and
+// dP^T = V dO^T (wgmma m64n64k16 from shared memory), then P^T and
+// dS^T = P^T (dP^T - delta) in f32 registers, rounded to bf16 as the A
+// operands (from registers) of dv += P^T dO and dk += dS^T Q (m64nDHPk16,
+// dO and Q read transposed from the same tiles); dk and dv stay in f32
+// accumulators for the whole loop.
+template <int DHP>
+__global__ void __launch_bounds__(BW_NT, 1)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                  const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv,
+                  const __grid_constant__ CUtensorMap mdo,
+                  const float* __restrict__ lsed, float* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, int H, int KV, int Sq,
+                  int Skv, int dh, int causal, int window, float scale_log2,
+                  float scale) {
+  using L = DkdvSmem<DHP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const sm = align1024(smem_raw);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* const empty = full + BW_STAGES;
+  uint64_t* const kv_full = empty + BW_STAGES;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int G = H / KV;
   const int b = blockIdx.x / KV;
   const int kvh = blockIdx.x - b * KV;
-  const int k_lo = blockIdx.y * KV_BKV;
-  const int k_hi = min(k_lo + KV_BKV, Skv) - 1;
-  const int kw_lo = k_lo + 16 * warp;     // this warp's 16 keys
-  const int kw_hi = min(kw_lo + 15, Skv - 1);
-
-  const int n_q = (Sq + KV_BQ - 1) / KV_BQ;
-  const int i_begin = causal ? k_lo / KV_BQ : 0;
+  const int k_lo = blockIdx.y * BW_KEYS;   // first to last: heaviest first
+  const int k_hi = min(k_lo + BW_KEYS, Skv) - 1;
+  const int n_q = (Sq + BW_QT - 1) / BW_QT;
+  const int i_begin = causal ? min(k_lo / BW_QT, n_q) : 0;
   const int i_end =
-      window > 0 ? min(n_q, (k_hi + window - 1) / KV_BQ + 1) : n_q;
+      window > 0 ? min(n_q, (k_hi + window - 1) / BW_QT + 1) : n_q;
   const int per_head = max(i_end - i_begin, 0);
   const int n_tiles = G * per_head;
 
-  auto load_tile = [&](int n) {
-    const int st = n & 1;
-    const int h = kvh * G + n / per_head;
-    const int q_lo = (i_begin + n % per_head) * KV_BQ;
-    load_rows_bf16<DHP, KV_BQ, KV_NT, VEC>(
-        sQ + st * TILE, q + b * qs.b + h * qs.h, qs.s, q_lo, Sq, dh, tid);
-    load_rows_bf16<DHP, KV_BQ, KV_NT, VEC>(
-        sdO + st * TILE, dO + b * gs.b + h * gs.h, gs.s, q_lo, Sq, dh, tid);
-    const long long row0 = ((long long)b * H + h) * Sq + q_lo;
-    if (tid < 2 * KV_BQ) {
-      const int r = tid & (KV_BQ - 1);
-      const bool ok = q_lo + r < Sq;
-      const float* src = (tid < KV_BQ ? lse : delta) + (ok ? row0 + r : 0);
-      float* dst = (tid < KV_BQ ? sL : sD) + st * KV_BQ + r;
-      if (VEC) {
-        cp_async4(dst, src, ok ? 4 : 0);
-      } else {
-        *dst = ok ? *src : 0.f;
-      }
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < BW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
     }
-  };
-
-  load_rows_bf16<DHP, KV_BKV, KV_NT, VEC>(sK, k + b * ks.b + kvh * ks.h, ks.s,
-                                          k_lo, Skv, dh, tid);
-  load_rows_bf16<DHP, KV_BKV, KV_NT, VEC>(sV, v + b * vs.b + kvh * vs.h, vs.s,
-                                          k_lo, Skv, dh, tid);
-  if (n_tiles > 0) load_tile(0);
-  cp_async_commit();
-
-  float adk[NO][4], adv[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
-  const __nv_bfloat16* wK = sK + 16 * warp * LD;
-  const __nv_bfloat16* wV = sV + 16 * warp * LD;
-
-  for (int n = 0; n < n_tiles; ++n) {
-    cp_async_wait<0>();                  // tile n (and K, V) have landed,
-    __syncthreads();                     // and every warp is done with n-1
-    if (n + 1 < n_tiles) load_tile(n + 1);
-    cp_async_commit();
-
-    const int st = n & 1;
-    const int q_lo = (i_begin + n % per_head) * KV_BQ;
-    const int q_hi = min(q_lo + KV_BQ, Sq) - 1;
-    const bool dead = kw_lo >= Skv || (causal && kw_lo > q_hi) ||
-                      (window > 0 && q_lo - kw_hi >= window);
-    if (dead) continue;                  // warp-uniform
-    const bool edge = (causal && kw_hi > q_lo) ||
-                      (window > 0 && q_hi - kw_lo >= window) ||
-                      kw_lo + 16 > Skv || q_lo + KV_BQ > Sq;
-    const __nv_bfloat16* tQ = sQ + st * TILE;
-    const __nv_bfloat16* tdO = sdO + st * TILE;
-    const float* tL = sL + st * KV_BQ;
-    const float* tD = sD + st * KV_BQ;
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 32 queries.
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int m = 0; m < NS; ++m)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[m][e] = dp[m][e] = 0.f;
-    rows_by_rows<DHP, NS, LD>(s, wK, tQ, lane);
-    rows_by_rows<DHP, NS, LD>(dp, wV, tdO, lane);
-
-    // P^T and dS^T = P^T (dP^T - delta), in place; key g (+ 8), query
-    // m 8 + 2t (+ 1).
-#pragma unroll
-    for (int m = 0; m < NS; ++m) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = m * 8 + 2 * t + (e & 1);
-        bool live = true;
-        if (edge) {
-          const int qi = q_lo + col;
-          const int kj = kw_lo + g + (e >> 1) * 8;
-          live = qi < Sq && kj < Skv && (!causal || kj <= qi) &&
-                 (window <= 0 || kj > qi - window);
-        }
-        const float p = live ? exp2f(s[m][e] * scale_log2 - tL[col]) : 0.f;
-        s[m][e] = p;
-        dp[m][e] = p * (dp[m][e] - tD[col]);
-      }
-    }
-
-    // dv += P^T dO, dk += dS^T Q over this tile's 32 query rows
-    acc_by_rows<DHP, NS, LD>(adv, s, tdO, lane);
-    acc_by_rows<DHP, NS, LD>(adk, dp, tQ, lane);
+    mbar_init(kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float* dkp = dk + ((long long)b * KV + kvh) * Skv * dh;
-  __nv_bfloat16* dvp = dv + ((long long)b * KV + kvh) * Skv * dh;
+  const int wg = tid >> 7;
+  if (wg == 2) {                         // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        PRODUCER_REGS));
+    if (tid == 256) {
+      mbar_expect_tx(kv_full, 2 * L::TK);
+      tma_tile<DHP, BW_KEYS>(sm + L::K, &mk, k_lo, kvh, b, kv_full);
+      tma_tile<DHP, BW_KEYS>(sm + L::V, &mv, k_lo, kvh, b, kv_full);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int n = 0; n < n_tiles; ++n) {
+        mbar_wait(&empty[s], ph ^ 1);
+        const int h = kvh * G + n / per_head;
+        const int qt = i_begin + n % per_head;
+        mbar_expect_tx(&full[s], 2 * L::TQ + LSED_TILE * 4);
+        tma_tile<DHP, BW_QT>(sm + L::Q + s * L::TQ, &mq, qt * BW_QT, h, b,
+                             &full[s]);
+        tma_tile<DHP, BW_QT>(sm + L::DO + s * L::TQ, &mdo, qt * BW_QT, h, b,
+                             &full[s]);
+        bulk_copy(sm + L::LD + s * LSED_TILE * 4,
+                  lsed + ((long long)(b * H + h) * n_q + qt) * LSED_TILE,
+                  LSED_TILE * 4, &full[s]);
+        if (++s == BW_STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {                               // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        CONSUMER_REGS));
+    constexpr int NO = DHP / 8;
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int kw_lo = k_lo + 64 * wg;    // this warpgroup's 64 keys
+    const int kw_hi = min(kw_lo + 63, Skv - 1);
+    const uint32_t sK = smem_addr(sm + L::K), sV = smem_addr(sm + L::V);
+    float adk[NO][4], adv[NO][4];
+    zero<NO>(adk);
+    zero<NO>(adv);
+    mbar_wait(kv_full, 0);
+    int s = 0;
+    uint32_t ph = 0;
+    for (int n = 0; n < n_tiles; ++n) {
+      mbar_wait(&full[s], ph);
+      const int q_lo = (i_begin + n % per_head) * BW_QT;
+      const int q_hi = min(q_lo + BW_QT, Sq) - 1;
+      const bool dead = kw_lo >= Skv || (causal && kw_lo > q_hi) ||
+                        (window > 0 && q_lo - kw_hi >= window);
+      if (!dead) {                       // warpgroup-uniform
+        const bool edge = (causal && kw_hi > q_lo) ||
+                          (window > 0 && q_hi - kw_lo >= window) ||
+                          kw_lo + 64 > Skv || q_lo + BW_QT > Sq;
+        const uint32_t sQ = smem_addr(sm + L::Q + s * L::TQ);
+        const uint32_t sdO = smem_addr(sm + L::DO + s * L::TQ);
+        const float* tL =
+            reinterpret_cast<const float*>(sm + L::LD + s * LSED_TILE * 4);
+        const float* tD = tL + BW_QT;
+
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, two groups
+        float st[8][4], dp[8][4];
+        wg_fence();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kj = kw_lo + g + 8 * r;
-    if (kj >= Skv) continue;
+        for (int kk = 0; kk < DHP / 16; ++kk)
+          wgmma_ss<64>(st, kmajor<BW_KEYS>(sK, 64 * wg, kk),
+                       kmajor<BW_QT>(sQ, 0, kk), kk > 0);
+        wg_commit();
 #pragma unroll
-    for (int nt = 0; nt < NO; ++nt) {
-      const int d = nt * 8 + 2 * t;
-      store_pair(dkp + (long long)kj * dh, d, dh, adk[nt][2 * r] * scale,
-                 adk[nt][2 * r + 1] * scale);
-      store_pair(dvp + (long long)kj * dh, d, dh, adv[nt][2 * r],
-                 adv[nt][2 * r + 1]);
+        for (int kk = 0; kk < DHP / 16; ++kk)
+          wgmma_ss<64>(dp, kmajor<BW_KEYS>(sV, 64 * wg, kk),
+                       kmajor<BW_QT>(sdO, 0, kk), kk > 0);
+        wg_commit();
+
+        // P^T while dP^T runs; key 16 warp + g (+ 8), query 8 m + 2t (+ 1)
+        wg_wait<1>();
+        pin<8>(st);
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = m * 8 + 2 * t + (e & 1);
+            bool live = true;
+            if (edge) {
+              const int qi = q_lo + col;
+              const int kj = kw_lo + 16 * warp + g + (e >> 1) * 8;
+              live = qi < Sq && kj < Skv && (!causal || kj <= qi) &&
+                     (window <= 0 || kj > qi - window);
+            }
+            st[m][e] = live ? exp2f(st[m][e] * scale_log2 - tL[col]) : 0.f;
+          }
+        }
+        uint32_t pa[4][4], da[4][4];
+        to_a(pa, st);
+
+        // dv += P^T dO over this tile's 64 query rows, then dS^T =
+        // P^T (dP^T - delta) while it runs, then dk += dS^T Q
+        wg_wait<0>();
+        pin<8>(dp);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_tb<DHP>(adv, pa[kk], mnmajor<BW_QT>(sdO, kk), 1);
+        wg_commit();
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[m][e] = st[m][e] * (dp[m][e] - tD[m * 8 + 2 * t + (e & 1)]);
+        to_a(da, dp);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_tb<DHP>(adk, da[kk], mnmajor<BW_QT>(sQ, kk), 1);
+        wg_commit();
+        wg_wait<0>();
+        pin<NO>(adv);
+        pin<NO>(adk);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (++s == BW_STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+
+    float* dkp = dk + ((long long)b * KV + kvh) * Skv * dh;
+    __nv_bfloat16* dvp = dv + ((long long)b * KV + kvh) * Skv * dh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = kw_lo + 16 * warp + g + 8 * r;
+      if (kj >= Skv) continue;
+#pragma unroll
+      for (int nt = 0; nt < NO; ++nt) {
+        const int d = nt * 8 + 2 * t;
+        store_pair(dkp + (long long)kj * dh, d, dh, adk[nt][2 * r] * scale,
+                   adk[nt][2 * r + 1] * scale);
+        store_pair(dvp + (long long)kj * dh, d, dh, adv[nt][2 * r],
+                   adv[nt][2 * r + 1]);
+      }
     }
   }
 }
 
-// dq (bf16) of one query tile of Q_BQ rows of one (batch item, head): the
-// f32 dq kernel's loop over kv tiles of QB_BKV keys, with bf16 products;
-// the scores from the keys k, dq's product from the centred keys kc.
-template <int DHP, bool VEC>
-__global__ void __launch_bounds__(Q_NT, 2)
-dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ kc,
-               const __nv_bfloat16* __restrict__ v,
-               const __nv_bfloat16* __restrict__ dO,
-               const float* __restrict__ lse,
-               const float* __restrict__ delta,
-               __nv_bfloat16* __restrict__ dq, int H, int KV, int Sq,
-               int Skv, int dh, Strides qs, Strides ks, Strides cs,
-               Strides vs, Strides gs, int causal, int window,
-               float scale_log2, float scale) {
-  constexpr int LD = DHP + PADB;
-  constexpr int NS = QB_BKV / 8;         // n8 score tiles per warp
-  constexpr int NO = DHP / 8;            // n8 output tiles per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* const sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* const sdO = sQ + Q_BQ * LD;
-  __nv_bfloat16* const sK = sdO + Q_BQ * LD;              // QB_BKV rows
-  __nv_bfloat16* const sV = sK + QB_BKV * LD;             // QB_BKV rows
-  __nv_bfloat16* const sC = sV + QB_BKV * LD;             // QB_BKV rows
+// Shared memory of the dq kernel: Q and dO (128 rows each), then the ring
+// of key tiles (K, V, KC: 64 keys each per stage), then the barriers.
+template <int DHP>
+struct DqSmem {
+  static constexpr int TQ = BW_QROWS * DHP * 2;
+  static constexpr int TK = BW_KT * DHP * 2;
+  static constexpr int Q = 0, DO = TQ, KS = 2 * TQ;
+  static constexpr int BAR = KS + BW_STAGES * 3 * TK;
+  static constexpr int BYTES = BAR + 8 * (2 * BW_STAGES + 1) + 1024;
+};
+
+// dq (bf16) of one tile of 128 query rows of one (batch item, head). The
+// producer loads Q and dO once, then keeps the key tiles (K, V and the
+// centred keys KC, 64 keys each) in flight in a ring. Consumer warpgroup
+// c owns rows 64 c .. 64 c + 63: per key tile S = Q K^T and dP = dO V^T
+// (wgmma from shared memory, the scores from the raw keys), dS = P (dP -
+// delta) in f32 registers, rounded to bf16 as the A operand of
+// dq += dS KC (KC read transposed), in f32 accumulators for the loop.
+template <int DHP>
+__global__ void __launch_bounds__(BW_NT, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv,
+                const __grid_constant__ CUtensorMap mdo,
+                const __grid_constant__ CUtensorMap mkc,
+                const float* __restrict__ lsed,
+                __nv_bfloat16* __restrict__ dq, int H, int KV, int Sq,
+                int Skv, int dh, int causal, int window, float scale_log2,
+                float scale) {
+  using L = DqSmem<DHP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const sm = align1024(smem_raw);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* const empty = full + BW_STAGES;
+  uint64_t* const q_full = empty + BW_STAGES;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int G = H / KV;
   const int b = blockIdx.x / H;
   const int h = blockIdx.x - b * H;
-  const int q_lo = (gridDim.y - 1 - blockIdx.y) * Q_BQ;   // heaviest first
-  const int q_hi = min(q_lo + Q_BQ, Sq) - 1;
-  const int qw_lo = q_lo + 16 * warp;    // this warp's 16 rows
-  const int qw_hi = min(qw_lo + 15, Sq - 1);
-  const long long row0 = ((long long)b * H + h) * Sq;
-  const __nv_bfloat16* kp = k + b * ks.b + (h / G) * ks.h;
-  const __nv_bfloat16* cp = kc + b * cs.b + (h / G) * cs.h;
-  const __nv_bfloat16* vp = v + b * vs.b + (h / G) * vs.h;
+  const int kvh = h / (H / KV);
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * BW_QROWS;  // heaviest 1st
+  const int q_hi = min(q_lo + BW_QROWS, Sq) - 1;
+  const int n_kv = (Skv + BW_KT - 1) / BW_KT;
+  const int j_end = causal ? min(n_kv, q_hi / BW_KT + 1) : n_kv;
+  const int j_begin = window > 0 ? max(0, q_lo - window + 1) / BW_KT : 0;
+  const int n_tiles = max(j_end - j_begin, 0);
 
-  const int n_kv = (Skv + QB_BKV - 1) / QB_BKV;
-  const int j_end = causal ? min(n_kv, q_hi / QB_BKV + 1) : n_kv;
-  const int j_begin = window > 0 ? max(0, q_lo - window + 1) / QB_BKV : 0;
-
-  // Copy groups, in order: {Q, dO, V(j_begin)}, {K(j_begin)},
-  // {KC(j_begin)}, then per tile {V(j+1)} after dO V(j)^T is read, {K(j+1)}
-  // after Q K(j)^T and {KC(j+1)} after dS KC(j).
-  load_rows_bf16<DHP, Q_BQ, Q_NT, VEC>(sQ, q + b * qs.b + h * qs.h, qs.s,
-                                       q_lo, Sq, dh, tid);
-  load_rows_bf16<DHP, Q_BQ, Q_NT, VEC>(sdO, dO + b * gs.b + h * gs.h, gs.s,
-                                       q_lo, Sq, dh, tid);
-  if (j_begin < j_end)
-    load_rows_bf16<DHP, QB_BKV, Q_NT, VEC>(sV, vp, vs.s, j_begin * QB_BKV,
-                                           Skv, dh, tid);
-  cp_async_commit();
-  if (j_begin < j_end)
-    load_rows_bf16<DHP, QB_BKV, Q_NT, VEC>(sK, kp, ks.s, j_begin * QB_BKV,
-                                           Skv, dh, tid);
-  cp_async_commit();
-  if (j_begin < j_end)
-    load_rows_bf16<DHP, QB_BKV, Q_NT, VEC>(sC, cp, cs.s, j_begin * QB_BKV,
-                                           Skv, dh, tid);
-  cp_async_commit();
-
-  float lrow[2], drow[2];                // rows g and g + 8 of this warp
+  if (tid == 0) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = qw_lo + g + 8 * r;
-    lrow[r] = qi < Sq ? lse[row0 + qi] : 0.f;
-    drow[r] = qi < Sq ? delta[row0 + qi] : 0.f;
+    for (int s = 0; s < BW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  const __nv_bfloat16* wQ = sQ + 16 * warp * LD;
-  const __nv_bfloat16* wdO = sdO + 16 * warp * LD;
+  __syncthreads();
 
-  for (int jt = j_begin; jt < j_end; ++jt) {
-    const bool more = jt + 1 < j_end;
-    const int k_lo = jt * QB_BKV;
-    const int k_hi = min(k_lo + QB_BKV, Skv) - 1;
-    const bool dead = qw_lo >= Sq || (causal && k_lo > qw_hi) ||
-                      (window > 0 && qw_lo - k_hi >= window);
-    const bool edge = (causal && k_hi > qw_lo) ||
-                      (window > 0 && qw_hi - k_lo >= window) ||
-                      k_lo + QB_BKV > Skv;
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int m = 0; m < NS; ++m)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[m][e] = dp[m][e] = 0.f;
-
-    cp_async_wait<2>();                  // V(jt) (and Q, dO) have landed
-    __syncthreads();
-    if (!dead) rows_by_rows<DHP, NS, LD>(dp, wdO, sV, lane);   // dO V^T
-    __syncthreads();                     // every warp has read V(jt)
-    if (more)
-      load_rows_bf16<DHP, QB_BKV, Q_NT, VEC>(sV, vp, vs.s, (jt + 1) * QB_BKV,
-                                             Skv, dh, tid);
-    cp_async_commit();
-
-    cp_async_wait<2>();                  // K(jt) has landed
-    __syncthreads();
-    if (!dead) {
-      rows_by_rows<DHP, NS, LD>(s, wQ, sK, lane);              // Q K^T
-      // dS = P (dP - delta) in place of dP; row g (+ 8), key m 8 + 2t (+ 1)
-#pragma unroll
-      for (int m = 0; m < NS; ++m) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          bool live = true;
-          if (edge) {
-            const int qi = qw_lo + g + (e >> 1) * 8;
-            const int kj = k_lo + m * 8 + 2 * t + (e & 1);
-            live = kj < Skv && (!causal || kj <= qi) &&
-                   (window <= 0 || kj > qi - window);
-          }
-          const float p =
-              live ? exp2f(s[m][e] * scale_log2 - lrow[e >> 1]) : 0.f;
-          dp[m][e] = p * (dp[m][e] - drow[e >> 1]);
+  const int wg = tid >> 7;
+  if (wg == 2) {                         // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        PRODUCER_REGS));
+    if (tid == 256) {
+      mbar_expect_tx(q_full, 2 * L::TQ);
+      tma_tile<DHP, BW_QROWS>(sm + L::Q, &mq, q_lo, h, b, q_full);
+      tma_tile<DHP, BW_QROWS>(sm + L::DO, &mdo, q_lo, h, b, q_full);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int n = 0; n < n_tiles; ++n) {
+        mbar_wait(&empty[s], ph ^ 1);
+        const int k0 = (j_begin + n) * BW_KT;
+        unsigned char* st = sm + L::KS + s * 3 * L::TK;
+        mbar_expect_tx(&full[s], 3 * L::TK);
+        tma_tile<DHP, BW_KT>(st, &mk, k0, kvh, b, &full[s]);
+        tma_tile<DHP, BW_KT>(st + L::TK, &mv, k0, kvh, b, &full[s]);
+        tma_tile<DHP, BW_KT>(st + 2 * L::TK, &mkc, k0, kvh, b, &full[s]);
+        if (++s == BW_STAGES) {
+          s = 0;
+          ph ^= 1;
         }
       }
     }
-    __syncthreads();                     // every warp has read K(jt)
-    if (more)
-      load_rows_bf16<DHP, QB_BKV, Q_NT, VEC>(sK, kp, ks.s, (jt + 1) * QB_BKV,
-                                             Skv, dh, tid);
-    cp_async_commit();
-
-    cp_async_wait<2>();                  // KC(jt) has landed
-    __syncthreads();
-    if (!dead) acc_by_rows<DHP, NS, LD>(acc, dp, sC, lane);   // dq += dS KC
-    __syncthreads();                     // every warp has read KC(jt)
-    if (more)
-      load_rows_bf16<DHP, QB_BKV, Q_NT, VEC>(sC, cp, cs.s, (jt + 1) * QB_BKV,
-                                             Skv, dh, tid);
-    cp_async_commit();
-  }
-
-  __nv_bfloat16* dqp = dq + row0 * dh;
+  } else {                               // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        CONSUMER_REGS));
+    constexpr int NO = DHP / 8;
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int qw_lo = q_lo + 64 * wg;    // this warpgroup's 64 rows
+    const int qw_hi = min(qw_lo + 63, Sq - 1);
+    const int n_q = (Sq + BW_QT - 1) / BW_QT;
+    const long long bh = (long long)b * H + h;
+    float lrow[2], drow[2];              // rows 16 warp + g (+ 8)
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = qw_lo + g + 8 * r;
-    if (qi >= Sq) continue;
+    for (int r = 0; r < 2; ++r) {
+      const int qi = qw_lo + 16 * warp + g + 8 * r;
+      const float* p =
+          lsed + (bh * n_q + qi / BW_QT) * LSED_TILE + (qi % BW_QT);
+      lrow[r] = qi < Sq ? p[0] : 0.f;
+      drow[r] = qi < Sq ? p[BW_QT] : 0.f;
+    }
+    const uint32_t sQ = smem_addr(sm + L::Q), sdO = smem_addr(sm + L::DO);
+    float acc[NO][4];
+    zero<NO>(acc);
+    mbar_wait(q_full, 0);
+    int s = 0;
+    uint32_t ph = 0;
+    for (int n = 0; n < n_tiles; ++n) {
+      mbar_wait(&full[s], ph);
+      const int k_lo = (j_begin + n) * BW_KT;
+      const int k_hi = min(k_lo + BW_KT, Skv) - 1;
+      const bool dead = qw_lo >= Sq || (causal && k_lo > qw_hi) ||
+                        (window > 0 && qw_lo - k_hi >= window);
+      if (!dead) {                       // warpgroup-uniform
+        const bool edge = (causal && k_hi > qw_lo) ||
+                          (window > 0 && qw_hi - k_lo >= window) ||
+                          k_lo + BW_KT > Skv;
+        const uint32_t sK = smem_addr(sm + L::KS + s * 3 * L::TK);
+        const uint32_t sV = sK + L::TK, sC = sK + 2 * L::TK;
+
+        // S = Q K^T and dP = dO V^T: 64 rows x 64 keys, two groups
+        float sc[8][4], dp[8][4];
+        wg_fence();
 #pragma unroll
-    for (int nt = 0; nt < NO; ++nt)
-      store_pair(dqp + (long long)qi * dh, nt * 8 + 2 * t, dh,
-                 acc[nt][2 * r] * scale, acc[nt][2 * r + 1] * scale);
+        for (int kk = 0; kk < DHP / 16; ++kk)
+          wgmma_ss<64>(sc, kmajor<BW_QROWS>(sQ, 64 * wg, kk),
+                       kmajor<BW_KT>(sK, 0, kk), kk > 0);
+        wg_commit();
+#pragma unroll
+        for (int kk = 0; kk < DHP / 16; ++kk)
+          wgmma_ss<64>(dp, kmajor<BW_QROWS>(sdO, 64 * wg, kk),
+                       kmajor<BW_KT>(sV, 0, kk), kk > 0);
+        wg_commit();
+
+        // P while dP runs; row 16 warp + g (+ 8), key 8 m + 2t (+ 1)
+        wg_wait<1>();
+        pin<8>(sc);
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            bool live = true;
+            if (edge) {
+              const int qi = qw_lo + 16 * warp + g + (e >> 1) * 8;
+              const int kj = k_lo + m * 8 + 2 * t + (e & 1);
+              live = kj < Skv && (!causal || kj <= qi) &&
+                     (window <= 0 || kj > qi - window);
+            }
+            sc[m][e] =
+                live ? exp2f(sc[m][e] * scale_log2 - lrow[e >> 1]) : 0.f;
+          }
+        }
+        // dS = P (dP - delta), then dq += dS KC over this tile's 64 keys
+        wg_wait<0>();
+        pin<8>(dp);
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[m][e] = sc[m][e] * (dp[m][e] - drow[e >> 1]);
+        uint32_t da[4][4];
+        to_a(da, dp);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_tb<DHP>(acc, da[kk], mnmajor<BW_KT>(sC, kk), 1);
+        wg_commit();
+        wg_wait<0>();
+        pin<NO>(acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (++s == BW_STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+
+    __nv_bfloat16* dqp = dq + bh * Sq * dh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = qw_lo + 16 * warp + g + 8 * r;
+      if (qi >= Sq) continue;
+#pragma unroll
+      for (int nt = 0; nt < NO; ++nt)
+        store_pair(dqp + (long long)qi * dh, nt * 8 + 2 * t, dh,
+                   acc[nt][2 * r] * scale, acc[nt][2 * r + 1] * scale);
+    }
   }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (the library links no libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-d bf16 map (dh, rows, head, batch) of a tensor with element
+// strides st over (batch, head, row), boxes of 64 x 64, 128-byte swizzle,
+// rows and columns past the tensor read as zeros. A stride over an axis
+// of one entry is never used; it is given as 16 bytes.
+bool encode_rows(CUtensorMap* map, const void* base, int B, int N, int S,
+                 int dh, const Strides& st) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)S, (cuuint64_t)N,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {
+      S > 1 ? (cuuint64_t)st.s * 2 : 16, N > 1 ? (cuuint64_t)st.h * 2 : 16,
+      B > 1 ? (cuuint64_t)st.b * 2 : 16};
+  const cuuint32_t box[4] = {BOX, BOX, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Whether TMA takes rows of a tensor with these element strides: each
+// row starts on 16 bytes (axes of one entry aside).
+bool tma_rows(const void* p, int B, int N, int S, const Strides& st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (S == 1 || (st.s > 0 && st.s % 8 == 0)) &&
+         (N == 1 || (st.h > 0 && st.h % 8 == 0)) &&
+         (B == 1 || (st.b > 0 && st.b % 8 == 0));
 }
 
 template <int DHP>
-constexpr size_t dkdv_bf16_smem() {
-  return sizeof(__nv_bfloat16) * (2 * KV_BKV + 4 * KV_BQ) *
-             (size_t)(DHP + PADB) +
-         sizeof(float) * 4 * KV_BQ;
-}
-
-template <int DHP>
-constexpr size_t dq_bf16_smem() {
-  return sizeof(__nv_bfloat16) * (2 * Q_BQ + 3 * QB_BKV) *
-         (size_t)(DHP + PADB);
-}
-
-template <int DHP, bool VEC>
 cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                         const __nv_bfloat16* v, const __nv_bfloat16* o,
                         const __nv_bfloat16* dO, const float* lse,
@@ -1251,59 +1676,89 @@ cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                         int KV, int Sq, int Skv, int dh, const Strides* st,
                         int causal, int window, float scale_log2,
                         float scale, cudaStream_t stream) {
-  constexpr size_t kv_smem = dkdv_bf16_smem<DHP>();
-  constexpr size_t q_smem = dq_bf16_smem<DHP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv_bf16_kernel<DHP, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kv_smem);
+  constexpr int kv_smem = DkdvSmem<DHP>::BYTES;
+  constexpr int q_smem = DqSmem<DHP>::BYTES;
+  // the shared-memory limit is set once per process and device
+  static int attributes_set = -1;
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dq_bf16_kernel<DHP, VEC>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)q_smem);
-  if (err != cudaSuccess) return err;
+  if (attributes_set != device) {
+    err = cudaFuncSetAttribute(dkdv_wgmma_kernel<DHP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kv_smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(dq_wgmma_kernel<DHP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               q_smem);
+    if (err != cudaSuccess) return err;
+    attributes_set = device;
+  }
   // st: q, k, v, o, do
-  // scratch: kc (B KV Skv dh bf16, padded to 16 bytes), dk's f32 sums
-  // (B KV Skv dh), delta (B H Sq), kmean (B KV dh)
+  // scratch: kc (B KV Skv dh bf16), dk's f32 sums (B KV Skv dh), lse and
+  // delta per query tile (B H ceil(Sq / 64) 128), kmean (B KV dh), the key
+  // means' partial sums (B KV ceil(Skv / KMEAN_ROWS) dh)
   const long long n = (long long)B * KV * Skv * dh;
+  const int n_q = (Sq + BW_QT - 1) / BW_QT;
+  const int chunks = (Skv + KMEAN_ROWS - 1) / KMEAN_ROWS;
   __nv_bfloat16* kc = reinterpret_cast<__nv_bfloat16*>(scratch);
-  float* dk32 = scratch + (n + 7) / 8 * 4;
-  float* delta = dk32 + n;
-  float* kmean = delta + (long long)B * H * Sq;
+  float* dk32 = scratch + n / 2;
+  float* lsed = dk32 + n;
+  float* kmean = lsed + (long long)B * H * n_q * LSED_TILE;
+  float* part = kmean + (long long)B * KV * dh;
   const Strides cs{(long long)KV * Skv * dh, (long long)Skv * dh, dh};
+  CUtensorMap mq, mk, mv, mdo, mkc;
+  if (!encode_rows(&mq, q, B, H, Sq, dh, st[0]) ||
+      !encode_rows(&mk, k, B, KV, Skv, dh, st[1]) ||
+      !encode_rows(&mv, v, B, KV, Skv, dh, st[2]) ||
+      !encode_rows(&mdo, dO, B, H, Sq, dh, st[4]) ||
+      !encode_rows(&mkc, kc, B, KV, Skv, dh, cs))
+    return cudaErrorInvalidValue;
   const dim3 centre_grid(B * KV, (Skv + CENTRE_ROWS - 1) / CENTRE_ROWS);
-  kmean_kernel<__nv_bfloat16><<<B * KV, KMEAN_NT, 0, stream>>>(
-      k, kmean, KV, Skv, dh, st[1]);
+  const dim3 part_grid(B * KV, chunks);
+  kmean_part_kernel<__nv_bfloat16><<<part_grid, 128, 0, stream>>>(
+      k, part, KV, Skv, dh, st[1]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  centre_kernel<__nv_bfloat16, __nv_bfloat16>
-      <<<centre_grid, CENTRE_NT, 0, stream>>>(k, kmean, kc, KV, Skv, dh,
-                                              st[1]);
+  kmean_sum_kernel<<<B * KV, 128, 0, stream>>>(part, kmean, chunks, Skv, dh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  delta_kernel<__nv_bfloat16>
-      <<<dim3(B * H, (Sq + DELTA_NT / 32 - 1) / (DELTA_NT / 32)), DELTA_NT, 0,
-         stream>>>(o, dO, q, lse, kmean, delta, nullptr, H, KV, Sq, dh,
-                   st[3], st[4], st[0], scale_log2);
+  centre8_kernel<__nv_bfloat16><<<centre_grid, CENTRE_NT, 0, stream>>>(
+      k, kmean, kc, KV, Skv, dh, st[1]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_bf16_kernel<DHP, VEC>
-      <<<dim3(B * KV, (Skv + KV_BKV - 1) / KV_BKV), KV_NT, kv_smem, stream>>>(
-          q, k, v, dO, lse, delta, dk32, dv, H, KV, Sq, Skv, dh, st[0],
-          st[1], st[2], st[4], causal, window, scale_log2, scale);
+  const dim3 delta_grid(B * H,
+                        n_q * (BW_QT / (DELTA_NT / 32 * DELTA_ROWS)));
+  if (reinterpret_cast<uintptr_t>(o) % 8 == 0 && st[3].b % 4 == 0 &&
+      st[3].h % 4 == 0 && st[3].s % 4 == 0)
+    delta_tiles_kernel<true><<<delta_grid, DELTA_NT, 0, stream>>>(
+        o, dO, lse, lsed, H, Sq, dh, st[3], st[4]);
+  else
+    delta_tiles_kernel<false><<<delta_grid, DELTA_NT, 0, stream>>>(
+        o, dO, lse, lsed, H, Sq, dh, st[3], st[4]);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_bf16_kernel<DHP, VEC>
-      <<<dim3(B * H, (Sq + Q_BQ - 1) / Q_BQ), Q_NT, q_smem, stream>>>(
-          q, k, kc, v, dO, lse, delta, dq, H, KV, Sq, Skv, dh, st[0], st[1],
-          cs, st[2], st[4], causal, window, scale_log2, scale);
+  dkdv_wgmma_kernel<DHP>
+      <<<dim3(B * KV, (Skv + BW_KEYS - 1) / BW_KEYS), BW_NT, kv_smem,
+         stream>>>(mq, mk, mv, mdo, lsed, dk32, dv, H, KV, Sq, Skv, dh,
+                   causal, window, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // dk = bf16(dk32_j - mean_j dk32_j) (kmean's buffer is free again)
-  kmean_kernel<float><<<B * KV, KMEAN_NT, 0, stream>>>(dk32, kmean, KV, Skv,
-                                                        dh, cs);
+  dq_wgmma_kernel<DHP>
+      <<<dim3(B * H, (Sq + BW_QROWS - 1) / BW_QROWS), BW_NT, q_smem,
+         stream>>>(mq, mk, mv, mdo, mkc, lsed, dq, H, KV, Sq, Skv, dh,
+                   causal, window, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  centre_kernel<float, __nv_bfloat16><<<centre_grid, CENTRE_NT, 0, stream>>>(
+  // dk = bf16(dk32_j - mean_j dk32_j) (kmean's buffers are free again)
+  kmean_part_kernel<float><<<part_grid, 128, 0, stream>>>(dk32, part, KV,
+                                                           Skv, dh, cs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kmean_sum_kernel<<<B * KV, 128, 0, stream>>>(part, kmean, chunks, Skv, dh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  centre8_kernel<float><<<centre_grid, CENTRE_NT, 0, stream>>>(
       dk32, kmean, dk, KV, Skv, dh, cs);
   return cudaGetLastError();
 }
@@ -1368,11 +1823,15 @@ int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
 }
 
 // The same contract with bf16 q, k, v, o, do (lse f32) and bf16 dq, dk,
-// dv: `scratch` is f32 scratch of 4 ceil(B KV Skv dh / 8) + B KV Skv dh +
-// B H Sq + B KV dh floats, 16-byte aligned (the centred keys in bf16, dk's
-// f32 sums, delta, the key means). Tiles load with 16-byte cp.async when
-// every row of q, k, v and do starts 16-byte aligned and dh is a multiple
-// of 8, else element by element.
+// dv: `scratch` is f32 scratch of B KV Skv dh / 2 + B KV Skv dh +
+// 128 B H ceil(Sq / 64) + B KV dh (1 + ceil(Skv / 64)) floats, 16-byte
+// aligned (the centred keys in bf16, dk's f32 sums, lse and delta per query
+// tile, the key means and their partial sums).
+// q, k, v and do are read by TMA, so dh must be a multiple of 8 and every
+// row of q, k, v and do must start on 16 bytes (each base pointer, and
+// each stride over an axis of more than one entry a positive multiple of
+// 8): the wrapper makes other inputs legal by a copy. o is read by plain
+// loads (any strides).
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* o, const void* dO, const void* lse,
                              void* dq, void* dk, void* dv, void* scratch,
@@ -1381,9 +1840,12 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              int window, float scale_log2, float scale,
                              void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Skv < 1 ||
-      dh < 1 || dh > 128 || window < 0 || (long long)B * H > 2147483647LL ||
-      (Sq + Q_BQ - 1) / Q_BQ > 65535 || (Skv + KV_BKV - 1) / KV_BKV > 65535 ||
-      (Sq + DELTA_NT / 32 - 1) / (DELTA_NT / 32) > 65535 ||
+      dh < 1 || dh > 128 || dh % 8 != 0 || window < 0 ||
+      (long long)B * H > 2147483647LL ||
+      (Sq + BW_QROWS - 1) / BW_QROWS > 65535 ||
+      (Skv + KMEAN_ROWS - 1) / KMEAN_ROWS > 65535 ||
+      (long long)(Sq + BW_QT - 1) / BW_QT *
+              (BW_QT / (DELTA_NT / 32 * DELTA_ROWS)) > 65535 ||
       (Skv + CENTRE_ROWS - 1) / CENTRE_ROWS > 65535) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1391,13 +1853,11 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
   for (int t = 0; t < 5; ++t) {
     st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
   }
-  bool vec = dh % 8 == 0;
-  for (int t = 0; t < 15; ++t) {   // o: delta only
-    if (t / 3 != 3) vec = vec && strides[t] % 8 == 0;
+  if (!tma_rows(q, B, H, Sq, st[0]) || !tma_rows(k, B, KV, Skv, st[1]) ||
+      !tma_rows(v, B, KV, Skv, st[2]) || !tma_rows(dO, B, H, Sq, st[4]) ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
+    return (int)cudaErrorMisalignedAddress;
   }
-  const void* ptrs[5] = {q, k, v, dO, scratch};
-  for (const void* p : ptrs)
-    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
   using bf = __nv_bfloat16;
   const bf* qq = static_cast<const bf*>(q);
   const bf* kk = static_cast<const bf*>(k);
@@ -1410,14 +1870,10 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
   bf* dvv = static_cast<bf*>(dv);
   float* dd = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_BWD_LAUNCH(DHP, VEC)                                            \
-  launch_bf16<DHP, VEC>(qq, kk, vv, oo, gg, ll, dqq, dkk, dvv, dd, B, H, KV,  \
-                        Sq, Skv, dh, st, causal, window, scale_log2, scale, s)
-  if (dh <= 64)
-    return (int)(vec ? FLASH_BWD_LAUNCH(64, true)
-                     : FLASH_BWD_LAUNCH(64, false));
-  return (int)(vec ? FLASH_BWD_LAUNCH(128, true)
-                   : FLASH_BWD_LAUNCH(128, false));
+#define FLASH_BWD_LAUNCH(DHP)                                                 \
+  launch_bf16<DHP>(qq, kk, vv, oo, gg, ll, dqq, dkk, dvv, dd, B, H, KV, Sq,   \
+                   Skv, dh, st, causal, window, scale_log2, scale, s)
+  return (int)(dh <= 64 ? FLASH_BWD_LAUNCH(64) : FLASH_BWD_LAUNCH(128));
 #undef FLASH_BWD_LAUNCH
 }
 

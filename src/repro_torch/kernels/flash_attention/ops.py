@@ -48,8 +48,9 @@ import ctypes
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels._layout import vector_loads
+from repro_torch.kernels._layout import tma_rows, vector_loads
 from repro_torch.kernels._nvcc import Library
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -137,27 +138,50 @@ def _launch(q, k, v, causal, window, want_lse=False):
     return (o, lse) if want_lse else o
 
 
+def tma_operands(q, k, v, o, do):
+    """The bf16 backward's operands made legal for the kernel's TMA loads:
+    dh padded with zeros to a multiple of 8 (all five tensors, new and
+    contiguous), then each of q, k, v and do whose rows TMA cannot read
+    (``_layout.tma_rows``) copied to a contiguous tensor; o is read by
+    plain loads and kept. Returns (q, k, v, o, do) and the padded dh."""
+    dh = q.shape[-1]
+    dhp = -(-dh // 8) * 8
+    if dhp != dh:
+        q, k, v, o, do = (F.pad(t, (0, dhp - dh)) for t in (q, k, v, o, do))
+    q, k, v, do = (t if tma_rows(t)
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v, do))
+    return (q, k, v, o, do), dhp
+
+
 def _launch_bwd(q, k, v, o, lse, do, causal, window):
     """One launch of the backward kernel (seven CUDA kernels: the key
-    means, the centred keys, delta (f32: and the shifted log-sum-exp),
-    dk/dv, dq, then dk's mean over the keys taken out) on CUDA tensors,
-    q, k, v, o and do of one dtype (f32 or bf16), lse f32. Returns
-    contiguous (dq, dk, dv) in that dtype."""
+    means, the centred keys, delta (f32: and the shifted log-sum-exp;
+    bf16: beside a copy of the lse, per query tile), dk/dv, dq, then dk's
+    mean over the keys taken out) on CUDA tensors, q, k, v, o and do of
+    one dtype (f32 or bf16), lse f32. bf16 operands go through
+    ``tma_operands`` first. Returns contiguous (dq, dk, dv) in that
+    dtype."""
     B, H, Sq, dh = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     q, k, v, o, do = _unit_dh(q, k, v, o, do.to(q.dtype))
-    dq = torch.empty((B, H, Sq, dh), dtype=q.dtype, device=q.device)
-    dk = torch.empty((B, KV, Skv, dh), dtype=q.dtype, device=q.device)
+    dhp = dh
+    if q.dtype == torch.bfloat16:
+        (q, k, v, o, do), dhp = tma_operands(q, k, v, o, do)
+    dq = torch.empty((B, H, Sq, dhp), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, KV, Skv, dhp), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    n = B * KV * Skv * dh
+    n = B * KV * Skv * dhp
     if q.dtype == torch.float32:
         # the centred keys (B, KV, Skv, dh), delta and the shifted
         # log-sum-exp (B, H, Sq each), the key means (B, KV, dh)
         size = n + B * KV * dh + 2 * B * H * Sq
     else:
-        # the centred keys in bf16 (in floats, padded to 16 bytes), dk's
-        # f32 sums, delta, the key means
-        size = 4 * -(-n // 8) + n + B * H * Sq + B * KV * dh
+        # the centred keys in bf16 (n / 2 floats), dk's f32 sums, lse and
+        # delta per query tile of 64 rows, the key means and their partial
+        # sums over chunks of 64 keys
+        size = (n // 2 + n + 128 * B * H * -(-Sq // 64)
+                + B * KV * dhp * (1 + -(-Skv // 64)))
     scratch = torch.empty(size, dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
     lib = BWD_LIB.load()
@@ -167,10 +191,12 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), scratch.data_ptr(), B, H, KV, Sq, Skv, dh,
+                 dv.data_ptr(), scratch.data_ptr(), B, H, KV, Sq, Skv, dhp,
                  (ctypes.c_longlong * 15)(*strides), int(causal),
                  int(window), dh ** -0.5 * LOG2E, dh ** -0.5, stream)
     BWD_LIB.check(err, "flash_attention backward")
+    if dhp != dh:
+        dq, dk, dv = (t[..., :dh].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

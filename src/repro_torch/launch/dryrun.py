@@ -13,7 +13,13 @@ counter (``launch.hlo_cost``) and derives per-device numbers:
 
   * memory: argument and output bytes per device, exact from the specs;
     the peak as arguments plus the counted peak of live bytes split
-    evenly over the devices (XLA's ``temp_size`` stands there);
+    evenly over the devices. The reference's fields beside it:
+    ``alias_bytes`` the outputs that share storage with an argument (the
+    train step's donated parameters and Adam state, updated in place),
+    ``temp_bytes`` the counted peak less the outputs that do not (those
+    are live at the step's end, so within the peak), so that
+    ``per_device_total`` is the reference's argument + temp + output −
+    alias, a donated tree counted once;
   * cost: FLOPs and bytes, counted globally and split evenly (work the
     partitioner would replicate is not modelled);
   * collectives: the FSDP all-gathers of data-sharded weights (forward,
@@ -113,15 +119,33 @@ def weight_collectives(params, p_specs, mesh, mode, microbatches=1,
 
 def _one_microbatch(mb):
     """Within: ``steps.loss_and_grads`` runs once, counted ``mb`` times;
-    later calls return its (shape-only) result."""
-    real, first = ST.loss_and_grads, []
+    later calls return its (shape-only) result. The ``mb``-th call hands
+    it over and keeps no reference, so the step frees its gradients when
+    it would on a card (a donated step leaf by leaf)."""
+    real, first, calls = ST.loss_and_grads, [], [0]
 
     def once(*args, **kwargs):
         if not first:
             with hlo_cost.trips(mb):
                 first.append(real(*args, **kwargs))
-        return first[0]
+        calls[0] += 1
+        return first.pop() if calls[0] >= mb else first[0]
     return mock.patch.object(ST, "loss_and_grads", once)
+
+
+def aliased(out, args) -> list:
+    """For each output leaf, in order, whether it shares storage with an
+    argument: the donated trees a step updates in place."""
+    keys = {hlo_cost.storage_key(t) for t in hlo_cost.leaves(args)}
+    return [hlo_cost.storage_key(t) in keys for t in hlo_cost.leaves(out)]
+
+
+def alias_bytes(out, out_specs, mask, mesh) -> float:
+    """Bytes one device holds of the outputs ``mask`` (``aliased``) marks:
+    XLA's ``alias_size``."""
+    return float(sum(hlo_cost.nbytes(t) / shard_factor(s, mesh)
+                     for (t, s), a in zip(_leaves_with_specs(out, out_specs),
+                                          mask) if a))
 
 
 def describe(cfg, shape, mesh, counts=None):
@@ -135,14 +159,17 @@ def describe(cfg, shape, mesh, counts=None):
     t0 = time.time()
     if counts is None or key not in counts:
         with _one_microbatch(step.microbatches):
-            counted = hlo_cost.count(step.fn, *step.args)
+            out, cost = hlo_cost.count(step.fn, *step.args)
+        counted = (out, cost, aliased(out, step.args))
         if counts is not None:
             counts[key] = counted
-    out, cost = counted if counts is None else counts[key]
+    out, cost, mask = counted if counts is None else counts[key]
     count_s = time.time() - t0
     chips = mesh.size
     arg_b = per_device_bytes(step.args, step.in_specs, mesh)
     out_b = per_device_bytes(out, step.out_specs, mesh)
+    alias_b = alias_bytes(out, step.out_specs, mask, mesh)
+    peak_b = cost.peak_live_bytes / chips
     coll = weight_collectives(step.args[0], step.in_specs[0], mesh,
                               shape.mode, step.microbatches)
     parsed = hlo_cost.summarize(cost, chips, coll)
@@ -151,8 +178,9 @@ def describe(cfg, shape, mesh, counts=None):
         count_s=round(count_s, 2), microbatches=step.microbatches,
         weight_stationary=step.weight_stationary,
         memory={"argument_bytes": arg_b, "output_bytes": out_b,
-                "peak_live_bytes": cost.peak_live_bytes / chips,
-                "per_device_total": arg_b + cost.peak_live_bytes / chips},
+                "temp_bytes": peak_b - (out_b - alias_b),
+                "alias_bytes": alias_b, "peak_live_bytes": peak_b,
+                "per_device_total": arg_b + peak_b},
         cost={"flops": cost.flops, "matmul_flops": cost.matmul_flops,
               "bytes": cost.bytes, "peak_live_bytes": cost.peak_live_bytes,
               "aten_ops": cost.ops},

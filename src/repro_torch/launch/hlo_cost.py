@@ -88,7 +88,7 @@ def tree_bytes(tree) -> float:
     return float(sum(nbytes(t) for t in leaves(tree)))
 
 
-def _storage_key(t):
+def storage_key(t):
     return t.untyped_storage()._cdata
 
 
@@ -128,7 +128,7 @@ class CostMode(TorchDispatchMode):
         self.scale = [1.0]
         self._live = {}                  # storage key -> [bytes, tensors]
         self._now = 0.0
-        self._external = {_storage_key(t) for t in external}
+        self._external = {storage_key(t) for t in external}
 
     def _release(self, key):
         entry = self._live.get(key)
@@ -140,7 +140,7 @@ class CostMode(TorchDispatchMode):
             del self._live[key]
 
     def _track(self, t):
-        key = _storage_key(t)
+        key = storage_key(t)
         if key in self._external:
             return
         entry = self._live.get(key)

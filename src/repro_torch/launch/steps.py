@@ -174,7 +174,11 @@ def jitted_step(cfg: ArchConfig, shape: ShapeConfig, mesh, lr=1e-4,
     compiled or allocated; ``launch.dryrun`` counts ``fn(*args)``. The
     step runs the kernels' plain versions (``plain_kernels=True``): the
     reference's models run plain ``sdpa`` and their own scans, which is
-    what its compiled step counts."""
+    what its compiled step counts. The train step is the donated one
+    (``donate=True``), the counterpart of the reference's
+    ``donate_argnums=(0, 1)``: it updates the parameters and the Adam
+    state in place and frees each gradient leaf once its parameter is
+    updated, so the count sees no new trees beside the arguments."""
     from repro_torch.sharding.rules import (PartitionSpec, axis_size,
                                             batch_shardings, cache_shardings,
                                             params_shardings)
@@ -187,7 +191,7 @@ def jitted_step(cfg: ArchConfig, shape: ShapeConfig, mesh, lr=1e-4,
         if microbatches is None:
             microbatches = auto_microbatches(shape, mesh)
         step, opt = make_train_step(cfg, lr, microbatches=microbatches,
-                                    plain_kernels=True)
+                                    plain_kernels=True, donate=True)
         o_spec = opt.init(p_spec)
         # adam moments mirror params; step counter replicated
         o_sh = {"m": params_shardings(o_spec["m"], mesh),

@@ -927,10 +927,14 @@ FLASH_BWD_EDGES = [(1, 4, 2, 200, 200, 96, 0, True),
 
 
 def _bwd_layout(ts, layout):
-    """The model's (B, S, heads, dh) transposed views, or rows that do not
-    start on 16 bytes (per-element loads), of the same values."""
+    """The model's (B, S, heads, dh) transposed views, rows that do not
+    start on 16 bytes (per-element loads; the bf16 entry's wrapper copies
+    them for TMA), or a stride of 2 over dh (copied by every wrapper), of
+    the same values."""
     if layout == "transposed":
         return [t.transpose(1, 2).contiguous().transpose(1, 2) for t in ts]
+    if layout == "strided":
+        return [torch.stack([t, t], -1)[..., 0] for t in ts]
     if layout == "unaligned":
         wide = [torch.nn.functional.pad(t, (0, 1)) for t in ts]
         out = [t[..., :-1] for t in wide]
@@ -1019,10 +1023,21 @@ def _within_bounds(got, ref, bounds):
             ((g.float() - r.float()).abs() / b).max().item())
 
 
+# The bf16 entry reads q, k, v and do by TMA: dh off a multiple of 8 is
+# padded by the wrapper (all five tensors), rows TMA cannot read are
+# copied. (B, H, KV, Sq, Skv, dh, window, causal, layout)
+FLASH_BWD_BF16_COPIED = [(1, 4, 2, 200, 200, 20, 0, True, "contiguous"),
+                         (1, 4, 2, 150, 150, 100, 30, True, "transposed"),
+                         (2, 2, 1, 130, 97, 36, 0, False, "unaligned"),
+                         (1, 4, 2, 150, 150, 96, 30, True, "strided"),
+                         (2, 4, 4, 77, 77, 61, 0, True, "strided")]
+
+
 @pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal,layout",
                          [s + ("contiguous",) for s in FLASH_BWD_SHAPES]
                          + [s + (lay,) for s in FLASH_BWD_EDGES
-                            for lay in ("transposed", "unaligned")])
+                            for lay in ("transposed", "unaligned")]
+                         + FLASH_BWD_BF16_COPIED)
 def test_flash_backward_bf16_within_its_bound(cuda, B, H, KV, Sq, Skv, dh,
                                               win, causal, layout):
     """The bf16 entry of the flash backward kernel (through
@@ -1045,6 +1060,31 @@ def test_flash_backward_bf16_within_its_bound(cuda, B, H, KV, Sq, Skv, dh,
     again = torch.autograd.grad(flash_attention(*xs, causal=causal,
                                                 window=win), xs, do)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_backward_bf16_entry_refuses_what_tma_cannot_read(cuda):
+    """Called directly, the bf16 entry refuses dh off a multiple of 8
+    (invalid value) and a row off 16 bytes (misaligned address): the
+    wrapper makes such inputs legal first, so a model never meets it."""
+    import ctypes
+    B, H, S, dh = 1, 2, 64, 64
+    x = torch.zeros((B, H, S, dh + 8), dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros((B, H, S), dtype=torch.float32, device=cuda)
+    scratch = torch.zeros(1 << 20, dtype=torch.float32, device=cuda)
+    outs = [torch.empty((B, H, S, dh), dtype=torch.bfloat16, device=cuda)
+            for _ in range(3)]
+    fn = flash_ops.BWD_LIB.load().flash_attention_bwd_bf16
+
+    def call(t, d):
+        strides = (ctypes.c_longlong * 15)(*(list(t.stride()[:3]) * 5))
+        return fn(*(t.data_ptr() for _ in range(5)), lse.data_ptr(),
+                  *(o.data_ptr() for o in outs), scratch.data_ptr(), B, H,
+                  H, S, S, d, strides, 1, 0, 0.18, 0.125,
+                  torch.cuda.current_stream().cuda_stream)
+    assert call(x, dh) == 0
+    torch.cuda.synchronize()
+    assert call(x, 60) == 1                  # cudaErrorInvalidValue
+    assert call(x[..., 1:], dh) == 716       # cudaErrorMisalignedAddress
 
 
 def _wkv_bwd_case(B, H, T, dk, dtype, device, layout="contiguous"):

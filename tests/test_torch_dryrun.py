@@ -212,6 +212,41 @@ def test_microbatches_count_one_by_trip_count():
     assert once.ops < full.ops
 
 
+@pytest.mark.parametrize("mb", [1, 2])
+def test_train_description_counts_donated_trees_once(mb, monkeypatch):
+    """The reference's train step donates its parameters and Adam state
+    (``donate_argnums=(0, 1)``), so its per-device total, argument + temp
+    + output − alias, holds each of them once. The port's described step
+    is the donated one: at the reduced qwen3-4b train shape (one and two
+    microbatches) its outputs alias every parameter and moment (and the
+    step counter), and its total is below the undonated step's by at least
+    the new trees' bytes, which the undonated one holds beside the
+    arguments."""
+    monkeypatch.setattr(steps, "auto_microbatches", lambda *a, **k: mb)
+    cfg = get_config("qwen3-4b").reduced()
+    shape, mesh = ShapeConfig("t", FLOP_S, FLOP_B, "train"), make_cpu_mesh()
+    counts = {}                          # shared, as between two meshes
+    donated = dryrun.describe(cfg, shape, mesh, counts)["memory"]
+    assert dryrun.describe(cfg, shape, mesh, counts)["memory"] == donated
+    params, opt_state = steps.jitted_step(cfg, shape, mesh).args[:2]
+    trees = hlo_cost.tree_bytes((params, opt_state))
+    real = steps.make_train_step
+    monkeypatch.setattr(steps, "make_train_step",
+                        lambda *a, donate=False, **k: real(*a, **k))
+    undonated = dryrun.describe(cfg, shape, mesh)["memory"]
+    assert donated["alias_bytes"] == trees
+    assert donated["output_bytes"] - trees == 3 * 4     # loss, norm, lb
+    assert undonated["alias_bytes"] == 0
+    assert (undonated["per_device_total"] - donated["per_device_total"]
+            >= trees)
+    for m in (donated, undonated):
+        assert m["argument_bytes"] == undonated["argument_bytes"]
+        assert m["per_device_total"] == (m["argument_bytes"]
+                                         + m["temp_bytes"]
+                                         + m["output_bytes"]
+                                         - m["alias_bytes"])
+
+
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
 def test_time_loops_count_by_trip_count(arch, monkeypatch):
     """A wkv or Mamba time loop counted as one step T times gives the
