@@ -11,7 +11,9 @@ order; any failure exits non-zero:
      TF32 switches (both off);
   2. build — the five kernel libraries (graph filter, flash attention and
      its backward, wkv and its backward), one ``nvcc`` each, all started
-     together;
+     together; every instance of the bf16 flash kernels (the forward's
+     and the backward's wgmma kernels) must hold HGMMA instructions
+     (``cuobjdump -sass``);
   3. kernel vs plain — the graph-filter kernel against its plain PyTorch
      version on the same inputs (numpy, seeded) at the reference's test
      shapes, at n = 129, 256 and 1000 (past the kernel's resident limit)
@@ -33,9 +35,11 @@ order; any failure exits non-zero:
   5. flash attention vs plain — at the reference's sweep shapes, the
      qwen3-4b prefill shape (B=4, H=32, KV=8, S=2048, dh=128) and
      gemma3-27b's two (H=32, KV=16: its local layers' window of 1024 and
-     its global layers' causal call), f32 and bf16, at 10x the
-     reference's kernel tolerance, and within 1e-5 in f32 at the qwen3-4b
-     shape (the split-TF32 products keep f32 accuracy); µs per launch
+     its global layers' causal call), f32 (the mma.sync kernel) and bf16
+     (the wgmma kernel), at 10x the reference's kernel tolerance, within
+     1e-5 in f32 at the qwen3-4b shape (the split-TF32 products keep f32
+     accuracy) and within ``bf16_error_bound`` in bf16, the fraction of
+     it used printed; µs per launch
      (CUDA events, median), the plain version's time,
      ``scaled_dot_product_attention``'s (default dispatch, and in f32 also
      the memory-efficient backend on K/V expanded to H heads), the
@@ -514,8 +518,8 @@ BF16_E2E_FACTOR = 2.0
 TRAIN_MOE = ("deepseek-moe-16b", 4)
 # Phase 16: fig. 7's ablation at benchmarks/common.py's setup (BENCH,
 # 60 training datasets, 10 test datasets, SEEDS), its META_STEPS = 700
-# cut to 150: a timing window that keeps the whole script within 900 s
-# on one H100 (the four runs take about 200 s at 700,
+# cut to 150: a timing window that keeps the whole script well inside its
+# 1200 s limit on one H100 (the four runs take about 200 s at 700,
 # about 90 s at 350).
 FIG7_TRAIN_Q, FIG7_TEST_Q, FIG7_STEPS = 60, 10, 150
 # Phases 5, 5b, 18, 19: whisper-small. The flash calls new to the main
@@ -2634,31 +2638,43 @@ def build_all(tag):
     for name, info in infos.items():
         print(f"[{tag}] {info['path'].name}: {info['seconds']:.1f} s")
         print(info["log"])
-    check_hgmma(tag, infos["flash_attention_bwd"]["path"])
+    check_hgmma(tag, {name: info["path"] for name, info in infos.items()})
 
 
-def check_hgmma(tag, path):
-    """The bf16 flash backward's kernels (``dkdv_wgmma_kernel``,
-    ``dq_wgmma_kernel``, each instance) hold Hopper's warpgroup products:
-    the ``HGMMA`` instructions of their SASS, read with the toolkit's
-    ``cuobjdump -sass``. Fails if a kernel has none or is missing."""
+# The bf16 flash kernels that must run Hopper's warpgroup products, by
+# library; each is built in two instances (dh <= 64 and <= 128).
+HGMMA_KERNELS = {"flash_attention": ("fwd_wgmma_kernel",),
+                 "flash_attention_bwd": ("dkdv_wgmma_kernel",
+                                         "dq_wgmma_kernel")}
+
+
+def check_hgmma(tag, paths):
+    """The bf16 flash kernels (the forward's ``fwd_wgmma_kernel``, the
+    backward's ``dkdv_wgmma_kernel`` and ``dq_wgmma_kernel``, each
+    instance) hold Hopper's warpgroup products: the ``HGMMA`` instructions
+    of their SASS, read with the toolkit's ``cuobjdump -sass``. A kernel is
+    matched by its whole mangled name (its length, then the name), so no
+    library's count picks up another kernel. Fails if an instance has none
+    or is missing."""
     from repro_torch.kernels._nvcc import nvcc_path
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    found, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            if "wgmma_kernel" in fn:
-                found[fn] = 0
-        elif fn in found and "HGMMA" in line:
-            found[fn] += 1
-    print(f"[{tag}] 2 HGMMA instructions per bf16 flash backward kernel "
-          f"(cuobjdump -sass): {json.dumps(found)}")
-    if len(found) != 4 or not all(found.values()):
-        raise AssertionError(f"the bf16 flash backward's kernels lack "
-                             f"HGMMA: {found}")
+    for lib, kernels in HGMMA_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(paths[lib])],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        found, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                if any(f"{len(k)}{k}I" in fn for k in kernels):
+                    found[fn] = 0
+            elif fn in found and "HGMMA" in line:
+                found[fn] += 1
+        print(f"[{tag}] 2 HGMMA instructions in each bf16 kernel of {lib} "
+              f"(cuobjdump -sass): {json.dumps(found)}")
+        if len(found) != 2 * len(kernels) or not all(found.values()):
+            raise AssertionError(f"the bf16 kernels of {lib} lack HGMMA: "
+                                 f"{found}")
 
 
 def counts():
@@ -2726,13 +2742,14 @@ def check_flash(tag):
     shapes. Besides the reference's
     tolerances, f32 is held within FLASH_F32_ERR_MAX and bf16 within
     ``ops.bf16_error_bound`` of plain, per element. Returns the largest f32
-    |error| and the qwen3-4b f32 timing."""
+    |error|, the qwen3-4b f32 timing, the largest bf16 |error| and the
+    qwen3-4b bf16 timing (the wgmma kernel's record)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention, ops)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(2)
-    max_err, timing = 0.0, None
+    max_err, timing, bf16_err, bf16_timing = 0.0, None, 0.0, None
     gemma = [FLASH_GEMMA, FLASH_GEMMA_GLOBAL]
     for B, H, KV, S, dh, win in (FLASH_SWEEP + [FLASH_QWEN] + gemma
                                  + list(FLASH_DENSE.values())):
@@ -2760,6 +2777,7 @@ def check_flash(tag):
                         "f32 accuracy)")
                 gate = f"<= {FLASH_F32_ERR_MAX}"
             else:
+                bf16_err = max(bf16_err, err)
                 use = _bound_use(o, o_ref, ops.bf16_error_bound(
                     q, k, v, o_ref, causal=True, window=win))
                 if use > 1:
@@ -2808,6 +2826,7 @@ def check_flash(tag):
                     timing = (ms, plain_ms, bound_ms, bound_by,
                               min(lib_ms, eff_ms))
                 else:
+                    bf16_timing = (ms, plain_ms, bound_ms, bound_by, lib_ms)
                     print(f"[{tag}] flash bf16 qwen3-4b shape: kernel "
                           f"{ms * 1e3:.1f} us, scaled_dot_product_attention "
                           f"{lib_ms * 1e3:.1f} us, tensor-core bound "
@@ -2823,7 +2842,7 @@ def check_flash(tag):
                   f"{eff}")
         del qkv32, q, k, v, o, o_ref
         torch.cuda.empty_cache()
-    return max_err, timing
+    return max_err, timing, bf16_err, bf16_timing
 
 
 def check_wkv(tag):
@@ -3836,7 +3855,7 @@ def _kind(name):
     name = name.lower()
     if "graph_filter_kernel" in name:
         return "graph_filter"
-    if "flash_attention_kernel" in name:
+    if "flash_attention_kernel" in name or "fwd_wgmma_kernel" in name:
         return "flash_attention"
     if any(s in name for s in ("dkdv_kernel", "dq_kernel", "delta_kernel",
                                "dkdv_wgmma_kernel", "dq_wgmma_kernel",
@@ -4120,13 +4139,14 @@ def check_flash_whisper(tag, device="cuda"):
     (CUDA events, median), the plain version's time,
     ``scaled_dot_product_attention``'s (default dispatch, and in f32 the
     memory-efficient backend) and the bound. Returns the largest f32
-    |error| and {(shape name, dtype): µs and bounds}."""
+    |error|, {(shape name, dtype): µs and bounds} and the largest bf16
+    |error|."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention, ops)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(11)
-    max_err, timing = 0.0, {}
+    max_err, timing, bf16_err = 0.0, {}, 0.0
     for name, (B, H, KV, Sq, Skv, dh) in FLASH_WHISPER.items():
         f32 = [torch.tensor(rng.standard_normal((B, n, s, dh)).astype(
             np.float32), device=device) for n, s in ((H, Sq), (KV, Skv),
@@ -4141,6 +4161,7 @@ def check_flash_whisper(tag, device="cuda"):
                 max_err = max(max_err, err)
                 ok, gate = err <= FLASH_F32_ERR_MAX, f"<= {FLASH_F32_ERR_MAX}"
             else:
+                bf16_err = max(bf16_err, err)
                 use = _bound_use(o, o_ref, ops.bf16_error_bound(
                     q, k, v, o_ref, causal=False))
                 ok, gate = use <= 1, f"bf16 bound use {use:.3f}"
@@ -4177,7 +4198,7 @@ def check_flash_whisper(tag, device="cuda"):
                   f"scaled_dot_product_attention {lib_ms * 1e3:.1f} us{eff}")
         del f32, q, k, v, o, o_ref
         torch.cuda.empty_cache()
-    return max_err, timing
+    return max_err, timing, bf16_err
 
 
 def check_flash_bwd_whisper(tag, device="cuda"):
@@ -5722,8 +5743,9 @@ def main():
     clock("3-4")
 
     # 5.-6. flash attention and wkv vs plain, up to the full-width shapes
-    fa_err, fa_timing = check_flash(tag)
-    fa_err = max(fa_err, check_flash_whisper(tag)[0])
+    fa_err, fa_timing, fa16_err, fa16_timing = check_flash(tag)
+    wh_err, _, wh16_err = check_flash_whisper(tag)
+    fa_err, fa16_err = max(fa_err, wh_err), max(fa16_err, wh16_err)
     wkv_err, wkv_timing = check_wkv(tag)
     clock("5-6")
 
@@ -5897,9 +5919,12 @@ def main():
     # attention's and wkv's times are
     # those of the qwen3-4b and rwkv6-1.6b prefill shapes in f32, their
     # launches those of the serve runs (one prefill each; 11-12, 14, 18,
-    # 20, 22a, 22b),
-    # the training steps (13, 15, 19, 22c, 23a, 23b), the drivers (13b,
-    # 19b) and the examples (17); their backward kernels' times are those
+    # 20, 22a),
+    # the training steps (13, 15, 19, 22c, 23b), the drivers (13b,
+    # 19b) and the examples (17); the bf16 flash forward's (the wgmma
+    # kernel) its times at the qwen3-4b shape in bf16 and the launches of
+    # the bf16 main paths, 22b's prefill and 23a's steps (wkv's launches
+    # also count 23b's); their backward kernels' times are those
     # of the same shapes in f32, their launches those of 13, 13b, 15, 17,
     # 19, 19b, 22c and 23b (wkv: rwkv6 widens r, k, v, w to f32 before the
     # scan, as the reference does, so its bf16 training runs the f32
@@ -5910,6 +5935,7 @@ def main():
     ms, plain_ms, bound_ms, bound_by = timing[paper[0]]
     b_ms, b_plain_ms, b_bound_ms, b_bound_by = bwd_timing
     f_ms, f_plain_ms, f_bound_ms, f_bound_by, f_lib_ms = fa_timing
+    f16_ms, f16_plain_ms, f16_bound_ms, f16_bound_by, f16_lib_ms = fa16_timing
     w_ms, w_plain_ms, w_bound_ms, w_bound_by = wkv_timing
     fb_ms, fb_plain_ms, fb_bound_ms, fb_bound_by, fb_lib_ms = fab_timing
     fb16 = fab16_timing
@@ -5988,10 +6014,17 @@ def main():
          "launches": (fa_launches + fa_train_fwd + sum(moe_serve.values())
                       + moe_fwd + ex["flash_attention"] + wh_serve + wh_fwd
                       + whd_fwd + sum(dense_serve.values()) + gemma_serve
-                      + gemma_bf16 + gemma_fwd + b16_fwd),
+                      + gemma_fwd),
          "max_abs_err": fa_err,
          "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": f_bound_ms,
          "bound_by": f_bound_by, "library_ms": f_lib_ms},
+        {"name": "flash_attention_bf16", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
+         "launches": gemma_bf16 + b16_fwd, "max_abs_err": fa16_err,
+         "ms": f16_ms, "plain_ms": f16_plain_ms, "bound_ms": f16_bound_ms,
+         "bound_by": f16_bound_by, "library_ms": f16_lib_ms},
         {"name": "wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/ssm_scan/csrc/wkv.cu",
          "replaces": "src/repro/kernels/ssm_scan/kernel.py:24",

@@ -1,8 +1,9 @@
-"""Device time of the port's backward kernels by part, on one CUDA card.
+"""Device time of the port's backward kernels (or the flash forward) by
+part, on one CUDA card.
 
     python3 scripts/backward_kernel_times.py [--dtype f32|bf16] [--root DIR]
                                              [--label NAME] [--reps N]
-                                             [--out FILE]
+                                             [--out FILE] [--forward]
 
 Each backward launch is several CUDA kernels: flash attention's f32 entry
 is ``kmean_kernel``, ``centre_kernel``, ``delta_kernel``, ``dkdv_kernel``
@@ -20,6 +21,16 @@ the card's name and power limit. With ``--dtype bf16`` each flash case
 also times ``scaled_dot_product_attention``'s bf16 backward
 (memory-efficient, K/V expanded to H heads, a boolean mask for a window:
 ``sdpa_ms``), the yardstick ``chip_smoke.py`` 5b uses.
+
+``--forward`` times the flash forward instead, in bf16 (``--dtype`` is
+not read): one launch of ``ops._launch`` per call at phase 5's five bf16
+shapes (qwen3-4b, gemma3's window-1024 and global layers, H=64/KV=8 and
+H=KV=40; B=4, S=2048, dh=128, causal) and whisper-small's encoder and
+cross shapes (non-causal), by part (``fwd_wgmma_kernel``, the wgmma
+design; ``flash_attention_kernel``, the mma.sync one before it, and any
+copy the wrapper makes), beside ``scaled_dot_product_attention``'s bf16
+forward in its default dispatch (GQA by ``enable_gqa``, a boolean mask for
+the window: ``sdpa_ms``), as ``chip_smoke.py`` 5 times it.
 
 ``--root`` is the checkout whose ``src/repro_torch`` is timed (default:
 this one), so two versions can be timed in turns inside one run on one
@@ -53,7 +64,18 @@ FLASH_BF16 = {"flash gemma3 global": (4, 32, 16, 2048, 2048, 128, 0, True),
                                         False),
               "flash whisper cross": (4, 12, 12, 448, 1500, 64, 0, False)}
 WKV = {"wkv rwkv6-1.6b": (4, 32, 2048, 64)}
-PARTS = ("delta_kernel", "delta_tiles_kernel", "kmean_kernel",
+# The flash forward's bf16 cases (B, H, KV, Sq, Skv, dh, window, causal):
+# chip_smoke.py 5's bf16 shapes and its whisper shapes.
+FORWARD = {"flash qwen3-4b": (4, 32, 8, 2048, 2048, 128, 0, True),
+           "flash gemma3 window 1024": (4, 32, 16, 2048, 2048, 128, 1024,
+                                        True),
+           "flash gemma3 global": (4, 32, 16, 2048, 2048, 128, 0, True),
+           "flash H=64 KV=8": (4, 64, 8, 2048, 2048, 128, 0, True),
+           "flash H=KV=40": (4, 40, 40, 2048, 2048, 128, 0, True),
+           "flash whisper encoder": (4, 12, 12, 1500, 1500, 64, 0, False),
+           "flash whisper cross": (4, 12, 12, 448, 1500, 64, 0, False)}
+PARTS = ("fwd_wgmma_kernel", "flash_attention_kernel", "elementwise_kernel",
+         "delta_kernel", "delta_tiles_kernel", "kmean_kernel",
          "kmean_part_kernel", "kmean_sum_kernel", "centre_kernel",
          "centre8_kernel", "dkdv_kernel", "dq_kernel", "dkdv_bf16_kernel",
          "dq_bf16_kernel", "dkdv_wgmma_kernel", "dq_wgmma_kernel",
@@ -118,6 +140,42 @@ def sdpa_backward_ms(q, k, v, do, causal, window, reps):
     return ms
 
 
+def sdpa_forward_ms(q, k, v, causal, window, reps):
+    """``scaled_dot_product_attention``'s bf16 forward, default dispatch,
+    GQA by ``enable_gqa`` (a boolean mask for a window)."""
+    mask = None
+    if window:
+        i = torch.arange(q.shape[2], device="cuda")
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+    ms, _ = measure(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and not window,
+        enable_gqa=True), reps)
+    return ms
+
+
+def forward_rows(fa, args, tag, rng):
+    """One row per ``FORWARD`` case: the bf16 forward by part and SDPA's."""
+    rows = []
+    with torch.no_grad():
+        for name, (B, H, KV, Sq, Skv, dh, win, causal) in FORWARD.items():
+            q, k, v = (torch.tensor(rng.standard_normal((B, n, s, dh))
+                                    .astype(np.float32), device="cuda")
+                       .to(torch.bfloat16)
+                       for n, s in ((H, Sq), (KV, Skv), (KV, Skv)))
+            ms, parts = measure(lambda: fa._launch(q, k, v, causal, win),
+                                args.reps)
+            rows.append({"case": name, "dtype": "bf16", "pass": "forward",
+                         "label": args.label, "root": args.root,
+                         "shape": [B, H, KV, Sq, Skv, dh, win, causal],
+                         "event_ms": ms, "parts_ms": parts,
+                         "sdpa_ms": sdpa_forward_ms(q, k, v, causal, win,
+                                                    args.reps),
+                         "card": tag})
+            del q, k, v
+            torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
@@ -125,6 +183,7 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--forward", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("backward_kernel_times: no CUDA device", file=sys.stderr)
@@ -135,8 +194,9 @@ def main(argv=None) -> int:
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     tag = card()
     rng = np.random.default_rng(5)
-    rows = []
-    cases = dict(FLASH, **(FLASH_BF16 if args.dtype == "bf16" else {}))
+    rows = forward_rows(fa, args, tag, rng) if args.forward else []
+    cases = ({} if args.forward else
+             dict(FLASH, **(FLASH_BF16 if args.dtype == "bf16" else {})))
     for name, (B, H, KV, Sq, Skv, dh, win, causal) in cases.items():
         q, k, v, do = (torch.tensor(rng.standard_normal((B, n, s, dh))
                                     .astype(np.float32), device="cuda")
@@ -155,7 +215,8 @@ def main(argv=None) -> int:
         rows.append(row)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
-    for name, (B, H, T, dk) in (WKV.items() if args.dtype == "f32" else ()):
+    wkv_cases = WKV if args.dtype == "f32" and not args.forward else {}
+    for name, (B, H, T, dk) in wkv_cases.items():
         def mk():
             return 0.5 * rng.standard_normal((B, H, T, dk)).astype(np.float32)
         r, k, v = mk(), mk(), mk()

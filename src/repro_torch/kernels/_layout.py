@@ -20,10 +20,11 @@ def tma_rows(t) -> bool:
     leading three): unit stride over the last axis, which fills whole
     16-byte chunks, the base pointer on 16 bytes, and each stride over a
     leading axis of more than one entry a positive multiple of 16 bytes.
-    The bf16 flash backward reads q, k, v and do by TMA; the wrapper copies
-    a tensor that fails this."""
+    The bf16 flash kernels read q, k and v (the backward also do) by TMA;
+    the wrapper copies a tensor that fails this."""
     per = 16 // t.element_size()
-    return (t.stride(-1) == 1 and t.shape[-1] % per == 0
+    shape, stride = t.shape, t.stride()
+    return (stride[-1] == 1 and shape[-1] % per == 0
             and t.data_ptr() % 16 == 0
             and all(n == 1 or (s > 0 and s % per == 0)
-                    for n, s in zip(t.shape[:3], t.stride()[:3])))
+                    for n, s in zip(shape[:-1], stride[:-1])))

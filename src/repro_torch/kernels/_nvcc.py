@@ -4,8 +4,9 @@ kernel of the port.
 
 The build runs at first use, from the repository's sources only, into
 ``build/`` at the repository root (gitignored). The library's name
-carries a digest of the source and the flags, so an edited source is
-never served by a stale build, and it is renamed into place atomically,
+carries a digest of the source, of every header it includes (``#include
+"..."``, followed through the headers), and of the flags, so an edited
+source or shared header is never served by a stale build, and it is renamed into place atomically,
 so concurrent builds never race. Nothing here runs at import time: the
 CPU tests import the kernels' modules on machines without ``nvcc``.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,13 +41,42 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources(src: Path) -> list:
+    """``src`` and the headers it includes with ``#include "..."`` (paths
+    relative to the including file), followed through the headers, each
+    once, in the order first met."""
+    found = []
+
+    def walk(path):
+        path = path.resolve()
+        if path in found:
+            return
+        found.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            walk(path.parent / name)
+
+    walk(Path(src))
+    return found
+
+
+def library_path(src: Path) -> Path:
+    """Where the build of ``src`` lives: its name carries a digest of the
+    source, its included headers and the flags."""
+    h = hashlib.sha256()
+    for path in sources(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
+
+
 def build(src: Path) -> dict:
     """Compile ``src`` unless this source's build exists. Returns
     ``{"path", "seconds", "log"}``; ``log`` holds ptxas's register and
     shared-memory report, ``seconds`` is 0.0 for a build found on disk."""
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
+    out = library_path(src)
     if out.is_file():
         return {"path": out, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

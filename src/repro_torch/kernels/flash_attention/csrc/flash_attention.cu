@@ -1,5 +1,7 @@
 // Blocked online-softmax attention (FlashAttention, forward) for Hopper
-// (sm_90a), with both products on the tensor cores (mma.sync).
+// (sm_90a), with both products on the tensor cores: f32 inputs in split
+// TF32 (mma.sync), bf16 inputs in bf16 (wgmma on TMA tiles,
+// `flash_attention_bf16`, in the second half of this header).
 //
 // Replaces the Pallas TPU kernel of the reference package:
 // src/repro/kernels/flash_attention/kernel.py:26 (_kernel) and :81
@@ -12,7 +14,8 @@
 // model's (B, S, H, dh) projections are read through a transposed view.
 // Head h reads kv head h / (H / KV) (GQA). Causal (key j <= query i) and
 // sliding-window (j > i - window) masks, no query offset. Scores are
-// scaled by the true dh^-0.5; masked scores are -1e30 and get p = 0, the
+// scaled by the true dh^-0.5 (the wrapper passes it: a bf16 dh padded to a
+// multiple of 8 keeps it); masked scores are -1e30 and get p = 0, the
 // softmax denominator is max(l, 1e-30), as in the reference. Output o in
 // q's dtype, through the strides it is given (the wrapper's torch.empty_like:
 // q's strides when q is dense, contiguous otherwise); the softmax state
@@ -40,149 +43,112 @@
 // 4 B H dh S(S+1)/2 = 137.6 GFLOP. On the tensor cores that is 0.139 ms
 // in bf16 (989 TFLOP/s dense) and, at three TF32 products each, 0.834 ms
 // in f32 (495 TFLOP/s), against 335 MB of q, k, v, o in f32 (0.10 ms at
-// 3.35 TB/s): bound by operations. mma.sync reaches only part of the
-// tensor-core peak (wgmma is the full rate); the split also costs CUDA-
-// core instructions (3 per operand element per use).
+// 3.35 TB/s; 0.05 ms in bf16): bound by operations in both. So the bf16
+// products must run on wgmma, the only way to the tensor cores' full rate,
+// fed by TMA without the compute threads' help; and the exp2 of every
+// score (64 per thread per tile) must overlap the products rather than
+// follow them. mma.sync (the f32 entry) reaches only part of the peak; the
+// split also costs CUDA-core instructions (3 per operand element per use).
 //
-// Design (wgmma + TMA + a producer warp is the later step for bf16):
+// f32 design (mma.sync):
 //   * one block of 4 warps per (batch item x head, query tile of 64 rows);
 //     each warp owns 16 query rows, and keeps the score tile, m, l and the
 //     O accumulator (16 x dh f32) in registers. Q stays in shared memory
 //     and its fragments are read again for every kv tile: registers, not
-//     shared memory, limit the blocks per SM (3 in f32, 4 in bf16), and
-//     Q's fragments at dh = 128 would take 64 more registers a thread.
-//     Nothing is carried between blocks: the TPU kernel's sequential kv
-//     grid axis is a loop inside the block.
+//     shared memory, limit the blocks per SM (3), and Q's fragments at
+//     dh = 128 would take 64 more registers a thread. Nothing is carried
+//     between blocks: the TPU kernel's sequential kv grid axis is a loop
+//     inside the block.
 //   * grid (B H, query tiles), the query tile reversed (the last, heaviest
 //     causal tile of every head is dispatched first), so the light tiles
 //     fill in at the end.
-//   * K/V tiles (64 keys in bf16, 32 in f32) come through shared memory
-//     with 16-byte cp.async, one buffer each, staggered: K(j+1) loads
-//     while the softmax and P.V(j) run, V(j+1) while Q.K^T(j+1) runs (a
-//     tile pair in flight at half the shared memory of double buffering).
-//     Rows are padded (+8 bf16, +4 f32 elements), which makes ldmatrix
-//     (bf16) and the f32 fragment reads free of bank conflicts. f32
-//     operands are split on the fly; in Q.K^T the small products go to
+//   * K/V tiles of 32 keys come through shared memory with 16-byte
+//     cp.async, one buffer each, staggered: K(j+1) loads while the softmax
+//     and P.V(j) run, V(j+1) while Q.K^T(j+1) runs (a tile pair in flight
+//     at half the shared memory of double buffering). Rows are padded by 4
+//     floats, which makes the fragment reads free of bank conflicts.
+//     Operands are split on the fly; in Q.K^T the small products go to
 //     their own accumulators, doubling the independent mma chains.
-//   * bf16: mma.m16n8k16; K fragments by ldmatrix, V by ldmatrix.trans.
-//     The accumulator layout of two n8 score tiles is the A-fragment
-//     layout of one k16 step, so P stays in registers.
-//   * f32: mma.m16n8k8 tf32. The C layout (thread t holds keys 2t, 2t+1
-//     of an n8 tile) and the A layout (keys t, t+4) differ, so P stays in
-//     registers and V's rows are permuted within each k-step instead:
-//     A's logical key t is physical key 2t, logical t+4 is 2t+1, and the
-//     B fragment reads V rows 2t and 2t+1.
-//   * masks are applied per element only on tiles where they can bite
-//     (the causal diagonal, the window's edge, the ragged end of Skv);
-//     wholly masked tiles are skipped, so a windowed layer does O(S W)
-//     work.
+//   * mma.m16n8k8 tf32. The C layout (thread t holds keys 2t, 2t+1 of an
+//     n8 tile) and the A layout (keys t, t+4) differ, so P stays in
+//     registers and V's rows are permuted within each k-step instead: A's
+//     logical key t is physical key 2t, logical t+4 is 2t+1, and the B
+//     fragment reads V rows 2t and 2t+1.
 //   * ragged Sq, Skv and dh are zero-filled in shared memory (cp.async's
-//     src-size 0); dh <= 64 runs the 64-wide instance, 64 < dh <= 128 the
-//     128-wide one. The reference's padding of dh to 128 lanes and of S
-//     to block multiples is a TPU tiling rule with no counterpart here.
-//   * tensors whose rows are not 16-byte aligned (odd strides, dh not a
-//     multiple of 16 bytes) take the same kernel with per-element loads
-//     and stores (the `vec` flag, chosen by the wrapper), never a copy.
-//   * shared memory: (64 query + 2 x kv-tile rows) x (dh + pad): 67,584 B
-//     (f32) and 52,224 B (bf16) at dh = 128.
+//     src-size 0); tensors whose rows are not 16-byte aligned take the same
+//     kernel with per-element loads and stores (the `vec` flag, chosen by
+//     the wrapper), never a copy. Shared memory (64 query + 2 x 32 kv rows)
+//     x 132 floats: 67,584 B at dh = 128.
+//
+// bf16 design (`fwd_wgmma_kernel`: warpgroup products on TMA tiles):
+//   * a block of three warpgroups per (batch item x head, query tile of 128
+//     rows): two consumers, each owning 64 query rows, and a producer whose
+//     first thread issues every copy: Q once, then the K and V tiles of
+//     FW_KT keys into a ring of FW_STAGES stages (full[s] completes when a
+//     stage's bytes land, empty[s] when the eight consumer warps are done
+//     with it). TMA boxes of 64 rows x 64 columns with the 128-byte swizzle
+//     that the wgmma descriptors name (dh = 128 is two column halves); rows
+//     past Sq and Skv and columns past dh land as zeros (TMA's fill).
+//     `setmaxnreg` gives the producer 24 registers, each consumer thread
+//     240. The grid is one-dimensional: heads in groups of 16, all query
+//     tiles of a group together, the heaviest causal tile first. The
+//     running blocks then read the K/V of a few heads, which stay in L2
+//     (MHA at S = 2048 holds 168 MB of K/V, more than L2), and the light
+//     tiles of a group fill in behind the next group's heavy ones.
+//   * S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
+//     memory; P stays in registers as the A operand of O += P V (m64nDHPk16,
+//     V read MN-major through the transposed swizzle). O, m and l stay in
+//     f32 registers for the whole kv loop; O is rescaled there.
+//   * each consumer overlaps its softmax with its own products: per tile
+//     it issues S(j) = Q K(j)^T and O += P(j-1) V(j-1) together, waits for
+//     S(j), computes m, P(j) and l while P V runs, then waits for it,
+//     rescales O and frees the stage of j - 1. No product is left in flight
+//     across the loop's back edge (ptxas would serialize the wgmma). The
+//     softmax's results are pinned (an empty volatile asm) before the P V
+//     wait: without that the compiler sinks this register-only work past
+//     the wait, toward its uses, and no product runs under it.
+//   * at dh = 128 the two consumers also take turns issuing their products
+//     (named barriers 1 and 2), so one's softmax runs under the other's
+//     products; every consumer takes the same number of turns (one per
+//     tile of the block, one for its last P V). At dh <= 64 the turns cost
+//     more than they hide (each turn's products are half as long), so that
+//     instance runs without them.
+//   * masks apply per element only on tiles where they can bite (the
+//     causal diagonal, the window's edge, the ragged end of Skv); tiles
+//     that no row of a warpgroup sees are skipped by that warpgroup (it
+//     only frees their stage), so a windowed layer does O(S W) work.
+//   * exp2 with the scale folded in: m is the scaled row max (the max of
+//     the raw scores times scale_log2, exact since the scaling is
+//     monotone) and p = exp2(fma(s, scale_log2, -m)); a masked score is
+//     -inf for the max and p = 0.
+//   * dh <= 64 runs the 64-wide instance, 64 < dh <= 128 the 128-wide one;
+//     q, k and v must be legal for TMA (dh a multiple of 8, rows on 16
+//     bytes): the wrapper pads or copies others, this entry refuses them.
+//   * three stages: a consumer holds two (S of tile j, P V of tile j - 1)
+//     while the producer fills the third. On an H100, two stages and key
+//     tiles of 64 were each 22-28% slower at the qwen3-4b shape. Shared memory at dh = 128: Q 32
+//     KB + 3 stages x (K, V) 64 KB = 224 KB (one block of 384 threads per
+//     SM); at dh = 64, 112 KB.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+constexpr float NEG_INF = -1e30f;
+
+// ---- f32: split TF32 on mma.sync ----
 
 constexpr int WARPS = 4;
 constexpr int NT = 32 * WARPS;     // threads per block
 constexpr int BQ = 16 * WARPS;     // query rows per block
-constexpr float NEG_INF = -1e30f;
+constexpr int BKV = 32;            // keys per kv tile
+constexpr int PAD = 4;             // floats of padding per shared row
+constexpr int MIN_BLOCKS = 3;      // blocks per SM to aim for
 
-struct Strides {
-  long long b, h, s;
-};
-
-// Keys per kv tile, row padding (elements) and blocks per SM to aim for.
-template <typename T>
-struct Tile;
-template <>
-struct Tile<float> {
-  static constexpr int BKV = 32, PAD = 4, MIN_BLOCKS = 3;
-};
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr int BKV = 64, PAD = 8, MIN_BLOCKS = 4;
-};
-
-template <typename T>
-__device__ __forceinline__ T zero();
-template <>
-__device__ __forceinline__ float zero<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a b, one m16n8k16 bf16 product with f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b, one m16n8k8 tf32 product with f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // x = hi + lo: hi = x rounded to TF32 (10 mantissa bits, to nearest, ties
@@ -194,24 +160,18 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ROWS rows of DHP elements from global row r0 on (rows >= n_rows and
-// columns >= dh zero-filled) into shared rows of LD elements.
-template <typename T, int DHP, int ROWS, bool VEC>
-__device__ __forceinline__ void load_rows(T* dst, const T* src,
+// ROWS rows of DHP floats from global row r0 on (rows >= n_rows and
+// columns >= dh zero-filled) into shared rows of LD floats.
+template <int DHP, int ROWS, bool VEC>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long stride, int r0,
                                           int n_rows, int dh, int tid) {
-  constexpr int LD = DHP + Tile<T>::PAD;
+  constexpr int LD = DHP + PAD;
   if constexpr (VEC) {
-    constexpr int EPC = 16 / sizeof(T);   // elements per 16-byte chunk
-    constexpr int CPR = DHP / EPC;        // chunks per row
+    constexpr int CPR = DHP / 4;          // 16-byte chunks per row
     for (int c = tid; c < ROWS * CPR; c += NT) {
       const int r = c / CPR;
-      const int d = (c - r * CPR) * EPC;
+      const int d = (c - r * CPR) * 4;
       const int gr = r0 + r;
       const bool ok = gr < n_rows && d < dh;
       cp_async16(dst + r * LD + d, ok ? src + gr * stride + d : src,
@@ -222,32 +182,12 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src,
       const int r = e / DHP;
       const int d = e - r * DHP;
       const int gr = r0 + r;
-      dst[r * LD + d] =
-          (gr < n_rows && d < dh) ? src[gr * stride + d] : zero<T>();
+      dst[r * LD + d] = (gr < n_rows && d < dh) ? src[gr * stride + d] : 0.f;
     }
   }
 }
 
 // s[NS][4] = Q K^T for this warp's 16 rows (sQ) and the tile's BKV keys.
-template <int DHP, int NS, int LD>
-__device__ __forceinline__ void scores(float (*s)[4],
-                                       const __nv_bfloat16* sQ,
-                                       const __nv_bfloat16* sK, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < DHP / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, sQ + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int np = 0; np < NS / 2; ++np) {
-      uint32_t b[4];
-      ldmatrix_x4(b, sK + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                         kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(s[2 * np], a, b[0], b[1]);
-      mma_bf16(s[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
 template <int DHP, int NS, int LD>
 __device__ __forceinline__ void scores(float (*s)[4], const float* sQ,
                                        const float* sK, int lane) {
@@ -286,29 +226,6 @@ __device__ __forceinline__ void scores(float (*s)[4], const float* sQ,
 template <int DHP, int NS, int LD>
 __device__ __forceinline__ void accumulate(float (*o)[4],
                                            const float (*p)[4],
-                                           const __nv_bfloat16* sV,
-                                           int lane) {
-#pragma unroll
-  for (int kk = 0; kk < NS / 2; ++kk) {
-    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int np = 0; np < DHP / 16; ++np) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, sV + (kk * 16 + (lane & 7) +
-                                 ((lane >> 3) & 1) * 8) * LD +
-                               np * 16 + (lane >> 4) * 8);
-      mma_bf16(o[2 * np], a, b[0], b[1]);
-      mma_bf16(o[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-template <int DHP, int NS, int LD>
-__device__ __forceinline__ void accumulate(float (*o)[4],
-                                           const float (*p)[4],
                                            const float* sV, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -332,22 +249,23 @@ __device__ __forceinline__ void accumulate(float (*o)[4],
   }
 }
 
-template <typename T, int DHP, bool VEC>
-__global__ void __launch_bounds__(NT, Tile<T>::MIN_BLOCKS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H,
-                       int G, int Sq, int Skv, int dh, Strides qs, Strides ks,
-                       Strides vs, Strides os, int causal, int window,
-                       float scale_log2, float* __restrict__ lse) {
-  constexpr int BKV = Tile<T>::BKV;
-  constexpr int LD = DHP + Tile<T>::PAD;
+template <int DHP, bool VEC>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int H, int G, int Sq, int Skv, int dh, Strides qs,
+                       Strides ks, Strides vs, Strides os, int causal,
+                       int window, float scale_log2,
+                       float* __restrict__ lse) {
+  constexpr int LD = DHP + PAD;
   constexpr int NS = BKV / 8;          // n8 score tiles per warp
   constexpr int NO = DHP / 8;          // n8 output tiles per warp
   static_assert(NS * 4 <= 32, "one mask bit per score register");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);    // BQ rows
-  T* sK = sQ + BQ * LD;                      // BKV rows
-  T* sV = sK + BKV * LD;                     // BKV rows
+  float* sQ = reinterpret_cast<float*>(smem_raw);   // BQ rows
+  float* sK = sQ + BQ * LD;                         // BKV rows
+  float* sV = sK + BKV * LD;                        // BKV rows
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -357,10 +275,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.x - b * H;
   const int q_lo = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
   const int q_hi = min(q_lo + BQ, Sq) - 1;
-  const T* qp = q + b * qs.b + h * qs.h;
-  const T* kp = k + b * ks.b + (h / G) * ks.h;
-  const T* vp = v + b * vs.b + (h / G) * vs.h;
-  T* op = o + b * os.b + h * os.h;
+  const float* qp = q + b * qs.b + h * qs.h;
+  const float* kp = k + b * ks.b + (h / G) * ks.h;
+  const float* vp = v + b * vs.b + (h / G) * vs.h;
+  float* op = o + b * os.b + h * os.h;
 
   const int n_kv = (Skv + BKV - 1) / BKV;
   const int j_end = causal ? min(n_kv, q_hi / BKV + 1) : n_kv;
@@ -369,12 +287,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // Copy groups, in order: {Q, K(j_begin)}, {V(j_begin)}, then per tile
   // {K(j+1)} after Q K(j)^T is read and {V(j+1)} after P V(j): each load
   // runs under the other half of the tile's work. A group may be empty.
-  load_rows<T, DHP, BQ, VEC>(sQ, qp, qs.s, q_lo, Sq, dh, tid);
+  load_rows<DHP, BQ, VEC>(sQ, qp, qs.s, q_lo, Sq, dh, tid);
   if (j_begin < j_end)
-    load_rows<T, DHP, BKV, VEC>(sK, kp, ks.s, j_begin * BKV, Skv, dh, tid);
+    load_rows<DHP, BKV, VEC>(sK, kp, ks.s, j_begin * BKV, Skv, dh, tid);
   cp_async_commit();
   if (j_begin < j_end)
-    load_rows<T, DHP, BKV, VEC>(sV, vp, vs.s, j_begin * BKV, Skv, dh, tid);
+    load_rows<DHP, BKV, VEC>(sV, vp, vs.s, j_begin * BKV, Skv, dh, tid);
   cp_async_commit();
 
   // Rows g and g + 8 of this warp's 16: m, l (this thread's columns; the
@@ -395,7 +313,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     scores<DHP, NS, LD>(s, sQ + warp * 16 * LD, sK, lane);
     __syncthreads();                   // every warp has read K(jt)
     if (more)
-      load_rows<T, DHP, BKV, VEC>(sK, kp, ks.s, (jt + 1) * BKV, Skv, dh, tid);
+      load_rows<DHP, BKV, VEC>(sK, kp, ks.s, (jt + 1) * BKV, Skv, dh, tid);
     cp_async_commit();
 
     const int k_lo = jt * BKV;
@@ -458,7 +376,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     accumulate<DHP, NS, LD>(acc, s, sV, lane);
     __syncthreads();                   // every warp has read V(jt)
     if (more)
-      load_rows<T, DHP, BKV, VEC>(sV, vp, vs.s, (jt + 1) * BKV, Skv, dh, tid);
+      load_rows<DHP, BKV, VEC>(sV, vp, vs.s, (jt + 1) * BKV, Skv, dh, tid);
     cp_async_commit();
   }
 
@@ -479,7 +397,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int qi = qi0 + r * 8;
     if (qi >= Sq) continue;
-    T* row = op + qi * os.s;
+    float* row = op + qi * os.s;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       const int d = n * 8 + 2 * t;
@@ -488,65 +406,445 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (VEC) {                       // dh is even: d < dh => d + 1 < dh
         if (d < dh) store2(row + d, x, y);
       } else {
-        if (d < dh) store1(row + d, x);
-        if (d + 1 < dh) store1(row + d + 1, y);
+        if (d < dh) row[d] = x;
+        if (d + 1 < dh) row[d + 1] = y;
       }
     }
   }
 }
 
-template <typename T, int DHP, bool VEC>
-cudaError_t launch(const T* q, const T* k, const T* v, T* o, int B, int H,
-                   int KV, int Sq, int Skv, int dh, const Strides* st,
-                   int causal, int window, float scale_log2, float* lse,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(T) * (BQ + 2 * Tile<T>::BKV) *
-                      (size_t)(DHP + Tile<T>::PAD);
+template <int DHP, bool VEC>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o,
+                   int B, int H, int KV, int Sq, int Skv, int dh,
+                   const Strides* st, int causal, int window,
+                   float scale_log2, float* lse, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (BQ + 2 * BKV) * (size_t)(DHP + PAD);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, DHP, VEC>,
+      flash_attention_kernel<DHP, VEC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_attention_kernel<T, DHP, VEC><<<grid, NT, smem, stream>>>(
+  flash_attention_kernel<DHP, VEC><<<grid, NT, smem, stream>>>(
       q, k, v, o, H, H / KV, Sq, Skv, dh, st[0], st[1], st[2], st[3], causal,
       window, scale_log2, lse);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int KV, int Sq, int Skv, int dh,
-                     const long long* strides, int causal, int window,
-                     float scale_log2, int vec, float* lse, void* stream) {
-  if (B < 1 || H < 1 || (long long)B * H > 2147483647LL || KV < 1 ||
-      H % KV != 0 || Sq < 1 || (Sq + BQ - 1) / BQ > 65535 || Skv < 1 ||
-      dh < 1 || dh > 128 || window < 0) {
+// ---- bf16: wgmma on tiles brought by TMA, a producer warp per block ----
+
+constexpr int FW_NT = 384;           // consumer warpgroups 0, 1; producer 2
+constexpr int FW_QROWS = 128;        // query rows per block (64 each)
+constexpr int FW_KT = 128;           // keys per staged K/V tile
+constexpr int FW_STAGES = 3;         // depth of the K/V ring
+constexpr int FW_HEAD_GROUP = 16;    // heads whose query tiles run together
+// Whether the consumers take turns issuing their products: at dh = 128
+// (the wide instance); at dh <= 64 each turn's products are too short to
+// hide the other warpgroup's softmax, and the waits cost more than the
+// overlap gains.
+template <int DHP>
+constexpr bool PINGPONG = DHP == 128;
+
+// Shared memory of the forward kernel (byte offsets from a 1024-byte
+// aligned base): Q (128 rows), the ring of (K, V) tile pairs, the
+// barriers.
+template <int DHP>
+struct FwdSmem {
+  static constexpr int TQ = FW_QROWS * DHP * 2;
+  static constexpr int TK = FW_KT * DHP * 2;
+  static constexpr int Q = 0, KV = TQ;
+  static constexpr int BAR = KV + FW_STAGES * 2 * TK;
+  static constexpr int BYTES = BAR + 8 * (2 * FW_STAGES + 1) + 1024;
+};
+
+// 2^x by the SFU (ex2.approx.ftz: about 2 ulp; results below 2^-126 flush
+// to 0, which no sum of P can see next to the row's largest term, 1).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One tile's online softmax for rows row0 and row0 + 8 of a consumer
+// (the accumulator layout: sc[n][e] is row row0 + 8 (e >> 1), key k_lo +
+// 8 n + 2t + (e & 1)). On return sc holds P (f32), m the scaled row max
+// (this quad's, shared by its four threads), l this thread's part of the
+// row sums rescaled to the new m, and alpha the factor O must take. EDGE:
+// the tile is one where a mask can bite (per-element masks; an instance of
+// its own, so the other tiles carry no mask arithmetic).
+template <int NS, bool EDGE>
+__device__ __forceinline__ void softmax_tile(float (*sc)[4], float* m,
+                                             float* l, float* alpha,
+                                             int row0, int k_lo, int t,
+                                             int Skv, int causal, int window,
+                                             float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (EDGE) {
+        const int qi = row0 + (e >> 1) * 8;
+        const int kj = k_lo + n * 8 + 2 * t + (e & 1);
+        const bool live = kj < Skv && (!causal || kj <= qi) &&
+                          (window <= 0 || kj > qi - window);
+        if (!live) sc[n][e] = -INFINITY;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+    }
+  }
+  float neg[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r] * scale_log2);
+    alpha[r] = fast_exp2(m[r] - mn);
+    m[r] = mn;
+    l[r] *= alpha[r];
+    neg[r] = -mn;
+  }
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = fast_exp2(fmaf(sc[n][e], scale_log2, neg[e >> 1]));
+      sc[n][e] = p;
+      l[e >> 1] += p;
+    }
+  }
+}
+
+// softmax_tile on a tile that may be an edge one, its results then pinned
+// (an empty volatile asm that reads and writes them): the compiler would
+// otherwise sink this register-only work past the next wgmma wait, toward
+// its uses, and no product would run under it.
+template <int NS>
+__device__ __forceinline__ void softmax_pinned(float (*sc)[4], float* m,
+                                               float* l, float* alpha,
+                                               bool edge, int row0, int k_lo,
+                                               int t, int Skv, int causal,
+                                               int window, float scale_log2) {
+  if (edge)
+    softmax_tile<NS, true>(sc, m, l, alpha, row0, k_lo, t, Skv, causal,
+                           window, scale_log2);
+  else
+    softmax_tile<NS, false>(sc, m, l, alpha, row0, k_lo, t, Skv, causal,
+                            window, scale_log2);
+  pin<NS>(sc);
+  asm volatile("" : "+f"(m[0]), "+f"(m[1]), "+f"(l[0]), "+f"(l[1]),
+               "+f"(alpha[0]), "+f"(alpha[1])::"memory");
+}
+
+template <int NO>
+__device__ __forceinline__ void rescale(float (*acc)[4], const float* alpha) {
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    acc[n][0] *= alpha[0];
+    acc[n][1] *= alpha[0];
+    acc[n][2] *= alpha[1];
+    acc[n][3] *= alpha[1];
+  }
+}
+
+// The next stage of the K/V ring and its phase.
+__device__ __forceinline__ void advance(int& s, uint32_t& ph) {
+  if (++s == FW_STAGES) {
+    s = 0;
+    ph ^= 1;
+  }
+}
+
+// The consumers' turns at issuing their products (when PINGPONG<DHP>):
+// warpgroup wg waits on named barrier 1 + wg until the other one has
+// issued its own (bar.arrive on it), so one's softmax runs under the
+// other's products.
+template <int DHP>
+__device__ __forceinline__ void turn_begin(int wg) {
+  if constexpr (PINGPONG<DHP>)
+    asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+template <int DHP>
+__device__ __forceinline__ void turn_end(int wg) {
+  if constexpr (PINGPONG<DHP>)
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+
+// A consumer warp is done with a stage (8 arrivals free it).
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+// Issues S = Q K^T (the warpgroup's 64 rows x FW_KT keys of the K tile at
+// sK) as one wgmma group.
+template <int DHP>
+__device__ __forceinline__ void issue_scores(float (*sc)[4], uint32_t sQ,
+                                             int wg, uint32_t sK) {
+#pragma unroll
+  for (int kk = 0; kk < DHP / 16; ++kk)
+    wgmma_ss<FW_KT>(sc, kmajor<FW_QROWS>(sQ, 64 * wg, kk),
+                    kmajor<FW_KT>(sK, 0, kk), kk > 0);
+  wg_commit();
+}
+
+// Issues O += P V over the FW_KT keys of the V tile at sV (P in
+// registers) as one wgmma group.
+template <int DHP>
+__device__ __forceinline__ void issue_pv(float (*acc)[4],
+                                         const uint32_t (*pa)[4],
+                                         uint32_t sV) {
+#pragma unroll
+  for (int kk = 0; kk < FW_KT / 16; ++kk)
+    wgmma_rs_tb<DHP>(acc, pa[kk], mnmajor<FW_KT>(sV, kk), 1);
+  wg_commit();
+}
+
+// Whether a mask can bite inside the tile of keys from k_lo for the rows
+// qw_lo .. qw_hi.
+__device__ __forceinline__ bool edge_tile(int k_lo, int qw_lo, int qw_hi,
+                                          int Skv, int causal, int window) {
+  return (causal && k_lo + FW_KT - 1 > qw_lo) ||
+         (window > 0 && qw_hi - k_lo >= window) || k_lo + FW_KT > Skv;
+}
+
+// o (bf16, through its strides) and, when lse is not null, each row's
+// m + log2(l), for one 128-row query tile of one (batch item, head).
+template <int DHP>
+__global__ void __launch_bounds__(FW_NT, 1)
+fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                 const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv,
+                 __nv_bfloat16* __restrict__ o, Strides os, int H, int KV,
+                 int Sq, int Skv, int dh, int causal, int window,
+                 float scale_log2, float* __restrict__ lse) {
+  using L = FwdSmem<DHP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const sm = align1024(smem_raw);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* const empty = full + FW_STAGES;
+  uint64_t* const q_full = empty + FW_STAGES;
+
+  // Block order (a 1-d grid): heads in groups of FW_HEAD_GROUP, all
+  // query tiles of a group's heads together, the heaviest first, so the
+  // running blocks read the K/V of a few heads (which stay in L2) and the
+  // light causal tiles fill in behind the next group's heavy ones.
+  const int tid = threadIdx.x;
+  const int nq = (Sq + FW_QROWS - 1) / FW_QROWS;
+  const int group = blockIdx.x / (FW_HEAD_GROUP * nq);
+  const int in_group = blockIdx.x - group * FW_HEAD_GROUP * nq;
+  const int heads = min(FW_HEAD_GROUP, gridDim.x / nq - group * FW_HEAD_GROUP);
+  const int bh = group * FW_HEAD_GROUP + in_group % heads;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int q_lo = (nq - 1 - in_group / heads) * FW_QROWS;
+  const int q_hi = min(q_lo + FW_QROWS, Sq) - 1;
+  const int n_kv = (Skv + FW_KT - 1) / FW_KT;
+  const int j_end = causal ? min(n_kv, q_hi / FW_KT + 1) : n_kv;
+  const int j_begin =
+      window > 0 ? min(max(0, q_lo - window + 1) / FW_KT, j_end) : 0;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < FW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid >> 7;
+  if (wg == 2) {                         // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        PRODUCER_REGS));
+    if (tid == 256) {
+      mbar_expect_tx(q_full, L::TQ);
+      tma_tile<DHP, FW_QROWS>(sm + L::Q, &mq, q_lo, h, b, q_full);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int j = j_begin; j < j_end; ++j) {
+        mbar_wait(&empty[s], ph ^ 1);
+        unsigned char* st = sm + L::KV + s * 2 * L::TK;
+        mbar_expect_tx(&full[s], 2 * L::TK);
+        tma_tile<DHP, FW_KT>(st, &mk, j * FW_KT, kvh, b, &full[s]);
+        tma_tile<DHP, FW_KT>(st + L::TK, &mv, j * FW_KT, kvh, b, &full[s]);
+        if (++s == FW_STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {                               // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        CONSUMER_REGS));
+    constexpr int NO = DHP / 8;          // n8 output tiles
+    constexpr int NS = FW_KT / 8;        // n8 score tiles
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int qw_lo = q_lo + 64 * wg;    // this warpgroup's 64 rows
+    const int qw_hi = min(qw_lo + 63, Sq - 1);
+    const int row0 = qw_lo + 16 * warp + g;   // this thread's rows (+ 8)
+    // the block's tiles [j_begin, j_end) that these rows see: [jw_begin,
+    // jw_end); the others only have their stage freed
+    const int jw_end =
+        qw_lo >= Sq ? j_begin
+                    : max(j_begin, causal ? min(j_end, qw_hi / FW_KT + 1)
+                                          : j_end);
+    const int jw_begin =
+        window > 0 ? min(max(j_begin, max(0, qw_lo - window + 1) / FW_KT),
+                         jw_end)
+                   : j_begin;
+    const uint32_t sQ = smem_addr(sm + L::Q);
+    const uint32_t sKV = smem_addr(sm + L::KV);
+    float acc[NO][4], sc[NS][4], alpha[2];
+    uint32_t pa[NS / 2][4];
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    zero<NO>(acc);
+    int s = 0;
+    uint32_t ph = 0;
+
+    // Every warpgroup takes j_end - j_begin + 1 turns: one per tile of the
+    // block (a tile it does not see only frees its stage) and one for its
+    // last P V (or none), so the turns pair up.
+    if (wg == 1) turn_end<DHP>(1);       // warpgroup 0 goes first
+    mbar_wait(q_full, 0);
+    for (int j = j_begin; j < jw_begin; ++j) {
+      mbar_wait(&full[s], ph);
+      turn_begin<DHP>(wg);
+      turn_end<DHP>(wg);
+      release(&empty[s], lane);
+      advance(s, ph);
+    }
+    if (jw_begin < jw_end) {
+      mbar_wait(&full[s], ph);
+      turn_begin<DHP>(wg);
+      wg_fence();
+      issue_scores<DHP>(sc, sQ, wg, sKV + s * 2 * L::TK);
+      turn_end<DHP>(wg);
+      wg_wait<0>();
+      pin<NS>(sc);
+      softmax_pinned<NS>(
+          sc, m, l, alpha,
+          edge_tile(jw_begin * FW_KT, qw_lo, qw_hi, Skv, causal, window),
+          row0, jw_begin * FW_KT, t, Skv, causal, window, scale_log2);
+      to_a<NS / 2>(pa, sc);
+      int sp = s;                        // the stage P V still reads
+      advance(s, ph);
+      for (int j = jw_begin + 1; j < jw_end; ++j) {
+        mbar_wait(&full[s], ph);
+        turn_begin<DHP>(wg);
+        wg_fence();
+        issue_scores<DHP>(sc, sQ, wg, sKV + s * 2 * L::TK);
+        issue_pv<DHP>(acc, pa, sKV + sp * 2 * L::TK + L::TK);
+        turn_end<DHP>(wg);
+        wg_wait<1>();                    // S(j) is in; P V(j - 1) runs on
+        pin<NS>(sc);
+        softmax_pinned<NS>(
+            sc, m, l, alpha,
+            edge_tile(j * FW_KT, qw_lo, qw_hi, Skv, causal, window), row0,
+            j * FW_KT, t, Skv, causal, window, scale_log2);
+        wg_wait<0>();
+        pin<NO>(acc);
+        rescale<NO>(acc, alpha);
+        release(&empty[sp], lane);
+        to_a<NS / 2>(pa, sc);
+        sp = s;
+        advance(s, ph);
+      }
+      turn_begin<DHP>(wg);
+      wg_fence();
+      issue_pv<DHP>(acc, pa, sKV + sp * 2 * L::TK + L::TK);
+      turn_end<DHP>(wg);
+      wg_wait<0>();
+      pin<NO>(acc);
+      release(&empty[sp], lane);
+    } else {
+      turn_begin<DHP>(wg);
+      turn_end<DHP>(wg);
+    }
+    for (int j = jw_end; j < j_end; ++j) {
+      mbar_wait(&full[s], ph);
+      turn_begin<DHP>(wg);
+      turn_end<DHP>(wg);
+      release(&empty[s], lane);
+      advance(s, ph);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = fmaxf(l[r], 1e-30f);
+    }
+    if (lse != nullptr && t == 0) {      // the backward's row statistics
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = row0 + 8 * r;
+        if (qi < Sq) lse[(long long)bh * Sq + qi] = m[r] + log2f(l[r]);
+      }
+    }
+    __nv_bfloat16* op = o + b * os.b + h * os.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = row0 + 8 * r;
+      if (qi >= Sq) continue;
+      __nv_bfloat16* row = op + qi * os.s;
+      const float inv = 1.f / l[r];
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int d = n * 8 + 2 * t;     // dh % 8 == 0: d < dh => d + 1 < dh
+        if (d < dh)
+          *reinterpret_cast<__nv_bfloat162*>(row + d) = __floats2bfloat162_rn(
+              acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+template <int DHP>
+cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                        const __nv_bfloat16* v, __nv_bfloat16* o, int B,
+                        int H, int KV, int Sq, int Skv, int dh,
+                        const Strides* st, int causal, int window,
+                        float scale_log2, float* lse, cudaStream_t stream) {
+  constexpr int smem = FwdSmem<DHP>::BYTES;
+  // the shared-memory limit is set once per process and device
+  static int attributes_set = -1;
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (attributes_set != device) {
+    err = cudaFuncSetAttribute(fwd_wgmma_kernel<DHP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    attributes_set = device;
+  }
+  CUtensorMap mq, mk, mv;
+  if (!encode_rows(&mq, q, B, H, Sq, dh, st[0]) ||
+      !encode_rows(&mk, k, B, KV, Skv, dh, st[1]) ||
+      !encode_rows(&mv, v, B, KV, Skv, dh, st[2]))
     return cudaErrorInvalidValue;
-  }
-  Strides st[4];
-  for (int t = 0; t < 4; ++t) {
+  fwd_wgmma_kernel<DHP>
+      <<<B * H * ((Sq + FW_QROWS - 1) / FW_QROWS), FW_NT, smem, stream>>>(
+          mq, mk, mv, o, st[3], H, KV, Sq, Skv, dh, causal, window,
+          scale_log2, lse);
+  return cudaGetLastError();
+}
+
+bool valid(int B, int H, int KV, int Sq, int Skv, int dh, int window,
+           int rows_per_block) {
+  return B >= 1 && H >= 1 && (long long)B * H <= 2147483647LL && KV >= 1 &&
+         H % KV == 0 && Sq >= 1 &&
+         (Sq + rows_per_block - 1) / rows_per_block <= 65535 && Skv >= 1 &&
+         dh >= 1 && dh <= 128 && window >= 0;
+}
+
+void read_strides(const long long* strides, Strides* st) {
+  for (int t = 0; t < 4; ++t)
     st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
-  }
-  if (vec) {                           // the wrapper's claim, checked
-    constexpr long long EPC = 16 / sizeof(T);
-    bool ok = dh % EPC == 0;
-    for (int t = 0; t < 12; ++t) ok = ok && strides[t] % EPC == 0;
-    const void* ptrs[4] = {q, k, v, o};
-    for (const void* p : ptrs)
-      ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-    if (!ok) return cudaErrorMisalignedAddress;
-  }
-  const T* qq = static_cast<const T*>(q);
-  const T* kk = static_cast<const T*>(k);
-  const T* vv = static_cast<const T*>(v);
-  T* oo = static_cast<T*>(o);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_LAUNCH(DHP, VEC)                                                \
-  launch<T, DHP, VEC>(qq, kk, vv, oo, B, H, KV, Sq, Skv, dh, st, causal,      \
-                      window, scale_log2, lse, s)
-  if (dh <= 64) return vec ? FLASH_LAUNCH(64, true) : FLASH_LAUNCH(64, false);
-  return vec ? FLASH_LAUNCH(128, true) : FLASH_LAUNCH(128, false);
-#undef FLASH_LAUNCH
 }
 
 }  // namespace
@@ -556,28 +854,77 @@ extern "C" {
 // Each entry launches on `stream` and returns cudaGetLastError() (0 on
 // success); it does not synchronise and allocates nothing. `strides`
 // holds 12 element strides: (batch, head, sequence) of q, k, v and o.
-// `scale_log2` is dh^-0.5 log2(e); `vec` (0/1) says that every row of
-// q, k, v and o starts 16-byte aligned and dh fills whole 16-byte chunks,
-// so tiles load with cp.async (checked: cudaErrorMisalignedAddress).
-// `lse`, when not null, receives each row's m + log2(l) as (B, H, Sq)
-// f32 (in log2 units of the scaled scores): the backward kernel's
-// (flash_attention_bwd.cu) softmax statistics. Serving passes null.
+// `scale_log2` is dh^-0.5 log2(e) of the true dh; `lse`, when not null,
+// receives each row's m + log2(l) as (B, H, Sq) f32 (in log2 units of the
+// scaled scores): the backward kernel's (flash_attention_bwd.cu) softmax
+// statistics. Serving passes null.
+//
+// f32: `vec` (0/1) says that every row of q, k, v and o starts 16-byte
+// aligned and dh fills whole 16-byte chunks, so tiles load with cp.async
+// (checked: cudaErrorMisalignedAddress); otherwise per-element loads.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int KV, int Sq, int Skv, int dh,
                         const long long* strides, int causal, int window,
                         float scale_log2, int vec, void* lse, void* stream) {
-  return (int)dispatch<float>(q, k, v, o, B, H, KV, Sq, Skv, dh, strides,
-                              causal, window, scale_log2, vec,
-                              static_cast<float*>(lse), stream);
+  if (!valid(B, H, KV, Sq, Skv, dh, window, BQ))
+    return (int)cudaErrorInvalidValue;
+  Strides st[4];
+  read_strides(strides, st);
+  if (vec) {                           // the wrapper's claim, checked
+    bool ok = dh % 4 == 0;
+    for (int t = 0; t < 12; ++t) ok = ok && strides[t] % 4 == 0;
+    const void* ptrs[4] = {q, k, v, o};
+    for (const void* p : ptrs)
+      ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    if (!ok) return (int)cudaErrorMisalignedAddress;
+  }
+  const float* qq = static_cast<const float*>(q);
+  const float* kk = static_cast<const float*>(k);
+  const float* vv = static_cast<const float*>(v);
+  float* oo = static_cast<float*>(o);
+  float* ll = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FLASH_LAUNCH(DHP, VEC)                                                \
+  launch<DHP, VEC>(qq, kk, vv, oo, B, H, KV, Sq, Skv, dh, st, causal, window, \
+                   scale_log2, ll, s)
+  if (dh <= 64)
+    return (int)(vec ? FLASH_LAUNCH(64, true) : FLASH_LAUNCH(64, false));
+  return (int)(vec ? FLASH_LAUNCH(128, true) : FLASH_LAUNCH(128, false));
+#undef FLASH_LAUNCH
 }
 
+// bf16: q, k and v are read by TMA and o is written in pairs, so dh must
+// be a multiple of 8 and every row of q, k, v and o must start on 16
+// bytes (each base pointer, and each stride over an axis of more than one
+// entry a positive multiple of 8): cudaErrorInvalidValue and
+// cudaErrorMisalignedAddress otherwise. The wrapper pads dh and copies
+// other inputs first. `vec` is not read.
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          int B, int H, int KV, int Sq, int Skv, int dh,
                          const long long* strides, int causal, int window,
                          float scale_log2, int vec, void* lse, void* stream) {
-  return (int)dispatch<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Skv, dh,
-                                      strides, causal, window, scale_log2,
-                                      vec, static_cast<float*>(lse), stream);
+  (void)vec;
+  if (!valid(B, H, KV, Sq, Skv, dh, window, FW_QROWS) || dh % 8 != 0 ||
+      (long long)B * H * ((Sq + FW_QROWS - 1) / FW_QROWS) > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  Strides st[4];
+  read_strides(strides, st);
+  if (!tma_rows(q, B, H, Sq, st[0]) || !tma_rows(k, B, KV, Skv, st[1]) ||
+      !tma_rows(v, B, KV, Skv, st[2]) || !tma_rows(o, B, H, Sq, st[3]))
+    return (int)cudaErrorMisalignedAddress;
+  using bf = __nv_bfloat16;
+  const bf* qq = static_cast<const bf*>(q);
+  const bf* kk = static_cast<const bf*>(k);
+  const bf* vv = static_cast<const bf*>(v);
+  bf* oo = static_cast<bf*>(o);
+  float* ll = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(dh <= 64 ? launch_bf16<64>(qq, kk, vv, oo, B, H, KV, Sq, Skv,
+                                          dh, st, causal, window, scale_log2,
+                                          ll, s)
+                        : launch_bf16<128>(qq, kk, vv, oo, B, H, KV, Sq, Skv,
+                                           dh, st, causal, window,
+                                           scale_log2, ll, s));
 }
 
 const char* flash_attention_error_string(int err) {

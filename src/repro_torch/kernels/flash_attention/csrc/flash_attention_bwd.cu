@@ -162,14 +162,13 @@
 //     item, kv head) would fill 32 of 132 SMs at the qwen3-4b shape).
 //   * the wrapper makes q, k, v and do legal for TMA (rows on 16 bytes, dh
 //     a multiple of 8) by padding or a copy; this entry refuses others.
+//   * the TMA, mbarrier and wgmma helpers are hopper.cuh's, shared with
+//     the forward's bf16 kernel (flash_attention.cu).
 //   * shared memory at dh = 128: dkdv 2 x 32 KB (K, V) + 2 stages x 32 KB
 //     (Q, dO) + 1 KB of lse/delta = 129 KB; dq 2 x 32 KB (Q, dO) + 2
 //     stages x 48 KB (K, V, KC) = 160 KB (one block of 384 threads per SM).
 
-#include <cuda.h>          // CUtensorMap and its enums (types only)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -187,48 +186,17 @@ constexpr int KMEAN_NT = 1024;
 constexpr int CENTRE_NT = 256;
 constexpr int CENTRE_ROWS = 16;          // key rows per centring block
 
-struct Strides {
-  long long b, h, s;
-};
-
 __device__ __forceinline__ float ldf(const float* p) { return *p; }
 __device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ void stf(float* p, float x) { *p = x; }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// c += a b, one m16n8k8 tf32 product with f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // x = hi + lo, each rounded to TF32 (10 mantissa bits, to nearest, ties
@@ -820,15 +788,7 @@ constexpr int BW_QT = 64;            // query rows per staged tile (dk/dv)
 constexpr int BW_QROWS = 128;        // query rows per dq block (64 each)
 constexpr int BW_KT = 64;            // keys per staged tile (dq)
 constexpr int BW_STAGES = 2;         // depth of the staged-tile rings
-constexpr int BOX = 64;              // TMA box: 64 rows x 64 columns
-constexpr int BOX_BYTES = BOX * BOX * 2;
 constexpr int LSED_TILE = 2 * BW_QT;     // floats: a tile's lse, then delta
-constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Two outputs of a contiguous bf16 row (dh columns) from column d on.
 __device__ __forceinline__ void store_pair(__nv_bfloat16* row, int d, int dh,
@@ -841,232 +801,6 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* row, int d, int dh,
     if (d < dh) row[d] = __float2bfloat16(x);
     if (d + 1 < dh) row[d + 1] = __float2bfloat16(y);
   }
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count));
-}
-// One arrival that also expects `bytes` of copies to complete on `bar`.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-// Returns once the phase of parity `parity` of `bar` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One TMA box (64 rows x 64 columns) of a 4-d map (dh, rows, head,
-// batch) into shared memory at dst, completing on bar.
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        int col, int row, int h, int b,
-                                        uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(h),
-      "r"(b), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// `bytes` contiguous bytes (16-byte aligned, a multiple of 16) into
-// shared memory, completing on bar.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// A tile of R rows (R a multiple of 64) x DHP columns, rows r0 .. of head
-// h of batch item b: DHP / 64 column halves, each R rows of 128 bytes
-// swizzled by TMA (SWIZZLE_128B), loaded as R / 64 boxes per half.
-template <int DHP, int R>
-__device__ __forceinline__ void tma_tile(unsigned char* dst,
-                                         const CUtensorMap* map, int r0,
-                                         int h, int b, uint64_t* bar) {
-#pragma unroll
-  for (int half = 0; half < DHP / 64; ++half)
-#pragma unroll
-    for (int r = 0; r < R / 64; ++r)
-      tma_box(dst + half * R * 128 + r * BOX_BYTES, map, 64 * half,
-              r0 + 64 * r, h, b, bar);
-}
-
-// wgmma descriptor of a 128-byte-swizzled operand at shared address a
-// (leading and stride byte offsets in bytes; layout type B128).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t a, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-// K-major operand (dh is the product's k): rows row0 .. row0 + 63 of a
-// tile of R rows, k-step kk (16 columns: 32 bytes into a 128-byte row,
-// the half kk / 4); groups of 8 rows 1024 bytes apart.
-template <int R>
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0, int kk) {
-  return sw128_desc(tile + (kk >> 2) * R * 128 + row0 * 128 + (kk & 3) * 32,
-                    16, 1024);
-}
-// MN-major B operand (the tile's rows are the product's k, dh its n):
-// k-step kk (rows 16 kk .. 16 kk + 15); the two column halves R * 128
-// bytes apart, groups of 8 rows 1024 bytes apart.
-template <int R>
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return sw128_desc(tile + kk * 16 * 128, R * 128, 1024);
-}
-
-// d (64 x N, f32) = a b (scale_d = 0) or d + a b (scale_d = 1) for the
-// warpgroup, one k-step of 16: a (64 x 16) and b (N x 16) bf16, both
-// K-major in shared memory, by descriptor. d[nt] is the warp's 16 x 8
-// accumulator tile nt: rows 16 (warp % 4) + {g, g + 8}, columns 8 nt +
-// {2t, 2t + 1}.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (*d)[4], uint64_t da,
-                                         uint64_t db, int scale_d);
-// d (64 x N, f32) = d + a b (scale_d = 1): a (64 x 16, bf16) from
-// registers (each warp its 16 rows, the m16n8k16 A fragment), b (16 x N)
-// MN-major in shared memory (the instruction reads it transposed).
-template <int N>
-__device__ __forceinline__ void wgmma_rs_tb(float (*d)[4], const uint32_t* a,
-                                            uint64_t db, int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (*d)[4], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<64>(float (*d)[4],
-                                                const uint32_t* a,
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<128>(float (*d)[4],
-                                                const uint32_t* a,
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed groups of this warpgroup are pending.
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accumulator reads across wgmma's wait.
-template <int NT>
-__device__ __forceinline__ void pin(float (*x)[4]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(x[nt][e])::"memory");
-}
-template <int NT>
-__device__ __forceinline__ void zero(float (*x)[4]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[nt][e] = 0.f;
-}
-
-// The A fragments (bf16) of four k-steps of 16 taken from a 64-wide
-// accumulator (8 n8 tiles): step kk is tiles 2 kk and 2 kk + 1.
-__device__ __forceinline__ void to_a(uint32_t (*a)[4], const float (*c)[4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
 // delta = rowsum(do o) and a copy of the forward's lse, laid out per query
@@ -1367,7 +1101,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
           }
         }
         uint32_t pa[4][4], da[4][4];
-        to_a(pa, st);
+        to_a<4>(pa, st);
 
         // dv += P^T dO over this tile's 64 query rows, then dS^T =
         // P^T (dP^T - delta) while it runs, then dk += dS^T Q
@@ -1383,7 +1117,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             dp[m][e] = st[m][e] * (dp[m][e] - tD[m * 8 + 2 * t + (e & 1)]);
-        to_a(da, dp);
+        to_a<4>(da, dp);
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -1580,7 +1314,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
           for (int e = 0; e < 4; ++e)
             dp[m][e] = sc[m][e] * (dp[m][e] - drow[e >> 1]);
         uint32_t da[4][4];
-        to_a(da, dp);
+        to_a<4>(da, dp);
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -1608,63 +1342,6 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                    acc[nt][2 * r] * scale, acc[nt][2 * r + 1] * scale);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// (the library links no libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The 4-d bf16 map (dh, rows, head, batch) of a tensor with element
-// strides st over (batch, head, row), boxes of 64 x 64, 128-byte swizzle,
-// rows and columns past the tensor read as zeros. A stride over an axis
-// of one entry is never used; it is given as 16 bytes.
-bool encode_rows(CUtensorMap* map, const void* base, int B, int N, int S,
-                 int dh, const Strides& st) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)S, (cuuint64_t)N,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {
-      S > 1 ? (cuuint64_t)st.s * 2 : 16, N > 1 ? (cuuint64_t)st.h * 2 : 16,
-      B > 1 ? (cuuint64_t)st.b * 2 : 16};
-  const cuuint32_t box[4] = {BOX, BOX, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Whether TMA takes rows of a tensor with these element strides: each
-// row starts on 16 bytes (axes of one entry aside).
-bool tma_rows(const void* p, int B, int N, int S, const Strides& st) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
-         (S == 1 || (st.s > 0 && st.s % 8 == 0)) &&
-         (N == 1 || (st.h > 0 && st.h % 8 == 0)) &&
-         (B == 1 || (st.b > 0 && st.b % 8 == 0));
 }
 
 template <int DHP>

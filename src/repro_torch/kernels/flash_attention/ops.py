@@ -32,9 +32,12 @@ strides over batch, head and sequence), so the model's (B, S, H, dh)
 projections go in as transposed views, without a copy; an input whose
 stride over dh is not 1 is copied to a contiguous one first. The output has q's strides when q is dense (no gaps between its
 elements, as in the model's transposed views) and contiguous strides
-otherwise (``torch.empty_like``). Tensors whose rows all start on 16 bytes
-(``_layout.vector_loads``) are tiled with ``cp.async``; others take the
-same kernel with per-element loads.
+otherwise (``torch.empty_like``). f32: tensors whose rows all start on 16
+bytes (``_layout.vector_loads``) are tiled with ``cp.async``; others take
+the same kernel with per-element loads. bf16: the kernel (``wgmma`` on
+tiles that TMA brings) reads q, k and v by TMA, so ``tma_inputs`` pads dh
+to a multiple of 8 and copies a tensor whose rows TMA cannot read
+(``_layout.tma_rows``); the model's views need neither.
 
 The kernel's arithmetic departs from the reference's in two places, both
 held by the tests: for f32 inputs each product is split TF32 (x = hi +
@@ -110,9 +113,11 @@ def _unit_dh(*ts):
 
 def _launch(q, k, v, causal, window, want_lse=False):
     """One launch of the kernel on CUDA tensors; raises on what it does
-    not take and on a refused launch. Returns o, and with ``want_lse``
-    also each row's log-sum-exp (B, H, Sq) f32 in the kernel's log2
-    units (the backward's input)."""
+    not take and on a refused launch. bf16 operands go through
+    ``tma_inputs`` first (the kernel sees the padded dh, the scale stays
+    that of the true dh, and o is sliced back). Returns o, and with
+    ``want_lse`` also each row's log-sum-exp (B, H, Sq) f32 in the
+    kernel's log2 units (the backward's input)."""
     B, H, Sq, dh = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     if dh > MAX_DH or B * H >= 2 ** 31 or Sq > 64 * 65535:
@@ -120,22 +125,55 @@ def _launch(q, k, v, causal, window, want_lse=False):
                          f"Sq <= {64 * 65535}; got dh={dh}, B={B}, H={H}, "
                          f"Sq={Sq}")
     q, k, v = _unit_dh(q, k, v)
+    f32 = q.dtype == torch.float32
+    dhp = dh
+    if not f32:
+        (q, k, v), dhp = tma_inputs(q, k, v)
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     lib = LIB.load()
-    fn = (lib.flash_attention_f32 if q.dtype == torch.float32
-          else lib.flash_attention_bf16)
+    fn = lib.flash_attention_f32 if f32 else lib.flash_attention_bf16
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 B, H, KV, Sq, Skv, dh, (ctypes.c_longlong * 12)(*strides),
+                 B, H, KV, Sq, Skv, dhp, (ctypes.c_longlong * 12)(*strides),
                  int(causal), int(window), dh ** -0.5 * LOG2E,
-                 int(vector_loads(q, k, v, o)),
+                 int(f32 and vector_loads(q, k, v, o)),
                  None if lse is None else lse.data_ptr(), stream)
     LIB.check(err, "flash_attention")
+    if dhp != dh:
+        o = o[..., :dh].contiguous()
     return (o, lse) if want_lse else o
+
+
+def _tma_legal(t):
+    """``t`` if TMA can read its rows (``_layout.tma_rows``), else a
+    contiguous copy."""
+    return (t if tma_rows(t)
+            else t.clone(memory_format=torch.contiguous_format))
+
+
+def _pad_dh(ts):
+    """The tensors with dh padded with zeros to a multiple of 8 (new and
+    contiguous; as they are when dh is one already), and that dh."""
+    dh = ts[0].shape[-1]
+    dhp = -(-dh // 8) * 8
+    if dhp != dh:
+        ts = [F.pad(t, (0, dhp - dh)) for t in ts]
+    return list(ts), dhp
+
+
+def tma_inputs(q, k, v):
+    """The bf16 forward's operands made legal for the kernel's TMA loads:
+    dh padded with zeros to a multiple of 8, then each of q, k and v
+    whose rows TMA cannot read copied to a contiguous tensor. Zero columns
+    change no score and no output column the caller keeps; the kernel's
+    scale stays that of the true dh. Returns [q, k, v] and the padded
+    dh."""
+    ts, dhp = _pad_dh((q, k, v))
+    return [_tma_legal(t) for t in ts], dhp
 
 
 def tma_operands(q, k, v, o, do):
@@ -144,13 +182,8 @@ def tma_operands(q, k, v, o, do):
     contiguous), then each of q, k, v and do whose rows TMA cannot read
     (``_layout.tma_rows``) copied to a contiguous tensor; o is read by
     plain loads and kept. Returns (q, k, v, o, do) and the padded dh."""
-    dh = q.shape[-1]
-    dhp = -(-dh // 8) * 8
-    if dhp != dh:
-        q, k, v, o, do = (F.pad(t, (0, dhp - dh)) for t in (q, k, v, o, do))
-    q, k, v, do = (t if tma_rows(t)
-                   else t.clone(memory_format=torch.contiguous_format)
-                   for t in (q, k, v, do))
+    (q, k, v, o, do), dhp = _pad_dh((q, k, v, o, do))
+    q, k, v, do = (_tma_legal(t) for t in (q, k, v, do))
     return (q, k, v, o, do), dhp
 
 

@@ -15,7 +15,9 @@ non-causal calls (ragged Skv, Sq != Skv, dh = 64), the flash and wkv
 backward kernels against autograd through the plain versions (also at
 their tiling's edges, in three layouts, with bit-equal reruns), and a
 reduced-config LM train step through the kernels against the plain one,
-and gemma3-27b's bf16 and windowed pieces (the f32-accumulated bf16 head,
+the bf16 flash forward's own checks (P rounded before P·V, rows that see
+no key, its log-sum-exp, the TMA entry's refusals), and gemma3-27b's
+bf16 and windowed pieces (the f32-accumulated bf16 head,
 a windowed bf16 flash call made by ``full_attention`` at the gemma3
 shape, the ring cache across its window against the plain path), and
 the backward kernels' bf16 entries (within each wrapper's
@@ -704,15 +706,84 @@ def test_flash_kernel_tile_edges(cuda, B, H, KV, Sq, Skv, dh, win, causal,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_per_element_path(cuda, dtype):
-    """Rows that do not start on 16 bytes (an odd sequence stride) take the
-    kernel's per-element loads and stores, not a copy or a refusal. q is
-    not dense, so o has contiguous strides."""
+    """Rows that do not start on 16 bytes (an odd sequence stride): f32
+    takes the kernel's per-element loads and stores, not a copy or a
+    refusal; bf16, which the kernel reads by TMA, passes as contiguous
+    copies (``ops.tma_inputs``). q is not dense, so o has contiguous
+    strides."""
     q, k, v = (t[..., :40] for t in _flash_inputs(2, 4, 2, 70, 41, dtype,
                                                   cuda))
     assert not vector_loads(q, k, v)
     o = flash_attention(q, k, v, window=20)
     assert o.is_contiguous()
     _assert_flash_matches(o, q, k, v, True, 20)
+
+
+def test_flash_bf16_rounds_p_before_pv(cuda):
+    """The bf16 kernel rounds P to bf16 before P·V and sums l in f32: one
+    query over two keys where p1 = 0.99707, held as 1 − 2⁻⁸ in bf16, and
+    v1 = 256 give o = 127.5 (an f32 P would give 128), as the CPU
+    emulation's rounding probe (``tests/test_torch_flash_attention.py``)
+    works out."""
+    q = torch.zeros((1, 1, 1, 16), device=cuda)
+    k = torch.zeros((1, 1, 2, 16), device=cuda)
+    v = torch.zeros((1, 1, 2, 16), device=cuda)
+    q[..., 0] = 1.0
+    k[0, 0, 1, 0] = -0.01171875
+    v[0, 0, 1, 0] = 256.0
+    o = flash_attention(*(t.bfloat16() for t in (q, k, v)), causal=False)
+    torch.cuda.synchronize()
+    assert o[0, 0, 0, 0].item() == 127.5 and not o[..., 1:].any()
+
+
+def test_flash_bf16_gives_fully_masked_rows_zero_and_lse(cuda):
+    """The bf16 kernel at a non-causal window with Sq > Skv + window − 1:
+    rows that see no key get o = 0 (as the f32 kernel and the reference's
+    Pallas kernel give them); the others match the plain version within
+    the bound, and their log-sum-exp (log2 units, for the backward) the
+    plain softmax's within 1e-5 of its size."""
+    Sq, Skv, win, dh = 300, 140, 40, 64
+    q, k, v = (torch.tensor(np.random.default_rng(s).standard_normal(
+        (2, n, L, dh)).astype(np.float32), device=cuda).bfloat16()
+        for s, n, L in ((0, 4, Sq), (1, 2, Skv), (2, 2, Skv)))
+    o, lse = flash_ops._launch(q, k, v, False, win, want_lse=True)
+    torch.cuda.synchronize()
+    dead = torch.arange(Sq, device=cuda) >= Skv + win - 1
+    assert (o[:, :, dead] == 0).all()
+    o_ref = attention_ref(q, k, v, causal=False, window=win)
+    bound = flash_ops.bf16_error_bound(q, k, v, o_ref, causal=False,
+                                       window=win)
+    assert ((o.float() - o_ref.float()).abs() <= bound)[:, :, ~dead].all()
+    kh = k.float().repeat_interleave(2, dim=1)
+    scores = (q.float() @ kh.mT) * dh ** -0.5
+    i = torch.arange(Sq, device=cuda)[:, None]
+    j = torch.arange(Skv, device=cuda)[None, :]
+    ref = torch.logsumexp(torch.where(j > i - win, scores, -torch.inf),
+                          -1) / np.log(2)
+    torch.testing.assert_close(lse[:, :, ~dead], ref[:, :, ~dead],
+                               atol=1e-5 * ref.abs().max().item(), rtol=0)
+
+
+def test_flash_bf16_entry_refuses_what_tma_cannot_read(cuda):
+    """Called directly, the forward's bf16 entry refuses dh off a multiple
+    of 8 (invalid value) and a row off 16 bytes (misaligned address): the
+    wrapper pads or copies such inputs first, so a model never meets it."""
+    import ctypes
+    B, H, S, dh = 1, 2, 64, 64
+    x = torch.zeros((B, H, S, dh + 8), dtype=torch.bfloat16, device=cuda)
+    o = torch.empty((B, H, S, dh), dtype=torch.bfloat16, device=cuda)
+    fn = flash_ops.LIB.load().flash_attention_bf16
+
+    def call(t, d):
+        strides = (ctypes.c_longlong * 12)(*(list(t.stride()[:3]) * 3
+                                             + list(o.stride()[:3])))
+        return fn(t.data_ptr(), t.data_ptr(), t.data_ptr(), o.data_ptr(), B,
+                  H, H, S, S, d, strides, 1, 0, 0.18, 1, None,
+                  torch.cuda.current_stream().cuda_stream)
+    assert call(x, dh) == 0
+    torch.cuda.synchronize()
+    assert call(x, 60) == 1                  # cudaErrorInvalidValue
+    assert call(x[..., 1:], dh) == 716       # cudaErrorMisalignedAddress
 
 
 # T = 1, T off the 16-step chunk, ragged dk (50: four column blocks, the

@@ -10,6 +10,8 @@ Tolerance: 10x the reference's kernel tolerance (5e-5 f32, 5e-2 bf16),
 the reference's own for this kernel (``test_flash_attention_sweep``);
 the emulated CUDA arithmetic is also held to ``ops.bf16_error_bound``,
 the card's per-element bf16 gate."""
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -99,10 +101,11 @@ def test_wrapper_checks():
 # operand x is hi + lo, hi = x rounded to TF32 (10 mantissa bits, round to
 # nearest with ties away from zero, as cvt.rna), lo = x - hi, which the
 # tensor core reads as TF32 by dropping its low 13 bits; each product is
-# lo·hi + hi·lo + hi·hi in f32. bf16 inputs: f32 products of the bf16
-# values, P rounded to bf16 before P·V. Both run the kernel's online
-# softmax over kv tiles (32 keys in f32, 64 in bf16) with exp2 and the
-# scale folded into log2 units.
+# lo·hi + hi·lo + hi·hi in f32, over kv tiles of 32 keys. bf16 inputs: the
+# wgmma design (``_bf16_forward_emulation``): f32 products of the bf16
+# values, P rounded to bf16 before P·V, query tiles of 128 rows in
+# warpgroups of 64, key tiles of 128. Both run the kernel's online softmax
+# with exp2 and the scale folded into log2 units.
 LOG2E = 1.4426950408889634
 
 
@@ -125,12 +128,14 @@ def _split_mm(a, b):
 
 def _kernel_emulation(q, k, v, causal, window, skip=None):
     """The kernel's tiled online softmax with its products, in f32.
-    ``skip``: the first key of a kv tile to leave out (a faulty kernel)."""
+    ``skip``: the first key of a kv tile to leave out (a faulty kernel).
+    bf16 inputs take ``_bf16_forward_emulation`` (the wgmma design)."""
+    if q.dtype == torch.bfloat16:
+        return _bf16_forward_emulation(q, k, v, causal, window, skip)[0]
     B, H, Sq, dh = q.shape
     KV, Skv = k.shape[1], k.shape[2]
-    f32 = q.dtype == torch.float32
-    bkv = 32 if f32 else 64
-    mm = _split_mm if f32 else torch.matmul
+    bkv = 32
+    mm = _split_mm
     qf, kf, vf = (t.float() for t in (q, k, v))
     kf = kf.repeat_interleave(H // KV, dim=1)
     vf = vf.repeat_interleave(H // KV, dim=1)
@@ -154,11 +159,77 @@ def _kernel_emulation(q, k, v, causal, window, skip=None):
         alpha = torch.exp2(m - m_new)
         p = torch.where(live, torch.exp2(s - m_new), 0.0)
         l = l * alpha + p.sum(-1, keepdim=True)
-        if not f32:
-            p = p.to(torch.bfloat16).float()
         acc = acc * alpha + mm(p, vf[:, :, k_lo:k_lo + bkv])
         m = m_new
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+# The bf16 forward kernel's tiles (the wgmma design): 128 query rows per
+# block, 64 per consumer warpgroup; key tiles of 128.
+FW_QROWS, FW_KT = 128, 128
+
+
+def _bf16_forward_emulation(q, k, v, causal, window, skip=None,
+                            round_p=True):
+    """The bf16 forward kernel's algorithm and arithmetic in plain torch:
+    per block of 128 query rows the key tiles of 128 that its rows can see
+    (the kernel's range arithmetic), and per consumer warpgroup of 64 rows
+    the tiles its own rows see; per tile S = Q Kᵀ in f32 from the bf16
+    values, m the row max of the scores times dh^-0.5 log2(e), P =
+    exp2(s·scale − m) (a masked score −inf: p = 0), l summing the f32 P,
+    P rounded to bf16 before O·α + P V. o = O / max(l, 1e-30) rounded to
+    bf16 once; lse = m + log2(l) in the same log2 units, as written for
+    the backward. ``skip``: the first key of a tile left out (a faulty
+    kernel); ``round_p=False`` feeds P V an f32 P (not the design)."""
+    B, H, Sq, dh = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    sl2 = dh ** -0.5 * LOG2E
+    qf = q.float()
+    kh, vh = (t.float().repeat_interleave(H // KV, dim=1) for t in (k, v))
+    o = torch.zeros((B, H, Sq, dh))
+    lse = torch.zeros((B, H, Sq))
+    n_kv = -(-Skv // FW_KT)
+    for q_lo in range(0, Sq, FW_QROWS):
+        q_hi = min(q_lo + FW_QROWS, Sq) - 1
+        j_end = min(n_kv, q_hi // FW_KT + 1) if causal else n_kv
+        j_begin = (min(max(0, q_lo - window + 1) // FW_KT, j_end) if window
+                   else 0)
+        for qw_lo in range(q_lo, q_hi + 1, 64):     # the two warpgroups
+            qw_hi = min(qw_lo + 63, Sq - 1)
+            jw_end = max(j_begin, min(j_end, qw_hi // FW_KT + 1) if causal
+                         else j_end)
+            jw_begin = (min(max(j_begin, max(0, qw_lo - window + 1)
+                                // FW_KT), jw_end) if window else j_begin)
+            rows = slice(qw_lo, qw_hi + 1)
+            qi = torch.arange(qw_lo, qw_hi + 1)[:, None]
+            m = torch.full((B, H, qw_hi + 1 - qw_lo, 1), -1e30)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((B, H, qw_hi + 1 - qw_lo, dh))
+            for j in range(jw_begin, jw_end):
+                cols = slice(j * FW_KT, min(j * FW_KT + FW_KT, Skv))
+                if j * FW_KT == skip:
+                    continue
+                kj = torch.arange(cols.start, cols.stop)[None, :]
+                live = torch.ones((qi.shape[0], kj.shape[1]),
+                                  dtype=torch.bool)
+                if causal:
+                    live &= kj <= qi
+                if window:
+                    live &= kj > qi - window
+                s = torch.where(live, qf[:, :, rows] @ kh[:, :, cols].mT,
+                                -torch.inf)
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True) * sl2)
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(s * sl2 - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                if round_p:
+                    p = p.to(torch.bfloat16).float()
+                acc = acc * alpha + p @ vh[:, :, cols]
+                m = m_new
+            l = l.clamp_min(1e-30)
+            o[:, :, rows] = acc / l
+            lse[:, :, rows] = (m + torch.log2(l))[..., 0]
+    return o.to(torch.bfloat16), lse
 
 
 @pytest.mark.parametrize("B,H,KV,S,dh,win", SWEEP)
@@ -611,7 +682,7 @@ BF_KEYS, BF_QT, BF_QROWS, BF_KT = 128, 64, 128, 64
 
 
 def _bf16_backward_emulation(q, k, v, do, centred, causal=False, window=0,
-                             skip_first=False, round_ds=True):
+                             skip_first=False, round_ds=True, fwd=None):
     """The bf16 backward kernel's algorithm and arithmetic in plain torch
     (``scripts/flash_delta_probe.py --dtype bf16`` runs its non-causal sums
     beside the kernel): the forward's o with P rounded to bf16 before P·V,
@@ -626,7 +697,9 @@ def _bf16_backward_emulation(q, k, v, do, centred, causal=False, window=0,
     rounded to bf16 once. With ``centred`` KC = bf16(k − k̄) and dk less its
     mean over the keys, as the kernel does; else the raw keys and dk as
     summed. ``skip_first`` drops each key block's first query tile (a
-    faulty range); ``round_ds=False`` feeds dq's product an f32 dS."""
+    faulty range); ``round_ds=False`` feeds dq's product an f32 dS.
+    ``fwd``: the forward's (o, lse) to read instead (the forward kernel's,
+    as the model's backward does)."""
     B, H, Sq, dh = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     G = H // KV
@@ -644,6 +717,8 @@ def _bf16_backward_emulation(q, k, v, do, centred, causal=False, window=0,
     lse = torch.logsumexp(torch.where(live, s2, -1e30) / LOG2E, -1) * LOG2E
     p = torch.where(live, torch.exp2(s2 - lse[..., None]), 0.0)
     o = bf(bf(p) @ vh)
+    if fwd is not None:
+        o, lse = fwd[0].float(), fwd[1]
     delta = (dof * o).sum(-1)
     kc = bf(kf - kf.mean(2, keepdim=True)) if centred else kf
     kch = kc.repeat_interleave(G, dim=1)
@@ -796,3 +871,190 @@ def test_bf16_backward_arithmetic_within_its_derived_bound(shift):
     assert max(use(_bf16_backward_emulation(q, k, v, do, True))) <= 1
     if shift:
         assert use(_bf16_backward_emulation(q, k, v, do, False))[0] > 1
+
+
+# ------------------------------------------------- bf16 forward (wgmma)
+# Non-causal (ragged Sq, Skv a multiple of the reference's block for its
+# non-causal rule) and windowed, over several of the kernel's 128-row and
+# 128-key tiles: (B, H, KV, Sq, Skv, dh, window, causal).
+FWD_BF16_CASES = [(2, 4, 2, 50, 64, 32, 0, False),
+                  (1, 4, 2, 200, 160, 64, 0, False),
+                  (1, 2, 2, 150, 96, 48, 24, False),
+                  (1, 2, 1, 300, 300, 64, 70, True),
+                  (1, 4, 1, 260, 260, 32, 129, True)]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal", FWD_BF16_CASES)
+def test_bf16_forward_design_matches_reference(B, H, KV, Sq, Skv, dh, win,
+                                               causal):
+    """The wgmma design's tiles and roundings against the reference's
+    Pallas kernel (interpret mode) at its bf16 tolerance, and within
+    ``ops.bf16_error_bound`` of the plain version (``SWEEP`` runs through
+    ``test_kernel_arithmetic_matches_reference_kernel``); its lse against
+    the plain softmax's. Rows that see no key (a non-causal window with
+    Sq > Skv + window − 1) get o = 0, as from the reference's kernel."""
+    (jq, jk, jv), (q, k, v) = _inputs(B, H, KV, Sq, dh, "bfloat16",
+                                      seed=Sq + Skv + dh, Skv=Skv)
+    o, lse = _bf16_forward_emulation(q, k, v, causal, win)
+    o_ref = jflash(jq, jk, jv, causal=causal, window=win, block_q=32,
+                   block_kv=32)
+    np.testing.assert_allclose(_np(o), _np(o_ref), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+    kh = k.float().repeat_interleave(H // KV, dim=1)
+    s2 = (q.float() @ kh.mT) * dh ** -0.5 * LOG2E
+    qi, kj = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
+    live = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        live &= kj <= qi
+    if win:
+        live &= kj > qi - win
+    seen = live.any(-1)
+    plain = attention_ref(q, k, v, causal=causal, window=win)
+    err = (o.float() - plain.float()).abs()
+    bound = ops.bf16_error_bound(q, k, v, plain, causal=causal, window=win)
+    assert (err <= bound)[:, :, seen].all()
+    assert not o[:, :, ~seen].any()
+    # lse: log2 of the softmax denominator of the scaled scores
+    ref = torch.logsumexp(torch.where(live, s2, -torch.inf) / LOG2E,
+                          -1) * LOG2E
+    torch.testing.assert_close(lse[..., seen], ref[..., seen], atol=1e-5,
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal",
+                         [c for c in BF16_BWD_CASES if c[-1]]
+                         + [(2, 4, 2, 70, 190, 40, 0, False)])
+def test_bf16_forward_lse_feeds_the_backward_design(B, H, KV, Sq, Skv, dh,
+                                                    win, causal):
+    """The forward design's o and lse, as written for the backward,
+    through the bf16 backward design: every gradient within
+    ``bf16_grad_error_bound`` (the backward rebuilds P from this lse
+    unshifted and takes delta from this o)."""
+    args = _bf16_case(B, H, KV, Sq, Skv, dh, seed=Sq + Skv + dh)
+    fwd = _bf16_forward_emulation(*args[:3], causal, win)
+    got = _bf16_backward_emulation(*args, True, causal=causal, window=win,
+                                   fwd=fwd)
+    assert max(_bound_use(args, got, causal, win)) <= 1
+
+
+def _rounding_probe():
+    """One query over two keys (non-causal, dh = 16) whose scores give
+    p0 = 1 and p1 = exp2(-0.01171875 · 16^-0.5 log2 e) = 0.99707, which
+    bf16 holds as 1 − 2⁻⁸; v0 = 0, v1 = 256 in the first column. With P
+    rounded to bf16 before P·V and l summing the f32 P, o = 256 · bf16(p1)
+    / (1 + p1) = 127.687, which rounds to 127.5 in bf16; with an f32 P it
+    is 127.813, which rounds to 128."""
+    q = torch.zeros((1, 1, 1, 16))
+    k = torch.zeros((1, 1, 2, 16))
+    v = torch.zeros((1, 1, 2, 16))
+    q[..., 0] = 1.0
+    k[0, 0, 1, 0] = -0.01171875
+    v[0, 0, 1, 0] = 256.0
+    return [t.to(torch.bfloat16) for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("fault", [None, "dropped_tile", "p_in_f32"])
+def test_bf16_forward_checks_catch_faults(fault):
+    """The design passes both checks; a key tile left out leaves
+    ``ops.bf16_error_bound`` (long rows, the last tile of 128), and P left
+    in f32 (more accurate, so no bound against the plain version can see
+    it) misses the rounding probe, whose answer the card's kernel must
+    give too (``tests/test_torch_cuda.py``)."""
+    _, (q, k, v) = _inputs(1, 2, 1, 512, 64, "bfloat16", seed=512)
+    plain = attention_ref(q, k, v)
+    o = _bf16_forward_emulation(q, k, v, True, 0,
+                                skip=384 if fault == "dropped_tile" else None,
+                                round_p=fault != "p_in_f32")[0]
+    within = ((o.float() - plain.float()).abs()
+              <= ops.bf16_error_bound(q, k, v, plain)).all().item()
+    probe = _bf16_forward_emulation(*_rounding_probe(), False, 0,
+                                    round_p=fault != "p_in_f32")[0]
+    rounded = probe[0, 0, 0, 0].item() == 127.5
+    assert (within and rounded) == (fault is None)
+    assert within == (fault != "dropped_tile")
+    assert rounded == (fault != "p_in_f32")
+
+
+def _at(ptr, shape, strides):
+    """A bf16 CPU tensor over the memory at ``ptr`` (what a launch reads
+    through the pointer and strides it is given)."""
+    n = 1 + sum((s - 1) * st for s, st in zip(shape, strides))
+    buf = (ctypes.c_uint16 * n).from_address(ptr)
+    return torch.frombuffer(buf, dtype=torch.bfloat16).as_strided(shape,
+                                                                  strides)
+
+
+def test_bf16_call_passes_tma_legal_operands(monkeypatch):
+    """A bf16 CUDA call, with the library stubbed by a plain computation
+    on CPU tensors that reads its operands through the pointers, dh and
+    strides it is given (as the kernel does): the model's transposed views
+    at dh = 80 pass as they are (TMA reads their rows; o keeps q's
+    strides); dh = 20 passes zero-padded to 24 and rows off 16 bytes pass
+    as contiguous copies, o sliced back to 20; the scale is always that
+    of the true dh; one launch is counted per call."""
+    import contextlib
+    import types
+    seen = []
+
+    class Lib:
+        def flash_attention_bf16(self, qp, kp, vp, op, B, H, KV, Sq, Skv, dh,
+                                 strides, causal, window, scale_log2, vec,
+                                 lse, stream):
+            st = [[strides[3 * i + j] for j in range(3)] + [1]
+                  for i in range(4)]
+            q, k, v, o = (_at(p, (B, n, S, dh), s) for p, n, S, s in zip(
+                (qp, kp, vp, op), (H, KV, KV, H), (Sq, Skv, Skv, Sq), st))
+            seen.append({"ptrs": (qp, kp, vp), "dh": dh, "scale": scale_log2,
+                         "operands": [t.clone() for t in (q, k, v)],
+                         "strides": st})
+            kh, vh = (t.float().repeat_interleave(H // KV, dim=1)
+                      for t in (k, v))
+            s = (q.float() @ kh.mT) * scale_log2
+            i, j = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
+            live = (j <= i) if causal else torch.ones_like(i * j, dtype=bool)
+            p = torch.softmax(torch.where(live, s, -1e30) / LOG2E, -1)
+            o.copy_((p @ vh).to(torch.bfloat16))
+            return 0
+
+    monkeypatch.setattr(ops.LIB, "load", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    rng = np.random.default_rng(7)
+
+    def draw(*shape):
+        return torch.tensor(rng.standard_normal(shape).astype(np.float32)
+                            ).to(torch.bfloat16)
+
+    # the model's (B, S, H, dh) projections as transposed views, dh = 80
+    q, k, v = (draw(2, 40, n, 80).transpose(1, 2) for n in (4, 2, 2))
+    before = flash_attention.launches
+    with torch.no_grad():
+        o = ops._on_card(q, k, v, True, 0)
+    call = seen[-1]
+    assert call["ptrs"] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert call["dh"] == 80 and call["scale"] == 80 ** -0.5 * LOG2E
+    assert o.stride() == q.stride() and o.dtype == torch.bfloat16
+    torch.testing.assert_close(o.float(), attention_ref(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+    # dh = 20: padded with zeros to 24, o sliced back
+    q, k, v = (draw(1, n, 30, 20) for n in (4, 2, 2))
+    o = ops._on_card(q, k, v, True, 0)
+    call = seen[-1]
+    assert call["dh"] == 24 and call["scale"] == 20 ** -0.5 * LOG2E
+    for got, x in zip(call["operands"], (q, k, v)):
+        assert torch.equal(got[..., :20], x) and not got[..., 20:].any()
+    assert o.shape == q.shape and o.is_contiguous()
+    torch.testing.assert_close(o.float(), attention_ref(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+    # rows off 16 bytes (a 41-element row stride): contiguous copies
+    q, k, v = (draw(1, n, 30, 41)[..., 1:] for n in (4, 2, 2))
+    o = ops._on_card(q, k, v, True, 0)
+    call = seen[-1]
+    assert call["dh"] == 40 and call["ptrs"][0] != q.data_ptr()
+    assert all(s[:3] == [n * 30 * 40, 30 * 40, 40] for s, n in
+               zip(call["strides"][:3], (4, 2, 2)))
+    torch.testing.assert_close(o.float(), attention_ref(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+    assert flash_attention.launches == before + 3

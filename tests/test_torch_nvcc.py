@@ -1,0 +1,40 @@
+"""The kernel libraries' build names, on the CPU (nothing is compiled).
+
+A library is built once per name, and its name carries a digest of what
+the build reads: the source, every header it includes with ``#include
+"..."`` (followed through the headers), and nvcc's flags. A stale library
+would be loaded if an edited header left the name as it was."""
+from repro_torch.kernels import _nvcc
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.graph_filter import ops as gf_ops
+from repro_torch.kernels.ssm_scan import ops as wkv_ops
+
+
+def test_library_name_follows_every_included_header(tmp_path):
+    (tmp_path / "inner.cuh").write_text("// inner\n")
+    (tmp_path / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda_runtime.h>\n  #  include "outer.cuh"\n'
+                   '#include "inner.cuh"\n// #include "absent.cuh"\n')
+    assert _nvcc.sources(src) == [src.resolve(),
+                                  (tmp_path / "outer.cuh").resolve(),
+                                  (tmp_path / "inner.cuh").resolve()]
+    name = _nvcc.library_path(src)
+    assert name.parent == _nvcc.BUILD_DIR and name.name.startswith("k-")
+    assert _nvcc.library_path(src) == name           # deterministic
+    (tmp_path / "inner.cuh").write_text("// inner, edited\n")
+    edited = _nvcc.library_path(src)
+    assert edited != name
+    src.write_text(src.read_text() + "// a comment\n")
+    assert _nvcc.library_path(src) not in (name, edited)
+
+
+def test_both_flash_libraries_read_the_shared_header():
+    """The forward and backward flash sources include ``hopper.cuh``, so
+    an edit there renames (rebuilds) both; the other kernels' sources
+    include nothing of the repository."""
+    header = fa_ops.CSRC.with_name("hopper.cuh").resolve()
+    for lib in (fa_ops.LIB, fa_ops.BWD_LIB):
+        assert _nvcc.sources(lib.src) == [lib.src.resolve(), header]
+    for lib in (gf_ops.LIB, wkv_ops.LIB, wkv_ops.BWD_LIB):
+        assert _nvcc.sources(lib.src) == [lib.src.resolve()]
