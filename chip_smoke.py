@@ -11,9 +11,10 @@ order; any failure exits non-zero:
      TF32 switches (both off);
   2. build — the five kernel libraries (graph filter, flash attention and
      its backward, wkv and its backward), one ``nvcc`` each, all started
-     together; every instance of the bf16 flash kernels (the forward's
-     and the backward's wgmma kernels) must hold HGMMA instructions
-     (``cuobjdump -sass``);
+     together; every instance of the wgmma flash kernels (the bf16
+     forward's and backward's, the f32 backward's split-TF32 ones) must
+     hold HGMMA instructions, and the f32 ones no local-memory loads or
+     stores (``cuobjdump -sass``);
   3. kernel vs plain — the graph-filter kernel against its plain PyTorch
      version on the same inputs (numpy, seeded) at the reference's test
      shapes, at n = 129, 256 and 1000 (past the kernel's resident limit)
@@ -2641,40 +2642,55 @@ def build_all(tag):
     check_hgmma(tag, {name: info["path"] for name, info in infos.items()})
 
 
-# The bf16 flash kernels that must run Hopper's warpgroup products, by
-# library; each is built in two instances (dh <= 64 and <= 128).
+# The flash kernels that must run Hopper's warpgroup products, by library
+# (the bf16 forward and backward, and the f32 backward's split-TF32
+# kernels); each is built in two instances (dh <= 64 and <= 128).
 HGMMA_KERNELS = {"flash_attention": ("fwd_wgmma_kernel",),
                  "flash_attention_bwd": ("dkdv_wgmma_kernel",
-                                         "dq_wgmma_kernel")}
+                                         "dq_wgmma_kernel",
+                                         "dkdv_tf32_kernel",
+                                         "dq_tf32_kernel")}
+# Of those, the ones whose SASS must hold no local-memory load or store.
+SPILL_FREE = ("dkdv_tf32_kernel", "dq_tf32_kernel")
 
 
 def check_hgmma(tag, paths):
-    """The bf16 flash kernels (the forward's ``fwd_wgmma_kernel``, the
-    backward's ``dkdv_wgmma_kernel`` and ``dq_wgmma_kernel``, each
-    instance) hold Hopper's warpgroup products: the ``HGMMA`` instructions
-    of their SASS, read with the toolkit's ``cuobjdump -sass``. A kernel is
-    matched by its whole mangled name (its length, then the name), so no
-    library's count picks up another kernel. Fails if an instance has none
-    or is missing."""
+    """The wgmma flash kernels (the forward's ``fwd_wgmma_kernel``, the
+    backward's ``dkdv_wgmma_kernel`` and ``dq_wgmma_kernel`` in bf16 and
+    ``dkdv_tf32_kernel`` and ``dq_tf32_kernel`` in f32, each instance)
+    hold Hopper's warpgroup products, the ``HGMMA`` instructions of their
+    SASS, read with the toolkit's ``cuobjdump -sass``; the f32 ones
+    (``SPILL_FREE``) also no local-memory loads or stores (``LDL``/``STL``:
+    spills). A kernel is matched by its
+    whole mangled name (its length, then the name), so no library's count
+    picks up another kernel. Fails if an instance has no HGMMA, spills or
+    is missing."""
     from repro_torch.kernels._nvcc import nvcc_path
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     for lib, kernels in HGMMA_KERNELS.items():
         sass = subprocess.run([tool, "-sass", str(paths[lib])],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
-        found, fn = {}, None
+        found, local, fn = {}, {}, None
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
                 if any(f"{len(k)}{k}I" in fn for k in kernels):
                     found[fn] = 0
-            elif fn in found and "HGMMA" in line:
-                found[fn] += 1
-        print(f"[{tag}] 2 HGMMA instructions in each bf16 kernel of {lib} "
-              f"(cuobjdump -sass): {json.dumps(found)}")
-        if len(found) != 2 * len(kernels) or not all(found.values()):
-            raise AssertionError(f"the bf16 kernels of {lib} lack HGMMA: "
-                                 f"{found}")
+                if any(f"{len(k)}{k}I" in fn for k in SPILL_FREE):
+                    local[fn] = 0
+            elif fn in found:
+                found[fn] += "HGMMA" in line
+                if fn in local:
+                    local[fn] += any(f" {op}" in line for op in ("LDL",
+                                                                 "STL"))
+        print(f"[{tag}] 2 HGMMA instructions in each wgmma flash kernel of "
+              f"{lib} (cuobjdump -sass): {json.dumps(found)}; local-memory "
+              f"loads and stores: {json.dumps(local)}")
+        if (len(found) != 2 * len(kernels) or not all(found.values())
+                or any(local.values())):
+            raise AssertionError(f"the wgmma kernels of {lib} lack HGMMA or "
+                                 f"spill: {found}, {local}")
 
 
 def counts():
@@ -3859,7 +3875,9 @@ def _kind(name):
         return "flash_attention"
     if any(s in name for s in ("dkdv_kernel", "dq_kernel", "delta_kernel",
                                "dkdv_wgmma_kernel", "dq_wgmma_kernel",
-                               "delta_tiles_kernel", "kmean_kernel",
+                               "dkdv_tf32_kernel", "dq_tf32_kernel",
+                               "delta_tiles_kernel", "delta_f32_kernel",
+                               "split_keys_kernel", "kmean_kernel",
                                "kmean_part_kernel", "kmean_sum_kernel",
                                "centre_kernel", "centre8_kernel")):
         return "flash_attention_bwd"

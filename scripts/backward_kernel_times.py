@@ -6,8 +6,11 @@ part, on one CUDA card.
                                              [--out FILE] [--forward]
 
 Each backward launch is several CUDA kernels: flash attention's f32 entry
-is ``kmean_kernel``, ``centre_kernel``, ``delta_kernel``, ``dkdv_kernel``
-and ``dq_kernel``; its bf16 entry ``kmean_part_kernel``,
+is ``kmean_part_kernel``, ``kmean_sum_kernel``, ``centre_kernel``,
+``delta_f32_kernel``, ``dkdv_tf32_kernel`` and ``dq_tf32_kernel`` (the
+split-TF32 wgmma design; before it, on mma.sync: ``kmean_kernel``,
+``centre_kernel``, ``delta_kernel``, ``dkdv_kernel`` and ``dq_kernel``);
+its bf16 entry ``kmean_part_kernel``,
 ``kmean_sum_kernel``, ``centre8_kernel``, ``delta_tiles_kernel``,
 ``dkdv_wgmma_kernel`` and ``dq_wgmma_kernel`` (before the wgmma design:
 ``kmean_kernel``, ``centre_kernel``, ``delta_kernel``, ``dkdv_bf16_kernel``,
@@ -17,8 +20,8 @@ For each case it prints one JSON line (and appends it to ``--out`` when
 given): the CUDA-event time per launch over ``--reps`` back-to-back
 launches (``event_ms``), each part's device time per launch from
 ``torch.profiler`` over the same number of launches (``parts_ms``), and
-the card's name and power limit. With ``--dtype bf16`` each flash case
-also times ``scaled_dot_product_attention``'s bf16 backward
+the card's name and power limit. Each flash case also times
+``scaled_dot_product_attention``'s backward in the same dtype
 (memory-efficient, K/V expanded to H heads, a boolean mask for a window:
 ``sdpa_ms``), the yardstick ``chip_smoke.py`` 5b uses.
 
@@ -37,10 +40,10 @@ this one), so two versions can be timed in turns inside one run on one
 card (``scripts/graph_filter_times.py`` does the same).
 
 Cases: flash attention at the qwen3-4b training shape (B=4, H=32, KV=8,
-S=2048, dh=128, causal), the gemma3 window-1024 shape (KV=16) and, in
-bf16, gemma3's global shape (KV=16, no window) and whisper-small's encoder
-(B=4, H=KV=12, S=1500, dh=64, non-causal) and cross-attention (Sq=448,
-Skv=1500); wkv (f32 only) at the
+S=2048, dh=128, causal), the gemma3 window-1024 shape (KV=16), gemma3's
+global shape (KV=16, no window) and whisper-small's encoder (B=4,
+H=KV=12, S=1500, dh=64, non-causal) and cross-attention (Sq=448,
+Skv=1500), in either dtype; wkv (f32 only) at the
 rwkv6-1.6b training shape (B=4, H=32, T=2048, dk=64); inputs drawn with
 numpy from a fixed seed, as ``chip_smoke.py`` 5b and 6b draw them.
 """
@@ -58,11 +61,10 @@ import torch
 # (B, H, KV, Sq, Skv, dh, window, causal)
 FLASH = {"flash qwen3-4b": (4, 32, 8, 2048, 2048, 128, 0, True),
          "flash gemma3 window 1024": (4, 32, 16, 2048, 2048, 128, 1024,
-                                      True)}
-FLASH_BF16 = {"flash gemma3 global": (4, 32, 16, 2048, 2048, 128, 0, True),
-              "flash whisper encoder": (4, 12, 12, 1500, 1500, 64, 0,
-                                        False),
-              "flash whisper cross": (4, 12, 12, 448, 1500, 64, 0, False)}
+                                      True),
+         "flash gemma3 global": (4, 32, 16, 2048, 2048, 128, 0, True),
+         "flash whisper encoder": (4, 12, 12, 1500, 1500, 64, 0, False),
+         "flash whisper cross": (4, 12, 12, 448, 1500, 64, 0, False)}
 WKV = {"wkv rwkv6-1.6b": (4, 32, 2048, 64)}
 # The flash forward's bf16 cases (B, H, KV, Sq, Skv, dh, window, causal):
 # chip_smoke.py 5's bf16 shapes and its whisper shapes.
@@ -75,7 +77,8 @@ FORWARD = {"flash qwen3-4b": (4, 32, 8, 2048, 2048, 128, 0, True),
            "flash whisper encoder": (4, 12, 12, 1500, 1500, 64, 0, False),
            "flash whisper cross": (4, 12, 12, 448, 1500, 64, 0, False)}
 PARTS = ("fwd_wgmma_kernel", "flash_attention_kernel", "elementwise_kernel",
-         "delta_kernel", "delta_tiles_kernel", "kmean_kernel",
+         "delta_kernel", "delta_tiles_kernel", "delta_f32_kernel",
+         "dkdv_tf32_kernel", "dq_tf32_kernel", "kmean_kernel",
          "kmean_part_kernel", "kmean_sum_kernel", "centre_kernel",
          "centre8_kernel", "dkdv_kernel", "dq_kernel", "dkdv_bf16_kernel",
          "dq_bf16_kernel", "dkdv_wgmma_kernel", "dq_wgmma_kernel",
@@ -122,8 +125,9 @@ def _part(key):
 
 
 def sdpa_backward_ms(q, k, v, do, causal, window, reps):
-    """``scaled_dot_product_attention``'s bf16 backward, memory-efficient,
-    K/V expanded to H heads (a boolean mask for a window)."""
+    """``scaled_dot_product_attention``'s backward in q's dtype,
+    memory-efficient, K/V expanded to H heads (a boolean mask for a
+    window)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     H, KV, Sq = q.shape[1], k.shape[1], q.shape[2]
     mask = None
@@ -195,8 +199,7 @@ def main(argv=None) -> int:
     tag = card()
     rng = np.random.default_rng(5)
     rows = forward_rows(fa, args, tag, rng) if args.forward else []
-    cases = ({} if args.forward else
-             dict(FLASH, **(FLASH_BF16 if args.dtype == "bf16" else {})))
+    cases = {} if args.forward else FLASH
     for name, (B, H, KV, Sq, Skv, dh, win, causal) in cases.items():
         q, k, v, do = (torch.tensor(rng.standard_normal((B, n, s, dh))
                                     .astype(np.float32), device="cuda")
@@ -209,9 +212,8 @@ def main(argv=None) -> int:
                "root": args.root, "shape": [B, H, KV, Sq, Skv, dh, win,
                                             causal],
                "event_ms": ms, "parts_ms": parts, "card": tag}
-        if args.dtype == "bf16":
-            row["sdpa_ms"] = sdpa_backward_ms(q, k, v, do, causal, win,
-                                              args.reps)
+        row["sdpa_ms"] = sdpa_backward_ms(q, k, v, do, causal, win,
+                                          args.reps)
         rows.append(row)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()

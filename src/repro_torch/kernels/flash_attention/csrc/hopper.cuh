@@ -4,17 +4,24 @@
 // source includes into the library's name, so an edit here rebuilds both.
 //
 //   * cp.async (16 bytes), mma.sync m16n8k8 tf32: the f32 kernels;
-//   * mbarrier, TMA boxes (64 rows x 64 columns, 128-byte swizzle) and the
-//     tensor maps they read (cuTensorMapEncodeTiled through the runtime's
-//     driver entry point: the libraries link no libcuda);
+//   * mbarrier, TMA boxes (64 or 32 rows x 128 bytes: 64 bf16 or 32 f32
+//     columns, 128-byte swizzle) and the tensor maps they read
+//     (cuTensorMapEncodeTiled through the runtime's driver entry point: the
+//     libraries link no libcuda);
 //   * wgmma descriptors of 128-byte-swizzled tiles, K-major and MN-major,
 //     and the warpgroup products the bf16 kernels run (m64n64k16 and
 //     m64n128k16 with both operands in shared memory; m64n64k16 and
-//     m64n128k16 with A from registers and B read transposed).
+//     m64n128k16 with A from registers and B read transposed), and the
+//     tf32 ones of the f32 backward (m64n32k8 and m64n64k8, A from
+//     registers, B K-major in shared memory: wgmma reads tf32 B only
+//     K-major);
+//   * named barriers and the proxy fence that makes threads' shared-memory
+//     writes visible to wgmma.
 //
-// A tile of R rows x DHP columns (DHP = 64 or 128) lies in shared memory as
-// DHP / 64 column halves, each R rows of 128 bytes, as TMA writes it with
-// the 128-byte swizzle; a half is R / 64 boxes of 8 KB.
+// A tile of R rows x DHP columns lies in shared memory as DHP * elem / 128
+// column blocks (64 bf16 or 32 f32 columns each), each R rows of 128
+// bytes, as TMA writes it with the 128-byte swizzle (the 16-byte chunks of
+// row r XORed with r % 8); a block is R / BR boxes of BR rows.
 
 #pragma once
 
@@ -29,8 +36,7 @@ struct Strides {
   long long b, h, s;
 };
 
-constexpr int BOX = 64;              // TMA box: 64 rows x 64 columns
-constexpr int BOX_BYTES = BOX * BOX * 2;
+constexpr int BOX = 64;              // TMA box rows: 64 (bf16 maps, f32 q/do)
 // setmaxnreg: a producer warpgroup's registers and each consumer thread's
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
@@ -96,7 +102,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
-// One TMA box (64 rows x 64 columns) of a 4-d map (dh, rows, head,
+// One TMA box (the map's box: BR rows x 128 bytes) of a 4-d map (dh, rows, head,
 // batch) into shared memory at dst, completing on bar.
 __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
                                         int col, int row, int h, int b,
@@ -121,19 +127,30 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
-// A tile of R rows (R a multiple of 64) x DHP columns, rows r0 .. of head
-// h of batch item b: DHP / 64 column halves, each R rows of 128 bytes
-// swizzled by TMA (SWIZZLE_128B), loaded as R / 64 boxes per half.
-template <int DHP, int R>
+// A tile of R rows x DHP columns of `ELEM`-byte elements, rows r0 .. of
+// head h of batch item b: DHP ELEM / 128 column blocks of 128 / ELEM
+// columns, each R rows of 128 bytes swizzled by TMA (SWIZZLE_128B), loaded
+// as R / BR boxes of BR rows per block (the map's box, BR a multiple of 8
+// dividing R).
+template <int DHP, int R, int ELEM = 2, int BR = BOX>
 __device__ __forceinline__ void tma_tile(unsigned char* dst,
                                          const CUtensorMap* map, int r0,
                                          int h, int b, uint64_t* bar) {
+  constexpr int COLS = 128 / ELEM;
 #pragma unroll
-  for (int half = 0; half < DHP / 64; ++half)
+  for (int blk = 0; blk < DHP / COLS; ++blk)
 #pragma unroll
-    for (int r = 0; r < R / 64; ++r)
-      tma_box(dst + half * R * 128 + r * BOX_BYTES, map, 64 * half,
-              r0 + 64 * r, h, b, bar);
+    for (int r = 0; r < R / BR; ++r)
+      tma_box(dst + blk * R * 128 + r * BR * 128, map, COLS * blk,
+              r0 + BR * r, h, b, bar);
+}
+
+// Byte offset of f32 element (r, c) of such a tile (R rows, 1024-byte
+// aligned): column block c / 32, 16-byte chunk (c / 4) % 8 XORed with r % 8.
+template <int R>
+__device__ __forceinline__ int sw_f32(int r, int c) {
+  return (c >> 5) * R * 128 + r * 128 + ((((c >> 2) & 7) ^ (r & 7)) << 4) +
+         ((c & 3) << 2);
 }
 
 // wgmma descriptor of a 128-byte-swizzled operand at shared address a
@@ -144,8 +161,8 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t a, uint32_t lbo,
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 // K-major operand (dh is the product's k): rows row0 .. of a tile of R
-// rows, k-step kk (16 columns: 32 bytes into a 128-byte row, the half
-// kk / 4); groups of 8 rows 1024 bytes apart.
+// rows, k-step kk (16 bf16 or 8 tf32 columns: 32 bytes into a 128-byte
+// row, the column block kk / 4); groups of 8 rows 1024 bytes apart.
 template <int R>
 __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0, int kk) {
   return sw128_desc(tile + (kk >> 2) * R * 128 + row0 * 128 + (kk & 3) * 32,
@@ -249,10 +266,66 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (*d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d (64 x N, f32) = a b (scale_d = 0) or d + a b (scale_d = 1), one
+// k-step of 8 in tf32: a (64 x 8) from registers (each warp its 16 rows,
+// the m16n8k8 tf32 A fragment: rows g, g + 8, columns t, t + 4), b (N x 8)
+// K-major in shared memory by descriptor. The tensor cores read the top 19
+// bits of each operand: callers pass values already rounded to tf32.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (*d)[4], const uint32_t* a,
+                                           uint64_t db, int scale_d);
+
+#define HOPPER_ACC16(d)                                                     \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),               \
+      "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),           \
+      "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),           \
+      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (*d)[4],
+                                               const uint32_t* a,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : HOPPER_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (*d)[4],
+                                               const uint32_t* a,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{" HOPPER_REGS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : HOPPER_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+#undef HOPPER_ACC16
 #undef HOPPER_ACC32
 #undef HOPPER_ACC64
 #undef HOPPER_REGS32
 #undef HOPPER_REGS64
+
+// Named barrier `id` (1..15) over `n` threads (a multiple of 32): sync
+// waits for all n, arrive counts this warp's threads and goes on.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// Threads' (generic-proxy) shared-memory writes made visible to the async
+// proxy (wgmma's operand reads); each writing thread runs it before the
+// barrier that orders its writes before the products.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -325,34 +398,43 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The 4-d bf16 map (dh, rows, head, batch) of a tensor with element
-// strides st over (batch, head, row), boxes of 64 x 64, 128-byte swizzle,
-// rows and columns past the tensor read as zeros. A stride over an axis
-// of one entry is never used; it is given as 16 bytes.
+// The 4-d map (dh, rows, head, batch) of a bf16 (elem = 2) or f32 (elem =
+// 4) tensor with element strides st over (batch, head, row), boxes of
+// box_rows rows x 128 bytes, 128-byte swizzle, rows and columns past the
+// tensor read as zeros. A stride over an axis of one entry is never used;
+// it is given as 16 bytes.
 bool encode_rows(CUtensorMap* map, const void* base, int B, int N, int S,
-                 int dh, const Strides& st) {
+                 int dh, const Strides& st, int elem = 2,
+                 int box_rows = BOX) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)S, (cuuint64_t)N,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {
-      S > 1 ? (cuuint64_t)st.s * 2 : 16, N > 1 ? (cuuint64_t)st.h * 2 : 16,
-      B > 1 ? (cuuint64_t)st.b * 2 : 16};
-  const cuuint32_t box[4] = {BOX, BOX, 1, 1};
+  const cuuint64_t e = (cuuint64_t)elem;
+  const cuuint64_t strides[3] = {S > 1 ? (cuuint64_t)st.s * e : 16,
+                                 N > 1 ? (cuuint64_t)st.h * e : 16,
+                                 B > 1 ? (cuuint64_t)st.b * e : 16};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows,
+                             1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map,
+            elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Whether TMA takes rows of a bf16 tensor with these element strides:
-// each row starts on 16 bytes (axes of one entry aside).
-bool tma_rows(const void* p, int B, int N, int S, const Strides& st) {
+// Whether TMA takes rows of a tensor of `elem`-byte elements with these
+// element strides: each row starts on 16 bytes (axes of one entry aside).
+bool tma_rows(const void* p, int B, int N, int S, const Strides& st,
+              int elem = 2) {
+  const long long per = 16 / elem;
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
-         (S == 1 || (st.s > 0 && st.s % 8 == 0)) &&
-         (N == 1 || (st.h > 0 && st.h % 8 == 0)) &&
-         (B == 1 || (st.b > 0 && st.b % 8 == 0));
+         (S == 1 || (st.s > 0 && st.s % per == 0)) &&
+         (N == 1 || (st.h > 0 && st.h % per == 0)) &&
+         (B == 1 || (st.b > 0 && st.b % per == 0));
 }
 
 }  // namespace

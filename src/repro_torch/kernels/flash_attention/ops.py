@@ -15,13 +15,16 @@ tensor cores (see the kernel's header):
     through ``FlashAttention``, a ``torch.autograd.Function``: its forward
     launch also writes each row's log-sum-exp, and its backward launches
     the hand-written backward kernel (``csrc/flash_attention_bwd.cu``:
-    dq, dk, dv on the tensor cores, dk and dv per tile of 128 keys summed
-    over the G query heads of a kv head, dq per tile of 64 query rows,
-    dk's mean over the keys taken out, no atomics; f32 in split TF32 with
-    every product on keys centred on their mean, bf16 in bf16 products
-    with P and dS rounded to bf16 as operands and dq's product on the
-    centred keys, within ``bf16_grad_error_bound`` of the plain version).
-    On the CPU autograd differentiates the plain version.
+    dq, dk, dv in warpgroup products on the tensor cores, on tiles that
+    TMA brings, dk and dv per tile of keys summed over the G query heads
+    of a kv head, dq per tile of query rows, dk's mean over the keys taken
+    out, no atomics; f32 in split TF32 with every product on keys centred
+    on their mean, bf16 in bf16 products with P and dS rounded to bf16 as
+    operands and dq's product on the centred keys, within
+    ``bf16_grad_error_bound`` of the plain version). Its operands go
+    through ``tma_operands`` (dh padded to whole 16-byte rows, rows TMA
+    cannot read copied). On the CPU autograd differentiates the plain
+    version.
 
 The reference's tiling knobs (``block_q``, ``block_kv``) and its
 ``interpret`` switch do not exist here, nor do its padding of dh to 128
@@ -156,10 +159,12 @@ def _tma_legal(t):
 
 
 def _pad_dh(ts):
-    """The tensors with dh padded with zeros to a multiple of 8 (new and
-    contiguous; as they are when dh is one already), and that dh."""
+    """The tensors with dh padded with zeros to whole 16-byte rows (a
+    multiple of 8 bf16 or 4 f32 columns; new and contiguous; as they are
+    when dh is one already), and that dh."""
     dh = ts[0].shape[-1]
-    dhp = -(-dh // 8) * 8
+    per = 16 // ts[0].element_size()
+    dhp = -(-dh // per) * per
     if dhp != dh:
         ts = [F.pad(t, (0, dhp - dh)) for t in ts]
     return list(ts), dhp
@@ -177,44 +182,41 @@ def tma_inputs(q, k, v):
 
 
 def tma_operands(q, k, v, o, do):
-    """The bf16 backward's operands made legal for the kernel's TMA loads:
-    dh padded with zeros to a multiple of 8 (all five tensors, new and
-    contiguous), then each of q, k, v and do whose rows TMA cannot read
-    (``_layout.tma_rows``) copied to a contiguous tensor; o is read by
-    plain loads and kept. Returns (q, k, v, o, do) and the padded dh."""
+    """The backward's operands made legal for the kernel's TMA loads: dh
+    padded with zeros to whole 16-byte rows (a multiple of 8 bf16 or 4 f32
+    columns; all five tensors, new and contiguous), then each of q, k, v
+    and do whose rows TMA cannot read (``_layout.tma_rows``) copied to a
+    contiguous tensor; o is read by plain loads and kept (the f32 entry
+    also reads k and v by plain loads, into its split copies). Zero columns
+    change no score, and their gradient columns are sliced off. Returns
+    (q, k, v, o, do) and the padded dh."""
     (q, k, v, o, do), dhp = _pad_dh((q, k, v, o, do))
     q, k, v, do = (_tma_legal(t) for t in (q, k, v, do))
     return (q, k, v, o, do), dhp
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal, window):
-    """One launch of the backward kernel (seven CUDA kernels: the key
-    means, the centred keys, delta (f32: and the shifted log-sum-exp;
-    bf16: beside a copy of the lse, per query tile), dk/dv, dq, then dk's
-    mean over the keys taken out) on CUDA tensors, q, k, v, o and do of
-    one dtype (f32 or bf16), lse f32. bf16 operands go through
+    """One launch of the backward kernel (nine CUDA kernels: the key means
+    in two passes, the centred keys, delta beside the lse (f32: shifted to
+    the centred keys) per query tile, dk/dv, dq, then dk's mean over the
+    keys taken out in three) on CUDA tensors, q, k, v, o and do of one
+    dtype (f32 or bf16), lse f32. The operands go through
     ``tma_operands`` first. Returns contiguous (dq, dk, dv) in that
     dtype."""
     B, H, Sq, dh = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     q, k, v, o, do = _unit_dh(q, k, v, o, do.to(q.dtype))
-    dhp = dh
-    if q.dtype == torch.bfloat16:
-        (q, k, v, o, do), dhp = tma_operands(q, k, v, o, do)
+    (q, k, v, o, do), dhp = tma_operands(q, k, v, o, do)
     dq = torch.empty((B, H, Sq, dhp), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, KV, Skv, dhp), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     n = B * KV * Skv * dhp
-    if q.dtype == torch.float32:
-        # the centred keys (B, KV, Skv, dh), delta and the shifted
-        # log-sum-exp (B, H, Sq each), the key means (B, KV, dh)
-        size = n + B * KV * dh + 2 * B * H * Sq
-    else:
-        # the centred keys in bf16 (n / 2 floats), dk's f32 sums, lse and
-        # delta per query tile of 64 rows, the key means and their partial
-        # sums over chunks of 64 keys
-        size = (n // 2 + n + 128 * B * H * -(-Sq // 64)
-                + B * KV * dhp * (1 + -(-Skv // 64)))
+    # the centred keys (f32: and the values, each as hi and lo, 4 n floats;
+    # bf16: n / 2, then dk's f32 sums), lse and delta per query tile of 64
+    # rows, the key means and their partial sums over chunks of 64 keys
+    keys = 4 * n if q.dtype == torch.float32 else n // 2 + n
+    size = (keys + 128 * B * H * -(-Sq // 64)
+            + B * KV * dhp * (1 + -(-Skv // 64)))
     scratch = torch.empty(size, dtype=torch.float32, device=q.device)
     strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
     lib = BWD_LIB.load()

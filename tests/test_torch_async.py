@@ -38,6 +38,11 @@ from repro_torch.engine.core import TrainState
 from repro_torch.kernels.graph_filter import make_plain_mix
 from repro_torch.launch.mesh import make_surf_mesh
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 LOSS_TOL, ACC_TOL = 5e-5, 1e-6
 STAR = dict(n_agents=12, n_layers=3, feature_dim=8, n_classes=4,
             batch_per_agent=4, train_per_agent=8, test_per_agent=4)

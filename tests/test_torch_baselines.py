@@ -39,6 +39,11 @@ from repro_torch.configs import surf_paper as tcfgs
 from repro_torch.core import baselines as TB
 from repro_torch.kernels.graph_filter import graph_filter, ops
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 LOSS_TOL, ACC_TOL = 5e-5, 1e-6
 # benchmarks/fig5_convergence.py's learning rates
 LRS = {"dgd": 0.5, "dsgd": 0.2, "dfedavgm": 0.05,

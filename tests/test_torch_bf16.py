@@ -59,6 +59,11 @@ from repro_torch.models import model as M
 from repro_torch.utils.device import to_tensor
 from repro_torch.utils.tree import _map
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 ARCHS = ["gemma3-27b", "qwen3-4b"]
 PROMPT, NEW = 12, 4          # gemma3's window of 8 makes its cache a ring
 SUM_ORDER = 1e-6             # f32 summation order, of the largest |entry|

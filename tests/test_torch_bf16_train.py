@@ -43,6 +43,11 @@ from repro_torch.models import model as M
 from repro_torch.optim import adam, clip_by_global_norm, donated_adam_step_
 from repro_torch.utils.tree import _leaves, _map
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 ARCHS = ["qwen3-4b", "rwkv6-1.6b"]
 LAYERS, B, S, LR = 2, 2, 16, 1e-3
 DIST_FACTOR = 1.5     # the port's distance from f32 over the reference's

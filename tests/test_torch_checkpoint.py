@@ -28,6 +28,11 @@ from repro_torch.checkpoint import io as tio
 from repro_torch.configs import surf_paper as tcfgs
 from repro_torch.core import surf as tsurf
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 CFG, JCFG = tcfgs.SMOKE, jcfgs.SMOKE
 STATE_TOL = 5e-6
 

@@ -78,6 +78,11 @@ from repro_torch.models import stack as ST
 from repro_torch.utils.device import resolve_device
 from repro_torch.serve import BucketSpec, FederationServer
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
@@ -999,9 +1004,9 @@ FLASH_BWD_EDGES = [(1, 4, 2, 200, 200, 96, 0, True),
 
 def _bwd_layout(ts, layout):
     """The model's (B, S, heads, dh) transposed views, rows that do not
-    start on 16 bytes (per-element loads; the bf16 entry's wrapper copies
-    them for TMA), or a stride of 2 over dh (copied by every wrapper), of
-    the same values."""
+    start on 16 bytes (per-element loads in wkv's backward; the flash
+    backward's wrapper copies them for TMA), or a stride of 2 over dh
+    (copied by every wrapper), of the same values."""
     if layout == "transposed":
         return [t.transpose(1, 2).contiguous().transpose(1, 2) for t in ts]
     if layout == "strided":
@@ -1085,6 +1090,67 @@ def test_backward_kernels_refuse_what_they_do_not_take(cuda):
     assert wkv.bwd_launches == before + 1 and got[0].dtype == torch.bfloat16
     with pytest.raises(TypeError, match="one dtype"):
         wkv(args[0], args[1].detach().float(), *args[2:])
+
+
+# The f32 entry reads q and do by TMA: dh off a multiple of 4 is padded
+# by the wrapper (all five tensors), rows TMA cannot read are copied.
+# (B, H, KV, Sq, Skv, dh, window, causal, layout)
+FLASH_BWD_F32_COPIED = [(1, 4, 2, 200, 200, 18, 0, True, "contiguous"),
+                        (1, 4, 2, 150, 150, 98, 30, True, "transposed"),
+                        (2, 2, 1, 130, 97, 37, 0, False, "unaligned"),
+                        (1, 4, 2, 150, 150, 96, 30, True, "strided"),
+                        (2, 4, 4, 77, 77, 61, 0, True, "strided")]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal,layout",
+                         FLASH_BWD_F32_COPIED)
+def test_flash_backward_f32_takes_padded_and_copied_operands(
+        cuda, B, H, KV, Sq, Skv, dh, win, causal, layout):
+    """The f32 entry through ``FlashAttention`` on operands the wrapper
+    pads (dh off a multiple of 4) or copies (rows off 16 bytes, a stride
+    over dh): dq, dk, dv within 1e-4 of each plain gradient's largest
+    entry, and a rerun bit-equal."""
+    rng = np.random.default_rng(Sq + dh + 2)
+    q, k, v, do = (torch.tensor(rng.standard_normal((B, n, s, dh)).astype(
+        np.float32), device=cuda) for n, s in ((H, Sq), (KV, Skv),
+                                               (KV, Skv), (H, Sq)))
+    *qkv, do = _bwd_layout([q, k, v, do], layout)
+    xs = [t.detach().requires_grad_() for t in qkv]
+    got = torch.autograd.grad(flash_attention(*xs, causal=causal,
+                                              window=win), xs, do)
+    xr = [t.detach().clone().requires_grad_() for t in qkv]
+    ref = torch.autograd.grad(attention_ref(*xr, causal=causal, window=win),
+                              xr, do)
+    _rel_grads_close(got, ref)
+    again = torch.autograd.grad(flash_attention(*xs, causal=causal,
+                                                window=win), xs, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_backward_f32_entry_refuses_what_tma_cannot_read(cuda):
+    """Called directly, the f32 entry refuses dh off a multiple of 4
+    (invalid value) and a row of q or do off 16 bytes (misaligned
+    address): the wrapper makes such inputs legal first, so a model never
+    meets it."""
+    import ctypes
+    B, H, S, dh = 1, 2, 64, 64
+    x = torch.zeros((B, H, S, dh + 4), dtype=torch.float32, device=cuda)
+    lse = torch.zeros((B, H, S), dtype=torch.float32, device=cuda)
+    scratch = torch.zeros(1 << 20, dtype=torch.float32, device=cuda)
+    outs = [torch.empty((B, H, S, dh), dtype=torch.float32, device=cuda)
+            for _ in range(3)]
+    fn = flash_ops.BWD_LIB.load().flash_attention_bwd_f32
+
+    def call(t, d):
+        strides = (ctypes.c_longlong * 15)(*(list(t.stride()[:3]) * 5))
+        return fn(*(t.data_ptr() for _ in range(5)), lse.data_ptr(),
+                  *(o.data_ptr() for o in outs), scratch.data_ptr(), B, H,
+                  H, S, S, d, strides, 1, 0, 0.18, 0.125,
+                  torch.cuda.current_stream().cuda_stream)
+    assert call(x, dh) == 0
+    torch.cuda.synchronize()
+    assert call(x, 62) == 1                  # cudaErrorInvalidValue
+    assert call(x[..., 1:], dh) == 716       # cudaErrorMisalignedAddress
 
 
 def _within_bounds(got, ref, bounds):

@@ -32,6 +32,13 @@ from repro_torch.checkpoint.convert import theta_from_numpy
 from repro_torch.configs.surf_paper import SMOKE
 from repro_torch.serve import AsyncDriver, BucketSpec, FederationServer
 
+import torch
+
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 BUCKETS = BucketSpec(agent_sizes=(8, 16), row_sizes=(4, 8))
 TIMEOUT_S = 120.0
 

@@ -37,6 +37,11 @@ from repro_torch.launch import specs as SP
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_cpu_mesh, make_production_mesh
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 
 class FakeMesh:
     axis_names = ("data", "model")

@@ -44,6 +44,11 @@ from repro_torch.engine.core import TrainState
 from repro_torch.serve import (Bucket, BucketSpec, FederationServer,
                                ServeMetrics, pad_probe, serve_cache_key)
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 BUCKETS = BucketSpec(agent_sizes=(8, 16), row_sizes=(4, 8))
 # exact-fit and padded cohorts, over two buckets
 SERVED = [(8, 0), (6, 1), (8, 2), (12, 3)]

@@ -23,6 +23,11 @@ from repro.kernels.flash_attention import flash_attention as jflash
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention, ops)
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 TOL = {"float32": 5e-5, "bfloat16": 5e-2}
 SWEEP = [(1, 4, 4, 64, 32, 0), (2, 4, 2, 80, 32, 0), (1, 8, 2, 128, 64, 16),
          (1, 2, 1, 48, 16, 8)]
@@ -368,285 +373,6 @@ def test_tma_operands_decision():
     assert torch.equal(q4[..., :20], q20) and not q4[..., 20:].any()
 
 
-# ------------------------------------------------------------- backward
-# The reference has no Pallas backward: its LM differentiates plain
-# attention. So the port's gradient (autograd through ``attention_ref`` on
-# the CPU; the backward kernel on the card) is held against ``jax.vjp`` of
-# the reference's plain version, within 1e-4 of each gradient's largest
-# entry (f32 sums over up to Skv keys in another order; the kernel is at
-# most 4.9e-6 from autograd of the plain version on an H100, at the
-# qwen3-4b shape, ``chip_smoke.py`` 5b).
-GRAD_TOL = 1e-4
-GRAD_CASES = [(B, H, KV, S, S, dh, win, True) for B, H, KV, S, dh, win
-              in SWEEP] + [(2, 4, 2, 50, 37, 32, 0, False),
-                           (2, 4, 2, 50, 37, 32, 24, False),
-                           (1, 4, 1, 97, 97, 24, 40, True)]
-
-
-def _grad_inputs(B, H, KV, Sq, Skv, dh, seed):
-    (jq, jk, jv), (q, k, v) = _inputs(B, H, KV, Sq, dh, "float32", seed=seed,
-                                      Skv=Skv)
-    do = np.random.default_rng(seed + 1).standard_normal(
-        (B, H, Sq, dh)).astype(np.float32)
-    return (jq, jk, jv), (q, k, v), do
-
-
-def _reference_grads(jargs, do, causal, window):
-    _, vjp = jax.vjp(lambda q, k, v: jattention_ref(
-        q, k, v, causal=causal, window=window), *jargs)
-    return [np.asarray(g) for g in vjp(jnp.asarray(do))]
-
-
-def _close_grads(got, ref):
-    for name, g, gr in zip("qkv", got, ref):
-        np.testing.assert_allclose(_np(g), gr, atol=GRAD_TOL * np.abs(gr).max(),
-                                   rtol=GRAD_TOL, err_msg=f"d{name}")
-
-
-@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal", GRAD_CASES)
-def test_plain_gradient_matches_reference(B, H, KV, Sq, Skv, dh, win, causal):
-    jargs, args, do = _grad_inputs(B, H, KV, Sq, Skv, dh, seed=Sq + dh)
-    args = [a.requires_grad_() for a in args]
-    flash_attention(*args, causal=causal, window=win).backward(
-        torch.tensor(do))
-    _close_grads([a.grad for a in args],
-                 _reference_grads(jargs, do, causal, win))
-
-
-def _split_rounded(x):
-    """x = hi + lo, each rounded to TF32 (the backward kernel's split: lo
-    rounded too, as the graph filter's, where the forward truncates it)."""
-    hi = _tf32_round(x)
-    return hi, _tf32_round(x - hi)
-
-
-def _mm3(a, b, one_pass=False):
-    """a @ b as the backward kernel's split-TF32 products (lo·hi + hi·lo +
-    hi·hi in f32), or as one-pass TF32 (hi·hi: a faulty kernel)."""
-    (ah, al), (bh, bl) = _split_rounded(a), _split_rounded(b)
-    if one_pass:
-        return ah @ bh
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
-# The backward kernel's tiles: dk/dv blocks of 128 keys over query tiles of
-# 32 rows, dq blocks of 64 query rows over kv tiles of 32 keys.
-KV_BKV, KV_BQ, Q_BQ, Q_BKV = 128, 32, 64, 32
-
-
-def _bwd_emulation(q, k, v, do, causal, window, skip_first=False,
-                   one_pass=False, centred=True, project=True):
-    """The backward kernel's algorithm and arithmetic in plain torch on the
-    CPU. Every product reads the keys centred on their mean over the kv
-    head, and P is rebuilt from the forward's row log-sum-exp (log2
-    units) shifted by q · k̄; delta = rowsum(do ∘ o). The dk/dv kernel per
-    block of 128 keys: over the G query heads of its kv head and the query
-    tiles of 32 rows that can see the block (its range arithmetic), the
-    transposed scores Sᵀ = K Qᵀ and dPᵀ = V dOᵀ with keys as rows, then
-    Pᵀ dO and dSᵀ Q, each tile's product added to the running dk, dv in
-    f32. The dq kernel per query tile of 64 rows over the kv tiles of 32
-    keys it sees. Last, dk's mean over the keys is taken out.
-    ``centred=False``: the keys as given; ``project=False``: dk as summed;
-    both False: the kernel before either. Every product in split TF32
-    with lo rounded (``one_pass``: one-pass TF32, a faulty kernel).
-    ``skip_first`` drops each key block's first query tile (a faulty
-    range)."""
-    B, H, Sq, dh = q.shape
-    KV, Skv = k.shape[1], k.shape[2]
-    G = H // KV
-    sl2 = dh ** -0.5 * LOG2E
-    mm = lambda a, b: _mm3(a, b, one_pass)
-    kh, vh = (t.repeat_interleave(G, dim=1) for t in (k, v))
-    qi, kj = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
-    live = torch.ones((Sq, Skv), dtype=torch.bool)
-    if causal:
-        live &= kj <= qi
-    if window:
-        live &= kj > qi - window
-    s2 = (q @ kh.mT) * sl2
-    lse = torch.logsumexp(torch.where(live, s2, -1e30) / LOG2E, -1) * LOG2E
-    o = attention_ref(q, k, v, causal=causal, window=window)
-    delta = (do * o).sum(-1)
-    if centred:                  # the forward's o and lse, centred keys
-        kbar = k.mean(2, keepdim=True)
-        lse = lse - sl2 * (q * kbar.repeat_interleave(G, dim=1)).sum(-1)
-        k = k - kbar
-        kh = k.repeat_interleave(G, dim=1)
-
-    def probs(s, dp, heads, rows, cols, keys_as_rows):
-        """P and dS of a tile from its scores and dP (keys as rows: the
-        transposed tiles of the dk/dv kernel)."""
-        m = live[rows, cols]
-        l, dl = lse[:, heads, rows, None], delta[:, heads, rows, None]
-        if keys_as_rows:
-            m, l, dl = m.T, l.mT, dl.mT
-        p = torch.where(m, torch.exp2(s * sl2 - l), 0.0)
-        return p, p * (dp - dl)
-
-    dk, dv, dq = torch.zeros_like(k), torch.zeros_like(v), torch.zeros_like(q)
-    for q_lo in range(0, Sq, Q_BQ):
-        q_hi = min(q_lo + Q_BQ, Sq) - 1
-        rows = slice(q_lo, q_hi + 1)
-        n_kv = -(-Skv // Q_BKV)
-        j_end = min(n_kv, q_hi // Q_BKV + 1) if causal else n_kv
-        j_begin = max(0, q_lo - window + 1) // Q_BKV if window else 0
-        for jt in range(j_begin, j_end):
-            cols = slice(jt * Q_BKV, min(jt * Q_BKV + Q_BKV, Skv))
-            dp = mm(do[:, :, rows], vh[:, :, cols].mT)
-            s = mm(q[:, :, rows], kh[:, :, cols].mT)
-            p, ds = probs(s, dp, slice(None), rows, cols, False)
-            dq[:, :, rows] += mm(ds, kh[:, :, cols])
-    n_q = -(-Sq // KV_BQ)
-    for k_lo in range(0, Skv, KV_BKV):
-        k_hi = min(k_lo + KV_BKV, Skv) - 1
-        cols = slice(k_lo, k_hi + 1)
-        i_begin = k_lo // KV_BQ if causal else 0
-        i_end = (min(n_q, (k_hi + window - 1) // KV_BQ + 1) if window
-                 else n_q)
-        for g in range(G):
-            heads = slice(g, H, G)     # the heads kv head h // G reads
-            for it in range(i_begin + skip_first, i_end):
-                rows = slice(it * KV_BQ, min(it * KV_BQ + KV_BQ, Sq))
-                qt, dot = q[:, heads, rows], do[:, heads, rows]
-                st = mm(k[:, :, cols], qt.mT)          # Sᵀ: keys x queries
-                dpt = mm(v[:, :, cols], dot.mT)
-                pt, dst = probs(st, dpt, heads, rows, cols, True)
-                dv[:, :, cols] += mm(pt, dot)
-                dk[:, :, cols] += mm(dst, qt)
-    scale = dh ** -0.5
-    dk = dk * scale
-    if project:
-        dk = dk - dk.mean(2, keepdim=True)
-    return dq * scale, dk, dv
-
-
-@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal",
-                         GRAD_CASES + [(1, 4, 2, 200, 200, 16, 70, True),
-                                       (1, 2, 1, 150, 150, 16, 0, True),
-                                       (1, 4, 2, 300, 300, 24, 20, True),
-                                       (1, 2, 2, 70, 140, 40, 0, False)])
-def test_backward_kernel_algorithm_matches_reference(B, H, KV, Sq, Skv, dh,
-                                                     win, causal):
-    """The backward kernel's tiling, tile ranges and split-TF32 arithmetic
-    (causal, windowed, non-causal ragged, GQA; several tiles each way at
-    S = 150 to 300, a window narrower than a query tile, Skv > Sq) against
-    ``jax.vjp`` of the reference."""
-    jargs, args, do = _grad_inputs(B, H, KV, Sq, Skv, dh, seed=Sq + dh)
-    got = _bwd_emulation(*args, torch.tensor(do), causal, win)
-    _close_grads(got, _reference_grads(jargs, do, causal, win))
-
-
-def test_backward_algorithm_check_catches_a_dropped_tile():
-    jargs, args, do = _grad_inputs(1, 4, 2, 200, 200, 16, seed=4)
-    got = _bwd_emulation(*args, torch.tensor(do), True, 70, skip_first=True)
-    with pytest.raises(AssertionError):
-        _close_grads(got, _reference_grads(jargs, do, True, 70))
-
-
-def test_backward_algorithm_check_catches_one_pass_tf32():
-    """The same products in one-pass TF32 miss the gradient gate: the
-    split is what keeps the kernel at f32 accuracy (``chip_smoke.py`` 5b
-    runs the same control on the card through cuBLAS's TF32 mode)."""
-    jargs, args, do = _grad_inputs(1, 4, 2, 200, 200, 64, seed=4)
-    ref = _reference_grads(jargs, do, True, 0)
-    _close_grads(_bwd_emulation(*args, torch.tensor(do), True, 0), ref)
-    got = _bwd_emulation(*args, torch.tensor(do), True, 0, one_pass=True)
-    with pytest.raises(AssertionError):
-        _close_grads(got, ref)
-
-
-# Σ_j dk_j (a key bias's gradient) is 0 analytically; f32 leaves noise.
-# The reference reads 9.0e-7 of the largest |dk| on the test's inputs.
-KEY_BIAS_TOL = 4e-6
-
-
-@pytest.mark.parametrize("fixed", [False, True])
-def test_backward_algorithm_ignores_a_common_key_component(fixed):
-    """A vector c added to every key moves no gradient analytically
-    (softmax ignores a shift of a score row). The kernel takes delta =
-    rowsum(dO ∘ O) from the forward's O and P from its own split-TF32
-    scores; their rounding gap ε_i adds −ε_i Σ_j P_ij k_j to dq (a multiple
-    of c) and makes Σ_j dk_j = Σ_i q_i Σ_j dS_ij nonzero, which a weight
-    gradient multiplies by its inputs' common component. At ‖c‖ = 30 rms
-    key norms (whisper's cross-attention keys, all projected from one
-    encoder output, share a large component) the kernel before the fix
-    (dS K; dk as summed) misses the gate on dq and leaves Σ_j dk_j at
-    1.6e-5 of the largest |dk|; the kernel's dS (K − k̄) and dk less its
-    mean over the keys hold both (``scripts/flash_delta_probe.py`` reads
-    both on the card)."""
-    jargs, args, do = _grad_inputs(1, 2, 2, 64, 150, 64, seed=3)
-    q, k, v = args
-    u = np.random.default_rng(0).standard_normal(64)
-    c = 30 * k.square().sum(-1).mean().sqrt() * torch.tensor(
-        u / np.linalg.norm(u), dtype=torch.float32)
-    ref = _reference_grads(jargs, do, False, 0)
-    got = _bwd_emulation(q, k + c, v, torch.tensor(do), False, 0,
-                         centred=fixed, project=fixed)
-    for name, g, gr in zip(("dk", "dv"), got[1:], ref[1:]):
-        np.testing.assert_allclose(_np(g), gr, rtol=GRAD_TOL, err_msg=name,
-                                   atol=GRAD_TOL * np.abs(gr).max())
-    bias = (got[1].sum(2).abs().max() / got[1].abs().max()).item()
-    ref_bias = np.abs(ref[1].sum(2)).max() / np.abs(ref[1]).max()
-    assert ref_bias < KEY_BIAS_TOL
-    if fixed:
-        _close_grads(got, ref)
-        assert bias < KEY_BIAS_TOL
-    else:
-        with pytest.raises(AssertionError, match="dq"):
-            _close_grads(got, ref)
-        assert bias > KEY_BIAS_TOL
-
-
-def test_cuda_style_call_keeps_the_gradient(monkeypatch):
-    """A CUDA call's output comes from a ctypes launch and carries no
-    ``grad_fn``. Under grad, the card path now goes through
-    ``FlashAttention``, whose backward launches the backward kernel: with
-    both launches stubbed by plain computations on CPU tensors (outputs
-    detached, as a launch's are), q, k and v get the reference's gradients
-    and the counters count one launch each way. Without grad it is one
-    forward launch. bf16 inputs that require a gradient take the same
-    route (the backward kernel's bf16 entry); mixed dtypes raise."""
-    jargs, args, do = _grad_inputs(2, 4, 2, 40, 40, 16, seed=3)
-
-    def launch(q, k, v, causal, window, want_lse=False):
-        o = attention_ref(q, k, v, causal=causal, window=window).detach()
-        return (o, torch.zeros(q.shape[:3])) if want_lse else o
-
-    def launch_bwd(q, k, v, o, lse, do, causal, window):
-        return tuple(g.detach() for g in _bwd_emulation(q, k, v, do, causal,
-                                                        window))
-
-    monkeypatch.setattr(ops, "_launch", launch)
-    monkeypatch.setattr(ops, "_launch_bwd", launch_bwd)
-    before = (flash_attention.launches, flash_attention.bwd_launches)
-    args = [a.requires_grad_() for a in args]
-    o = ops._on_card(*args, True, 8)
-    assert o.grad_fn is not None
-    o.backward(torch.tensor(do))
-    assert (flash_attention.launches, flash_attention.bwd_launches) == (
-        before[0] + 1, before[1] + 1)
-    _close_grads([a.grad for a in args],
-                 _reference_grads(jargs, do, True, 8))
-    with torch.no_grad():
-        o = ops._on_card(*args, True, 8)
-    assert o.grad_fn is None and flash_attention.launches == before[0] + 2
-    seen = []
-
-    def record(*a):
-        seen.append(a)
-        return tuple(torch.zeros_like(t) for t in a[:3])
-
-    monkeypatch.setattr(ops, "_launch_bwd", record)
-    xb = [a.detach().bfloat16().requires_grad_() for a in args]
-    o = ops._on_card(*xb, True, 0)
-    assert o.dtype == torch.bfloat16 and o.grad_fn is not None
-    o.float().sum().backward()
-    assert len(seen) == 1 and seen[0][0].dtype == torch.bfloat16
-    assert all(a.grad.dtype == torch.bfloat16 for a in xb)
-    with pytest.raises(TypeError, match="one dtype"):
-        ops.flash_attention(xb[0], xb[1].float(), xb[2])
-
-
 def test_fully_masked_rows_keep_each_reference_functions_semantics():
     """A non-causal windowed call with Sq > Skv + window − 1: the last rows
     see no key. The reference's Pallas kernel (interpret mode) gives them
@@ -673,204 +399,6 @@ def test_fully_masked_rows_keep_each_reference_functions_semantics():
                                atol=5e-6)
     np.testing.assert_allclose(o_kernel[:, :, ~dead], o_ref[:, :, ~dead],
                                atol=10 * TOL["float32"])
-
-
-# The bf16 backward kernel's tiles (the wgmma design): dk/dv blocks of 128
-# keys, 64 per consumer warpgroup, over query tiles of 64 rows; dq blocks
-# of 128 query rows, 64 per warpgroup, over key tiles of 64.
-BF_KEYS, BF_QT, BF_QROWS, BF_KT = 128, 64, 128, 64
-
-
-def _bf16_backward_emulation(q, k, v, do, centred, causal=False, window=0,
-                             skip_first=False, round_ds=True, fwd=None):
-    """The bf16 backward kernel's algorithm and arithmetic in plain torch
-    (``scripts/flash_delta_probe.py --dtype bf16`` runs its non-causal sums
-    beside the kernel): the forward's o with P rounded to bf16 before P·V,
-    its lse from the raw keys, delta = do·o. The dk/dv kernel per block of
-    128 keys (two warpgroups of 64), over the G query heads of its kv head
-    and the query tiles of 64 rows that can see the block (its range
-    arithmetic): Sᵀ = K Qᵀ and dPᵀ = V dOᵀ in f32 from the bf16 inputs, P
-    from the lse, Pᵀ and dSᵀ rounded to bf16 as the operands of dv += Pᵀ dO
-    and dk += dSᵀ Q, each tile's product added to the running f32 sums in
-    order (the chained accumulators). The dq kernel per block of 128 query
-    rows over the key tiles of 64 it sees, dq += bf16(dS) KC. Each gradient
-    rounded to bf16 once. With ``centred`` KC = bf16(k − k̄) and dk less its
-    mean over the keys, as the kernel does; else the raw keys and dk as
-    summed. ``skip_first`` drops each key block's first query tile (a
-    faulty range); ``round_ds=False`` feeds dq's product an f32 dS.
-    ``fwd``: the forward's (o, lse) to read instead (the forward kernel's,
-    as the model's backward does)."""
-    B, H, Sq, dh = q.shape
-    KV, Skv = k.shape[1], k.shape[2]
-    G = H // KV
-    sl2, scale = dh ** -0.5 * LOG2E, dh ** -0.5
-    bf = lambda t: t.to(torch.bfloat16).float()
-    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
-    kh, vh = (t.repeat_interleave(G, dim=1) for t in (kf, vf))
-    qi, kj = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
-    live = torch.ones((Sq, Skv), dtype=torch.bool)
-    if causal:
-        live &= kj <= qi
-    if window:
-        live &= kj > qi - window
-    s2 = (qf @ kh.mT) * sl2
-    lse = torch.logsumexp(torch.where(live, s2, -1e30) / LOG2E, -1) * LOG2E
-    p = torch.where(live, torch.exp2(s2 - lse[..., None]), 0.0)
-    o = bf(bf(p) @ vh)
-    if fwd is not None:
-        o, lse = fwd[0].float(), fwd[1]
-    delta = (dof * o).sum(-1)
-    kc = bf(kf - kf.mean(2, keepdim=True)) if centred else kf
-    kch = kc.repeat_interleave(G, dim=1)
-
-    def probs(s, dp, heads, rows, cols):
-        """P and dS of a tile (queries as rows) from its scores and dP."""
-        m = live[rows, cols]
-        pt = torch.where(m, torch.exp2(s * sl2 - lse[:, heads, rows, None]),
-                         0.0)
-        return pt, pt * (dp - delta[:, heads, rows, None])
-
-    dq = torch.zeros_like(qf)
-    for q_lo in range(0, Sq, BF_QROWS):
-        q_hi = min(q_lo + BF_QROWS, Sq) - 1
-        n_kv = -(-Skv // BF_KT)
-        j_end = min(n_kv, q_hi // BF_KT + 1) if causal else n_kv
-        j_begin = max(0, q_lo - window + 1) // BF_KT if window else 0
-        for wg in range(2):
-            rows = slice(q_lo + 64 * wg, min(q_lo + 64 * wg + 64, Sq))
-            for jt in range(j_begin, j_end):
-                cols = slice(jt * BF_KT, min(jt * BF_KT + BF_KT, Skv))
-                s = qf[:, :, rows] @ kh[:, :, cols].mT
-                dp = dof[:, :, rows] @ vh[:, :, cols].mT
-                _, ds = probs(s, dp, slice(None), rows, cols)
-                a = bf(ds) if round_ds else ds
-                dq[:, :, rows] += a @ kch[:, :, cols]
-    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-    n_q = -(-Sq // BF_QT)
-    for k_lo in range(0, Skv, BF_KEYS):
-        k_hi = min(k_lo + BF_KEYS, Skv) - 1
-        i_begin = min(k_lo // BF_QT, n_q) if causal else 0
-        i_end = (min(n_q, (k_hi + window - 1) // BF_QT + 1) if window
-                 else n_q)
-        for wg in range(2):
-            cols = slice(k_lo + 64 * wg, min(k_lo + 64 * wg + 64, Skv))
-            for g in range(G):
-                heads = slice(g, H, G)     # the heads kv head h // G reads
-                for it in range(i_begin + skip_first, i_end):
-                    rows = slice(it * BF_QT, min(it * BF_QT + BF_QT, Sq))
-                    qt, dot = qf[:, heads, rows], dof[:, heads, rows]
-                    st = kf[:, :, cols] @ qt.mT    # Sᵀ: keys x queries
-                    dpt = vf[:, :, cols] @ dot.mT
-                    pt, dst = probs(st.mT, dpt.mT, heads, rows, cols)
-                    dv[:, :, cols] += bf(pt).mT @ dot
-                    dk[:, :, cols] += bf(dst).mT @ qt
-    dk = dk * scale
-    if centred:
-        dk = dk - dk.mean(2, keepdim=True)
-    return [t.to(torch.bfloat16) for t in (dq * scale, dk, dv)]
-
-
-def _bf16_case(B, H, KV, Sq, Skv, dh, seed, shift=0.0):
-    """bf16 q, k, v, do from numpy (a vector of ``shift`` times the keys'
-    rms row norm added to every key first) and autograd's gradients
-    through the plain version on them."""
-    _, (q, k, v), do = _grad_inputs(B, H, KV, Sq, Skv, dh, seed=seed)
-    u = torch.tensor(np.random.default_rng(seed + 1).standard_normal(dh),
-                     dtype=torch.float32)
-    k = k + shift * k.square().sum(-1).mean().sqrt() * u / u.norm()
-    return [torch.as_tensor(t).to(torch.bfloat16) for t in (q, k, v, do)]
-
-
-def _bound_use(args, got, causal, window):
-    """The largest fraction of ``bf16_grad_error_bound`` each gradient of
-    ``got`` uses against autograd through the plain version."""
-    q, k, v, do = args
-    xs = [t.clone().requires_grad_() for t in (q, k, v)]
-    ref = torch.autograd.grad(attention_ref(*xs, causal=causal,
-                                            window=window), xs, do)
-    bounds = ops.bf16_grad_error_bound(q, k, v, do, ref, causal=causal,
-                                       window=window)
-    return [((g.float() - r.float()).abs() / b).max().item()
-            for g, r, b in zip(got, ref, bounds)]
-
-
-# causal, windowed (narrower than a tile and wider), non-causal ragged
-# with Skv > Sq and Sq > Skv, GQA and MQA; several tiles each way.
-BF16_BWD_CASES = [(1, 4, 2, 200, 200, 32, 0, True),
-                  (1, 4, 1, 300, 300, 24, 20, True),
-                  (1, 2, 2, 150, 150, 16, 70, True),
-                  (2, 4, 2, 70, 190, 40, 0, False),
-                  (1, 6, 3, 257, 129, 16, 0, False)]
-
-
-@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal", BF16_BWD_CASES)
-def test_bf16_backward_design_within_bound_and_reference(B, H, KV, Sq, Skv,
-                                                         dh, win, causal):
-    """The wgmma design's order (query tiles of 64, key tiles of 128 in
-    warpgroups of 64, chained f32 sums) and roundings within
-    ``bf16_grad_error_bound`` of the plain version on the same bf16
-    inputs, and within the reference's bf16 tolerance of its ``jax.vjp``
-    (each gradient's largest entry)."""
-    args = _bf16_case(B, H, KV, Sq, Skv, dh, seed=Sq + Skv + dh)
-    got = _bf16_backward_emulation(*args, True, causal=causal, window=win)
-    assert max(_bound_use(args, got, causal, win)) <= 1
-    jargs = [jnp.asarray(t.float().numpy()) for t in args[:3]]
-    ref = _reference_grads(jargs, args[3].float().numpy(), causal, win)
-    for name, g, gr in zip("qkv", got, ref):
-        np.testing.assert_allclose(_np(g.float()), gr,
-                                   atol=TOL["bfloat16"] * np.abs(gr).max(),
-                                   rtol=TOL["bfloat16"], err_msg=f"d{name}")
-
-
-def test_bf16_backward_check_catches_a_dropped_tile():
-    args = _bf16_case(1, 4, 2, 200, 200, 32, seed=4)
-    got = _bf16_backward_emulation(*args, True, causal=True, window=70,
-                                   skip_first=True)
-    assert max(_bound_use(args, got, True, 70)) > 1
-
-
-@pytest.mark.parametrize("round_ds", [True, False])
-def test_bf16_backward_check_catches_raw_keys_in_dq(round_ds):
-    """At a key shift of 30 rms norms, dq's product on the raw keys leaves
-    the bound whether dS is rounded to bf16 before it (the kernel's
-    operand: its rows then no longer sum to 0) or not (an f32 dS: delta
-    from the forward's bf16 o still differs from P's row sum by far more
-    than in f32). Either way dq carries the keys' shared component, which
-    the centred keys remove; the design stays inside. (An f32 dS on the
-    centred keys is more accurate than the kernel, so no bound can catch
-    it: it is checked here on the raw keys.)"""
-    args = _bf16_case(1, 4, 2, 130, 140, 16, seed=8, shift=30.0)
-    got = _bf16_backward_emulation(*args, False, causal=True,
-                                   round_ds=round_ds)
-    assert _bound_use(args, got, True, 0)[0] > 1
-    got = _bf16_backward_emulation(*args, True, causal=True,
-                                   round_ds=round_ds)
-    assert max(_bound_use(args, got, True, 0)) <= 1
-
-
-@pytest.mark.parametrize("shift", [0.0, 30.0])
-def test_bf16_backward_arithmetic_within_its_derived_bound(shift):
-    """``ops.bf16_grad_error_bound`` holds the bf16 backward kernel's
-    arithmetic (emulated) against autograd through the plain version on
-    the same bf16 inputs, also with a vector of ``shift`` times the keys'
-    rms row norm added to every key (which moves no gradient
-    analytically). Without the centred keys dq's product carries that
-    vector times dS's bf16 rounding and leaves the bound: the reason the
-    kernel centres them."""
-    _, (q, k, v), do = _grad_inputs(1, 4, 2, 40, 90, 16, seed=21)
-    u = torch.tensor(np.random.default_rng(22).standard_normal(16),
-                     dtype=torch.float32)
-    k = k + shift * k.square().sum(-1).mean().sqrt() * u / u.norm()
-    q, k, v, do = (torch.as_tensor(t).to(torch.bfloat16)
-                   for t in (q, k, v, do))
-    xs = [t.clone().requires_grad_() for t in (q, k, v)]
-    ref = torch.autograd.grad(attention_ref(*xs, causal=False), xs, do)
-    bounds = ops.bf16_grad_error_bound(q, k, v, do, ref, causal=False)
-    use = lambda got: [((g.float() - r.float()).abs() / b).max().item()
-                       for g, r, b in zip(got, ref, bounds)]
-    assert max(use(_bf16_backward_emulation(q, k, v, do, True))) <= 1
-    if shift:
-        assert use(_bf16_backward_emulation(q, k, v, do, False))[0] > 1
 
 
 # ------------------------------------------------- bf16 forward (wgmma)
@@ -919,22 +447,6 @@ def test_bf16_forward_design_matches_reference(B, H, KV, Sq, Skv, dh, win,
                           -1) * LOG2E
     torch.testing.assert_close(lse[..., seen], ref[..., seen], atol=1e-5,
                                rtol=1e-6)
-
-
-@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal",
-                         [c for c in BF16_BWD_CASES if c[-1]]
-                         + [(2, 4, 2, 70, 190, 40, 0, False)])
-def test_bf16_forward_lse_feeds_the_backward_design(B, H, KV, Sq, Skv, dh,
-                                                    win, causal):
-    """The forward design's o and lse, as written for the backward,
-    through the bf16 backward design: every gradient within
-    ``bf16_grad_error_bound`` (the backward rebuilds P from this lse
-    unshifted and takes delta from this o)."""
-    args = _bf16_case(B, H, KV, Sq, Skv, dh, seed=Sq + Skv + dh)
-    fwd = _bf16_forward_emulation(*args[:3], causal, win)
-    got = _bf16_backward_emulation(*args, True, causal=causal, window=win,
-                                   fwd=fwd)
-    assert max(_bound_use(args, got, causal, win)) <= 1
 
 
 def _rounding_probe():

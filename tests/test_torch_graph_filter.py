@@ -26,6 +26,11 @@ from repro_torch.kernels.graph_filter import (RESIDENT_N, bf16_error_bound,
                                               make_plain_mix, ops)
 from repro_torch.serve import BucketSpec
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 # tests/test_kernels.py::GF_SHAPES: non-aligned n (not x8) and d (not x128)

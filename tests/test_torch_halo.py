@@ -47,6 +47,11 @@ from repro_torch.kernels.graph_filter import graph_filter_ref, ops
 from repro_torch.launch.mesh import make_agent_mesh, make_surf_mesh
 from repro_torch.topology import halo as H
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 MIX_TOL, GRAD_TOL = 1e-5, 5e-5
 THETA_TOL, HIST_ATOL, HIST_RTOL, PALLAS_TOL = 2e-5, 1e-4, 1e-3, 5e-6
 # 16 agents divide over 1, 2, 4 and 8 shards; a ring keeps the union

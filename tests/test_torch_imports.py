@@ -18,6 +18,11 @@ from repro_torch.engine.core import TrainState
 from repro_torch.serve import FederationServer
 from repro_torch.utils.device import resolve_device
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 _PROBE = """

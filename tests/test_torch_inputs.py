@@ -14,6 +14,13 @@ from repro_torch.core import surf as tsurf
 from repro_torch.data import synthetic as tsyn
 from repro_torch.topology import families as tfam
 
+import torch
+
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 PRESETS = ["SMOKE", "BENCH", "PAPER"]
 
 

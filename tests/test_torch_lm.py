@@ -41,6 +41,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import stack as ST
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 TOL = 1e-4
 ARCH_NAMES = sorted(ARCHS)
 PROMPT, NEW = 12, 4          # gemma3's window of 8 makes its cache a ring

@@ -32,6 +32,13 @@ from test_torch_lm_train import (LOSS_CASES, TOL, _batch, _close_tree, _j,
 from test_torch_lm_train import \
     test_lm_loss_and_grads_match_reference as _loss_and_grads_case
 
+import torch
+
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 MOE_ARCHS = sorted(n for n, c in ARCHS.items() if c.moe is not None)
 CASES = [(a, c) for a in MOE_ARCHS
          for c in (("plain",) if a.startswith("jamba")

@@ -62,6 +62,11 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models import stack as ST
 from repro_torch.utils.tree import _leaves
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 TOL = 1e-4
 NOISE_REL, NOISE_SHARE = 1e-4, 2e-3
 # the dense and RWKV archs (the MoE and hybrid ones have a file of their
@@ -201,62 +206,6 @@ def test_lm_loss_and_grads_match_reference(arch, case, monkeypatch):
     assert ("body" in calls) == remat
 
 
-@pytest.mark.parametrize("arch", ARCH_NAMES)
-def test_three_train_steps_match_reference(arch):
-    """Three steps of ``make_train_step`` against the reference's jitted
-    step: each from the reference's state (converted), so differences do
-    not compound; the free-running losses of both over the three steps
-    agree too."""
-    jcfg, tcfg, jparams, tparams = _pair(arch)
-    jstep, jopt = jmake_train_step(jcfg, lr=1e-3, remat=False)
-    jstep = jax.jit(jstep)
-    tstep, topt = make_train_step(tcfg, lr=1e-3, remat=False)
-    jp, jo = jparams, jopt.init(jparams)
-    tp_run, to_run = tparams, topt.init(tparams)
-    for s in range(3):
-        batch = _batch(tcfg, 10 + s, batch=4)
-        tp = lm_params_from_numpy(tcfg, jax.tree.map(np.asarray, jp),
-                                  device="cpu")
-        to = lm_opt_state_from_numpy(tcfg, jax.tree.map(np.asarray, jo),
-                                     device="cpu")
-        tp, to, tm = tstep(tp, to, _t(batch))
-        jp, jo, jm = jstep(jp, jo, _j(batch))
-        for key in ("loss", "grad_norm", "moe_lb"):
-            np.testing.assert_allclose(float(tm[key]), float(jm[key]),
-                                       rtol=TOL, atol=1e-7, err_msg=key)
-        _state_close(tp, to, jp, jo)
-        tp_run, to_run, tm_run = tstep(tp_run, to_run, _t(batch))
-        np.testing.assert_allclose(float(tm_run["loss"]), float(jm["loss"]),
-                                   rtol=TOL)
-
-
-@pytest.mark.parametrize("mb", [1, 2, 4])
-def test_microbatched_step_matches_reference_and_single(mb):
-    """Gradient accumulation over ``mb`` microbatches against the
-    reference's step with the same ``mb``, and against the port's single
-    batch at the reference's own tolerances (``test_perf_opts.py``)."""
-    jcfg, tcfg, jparams, tparams = _pair("qwen3-4b")
-    batch = _batch(tcfg, 3, batch=4)
-    jstep, jopt = jmake_train_step(jcfg, lr=1e-3, remat=False,
-                                   microbatches=mb)
-    jp, jo, jm = jax.jit(jstep)(jparams, jopt.init(jparams), _j(batch))
-    out = {}
-    for m in sorted({1, mb}):
-        tstep, topt = make_train_step(tcfg, lr=1e-3, remat=False,
-                                      microbatches=m)
-        out[m] = tstep(tparams, topt.init(tparams), _t(batch))
-    tp, to, tm = out[mb]
-    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
-                               rtol=TOL)
-    np.testing.assert_allclose(float(tm["grad_norm"]),
-                               float(jm["grad_norm"]), rtol=TOL)
-    _state_close(tp, to, jp, jo)
-    assert float(out[1][2]["loss"]) == pytest.approx(float(tm["loss"]),
-                                                     rel=1e-4)
-    np.testing.assert_allclose(_leaves(out[1][0])[0].numpy(),
-                               _leaves(tp)[0].numpy(), atol=5e-5)
-
-
 @pytest.mark.parametrize("S,W,qc", [(64, 0, 16), (64, 12, 16),
                                     (96, 24, 32), (100, 7, 32)])
 def test_blockwise_sdpa_matches_reference(S, W, qc):
@@ -298,110 +247,6 @@ def test_blockwise_flag_routes_the_plain_path(monkeypatch):
         ST.apply_layer_full(tcfg, kind, p, x[:, :2047], ctx)
     assert calls == [256]
     torch.testing.assert_close(y1, y0, atol=2e-4, rtol=1e-4)
-
-
-@pytest.mark.parametrize("seed", [0, 7])
-def test_token_pipeline_bit_equal(seed):
-    jpipe = JTokenPipeline(512, 3, 24, seed=seed)
-    tpipe = TokenPipeline(512, 3, 24, seed=seed)
-    for _ in range(4):
-        a, b = next(jpipe), next(tpipe)
-        for k in ("tokens", "labels"):
-            assert a[k].dtype == b[k].dtype == np.int32
-            np.testing.assert_array_equal(a[k], b[k])
-
-
-def test_train_main_lowers_the_loss(capsys):
-    """``launch.train.main`` on the CPU with the reference system test's
-    arguments (``tests/test_system.py``): the loss decreases, and from
-    the reference's parameters the per-step losses follow the reference
-    driver's."""
-    argv = ["--arch", "qwen3-4b", "--steps", "30", "--batch", "4", "--seq",
-            "32", "--lr", "3e-3", "--log-every", "10"]
-    losses = train.main(argv + ["--device", "cpu"])
-    assert len(losses) == 30 and np.mean(losses[-5:]) < np.mean(losses[:5])
-    out = capsys.readouterr().out
-    assert "arch=qwen3-4b-reduced" in out and "done: loss" in out
-    jcfg, tcfg, jparams, tparams = _pair("qwen3-4b")
-    ref = jtrain.main(argv[:3] + ["12"] + argv[4:])
-    got = train.main(argv[:3] + ["12"] + argv[4:] + ["--device", "cpu"],
-                     params=tparams)
-    np.testing.assert_allclose(got, ref, rtol=1e-3)
-
-
-def test_train_main_flags_and_state(tmp_path):
-    """``--opts`` holds for the run only; ``state=`` receives the final
-    parameters and Adam state; ``--ckpt`` writes {"params", "step"} in the
-    reference's format, which the reference restores."""
-    state = {}
-    path = str(tmp_path / "ck")
-    train.main(["--arch", "rwkv6-1.6b", "--steps", "6", "--batch", "2",
-                "--seq", "8", "--lr", "3e-3", "--device", "cpu", "--opts",
-                "chunked_ce=4,nested_remat_group=2", "--ckpt", path],
-               state=state)
-    assert flags.get() == flags.Flags()
-    assert int(state["opt_state"]["t"]) == 6
-    jcfg = jget_config("rwkv6-1.6b").reduced()
-    like = jax.eval_shape(lambda: {"params": JM.init_lm(
-        jcfg, jax.random.PRNGKey(0)), "step": jnp.int32(0)})
-    restored = JCKPT.restore(path, like)
-    assert int(restored["step"]) == 6
-    ref = _flat(restored["params"])
-    for k, v in _flat(state["params"]).items():
-        np.testing.assert_array_equal(v, ref[k], err_msg=k)
-
-
-def test_checkpoint_resume_training(tmp_path):
-    """Save -> restore -> the next step from the restored parameters is
-    bit-equal to the step from the in-memory ones (``test_system.py``'s
-    resume test, which holds the losses at 1e-6)."""
-    tcfg = get_config("qwen3-4b").reduced()
-    params = M.init_lm(tcfg, 0, device="cpu")
-    batch = _t(_batch(tcfg, 5))
-    step, opt = make_train_step(tcfg, lr=1e-3, remat=False)
-    opt_state = opt.init(params)
-    params, opt_state, _ = step(params, opt_state, batch)
-    path = str(tmp_path / "ck")
-    CKPT.save(path, params)
-    params2 = CKPT.restore(path, M.init_lm(tcfg, 0, device="meta"),
-                           device="cpu")
-    pa, _, ma = step(params, opt_state, batch)
-    pb, _, mb = step(params2, opt_state, batch)
-    assert float(ma["loss"]) == float(mb["loss"])
-    for a, b in zip(_leaves(pa), _leaves(pb)):
-        assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("arch", ["qwen3-4b", "rwkv6-1.6b"])
-def test_reference_lm_checkpoint_restores_with_the_same_loss(arch, tmp_path):
-    """An LM checkpoint written by the reference ({"params", "step"}, its
-    train driver's) restored by the port gives the reference's loss."""
-    jcfg, tcfg, jparams, _ = _pair(arch)
-    path = str(tmp_path / "ref")
-    JCKPT.save(path, {"params": jparams, "step": 3})
-    like = {"params": M.init_lm(tcfg, 0, device="meta"), "step": 0}
-    got = CKPT.restore(path, like, device="cpu")
-    assert got["step"] == 3
-    batch = _batch(tcfg, 6)
-    jl, _ = JM.lm_loss(jcfg, jparams, _j(batch))
-    with torch.no_grad():
-        tl, _ = M.lm_loss(tcfg, got["params"], _t(batch))
-    np.testing.assert_allclose(float(tl), float(jl), rtol=TOL)
-
-
-def test_opt_state_conversion_validates():
-    jcfg, tcfg, jparams, _ = _pair("qwen3-4b")
-    _, jopt = jmake_train_step(jcfg)
-    jo = jax.tree.map(np.asarray, jopt.init(jparams))
-    to = lm_opt_state_from_numpy(tcfg, jo, device="cpu")
-    assert to["t"].dtype == torch.int32 and int(to["t"]) == 0
-    assert all(t.dtype == torch.float32 for t in _leaves(to["m"]))
-    with pytest.raises(ValueError, match="keys m, v, t"):
-        lm_opt_state_from_numpy(tcfg, {"m": jo["m"]}, device="cpu")
-    jo["v"]["embed"]["table"] = jo["v"]["embed"]["table"][:-1]
-    with pytest.raises(ValueError, match="embed.table"):
-        lm_opt_state_from_numpy(tcfg, jo, device="cpu")
-
 
 
 def _stub_card_path(monkeypatch):

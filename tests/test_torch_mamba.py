@@ -22,6 +22,11 @@ from repro.configs.base import SSMConfig
 from repro.models import ssm as JS
 from repro_torch.models import ssm as S
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 TOL = 1e-4
 D = 16
 CFG = SSMConfig(kind="mamba", d_state=8, d_conv=4, expand=2)

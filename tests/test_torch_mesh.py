@@ -32,6 +32,11 @@ from repro_torch.launch.mesh import (host_device_count, make_agent_mesh,
 from repro_torch.sharding import surf_rules as R
 from repro_torch.utils import tree as ttree
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 
 def _cpu(k):
     return ["cpu"] * k

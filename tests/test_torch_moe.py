@@ -25,6 +25,11 @@ from repro.models import moe as JMO
 from repro_torch.configs import get_config
 from repro_torch.models import moe as MO
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 D, DFF = 16, 32
 j_moe_apply = jax.jit(JMO.moe_apply, static_argnums=(2, 3))
 j_route = jax.jit(JMO.route, static_argnums=(2,))

@@ -11,6 +11,13 @@ from pathlib import Path
 
 import pytest
 
+import torch
+
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1] / "src"
 REF, PORT = ROOT / "repro", ROOT / "repro_torch"
 PAIRS = sorted(p.relative_to(REF) for p in REF.rglob("*.py")

@@ -9,6 +9,13 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.graph_filter import ops as gf_ops
 from repro_torch.kernels.ssm_scan import ops as wkv_ops
 
+import torch
+
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 
 def test_library_name_follows_every_included_header(tmp_path):
     (tmp_path / "inner.cuh").write_text("// inner\n")

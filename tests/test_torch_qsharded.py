@@ -25,6 +25,11 @@ from repro_torch.launch.mesh import make_agent_mesh, make_surf_mesh
 from repro_torch.serve import (Bucket, BucketSpec, FederationServer,
                                request_shardings, serve_cache_key)
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 Q_TOL, SERVE_TOL = 1e-5, 5e-5
 # 16 agents, default mixing; the pool of 8 divides the 8-, 4- and 2-way
 # agent axes used below.

@@ -40,6 +40,11 @@ from repro_torch.core.tasks import resolve_task as tresolve
 from repro_torch.engine import core as TE
 from repro_torch.engine import scan as TS
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 GRAD_TOL, STATE_TOL = 5e-5, 5e-6
 ROBUST = dict(robust_sigma=0.1, robust_samples=2)   # tests/test_tasks.py
 

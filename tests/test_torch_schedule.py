@@ -39,6 +39,11 @@ from repro_torch.topology import families as TF
 from repro_torch.topology import schedule as TSCH
 from repro_torch.topology.halo import make_scheduled_halo_mix
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 STATE_TOL = 5e-6
 SIZES = ("SMOKE", "BENCH")
 WEIGHTS = ("metropolis", "lazy_metropolis", "laplacian")

@@ -34,6 +34,11 @@ from repro_torch.data import synthetic as tsyn
 from repro_torch.kernels.graph_filter import make_plain_mix
 from repro_torch.launch.mesh import make_surf_mesh
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 STATE_TOL = 5e-6
 CFG = tcfgs.SMOKE
 STEPS = 8

@@ -34,6 +34,11 @@ from repro_torch.serve import (Bucket, BucketSpec, FederationServer,
                                pad_cohort, serve_cache_key)
 from repro_torch.utils.cache import BoundedLRU
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 LOSS_TOL, ACC_TOL = 5e-5, 1e-6
 BUCKETS = BucketSpec(agent_sizes=(8, 16), row_sizes=(4, 8))
 COHORTS = [(6, 4), (8, 4), (12, 4), (16, 3), (8, 2)]   # buckets (8,4), (16,4)

@@ -31,6 +31,11 @@ from repro_torch.core import unroll as TU
 from repro_torch.engine import snapshots as SN
 from repro_torch.kernels.graph_filter import ops
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 CFG = tcfgs.SMOKE
 LOSS_TOL, ACC_TOL = 5e-5, 1e-6
 

@@ -54,6 +54,11 @@ from repro_torch.engine import scan as TS
 from repro_torch.engine.core import TrainState
 from repro_torch.serve import BucketSpec, FederationServer
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 TOL = 5e-5
 STATE_TOL = 5e-6
 JCFG, TCFG = jcfgs.SPARSE_SMOKE, tcfgs.SPARSE_SMOKE

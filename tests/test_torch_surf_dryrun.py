@@ -24,6 +24,11 @@ from repro_torch.launch.mesh import make_production_mesh, make_surf_mesh
 from repro_torch.topology import halo as H
 from repro_torch.topology.families import build_topology
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 D = 512 * 10 + 10          # DRYRUN's head dim: F C + C
 
 

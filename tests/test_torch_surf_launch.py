@@ -26,6 +26,13 @@ from repro_torch.core import surf
 from repro_torch.engine.core import TrainState
 from repro_torch.launch import surf_earlyexit, surf_serve
 
+import torch
+
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 
 def _read(path):
     with open(path) as f:

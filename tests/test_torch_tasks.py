@@ -16,6 +16,11 @@ from repro.core.tasks import classification_task as jclassification_task
 from repro_torch.configs import surf_paper as tcfgs
 from repro_torch.core import tasks as ttasks
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 SHARED = ["PAPER", "PAPER_STAR", "BENCH", "SMOKE"]
 
 

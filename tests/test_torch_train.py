@@ -53,6 +53,11 @@ from repro_torch.launch.mesh import make_surf_mesh
 from repro_torch.optim import adam as tadam
 from repro_torch.optim import clip_by_global_norm as tclip
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 GRAD_TOL = 5e-5
 LAG_TOL = 5e-4
 STATE_TOL = 5e-6

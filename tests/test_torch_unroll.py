@@ -27,6 +27,11 @@ from repro_torch.core.tasks import resolve_task as tresolve_task
 from repro_torch.kernels.graph_filter import make_plain_mix
 from repro_torch.topology.families import build_topology
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 TOL = 5e-5
 
 

@@ -19,6 +19,11 @@ from repro.kernels.ssm_scan import wkv as jwkv
 from repro.kernels.ssm_scan import wkv_ref as jwkv_ref
 from repro_torch.kernels.ssm_scan import ops, wkv, wkv_ref
 
+# One intra-op thread per process: the suite runs its files on several
+# workers of one machine, and torch at every core in each of them
+# oversubscribes it (a thread count changes only the order of CPU sums).
+torch.set_num_threads(1)
+
 TOL = {"float32": 5e-5, "bfloat16": 5e-2}
 SWEEP = [(1, 2, 32, 16, 8), (2, 3, 50, 16, 16), (1, 4, 64, 64, 64),
          (2, 1, 17, 8, 8)]
