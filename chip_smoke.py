@@ -36,11 +36,13 @@ order; any failure exits non-zero:
   5. flash attention vs plain — at the reference's sweep shapes, the
      qwen3-4b prefill shape (B=4, H=32, KV=8, S=2048, dh=128) and
      gemma3-27b's two (H=32, KV=16: its local layers' window of 1024 and
-     its global layers' causal call), f32 (the mma.sync kernel) and bf16
-     (the wgmma kernel), at 10x the reference's kernel tolerance, within
-     1e-5 in f32 at the qwen3-4b shape (the split-TF32 products keep f32
-     accuracy) and within ``bf16_error_bound`` in bf16, the fraction of
-     it used printed; µs per launch
+     its global layers' causal call), f32 and bf16 (both wgmma kernels),
+     at 10x the reference's kernel tolerance, within 1e-5 in f32 at every
+     shape (the split-TF32 products keep f32 accuracy; each shape's
+     largest error printed) and within ``bf16_error_bound`` in bf16, the
+     fraction of it used printed; a negative control at the qwen3-4b
+     shape: the plain version with cuBLAS's one-pass TF32 switched on
+     must miss the 1e-5 gate; µs per launch
      (CUDA events, median), the plain version's time,
      ``scaled_dot_product_attention``'s (default dispatch, and in f32 also
      the memory-efficient backend on K/V expanded to H heads), the
@@ -2643,21 +2645,23 @@ def build_all(tag):
 
 
 # The flash kernels that must run Hopper's warpgroup products, by library
-# (the bf16 forward and backward, and the f32 backward's split-TF32
-# kernels); each is built in two instances (dh <= 64 and <= 128).
-HGMMA_KERNELS = {"flash_attention": ("fwd_wgmma_kernel",),
+# (the bf16 forward and backward, and the f32 forward's and backward's
+# split-TF32 kernels); each is built in two instances (dh <= 64 and
+# <= 128).
+HGMMA_KERNELS = {"flash_attention": ("fwd_wgmma_kernel", "fwd_tf32_kernel"),
                  "flash_attention_bwd": ("dkdv_wgmma_kernel",
                                          "dq_wgmma_kernel",
                                          "dkdv_tf32_kernel",
                                          "dq_tf32_kernel")}
 # Of those, the ones whose SASS must hold no local-memory load or store.
-SPILL_FREE = ("dkdv_tf32_kernel", "dq_tf32_kernel")
+SPILL_FREE = ("fwd_tf32_kernel", "dkdv_tf32_kernel", "dq_tf32_kernel")
 
 
 def check_hgmma(tag, paths):
-    """The wgmma flash kernels (the forward's ``fwd_wgmma_kernel``, the
-    backward's ``dkdv_wgmma_kernel`` and ``dq_wgmma_kernel`` in bf16 and
-    ``dkdv_tf32_kernel`` and ``dq_tf32_kernel`` in f32, each instance)
+    """The wgmma flash kernels (the forward's ``fwd_wgmma_kernel`` in bf16
+    and ``fwd_tf32_kernel`` in f32, the backward's ``dkdv_wgmma_kernel``
+    and ``dq_wgmma_kernel`` in bf16 and ``dkdv_tf32_kernel`` and
+    ``dq_tf32_kernel`` in f32, each instance)
     hold Hopper's warpgroup products, the ``HGMMA`` instructions of their
     SASS, read with the toolkit's ``cuobjdump -sass``; the f32 ones
     (``SPILL_FREE``) also no local-memory loads or stores (``LDL``/``STL``:
@@ -2766,6 +2770,7 @@ def check_flash(tag):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(2)
     max_err, timing, bf16_err, bf16_timing = 0.0, None, 0.0, None
+    f32_errs = {}
     gemma = [FLASH_GEMMA, FLASH_GEMMA_GLOBAL]
     for B, H, KV, S, dh, win in (FLASH_SWEEP + [FLASH_QWEN] + gemma
                                  + list(FLASH_DENSE.values())):
@@ -2804,10 +2809,13 @@ def check_flash(tag):
             print(f"flash vs plain B={B} H={H} KV={KV} S={S} dh={dh} "
                   f"window={win} {dtype}: max |err| {err:.3e} (tol {tol}; "
                   f"{gate})")
+            if dtype == torch.float32:
+                f32_errs[str((B, H, KV, S, dh, win))] = err
             if ((B, H, KV, S, dh, win) == FLASH_QWEN
                     and dtype == torch.float32):
                 print(f"[{tag}] flash f32 qwen3-4b shape: max |kernel - "
                       f"plain| {err:.3e} (<= {FLASH_F32_ERR_MAX})")
+                tf32_forward_control(tag, q, k, v, win, o_ref)
             if not full:
                 continue
             elem = q.element_size()
@@ -2858,7 +2866,30 @@ def check_flash(tag):
                   f"{eff}")
         del qkv32, q, k, v, o, o_ref
         torch.cuda.empty_cache()
+    print(f"[{tag}] 5 flash f32 max |kernel - plain| by shape (B, H, KV, "
+          f"S, dh, window): {json.dumps(f32_errs)} (gate "
+          f"{FLASH_F32_ERR_MAX})")
     return max_err, timing, bf16_err, bf16_timing
+
+
+def tf32_forward_control(tag, q, k, v, win, o_ref):
+    """Phase 5's negative control: the plain version with cuBLAS's
+    one-pass TF32 on (restored after) must miss FLASH_F32_ERR_MAX against
+    the f32 plain output ``o_ref``, so the gate tells one-pass TF32 from
+    the kernel's split-TF32 accuracy at this shape."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        o = attention_ref(q, k, v, causal=True, window=win)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    err = (o - o_ref).abs().max().item()
+    print(f"[{tag}] 5 control: one-pass TF32 (cuBLAS) plain forward, max "
+          f"|TF32 - f32 plain| {err:.3e} (must exceed {FLASH_F32_ERR_MAX})")
+    if err <= FLASH_F32_ERR_MAX:
+        raise AssertionError(f"5 control: one-pass TF32 passed the f32 "
+                             f"forward gate ({err})")
 
 
 def check_wkv(tag):
@@ -3871,7 +3902,8 @@ def _kind(name):
     name = name.lower()
     if "graph_filter_kernel" in name:
         return "graph_filter"
-    if "flash_attention_kernel" in name or "fwd_wgmma_kernel" in name:
+    if any(s in name for s in ("flash_attention_kernel", "fwd_wgmma_kernel",
+                               "fwd_tf32_kernel", "split_kv_kernel")):
         return "flash_attention"
     if any(s in name for s in ("dkdv_kernel", "dq_kernel", "delta_kernel",
                                "dkdv_wgmma_kernel", "dq_wgmma_kernel",

@@ -25,15 +25,20 @@ the card's name and power limit. Each flash case also times
 (memory-efficient, K/V expanded to H heads, a boolean mask for a window:
 ``sdpa_ms``), the yardstick ``chip_smoke.py`` 5b uses.
 
-``--forward`` times the flash forward instead, in bf16 (``--dtype`` is
-not read): one launch of ``ops._launch`` per call at phase 5's five bf16
-shapes (qwen3-4b, gemma3's window-1024 and global layers, H=64/KV=8 and
-H=KV=40; B=4, S=2048, dh=128, causal) and whisper-small's encoder and
-cross shapes (non-causal), by part (``fwd_wgmma_kernel``, the wgmma
-design; ``flash_attention_kernel``, the mma.sync one before it, and any
-copy the wrapper makes), beside ``scaled_dot_product_attention``'s bf16
-forward in its default dispatch (GQA by ``enable_gqa``, a boolean mask for
-the window: ``sdpa_ms``), as ``chip_smoke.py`` 5 times it.
+``--forward`` times the flash forward instead, in ``--dtype``: one launch
+of ``ops._launch`` per call at phase 5's five shapes (qwen3-4b, gemma3's
+window-1024 and global layers, H=64/KV=8 and H=KV=40; B=4, S=2048,
+dh=128, causal) and whisper-small's encoder and cross shapes
+(non-causal), by part: in f32 ``fwd_tf32_kernel`` (the split-TF32 wgmma
+design) and ``split_kv_kernel`` (its split pass; the mma.sync kernel
+before it: ``flash_attention_kernel``), in bf16 ``fwd_wgmma_kernel`` (the
+wgmma design; ``flash_attention_kernel`` before it), and in either any
+copy the wrapper makes (``elementwise_kernel``). Beside each shape
+``scaled_dot_product_attention``'s forward in the same dtype
+(``sdpa_ms``), as ``chip_smoke.py`` 5 times it: bf16 in its default
+dispatch (GQA by ``enable_gqa``), f32 on the memory-efficient backend with
+K/V expanded to H heads (f32's default dispatch takes the math
+fallback); a boolean mask for the window.
 
 ``--root`` is the checkout whose ``src/repro_torch`` is timed (default:
 this one), so two versions can be timed in turns inside one run on one
@@ -66,8 +71,8 @@ FLASH = {"flash qwen3-4b": (4, 32, 8, 2048, 2048, 128, 0, True),
          "flash whisper encoder": (4, 12, 12, 1500, 1500, 64, 0, False),
          "flash whisper cross": (4, 12, 12, 448, 1500, 64, 0, False)}
 WKV = {"wkv rwkv6-1.6b": (4, 32, 2048, 64)}
-# The flash forward's bf16 cases (B, H, KV, Sq, Skv, dh, window, causal):
-# chip_smoke.py 5's bf16 shapes and its whisper shapes.
+# The flash forward's cases (B, H, KV, Sq, Skv, dh, window, causal):
+# chip_smoke.py 5's full-width shapes and its whisper shapes.
 FORWARD = {"flash qwen3-4b": (4, 32, 8, 2048, 2048, 128, 0, True),
            "flash gemma3 window 1024": (4, 32, 16, 2048, 2048, 128, 1024,
                                         True),
@@ -76,7 +81,8 @@ FORWARD = {"flash qwen3-4b": (4, 32, 8, 2048, 2048, 128, 0, True),
            "flash H=KV=40": (4, 40, 40, 2048, 2048, 128, 0, True),
            "flash whisper encoder": (4, 12, 12, 1500, 1500, 64, 0, False),
            "flash whisper cross": (4, 12, 12, 448, 1500, 64, 0, False)}
-PARTS = ("fwd_wgmma_kernel", "flash_attention_kernel", "elementwise_kernel",
+PARTS = ("fwd_wgmma_kernel", "fwd_tf32_kernel", "split_kv_kernel",
+         "flash_attention_kernel", "elementwise_kernel",
          "delta_kernel", "delta_tiles_kernel", "delta_f32_kernel",
          "dkdv_tf32_kernel", "dq_tf32_kernel", "kmean_kernel",
          "kmean_part_kernel", "kmean_sum_kernel", "centre_kernel",
@@ -145,31 +151,44 @@ def sdpa_backward_ms(q, k, v, do, causal, window, reps):
 
 
 def sdpa_forward_ms(q, k, v, causal, window, reps):
-    """``scaled_dot_product_attention``'s bf16 forward, default dispatch,
-    GQA by ``enable_gqa`` (a boolean mask for a window)."""
+    """``scaled_dot_product_attention``'s forward in q's dtype (a boolean
+    mask for a window): bf16 in its default dispatch, GQA by
+    ``enable_gqa``; f32 on the memory-efficient backend with K/V expanded
+    to H heads outside the timed call."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = None
     if window:
         i = torch.arange(q.shape[2], device="cuda")
         mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
-    ms, _ = measure(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, is_causal=causal and not window,
-        enable_gqa=True), reps)
+    is_causal = causal and not window
+    if q.dtype == torch.bfloat16:
+        ms, _ = measure(lambda: sdpa(q, k, v, attn_mask=mask,
+                                     is_causal=is_causal, enable_gqa=True),
+                        reps)
+        return ms
+    G = q.shape[1] // k.shape[1]
+    ke, ve = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        ms, _ = measure(lambda: sdpa(q, ke, ve, attn_mask=mask,
+                                     is_causal=is_causal), reps)
     return ms
 
 
-def forward_rows(fa, args, tag, rng):
-    """One row per ``FORWARD`` case: the bf16 forward by part and SDPA's."""
+def forward_rows(fa, args, tag, rng, dtype):
+    """One row per ``FORWARD`` case: the forward by part and SDPA's."""
     rows = []
     with torch.no_grad():
         for name, (B, H, KV, Sq, Skv, dh, win, causal) in FORWARD.items():
             q, k, v = (torch.tensor(rng.standard_normal((B, n, s, dh))
                                     .astype(np.float32), device="cuda")
-                       .to(torch.bfloat16)
+                       .to(dtype)
                        for n, s in ((H, Sq), (KV, Skv), (KV, Skv)))
             ms, parts = measure(lambda: fa._launch(q, k, v, causal, win),
                                 args.reps)
-            rows.append({"case": name, "dtype": "bf16", "pass": "forward",
-                         "label": args.label, "root": args.root,
+            rows.append({"case": name, "dtype": args.dtype,
+                         "pass": "forward", "label": args.label,
+                         "root": args.root,
                          "shape": [B, H, KV, Sq, Skv, dh, win, causal],
                          "event_ms": ms, "parts_ms": parts,
                          "sdpa_ms": sdpa_forward_ms(q, k, v, causal, win,
@@ -198,7 +217,7 @@ def main(argv=None) -> int:
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     tag = card()
     rng = np.random.default_rng(5)
-    rows = forward_rows(fa, args, tag, rng) if args.forward else []
+    rows = forward_rows(fa, args, tag, rng, dtype) if args.forward else []
     cases = {} if args.forward else FLASH
     for name, (B, H, KV, Sq, Skv, dh, win, causal) in cases.items():
         q, k, v, do = (torch.tensor(rng.standard_normal((B, n, s, dh))

@@ -1,7 +1,8 @@
 // Blocked online-softmax attention (FlashAttention, forward) for Hopper
-// (sm_90a), with both products on the tensor cores: f32 inputs in split
-// TF32 (mma.sync), bf16 inputs in bf16 (wgmma on TMA tiles,
-// `flash_attention_bf16`, in the second half of this header).
+// (sm_90a), with both products as warpgroup `wgmma` on tiles that TMA
+// brings into shared memory: f32 inputs in split TF32
+// (`flash_attention_f32`, `fwd_tf32_kernel` after its split pass), bf16
+// inputs in bf16 (`flash_attention_bf16`, `fwd_wgmma_kernel`).
 //
 // Replaces the Pallas TPU kernel of the reference package:
 // src/repro/kernels/flash_attention/kernel.py:26 (_kernel) and :81
@@ -14,10 +15,11 @@
 // model's (B, S, H, dh) projections are read through a transposed view.
 // Head h reads kv head h / (H / KV) (GQA). Causal (key j <= query i) and
 // sliding-window (j > i - window) masks, no query offset. Scores are
-// scaled by the true dh^-0.5 (the wrapper passes it: a bf16 dh padded to a
-// multiple of 8 keeps it); masked scores are -1e30 and get p = 0, the
-// softmax denominator is max(l, 1e-30), as in the reference. Output o in
-// q's dtype, through the strides it is given (the wrapper's torch.empty_like:
+// scaled by the true dh^-0.5 (the wrapper passes it: a dh padded to whole
+// 16-byte rows keeps it); masked scores get p = 0, the softmax
+// denominator is max(l, 1e-30), as in the reference, so a row that sees
+// no key gets o = 0 (as from the reference's kernel). Output o in q's
+// dtype, through the strides it is given (the wrapper's torch.empty_like:
 // q's strides when q is dense, contiguous otherwise); the softmax state
 // (m, l) and O accumulate in f32. For training, the launch also writes each
 // row's m + log2(l) to `lse` (one store per row after the loop), which the
@@ -26,16 +28,14 @@
 // Departures from the reference's arithmetic:
 //   * bf16 inputs: P is rounded to bf16 before P.V (the reference keeps P
 //     in f32), as every bf16 flash kernel does; l sums the f32 P.
-//   * f32 inputs: split TF32 ("3xTF32"). Each f32 operand x is
-//     x_hi + x_lo with x_hi = tf32(x) (round to nearest, ties away, as
-//     cvt.rna, by an integer add and mask, which issues faster than the
-//     conversion) and x_lo = x - x_hi, and each product is a_lo b_hi +
-//     a_hi b_lo + a_hi b_hi in f32 accumulators, for Q.K^T and P.V. x_lo
-//     goes to the tensor core as f32 bits, which it reads as TF32 by
-//     dropping the low 13 bits (truncation, as CUTLASS's 3xTF32 does for
-//     its small part): that saves a rounding per element and costs at most
-//     2^-21 of x. The dropped a_lo b_lo is about 2^-22 of the product:
-//     f32 accuracy. No one-pass TF32 anywhere.
+//   * f32 inputs: split TF32 ("3xTF32"), as the backward's and the graph
+//     filter's. Each f32 operand x is x_hi + x_lo with x_hi = tf32(x) and
+//     x_lo = tf32(x - x_hi), both rounded to nearest (ties away, as
+//     cvt.rna, by an integer add and mask), and each product is a_lo b_hi
+//     + a_hi b_lo + a_hi b_hi in f32 accumulators, for Q.K^T and P.V. The
+//     dropped a_lo b_lo is about 2^-22 of the product: f32 accuracy. No
+//     one-pass TF32 anywhere (chip_smoke.py 5's control shows it would
+//     miss the 1e-5 gate).
 //   * exp is exp2 with scale * log2(e) folded into the score scale.
 //
 // What bounds it: at the qwen3-4b prefill shape (B=4, H=32, KV=8,
@@ -43,42 +43,60 @@
 // 4 B H dh S(S+1)/2 = 137.6 GFLOP. On the tensor cores that is 0.139 ms
 // in bf16 (989 TFLOP/s dense) and, at three TF32 products each, 0.834 ms
 // in f32 (495 TFLOP/s), against 335 MB of q, k, v, o in f32 (0.10 ms at
-// 3.35 TB/s; 0.05 ms in bf16): bound by operations in both. So the bf16
-// products must run on wgmma, the only way to the tensor cores' full rate,
-// fed by TMA without the compute threads' help; and the exp2 of every
-// score (64 per thread per tile) must overlap the products rather than
-// follow them. mma.sync (the f32 entry) reaches only part of the peak; the
-// split also costs CUDA-core instructions (3 per operand element per use).
+// 3.35 TB/s; 0.05 ms in bf16): bound by operations in both. So the
+// products must run on wgmma, the only way to the tensor cores' full rate
+// (mma.sync reaches about a quarter of the TF32 one), fed by TMA without
+// the compute threads' help; and the exp2 of every score must overlap the
+// products rather than follow them.
 //
-// f32 design (mma.sync):
-//   * one block of 4 warps per (batch item x head, query tile of 64 rows);
-//     each warp owns 16 query rows, and keeps the score tile, m, l and the
-//     O accumulator (16 x dh f32) in registers. Q stays in shared memory
-//     and its fragments are read again for every kv tile: registers, not
-//     shared memory, limit the blocks per SM (3), and Q's fragments at
-//     dh = 128 would take 64 more registers a thread. Nothing is carried
-//     between blocks: the TPU kernel's sequential kv grid axis is a loop
-//     inside the block.
-//   * grid (B H, query tiles), the query tile reversed (the last, heaviest
-//     causal tile of every head is dispatched first), so the light tiles
-//     fill in at the end.
-//   * K/V tiles of 32 keys come through shared memory with 16-byte
-//     cp.async, one buffer each, staggered: K(j+1) loads while the softmax
-//     and P.V(j) run, V(j+1) while Q.K^T(j+1) runs (a tile pair in flight
-//     at half the shared memory of double buffering). Rows are padded by 4
-//     floats, which makes the fragment reads free of bank conflicts.
-//     Operands are split on the fly; in Q.K^T the small products go to
-//     their own accumulators, doubling the independent mma chains.
-//   * mma.m16n8k8 tf32. The C layout (thread t holds keys 2t, 2t+1 of an
-//     n8 tile) and the A layout (keys t, t+4) differ, so P stays in
-//     registers and V's rows are permuted within each k-step instead: A's
-//     logical key t is physical key 2t, logical t+4 is 2t+1, and the B
-//     fragment reads V rows 2t and 2t+1.
-//   * ragged Sq, Skv and dh are zero-filled in shared memory (cp.async's
-//     src-size 0); tensors whose rows are not 16-byte aligned take the same
-//     kernel with per-element loads and stores (the `vec` flag, chosen by
-//     the wrapper), never a copy. Shared memory (64 query + 2 x 32 kv rows)
-//     x 132 floats: 67,584 B at dh = 128.
+// f32 design (`fwd_tf32_kernel`: split TF32 on warpgroup products):
+//   * tf32 wgmma reads its B operand from shared memory only K-major, and
+//     a split operand takes twice its f32 bytes. B is K (keys x dh) for
+//     S = Q K^T and V^T (dh x keys) for O += P V, which TMA cannot read
+//     transposed. So a pass before the kernel (`split_kv_kernel`) writes
+//     k and v^T, each split into hi and lo planes, into f32 scratch the
+//     wrapper allocates per call (4 B KV Skv dh floats: 134 MB at the
+//     qwen3-4b shape), reading k and v through their strides; TMA then
+//     brings the key tiles split and K-major, and no block splits one.
+//     Within each k-step of 8 keys, V^T's column t holds key 2t and t + 4
+//     key 2t + 1: P's accumulator registers (keys 2t, 2t + 1) are then the
+//     A fragment of P V as they stand, with no shuffle.
+//   * the bf16 kernel's block: three warpgroups per (batch item x head,
+//     query tile of 128 rows), two consumers of 64 rows each and a
+//     producer whose first thread issues every copy: Q once (raw f32,
+//     boxes of 32 columns x 64 rows with the 128-byte swizzle), then the
+//     split K tiles and V^T tiles into two `mbarrier` rings (K(j) is
+//     freed when S(j) is in, V(j) when P V(j) is, so each load has a
+//     whole tile's time).
+//     `setmaxnreg` moves registers to the consumers. The grid is
+//     one-dimensional: heads in groups of 8 (a split kv head takes 4 MB
+//     at S = 2048, dh = 128), all query tiles of a group together, the
+//     heaviest causal tile first.
+//   * every A operand comes from registers: Q's fragments are split as
+//     they are loaded from the raw tile (by rows, one k-step ahead of the
+//     products), P's from the softmax's registers. S = Q K^T is two fresh
+//     chains per tile, hi.hi in one and lo.hi, hi.lo in the other, added
+//     in f32 (the tensor cores add into an accumulator by truncation; one
+//     chain of all three carries three times the truncations at the
+//     scores' size); P V is one fresh chain per tile, added to O in f32
+//     registers: O chained through every tile drifts (the CPU emulation,
+//     tests/test_torch_flash_fwd_f32.py, puts this design 1.2-3.7x closer
+//     to f64 than the mma.sync kernel before it).
+//   * per tile each consumer issues S(j) and P V(j - 1) together, waits
+//     for S(j), runs its softmax (pinned, as the bf16 kernel's) while
+//     P V(j - 1) runs, then waits for it, adds it and rescales O. Every
+//     product sits in code both consumers run, and none is left in flight
+//     across the loop's back edge (ptxas would serialize them).
+//   * KEYS = 64 keys per tile at dh <= 64; 32 at dh = 128, where split
+//     tiles of 64 keys (64 KB of K and 64 of V^T) leave no room beside Q
+//     for a second stage. Shared memory at dh = 128: Q 64 KB + 2 stages x
+//     (K, V^T) x (hi, lo) x 16 KB = 192 KB; at dh = 64, 160 KB (one block
+//     of 384 threads per SM).
+//   * masks apply per element only on edge tiles; tiles a warpgroup's
+//     rows do not see are skipped (their stages freed), so a window costs
+//     O(S W). q and o must be legal for TMA (dh a multiple of 4, rows on
+//     16 bytes): the wrapper pads or copies others, this entry refuses
+//     them.
 //
 // bf16 design (`fwd_wgmma_kernel`: warpgroup products on TMA tiles):
 //   * a block of three warpgroups per (batch item x head, query tile of 128
@@ -137,298 +155,6 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-
-// ---- f32: split TF32 on mma.sync ----
-
-constexpr int WARPS = 4;
-constexpr int NT = 32 * WARPS;     // threads per block
-constexpr int BQ = 16 * WARPS;     // query rows per block
-constexpr int BKV = 32;            // keys per kv tile
-constexpr int PAD = 4;             // floats of padding per shared row
-constexpr int MIN_BLOCKS = 3;      // blocks per SM to aim for
-
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
-// x = hi + lo: hi = x rounded to TF32 (10 mantissa bits, to nearest, ties
-// away from zero: what cvt.rna.tf32.f32 gives, for finite x); lo = x - hi
-// is exact in f32 and goes to the tensor core as it is, which reads its
-// TF32 part (the top 19 bits: lo truncated, at most 2^-21 of x).
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// ROWS rows of DHP floats from global row r0 on (rows >= n_rows and
-// columns >= dh zero-filled) into shared rows of LD floats.
-template <int DHP, int ROWS, bool VEC>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long stride, int r0,
-                                          int n_rows, int dh, int tid) {
-  constexpr int LD = DHP + PAD;
-  if constexpr (VEC) {
-    constexpr int CPR = DHP / 4;          // 16-byte chunks per row
-    for (int c = tid; c < ROWS * CPR; c += NT) {
-      const int r = c / CPR;
-      const int d = (c - r * CPR) * 4;
-      const int gr = r0 + r;
-      const bool ok = gr < n_rows && d < dh;
-      cp_async16(dst + r * LD + d, ok ? src + gr * stride + d : src,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int e = tid; e < ROWS * DHP; e += NT) {
-      const int r = e / DHP;
-      const int d = e - r * DHP;
-      const int gr = r0 + r;
-      dst[r * LD + d] = (gr < n_rows && d < dh) ? src[gr * stride + d] : 0.f;
-    }
-  }
-}
-
-// s[NS][4] = Q K^T for this warp's 16 rows (sQ) and the tile's BKV keys.
-template <int DHP, int NS, int LD>
-__device__ __forceinline__ void scores(float (*s)[4], const float* sQ,
-                                       const float* sK, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  float small[NS][4];                  // the two small products apart:
-#pragma unroll                         // twice the independent chains
-  for (int n = 0; n < NS; ++n)
-    small[n][0] = small[n][1] = small[n][2] = small[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DHP / 8; ++kk) {
-    const float* qr = sQ + g * LD + kk * 8 + t;
-    uint32_t ah[4], al[4];
-    split(qr[0], ah[0], al[0]);
-    split(qr[8 * LD], ah[1], al[1]);
-    split(qr[4], ah[2], al[2]);
-    split(qr[8 * LD + 4], ah[3], al[3]);
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-      const float* kr = sK + (nt * 8 + g) * LD + kk * 8 + t;
-      uint32_t bh0, bl0, bh1, bl1;
-      split(kr[0], bh0, bl0);
-      split(kr[4], bh1, bl1);
-      mma_tf32(small[nt], al, bh0, bh1);
-      mma_tf32(small[nt], ah, bl0, bl1);
-      mma_tf32(s[nt], ah, bh0, bh1);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < NS; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] += small[n][e];
-  }
-}
-
-// o[NO][4] += P V, P (this warp's 16 rows x BKV keys) in score layout.
-template <int DHP, int NS, int LD>
-__device__ __forceinline__ void accumulate(float (*o)[4],
-                                           const float (*p)[4],
-                                           const float* sV, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kt = 0; kt < NS; ++kt) {
-    // A's logical key t is the score tile's key 2t, logical t+4 is 2t+1.
-    uint32_t ah[4], al[4];
-    split(p[kt][0], ah[0], al[0]);
-    split(p[kt][2], ah[1], al[1]);
-    split(p[kt][1], ah[2], al[2]);
-    split(p[kt][3], ah[3], al[3]);
-#pragma unroll
-    for (int nt = 0; nt < DHP / 8; ++nt) {
-      const float* vr = sV + (kt * 8 + 2 * t) * LD + nt * 8 + g;
-      uint32_t bh0, bl0, bh1, bl1;
-      split(vr[0], bh0, bl0);
-      split(vr[LD], bh1, bl1);
-      mma_tf32(o[nt], al, bh0, bh1);
-      mma_tf32(o[nt], ah, bl0, bl1);
-      mma_tf32(o[nt], ah, bh0, bh1);
-    }
-  }
-}
-
-template <int DHP, bool VEC>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS)
-flash_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       int H, int G, int Sq, int Skv, int dh, Strides qs,
-                       Strides ks, Strides vs, Strides os, int causal,
-                       int window, float scale_log2,
-                       float* __restrict__ lse) {
-  constexpr int LD = DHP + PAD;
-  constexpr int NS = BKV / 8;          // n8 score tiles per warp
-  constexpr int NO = DHP / 8;          // n8 output tiles per warp
-  static_assert(NS * 4 <= 32, "one mask bit per score register");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);   // BQ rows
-  float* sK = sQ + BQ * LD;                         // BKV rows
-  float* sV = sK + BKV * LD;                        // BKV rows
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
-  const int q_lo = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
-  const int q_hi = min(q_lo + BQ, Sq) - 1;
-  const float* qp = q + b * qs.b + h * qs.h;
-  const float* kp = k + b * ks.b + (h / G) * ks.h;
-  const float* vp = v + b * vs.b + (h / G) * vs.h;
-  float* op = o + b * os.b + h * os.h;
-
-  const int n_kv = (Skv + BKV - 1) / BKV;
-  const int j_end = causal ? min(n_kv, q_hi / BKV + 1) : n_kv;
-  const int j_begin = window > 0 ? max(0, q_lo - window + 1) / BKV : 0;
-
-  // Copy groups, in order: {Q, K(j_begin)}, {V(j_begin)}, then per tile
-  // {K(j+1)} after Q K(j)^T is read and {V(j+1)} after P V(j): each load
-  // runs under the other half of the tile's work. A group may be empty.
-  load_rows<DHP, BQ, VEC>(sQ, qp, qs.s, q_lo, Sq, dh, tid);
-  if (j_begin < j_end)
-    load_rows<DHP, BKV, VEC>(sK, kp, ks.s, j_begin * BKV, Skv, dh, tid);
-  cp_async_commit();
-  if (j_begin < j_end)
-    load_rows<DHP, BKV, VEC>(sV, vp, vs.s, j_begin * BKV, Skv, dh, tid);
-  cp_async_commit();
-
-  // Rows g and g + 8 of this warp's 16: m, l (this thread's columns; the
-  // quad's sum is taken at the end) and O.
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const int qi0 = q_lo + warp * 16 + g;
-
-  for (int jt = j_begin; jt < j_end; ++jt) {
-    const bool more = jt + 1 < j_end;
-    cp_async_wait<1>();                // K(jt) (and Q) have landed
-    __syncthreads();
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    scores<DHP, NS, LD>(s, sQ + warp * 16 * LD, sK, lane);
-    __syncthreads();                   // every warp has read K(jt)
-    if (more)
-      load_rows<DHP, BKV, VEC>(sK, kp, ks.s, (jt + 1) * BKV, Skv, dh, tid);
-    cp_async_commit();
-
-    const int k_lo = jt * BKV;
-    const bool edge = (causal && k_lo + BKV - 1 > q_lo) ||
-                      (window > 0 && k_lo <= q_lo + BQ - 1 - window) ||
-                      k_lo + BKV > Skv;
-    uint32_t dead = 0;                 // bit 4n + e: s[n][e] is masked
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] *= scale_log2;
-        if (edge) {
-          const int qi = qi0 + (e >> 1) * 8;
-          const int kj = k_lo + n * 8 + 2 * t + (e & 1);
-          const bool live = kj < Skv && (!causal || kj <= qi) &&
-                            (window <= 0 || kj > qi - window);
-          if (!live) {
-            s[n][e] = NEG_INF;
-            dead |= 1u << (4 * n + e);
-          }
-        }
-      }
-    }
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = (dead >> (4 * n + e)) & 1u
-                            ? 0.f
-                            : exp2f(s[n][e] - m[e >> 1]);
-        s[n][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-    cp_async_wait<1>();                // V(jt) has landed
-    __syncthreads();
-    accumulate<DHP, NS, LD>(acc, s, sV, lane);
-    __syncthreads();                   // every warp has read V(jt)
-    if (more)
-      load_rows<DHP, BKV, VEC>(sV, vp, vs.s, (jt + 1) * BKV, Skv, dh, tid);
-    cp_async_commit();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = fmaxf(l[r], 1e-30f);
-  }
-  if (lse != nullptr && t == 0) {       // the backward's row statistics
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int qi = qi0 + r * 8;
-      if (qi < Sq) lse[(long long)blockIdx.x * Sq + qi] = m[r] + log2f(l[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = qi0 + r * 8;
-    if (qi >= Sq) continue;
-    float* row = op + qi * os.s;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const int d = n * 8 + 2 * t;
-      const float x = acc[n][2 * r] / l[r];
-      const float y = acc[n][2 * r + 1] / l[r];
-      if (VEC) {                       // dh is even: d < dh => d + 1 < dh
-        if (d < dh) store2(row + d, x, y);
-      } else {
-        if (d < dh) row[d] = x;
-        if (d + 1 < dh) row[d + 1] = y;
-      }
-    }
-  }
-}
-
-template <int DHP, bool VEC>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   int B, int H, int KV, int Sq, int Skv, int dh,
-                   const Strides* st, int causal, int window,
-                   float scale_log2, float* lse, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (BQ + 2 * BKV) * (size_t)(DHP + PAD);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<DHP, VEC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_attention_kernel<DHP, VEC><<<grid, NT, smem, stream>>>(
-      q, k, v, o, H, H / KV, Sq, Skv, dh, st[0], st[1], st[2], st[3], causal,
-      window, scale_log2, lse);
-  return cudaGetLastError();
-}
 
 // ---- bf16: wgmma on tiles brought by TMA, a producer warp per block ----
 
@@ -535,6 +261,15 @@ __device__ __forceinline__ void softmax_pinned(float (*sc)[4], float* m,
                "+f"(alpha[0]), "+f"(alpha[1])::"memory");
 }
 
+// x += y, elementwise over NT n8 accumulator tiles.
+template <int NT>
+__device__ __forceinline__ void add(float (*x)[4], const float (*y)[4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] += y[n][e];
+}
+
 template <int NO>
 __device__ __forceinline__ void rescale(float (*acc)[4], const float* alpha) {
 #pragma unroll
@@ -599,12 +334,13 @@ __device__ __forceinline__ void issue_pv(float (*acc)[4],
   wg_commit();
 }
 
-// Whether a mask can bite inside the tile of keys from k_lo for the rows
-// qw_lo .. qw_hi.
+// Whether a mask can bite inside the tile of KT keys from k_lo for the
+// rows qw_lo .. qw_hi.
+template <int KT = FW_KT>
 __device__ __forceinline__ bool edge_tile(int k_lo, int qw_lo, int qw_hi,
                                           int Skv, int causal, int window) {
-  return (causal && k_lo + FW_KT - 1 > qw_lo) ||
-         (window > 0 && qw_hi - k_lo >= window) || k_lo + FW_KT > Skv;
+  return (causal && k_lo + KT - 1 > qw_lo) ||
+         (window > 0 && qw_hi - k_lo >= window) || k_lo + KT > Skv;
 }
 
 // o (bf16, through its strides) and, when lse is not null, each row's
@@ -834,6 +570,446 @@ cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return cudaGetLastError();
 }
 
+// ---- f32: split TF32 on wgmma, TMA tiles, a producer warp per block ----
+
+constexpr int FT_NT = 384;           // consumer warpgroups 0, 1; producer 2
+constexpr int FT_QROWS = 128;        // query rows per block (64 each)
+// Depth of the K ring and of the V ring: a third stage at dh = 64 (it
+// fits) ran no faster on the H100.
+constexpr int FT_STAGES = 2;
+constexpr int FT_HEAD_GROUP = 8;     // heads whose query tiles run together
+constexpr int SPLIT_NT = 256;        // threads of the split pass
+constexpr int SPLIT_ROWS = 32;       // keys per split-pass block
+// Keys per staged tile: 64 at dh <= 64; 32 at dh = 128, where split tiles
+// of 64 keys (64 KB of K, 64 of V^T) would leave no room for a second
+// stage beside Q (64 KB).
+template <int DHP>
+__host__ __device__ constexpr int ft_keys() {
+  return DHP == 64 ? 64 : 32;
+}
+// Q's fragments come in batches of this many k-steps (two register
+// buffers of them): with two, the consumers spilled (196 bytes at
+// dh = 64, beside O, the P V part, the scores and P's split fragments);
+// with one they spill nowhere and ran as fast.
+constexpr int FT_QBATCH = 1;
+
+// The split key and value tiles the forward reads as B operands, in f32
+// scratch: k as hi and lo (contiguous (B, KV, Skv, dh) planes), v
+// transposed as hi and lo ((B, KV, dh, skvp) planes, skvp = Skv rounded up
+// to a multiple of 8, the columns past Skv zero), so TMA brings them split
+// and K-major and no block splits a tile. Within each k-step of 8 keys,
+// V^T's column t holds key 2t and column t + 4 key 2t + 1 (`kperm`): P's
+// accumulator registers are then the A fragment of P V as they stand. One
+// block per (batch item x kv head, SPLIT_ROWS keys); v goes through shared
+// memory, so both the reads and the transposed writes are coalesced.
+__global__ void __launch_bounds__(SPLIT_NT)
+split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                float* __restrict__ kh, float* __restrict__ kl,
+                float* __restrict__ vh, float* __restrict__ vl, int KV,
+                int Skv, int skvp, int dh, Strides ks, Strides vs) {
+  __shared__ float sv[SPLIT_ROWS][129];
+  const int b = blockIdx.x / KV, kvh = blockIdx.x - b * KV;
+  const float* kp = k + b * ks.b + kvh * ks.h;
+  const float* vp = v + b * vs.b + kvh * vs.h;
+  const int j0 = blockIdx.y * SPLIT_ROWS;
+  const long long kbase = (long long)blockIdx.x * Skv * dh;
+  for (int e = threadIdx.x; e < SPLIT_ROWS * dh; e += SPLIT_NT) {
+    const int r = e / dh, d = e - r * dh, j = j0 + r;
+    float x = 0.f;
+    if (j < Skv) {
+      uint32_t hi, lo;
+      split(kp[j * ks.s + d], hi, lo);
+      kh[kbase + (long long)j * dh + d] = __uint_as_float(hi);
+      kl[kbase + (long long)j * dh + d] = __uint_as_float(lo);
+      x = vp[j * vs.s + d];
+    }
+    sv[r][d] = x;
+  }
+  __syncthreads();
+  const long long vbase = (long long)blockIdx.x * dh * skvp;
+  for (int e = threadIdx.x; e < dh * SPLIT_ROWS; e += SPLIT_NT) {
+    const int d = e / SPLIT_ROWS, c = e - d * SPLIT_ROWS;
+    if (j0 + c >= skvp) continue;
+    // column c holds key kperm^-1(c): t -> 2t, t + 4 -> 2t + 1
+    const int key = (c & ~7) | ((c & 3) << 1) | ((c >> 2) & 1);
+    uint32_t hi, lo;
+    split(sv[key][d], hi, lo);
+    vh[vbase + (long long)d * skvp + j0 + c] = __uint_as_float(hi);
+    vl[vbase + (long long)d * skvp + j0 + c] = __uint_as_float(lo);
+  }
+}
+
+// Shared memory of the f32 forward kernel (byte offsets from a 1024-byte
+// aligned base): raw Q (128 rows), the K ring (KEYS rows, hi and lo), the
+// V^T ring (DHP rows x KEYS columns, hi and lo), the barriers.
+template <int DHP>
+struct FwdF32Smem {
+  static constexpr int KEYS = ft_keys<DHP>();
+  static constexpr int TQ = FT_QROWS * DHP * 4;
+  static constexpr int TK = KEYS * DHP * 4;   // one plane of a K or V^T tile
+  static constexpr int Q = 0, K = TQ, V = K + FT_STAGES * 2 * TK;
+  static constexpr int BAR = V + FT_STAGES * 2 * TK;
+  static constexpr int BYTES = BAR + 8 * (4 * FT_STAGES + 1) + 1024;
+};
+
+// One V^T tile (DHP rows x KEYS columns from key k0 on) of a transposed
+// map (keys, dh rows, kv head, batch): KEYS / 32 column blocks, each one
+// box of DHP rows.
+template <int DHP, int KEYS>
+__device__ __forceinline__ void tma_vt_tile(unsigned char* dst,
+                                            const CUtensorMap* map, int k0,
+                                            int kvh, int b, uint64_t* bar) {
+#pragma unroll
+  for (int blk = 0; blk < KEYS / 32; ++blk)
+    tma_box(dst + blk * DHP * 128, map, k0 + 32 * blk, 0, kvh, b, bar);
+}
+
+// Issues S = Q K^T for the warpgroup's 64 rows (rows r0 .. of the raw Q
+// tile) over the KEYS keys of the split K tile (hi at kh, lo at kl), in
+// split TF32: per k-step lo.hi and hi.lo into `small`, hi.hi into `s`, each
+// a fresh chain (two accumulators: the large one then takes a third of the
+// tensor cores' truncating adds). Q's fragments are split as they are
+// loaded, in batches of FT_QBATCH k-steps into two register buffers: batch
+// b + 1 is loaded while batch b's products run. Leaves the last batch's
+// group in flight: the caller waits.
+template <int DHP, int KEYS>
+__device__ __forceinline__ void issue_scores_f32(float (*s)[4],
+                                                 float (*small)[4],
+                                                 const unsigned char* tq,
+                                                 int r0, uint32_t kh,
+                                                 uint32_t kl, int g, int t) {
+  constexpr int NK = DHP / 8, BK = FT_QBATCH, NB = NK / BK;
+  uint32_t fh[2][BK][4], fl[2][BK][4];
+#pragma unroll
+  for (int j = 0; j < BK; ++j)
+    frag_rows<FT_QROWS>(fh[0][j], fl[0][j], tq, r0, 8 * j, g, t);
+#pragma unroll
+  for (int bt = 0; bt < NB; ++bt) {
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < BK; ++j) {
+      const int kk = bt * BK + j;
+      const uint32_t* ah = fh[bt & 1][j];
+      const uint32_t* al = fl[bt & 1][j];
+      if (kk == 0) {
+        wgmma_tf32_first<KEYS>(small, al, kmajor<KEYS>(kh, 0, 0));
+        wgmma_tf32<KEYS>(small, ah, kmajor<KEYS>(kl, 0, 0), 1);
+        wgmma_tf32_first<KEYS>(s, ah, kmajor<KEYS>(kh, 0, 0));
+      } else {
+        wgmma_tf32<KEYS>(small, al, kmajor<KEYS>(kh, 0, kk), 1);
+        wgmma_tf32<KEYS>(small, ah, kmajor<KEYS>(kl, 0, kk), 1);
+        wgmma_tf32<KEYS>(s, ah, kmajor<KEYS>(kh, 0, kk), 1);
+      }
+    }
+    wg_commit();
+    if (bt + 1 < NB) {
+      wg_wait<1>();                      // batch bt - 1 has read its buffer
+#pragma unroll
+      for (int j = 0; j < BK; ++j)
+        frag_rows<FT_QROWS>(fh[(bt + 1) & 1][j], fl[(bt + 1) & 1][j], tq, r0,
+                            8 * ((bt + 1) * BK + j), g, t);
+    }
+  }
+}
+
+// Issues part = P V for the warpgroup (P split in registers: ph, pl, one
+// A fragment per k-step of 8 keys; V^T's split tile at vh, vl, K-major) as
+// one fresh chain (lo.hi, hi.lo, hi.hi per k-step), one wgmma group.
+template <int DHP, int NS>
+__device__ __forceinline__ void issue_pv_f32(float (*part)[4],
+                                             const uint32_t (*ph)[4],
+                                             const uint32_t (*pl)[4],
+                                             uint32_t vh, uint32_t vl) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < NS; ++kk) {
+    if (kk == 0)
+      wgmma_tf32_first<DHP>(part, pl[0], kmajor<DHP>(vh, 0, 0));
+    else
+      wgmma_tf32<DHP>(part, pl[kk], kmajor<DHP>(vh, 0, kk), 1);
+    wgmma_tf32<DHP>(part, ph[kk], kmajor<DHP>(vl, 0, kk), 1);
+    wgmma_tf32<DHP>(part, ph[kk], kmajor<DHP>(vh, 0, kk), 1);
+  }
+  wg_commit();
+}
+
+// P's A fragments for P V, split: k-step n is the score tile n, whose
+// registers (keys 2t, 2t + 1 of rows g, g + 8) are A's columns t, t + 4
+// under V^T's key order.
+template <int NS>
+__device__ __forceinline__ void split_p(uint32_t (*ph)[4], uint32_t (*pl)[4],
+                                        const float (*p)[4]) {
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    split(p[n][0], ph[n][0], pl[n][0]);
+    split(p[n][2], ph[n][1], pl[n][1]);
+    split(p[n][1], ph[n][2], pl[n][2]);
+    split(p[n][3], ph[n][3], pl[n][3]);
+  }
+}
+
+// o (f32, through its strides) and, when lse is not null, each row's
+// m + log2(l), for one 128-row query tile of one (batch item, head).
+template <int DHP>
+__global__ void __launch_bounds__(FT_NT, 1)
+fwd_tf32_kernel(const __grid_constant__ CUtensorMap mq,
+                const __grid_constant__ CUtensorMap mkh,
+                const __grid_constant__ CUtensorMap mkl,
+                const __grid_constant__ CUtensorMap mvh,
+                const __grid_constant__ CUtensorMap mvl,
+                float* __restrict__ o, Strides os, int H, int KV, int Sq,
+                int Skv, int dh, int causal, int window, float scale_log2,
+                float* __restrict__ lse) {
+  using L = FwdF32Smem<DHP>;
+  constexpr int KEYS = L::KEYS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const sm = align1024(smem_raw);
+  uint64_t* const kfull = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* const kempty = kfull + FT_STAGES;
+  uint64_t* const vfull = kempty + FT_STAGES;
+  uint64_t* const vempty = vfull + FT_STAGES;
+  uint64_t* const q_full = vempty + FT_STAGES;
+
+  // Block order (a 1-d grid): heads in groups of FT_HEAD_GROUP, all query
+  // tiles of a group's heads together, the heaviest first (as the bf16
+  // kernel's; a split kv head's K and V^T take 4 MB at S = 2048, dh = 128).
+  const int tid = threadIdx.x;
+  const int nq = (Sq + FT_QROWS - 1) / FT_QROWS;
+  const int group = blockIdx.x / (FT_HEAD_GROUP * nq);
+  const int in_group = blockIdx.x - group * FT_HEAD_GROUP * nq;
+  const int heads =
+      min(FT_HEAD_GROUP, gridDim.x / nq - group * FT_HEAD_GROUP);
+  const int bh = group * FT_HEAD_GROUP + in_group % heads;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int q_lo = (nq - 1 - in_group / heads) * FT_QROWS;
+  const int q_hi = min(q_lo + FT_QROWS, Sq) - 1;
+  const int n_kv = (Skv + KEYS - 1) / KEYS;
+  const int j_end = causal ? min(n_kv, q_hi / KEYS + 1) : n_kv;
+  const int j_begin =
+      window > 0 ? min(max(0, q_lo - window + 1) / KEYS, j_end) : 0;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < FT_STAGES; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&kempty[s], 8);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&vempty[s], 8);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid >> 7;
+  if (wg == 2) {                         // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        PRODUCER_REGS));
+    if (tid == 256) {
+      mbar_expect_tx(q_full, L::TQ);
+      tma_tile<DHP, FT_QROWS, 4>(sm + L::Q, &mq, q_lo, h, b, q_full);
+      for (int j = j_begin; j < j_end; ++j) {
+        const int n = j - j_begin, s = n % FT_STAGES;
+        const uint32_t ph = (n / FT_STAGES) & 1;
+        unsigned char* kt = sm + L::K + s * 2 * L::TK;
+        mbar_wait(&kempty[s], ph ^ 1);
+        mbar_expect_tx(&kfull[s], 2 * L::TK);
+        tma_tile<DHP, KEYS, 4, KEYS>(kt, &mkh, j * KEYS, kvh, b, &kfull[s]);
+        tma_tile<DHP, KEYS, 4, KEYS>(kt + L::TK, &mkl, j * KEYS, kvh, b,
+                                     &kfull[s]);
+        unsigned char* vt = sm + L::V + s * 2 * L::TK;
+        mbar_wait(&vempty[s], ph ^ 1);
+        mbar_expect_tx(&vfull[s], 2 * L::TK);
+        tma_vt_tile<DHP, KEYS>(vt, &mvh, j * KEYS, kvh, b, &vfull[s]);
+        tma_vt_tile<DHP, KEYS>(vt + L::TK, &mvl, j * KEYS, kvh, b,
+                               &vfull[s]);
+      }
+    }
+  } else {                               // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        CONSUMER_REGS));
+    constexpr int NO = DHP / 8;          // n8 output tiles
+    constexpr int NS = KEYS / 8;         // n8 score tiles, k-steps of P V
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int qw_lo = q_lo + 64 * wg;    // this warpgroup's 64 rows
+    const int qw_hi = min(qw_lo + 63, Sq - 1);
+    const int row0 = qw_lo + 16 * warp + g;   // this thread's rows (+ 8)
+    // the block's tiles [j_begin, j_end) that these rows see: [jw_begin,
+    // jw_end); the others only have their stages freed
+    const int jw_end =
+        qw_lo >= Sq ? j_begin
+                    : max(j_begin, causal ? min(j_end, qw_hi / KEYS + 1)
+                                          : j_end);
+    const int jw_begin =
+        window > 0 ? min(max(j_begin, max(0, qw_lo - window + 1) / KEYS),
+                         jw_end)
+                   : j_begin;
+    const unsigned char* tq = sm + L::Q;
+    const int r0 = 64 * wg + 16 * warp;  // this warp's rows of the Q tile
+    // tile n (counted from j_begin): its K stage (hi; lo TK on) and V^T's
+    auto k_at = [&](int n) {
+      return smem_addr(sm + L::K + (n % FT_STAGES) * 2 * L::TK);
+    };
+    auto v_at = [&](int n) {
+      return smem_addr(sm + L::V + (n % FT_STAGES) * 2 * L::TK);
+    };
+    auto wait_k = [&](int n) {
+      mbar_wait(&kfull[n % FT_STAGES], (n / FT_STAGES) & 1);
+    };
+    auto wait_v = [&](int n) {
+      mbar_wait(&vfull[n % FT_STAGES], (n / FT_STAGES) & 1);
+    };
+    auto skip = [&](int n) {             // a tile these rows do not see
+      wait_k(n);
+      wait_v(n);
+      release(&kempty[n % FT_STAGES], lane);
+      release(&vempty[n % FT_STAGES], lane);
+    };
+    float acc[NO][4], part[NO][4], sc[NS][4], small[NS][4], alpha[2];
+    uint32_t ph[NS][4], pl[NS][4];
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+    zero<NO>(acc);
+
+    // Per tile n: S(n) and P V(n - 1) issued together; S(n)'s wait, the
+    // K stage freed, the softmax (pinned) while P V(n - 1) runs; then its
+    // wait, the V stage freed, O = (O + part) alpha(n) in f32 (each tile's
+    // P V in fresh accumulators: the tensor cores add into an accumulator
+    // by truncation, and a chain through every tile drifts), P(n) split.
+    // No product is left in flight across the loop's back edge.
+    mbar_wait(q_full, 0);
+    int n = 0;
+    for (int j = j_begin; j < jw_begin; ++j, ++n) skip(n);
+    if (jw_begin < jw_end) {
+      wait_k(n);
+      issue_scores_f32<DHP, KEYS>(sc, small, tq, r0, k_at(n),
+                                  k_at(n) + L::TK, g, t);
+      wg_wait<0>();
+      pin<NS>(sc);
+      pin<NS>(small);
+      release(&kempty[n % FT_STAGES], lane);
+      add<NS>(sc, small);
+      softmax_pinned<NS>(
+          sc, m, l, alpha,
+          edge_tile<KEYS>(jw_begin * KEYS, qw_lo, qw_hi, Skv, causal,
+                          window),
+          row0, jw_begin * KEYS, t, Skv, causal, window, scale_log2);
+      split_p<NS>(ph, pl, sc);
+      int np = n++;                      // the tile P V still has to run
+      for (int j = jw_begin + 1; j < jw_end; ++j, ++n) {
+        wait_k(n);
+        wait_v(np);
+        issue_scores_f32<DHP, KEYS>(sc, small, tq, r0, k_at(n),
+                                    k_at(n) + L::TK, g, t);
+        issue_pv_f32<DHP, NS>(part, ph, pl, v_at(np), v_at(np) + L::TK);
+        wg_wait<1>();                    // S(n) is in; P V(n - 1) runs on
+        pin<NS>(sc);
+        pin<NS>(small);
+        release(&kempty[n % FT_STAGES], lane);
+        add<NS>(sc, small);
+        softmax_pinned<NS>(
+            sc, m, l, alpha,
+            edge_tile<KEYS>(j * KEYS, qw_lo, qw_hi, Skv, causal, window),
+            row0, j * KEYS, t, Skv, causal, window, scale_log2);
+        wg_wait<0>();
+        pin<NO>(part);
+        release(&vempty[np % FT_STAGES], lane);
+        add<NO>(acc, part);
+        rescale<NO>(acc, alpha);
+        split_p<NS>(ph, pl, sc);
+        np = n;
+      }
+      wait_v(np);
+      issue_pv_f32<DHP, NS>(part, ph, pl, v_at(np), v_at(np) + L::TK);
+      wg_wait<0>();
+      pin<NO>(part);
+      release(&vempty[np % FT_STAGES], lane);
+      add<NO>(acc, part);
+    }
+    for (int j = jw_end; j < j_end; ++j, ++n) skip(n);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = fmaxf(l[r], 1e-30f);
+    }
+    if (lse != nullptr && t == 0) {      // the backward's row statistics
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = row0 + 8 * r;
+        if (qi < Sq) lse[(long long)bh * Sq + qi] = m[r] + log2f(l[r]);
+      }
+    }
+    float* op = o + b * os.b + h * os.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = row0 + 8 * r;
+      if (qi >= Sq) continue;
+      float* row = op + qi * os.s;
+#pragma unroll
+      for (int nt = 0; nt < NO; ++nt) {
+        const int d = nt * 8 + 2 * t;    // dh % 4 == 0: d < dh => d + 1 < dh
+        if (d < dh)
+          *reinterpret_cast<float2*>(row + d) = make_float2(
+              acc[nt][2 * r] / l[r], acc[nt][2 * r + 1] / l[r]);
+      }
+    }
+  }
+}
+
+template <int DHP>
+cudaError_t launch_f32(const float* q, const float* k, const float* v,
+                       float* o, float* scratch, int B, int H, int KV,
+                       int Sq, int Skv, int dh, const Strides* st, int causal,
+                       int window, float scale_log2, float* lse,
+                       cudaStream_t stream) {
+  using L = FwdF32Smem<DHP>;
+  constexpr int smem = L::BYTES;
+  // the shared-memory limit is set once per process and device
+  static int attributes_set = -1;
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (attributes_set != device) {
+    err = cudaFuncSetAttribute(fwd_tf32_kernel<DHP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    attributes_set = device;
+  }
+  // scratch: k hi, k lo ((B, KV, Skv, dh) each), then v^T hi, v^T lo
+  // ((B, KV, dh, skvp) each)
+  const int skvp = (Skv + 7) & ~7;
+  const long long nk = (long long)B * KV * Skv * dh;
+  const long long nv = (long long)B * KV * dh * skvp;
+  float* kh = scratch;
+  float* kl = kh + nk;
+  float* vh = kl + nk;
+  float* vl = vh + nv;
+  const Strides ks{(long long)KV * Skv * dh, (long long)Skv * dh, dh};
+  const Strides vs{(long long)KV * dh * skvp, (long long)dh * skvp, skvp};
+  CUtensorMap mq, mkh, mkl, mvh, mvl;
+  if (!encode_rows(&mq, q, B, H, Sq, dh, st[0], 4) ||
+      !encode_rows(&mkh, kh, B, KV, Skv, dh, ks, 4, L::KEYS) ||
+      !encode_rows(&mkl, kl, B, KV, Skv, dh, ks, 4, L::KEYS) ||
+      !encode_rows(&mvh, vh, B, KV, dh, skvp, vs, 4, DHP) ||
+      !encode_rows(&mvl, vl, B, KV, dh, skvp, vs, 4, DHP))
+    return cudaErrorInvalidValue;
+  split_kv_kernel<<<dim3(B * KV, (Skv + SPLIT_ROWS - 1) / SPLIT_ROWS),
+                    SPLIT_NT, 0, stream>>>(k, v, kh, kl, vh, vl, KV, Skv,
+                                           skvp, dh, st[1], st[2]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fwd_tf32_kernel<DHP>
+      <<<B * H * ((Sq + FT_QROWS - 1) / FT_QROWS), FT_NT, smem, stream>>>(
+          mq, mkh, mkl, mvh, mvl, o, st[3], H, KV, Sq, Skv, dh, causal,
+          window, scale_log2, lse);
+  return cudaGetLastError();
+}
+
 bool valid(int B, int H, int KV, int Sq, int Skv, int dh, int window,
            int rows_per_block) {
   return B >= 1 && H >= 1 && (long long)B * H <= 2147483647LL && KV >= 1 &&
@@ -859,38 +1035,41 @@ extern "C" {
 // scaled scores): the backward kernel's (flash_attention_bwd.cu) softmax
 // statistics. Serving passes null.
 //
-// f32: `vec` (0/1) says that every row of q, k, v and o starts 16-byte
-// aligned and dh fills whole 16-byte chunks, so tiles load with cp.async
-// (checked: cudaErrorMisalignedAddress); otherwise per-element loads.
+// f32: q is read by TMA and o written in pairs, so dh must be a multiple
+// of 4 and every row of q and o must start on 16 bytes (each base
+// pointer, and each stride over an axis of more than one entry a positive
+// multiple of 4): cudaErrorInvalidValue and cudaErrorMisalignedAddress
+// otherwise (the wrapper pads dh and copies other inputs first). k and v
+// are read through their strides by the split pass into `scratch`: f32
+// scratch of 2 B KV Skv dh + 2 B KV dh ceil(Skv / 8) 8 floats, 16-byte
+// aligned (k as hi and lo, v transposed as hi and lo).
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int KV, int Sq, int Skv, int dh,
                         const long long* strides, int causal, int window,
-                        float scale_log2, int vec, void* lse, void* stream) {
-  if (!valid(B, H, KV, Sq, Skv, dh, window, BQ))
+                        float scale_log2, void* scratch, void* lse,
+                        void* stream) {
+  if (!valid(B, H, KV, Sq, Skv, dh, window, FT_QROWS) || dh % 4 != 0 ||
+      (long long)B * H * ((Sq + FT_QROWS - 1) / FT_QROWS) > 2147483647LL ||
+      (Skv + SPLIT_ROWS - 1) / SPLIT_ROWS > 65535)
     return (int)cudaErrorInvalidValue;
   Strides st[4];
   read_strides(strides, st);
-  if (vec) {                           // the wrapper's claim, checked
-    bool ok = dh % 4 == 0;
-    for (int t = 0; t < 12; ++t) ok = ok && strides[t] % 4 == 0;
-    const void* ptrs[4] = {q, k, v, o};
-    for (const void* p : ptrs)
-      ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-    if (!ok) return (int)cudaErrorMisalignedAddress;
-  }
+  if (!tma_rows(q, B, H, Sq, st[0], 4) || !tma_rows(o, B, H, Sq, st[3], 4) ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
   const float* qq = static_cast<const float*>(q);
   const float* kk = static_cast<const float*>(k);
   const float* vv = static_cast<const float*>(v);
   float* oo = static_cast<float*>(o);
+  float* sc = static_cast<float*>(scratch);
   float* ll = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_LAUNCH(DHP, VEC)                                                \
-  launch<DHP, VEC>(qq, kk, vv, oo, B, H, KV, Sq, Skv, dh, st, causal, window, \
-                   scale_log2, ll, s)
-  if (dh <= 64)
-    return (int)(vec ? FLASH_LAUNCH(64, true) : FLASH_LAUNCH(64, false));
-  return (int)(vec ? FLASH_LAUNCH(128, true) : FLASH_LAUNCH(128, false));
-#undef FLASH_LAUNCH
+  return (int)(dh <= 64 ? launch_f32<64>(qq, kk, vv, oo, sc, B, H, KV, Sq,
+                                         Skv, dh, st, causal, window,
+                                         scale_log2, ll, s)
+                        : launch_f32<128>(qq, kk, vv, oo, sc, B, H, KV, Sq,
+                                          Skv, dh, st, causal, window,
+                                          scale_log2, ll, s));
 }
 
 // bf16: q, k and v are read by TMA and o is written in pairs, so dh must
@@ -898,12 +1077,13 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
 // bytes (each base pointer, and each stride over an axis of more than one
 // entry a positive multiple of 8): cudaErrorInvalidValue and
 // cudaErrorMisalignedAddress otherwise. The wrapper pads dh and copies
-// other inputs first. `vec` is not read.
+// other inputs first. `scratch` is not read (null).
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          int B, int H, int KV, int Sq, int Skv, int dh,
                          const long long* strides, int causal, int window,
-                         float scale_log2, int vec, void* lse, void* stream) {
-  (void)vec;
+                         float scale_log2, void* scratch, void* lse,
+                         void* stream) {
+  (void)scratch;
   if (!valid(B, H, KV, Sq, Skv, dh, window, FW_QROWS) || dh % 8 != 0 ||
       (long long)B * H * ((Sq + FW_QROWS - 1) / FW_QROWS) > 2147483647LL)
     return (int)cudaErrorInvalidValue;

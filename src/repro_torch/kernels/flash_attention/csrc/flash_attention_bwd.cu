@@ -312,17 +312,6 @@ __host__ __device__ constexpr bool m_split() {
 }
 constexpr int TF_STAGES = 2;         // depth of the staged-tile rings
 
-// x to TF32, rounded to nearest (ties away from zero: cvt.rna.tf32.f32 for
-// finite x), as bits with the low 13 zero.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-// x = hi + lo, each rounded to TF32; x - hi is exact in f32.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
 // The split key tiles both products kernels read as B operands:
 // kc = k - kmean and v, each as hi and lo (contiguous (B, KV, Skv, dh)
 // planes in scratch), so TMA brings them split and no block splits a tile.
@@ -353,24 +342,6 @@ split_keys_kernel(const float* __restrict__ k, const float* __restrict__ v,
   }
 }
 
-__device__ __forceinline__ float lds(const unsigned char* tile, int off) {
-  return *reinterpret_cast<const float*>(tile + off);
-}
-__device__ __forceinline__ uint32_t ldu(const unsigned char* tile, int off) {
-  return *reinterpret_cast<const uint32_t*>(tile + off);
-}
-
-// The tf32 A fragment (rows g, g + 8; columns t, t + 4) of rows r0 .. and
-// columns c0 .. of a raw f32 tile of R rows (TMA's layout), split.
-template <int R>
-__device__ __forceinline__ void frag_rows(uint32_t* ah, uint32_t* al,
-                                          const unsigned char* tile, int r0,
-                                          int c0, int g, int t) {
-  split(lds(tile, sw_f32<R>(r0 + g, c0 + t)), ah[0], al[0]);
-  split(lds(tile, sw_f32<R>(r0 + g + 8, c0 + t)), ah[1], al[1]);
-  split(lds(tile, sw_f32<R>(r0 + g, c0 + t + 4)), ah[2], al[2]);
-  split(lds(tile, sw_f32<R>(r0 + g + 8, c0 + t + 4)), ah[3], al[3]);
-}
 // The A fragment of the transposed tile: A row m is tile column c0 + m, A
 // column t tile row r0 + 2t and column t + 4 row r0 + 2t + 1 (the k-step's
 // rows interleaved, as P and dS are written: `kperm`). Raw, split here.
@@ -399,13 +370,6 @@ __device__ __forceinline__ void frag_cols_split(uint32_t* ah, uint32_t* al,
   ah[2] = ldu(hi, o2), al[2] = ldu(lo, o2);
   ah[3] = ldu(hi, o3), al[3] = ldu(lo, o3);
 }
-// Where index x of a contraction lies in a K-major B operand that the
-// transposed A fragments above meet: within its k-step of 8, 2t -> t and
-// 2t + 1 -> t + 4.
-__device__ __forceinline__ int kperm(int x) {
-  return (x & ~7) | ((x & 7) >> 1) | ((x & 1) << 2);
-}
-
 // c = A B for the warpgroup over NK k-steps of 8 in split TF32 (c is a
 // fresh accumulator: the first wgmma has scale-d 0): per k-step lo.hi,
 // hi.lo, hi.hi, A's fragments from `frag(kk, hi, lo)`, B's hi and lo by

@@ -3,8 +3,7 @@
 // backward) include this file. kernels/_nvcc.py hashes every header a
 // source includes into the library's name, so an edit here rebuilds both.
 //
-//   * cp.async (16 bytes), mma.sync m16n8k8 tf32: the f32 kernels;
-//   * mbarrier, TMA boxes (64 or 32 rows x 128 bytes: 64 bf16 or 32 f32
+//   * mbarrier, TMA boxes (up to 256 rows x 128 bytes: 64 bf16 or 32 f32
 //     columns, 128-byte swizzle) and the tensor maps they read
 //     (cuTensorMapEncodeTiled through the runtime's driver entry point: the
 //     libraries link no libcuda);
@@ -12,9 +11,12 @@
 //     and the warpgroup products the bf16 kernels run (m64n64k16 and
 //     m64n128k16 with both operands in shared memory; m64n64k16 and
 //     m64n128k16 with A from registers and B read transposed), and the
-//     tf32 ones of the f32 backward (m64n32k8 and m64n64k8, A from
-//     registers, B K-major in shared memory: wgmma reads tf32 B only
-//     K-major);
+//     tf32 ones of the f32 kernels (m64n32k8, m64n64k8 and m64n128k8, A
+//     from registers, B K-major in shared memory: wgmma reads tf32 B only
+//     K-major; each also as the first product of a fresh chain, whose
+//     accumulators are outputs only);
+//   * split TF32 (x = hi + lo, both rounded to TF32) and the A fragments of
+//     raw f32 tiles, split as they are loaded;
 //   * named barriers and the proxy fence that makes threads' shared-memory
 //     writes visible to wgmma.
 //
@@ -42,30 +44,6 @@ constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes = 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// c += a b, one m16n8k8 tf32 product with f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -274,12 +252,42 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (*d)[4],
 template <int N>
 __device__ __forceinline__ void wgmma_tf32(float (*d)[4], const uint32_t* a,
                                            uint64_t db, int scale_d);
+// d = a b, the first product of a fresh chain: d is written only, so its
+// registers hold nothing live before the product is issued.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_first(float (*d)[4],
+                                                 const uint32_t* a,
+                                                 uint64_t db);
 
 #define HOPPER_ACC16(d)                                                     \
   "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),               \
       "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),           \
       "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),           \
       "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+// The same accumulators as outputs only (a fresh chain's first product).
+#define HOPPER_OUT16(d)                                                     \
+  "=f"(d[0][0]), "=f"(d[0][1]), "=f"(d[0][2]), "=f"(d[0][3]),               \
+      "=f"(d[1][0]), "=f"(d[1][1]), "=f"(d[1][2]), "=f"(d[1][3]),           \
+      "=f"(d[2][0]), "=f"(d[2][1]), "=f"(d[2][2]), "=f"(d[2][3]),           \
+      "=f"(d[3][0]), "=f"(d[3][1]), "=f"(d[3][2]), "=f"(d[3][3])
+#define HOPPER_OUT32(d)                                                     \
+  HOPPER_OUT16(d), "=f"(d[4][0]), "=f"(d[4][1]), "=f"(d[4][2]),             \
+      "=f"(d[4][3]), "=f"(d[5][0]), "=f"(d[5][1]), "=f"(d[5][2]),           \
+      "=f"(d[5][3]), "=f"(d[6][0]), "=f"(d[6][1]), "=f"(d[6][2]),           \
+      "=f"(d[6][3]), "=f"(d[7][0]), "=f"(d[7][1]), "=f"(d[7][2]),           \
+      "=f"(d[7][3])
+#define HOPPER_OUT64(d)                                                     \
+  HOPPER_OUT32(d), "=f"(d[8][0]), "=f"(d[8][1]), "=f"(d[8][2]),             \
+      "=f"(d[8][3]), "=f"(d[9][0]), "=f"(d[9][1]), "=f"(d[9][2]),           \
+      "=f"(d[9][3]), "=f"(d[10][0]), "=f"(d[10][1]), "=f"(d[10][2]),        \
+      "=f"(d[10][3]), "=f"(d[11][0]), "=f"(d[11][1]), "=f"(d[11][2]),       \
+      "=f"(d[11][3]), "=f"(d[12][0]), "=f"(d[12][1]), "=f"(d[12][2]),       \
+      "=f"(d[12][3]), "=f"(d[13][0]), "=f"(d[13][1]), "=f"(d[13][2]),       \
+      "=f"(d[13][3]), "=f"(d[14][0]), "=f"(d[14][1]), "=f"(d[14][2]),       \
+      "=f"(d[14][3]), "=f"(d[15][0]), "=f"(d[15][1]), "=f"(d[15][2]),       \
+      "=f"(d[15][3])
+#define HOPPER_REGS16                                                       \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 
 template <>
 __device__ __forceinline__ void wgmma_tf32<32>(float (*d)[4],
@@ -306,7 +314,59 @@ __device__ __forceinline__ void wgmma_tf32<64>(float (*d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (*d)[4],
+                                                const uint32_t* a,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{" HOPPER_REGS64 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : HOPPER_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_first<32>(float (*d)[4],
+                                                     const uint32_t* a,
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{" HOPPER_REGS16 "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : HOPPER_OUT16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_first<64>(float (*d)[4],
+                                                     const uint32_t* a,
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{" HOPPER_REGS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : HOPPER_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_first<128>(float (*d)[4],
+                                                      const uint32_t* a,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{" HOPPER_REGS64 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : HOPPER_OUT64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
 #undef HOPPER_ACC16
+#undef HOPPER_OUT16
+#undef HOPPER_OUT32
+#undef HOPPER_OUT64
+#undef HOPPER_REGS16
 #undef HOPPER_ACC32
 #undef HOPPER_ACC64
 #undef HOPPER_REGS32
@@ -365,6 +425,43 @@ __device__ __forceinline__ void to_a(uint32_t (*a)[4], const float (*c)[4]) {
     a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
     a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
   }
+}
+
+// x to TF32, rounded to nearest (ties away from zero: cvt.rna.tf32.f32 for
+// finite x), as bits with the low 13 zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = hi + lo, each rounded to TF32; x - hi is exact in f32.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ float lds(const unsigned char* tile, int off) {
+  return *reinterpret_cast<const float*>(tile + off);
+}
+__device__ __forceinline__ uint32_t ldu(const unsigned char* tile, int off) {
+  return *reinterpret_cast<const uint32_t*>(tile + off);
+}
+
+// The tf32 A fragment (rows g, g + 8; columns t, t + 4) of rows r0 .. and
+// columns c0 .. of a raw f32 tile of R rows (TMA's layout), split.
+template <int R>
+__device__ __forceinline__ void frag_rows(uint32_t* ah, uint32_t* al,
+                                          const unsigned char* tile, int r0,
+                                          int c0, int g, int t) {
+  split(lds(tile, sw_f32<R>(r0 + g, c0 + t)), ah[0], al[0]);
+  split(lds(tile, sw_f32<R>(r0 + g + 8, c0 + t)), ah[1], al[1]);
+  split(lds(tile, sw_f32<R>(r0 + g, c0 + t + 4)), ah[2], al[2]);
+  split(lds(tile, sw_f32<R>(r0 + g + 8, c0 + t + 4)), ah[3], al[3]);
+}
+
+// Where index x of a contraction lies in a K-major B operand that A
+// fragments taken from an accumulator (or read transposed) meet: within
+// its k-step of 8, 2t -> t and 2t + 1 -> t + 4.
+__device__ __host__ __forceinline__ int kperm(int x) {
+  return (x & ~7) | ((x & 7) >> 1) | ((x & 1) << 2);
 }
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {

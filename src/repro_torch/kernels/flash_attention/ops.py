@@ -35,18 +35,20 @@ strides over batch, head and sequence), so the model's (B, S, H, dh)
 projections go in as transposed views, without a copy; an input whose
 stride over dh is not 1 is copied to a contiguous one first. The output has q's strides when q is dense (no gaps between its
 elements, as in the model's transposed views) and contiguous strides
-otherwise (``torch.empty_like``). f32: tensors whose rows all start on 16
-bytes (``_layout.vector_loads``) are tiled with ``cp.async``; others take
-the same kernel with per-element loads. bf16: the kernel (``wgmma`` on
-tiles that TMA brings) reads q, k and v by TMA, so ``tma_inputs`` pads dh
-to a multiple of 8 and copies a tensor whose rows TMA cannot read
+otherwise (``torch.empty_like``). Both entries are ``wgmma`` kernels on
+tiles that TMA brings: bf16 reads q, k and v by TMA, f32 reads q by TMA
+and k and v through their strides in a split pass that writes them,
+split, into scratch the wrapper allocates per call
+(``fwd_scratch_floats``: 134 MB at the qwen3-4b prefill shape). So
+``tma_inputs`` pads dh to whole 16-byte rows (a multiple of 8 bf16 or 4
+f32 columns) and copies a tensor whose rows TMA cannot read
 (``_layout.tma_rows``); the model's views need neither.
 
 The kernel's arithmetic departs from the reference's in two places, both
 held by the tests: for f32 inputs each product is split TF32 (x = hi +
-lo, three TF32 products, f32 accuracy); for bf16 inputs P is rounded to
-bf16 before P·V (the reference keeps it in f32), within
-``bf16_error_bound`` of the plain version.
+lo, both rounded to TF32, three TF32 products, f32 accuracy); for bf16
+inputs P is rounded to bf16 before P·V (the reference keeps it in f32),
+within ``bf16_error_bound`` of the plain version.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._layout import tma_rows, vector_loads
+from repro_torch.kernels._layout import tma_rows
 from repro_torch.kernels._nvcc import Library
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -64,9 +66,9 @@ CSRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 CSRC_BWD = CSRC.with_name("flash_attention_bwd.cu")
 _ptr, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # q, k, v, o, B, H, KV, Sq, Skv, dh, strides, causal, window, scale_log2,
-# vec, lse (or None), stream
+# scratch (f32; None for bf16), lse (or None), stream
 _SIG = [_ptr, _ptr, _ptr, _ptr, _i32, _i32, _i32, _i32, _i32, _i32, _ptr,
-        _i32, _i32, _f32, _i32, _ptr, _ptr]
+        _i32, _i32, _f32, _ptr, _ptr, _ptr]
 LIB = Library(CSRC, {"flash_attention_f32": _SIG,
                      "flash_attention_bf16": _SIG},
               "flash_attention_error_string")
@@ -114,12 +116,21 @@ def _unit_dh(*ts):
     return [t if t.stride(3) == 1 else t.contiguous() for t in ts]
 
 
+def fwd_scratch_floats(B, KV, Skv, dh):
+    """f32 floats of the f32 forward's scratch: k split into hi and lo
+    ((B, KV, Skv, dh) each) and v transposed, split ((B, KV, dh, Skv
+    rounded up to a multiple of 8) each), which the kernel's split pass
+    writes and its TMA tiles read."""
+    return 2 * B * KV * dh * (Skv + -(-Skv // 8) * 8)
+
+
 def _launch(q, k, v, causal, window, want_lse=False):
     """One launch of the kernel on CUDA tensors; raises on what it does
-    not take and on a refused launch. bf16 operands go through
+    not take and on a refused launch. The operands go through
     ``tma_inputs`` first (the kernel sees the padded dh, the scale stays
-    that of the true dh, and o is sliced back). Returns o, and with
-    ``want_lse`` also each row's log-sum-exp (B, H, Sq) f32 in the
+    that of the true dh, and o is sliced back); f32 launches also get
+    their split pass's scratch (``fwd_scratch_floats``). Returns o, and
+    with ``want_lse`` also each row's log-sum-exp (B, H, Sq) f32 in the
     kernel's log2 units (the backward's input)."""
     B, H, Sq, dh = q.shape
     KV, Skv = k.shape[1], k.shape[2]
@@ -129,12 +140,13 @@ def _launch(q, k, v, causal, window, want_lse=False):
                          f"Sq={Sq}")
     q, k, v = _unit_dh(q, k, v)
     f32 = q.dtype == torch.float32
-    dhp = dh
-    if not f32:
-        (q, k, v), dhp = tma_inputs(q, k, v)
+    (q, k, v), dhp = tma_inputs(q, k, v)
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
+    scratch = (torch.empty(fwd_scratch_floats(B, KV, Skv, dhp),
+                           dtype=torch.float32, device=q.device)
+               if f32 else None)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     lib = LIB.load()
     fn = lib.flash_attention_f32 if f32 else lib.flash_attention_bf16
@@ -143,7 +155,7 @@ def _launch(q, k, v, causal, window, want_lse=False):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  B, H, KV, Sq, Skv, dhp, (ctypes.c_longlong * 12)(*strides),
                  int(causal), int(window), dh ** -0.5 * LOG2E,
-                 int(f32 and vector_loads(q, k, v, o)),
+                 None if scratch is None else scratch.data_ptr(),
                  None if lse is None else lse.data_ptr(), stream)
     LIB.check(err, "flash_attention")
     if dhp != dh:
@@ -171,12 +183,13 @@ def _pad_dh(ts):
 
 
 def tma_inputs(q, k, v):
-    """The bf16 forward's operands made legal for the kernel's TMA loads:
-    dh padded with zeros to a multiple of 8, then each of q, k and v
-    whose rows TMA cannot read copied to a contiguous tensor. Zero columns
-    change no score and no output column the caller keeps; the kernel's
-    scale stays that of the true dh. Returns [q, k, v] and the padded
-    dh."""
+    """The forward's operands made legal for the kernel's TMA loads: dh
+    padded with zeros to whole 16-byte rows (a multiple of 8 bf16 or 4 f32
+    columns), then each of q, k and v whose rows TMA cannot read copied to
+    a contiguous tensor (the f32 kernel reads q by TMA and k and v by
+    plain loads, into its split copies). Zero columns change no score and
+    no output column the caller keeps; the kernel's scale stays that of
+    the true dh. Returns [q, k, v] and the padded dh."""
     ts, dhp = _pad_dh((q, k, v))
     return [_tma_legal(t) for t in ts], dhp
 

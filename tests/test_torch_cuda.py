@@ -711,11 +711,11 @@ def test_flash_kernel_tile_edges(cuda, B, H, KV, Sq, Skv, dh, win, causal,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_per_element_path(cuda, dtype):
-    """Rows that do not start on 16 bytes (an odd sequence stride): f32
-    takes the kernel's per-element loads and stores, not a copy or a
-    refusal; bf16, which the kernel reads by TMA, passes as contiguous
-    copies (``ops.tma_inputs``). q is not dense, so o has contiguous
-    strides."""
+    """Rows that do not start on 16 bytes (an odd sequence stride): both
+    dtypes, whose kernels read q (bf16: and k, v) by TMA, pass as
+    contiguous copies (``ops.tma_inputs``), not a refusal; the f32
+    kernel's split pass reads k and v by plain loads. q is not dense, so
+    o has contiguous strides."""
     q, k, v = (t[..., :40] for t in _flash_inputs(2, 4, 2, 70, 41, dtype,
                                                   cuda))
     assert not vector_loads(q, k, v)
@@ -783,12 +783,79 @@ def test_flash_bf16_entry_refuses_what_tma_cannot_read(cuda):
         strides = (ctypes.c_longlong * 12)(*(list(t.stride()[:3]) * 3
                                              + list(o.stride()[:3])))
         return fn(t.data_ptr(), t.data_ptr(), t.data_ptr(), o.data_ptr(), B,
-                  H, H, S, S, d, strides, 1, 0, 0.18, 1, None,
+                  H, H, S, S, d, strides, 1, 0, 0.18, None, None,
                   torch.cuda.current_stream().cuda_stream)
     assert call(x, dh) == 0
     torch.cuda.synchronize()
     assert call(x, 60) == 1                  # cudaErrorInvalidValue
     assert call(x[..., 1:], dh) == 716       # cudaErrorMisalignedAddress
+
+
+def test_flash_f32_entry_refuses_what_tma_cannot_read(cuda):
+    """Called directly, the forward's f32 entry refuses dh off a multiple
+    of 4 (invalid value), and a row of q or o off 16 bytes and scratch off
+    16 bytes (misaligned address): the wrapper pads or copies such inputs
+    and allocates the scratch, so a model never meets it. k and v are read
+    by plain loads: a k row off 16 bytes is taken, and matches the plain
+    version."""
+    import ctypes
+    B, H, S, dh = 1, 2, 64, 64
+    x = torch.randn((B, H, S, dh + 4), device=cuda)
+    o = torch.empty((B, H, S, dh), device=cuda)
+    scratch = torch.zeros(flash_ops.fwd_scratch_floats(B, H, S, dh) + 4,
+                          device=cuda)
+    fn = flash_ops.LIB.load().flash_attention_f32
+
+    def call(qt, kt, d, out=o, sp=scratch.data_ptr()):
+        strides = (ctypes.c_longlong * 12)(*(list(qt.stride()[:3])
+                                             + list(kt.stride()[:3]) * 2
+                                             + list(out.stride()[:3])))
+        return fn(qt.data_ptr(), kt.data_ptr(), kt.data_ptr(),
+                  out.data_ptr(), B, H, H, S, S, d, strides, 1, 0,
+                  dh ** -0.5 * 1.4426950408889634, sp, None,
+                  torch.cuda.current_stream().cuda_stream)
+    assert call(x, x, dh) == 0
+    torch.cuda.synchronize()
+    assert call(x, x, 62) == 1               # cudaErrorInvalidValue
+    assert call(x[..., 1:], x, dh) == 716    # cudaErrorMisalignedAddress
+    wide = torch.empty((B, H, S, dh + 1), device=cuda)
+    assert call(x, x, dh, out=wide[..., 1:]) == 716
+    assert call(x, x, dh, sp=scratch.data_ptr() + 4) == 716
+    assert call(x, x[..., 1:], dh) == 0      # k, v through their strides
+    torch.cuda.synchronize()
+    kv = x[..., 1:dh + 1]
+    torch.testing.assert_close(o, attention_ref(x[..., :dh], kv, kv),
+                               atol=FLASH_F32_ERR_MAX, rtol=0)
+
+
+# The f32 forward reads q by TMA: dh off a multiple of 4 is padded by the
+# wrapper (q, k and v), rows TMA cannot read are copied, a stride over dh
+# other than 1 is copied. (B, H, KV, Sq, Skv, dh, window, causal, layout)
+FLASH_F32_COPIED = [(1, 4, 2, 200, 200, 18, 0, True, "contiguous"),
+                    (1, 4, 2, 150, 150, 98, 30, True, "transposed"),
+                    (2, 2, 1, 130, 97, 37, 0, False, "unaligned"),
+                    (1, 4, 2, 150, 150, 96, 30, True, "strided"),
+                    (2, 4, 4, 77, 77, 61, 0, True, "strided")]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,dh,win,causal,layout",
+                         FLASH_F32_COPIED)
+def test_flash_f32_takes_padded_and_copied_operands(cuda, B, H, KV, Sq, Skv,
+                                                    dh, win, causal, layout):
+    """The f32 forward through the wrapper on operands it pads (dh off a
+    multiple of 4) or copies (rows off 16 bytes, a stride over dh), and
+    the model's transposed views as they are: within FLASH_F32_ERR_MAX of
+    the plain version, o the shape of q, one launch per call."""
+    rng = np.random.default_rng(Sq + dh + 3)
+    q, k, v = (torch.tensor(rng.standard_normal((B, n, s, dh)).astype(
+        np.float32), device=cuda) for n, s in ((H, Sq), (KV, Skv),
+                                               (KV, Skv)))
+    q, k, v = _bwd_layout([q, k, v], layout)
+    before = flash_attention.launches
+    o = flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and o.shape == q.shape
+    _assert_flash_matches(o, q, k, v, causal, win)
 
 
 # T = 1, T off the 16-step chunk, ragged dk (50: four column blocks, the

@@ -102,15 +102,17 @@ def test_wrapper_checks():
 
 
 # The CUDA kernel's arithmetic, emulated in plain torch on the CPU (the
-# kernel itself runs only on the card). f32 inputs: split TF32. Each
-# operand x is hi + lo, hi = x rounded to TF32 (10 mantissa bits, round to
-# nearest with ties away from zero, as cvt.rna), lo = x - hi, which the
-# tensor core reads as TF32 by dropping its low 13 bits; each product is
-# lo·hi + hi·lo + hi·hi in f32, over kv tiles of 32 keys. bf16 inputs: the
-# wgmma design (``_bf16_forward_emulation``): f32 products of the bf16
+# kernel itself runs only on the card). f32 inputs: the split-TF32 wgmma
+# design (``test_torch_flash_fwd_f32._f32_forward_emulation``): each
+# operand x is hi + lo, both rounded to TF32 (10 mantissa bits, round to
+# nearest with ties away from zero, as cvt.rna); each product lo·hi +
+# hi·lo + hi·hi in the tensor cores' truncating chains, query tiles of 128
+# rows in warpgroups of 64, key tiles of 64 (dh <= 64) or 32. bf16 inputs:
+# the wgmma design (``_bf16_forward_emulation``): f32 products of the bf16
 # values, P rounded to bf16 before P·V, query tiles of 128 rows in
 # warpgroups of 64, key tiles of 128. Both run the kernel's online softmax
-# with exp2 and the scale folded into log2 units.
+# with exp2 and the scale folded into log2 units. ``_split_mm`` is split
+# TF32 with lo truncated, the mma.sync kernel's before the wgmma design.
 LOG2E = 1.4426950408889634
 
 
@@ -132,41 +134,14 @@ def _split_mm(a, b):
 
 
 def _kernel_emulation(q, k, v, causal, window, skip=None):
-    """The kernel's tiled online softmax with its products, in f32.
-    ``skip``: the first key of a kv tile to leave out (a faulty kernel).
-    bf16 inputs take ``_bf16_forward_emulation`` (the wgmma design)."""
+    """The kernel's tiled online softmax with its products: f32 inputs
+    take ``_f32_forward_emulation``, bf16 inputs
+    ``_bf16_forward_emulation`` (the two wgmma designs). ``skip``: the
+    first key of a kv tile to leave out (a faulty kernel)."""
     if q.dtype == torch.bfloat16:
         return _bf16_forward_emulation(q, k, v, causal, window, skip)[0]
-    B, H, Sq, dh = q.shape
-    KV, Skv = k.shape[1], k.shape[2]
-    bkv = 32
-    mm = _split_mm
-    qf, kf, vf = (t.float() for t in (q, k, v))
-    kf = kf.repeat_interleave(H // KV, dim=1)
-    vf = vf.repeat_interleave(H // KV, dim=1)
-    scale = torch.tensor(dh ** -0.5 * LOG2E, dtype=torch.float32)
-    qi = torch.arange(Sq)[:, None]
-    m = torch.full((B, H, Sq, 1), -1e30)
-    l = torch.zeros((B, H, Sq, 1))
-    acc = torch.zeros((B, H, Sq, dh))
-    for k_lo in range(0, Skv, bkv):
-        if k_lo == skip:
-            continue
-        kj = torch.arange(k_lo, min(k_lo + bkv, Skv))[None, :]
-        live = torch.ones((Sq, kj.shape[1]), dtype=torch.bool)
-        if causal:
-            live &= kj <= qi
-        if window:
-            live &= kj > qi - window
-        s = mm(qf, kf[:, :, k_lo:k_lo + bkv].transpose(-1, -2)) * scale
-        s = torch.where(live, s, -1e30)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp2(m - m_new)
-        p = torch.where(live, torch.exp2(s - m_new), 0.0)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + mm(p, vf[:, :, k_lo:k_lo + bkv])
-        m = m_new
-    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+    from test_torch_flash_fwd_f32 import _f32_forward_emulation
+    return _f32_forward_emulation(q, k, v, causal, window, skip)[0]
 
 
 # The bf16 forward kernel's tiles (the wgmma design): 128 query rows per
@@ -241,9 +216,9 @@ def _bf16_forward_emulation(q, k, v, causal, window, skip=None,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_arithmetic_matches_reference_kernel(B, H, KV, S, dh, win,
                                                     dtype):
-    """The kernel's arithmetic (split TF32 in f32; P in bf16 for bf16
-    inputs) against the reference's Pallas kernel at the reference's own
-    kernel tolerance, 5e-5 in f32 and 5e-2 in bf16."""
+    """The kernel's arithmetic (the split-TF32 wgmma design in f32; P in
+    bf16 for bf16 inputs) against the reference's Pallas kernel at the
+    reference's own kernel tolerance, 5e-5 in f32 and 5e-2 in bf16."""
     (jq, jk, jv), (q, k, v) = _inputs(B, H, KV, S, dh, dtype, seed=S + dh)
     o_ref = jflash(jq, jk, jv, causal=True, window=win, block_q=32,
                    block_kv=32)
@@ -326,8 +301,9 @@ def test_tf32_rounding_is_cvt_rna():
 
 
 def test_vector_loads_decision():
-    """The wrapper gives the kernel 16-byte cp.async tiles only when every
-    row of every tensor starts on 16 bytes; otherwise per-element loads."""
+    """``_layout.vector_loads`` (the wkv wrapper's flag): 16-byte cp.async
+    tiles only when every row of every tensor starts on 16 bytes;
+    otherwise per-element loads."""
     from repro_torch.kernels._layout import vector_loads
     _, (q, k, v) = _inputs(2, 4, 2, 30, 32, "float32")
     assert vector_loads(q, k, v)
