@@ -11,10 +11,11 @@ order; any failure exits non-zero:
      TF32 switches (both off);
   2. build — the five kernel libraries (graph filter, flash attention and
      its backward, wkv and its backward), one ``nvcc`` each, all started
-     together; every instance of the wgmma flash kernels (the bf16
-     forward's and backward's, the f32 backward's split-TF32 ones) must
-     hold HGMMA instructions, and the f32 ones no local-memory loads or
-     stores (``cuobjdump -sass``);
+     together; every instance of the wgmma kernels (the flash kernels, the
+     bf16 forward's and backward's and the f32 ones' split-TF32 kernels;
+     the wkv forward's and backward's chunk-state passes) must hold HGMMA
+     instructions, and the split-TF32 ones no local-memory loads or stores
+     (``cuobjdump -sass``);
   3. kernel vs plain — the graph-filter kernel against its plain PyTorch
      version on the same inputs (numpy, seeded) at the reference's test
      shapes, at n = 129, 256 and 1000 (past the kernel's resident limit)
@@ -68,15 +69,18 @@ order; any failure exits non-zero:
      to every key (0, 10 and 30 times the keys' rms norm, which moves no
      gradient analytically): dq, dk, dv within 1e-4 of an f64 autograd
      step and the keys' summed dk within KEY_SUM_TOL;
-  6. wkv vs plain — at the reference's sweep shapes and the rwkv6-1.6b
+  6. wkv vs plain — at the reference's sweep shapes, a port-own shape
+     with a ragged last chunk (B=2, H=4, T=321, dk=64) and the rwkv6-1.6b
      prefill shape (B=4, H=32, T=2048, dk=64), y and the final state at
-     20x the reference's tolerance; the launch's grid and block, µs per
-     launch, plain time, bound;
+     20x the reference's tolerance, a rerun bit-equal; the y launch's
+     grid and block (a block per (batch item, head, 64-step chunk)), µs
+     per launch, plain time, bound;
   6b. wkv backward vs plain — dr, dk, dv, dw, du of the backward kernel
      against autograd through the plain version at phase 6's shapes (f32;
-     decays of 1e-7 at one of them), each within 1e-4 of the plain
-     gradient's largest entry, a rerun bit-equal; µs per launch, bound and
-     plain time at the rwkv6-1.6b shape;
+     decays of 1e-7 at one sweep shape and, across the first chunk
+     boundary, at steps 62-66 of the ragged one), each within 1e-4 of the
+     plain gradient's largest entry, a rerun bit-equal; µs per launch,
+     bound and plain time at the rwkv6-1.6b shape;
   7. serve — ``FederationServer`` at PAPER width (n=100, F=512, C=10,
      L=10, K=2) built with the DEFAULT mixer, so through the kernel: 24
      requests over two buckets; the kernel's launch count must be
@@ -425,7 +429,8 @@ HALO_SHARDS = (1, 2, 4, 5)
 SERVE_SHARDS = (2, 4, 8)
 # Flash attention: the reference's sweep shapes (B, H, KV, S, dh, window),
 # the qwen3-4b prefill and a gemma3 local-layer shape; wkv: the sweep
-# shapes (B, H, T, dk) and the rwkv6-1.6b prefill.
+# shapes (B, H, T, dk), a shape of the port's own whose last 64-step chunk
+# is ragged (several chunks), and the rwkv6-1.6b prefill.
 FLASH_SWEEP = [(1, 4, 4, 64, 32, 0), (2, 4, 2, 80, 32, 0),
                (1, 8, 2, 128, 64, 16), (1, 2, 1, 48, 16, 8)]
 FLASH_QWEN = (4, 32, 8, 2048, 128, 0)
@@ -437,6 +442,7 @@ FLASH_GEMMA_GLOBAL = (4, 32, 16, 2048, 128, 0)
 FLASH_DENSE = {"qwen2-72b/chameleon-34b": (4, 64, 8, 2048, 128, 0),
                "qwen1.5-32b": (4, 40, 40, 2048, 128, 0)}
 WKV_SWEEP = [(1, 2, 32, 16), (2, 3, 50, 16), (1, 4, 64, 64), (2, 1, 17, 8)]
+WKV_RAGGED = (2, 4, 321, 64)
 WKV_RWKV = (4, 32, 2048, 64)
 LLM_BATCH, LLM_PROMPT, LLM_TOKENS = 4, 2048, 32
 LLM_REL_TOL = 1e-3   # kernel vs plain model: of the largest |entry|
@@ -2644,26 +2650,32 @@ def build_all(tag):
     check_hgmma(tag, {name: info["path"] for name, info in infos.items()})
 
 
-# The flash kernels that must run Hopper's warpgroup products, by library
-# (the bf16 forward and backward, and the f32 forward's and backward's
-# split-TF32 kernels); each is built in two instances (dh <= 64 and
-# <= 128).
-HGMMA_KERNELS = {"flash_attention": ("fwd_wgmma_kernel", "fwd_tf32_kernel"),
-                 "flash_attention_bwd": ("dkdv_wgmma_kernel",
-                                         "dq_wgmma_kernel",
-                                         "dkdv_tf32_kernel",
-                                         "dq_tf32_kernel")}
+# The kernels that must run Hopper's warpgroup products, by library, and
+# the instances each is built in: the flash kernels (the bf16 forward and
+# backward, and the f32 forward's and backward's split-TF32 kernels; two
+# instances, dh <= 64 and <= 128) and the wkv chunk-state passes (split
+# TF32; four instances, f32 and bf16 by 16-byte and per-element loads).
+HGMMA_KERNELS = {"flash_attention": (2, ("fwd_wgmma_kernel",
+                                         "fwd_tf32_kernel")),
+                 "flash_attention_bwd": (2, ("dkdv_wgmma_kernel",
+                                             "dq_wgmma_kernel",
+                                             "dkdv_tf32_kernel",
+                                             "dq_tf32_kernel")),
+                 "wkv": (4, ("wkv_state_kernel",)),
+                 "wkv_bwd": (4, ("wkv_bwd_state_kernel",))}
 # Of those, the ones whose SASS must hold no local-memory load or store.
-SPILL_FREE = ("fwd_tf32_kernel", "dkdv_tf32_kernel", "dq_tf32_kernel")
+SPILL_FREE = ("fwd_tf32_kernel", "dkdv_tf32_kernel", "dq_tf32_kernel",
+              "wkv_state_kernel", "wkv_bwd_state_kernel")
 
 
 def check_hgmma(tag, paths):
-    """The wgmma flash kernels (the forward's ``fwd_wgmma_kernel`` in bf16
-    and ``fwd_tf32_kernel`` in f32, the backward's ``dkdv_wgmma_kernel``
-    and ``dq_wgmma_kernel`` in bf16 and ``dkdv_tf32_kernel`` and
-    ``dq_tf32_kernel`` in f32, each instance)
+    """The wgmma kernels (``HGMMA_KERNELS``: the flash forward's
+    ``fwd_wgmma_kernel`` in bf16 and ``fwd_tf32_kernel`` in f32, the flash
+    backward's ``dkdv_wgmma_kernel`` and ``dq_wgmma_kernel`` in bf16 and
+    ``dkdv_tf32_kernel`` and ``dq_tf32_kernel`` in f32, the wkv forward's
+    and backward's chunk-state passes, each instance)
     hold Hopper's warpgroup products, the ``HGMMA`` instructions of their
-    SASS, read with the toolkit's ``cuobjdump -sass``; the f32 ones
+    SASS, read with the toolkit's ``cuobjdump -sass``; the split-TF32 ones
     (``SPILL_FREE``) also no local-memory loads or stores (``LDL``/``STL``:
     spills). A kernel is matched by its
     whole mangled name (its length, then the name), so no library's count
@@ -2671,7 +2683,7 @@ def check_hgmma(tag, paths):
     is missing."""
     from repro_torch.kernels._nvcc import nvcc_path
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-    for lib, kernels in HGMMA_KERNELS.items():
+    for lib, (instances, kernels) in HGMMA_KERNELS.items():
         sass = subprocess.run([tool, "-sass", str(paths[lib])],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -2688,11 +2700,11 @@ def check_hgmma(tag, paths):
                 if fn in local:
                     local[fn] += any(f" {op}" in line for op in ("LDL",
                                                                  "STL"))
-        print(f"[{tag}] 2 HGMMA instructions in each wgmma flash kernel of "
+        print(f"[{tag}] 2 HGMMA instructions in each wgmma kernel of "
               f"{lib} (cuobjdump -sass): {json.dumps(found)}; local-memory "
               f"loads and stores: {json.dumps(local)}")
-        if (len(found) != 2 * len(kernels) or not all(found.values())
-                or any(local.values())):
+        if (len(found) != instances * len(kernels)
+                or not all(found.values()) or any(local.values())):
             raise AssertionError(f"the wgmma kernels of {lib} lack HGMMA or "
                                  f"spill: {found}, {local}")
 
@@ -2901,15 +2913,17 @@ def check_wkv(tag):
     from repro_torch.kernels.ssm_scan import ops, wkv, wkv_ref
     rng = np.random.default_rng(3)
     max_err, timing = 0.0, None
-    B, H, _, dk = WKV_RWKV
-    blocks, threads = ops.launch_shape(B, H, dk)
-    print(f"[{tag}] wkv launch at the rwkv6-1.6b shape: {blocks} blocks of "
-          f"{threads} threads")
-    if blocks < 256:
-        raise AssertionError(f"wkv launches {blocks} blocks at "
-                             f"{WKV_RWKV}; the design spreads each head's "
-                             "state over several blocks (>= 256)")
-    for B, H, T, dk in WKV_SWEEP + [WKV_RWKV]:
+    B, H, T, dk = WKV_RWKV
+    blocks, threads = ops.launch_shape(B, H, T, dk)
+    want = B * H * -(-T // ops.CHUNK)
+    print(f"[{tag}] wkv y launch at the rwkv6-1.6b shape: {blocks} blocks of "
+          f"{threads} threads (a block per batch item, head and chunk of "
+          f"{ops.CHUNK} steps; the state pass before it: {B * H} blocks)")
+    if blocks != want:
+        raise AssertionError(f"wkv launches {blocks} blocks at {WKV_RWKV}; "
+                             f"the design runs every chunk in parallel "
+                             f"({want})")
+    for B, H, T, dk in WKV_SWEEP + [WKV_RAGGED, WKV_RWKV]:
         def mk():
             return 0.5 * rng.standard_normal((B, H, T, dk)).astype(np.float32)
         r, k, v = mk(), mk(), mk()
@@ -2921,14 +2935,19 @@ def check_wkv(tag):
                            (torch.bfloat16, 20 * BF16_TOL)):
             args = [a.to(dtype) for a in f32]
             y, S = wkv(*args, u)
+            y2, S2 = wkv(*args, u)
             torch.cuda.synchronize()
+            bit_equal = torch.equal(y, y2) and torch.equal(S, S2)
+            del y2, S2
             yr, Sr = wkv_ref(*args, u)
             errs = [(y.float() - yr.float()).abs().max().item(),
                     (S - Sr).abs().max().item()]
             if not (torch.allclose(y.float(), yr.float(), atol=tol, rtol=tol)
-                    and torch.allclose(S, Sr, atol=tol, rtol=tol)):
+                    and torch.allclose(S, Sr, atol=tol, rtol=tol)
+                    and bit_equal):
                 raise AssertionError(f"wkv kernel != plain at {(B, H, T, dk)} "
-                                     f"{dtype}: max |err| y, S {errs}")
+                                     f"{dtype}: max |err| y, S {errs}, rerun "
+                                     f"bit-equal {bit_equal}")
             gate = ""
             if dtype == torch.float32:
                 max_err = max(max_err, *errs)
@@ -2944,7 +2963,7 @@ def check_wkv(tag):
                 gate = f"; y bf16 bound use {use:.3f}, S tol {s_tol}"
             print(f"wkv vs plain B={B} H={H} T={T} dk={dk} {dtype}: max "
                   f"|err| y {errs[0]:.3e}, S {errs[1]:.3e} (tol {tol}"
-                  f"{gate})")
+                  f"{gate}); rerun bit-equal {bit_equal}")
             if (B, H, T, dk) == WKV_RWKV:
                 ms = median_ms(lambda: wkv(*args, u), reps=7, inner=5,
                                warm=2)
@@ -3092,28 +3111,34 @@ def tf32_control(tag, q, k, v, do, win, ref):
 def check_wkv_bwd(tag):
     """Phase 6b: the wkv backward kernel against autograd through the plain
     version (``wkv_ref``, a loop over T) at the sweep and rwkv6-1.6b
-    shapes, f32: dr, dk, dv, dw and du each within BWD_REL_TOL of the plain
-    gradient's largest entry, and a rerun bit-equal; the first three decays
-    of every row near 0 (1e-7) at one sweep shape. µs per launch, the
-    bound and the plain backward's time at the rwkv6-1.6b shape (no
-    PyTorch call computes this recurrence). Returns the largest |error|
-    and the timing."""
+    shapes, f32, each call as the training path through ``WKV`` makes it
+    (with the chunk-start states the forward launch returned): dr, dk, dv,
+    dw and du each within BWD_REL_TOL of the plain gradient's largest
+    entry, and a rerun bit-equal; the first three decays of every row near
+    0 (1e-7) at one sweep shape, those of steps 62-66 (across the first
+    chunk boundary) at the ragged shape. µs per launch, the bound and the
+    plain backward's time at the rwkv6-1.6b shape (no PyTorch call
+    computes this recurrence). Returns the largest |error| and the
+    timing."""
     from repro_torch.kernels.ssm_scan import ops, wkv_ref
     rng = np.random.default_rng(6)
     max_err, timing = 0.0, None
     names = ("dr", "dk", "dv", "dw", "du")
-    for B, H, T, dk in WKV_SWEEP + [WKV_RWKV]:
+    for B, H, T, dk in WKV_SWEEP + [WKV_RAGGED, WKV_RWKV]:
         def mk():
             return 0.5 * rng.standard_normal((B, H, T, dk)).astype(np.float32)
         r, k, v = mk(), mk(), mk()
         w = (0.5 + 0.5 / (1 + np.exp(-mk()))).astype(np.float32)
         if (B, H, T, dk) == WKV_SWEEP[1]:
             w[..., :3, :] = 1e-7
+        if (B, H, T, dk) == WKV_RAGGED:
+            w[..., 62:67, :] = 1e-7      # across the first chunk boundary
         u = (0.1 * rng.standard_normal((H, dk))).astype(np.float32)
         args = [torch.tensor(a, device="cuda") for a in (r, k, v, w, u)]
         dy = torch.tensor(mk(), device="cuda")
-        grads = ops._launch_bwd(*args, dy)
-        again = ops._launch_bwd(*args, dy)
+        states = ops._launch(*args)[2]
+        grads = ops._launch_bwd(*args, dy, None, states)
+        again = ops._launch_bwd(*args, dy, None, states)
         torch.cuda.synchronize()
         bit_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
         del again
@@ -3131,18 +3156,18 @@ def check_wkv_bwd(tag):
                                  f"{BWD_REL_TOL} or rerun not bit-equal")
         max_err = max(max_err, *errs.values())
         if (B, H, T, dk) == WKV_RWKV:
-            ms = median_ms(lambda: ops._launch_bwd(*args, dy), reps=7,
-                           inner=5, warm=2)
+            ms = median_ms(lambda: ops._launch_bwd(*args, dy, None, states),
+                           reps=7, inner=5, warm=2)
             plain_ms = median_ms(lambda: torch.autograd.grad(
                 y_ref, xs, dy, retain_graph=True), reps=2, inner=1, warm=1)
             bound_ms, bound_by = wkv_bwd_bound_ms(B, H, T, dk)
             timing = (ms, plain_ms, bound_ms, bound_by)
             print(f"[{tag}] wkv_bwd f32 B={B} H={H} T={T} dk={dk}: kernel "
-                  f"{ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
-                  f"({bound_by}), plain PyTorch backward "
-                  f"{plain_ms * 1e3:.1f} us (no single PyTorch call "
+                  f"{ms * 1e3:.1f} us, bound "
+                  f"{bound_ms * 1e3:.1f} us ({bound_by}), plain PyTorch "
+                  f"backward {plain_ms * 1e3:.1f} us (no single PyTorch call "
                   "computes this recurrence)")
-        del xs, y_ref, ref, grads
+        del xs, y_ref, ref, grads, states
         torch.cuda.empty_cache()
     return max_err, timing
 
@@ -3913,9 +3938,10 @@ def _kind(name):
                                "kmean_part_kernel", "kmean_sum_kernel",
                                "centre_kernel", "centre8_kernel")):
         return "flash_attention_bwd"
-    if "wkv_bwd_kernel" in name or "wkv_reduce_kernel" in name:
+    if any(s in name for s in ("wkv_bwd_state_kernel", "wkv_bwd_chunk_kernel",
+                               "wkv_du_kernel")):
         return "wkv_bwd"
-    if "wkv_kernel" in name:
+    if any(s in name for s in ("wkv_state_kernel", "wkv_chunk_kernel")):
         return "wkv"
     if name.startswith(("memcpy", "memset")):
         return "copy"
@@ -5301,14 +5327,17 @@ def check_flash_bwd_bf16(tag):
 
 
 def _wkv_case(rng, B, H, T, dk, dtype, tiny_w=False):
-    """Seeded r, k, v, w (decays in (0.5, 1); the first three of every
-    row 1e-7 with ``tiny_w``), u, dy and a nonzero dS, on the card."""
+    """Seeded r, k, v, w (decays in (0.5, 1); with ``tiny_w`` 1e-7 at the
+    first three steps of every row, and at steps 62-66 across the first
+    chunk boundary where T reaches them), u, dy and a nonzero dS, on the
+    card."""
     def mk():
         return 0.5 * rng.standard_normal((B, H, T, dk)).astype(np.float32)
     r, k, v = mk(), mk(), mk()
     w = (0.5 + 0.5 / (1 + np.exp(-mk()))).astype(np.float32)
     if tiny_w:
         w[..., :3, :] = 1e-7
+        w[..., 62:67, :] = 1e-7
     u = (0.1 * rng.standard_normal((H, dk))).astype(np.float32)
     args = [torch.tensor(a, device="cuda") for a in (r, k, v, w)]
     args = [a.to(dtype) for a in args] + [torch.tensor(u, device="cuda")]
@@ -5322,9 +5351,10 @@ def check_wkv_bwd_bf16(tag):
     """Phase 6b (bf16 and dS): the wkv backward kernel's bf16 entry against
     autograd through ``wkv_ref`` on the same bf16 inputs at the sweep
     shapes (the first three decays near 0 at one of them) and at the
-    rwkv6-1.6b shape: dr, dk, dv, dw within ``ops.bf16_grad_error_bound``
-    per element, du (f32) within BWD_REL_TOL of its largest entry, a rerun
-    bit-equal. Then a nonzero cotangent on the final state S (the
+    rwkv6-1.6b shape, each call with the chunk-start states the forward
+    launch returned (as ``WKV`` makes it): dr, dk, dv, dw within
+    ``ops.bf16_grad_error_bound`` per element, du (f32) within BWD_REL_TOL
+    of its largest entry, a rerun bit-equal. Then a nonzero cotangent on the final state S (the
     reference's scan is differentiated through it) at every sweep shape in
     f32 (each gradient within BWD_REL_TOL) and in bf16 (the bound). µs
     per launch of the bf16 entry, the
@@ -5335,15 +5365,18 @@ def check_wkv_bwd_bf16(tag):
     rng = np.random.default_rng(66)
     names = ("dr", "dk", "dv", "dw", "du")
     max_err, max_use, timing = 0.0, 0.0, None
-    cases = [(s, torch.bfloat16, False) for s in WKV_SWEEP + [WKV_RWKV]]
-    cases += [(s, dt, True) for s in WKV_SWEEP
+    cases = [(s, torch.bfloat16, False)
+             for s in WKV_SWEEP + [WKV_RAGGED, WKV_RWKV]]
+    cases += [(s, dt, True) for s in WKV_SWEEP + [WKV_RAGGED]
               for dt in (torch.float32, torch.bfloat16)]
     for (B, H, T, dk), dtype, with_dS in cases:
         args, dy, dS = _wkv_case(rng, B, H, T, dk, dtype,
-                                 tiny_w=(B, H, T, dk) == WKV_SWEEP[1])
+                                 tiny_w=(B, H, T, dk) in (WKV_SWEEP[1],
+                                                          WKV_RAGGED))
         dS = dS if with_dS else None
-        grads = ops._launch_bwd(*args, dy, dS)
-        again = ops._launch_bwd(*args, dy, dS)
+        states = ops._launch(*args)[2]
+        grads = ops._launch_bwd(*args, dy, dS, states)
+        again = ops._launch_bwd(*args, dy, dS, states)
         torch.cuda.synchronize()
         bit_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
         del again
@@ -5376,8 +5409,8 @@ def check_wkv_bwd_bf16(tag):
                                  f"dS {with_dS}: {use} or rerun not "
                                  "bit-equal")
         if (B, H, T, dk) == WKV_RWKV and not with_dS:
-            ms = median_ms(lambda: ops._launch_bwd(*args, dy), reps=7,
-                           inner=5, warm=2)
+            ms = median_ms(lambda: ops._launch_bwd(*args, dy, None, states),
+                           reps=7, inner=5, warm=2)
             plain_ms = median_ms(lambda: torch.autograd.grad(
                 y_ref, xs, dy, retain_graph=True), reps=2, inner=1, warm=1)
             bound_ms, bound_by = wkv_bwd_bound_ms(B, H, T, dk, elem=2)
@@ -5387,7 +5420,7 @@ def check_wkv_bwd_bf16(tag):
                   f"({bound_by}), plain PyTorch backward "
                   f"{plain_ms * 1e3:.1f} us (no single PyTorch call "
                   "computes this recurrence)")
-        del xs, y_ref, S_ref, ref, grads, args, dy, dS
+        del xs, y_ref, S_ref, ref, grads, args, dy, dS, states
         torch.cuda.empty_cache()
     return max_err, max_use, timing
 

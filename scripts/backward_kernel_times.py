@@ -1,9 +1,10 @@
-"""Device time of the port's backward kernels (or the flash forward) by
+"""Device time of the port's backward kernels (or its forward kernels) by
 part, on one CUDA card.
 
     python3 scripts/backward_kernel_times.py [--dtype f32|bf16] [--root DIR]
                                              [--label NAME] [--reps N]
                                              [--out FILE] [--forward]
+                                             [--only flash|wkv]
 
 Each backward launch is several CUDA kernels: flash attention's f32 entry
 is ``kmean_part_kernel``, ``kmean_sum_kernel``, ``centre_kernel``,
@@ -14,18 +15,23 @@ its bf16 entry ``kmean_part_kernel``,
 ``kmean_sum_kernel``, ``centre8_kernel``, ``delta_tiles_kernel``,
 ``dkdv_wgmma_kernel`` and ``dq_wgmma_kernel`` (before the wgmma design:
 ``kmean_kernel``, ``centre_kernel``, ``delta_kernel``, ``dkdv_bf16_kernel``,
-``dq_bf16_kernel``); wkv's is ``wkv_bwd_kernel`` and
-``wkv_reduce_kernel``.
+``dq_bf16_kernel``); wkv's is ``wkv_bwd_state_kernel`` (the gradients
+at every 64-step chunk boundary, split TF32 on wgmma; the states there
+are those the forward launch returned, as the training path through
+``WKV`` passes them), ``wkv_bwd_chunk_kernel`` (the chunks in parallel)
+and ``wkv_du_kernel`` (before the chunked design: ``wkv_bwd_kernel`` and
+``wkv_reduce_kernel``, which took no states).
 For each case it prints one JSON line (and appends it to ``--out`` when
 given): the CUDA-event time per launch over ``--reps`` back-to-back
 launches (``event_ms``), each part's device time per launch from
-``torch.profiler`` over the same number of launches (``parts_ms``), and
-the card's name and power limit. Each flash case also times
+``torch.profiler`` over the same number of launches (``parts_ms``), for
+wkv the device memory one call allocates (``peak_gb``: outputs and
+scratch), and the card's name and power limit. Each flash case also times
 ``scaled_dot_product_attention``'s backward in the same dtype
 (memory-efficient, K/V expanded to H heads, a boolean mask for a window:
 ``sdpa_ms``), the yardstick ``chip_smoke.py`` 5b uses.
 
-``--forward`` times the flash forward instead, in ``--dtype``: one launch
+``--forward`` times the forward kernels instead, in ``--dtype``: one launch
 of ``ops._launch`` per call at phase 5's five shapes (qwen3-4b, gemma3's
 window-1024 and global layers, H=64/KV=8 and H=KV=40; B=4, S=2048,
 dh=128, causal) and whisper-small's encoder and cross shapes
@@ -38,7 +44,12 @@ copy the wrapper makes (``elementwise_kernel``). Beside each shape
 (``sdpa_ms``), as ``chip_smoke.py`` 5 times it: bf16 in its default
 dispatch (GQA by ``enable_gqa``), f32 on the memory-efficient backend with
 K/V expanded to H heads (f32's default dispatch takes the math
-fallback); a boolean mask for the window.
+fallback); a boolean mask for the window. Then the wkv forward at the
+rwkv6-1.6b prefill shape by part: ``wkv_state_kernel`` (the chunk states)
+and ``wkv_chunk_kernel`` (y, the chunks in parallel; ``wkv_kernel``
+before the chunked design).
+
+``--only`` times one kernel family's cases (default: both).
 
 ``--root`` is the checkout whose ``src/repro_torch`` is timed (default:
 this one), so two versions can be timed in turns inside one run on one
@@ -48,9 +59,9 @@ Cases: flash attention at the qwen3-4b training shape (B=4, H=32, KV=8,
 S=2048, dh=128, causal), the gemma3 window-1024 shape (KV=16), gemma3's
 global shape (KV=16, no window) and whisper-small's encoder (B=4,
 H=KV=12, S=1500, dh=64, non-causal) and cross-attention (Sq=448,
-Skv=1500), in either dtype; wkv (f32 only) at the
-rwkv6-1.6b training shape (B=4, H=32, T=2048, dk=64); inputs drawn with
-numpy from a fixed seed, as ``chip_smoke.py`` 5b and 6b draw them.
+Skv=1500), in either dtype; wkv at the rwkv6-1.6b training shape (B=4,
+H=32, T=2048, dk=64), in either dtype; inputs drawn with numpy from a
+fixed seed, as ``chip_smoke.py`` 5b and 6b draw them.
 """
 from __future__ import annotations
 
@@ -70,6 +81,7 @@ FLASH = {"flash qwen3-4b": (4, 32, 8, 2048, 2048, 128, 0, True),
          "flash gemma3 global": (4, 32, 16, 2048, 2048, 128, 0, True),
          "flash whisper encoder": (4, 12, 12, 1500, 1500, 64, 0, False),
          "flash whisper cross": (4, 12, 12, 448, 1500, 64, 0, False)}
+# wkv (B, H, T, dk): the rwkv6-1.6b training and prefill shape
 WKV = {"wkv rwkv6-1.6b": (4, 32, 2048, 64)}
 # The flash forward's cases (B, H, KV, Sq, Skv, dh, window, causal):
 # chip_smoke.py 5's full-width shapes and its whisper shapes.
@@ -88,7 +100,9 @@ PARTS = ("fwd_wgmma_kernel", "fwd_tf32_kernel", "split_kv_kernel",
          "kmean_part_kernel", "kmean_sum_kernel", "centre_kernel",
          "centre8_kernel", "dkdv_kernel", "dq_kernel", "dkdv_bf16_kernel",
          "dq_bf16_kernel", "dkdv_wgmma_kernel", "dq_wgmma_kernel",
-         "wkv_bwd_kernel", "wkv_reduce_kernel")
+         "wkv_bwd_kernel", "wkv_reduce_kernel", "wkv_kernel",
+         "wkv_state_kernel", "wkv_chunk_kernel", "wkv_bwd_state_kernel",
+         "wkv_bwd_chunk_kernel", "wkv_du_kernel")
 
 
 def card() -> str:
@@ -199,6 +213,47 @@ def forward_rows(fa, args, tag, rng, dtype):
     return rows
 
 
+def peak_gb(fn):
+    """Device memory one call allocates beyond what is held before it
+    (outputs and scratch), GB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def wkv_rows(wk, args, tag, rng, dtype, name, B, H, T, dk):
+    """The wkv forward (``--forward``) or backward at one shape, by part,
+    with the device memory a call allocates (``peak_gb``); the backward
+    with the forward's chunk states where the tree's wrapper returns them,
+    as its autograd Function calls it."""
+    def mk():
+        return 0.5 * rng.standard_normal((B, H, T, dk)).astype(np.float32)
+    r, k, v = mk(), mk(), mk()
+    w = (0.5 + 0.5 / (1 + np.exp(-mk()))).astype(np.float32)
+    u = torch.tensor((0.1 * rng.standard_normal((H, dk))).astype(np.float32),
+                     device="cuda")
+    xs = [torch.tensor(a, device="cuda").to(dtype) for a in (r, k, v, w)]
+    xs.append(u)
+    dy = torch.tensor(mk(), device="cuda").to(dtype)
+    base = {"case": name, "dtype": args.dtype, "label": args.label,
+            "root": args.root, "shape": [B, H, T, dk], "card": tag}
+    if args.forward:
+        fn = lambda: wk._launch(*xs)
+        ms, parts = measure(fn, args.reps)
+        return [dict(base, **{"pass": "forward", "event_ms": ms,
+                              "parts_ms": parts, "peak_gb": peak_gb(fn)})]
+    out = wk._launch(*xs)
+    if len(out) == 3:                    # the chunked design's wrapper
+        fn = lambda: wk._launch_bwd(*xs, dy, None, out[2])
+    else:
+        fn = lambda: wk._launch_bwd(*xs, dy)
+    ms, parts = measure(fn, args.reps)
+    return [dict(base, event_ms=ms, parts_ms=parts, peak_gb=peak_gb(fn))]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
@@ -207,6 +262,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
     ap.add_argument("--forward", action="store_true")
+    ap.add_argument("--only", choices=("flash", "wkv"), default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("backward_kernel_times: no CUDA device", file=sys.stderr)
@@ -217,8 +273,10 @@ def main(argv=None) -> int:
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     tag = card()
     rng = np.random.default_rng(5)
-    rows = forward_rows(fa, args, tag, rng, dtype) if args.forward else []
-    cases = {} if args.forward else FLASH
+    flash = args.only in (None, "flash")
+    rows = (forward_rows(fa, args, tag, rng, dtype)
+            if args.forward and flash else [])
+    cases = FLASH if flash and not args.forward else {}
     for name, (B, H, KV, Sq, Skv, dh, win, causal) in cases.items():
         q, k, v, do = (torch.tensor(rng.standard_normal((B, n, s, dh))
                                     .astype(np.float32), device="cuda")
@@ -236,19 +294,9 @@ def main(argv=None) -> int:
         rows.append(row)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
-    wkv_cases = WKV if args.dtype == "f32" and not args.forward else {}
-    for name, (B, H, T, dk) in wkv_cases.items():
-        def mk():
-            return 0.5 * rng.standard_normal((B, H, T, dk)).astype(np.float32)
-        r, k, v = mk(), mk(), mk()
-        w = (0.5 + 0.5 / (1 + np.exp(-mk()))).astype(np.float32)
-        u = (0.1 * rng.standard_normal((H, dk))).astype(np.float32)
-        xs = [torch.tensor(a, device="cuda") for a in (r, k, v, w, u)]
-        dy = torch.tensor(mk(), device="cuda")
-        ms, parts = measure(lambda: wk._launch_bwd(*xs, dy), args.reps)
-        rows.append({"case": name, "dtype": args.dtype, "label": args.label,
-                     "root": args.root, "shape": [B, H, T, dk],
-                     "event_ms": ms, "parts_ms": parts, "card": tag})
+    for name, (B, H, T, dk) in (WKV if args.only in (None, "wkv")
+                                else {}).items():
+        rows += wkv_rows(wk, args, tag, rng, dtype, name, B, H, T, dk)
     for row in rows:
         line = json.dumps(row)
         print(line)

@@ -1,7 +1,10 @@
-// Device helpers shared by the flash-attention kernels for Hopper (sm_90a):
-// flash_attention.cu (the forward) and flash_attention_bwd.cu (the
-// backward) include this file. kernels/_nvcc.py hashes every header a
-// source includes into the library's name, so an edit here rebuilds both.
+// Device helpers shared by the port's kernels for Hopper (sm_90a): the
+// flash-attention kernels (flash_attention/csrc/flash_attention.cu, the
+// forward, and flash_attention_bwd.cu, the backward) and the wkv kernels
+// (ssm_scan/csrc/wkv.cu and wkv_bwd.cu, through wkv_chunk.cuh: their
+// chunk states on split-TF32 wgmma) include this file. kernels/_nvcc.py
+// hashes every header a source includes into the library's name, so an
+// edit here rebuilds all four.
 //
 //   * mbarrier, TMA boxes (up to 256 rows x 128 bytes: 64 bf16 or 32 f32
 //     columns, 128-byte swizzle) and the tensor maps they read
@@ -18,7 +21,9 @@
 //   * split TF32 (x = hi + lo, both rounded to TF32) and the A fragments of
 //     raw f32 tiles, split as they are loaded;
 //   * named barriers and the proxy fence that makes threads' shared-memory
-//     writes visible to wgmma.
+//     writes visible to wgmma;
+//   * cp.async of 16 bytes (zero-filled past `src_bytes`) and its groups:
+//     the wkv kernels stage their strided rows with it.
 //
 // A tile of R rows x DHP columns lies in shared memory as DHP * elem / 128
 // column blocks (64 bf16 or 32 f32 columns each), each R rows of 128
@@ -44,6 +49,20 @@ constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -150,7 +150,7 @@
 
 #include <math.h>
 
-#include "hopper.cuh"
+#include "../../csrc/hopper.cuh"
 
 namespace {
 

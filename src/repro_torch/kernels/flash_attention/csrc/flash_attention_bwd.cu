@@ -195,14 +195,15 @@
 //     item, kv head) would fill 32 of 132 SMs at the qwen3-4b shape).
 //   * the wrapper makes q, k, v and do legal for TMA (rows on 16 bytes, dh
 //     a multiple of 8) by padding or a copy; this entry refuses others.
-//   * the TMA, mbarrier and wgmma helpers are hopper.cuh's, shared with
-//     the forward's bf16 kernel (flash_attention.cu).
+//   * the TMA, mbarrier and wgmma helpers are those of kernels/csrc/
+//     hopper.cuh, shared with the forward (flash_attention.cu) and the wkv
+//     kernels.
 //   * shared memory at dh = 128: dkdv 2 x 32 KB (K, V) + 2 stages x 32 KB
 //     (Q, dO) + 1 KB of lse/delta = 129 KB; dq 2 x 32 KB (Q, dO) + 2
 //     stages x 48 KB (K, V, KC) = 160 KB (one block of 384 threads per SM).
 
 
-#include "hopper.cuh"
+#include "../../csrc/hopper.cuh"
 
 namespace {
 

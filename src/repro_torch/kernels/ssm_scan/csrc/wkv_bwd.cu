@@ -3,10 +3,11 @@
 //
 //   y_t = r_t . (S_{t-1} + (u * k_t) v_t^T),   S_t = diag(w_t) S_{t-1} + k_t v_t^T
 //
-// from S_0 = 0 per (batch item, head). Given dy and the final state's
-// gradient dS (B, H, dk, dk) f32, or none (zero), it returns dr, dk, dv,
-// dw (B, H, T, dk, in the inputs' dtype) and du (H, dk, f32). It runs in
-// reverse time carrying G_t = dL/dS_t:
+// from S_0 = 0 per (batch item, head). Given dy, the final state's
+// gradient dS (B, H, dk, dk) f32, or none (zero), and the chunk-start
+// states the forward (wkv.cu) wrote for the same inputs, it returns dr,
+// dk, dv, dw (B, H, T, dk, in the inputs' dtype) and du (H, dk, f32). With
+// G_t = dL/dS_t:
 //
 //   dr_t[i] = sum_j S_{t-1}[i][j] dy_t[j] + u_i k_t[i] (v_t . dy_t)
 //   dk_t[i] = sum_j G_t[i][j] v_t[j]     + u_i r_t[i] (v_t . dy_t)
@@ -28,574 +29,428 @@
 // 67 MB, 0.18 ms at 3.35 TB/s; the reverse step does about 14 dk^2 flops
 // per head (the G update, dk, dv, dw and dr products and S_{t-1}),
 // 15.0 GFLOP, 0.22 ms at 67 TFLOP/s (f32 FFMA): operations. This design
-// adds the column groups' partials of dr, dk and dw (written and read
-// once by the `wkv_reduce` kernel: 0.40 GB at two groups), the
-// chunk-start states (0.27 GB) and half a forward step more per step (the
-// states rebuilt in two halves). What holds it back on the card is shared
-// memory: every step writes and reads each state entry and each dv share
-// once at distinct addresses (four wavefronts per 16-byte warp access);
-// the broadcast reads of r, k, w, v and dy cost little.
+// adds the chunk-boundary gradients G (67 MB written, read once) and
+// reads the forward's chunk-start states S (67 MB), the
+// chunk's first 48 steps run forward once more (checkpoints), 7/8 of a
+// step more per step (each 8-step sub-chunk's states rebuilt from a
+// checkpoint), and shuffles: dr, dk, dw over a row's 8 lanes, dv over a
+// warp's 4 rows. What holds it back on the card is the chunk kernel's
+// shared-memory and shuffle traffic per step (every warp loads v and dy
+// of all 64 columns; clock64() marks: 45% of a block in the reverse
+// steps, 36% rebuilding states, 13% in the checkpoint pass).
 //
-// Design:
-//   * column j of S_t depends only on v_t[j], and column j of G_t only on
-//     dy_t[j], so the value columns are split over blocks: one block of
-//     128 threads per (batch item, head, group of 32 columns), 256 blocks
-//     at the rwkv6-1.6b shape (a block per head before). A block owns its
-//     columns of S and G outright. dv_t[j] sums over the rows and stays in
-//     the block; dr, dk and dw sum over the columns, so each block writes
-//     its group's partial to scratch and a second kernel (`wkv_reduce`) adds
-//     the groups in a fixed order and sums du over the batch: no float
-//     atomics, so a rerun is bit-equal. The first group's partials carry
-//     the bonus terms (u k (v . dy), u r (v . dy)) and du.
-//   * thread (row i = tid / 2, half = tid % 2) holds 16 columns of row i
-//     of G in registers, so dr, dk and dw of a step are sums within the
-//     thread and one shuffle with its neighbour; only G's update
-//     G <- w_i G + r_i dy is a chain from step to step. The partials go
-//     straight to scratch, a row per step.
-//   * S_{t-1} is needed at every reverse step and w may be near 0, so it
-//     is never recovered by dividing by w. A first pass runs the
-//     recurrence forward and stores the state at the start of every chunk
-//     of 16 steps (its own columns, to the wrapper's scratch `ckpt`; the
-//     chunks staged two ahead). The reverse pass takes the chunks last to
-//     first, in two halves of 8 steps: it rebuilds the half's 8 states
-//     forward once, from the chunk's stored state, into shared memory
-//     (each thread its own row and columns, so no barrier), then runs the
-//     half's steps in reverse reading them (before: up to 15 updates per
-//     step to rebuild S_{t-1}, 7.5 on average). A step's dv shares
-//     G_t[i][j] k_t[i] overwrite the state it has just read; after the
-//     half, one barrier, and the block sums them over the rows (four
-//     interleaved partial sums, added in a fixed order) and writes dv.
-//   * each chunk's r, k, w, v and dy (all dk channels) are staged in
-//     shared memory with 16-byte cp.async, two stages: the next chunk
-//     loads while this one computes. v . dy and r . (u k) of each step are
-//     computed once per chunk (4 threads per sum). Rows not 16-byte
-//     aligned take per-element loads. dk < 64 is padded with zero channels
-//     (k = w = r = 0 keep padded rows of S and G at zero, v = dy = 0
-//     padded columns), and dk <= 32 runs one column group. The loops run
-//     over the real T.
-//   * the state buffer's 16-byte chunks are swizzled by the row (chunk q
-//     of row i at q ^ (i % 4)), so a warp's row-wise and column-wise reads
-//     are free of bank conflicts.
-//   * G_T = dS: each thread starts its 16 entries of G from dS's row i and
-//     its own columns (so the two column groups split dS as they split the
-//     state); a null dS starts them at zero.
-//   * bf16 (`wkv_bwd_bf16`): r, k, v, w and dy are widened to f32 as they
-//     are staged (16-byte loads through registers: cp.async cannot
-//     convert, and two bf16 staging buffers would not leave room for two
-//     blocks per SM), so the recurrence and every sum are the f32 entry's;
-//     dv, and dr, dk, dw in `wkv_reduce`, are rounded to bf16 once as they
-//     are stored. The partials and du stay f32.
-//   * shared memory: 2 stages x 5 x 16 x 64 staged inputs, 8 x 64 x 32
-//     states and 32 scalars: 106,624 B (two blocks per SM). Scratch:
-//     ckpt, ceil(T / 16) states of 64 x 64 f32 per (batch item, head),
-//     268 MB at the rwkv6-1.6b shape; the partials, 3 x groups x B H T dk
-//     f32, 403 MB there.
+// Design: three launches, no float atomics (a rerun is bit-equal), no
+// partial sums of dr, dk or dw in device memory.
+//   * the chunk-state pass (wkv_chunk.cuh, `wkv_bwd_state_kernel`): per
+//     (batch item, head), last chunk first from dS, the gradient G after
+//     each chunk's last step (R~^T dY products, r~ = r times prefix
+//     products of w): split TF32 on wgmma, B H blocks of 128 threads (one
+//     per SM, the next chunk staged while this one computes), one product
+//     per chunk. The state S at the start of each chunk is the forward's:
+//     its entry wrote them for the same r, k, v, w (K~^T V products, k~ =
+//     k times suffix products of w), and the wrapper's autograd Function
+//     keeps them for the backward.
+//   * the chunks in parallel (`wkv_bwd_chunk_kernel`): one block of 512
+//     threads per (batch item, head, chunk), 4096 blocks at the rwkv6-1.6b
+//     shape, against 256 blocks of one serial chain over T before. Thread
+//     (row i = 4 warp + lane / 8, columns 8 (lane % 8) ..) holds 8 entries
+//     of G, so a row's 64 columns lie in 8 lanes of one warp and dr, dk
+//     and dw are complete in the block: sums within the thread, then one
+//     reduce-scatter of the three over the row's 8 lanes (4 shuffles).
+//     4 x 4 patches per thread in 256 threads (less shared-memory traffic
+//     per entry, but 8 warps per SM) ran 25% slower. The chunk's r, k, w,
+//     v, dy (64 steps x 64 channels) are staged once in shared memory
+//     (cp.async; bf16 widened through registers), v and dy swizzled (the
+//     16-byte groups of channels 32..63 swapped in pairs: 8 lanes reading
+//     a row's 8-column groups hit distinct banks; without it the backward
+//     took 1900 us, with it 1459). A forward pass from the chunk-start
+//     state stores checkpoints every 16 steps in shared memory (each
+//     thread its own entries, so no barrier); the reverse pass takes each
+//     16-step segment in two sub-chunks of 8 steps, rebuilds the
+//     sub-chunk's 8 states S_{t-1} into registers from the checkpoint
+//     (never by dividing by w), then runs its steps in reverse with the
+//     direct formulas above, the states read from registers, not through
+//     shared memory as before. dv's shares are summed over the warp's 4
+//     rows by 2 shuffle rounds (reduce-scatter, 2 values a lane), written
+//     to shared memory and, after each sub-chunk, summed over the 16 warps
+//     in a fixed order (two buffers, one barrier a sub-chunk). dr, dk, dw
+//     overwrite r, k, w of their steps in shared memory once the sub-chunk
+//     is done and are stored coalesced at the end; du's partial over the
+//     chunk goes to scratch.
+//   * `wkv_du_kernel`: du summed from the per-chunk partials in a fixed
+//     order (batch item, then chunk).
+//   * the loops run over the real T; dk < 64 is padded with zero channels
+//     (k = w = r = 0 keep padded rows of S and G at zero, v = dy = 0 padded
+//     columns). bf16 (`wkv_bwd_bf16`): r, k, v, w and dy are widened to f32
+//     as they are staged, so the recurrence and every sum are the f32
+//     entry's; dr, dk, dv, dw are rounded to bf16 once as they are stored;
+//     du stays f32.
+//   * shared memory of the chunk kernel: 5 x 64 x 64 staged inputs (80
+//     KB), 4 checkpoints (64 KB), dv's warp sums of two sub-chunks (64
+//     KB): 208.5 KB, one block of 16 warps per SM. Scratch: the gradients
+//     at the chunk boundaries, B H ceil(T / 64) 64 x 64 f32 (67 MB at the rwkv6-1.6b shape,
+//     where the SIMT design held 671 MB of 16-step checkpoints and
+//     column-group partials), du's partials B H ceil(T / 64) 64 f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wkv_chunk.cuh"
 
 namespace {
 
-constexpr int NTH = 128;           // threads per block
-constexpr int CT = 16;             // steps per chunk (between stored states)
-constexpr int SC = CT / 2;         // states in shared memory at a time
-constexpr int DKP = 64;            // the state's padded width
-constexpr int JC = 32;             // value columns per block
-constexpr int HC = 16;             // columns per thread
-constexpr int STAGE = 5 * CT * DKP;     // r, k, w, v, dy of one chunk
-constexpr int RED_NT = 256;
-
-struct Strides {
-  long long b, h, s;
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+constexpr int BW_NT = 512;         // threads of the chunk kernel
+constexpr int SEG = 16;            // steps between checkpoints
+constexpr int SUB = 8;             // states rebuilt into registers at a time
+constexpr int NCK = CH / SEG;      // checkpoints per chunk (the start first)
+constexpr int NWARP = BW_NT / 32;
+constexpr int DU_NT = 256;
 
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
+// 8 floats from row p (a step or state row), channels c0 .. c0 + 7 (c0 a
+// multiple of 8), without (ld8) or with the swizzle (ld8s, st8s).
+__device__ __forceinline__ void ld8(float* x, const float* p) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
-  q[0] = __floats2bfloat162_rn(x.x, x.y);
-  q[1] = __floats2bfloat162_rn(x.z, x.w);
+__device__ __forceinline__ void ld8s(float* x, const float* row, int c0) {
+  const float4 a = *reinterpret_cast<const float4*>(row + swz(c0));
+  const float4 b = *reinterpret_cast<const float4*>(row + swz(c0 + 4));
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
 }
-
-// CT steps from t0 on of dk channels (valid: t < T_len, channel < dk) into
-// dst[CT][DKP] f32; the rest zero-filled. bf16 rows are widened through
-// registers (8 values per 16-byte load).
-template <bool VEC>
-__device__ __forceinline__ void load_chunk(float* dst,
-                                           const __nv_bfloat16* src,
-                                           long long stride, int t0,
-                                           int T_len, int dk, int tid) {
-  if constexpr (VEC) {
-    constexpr int CPR = DKP / 8;
-    for (int c = tid; c < CT * CPR; c += NTH) {
-      const int r = c / CPR;
-      const int d = (c - r * CPR) * 8;
-      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-      if (t0 + r < T_len && d < dk) {
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(src + (t0 + r) * stride + d);
-        const __nv_bfloat162* b =
-            reinterpret_cast<const __nv_bfloat162*>(&raw);
-        const float2 a0 = __bfloat1622float2(b[0]);
-        const float2 a1 = __bfloat1622float2(b[1]);
-        const float2 a2 = __bfloat1622float2(b[2]);
-        const float2 a3 = __bfloat1622float2(b[3]);
-        lo = make_float4(a0.x, a0.y, a1.x, a1.y);
-        hi = make_float4(a2.x, a2.y, a3.x, a3.y);
-      }
-      *reinterpret_cast<float4*>(dst + r * DKP + d) = lo;
-      *reinterpret_cast<float4*>(dst + r * DKP + d + 4) = hi;
-    }
-  } else {
-    for (int e = tid; e < CT * DKP; e += NTH) {
-      const int r = e / DKP;
-      const int d = e - r * DKP;
-      dst[e] = (t0 + r < T_len && d < dk)
-                   ? __bfloat162float(src[(t0 + r) * stride + d])
-                   : 0.f;
-    }
-  }
+__device__ __forceinline__ void st8s(float* row, int c0, const float* x) {
+  *reinterpret_cast<float4*>(row + swz(c0)) =
+      make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(row + swz(c0 + 4)) =
+      make_float4(x[4], x[5], x[6], x[7]);
 }
 
-template <bool VEC>
-__device__ __forceinline__ void load_chunk(float* dst, const float* src,
-                                           long long stride, int t0,
-                                           int T_len, int dk, int tid) {
-  if constexpr (VEC) {
-    constexpr int CPR = DKP / 4;
-    for (int c = tid; c < CT * CPR; c += NTH) {
-      const int r = c / CPR;
-      const int d = (c - r * CPR) * 4;
-      const bool ok = t0 + r < T_len && d < dk;
-      cp_async16(dst + r * DKP + d, ok ? src + (t0 + r) * stride + d : src,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int e = tid; e < CT * DKP; e += NTH) {
-      const int r = e / DKP;
-      const int d = e - r * DKP;
-      dst[e] = (t0 + r < T_len && d < dk) ? src[(t0 + r) * stride + d] : 0.f;
-    }
-  }
-}
-
-__device__ __forceinline__ void ld16(float* x, const float* p) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float4 f = reinterpret_cast<const float4*>(p)[q];
-    x[4 * q] = f.x;
-    x[4 * q + 1] = f.y;
-    x[4 * q + 2] = f.z;
-    x[4 * q + 3] = f.w;
-  }
-}
-
-// The thread's 16 columns (half `hf` of the block's 32) of row i of a
-// state slot, 16-byte chunk q at chunk (4 hf + q) ^ (i % 4) of the row.
-__device__ __forceinline__ void ld_state(float* x, const float* slot, int i,
-                                         int hf) {
-  const float* row = slot + i * JC;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float4 f =
-        *reinterpret_cast<const float4*>(row + 4 * ((4 * hf + q) ^ (i & 3)));
-    x[4 * q] = f.x;
-    x[4 * q + 1] = f.y;
-    x[4 * q + 2] = f.z;
-    x[4 * q + 3] = f.w;
-  }
-}
-__device__ __forceinline__ void st_state(float* slot, const float* x, int i,
-                                         int hf) {
-  float* row = slot + i * JC;
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    *reinterpret_cast<float4*>(row + 4 * ((4 * hf + q) ^ (i & 3))) =
-        make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
-}
-
-// S <- diag(w) S + k v^T on the thread's 16 entries, step tt of a chunk
-// staged as [CT][DKP] arrays sk, sw, sv.
-__device__ __forceinline__ void advance(float* S, const float* sk,
-                                       const float* sw, const float* sv,
-                                       int tt, int i, int col0) {
-  const float k_i = sk[tt * DKP + i], w_i = sw[tt * DKP + i];
-  float v[HC];
-  ld16(v, sv + tt * DKP + col0);
-#pragma unroll
-  for (int m = 0; m < HC; ++m) S[m] = fmaf(w_i, S[m], k_i * v[m]);
-}
-
+// The chunk-state pass of the backward: the gradient chain (the gradients
+// at chunk ends, last chunk first from dS); the states at chunk starts are
+// the forward's.
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(NTH, 2)
-wkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ w,
-               const float* __restrict__ u, const T* __restrict__ dy,
-               const float* __restrict__ dS, T* __restrict__ dv,
-               float* __restrict__ part,
-               float* __restrict__ du_part, float* __restrict__ ckpt, int H,
-               int T_len, int dkn, int n_cb, int n_ch, Strides rs,
-               Strides ks, Strides vs, Strides ws, Strides gs) {
-  // Dynamic shared memory: two stages of r, k, w, v, dy as [CT][DKP]
-  // each (the forward pass uses the same bytes as three stages of k, w,
-  // v); SC states [DKP][JC] (swizzled); v . dy and r . (u k) of the
-  // chunk's steps.
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* const stages = reinterpret_cast<float*>(smem_raw);
-  float* const states = stages + 2 * STAGE;
-  float* const svdy = states + SC * DKP * JC;
-  float* const sruk = svdy + CT;
+__global__ void __launch_bounds__(ST_NT, 1)
+wkv_bwd_state_kernel(const T* __restrict__ r, const T* __restrict__ w,
+                     const T* __restrict__ dy, const float* __restrict__ dS,
+                     Strides rs, Strides ws, Strides gs,
+                     float* __restrict__ g_states, int H, int T_len, int dk,
+                     int n_ch) {
+  state_chain<T, VEC>(r, w, dy, rs, ws, gs, dS, g_states, nullptr, H,
+                         T_len, dk, n_ch, true, blockIdx.x);
+}
 
-  const int tid = threadIdx.x;
-  const int i = tid >> 1, hf = tid & 1;  // row i, columns 16 hf .. of the group
-  const int bh = blockIdx.x / n_cb;
-  const int cb = blockIdx.x - bh * n_cb;
+// Shared memory of the chunk kernel, in floats: r, k, w, v, dy as
+// [CH][DKP]; NCK checkpoints [DKP][DKP]; dv's warp sums [2][NWARP][SUB][DKP]
+// (two buffers: a sub-chunk's sums are added while the next one's are
+// written); v . dy and r . (u k) per step.
+constexpr int IN = CH * DKP;
+constexpr int CK_OFF = 5 * IN;
+constexpr int DVP = NWARP * SUB * DKP;
+constexpr int DVP_OFF = CK_OFF + NCK * DKP * DKP;
+constexpr int VDY_OFF = DVP_OFF + 2 * DVP;
+constexpr int RUK_OFF = VDY_OFF + CH;
+constexpr size_t CHUNK_SMEM = sizeof(float) * (RUK_OFF + CH);
+
+// One (batch item, head, chunk): thread (row i = 4 warp + lane / 8,
+// columns 8 (lane % 8) ..) holds 8 entries of G and of the states it
+// rebuilds; a row's 64 columns lie in 8 lanes of one warp.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(BW_NT, 1)
+wkv_bwd_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ w,
+                    const float* __restrict__ u, const T* __restrict__ dy,
+                    const float* __restrict__ s_states,
+                    const float* __restrict__ g_states, T* __restrict__ dr,
+                    T* __restrict__ dkk, T* __restrict__ dv,
+                    T* __restrict__ dw, float* __restrict__ du_part, int H,
+                    int T_len, int dkn, int n_ch, Strides rs, Strides ks,
+                    Strides vs, Strides ws, Strides gs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const sm = reinterpret_cast<float*>(smem_raw);
+  float* const sr = sm;                  // dr once a sub-chunk is done
+  float* const sk = sm + IN;             // dk
+  float* const sw = sm + 2 * IN;         // dw
+  float* const sv = sm + 3 * IN;         // swizzled
+  float* const sg = sm + 4 * IN;         // swizzled
+  float* const ck = sm + CK_OFF;
+  float* const dvp = sm + DVP_OFF;
+  float* const svdy = sm + VDY_OFF;
+  float* const sruk = sm + RUK_OFF;
+  const int tid = threadIdx.x, wp = tid >> 5, lane = tid & 31;
+  const int i = 4 * wp + (lane >> 3);    // this thread's row
+  const int cg = lane & 7;               // and columns c0 .. c0 + 7
+  const int c0 = 8 * cg;
+  const int bh = blockIdx.x / n_ch;
+  const int ch = blockIdx.x - bh * n_ch;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int col0 = cb * JC + hf * HC;    // this thread's first value column
-  const T* rp = r + b * rs.b + h * rs.h;
-  const T* kp = k + b * ks.b + h * ks.h;
-  const T* vp = v + b * vs.b + h * vs.h;
-  const T* wp = w + b * ws.b + h * ws.h;
-  const T* gp = dy + b * gs.b + h * gs.h;
-  // this thread's 16 entries of the chunk-start states
-  float* const ck = ckpt + (((long long)bh * n_ch) * n_cb + cb) * NTH * HC +
-                    tid * HC;
-  const long long ck_step = (long long)n_cb * NTH * HC;   // per chunk
-  const long long N = (long long)gridDim.x / n_cb * T_len * dkn;   // B H T dk
-  const long long out0 = (long long)bh * T_len * dkn;
-  // this group's partials of dr, dk, dw for this head, row i
-  float* const pdr = part + cb * 3 * N + out0 + i;
-
-  // 1. forward: the state at the start of every chunk, to ckpt. Chunk c's
-  //    k, w, v are staged in stage c % 3, two chunks ahead.
-  constexpr int FW = 3 * CT * DKP;       // one forward stage
-  auto load_fw = [&](int c) {
-    float* st = stages + (c % 3) * FW;
-    const int t0 = c * CT;
-    load_chunk<VEC>(st, kp, ks.s, t0, T_len, dkn, tid);
-    load_chunk<VEC>(st + CT * DKP, wp, ws.s, t0, T_len, dkn, tid);
-    load_chunk<VEC>(st + 2 * CT * DKP, vp, vs.s, t0, T_len, dkn, tid);
-  };
-  float S[HC];
-#pragma unroll
-  for (int m = 0; m < HC; ++m) S[m] = 0.f;
-  // chunk c is advanced through only if c < n_ch - 1 (the last chunk's
-  // end is unused)
-  if (0 < n_ch - 1) load_fw(0);
+  const int t0 = ch * CH;
+  const int nt = min(CH, T_len - t0);
+  stage_rows<CH, DKP, BW_NT, VEC>(sr, r + b * rs.b + h * rs.h, rs.s, t0,
+                                  T_len, dkn, tid);
+  stage_rows<CH, DKP, BW_NT, VEC>(sk, k + b * ks.b + h * ks.h, ks.s, t0,
+                                  T_len, dkn, tid);
+  stage_rows<CH, DKP, BW_NT, VEC>(sw, w + b * ws.b + h * ws.h, ws.s, t0,
+                                  T_len, dkn, tid);
+  stage_rows<CH, DKP, BW_NT, VEC, true>(sv, v + b * vs.b + h * vs.h, vs.s,
+                                        t0, T_len, dkn, tid);
+  stage_rows<CH, DKP, BW_NT, VEC, true>(sg, dy + b * gs.b + h * gs.h, gs.s,
+                                        t0, T_len, dkn, tid);
   cp_async_commit();
-  if (1 < n_ch - 1) load_fw(1);
-  cp_async_commit();
-  for (int c = 0; c < n_ch; ++c) {
-    float4* dst = reinterpret_cast<float4*>(ck + c * ck_step);
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      dst[q] = make_float4(S[4 * q], S[4 * q + 1], S[4 * q + 2], S[4 * q + 3]);
-    if (c == n_ch - 1) break;
-    cp_async_wait<1>();                  // chunk c has landed, and every
-    __syncthreads();                     // thread is done with chunk c-1
-    if (c + 2 < n_ch - 1) load_fw(c + 2);
-    cp_async_commit();
-    const float* st = stages + (c % 3) * FW;
-#pragma unroll
-    for (int tt = 0; tt < CT; ++tt)      // a full chunk: c < n_ch - 1
-      advance(S, st, st + CT * DKP, st + 2 * CT * DKP, tt, i, col0);
-  }
-  cp_async_wait<0>();
-  __syncthreads();                       // the stages are free again
-
-  // 2. reverse, chunk by chunk, each in two halves of SC steps
+  const long long st0 = ((long long)bh * n_ch + ch) * DKP * DKP;
+  float S[8], G[8];
+  ld8(S, s_states + st0 + i * DKP + c0);
+  ld8(G, g_states + st0 + i * DKP + c0);
   const float u_i = i < dkn ? u[h * dkn + i] : 0.f;
-  // v . dy and r . (u k) of a step: 4 threads per sum, 16 channels each
-  const int dot = tid >> 2, quad = tid & 3;
-  float u_seg[16];
-#pragma unroll
-  for (int m = 0; m < 16; ++m)
-    u_seg[m] = 16 * quad + m < dkn ? u[h * dkn + 16 * quad + m] : 0.f;
-  // the dv sums: columns cc of steps s and s + 4 of a half, the state
-  // buffer's swizzled column of cc in rows with i % 4 = q
-  const int dv_cc = tid & 31, dv_s = tid >> 5;
-  int dv_off[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    dv_off[q] = (((dv_cc >> 2) ^ q) << 2) | (dv_cc & 3);
-  // G_T = dS: row i, this thread's columns (zero past dk, or without dS)
-  float G[HC], du_acc = 0.f;
-#pragma unroll
-  for (int m = 0; m < HC; ++m) G[m] = 0.f;
-  if (dS != nullptr && i < dkn) {
-    const float* g0 = dS + ((long long)bh * dkn + i) * dkn;
-#pragma unroll
-    for (int m = 0; m < HC; ++m)
-      if (col0 + m < dkn) G[m] = g0[col0 + m];
-  }
-  auto load_bw = [&](int c) {
-    float* st = stages + (c & 1) * STAGE;
-    const int t0 = c * CT;
-    load_chunk<VEC>(st, rp, rs.s, t0, T_len, dkn, tid);
-    load_chunk<VEC>(st + 1 * CT * DKP, kp, ks.s, t0, T_len, dkn, tid);
-    load_chunk<VEC>(st + 2 * CT * DKP, wp, ws.s, t0, T_len, dkn, tid);
-    load_chunk<VEC>(st + 3 * CT * DKP, vp, vs.s, t0, T_len, dkn, tid);
-    load_chunk<VEC>(st + 4 * CT * DKP, gp, gs.s, t0, T_len, dkn, tid);
-  };
-  load_bw(n_ch - 1);
-  cp_async_commit();
-  for (int c = n_ch - 1; c >= 0; --c) {
-    const int t0 = c * CT;
-    const int nt = min(CT, T_len - t0);
-    float C0[HC];
-    {
-      const float4* src = reinterpret_cast<const float4*>(ck + c * ck_step);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 f = src[q];
-        C0[4 * q] = f.x;
-        C0[4 * q + 1] = f.y;
-        C0[4 * q + 2] = f.z;
-        C0[4 * q + 3] = f.w;
-      }
-    }
-    cp_async_wait<0>();                  // chunk c has landed, and every
-    __syncthreads();                     // thread is done with chunk c+1
-    if (c > 0) load_bw(c - 1);
-    cp_async_commit();
-    const float* st = stages + (c & 1) * STAGE;
-    const float* sr = st;
-    const float* sk = st + 1 * CT * DKP;
-    const float* sw = st + 2 * CT * DKP;
-    const float* sv = st + 3 * CT * DKP;
-    const float* sg = st + 4 * CT * DKP;
-    {
-      const int tt = dot & (CT - 1);
-      const float* a = (dot < CT ? sv : sr) + tt * DKP + 16 * quad;
-      const float* bb = (dot < CT ? sg : sk) + tt * DKP + 16 * quad;
-      float x[16], y[16];
-      ld16(x, a);
-      ld16(y, bb);
-      float acc0 = 0.f, acc1 = 0.f;
-#pragma unroll
-      for (int m = 0; m < 16; m += 2) {
-        const float x0 = dot < CT ? x[m] : x[m] * u_seg[m];
-        const float x1 = dot < CT ? x[m + 1] : x[m + 1] * u_seg[m + 1];
-        acc0 = fmaf(x0, y[m], acc0);
-        acc1 = fmaf(x1, y[m + 1], acc1);
-      }
-      float e = acc0 + acc1;
-      e += __shfl_xor_sync(0xffffffffu, e, 1);
-      e += __shfl_xor_sync(0xffffffffu, e, 2);
-      if (quad == 0) (dot < CT ? svdy : sruk)[tt] = e;
-    }
-    __syncthreads();                     // svdy, sruk
+  cp_async_wait<0>();
+  __syncthreads();
 
-    for (int half = 1; half >= 0; --half) {
-      const int h0 = half * SC;
-      const int hn = min(SC, nt - h0);
-      if (hn <= 0) continue;
-      // the half's states S_{t-1}, t = t0 + h0 .. t0 + h0 + hn - 1, into
-      // slots 0 .. hn - 1 (this thread's entries only)
+  // v . dy (dot < 64; both swizzled alike, so the channels pair up) and
+  // r . (u k) (dot >= 64) of each step: 4 threads per sum, 16 channels
+  // each, added in a fixed order
+  {
+    const int dot = tid >> 2, quad = tid & 3;
+    const int tt = dot & (CH - 1);
+    const float* a = (dot < CH ? sv : sr) + tt * DKP + 16 * quad;
+    const float* bb = (dot < CH ? sg : sk) + tt * DKP + 16 * quad;
+    float acc0 = 0.f, acc1 = 0.f;
 #pragma unroll
-      for (int m = 0; m < HC; ++m) S[m] = C0[m];
-      if (half) {                        // hn > 0: steps 0 .. SC-1 are real
+    for (int m = 0; m < 16; m += 2) {
+      const int c = 16 * quad + m;
+      const float x0 =
+          dot < CH ? a[m] : a[m] * (c < dkn ? u[h * dkn + c] : 0.f);
+      const float x1 =
+          dot < CH ? a[m + 1]
+                   : a[m + 1] * (c + 1 < dkn ? u[h * dkn + c + 1] : 0.f);
+      acc0 = fmaf(x0, bb[m], acc0);
+      acc1 = fmaf(x1, bb[m + 1], acc1);
+    }
+    float e = acc0 + acc1;
+    e += __shfl_xor_sync(0xffffffffu, e, 1);
+    e += __shfl_xor_sync(0xffffffffu, e, 2);
+    if (quad == 0) (dot < CH ? svdy : sruk)[tt] = e;
+  }
+  // S_{t-1} <- S_t on the thread's 8 entries, step tt of the chunk
+  auto advance = [&](float* x, int tt) {
+    const float k_i = sk[tt * DKP + i], w_i = sw[tt * DKP + i];
+    float vv[8];
+    ld8s(vv, sv + tt * DKP, c0);
 #pragma unroll
-        for (int tt = 0; tt < SC; ++tt) advance(S, sk, sw, sv, tt, i, col0);
+    for (int m = 0; m < 8; ++m) x[m] = fmaf(w_i, x[m], k_i * vv[m]);
+  };
+  // the checkpoints: the state before steps 0, 16, 32, 48 (own entries)
+  const int nseg = (nt + SEG - 1) / SEG;
+  st8s(ck + i * DKP, c0, S);
+  for (int q = 1; q < nseg; ++q) {
+#pragma unroll
+    for (int j = 0; j < SEG; ++j) advance(S, (q - 1) * SEG + j);
+    st8s(ck + (q * DKP + i) * DKP, c0, S);
+  }
+  __syncthreads();                       // svdy, sruk
+
+  // the reverse pass: segments last to first, each in two sub-chunks of
+  // SUB steps (the later first)
+  float du_acc = 0.f;
+  int buf = 0;
+  const int hib = (lane >> 4) & 1, mid = (lane >> 3) & 1;
+  const int hi4 = (lane >> 2) & 1, hi2 = (lane >> 1) & 1;
+  const int sel = cg >> 1;               // the sum this lane keeps: dr, dk, dw
+  for (int q = nseg - 1; q >= 0; --q) {
+#pragma unroll
+    for (int p = SEG / SUB - 1; p >= 0; --p) {
+      const int h0 = q * SEG + p * SUB;
+      if (h0 >= nt) continue;
+      const int hn = min(SUB, nt - h0);
+      float* const dvb = dvp + buf * DVP;
+      float red[SUB];                    // this lane's dr, dk or dw per step
+      // the sub-chunk's states S_{t-1}, t = h0 .. h0 + SUB - 1
+      float st[SUB][8];
+      ld8s(st[0], ck + (q * DKP + i) * DKP, c0);
+#pragma unroll
+      for (int j = 0; j < p * SUB; ++j) advance(st[0], q * SEG + j);
+#pragma unroll
+      for (int l = 1; l < SUB; ++l) {
+#pragma unroll
+        for (int m = 0; m < 8; ++m) st[l][m] = st[l - 1][m];
+        advance(st[l], h0 + l - 1);
       }
 #pragma unroll
-      for (int s = 0; s < SC; ++s) {
-        if (s < hn) {
-          st_state(states + s * DKP * JC, S, i, hf);
-          if (s + 1 < hn) advance(S, sk, sw, sv, h0 + s, i, col0);
-        }
-      }
-      // the half's steps in reverse
-#pragma unroll
-      for (int s = SC - 1; s >= 0; --s) {
-        if (s >= hn) continue;
-        const int tt = h0 + s;
-        float* slot = states + s * DKP * JC;
-        float Sp[HC], vv[HC], gg[HC];
-        ld_state(Sp, slot, i, hf);
-        ld16(vv, sv + tt * DKP + col0);
-        ld16(gg, sg + tt * DKP + col0);
+      for (int l = SUB - 1; l >= 0; --l) {
+        if (l >= hn) continue;
+        const int tt = h0 + l;
         const float r_i = sr[tt * DKP + i], k_i = sk[tt * DKP + i];
         const float w_i = sw[tt * DKP + i];
+        const float vdy = svdy[tt];
+        float vv[8], gg[8];
+        ld8s(vv, sv + tt * DKP, c0);
+        ld8s(gg, sg + tt * DKP, c0);
         float pr[2] = {0.f, 0.f}, pk[2] = {0.f, 0.f}, pw[2] = {0.f, 0.f};
+        float dvs[8];
 #pragma unroll
-        for (int m = 0; m < HC; ++m) {
-          pr[m & 1] = fmaf(Sp[m], gg[m], pr[m & 1]);
+        for (int m = 0; m < 8; ++m) {
+          pr[m & 1] = fmaf(st[l][m], gg[m], pr[m & 1]);
           pk[m & 1] = fmaf(G[m], vv[m], pk[m & 1]);
-          pw[m & 1] = fmaf(G[m], Sp[m], pw[m & 1]);
-        }
-        float dr_p = pr[0] + pr[1], dk_p = pk[0] + pk[1];
-        float dw_p = pw[0] + pw[1];
-        dr_p += __shfl_xor_sync(0xffffffffu, dr_p, 1);
-        dk_p += __shfl_xor_sync(0xffffffffu, dk_p, 1);
-        dw_p += __shfl_xor_sync(0xffffffffu, dw_p, 1);
-#pragma unroll
-        for (int m = 0; m < HC; ++m) {
-          Sp[m] = G[m] * k_i;            // the dv shares, over the state
+          pw[m & 1] = fmaf(G[m], st[l][m], pw[m & 1]);
+          dvs[m] = G[m] * k_i;
           G[m] = fmaf(w_i, G[m], r_i * gg[m]);
         }
-        st_state(slot, Sp, i, hf);
-        if (hf == 0 && i < dkn) {
-          if (cb == 0) {
-            const float vdy = svdy[tt];
-            dr_p = fmaf(u_i * k_i, vdy, dr_p);
-            dk_p = fmaf(u_i * r_i, vdy, dk_p);
-            du_acc = fmaf(r_i * k_i, vdy, du_acc);
-          }
-          const long long o = (long long)(t0 + tt) * dkn;
-          pdr[o] = dr_p;
-          pdr[N + o] = dk_p;
-          pdr[2 * N + o] = dw_p;
-        }
-      }
-      __syncthreads();                   // the dv shares
-      // dv: the shares summed over the rows in order (four interleaved
-      // partial sums, added in a fixed order), plus r.(u k) dy
+        du_acc = fmaf(r_i * k_i, vdy, du_acc);
+        // dr, dk, dw (and an empty fourth) over the row's 8 lanes,
+        // reduce-scattered: lanes 2q, 2q + 1 of the row keep sum q
+        float x4r[4] = {pr[0] + pr[1], pk[0] + pk[1], pw[0] + pw[1], 0.f};
 #pragma unroll
-      for (int s2 = 0; s2 < SC; s2 += NTH / JC) {
-        const int s = s2 + dv_s;
-        if (s < hn) {
-          const float* slot = states + s * DKP * JC;
+        for (int m = 0; m < 2; ++m) {
+          const float keep = hi4 ? x4r[m + 2] : x4r[m];
+          const float send = hi4 ? x4r[m] : x4r[m + 2];
+          x4r[m] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+        }
+        {
+          const float keep = hi2 ? x4r[1] : x4r[0];
+          const float send = hi2 ? x4r[0] : x4r[1];
+          x4r[0] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
+        }
+        // plus the bonus terms: u k (v . dy) to dr, u r (v . dy) to dk
+        const float bonus =
+            sel == 0 ? u_i * k_i : sel == 1 ? u_i * r_i : 0.f;
+        red[l] = fmaf(bonus, vdy,
+                      x4r[0] + __shfl_xor_sync(0xffffffffu, x4r[0], 1));
+        // dv's shares over the warp's 4 rows, reduce-scattered: the lane
+        // keeps columns c0 + 4 hib + 2 mid + {0, 1}
+        float x4[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const float keep = hib ? dvs[m + 4] : dvs[m];
+          const float send = hib ? dvs[m] : dvs[m + 4];
+          x4[m] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+        }
+        float x2[2];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const float keep = mid ? x4[m + 2] : x4[m];
+          const float send = mid ? x4[m] : x4[m + 2];
+          x2[m] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+        }
+        *reinterpret_cast<float2*>(dvb + (wp * SUB + l) * DKP +
+                                   swz(c0 + 4 * hib + 2 * mid)) =
+            make_float2(x2[0], x2[1]);
+      }
+      // dr, dk, dw of the sub-chunk's steps over r, k, w of those steps,
+      // once the warp's reads of them are done
+      __syncwarp();
+#pragma unroll
+      for (int l = 0; l < SUB; ++l) {
+        if (l >= hn) continue;
+        const int o = (h0 + l) * DKP + i;
+        if (cg == 0) sr[o] = red[l];
+        if (cg == 2) sk[o] = red[l];
+        if (cg == 4) sw[o] = red[l];
+      }
+      __syncthreads();                   // dv's warp sums
+      // dv: the 16 warps' sums in a fixed order (four interleaved partial
+      // sums), plus r . (u k) dy
+      {
+        const int l = tid >> 6, j = tid & (DKP - 1);
+        if (l < hn) {
+          const int tt = h0 + l;
           float a[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-          for (int ii = 0; ii < DKP; ii += 4) {
+          for (int x = 0; x < NWARP; x += 4)
 #pragma unroll
-            for (int q = 0; q < 4; ++q) a[q] += slot[(ii + q) * JC + dv_off[q]];
-          }
-          const int tt = h0 + s;
-          const int j = cb * JC + dv_cc;
+            for (int y = 0; y < 4; ++y)
+              a[y] += dvb[((x + y) * SUB + l) * DKP + swz(j)];
           if (j < dkn)
-            store1(dv + out0 + (long long)(t0 + tt) * dkn + j,
-                   fmaf(sruk[tt], sg[tt * DKP + j],
+            store1(dv + ((long long)bh * T_len + t0 + tt) * dkn + j,
+                   fmaf(sruk[tt], sg[tt * DKP + swz(j)],
                         (a[0] + a[1]) + (a[2] + a[3])));
         }
       }
-      __syncthreads();                   // before the slots are rebuilt
+      buf ^= 1;
     }
   }
-  if (cb == 0 && hf == 0 && i < dkn) du_part[(long long)bh * dkn + i] = du_acc;
-}
-
-// dr, dk, dw (blockIdx.y = 0, 1, 2) = the column groups' partials summed
-// in group order; du[h][i] = sum_b du_part[b][h][i] in batch order
-// (blockIdx.y = 3).
-template <typename T>
-__global__ void __launch_bounds__(RED_NT)
-wkv_reduce_kernel(const float* __restrict__ part, T* __restrict__ dr,
-                  T* __restrict__ dk, T* __restrict__ dw,
-                  const float* __restrict__ du_part, float* __restrict__ du,
-                  long long N, int n_cb, int B, int Hdk) {
-  const long long first = blockIdx.x * (long long)RED_NT + threadIdx.x;
-  const long long stride = (long long)gridDim.x * RED_NT;
-  const int a = blockIdx.y;
-  if (a == 3) {
-    for (long long e = first; e < Hdk; e += stride) {
-      float s = 0.f;
-      for (int bb = 0; bb < B; ++bb) s += du_part[bb * (long long)Hdk + e];
-      du[e] = s;
-    }
-    return;
-  }
-  T* const out = a == 0 ? dr : a == 1 ? dk : dw;
-  const float* const p = part + a * N;
-  const long long group = 3 * N;         // from one group's partial to the next
-  if ((N & 3) == 0) {                    // float4s
-    const float4* p4 = reinterpret_cast<const float4*>(p);
-    for (long long x = first; x < N / 4; x += stride) {
-      float4 s = p4[x];
-      for (int c = 1; c < n_cb; ++c) {
-        const float4 q = p4[x + c * group / 4];
-        s.x += q.x;
-        s.y += q.y;
-        s.z += q.z;
-        s.w += q.w;
-      }
-      store4(out + 4 * x, s);
-    }
-  } else {
-    for (long long x = first; x < N; x += stride) {
-      float s = p[x];
-      for (int c = 1; c < n_cb; ++c) s += p[x + c * group];
-      store1(out + x, s);
+  __syncthreads();                       // dr, dk, dw of every step
+  if (cg == 0 && i < dkn)
+    du_part[((long long)bh * n_ch + ch) * DKP + i] = du_acc;
+  // dr, dk, dw of the chunk, coalesced
+  for (int e = tid; e < nt * DKP; e += BW_NT) {
+    const int tt = e / DKP, j = e - tt * DKP;
+    if (j < dkn) {
+      const long long o = ((long long)bh * T_len + t0 + tt) * dkn + j;
+      store1(dr + o, sr[e]);
+      store1(dkk + o, sk[e]);
+      store1(dw + o, sw[e]);
     }
   }
 }
 
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * STAGE + SC * DKP * JC + 2 * CT);
+// du[h][i] = sum over batch items b, then chunks c, of du_part[b][h][c][i].
+__global__ void __launch_bounds__(DU_NT)
+wkv_du_kernel(const float* __restrict__ du_part, float* __restrict__ du,
+              int B, int H, int dkn, int n_ch) {
+  const int e = blockIdx.x * DU_NT + threadIdx.x;
+  if (e >= H * dkn) return;
+  const int h = e / dkn, i = e - h * dkn;
+  float s = 0.f;
+  for (int b = 0; b < B; ++b) {
+    const float* p = du_part + ((long long)(b * H + h) * n_ch) * DKP + i;
+    for (int c = 0; c < n_ch; ++c) s += p[(long long)c * DKP];
+  }
+  du[e] = s;
 }
 
 template <typename T, bool VEC>
 cudaError_t launch(const T* r, const T* k, const T* v, const T* w,
                    const float* u, const T* dy, const float* dS, T* dr,
-                   T* dk, T* dv, T* dw, float* du, float* du_part,
-                   float* ckpt, float* part, int B, int H, int T_len,
+                   T* dk, T* dv, T* dw, float* du, const float* s_states,
+                   float* g_states, float* du_part, int B, int H, int T_len,
                    int dkn, const Strides* st, cudaStream_t cs) {
-  const int n_ch = (T_len + CT - 1) / CT;
-  const int n_cb = (dkn + JC - 1) / JC;
-  constexpr size_t smem = smem_bytes();
+  const int n_ch = (T_len + CH - 1) / CH;
+  constexpr size_t smem_st = StateSmem<T>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      wkv_bwd_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      wkv_bwd_state_kernel<T, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_st);
   if (err != cudaSuccess) return err;
-  wkv_bwd_kernel<T, VEC><<<B * H * n_cb, NTH, smem, cs>>>(
-      r, k, v, w, u, dy, dS, dv, part, du_part, ckpt, H, T_len, dkn, n_cb,
-      n_ch, st[0], st[1], st[2], st[3], st[4]);
+  wkv_bwd_state_kernel<T, VEC><<<B * H, ST_NT, smem_st, cs>>>(
+      r, w, dy, dS, st[0], st[3], st[4], g_states, H, T_len, dkn, n_ch);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long N = (long long)B * H * T_len * dkn;
-  const long long per = (N & 3) == 0 ? N / 4 : N;   // items per array
-  const long long blocks = (per + RED_NT - 1) / RED_NT;
-  wkv_reduce_kernel<T><<<dim3((unsigned)(blocks < 2048 ? blocks : 2048), 4),
-                         RED_NT, 0, cs>>>(part, dr, dk, dw, du_part, du, N,
-                                          n_cb, B, H * dkn);
+  err = cudaFuncSetAttribute(wkv_bwd_chunk_kernel<T, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)CHUNK_SMEM);
+  if (err != cudaSuccess) return err;
+  wkv_bwd_chunk_kernel<T, VEC><<<B * H * n_ch, BW_NT, CHUNK_SMEM, cs>>>(
+      r, k, v, w, u, dy, s_states, g_states, dr, dk, dv, dw, du_part, H,
+      T_len, dkn, n_ch, st[0], st[1], st[2], st[3], st[4]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wkv_du_kernel<<<(H * dkn + DU_NT - 1) / DU_NT, DU_NT, 0, cs>>>(
+      du_part, du, B, H, dkn, n_ch);
   return cudaGetLastError();
 }
 
-// Each entry launches the two kernels on `stream` and returns
+// Each entry launches the three kernels on `stream` and returns
 // cudaGetLastError() (0 on success); it does not synchronise and allocates
 // nothing. `strides` holds 15 element strides: (batch, head, time) of r,
 // k, v, w and dy (unit stride over dk). u (H, dk) f32 contiguous; dS (B, H,
 // dk, dk) f32 contiguous, the final state's gradient, or null for none;
 // dr, dk, dv, dw (B, H, T, dk, the inputs' dtype) and du (H, dk, f32) are
-// written contiguous. Scratch from the wrapper: `du_part` (B, H, dk) f32;
-// `ckpt`, B H ceil(T / 16) 4096 f32 (one 64 x 64 state per chunk of 16
-// steps per (batch item, head)); `part`, 3 ceil(dk / 32) B H T dk f32 (the
-// column groups' partials of dr, dk, dw). Chunks load 16 bytes at a time
-// when every row of r, k, v, w and dy starts 16-byte aligned, else element
-// by element.
+// written contiguous. `s_states`: the states at chunk starts that the
+// forward entry wrote for the same r, k, v, w (B H ceil(T / 64) 64 x 64
+// f32; null is refused). Scratch from the wrapper: `g_states`, as large
+// (the gradients at chunk ends), and `du_part`, B H ceil(T / 64) 64 f32.
+// Inputs load 16 bytes at a time when every row of r, k, v, w and dy
+// starts 16-byte aligned, else element by element.
 template <typename T>
 int dispatch(const void* r, const void* k, const void* v, const void* w,
              const void* u, const void* dy, const void* dS, void* dr,
-             void* dk, void* dv, void* dw, void* du, void* du_part,
-             void* ckpt, void* part, int B, int H, int T_len, int dkn,
+             void* dk, void* dv, void* dw, void* du, const void* s_states,
+             void* g_states, void* du_part, int B, int H, int T_len, int dkn,
              const long long* strides, void* stream) {
-  if (B < 1 || H < 1 || T_len < 1 || dkn < 1 || dkn > DKP ||
-      (long long)B * H * ((dkn + JC - 1) / JC) > 2147483647LL) {
+  if (s_states == nullptr || B < 1 || H < 1 || T_len < 1 || dkn < 1 ||
+      dkn > DKP ||
+      (long long)B * H * ((T_len + CH - 1) / CH) > 2147483647LL) {
     return (int)cudaErrorInvalidValue;
   }
   Strides st[5];
@@ -615,9 +470,9 @@ int dispatch(const void* r, const void* k, const void* v, const void* w,
                  static_cast<const float*>(dS), static_cast<T*>(dr),          \
                  static_cast<T*>(dk), static_cast<T*>(dv),                    \
                  static_cast<T*>(dw), static_cast<float*>(du),                \
-                 static_cast<float*>(du_part), static_cast<float*>(ckpt),     \
-                 static_cast<float*>(part), B, H, T_len, dkn, st,             \
-                 static_cast<cudaStream_t>(stream))
+                 static_cast<const float*>(s_states),                        \
+                 static_cast<float*>(g_states), static_cast<float*>(du_part), \
+                 B, H, T_len, dkn, st, static_cast<cudaStream_t>(stream))
   return (int)(vec ? WKV_BWD_LAUNCH(true) : WKV_BWD_LAUNCH(false));
 #undef WKV_BWD_LAUNCH
 }
@@ -628,21 +483,24 @@ extern "C" {
 
 int wkv_bwd_f32(const void* r, const void* k, const void* v, const void* w,
                 const void* u, const void* dy, const void* dS, void* dr,
-                void* dk, void* dv, void* dw, void* du, void* du_part,
-                void* ckpt, void* part, int B, int H, int T, int dkn,
-                const long long* strides, void* stream) {
-  return dispatch<float>(r, k, v, w, u, dy, dS, dr, dk, dv, dw, du, du_part,
-                         ckpt, part, B, H, T, dkn, strides, stream);
+                void* dk, void* dv, void* dw, void* du,
+                const void* s_states, void* g_states, void* du_part, int B,
+                int H, int T, int dkn, const long long* strides,
+                void* stream) {
+  return dispatch<float>(r, k, v, w, u, dy, dS, dr, dk, dv, dw, du,
+                         s_states, g_states, du_part, B, H, T, dkn, strides,
+                         stream);
 }
 
 int wkv_bwd_bf16(const void* r, const void* k, const void* v, const void* w,
                  const void* u, const void* dy, const void* dS, void* dr,
-                 void* dk, void* dv, void* dw, void* du, void* du_part,
-                 void* ckpt, void* part, int B, int H, int T, int dkn,
-                 const long long* strides, void* stream) {
+                 void* dk, void* dv, void* dw, void* du,
+                 const void* s_states, void* g_states, void* du_part, int B,
+                 int H, int T, int dkn, const long long* strides,
+                 void* stream) {
   return dispatch<__nv_bfloat16>(r, k, v, w, u, dy, dS, dr, dk, dv, dw, du,
-                                 du_part, ckpt, part, B, H, T, dkn, strides,
-                                 stream);
+                                 s_states, g_states, du_part, B, H, T, dkn,
+                                 strides, stream);
 }
 
 const char* wkv_bwd_error_string(int err) {

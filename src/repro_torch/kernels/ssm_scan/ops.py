@@ -5,21 +5,28 @@
 returning y and the final f32 state, which a decode resumes from.
 
   * a CPU tensor takes the plain version (``ref.wkv_ref``);
-  * a CUDA tensor launches the hand-written kernel (``csrc/wkv.cu``,
+  * a CUDA tensor launches the hand-written kernels (``csrc/wkv.cu``,
     built by ``kernels._nvcc`` at first use) or raises. No CUDA input is
-    ever routed to the plain version.
+    ever routed to the plain version. The forward is two launches: the
+    state at every chunk boundary (chunks of ``CHUNK`` = 64 steps, one
+    split-TF32 ``wgmma`` product per chunk, ``csrc/wkv_chunk.cuh``), then
+    y with the chunks in parallel, each from its chunk-start state.
   * when an input requires a gradient (grad mode on), a CUDA call goes
     through ``WKV``, a ``torch.autograd.Function`` whose backward launches
-    the hand-written backward kernel (``csrc/wkv_bwd.cu``: dr, dk, dv, dw
-    and du in reverse time over blocks of 32 value columns, dr, dk and dw
-    summed over the column groups in order by a second kernel; each
-    chunk's S_{t-1} rebuilt into shared memory from states stored every
-    16 steps, never by dividing by w). The final state's gradient dS seeds
-    the reverse pass (as the reference differentiates its scan through S).
-    f32 and bf16 inputs (bf16 widened to f32 as they are loaded, the
-    gradients rounded to bf16 once, within ``bf16_grad_error_bound`` of
-    the plain version). On the CPU autograd differentiates the plain
-    version.
+    the hand-written backward (``csrc/wkv_bwd.cu``) with the chunk-start
+    states S its forward launch wrote (``WKV`` keeps them: 67 MB at the
+    rwkv6-1.6b shape, until the backward): the same chunk-state pass,
+    last chunk first from the final state's gradient dS (as the reference
+    differentiates its scan through S), for G = dL/dS; then the chunks in
+    parallel, one block per (batch item, head, chunk)
+    holding all 64 value columns, so dr, dk, dw and dv are complete in the
+    block (no partial sums in device memory); each chunk's S_{t-1} rebuilt
+    from checkpoints every 16 steps, 8 states at a time in registers,
+    never by dividing by w; du summed from per-chunk partials
+    in a fixed order. f32 and bf16 inputs (bf16
+    widened to f32 as they are loaded, the gradients rounded to bf16 once,
+    within ``bf16_grad_error_bound`` of the plain version). On the CPU
+    autograd differentiates the plain version.
 
 The reference's ``chunk`` and ``interpret`` arguments do not exist here,
 nor does its padding of time to a chunk multiple with w=1, k=0 no-op
@@ -30,10 +37,11 @@ over dk is not 1 is copied to a contiguous one first.
 y has r's strides when r is dense (no gaps between its elements) and
 contiguous strides otherwise (``torch.empty_like``). Tensors whose rows
 all start on 16 bytes (``_layout.vector_loads``) are staged with
-``cp.async``; others take the same kernel with per-element loads. y is
-summed in another order than the reference's (the bonus term Σᵢ rᵢuᵢkᵢ
-apart, the dot product over the state in partial sums), so it agrees to
-f32 rounding (for bf16 inputs, within ``bf16_error_bound``).
+``cp.async``; others take the same kernel with per-element loads. The
+chunk-boundary states come from split-TF32 products and y is summed in
+another order than the reference's (the bonus term Σᵢ rᵢuᵢkᵢ apart, the
+dot product over the state in partial sums), so it agrees to f32 rounding
+(for bf16 inputs, within ``bf16_error_bound``).
 """
 from __future__ import annotations
 
@@ -49,25 +57,25 @@ from repro_torch.kernels.ssm_scan.ref import wkv_ref
 CSRC = Path(__file__).resolve().parent / "csrc" / "wkv.cu"
 CSRC_BWD = CSRC.with_name("wkv_bwd.cu")
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
-# r, k, v, w, u, y, S, B, H, T, dk, strides, vec, stream
-_SIG = [_ptr] * 7 + [_i32] * 4 + [_ptr, _i32, _ptr]
+# r, k, v, w, u, y, S, states, B, H, T, dk, strides, vec, stream
+_SIG = [_ptr] * 8 + [_i32] * 4 + [_ptr, _i32, _ptr]
 LIB = Library(CSRC, {"wkv_f32": _SIG, "wkv_bf16": _SIG,
-                     "wkv_launch_shape": [_i32] * 3 + [_ptr]},
+                     "wkv_launch_shape": [_i32] * 4 + [_ptr]},
               "wkv_error_string")
-# r, k, v, w, u, dy, dS (or None), dr, dk, dv, dw, du, du_part, ckpt, part,
-# B, H, T, dk, strides, stream
+# r, k, v, w, u, dy, dS (or None), dr, dk, dv, dw, du, the forward's
+# states, g_states, du_part, B, H, T, dk, strides, stream
 _BWD_SIG = [_ptr] * 15 + [_i32] * 4 + [_ptr, _ptr]
 BWD_LIB = Library(CSRC_BWD, {"wkv_bwd_f32": _BWD_SIG,
                              "wkv_bwd_bf16": _BWD_SIG},
                   "wkv_bwd_error_string")
-# Steps between the states the backward kernel stores (its chunk; it
-# rebuilds them half a chunk at a time), and the value columns of one of
-# its blocks (a column group; dr, dk and dw are summed over the groups).
-BWD_CHUNK = 16
-BWD_COLUMNS = 32
+# Steps per chunk: the states (and, in the backward, the gradients) at the
+# chunk boundaries are the only ones the kernels keep in device memory
+# (B H ceil(T / CHUNK) x 64 x 64 f32 each, 67 MB at the rwkv6-1.6b shape).
+CHUNK = 64
 
-# Largest head size the kernel takes: a value column of S is spread over
-# 16 lanes of 4 rows each.
+# Largest head size the kernels take: the state is padded to 64 x 64 (the
+# chunk products' width; a value column of S spread over 16 lanes of 4 rows
+# in the forward, a key row over 8 lanes in the backward).
 MAX_DK = 64
 DTYPES = (torch.float32, torch.bfloat16)
 # The f32 backward kernel's distance from autograd through the plain
@@ -93,8 +101,10 @@ def _check(r, k, v, w, u):
 
 
 def _launch(r, k, v, w, u):
-    """One launch of the kernel on CUDA tensors; raises on what it does
-    not take and on a refused launch."""
+    """One call of the forward kernels on CUDA tensors; raises on what they
+    do not take and on a refused launch. Returns (y, S, states): ``states``
+    the state at every chunk start (f32 scratch), which the backward of the
+    same inputs can take instead of computing it again."""
     B, H, T, dk = r.shape
     if dk > MAX_DK or T < 1:
         raise ValueError(f"the kernel takes dk <= {MAX_DK} and T >= 1; got "
@@ -106,24 +116,28 @@ def _launch(r, k, v, w, u):
     u = u.to(torch.float32).contiguous()
     y = torch.empty_like(r)
     S = torch.empty((B, H, dk, dk), dtype=torch.float32, device=r.device)
+    states = torch.empty(_state_floats(B, H, T), dtype=torch.float32,
+                         device=r.device)
     strides = [s for a in (r, k, v, w, y) for s in a.stride()[:3]]
     lib = LIB.load()
     fn = lib.wkv_f32 if r.dtype == torch.float32 else lib.wkv_bf16
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 u.data_ptr(), y.data_ptr(), S.data_ptr(), B, H, T, dk,
+                 u.data_ptr(), y.data_ptr(), S.data_ptr(),
+                 states.data_ptr(), B, H, T, dk,
                  (ctypes.c_longlong * 15)(*strides),
                  int(vector_loads(r, k, v, w)), stream)
     LIB.check(err, "wkv")
-    return y, S
+    return y, S, states
 
 
-def _launch_bwd(r, k, v, w, u, dy, dS=None):
-    """One launch of the backward kernel on CUDA tensors (r, k, v, w and
+def _launch_bwd(r, k, v, w, u, dy, dS, states):
+    """One call of the backward kernels on CUDA tensors (r, k, v, w and
     dy of one dtype, f32 or bf16; ``dS`` the final state's gradient, or
-    None for none). Returns contiguous (dr, dk, dv, dw) in the inputs'
-    dtype and du (H, dk) f32."""
+    None for none; ``states`` the chunk-start states ``_launch`` returned
+    for the same r, k, v, w). Returns contiguous (dr, dk, dv, dw) in the
+    inputs' dtype and du (H, dk) f32."""
     B, H, T, dk = r.shape
     r, k, v, w, dy = (a if a.stride(3) == 1 else a.contiguous()
                       for a in (r, k, v, w, dy.to(r.dtype)))
@@ -133,12 +147,10 @@ def _launch_bwd(r, k, v, w, u, dy, dS=None):
     grads = [torch.empty((B, H, T, dk), dtype=r.dtype, device=r.device)
              for _ in range(4)]
     du = torch.empty((H, dk), dtype=torch.float32, device=r.device)
-    du_part = torch.empty((B, H, dk), dtype=torch.float32, device=r.device)
-    n_ch = -(-T // BWD_CHUNK)
-    ckpt = torch.empty(B * H * n_ch * 64 * 64, dtype=torch.float32,
-                       device=r.device)
-    part = torch.empty(3 * -(-dk // BWD_COLUMNS) * B * H * T * dk,
-                       dtype=torch.float32, device=r.device)
+    g_states = torch.empty(_state_floats(B, H, T), dtype=torch.float32,
+                           device=r.device)
+    du_part = torch.empty(B * H * -(-T // CHUNK) * MAX_DK,
+                          dtype=torch.float32, device=r.device)
     strides = [s for a in (r, k, v, w, dy) for s in a.stride()[:3]]
     lib = BWD_LIB.load()
     fn = lib.wkv_bwd_f32 if r.dtype == torch.float32 else lib.wkv_bwd_bf16
@@ -148,8 +160,8 @@ def _launch_bwd(r, k, v, w, u, dy, dS=None):
                  u.data_ptr(), dy.data_ptr(),
                  None if dS is None else dS.data_ptr(),
                  *(g.data_ptr() for g in grads), du.data_ptr(),
-                 du_part.data_ptr(), ckpt.data_ptr(), part.data_ptr(), B,
-                 H, T, dk,
+                 states.data_ptr(), g_states.data_ptr(),
+                 du_part.data_ptr(), B, H, T, dk,
                  (ctypes.c_longlong * 15)(*strides), stream)
     BWD_LIB.check(err, "wkv backward")
     return (*grads, du)
@@ -162,29 +174,39 @@ class WKV(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, r, k, v, w, u):
-        y, S = _launch(r, k, v, w, u)
+        y, S, states = _launch(r, k, v, w, u)
         wkv.launches += 1
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(r, k, v, w, u)
+        # the chunk-start states are kept for the backward (one 64 x 64 f32
+        # state per 64 steps: 67 MB at the rwkv6-1.6b shape) instead of
+        # being computed there again
+        ctx.save_for_backward(r, k, v, w, u, states)
         return y, S
 
     @staticmethod
     def backward(ctx, dy, dS):
-        r, k, v, w, u = ctx.saved_tensors
+        r, k, v, w, u, states = ctx.saved_tensors
         if dy is None and dS is None:
             return None, None, None, None, None
         if dy is None:
             dy = torch.zeros_like(r)
-        dr, dk, dv, dw, du = _launch_bwd(r, k, v, w, u, dy, dS)
+        dr, dk, dv, dw, du = _launch_bwd(r, k, v, w, u, dy, dS, states)
         wkv.bwd_launches += 1
         return dr, dk, dv, dw, du.to(u.dtype)
 
 
-def launch_shape(B, H, dk):
-    """(blocks, threads per block) of the kernel's launch for this shape
-    (builds and loads the library)."""
+def _state_floats(B, H, T):
+    """Floats of one set of chunk-boundary states: a 64 x 64 f32 state per
+    (batch item, head, chunk of ``CHUNK`` steps)."""
+    return B * H * -(-T // CHUNK) * MAX_DK * MAX_DK
+
+
+def launch_shape(B, H, T, dk):
+    """(blocks, threads per block) of the forward's y launch for this shape
+    (builds and loads the library): a block per (batch item, head, chunk);
+    the state pass before it runs B·H blocks of 128 threads."""
     grid = (ctypes.c_int * 2)()
-    LIB.check(LIB.load().wkv_launch_shape(B, H, dk, grid), "wkv")
+    LIB.check(LIB.load().wkv_launch_shape(B, H, T, dk, grid), "wkv")
     return grid[0], grid[1]
 
 
@@ -231,9 +253,9 @@ def _on_card(r, k, v, w, u):
     if torch.is_grad_enabled() and any(a.requires_grad
                                        for a in (r, k, v, w, u)):
         return WKV.apply(r, k, v, w, u)
-    out = _launch(r, k, v, w, u)
+    y, S, _ = _launch(r, k, v, w, u)
     wkv.launches += 1
-    return out
+    return y, S
 
 
 # Kernel launches in this process (forward, backward); ``chip_smoke.py``

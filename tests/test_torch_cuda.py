@@ -858,9 +858,11 @@ def test_flash_f32_takes_padded_and_copied_operands(cuda, B, H, KV, Sq, Skv,
     _assert_flash_matches(o, q, k, v, causal, win)
 
 
-# T = 1, T off the 16-step chunk, ragged dk (50: four column blocks, the
-# last with 2 live columns; 8: the 16-wide instance). (B, H, T, dk)
-WKV_EDGES = [(2, 3, 1, 64), (1, 2, 33, 64), (2, 2, 40, 50), (1, 3, 33, 8)]
+# T = 1, T off the y kernel's 8-step sub-chunk and the 64-step chunk
+# (one chunk, and several with a ragged last one), ragged dk (50, 8: zero
+# channels up to 64). (B, H, T, dk)
+WKV_EDGES = [(2, 3, 1, 64), (1, 2, 33, 64), (2, 2, 40, 50), (1, 3, 33, 8),
+             (2, 2, 321, 64), (1, 2, 65, 40)]
 
 
 @pytest.mark.parametrize("B,H,T,dk", WKV_EDGES)
@@ -891,11 +893,12 @@ def test_wkv_kernel_tile_edges(cuda, B, H, T, dk, dtype, layout):
 
 
 def test_wkv_launch_shape(cuda):
-    """The rwkv6-1.6b prefill shape spreads each head over 2 blocks of 128
-    threads (32 value columns each): 256 blocks."""
-    assert wkv_ops.launch_shape(4, 32, 64) == (256, 128)
-    assert wkv_ops.launch_shape(1, 2, 16) == (2, 128)
-    assert wkv_ops.launch_shape(2, 2, 50) == (8, 128)
+    """The y launch runs every 64-step chunk of every head in parallel, a
+    block of 128 threads each: 4096 blocks at the rwkv6-1.6b prefill
+    shape (B=4, H=32, T=2048)."""
+    assert wkv_ops.launch_shape(4, 32, 2048, 64) == (4096, 128)
+    assert wkv_ops.launch_shape(1, 2, 1, 16) == (2, 128)
+    assert wkv_ops.launch_shape(2, 2, 321, 50) == (24, 128)
 
 
 def _frames(cfg, B, device, F=24, seed=0):
@@ -1109,21 +1112,24 @@ def test_flash_backward_kernel_tiling_edges(cuda, B, H, KV, Sq, Skv, dh, win,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-# dk below 64 (one and two column groups, a group with 8 live columns,
-# dk not a multiple of 4), T off the 16-step chunk and its 8-step halves
-# (T < 8, a last chunk of 1 and of 9 steps). (B, H, T, dk)
+# dk below 64 (dk not a multiple of 4), T off the 8-step sub-chunks, the
+# 16-step checkpoints and the 64-step chunk (T < 8, one chunk, several
+# with a ragged last one of 1 and of 9 steps). (B, H, T, dk)
 WKV_BWD_EDGES = [(2, 2, 37, 40), (1, 3, 23, 24), (2, 2, 7, 64),
-                 (1, 2, 49, 33), (1, 1, 25, 16)]
+                 (1, 2, 49, 33), (1, 1, 25, 16), (1, 2, 129, 64),
+                 (2, 1, 201, 24)]
 
 
 @pytest.mark.parametrize("B,H,T,dk", WKV_BWD_EDGES)
 @pytest.mark.parametrize("layout", ["contiguous", "transposed", "unaligned"])
 def test_wkv_backward_kernel_tiling_edges(cuda, B, H, T, dk, layout):
-    """dr, dk, dv, dw, du at the column groups' and chunks' edges, with
-    the first three decays of every row at 1e-7 (no division by w), within
-    1e-4 of each plain gradient's largest entry; a rerun bit-equal."""
+    """dr, dk, dv, dw, du at the chunks' and sub-chunks' edges, with the
+    first three decays of every row and those of steps 62-66 (across the
+    first chunk boundary) at 1e-7 (no division by w), within 1e-4 of each
+    plain gradient's largest entry; a rerun bit-equal."""
     args = _wkv_inputs(B, H, T, dk, torch.float32, cuda, seed=T + dk)
     args[3][..., :3, :] = 1e-7
+    args[3][..., 62:67, :] = 1e-7
     dy = torch.tensor(np.random.default_rng(T).standard_normal(
         (B, H, T, dk)).astype(np.float32), device=cuda)
     *rkvw, dy = _bwd_layout(args[:4] + [dy], layout)

@@ -264,9 +264,9 @@ def _stub_card_path(monkeypatch):
                 *xs, causal=causal, window=window), xs, do)
 
     def wkv_launch(*args):
-        return tuple(t.detach() for t in WKV.wkv_ref(*args))
+        return tuple(t.detach() for t in WKV.wkv_ref(*args)) + (None,)
 
-    def wkv_launch_bwd(r, k, v, w, u, dy, dS=None):
+    def wkv_launch_bwd(r, k, v, w, u, dy, dS, states):
         with torch.enable_grad():
             xs = [t.detach().requires_grad_() for t in (r, k, v, w, u)]
             return torch.autograd.grad(WKV.wkv_ref(*xs)[0], xs, dy)

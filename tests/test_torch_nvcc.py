@@ -4,6 +4,8 @@ A library is built once per name, and its name carries a digest of what
 the build reads: the source, every header it includes with ``#include
 "..."`` (followed through the headers), and nvcc's flags. A stale library
 would be loaded if an edited header left the name as it was."""
+from pathlib import Path
+
 from repro_torch.kernels import _nvcc
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.graph_filter import ops as gf_ops
@@ -37,11 +39,14 @@ def test_library_name_follows_every_included_header(tmp_path):
 
 
 def test_both_flash_libraries_read_the_shared_header():
-    """The forward and backward flash sources include ``hopper.cuh``, so
-    an edit there renames (rebuilds) both; the other kernels' sources
-    include nothing of the repository."""
-    header = fa_ops.CSRC.with_name("hopper.cuh").resolve()
+    """The forward and backward flash sources include ``hopper.cuh``
+    (``kernels/csrc``), and the wkv sources include it through
+    ``wkv_chunk.cuh``, so an edit there renames (rebuilds) all four; the
+    graph filter's source includes nothing of the repository."""
+    header = (Path(fa_ops.CSRC).parents[2] / "csrc" / "hopper.cuh").resolve()
     for lib in (fa_ops.LIB, fa_ops.BWD_LIB):
         assert _nvcc.sources(lib.src) == [lib.src.resolve(), header]
-    for lib in (gf_ops.LIB, wkv_ops.LIB, wkv_ops.BWD_LIB):
-        assert _nvcc.sources(lib.src) == [lib.src.resolve()]
+    chunk = wkv_ops.CSRC.with_name("wkv_chunk.cuh").resolve()
+    for lib in (wkv_ops.LIB, wkv_ops.BWD_LIB):
+        assert _nvcc.sources(lib.src) == [lib.src.resolve(), chunk, header]
+    assert _nvcc.sources(gf_ops.LIB.src) == [gf_ops.LIB.src.resolve()]
